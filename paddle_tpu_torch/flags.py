@@ -1,0 +1,50 @@
+"""The port's own copy of the few flags the serving slice reads.
+
+The JAX package keeps ~70 flags in ``paddle_tpu/flags.py``; importing it
+would import JAX, so the port carries only what its main path consults,
+under the same names and the same ``FLAGS_`` spelling at the public
+``get_flags``/``set_flags`` surface. For now each flag has the one value the
+port implements: setting another is refused, not silently ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable
+
+__all__ = ["flag", "get_flags", "set_flags"]
+
+# name -> (the one supported value, why no other is)
+_FLAGS: Dict[str, tuple] = {
+    "use_fused_decode_layer": (True, "only the fused decode layer loop is ported"),
+    # the JAX default is True
+    "enable_prefix_cache": (False, "the prefix cache is not ported yet"),
+    # 'bf16' means the unquantized pool in the model's dtype (the JAX meaning)
+    "kv_cache_dtype": ("bf16", "the int8 KV pool is not ported yet"),
+}
+
+
+def _key(name: str) -> str:
+    key = name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
+    if key not in _FLAGS:
+        raise KeyError(f"unknown flag {name!r}; known: {sorted(_FLAGS)}")
+    return key
+
+
+def flag(name: str) -> Any:
+    """The value of one flag."""
+    return _FLAGS[_key(name)][0]
+
+
+def get_flags(names: Iterable[str]) -> Dict[str, Any]:
+    """``{"FLAGS_x": value}`` for each requested name (Paddle's surface)."""
+    if isinstance(names, str):
+        names = [names]
+    return {f"FLAGS_{_key(n)}": flag(n) for n in names}
+
+
+def set_flags(values: Dict[str, Any]) -> None:
+    """Set flags by name; raises on unknown names and unsupported values."""
+    for name, value in values.items():
+        supported, why = _FLAGS[_key(name)]
+        if type(supported)(value) != supported:
+            raise ValueError(f"{name}={value!r} is not supported by paddle_tpu_torch: {why}")

@@ -1,0 +1,42 @@
+"""Per-kernel launch counters.
+
+Each kernel wrapper adds one to its counter where it launches its CUDA
+kernel, and nowhere else: a plain-version call on a CPU tensor does not
+count. A run reads the counters to show that its main path went through the
+kernels (``chip_smoke.py`` resets them just before driving the engine and
+reads them just after). There is no fallback counter: on a CUDA tensor a
+wrapper launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+__all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts"]
+
+# kernel name -> the TPU kernel it replaces (file:line of the Pallas body)
+KERNELS: Dict[str, str] = {
+    "paged_chunk_fused": "paddle_tpu/kernels/paged_attention.py:656",
+    "embed_rms": "paddle_tpu/kernels/fused.py:618",
+    "rms_residual": "paddle_tpu/kernels/fused.py:338",
+}
+
+_lock = threading.Lock()
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def count_launch(name: str) -> None:
+    with _lock:
+        _launches[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0

@@ -1,0 +1,265 @@
+"""Llama-2 for serving: the continuous-batching engine's fused decode-layer
+step (port of ``paddle_tpu/models/llama.py``).
+
+Only the serving forward is ported: ``LlamaForCausalLM(input_ids,
+past_key_values)`` runs one mixed ragged ``[S, C]`` step over the paged KV
+pool and returns logits. Module and parameter names follow the JAX package,
+so its ``state_dict`` loads by name (``models/convert.py``); linear weights
+keep Paddle's ``[in, out]`` layout. Parameters are made on the model's
+device, in its dtype, from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from paddle_tpu_torch.core.device import DeviceLike, resolve_device
+from paddle_tpu_torch.flags import flag
+from paddle_tpu_torch.incubate.nn.functional import (
+    block_multihead_chunk_attention_fused,
+    fused_embed_rms_norm,
+    fused_rms_norm_residual,
+)
+from paddle_tpu_torch.nn import functional as F
+
+__all__ = [
+    "LlamaAttention",
+    "LlamaConfig",
+    "LlamaDecoderLayer",
+    "LlamaForCausalLM",
+    "LlamaMLP",
+    "LlamaModel",
+    "LlamaRotaryEmbedding",
+]
+
+INITIALIZER_RANGE = 0.02  # std of the seeded random weights (Llama's init range)
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def llama2_7b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab: int = 256) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            max_position_embeddings=128,
+        )
+
+
+def _param(shape: Tuple[int, ...], device: torch.device, dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Linear(nn.Module):
+    """Bias-free projection with Paddle's ``[in, out]`` weight."""
+
+    def __init__(self, in_features: int, out_features: int, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.weight = _param((in_features, out_features), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num: int, dim: int, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.weight = _param((num, dim), device, dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, epsilon: float, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.weight = _param((dim,), device, dtype)
+        self.epsilon = float(epsilon)
+
+
+class LlamaRotaryEmbedding(nn.Module):
+    """Neox rope tables ``[max_position, D]`` in fp32, computed with the JAX
+    package's numpy expressions (so both hold the same values)."""
+
+    def __init__(self, head_dim: int, max_position: int, theta: float, device: torch.device) -> None:
+        super().__init__()
+        inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+        t = np.arange(max_position, dtype=np.float32)
+        emb = np.concatenate([np.outer(t, inv)] * 2, axis=-1)
+        self.register_buffer("cos_cached", torch.from_numpy(np.cos(emb)).to(device), persistent=False)
+        self.register_buffer("sin_cached", torch.from_numpy(np.sin(emb)).to(device), persistent=False)
+
+    def forward(self, seq_len: int, offset: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rows for positions ``offset[b] + 0..seq_len-1``, as ``[B, s, 1, D]``.
+        An exact per-position gather; positions past the table clip to its last
+        row (those rows are masked or beyond ``max_position`` anyway)."""
+        pos = offset.long()[:, None] + torch.arange(seq_len, device=offset.device)[None, :]
+        pos = pos.clamp(0, self.cos_cached.shape[0] - 1)
+        return self.cos_cached[pos][:, :, None, :], self.sin_cached[pos][:, :, None, :]
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        h = config.hidden_size
+        self.q_proj = Linear(h, self.num_heads * self.head_dim, device, dtype)
+        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, device, dtype)
+        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, device, dtype)
+        self.o_proj = Linear(self.num_heads * self.head_dim, h, device, dtype)
+
+    def forward_paged_fused(
+        self,
+        hidden_states: torch.Tensor,  # pre-normed [B, s, H]
+        past_key_value: Sequence[Any],  # (kc, vc, tables, lens, slot_mask, q_lens)
+        cos: torch.Tensor,  # [B, s, 1, D], gathered once per step
+        sin: torch.Tensor,
+    ) -> torch.Tensor:
+        """qkv projections, the rope-fused paged attention (k roped and
+        appended in place, q roped inside kernel A), then ``o_proj``."""
+        b, s, _ = hidden_states.shape
+        q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        kc, vc, tables, lens, slot_mask, q_lens = past_key_value
+        out = block_multihead_chunk_attention_fused(
+            q, k, v, cos, sin, kc, vc, tables, lens, q_lens, slot_mask=slot_mask
+        )
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = Linear(h, i, device, dtype)
+        self.up_proj = Linear(h, i, device, dtype)
+        self.down_proj = Linear(i, h, device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    """Parameter holder of one layer; its serving step runs in
+    :meth:`LlamaModel._forward_paged_fused`, which pairs each residual add
+    with the norm that follows it."""
+
+    def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        eps = config.rms_norm_eps
+        self.self_attn = LlamaAttention(config, device, dtype)
+        self.mlp = LlamaMLP(config, device, dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, device, dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, dtype) for _ in range(config.num_hidden_layers)]
+        )
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device, dtype)
+        # one table for the model: every JAX layer holds an identical copy
+        self.rotary_emb = LlamaRotaryEmbedding(
+            config.hidden_size // config.num_attention_heads,
+            config.max_position_embeddings, config.rope_theta, device,
+        )
+
+    def forward(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
+        if not flag("use_fused_decode_layer"):
+            raise NotImplementedError("only the fused decode layer loop is ported")
+        if len(past_key_values) != len(self.layers):
+            raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
+        return self._forward_paged_fused(input_ids, past_key_values)
+
+    def _forward_paged_fused(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
+        """The serving step's fused layer loop: the token gather + embedding +
+        layer 0's input norm is kernel B; the rope rows are gathered once per
+        step; per layer the rope-fused paged attention (kernel A), then
+        residual + post-attention norm (kernel C), the MLP, and residual + the
+        NEXT layer's input norm (kernel C) — the last layer pairs with the
+        final norm, so the loop returns ``h`` already normed."""
+        layers = list(self.layers)
+        first = layers[0].input_layernorm
+        residual, h = fused_embed_rms_norm(input_ids, self.embed_tokens.weight, first.weight, first.epsilon)
+        cos, sin = self.rotary_emb(input_ids.shape[1], past_key_values[0][3])
+        for i, layer in enumerate(layers):
+            attn_out = layer.self_attn.forward_paged_fused(h, past_key_values[i], cos, sin)
+            post = layer.post_attention_layernorm
+            h, residual = fused_rms_norm_residual(attn_out, post.weight, residual, post.epsilon)
+            mlp_out = layer.mlp(h)
+            nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) else self.norm
+            h, residual = fused_rms_norm_residual(mlp_out, nxt.weight, residual, nxt.epsilon)
+        return h
+
+
+class LlamaForCausalLM(nn.Module):
+    """Serving-only causal LM: ``forward`` returns ``[B, C, V]`` logits of one
+    paged step and appends the step's KV to the caches in place.
+
+    ``device`` defaults to ``cuda`` (and raises without one); ``dtype``
+    defaults to ``config.dtype``. The weights are drawn from
+    ``torch.Generator(device).manual_seed(seed)``: N(0, 0.02) matrices, unit
+    norm weights."""
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        device: DeviceLike = None,
+        dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+    ) -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        dtype = dtype or getattr(torch, config.dtype)
+        self.config = config
+        self.llama = LlamaModel(config, dev, dtype)
+        self.lm_head = Linear(config.hidden_size, config.vocab_size, dev, dtype)
+        self.reset_parameters(seed)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.lm_head.weight.dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, INITIALIZER_RANGE, generator=gen)
+
+    def forward(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
+        """``input_ids [B, C]``; ``past_key_values`` one ``(key_cache,
+        value_cache, block_tables, seq_lens, slot_mask, q_lens)`` per layer
+        (the JAX engine's paged 6-tuple), all on the model's device."""
+        return self.lm_head(self.llama(input_ids, past_key_values))
