@@ -15,8 +15,11 @@ name and power limit):
 3. kernels — hold each CUDA kernel against its plain PyTorch version on the
    card at the Llama-2-7B serving shapes (kernel A also at a GQA geometry,
    HQ=32/HKV=8, over a mixed batch of decode rows, prompt-chunk rows and
-   q_lens=0 rows), and time kernel, plain version and, where one PyTorch
-   call computes the same function, that call (device time per call from
+   q_lens=0 rows) and the flash-attention kernels (forward, dq, dk/dv) at
+   the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
+   document mask, and at GQA 32/8 with C=2 and C=4 FlashMask bounds and a
+   ragged S; time kernel, plain version and, where one PyTorch call
+   computes the same function, that call (device time per call from
    ``torch.profiler`` with the L2 flushed before each call; back-to-back
    wall time per call, launch overhead included, as ``call_ms``);
 4. serve — Llama-2-7B at full width (32 layers, seeded random bf16 weights)
@@ -29,7 +32,15 @@ name and power limit):
    the device's idle share);
 5. logits — one mixed step's logits through the kernel path against the
    same model's forward through the plain versions, on the card, each
-   measured against the plain versions run in fp32.
+   measured against the plain versions run in fp32;
+6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
+   ``AdamW(multi_precision=True)``) on 2 x 4096 document-packed tokens
+   with the FlashMask document mask, 1 warm-up and 4 timed steps with the
+   launch counters reset before each: every parameter gets a finite
+   non-zero gradient, each step launches flash_fwd 16x and flash_bwd_dq /
+   flash_bwd_dkv 8x, the loss falls; a profile of one step; then a 2-layer
+   S=1024 copy whose loss and gradients through the kernels must be no
+   further from an fp32 run of the plain versions than the bf16 plain path.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -38,6 +49,7 @@ failed check, without a CUDA card, and outside a checkout.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -273,7 +285,221 @@ def check_kernels(dev, card: dict) -> dict:
     )
     emit({"phase": "kernel_check", "kernel": "rms_residual", "tolerance": "1 bf16 ulp; r bitwise",
           **records["rms_residual"], "card": card})
+    check_flash(dev, gen, card, records)
     return records
+
+
+# -- kernels 14-16: flash attention forward, dq, dk/dv ------------------------------
+
+FLASH_SOURCES = {
+    "flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/kernels/csrc/flash_bwd_dq.cu",
+    "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
+}
+# out: the kernel rounds P to bf16 for the P V product (as flash attention
+# does) while l sums the fp32 p, so each p moves by at most 2^-8 of itself and
+# an output element out[i, e] by at most 2^-8 * (sum_j p_ij |v_je|) / l_i —
+# the plain forward run on |v|, computed per element for each input; the
+# rounding of out itself to bf16 is covered by one bf16 ulp of |x|
+FLASH_TOL = {"out": "2^-8*(P|v|)/l per element + 2^-7*|x|", "lse": "1e-4 * max(1, |lse|)",
+             "grads": "rel L2 <= 1e-2"}
+
+
+def doc_bounds(rng, b: int, s: int, lo: int = 128, hi: int = 2048):
+    """Document packing of ``b`` rows of ``s`` tokens, lengths uniform in
+    ``lo..hi`` (the last one cut at ``s``): ``ends [b, s]``, each
+    position's document end — the C=1 causal FlashMask bounds."""
+    import numpy as np
+
+    ends = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos = 0
+        while pos < s:
+            end = min(s, pos + int(rng.integers(lo, hi + 1)))
+            ends[i, pos:end] = end
+            pos = end
+    return ends
+
+
+def band_bounds(gen, dev, b: int, hm: int, s: int, c: int):
+    """C=2 or C=4 FlashMask bounds ``[b, hm, s, c]`` that keep every row's
+    diagonal: a band of rows below the diagonal (C=2), plus one above (C=4)."""
+    import torch
+
+    j = torch.arange(s, device=dev)
+    start = (j + 1 + torch.randint(0, 256, (b, hm, s), generator=gen, device=dev)).clamp(max=s)
+    end = (start + torch.randint(0, 512, (b, hm, s), generator=gen, device=dev)).clamp(max=s)
+    cols = [start, end]
+    if c == 4:
+        ute = (j - 1 - torch.randint(0, 256, (b, hm, s), generator=gen, device=dev)).clamp(min=0)
+        uts = (ute - torch.randint(0, 512, (b, hm, s), generator=gen, device=dev)).clamp(min=0)
+        cols += [uts, ute]
+    return torch.stack(cols, -1).to(torch.int32).contiguous()
+
+
+def flash_cost(q, k, bounds, causal: bool) -> dict:
+    """What this input's attention needs: visible (row, column) pairs summed
+    over batch and query heads, the flops of each kernel (2 D flops per
+    pair and product: forward 2 products, dq 3, dk/dv 4) and the bytes
+    each must move (inputs read once, outputs written once)."""
+    import torch
+    from paddle_tpu_torch.kernels.flash_attention import flash_masked
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = 0
+    for bi in range(b):  # one batch row of the dense mask at a time
+        mb = None if bounds is None else bounds[bi: bi + 1]
+        vis = (~flash_masked(sq, sk, causal, mb, q.device)).sum(dim=(-1, -2))  # [1, Hm|1]
+        pairs += int(vis.sum()) * (h // vis.numel())
+    qb, kb = q.numel() * 2, k.numel() * 2  # bf16 q (= out, g, dq) and k (= v, dk, dv)
+    stats = b * h * sq * 4  # one fp32 lse or delta
+    mb = 0 if bounds is None else bounds.numel() * 4
+    return {
+        "pairs": pairs,
+        "flash_fwd": bound(2 * qb + 2 * kb + stats + mb, 4 * d * pairs),
+        "flash_bwd_dq": bound(3 * qb + 2 * kb + 2 * stats + mb, 6 * d * pairs),
+        "flash_bwd_dkv": bound(2 * qb + 4 * kb + 2 * stats + mb, 8 * d * pairs),
+    }
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, timed: bool = False) -> dict:
+    """Each flash kernel against its plain version run in fp32 on the same
+    bf16 inputs (one batch row at a time, to bound the plain versions'
+    ``[H, Sq, Sk]`` fp32 temporaries); the backward kernels get the same
+    ``g``, ``lse`` and ``delta`` as their plain versions. Fails on a miss."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    bf = torch.bfloat16
+    q = torch.randn((b, s, h, 128), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, s, hk, 128), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, s, hk, 128), generator=gen, device=dev).to(bf)
+    g = torch.randn((b, s, h, 128), generator=gen, device=dev).to(bf)
+    out, lse = kfa.flash_fwd(q, k, v, bounds, causal)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = kfa.flash_bwd_dq(q, k, v, bounds, g, lse, delta, causal)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, bounds, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    err = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}  # out: max abs; lse: max rel; grads: rel L2
+    abs_err = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    # out's reading beside its limit: the worst err / limit, and the medians of |out| and of the limit
+    out_check = {"worst_err_over_limit": 0.0, "median_abs_out": [], "median_limit": []}
+    ok = True
+    for i in range(b):
+        sl = slice(i, i + 1)
+        f32 = [t[sl].float() for t in (q, k, v)]
+        bnd = None if bounds is None else bounds[sl]
+        ref_out, ref_lse = kfa.flash_fwd_plain(*f32, bnd, causal)
+        limit = 2.0**-8 * kfa.flash_fwd_plain(f32[0], f32[1], f32[2].abs(), bnd, causal)[0]
+        limit += BF16_REL * torch.maximum(out[sl].float().abs(), ref_out.abs())
+        diff = (out[sl].float() - ref_out).abs()
+        ratio = float((diff / limit.clamp(min=1e-30)).max())
+        ok &= ratio <= 1.0
+        out_check["worst_err_over_limit"] = max(out_check["worst_err_over_limit"], ratio)
+        out_check["median_abs_out"].append(float(ref_out.abs().median()))
+        out_check["median_limit"].append(float(limit.median()))
+        fin = torch.isfinite(ref_lse)
+        ok &= bool(torch.equal(torch.isfinite(lse[sl]), fin))
+        err["out"] = max(err["out"], float(diff.max()))
+        del limit, diff
+        if fin.any():
+            rel = ((lse[sl] - ref_lse).abs() / ref_lse.abs().clamp(min=1.0))[fin]
+            err["lse"] = max(err["lse"], float(rel.max()))
+        del ref_out, ref_lse
+        args = (*f32, bnd, g[sl].float(), lse[sl], delta[sl], causal)
+        grads = {"dq": (dq[sl], kfa.flash_bwd_dq_plain(*args))}
+        ref_dk, ref_dv = kfa.flash_bwd_dkv_plain(*args)
+        grads.update(dk=(dk[sl], ref_dk), dv=(dv[sl], ref_dv))
+        for name, (got, want) in grads.items():
+            err[name] = max(err[name], rel_l2(got, want))
+            abs_err[name] = max(abs_err[name], float((got.float() - want).abs().max()))
+        del grads, ref_dk, ref_dv, args, f32
+        torch.cuda.empty_cache()
+    ok &= err["lse"] <= 1e-4 and max(err["dq"], err["dk"], err["dv"]) <= 1e-2
+    line = {"phase": "kernel_check", "kernel": "flash_fwd/flash_bwd_dq/flash_bwd_dkv", "case": label,
+            "shape": [b, s, h, hk, 128], "causal": causal,
+            "mask": None if bounds is None else list(bounds.shape), "max_err": err,
+            "out_check": out_check, "grad_max_abs_err": abs_err, "tolerance": FLASH_TOL}
+    if not ok:
+        emit({**line, "card": card})
+        fail(f"flash kernels disagree with their plain versions ({label}): {err}")
+    res = {"max_abs_err": {"flash_fwd": err["out"], "flash_bwd_dq": abs_err["dq"],
+                           "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}}
+    if timed:
+        cost = flash_cost(q, k, bounds, causal)
+        runs = {
+            "flash_fwd": (lambda: kfa.flash_fwd(q, k, v, bounds, causal),
+                          lambda: kfa.flash_fwd_plain(q, k, v, bounds, causal)),
+            "flash_bwd_dq": (lambda: kfa.flash_bwd_dq(q, k, v, bounds, g, lse, delta, causal),
+                             lambda: kfa.flash_bwd_dq_plain(q, k, v, bounds, g, lse, delta, causal)),
+            "flash_bwd_dkv": (lambda: kfa.flash_bwd_dkv(q, k, v, bounds, g, lse, delta, causal),
+                              lambda: kfa.flash_bwd_dkv_plain(q, k, v, bounds, g, lse, delta, causal)),
+        }
+        times = {}
+        for name, (run, run_plain) in runs.items():
+            times[name] = dict(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
+                               plain_ms=device_ms(run_plain, iters=2, warmup=1), **cost[name])
+            torch.cuda.empty_cache()
+        res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g))
+        line["times"] = times
+        line["visible_pairs"] = cost["pairs"]
+    emit({**line, "card": card})
+    return res
+
+
+def sdpa_ms(q, k, v, g) -> dict:
+    """Yardstick only (the port never calls it): PyTorch's
+    ``scaled_dot_product_attention`` with ``is_causal`` on the same
+    unmasked inputs, forward, and its backward (dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as tF
+
+    qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    fwd = device_ms(lambda: tF.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=10)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    out = tF.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    bwd = device_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), gh, retain_graph=True), iters=10)
+    return {"fwd": fwd, "bwd_dq_dk_dv": bwd}
+
+
+def check_flash(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 14-16 at the train shape ``[2, 4096, 32, 128]`` causal, with
+    no mask (timed, with the SDPA yardstick) and with the train phase's
+    document mask (timed), then at a GQA geometry (HQ 32 / HKV 8, S 1024)
+    with C=2 causal and C=4 non-causal masks for Hm 1 and H, and at a ragged
+    S of 1000 with a document mask."""
+    import numpy as np
+    import torch
+
+    plain = flash_case(dev, gen, 2, 4096, 32, 32, True, None, "train shape, causal", card, timed=True)
+    lib = sdpa_ms(*plain["tensors"])
+    ends = doc_bounds(np.random.default_rng(0), 2, 4096)
+    doc = torch.from_numpy(ends[:, None, :, None].copy()).to(dev)
+    masked = flash_case(dev, gen, 2, 4096, 32, 32, True, doc, "train shape, document mask", card, timed=True)
+    for c, causal in ((2, True), (4, False)):
+        for hm in (1, 32):
+            flash_case(dev, gen, 2, 1024, 32, 8, causal, band_bounds(gen, dev, 2, hm, 1024, c),
+                       f"gqa 32/8, C={c}, Hm={hm}", card)
+    ragged = torch.from_numpy(doc_bounds(np.random.default_rng(1), 2, 1000)[:, None, :, None].copy()).to(dev)
+    flash_case(dev, gen, 2, 1000, 32, 8, True, ragged, "gqa 32/8, ragged S 1000, document mask", card)
+    for name in FLASH_SOURCES:
+        t = plain["times"][name]
+        records[name] = dict(
+            source=FLASH_SOURCES[name], max_abs_err=plain["max_abs_err"][name],
+            ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=lib["fwd"] if name == "flash_fwd" else lib["bwd_dq_dk_dv"],
+            doc_mask_ms=masked["times"][name]["ms"], doc_mask_bound_ms=masked["times"][name]["bound_ms"],
+        )
+    emit({"phase": "flash_times", "train_shape": [2, 4096, 32, 128],
+          "library": "torch scaled_dot_product_attention(is_causal=True), unmasked; bwd is dq+dk+dv in one figure",
+          "sdpa_ms": lib, "records": {n: records[n] for n in FLASH_SOURCES},
+          "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
 
 
 # -- serving -------------------------------------------------------------------
@@ -338,12 +564,12 @@ def check_logits(model, dev, card: dict) -> None:
     with torch.inference_mode():
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
         q0 = torch.tensor([64, 40, 0, 64], dtype=torch.int32, device=dev)
-        model(ids, [(kc, vc, tables, torch.zeros_like(q0), active, q0) for kc, vc in caches])
+        model(ids, past_key_values=[(kc, vc, tables, torch.zeros_like(q0), active, q0) for kc, vc in caches])
         plain_pools = [(kc.clone(), vc.clone()) for kc, vc in caches]
         f32_pools = [(kc.float(), vc.float()) for kc, vc in caches]
         q1 = torch.tensor([1, 24, 0, 64], dtype=torch.int32, device=dev)
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
-        got = model(ids, [(kc, vc, tables, q0, active, q1) for kc, vc in caches]).float()
+        got = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1) for kc, vc in caches]).float()
         plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, torch.bfloat16).float()
         ref = plain_logits(model, ids, f32_pools, tables, q0, active, q1, torch.float32)
     rows = torch.arange(64, device=dev)[None, :] < (q1 * active)[:, None]
@@ -472,7 +698,8 @@ def serve(dev, card: dict):
     if len(done) != len(prompts) or any(len(r.generated) != 32 for r in done.values()):
         fail("not every request finished with 32 tokens")
     layers = cfg.num_hidden_layers  # 32: A once per layer, C twice per layer, B once per step
-    want = {"paged_chunk_fused": layers * steps, "embed_rms": steps, "rms_residual": 2 * layers * steps}
+    want = {"paged_chunk_fused": layers * steps, "embed_rms": steps, "rms_residual": 2 * layers * steps,
+            **{name: 0 for name in FLASH_SOURCES}}  # and no training kernel
     if counts != want:
         fail(f"launch counts {counts} != {want} for {steps} steps")
     if pool["free"] != pool["total"]:
@@ -481,6 +708,219 @@ def serve(dev, card: dict):
     if eng.pool_stats()["free"] != pool["total"]:
         fail("the pool did not drain after the profiled steps")
     return model, counts
+
+
+# -- training ------------------------------------------------------------------
+
+TRAIN_LAYERS = 8  # Llama-2-7B cut from 32 layers: 16 B/parameter of weights, grads, masters, moments
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_CATEGORIES = (  # device kernel name substring -> category
+    ("flash_fwd_kernel", "flash fwd (kernel 14)"), ("flash_bwd_dq_kernel", "flash dq (kernel 15)"),
+    ("flash_bwd_dkv_kernel", "flash dk/dv (kernel 16)"), ("gemm", "matmul"), ("cutlass", "matmul"),
+    ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
+    ("Memcpy", "memcpy"), ("Memset", "memcpy"),
+)
+
+
+def train_batch(dev, vocab: int, b: int, s: int, seed: int):
+    """Seeded document-packed batch: ids, next-token labels within each
+    document (-100 at every document's last position), and the C=1 causal
+    FlashMask bounds ``[b, 1, s, 1]`` (each column's document end)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s))
+    ends = doc_bounds(rng, b, s)
+    labels = np.full((b, s), -100, np.int64)
+    for i in range(b):
+        for pos in range(s - 1):
+            if pos + 1 < ends[i, pos]:
+                labels[i, pos] = ids[i, pos + 1]
+    docs = int(sum(len(np.unique(e)) for e in ends))
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev),
+            torch.from_numpy(ends[:, None, :, None].copy()).to(dev), docs)
+
+
+def plain_train_loss(model, ids, labels, bounds, dtype):
+    """The train step's loss written out with the attention's plain version
+    (differentiated by autograd) on ``dtype`` copies of the weights; returns
+    the loss and each weight's gradient. In bf16 it is the plain path the
+    kernel path is held to; in fp32 the reference both are measured against."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
+    from paddle_tpu_torch.nn.functional import cross_entropy, rms_norm, swiglu
+
+    w = {n: p.detach().to(dtype).requires_grad_() for n, p in model.named_parameters()}
+    cfg = model.config
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = cfg.hidden_size // nh
+    b, s = ids.shape
+    eps = cfg.rms_norm_eps
+    cos, sin = model.llama.rotary_emb(s)
+    h = w["llama.embed_tokens.weight"][ids]
+    for i in range(cfg.num_hidden_layers):
+        pre = f"llama.layers.{i}."
+        x = rms_norm(h, w[pre + "input_layernorm.weight"], eps)
+        q = (x @ w[pre + "self_attn.q_proj.weight"]).reshape(b, s, nh, hd)
+        k = (x @ w[pre + "self_attn.k_proj.weight"]).reshape(b, s, nkv, hd)
+        v = (x @ w[pre + "self_attn.v_proj.weight"]).reshape(b, s, nkv, hd)
+        q, k = _rope_apply_xla(q, sin, cos, True), _rope_apply_xla(k, sin, cos, True)
+        a, _ = flash_fwd_plain(q, k, v, bounds, True)
+        h = h + a.reshape(b, s, nh * hd) @ w[pre + "self_attn.o_proj.weight"]
+        x = rms_norm(h, w[pre + "post_attention_layernorm.weight"], eps)
+        h = h + swiglu(x @ w[pre + "mlp.gate_proj.weight"], x @ w[pre + "mlp.up_proj.weight"]) @ w[pre + "mlp.down_proj.weight"]
+    h = rms_norm(h, w["llama.norm.weight"], eps)
+    loss = cross_entropy(h @ w["lm_head.weight"], labels)
+    loss.backward()
+    return loss.detach(), {n: t.grad for n, t in w.items()}
+
+
+def check_train_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
+    """A 2-layer, S=1024 copy of the train step (same widths, recompute on):
+    the kernel path's loss and every parameter's gradient against an fp32
+    run of the plain versions, next to the bf16 plain path's distance from
+    that reference. Gate (the logits phase's relative gate): per parameter,
+    the kernel path's rel L2 at most 1.25x the plain bf16 path's; the loss's
+    error at most max(1.25x the plain path's, 1e-3 relative)."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = cfg or LlamaConfig(num_hidden_layers=2, recompute=True)
+    model = LlamaForCausalLM(cfg, device=dev, seed=1)
+    ids, labels, bounds, _ = train_batch(dev, cfg.vocab_size, 2, seq, seed=1)
+    loss, _ = model(ids, labels=labels, startend_row_indices=bounds)
+    loss.backward()
+    loss = loss.detach()
+    got = {n: p.grad for n, p in model.named_parameters()}
+    loss_plain, plain = plain_train_loss(model, ids, labels, bounds, torch.bfloat16)
+    loss_ref, ref = plain_train_loss(model, ids, labels, bounds, torch.float32)
+    ratios = {n: rel_l2(got[n], ref[n]) / max(rel_l2(plain[n], ref[n]), 1e-30) for n in ref}
+    worst = max(ratios, key=ratios.get)
+    err_k, err_p = abs(float(loss) - float(loss_ref)), abs(float(loss_plain) - float(loss_ref))
+    ok = (all(r <= 1.25 for r in ratios.values()) and err_k <= max(1.25 * err_p, 1e-3 * abs(float(loss_ref)))
+          and all(bool(torch.isfinite(g).all()) for g in got.values()))
+    emit({"phase": "train_accuracy", "layers": cfg.num_hidden_layers, "seq": seq, "loss_kernel": float(loss),
+          "loss_plain_bf16": float(loss_plain), "loss_fp32": float(loss_ref),
+          "grad_rel_l2_kernel_vs_fp32": {n: rel_l2(got[n], ref[n]) for n in ref},
+          "grad_rel_l2_plain_vs_fp32": {n: rel_l2(plain[n], ref[n]) for n in ref},
+          "worst_ratio": [worst, ratios[worst]],
+          "tolerance": "per parameter kernel rel L2 <= 1.25 x plain bf16's; loss err <= max(1.25 x plain's, 1e-3 rel)",
+          "card": card})
+    if not ok:
+        fail(f"train-step gradients through the kernels are further from fp32 than the plain path's "
+             f"(worst {worst}: {ratios[worst]}; loss errors {err_k} vs {err_p})")
+
+
+def profile_train_step(step, card: dict) -> None:
+    """Where one train step's time goes: ``torch.profiler`` over one step,
+    device time by category and the device's idle share of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_cat, by_name = [], {}, {}
+    for e in cuda_events(prof):
+        start, dur = e.time_range.start, e.time_range.elapsed_us()
+        spans.append((start, start + dur))
+        cat = next((c for key, c in TRAIN_CATEGORIES if key in e.name), "elementwise / other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + dur
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + dur
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "train_profile", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+          "device_idle_share": (1 - busy / wall_us) if spans else None,
+          "device_ms_by_category": {k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
+          "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
+
+
+def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024) -> dict:
+    """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
+    ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
+    batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
+    parameter has a finite non-zero gradient on step 1; each step launches
+    flash_fwd 16x (twice per layer: forward and recompute), flash_bwd_dq and
+    flash_bwd_dkv 8x, and nothing else; the last loss is below the first;
+    then the 2-layer accuracy copy. Returns the launch counts of the 5 steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = cfg or LlamaConfig(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
+    ids, labels, bounds, docs = train_batch(dev, cfg.vocab_size, TRAIN_BATCH, seq, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    # MFU counts the matmul parameters only: the embedding table is a gather (PaLM's convention)
+    n_mfu = n_params - model.llama.embed_tokens.weight.numel()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def step(check_grads: bool = False) -> float:
+        loss, _ = model(ids, labels=labels, startend_row_indices=bounds)
+        loss.backward()
+        if check_grads:  # _assert_grad_coverage's gate
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+            if bad:
+                fail(f"parameters without a finite non-zero gradient: {bad}")
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    layers = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    losses, step_ms, counts, total = [], [], None, {}
+    for i in range(5):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(check_grads=i == 0))  # float(loss) syncs
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        if {k: v for k, v in counts.items() if v} != want:
+            fail(f"train step {i + 1} launched {counts}, expected {want} and nothing else")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if i:
+            step_ms.append(dt)
+    tokens = TRAIN_BATCH * seq
+    step_s = sum(step_ms) / len(step_ms) / 1e3
+    emit({
+        "phase": "train", "model": f"llama2_7b widths, {layers} of 32 layers (seeded random bf16 weights)",
+        "params": n_params, "batch": [TRAIN_BATCH, seq], "documents": docs,
+        "recompute": True, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms)),
+        "tokens_per_s": tokens / step_s,
+        "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / step_s / BF16_FLOP_PER_S,
+        "mfu_note": "6 N T / step time / 989e12; N leaves out the embedding table (a gather); attention flops left out",
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "launches_per_step": counts, "launches_5_steps": total, "card": card,
+    })
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"the loss did not decrease over the steps: {losses}")
+    profile_train_step(step, card)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_train_accuracy(dev, card, accuracy_cfg, accuracy_seq)
+    return total
 
 
 def main() -> int:
@@ -511,6 +951,10 @@ def main() -> int:
     records = check_kernels(dev, card)
     model, counts = serve(dev, card)  # the engine and its pool are released here
     check_logits(model, dev, card)
+    del model  # the 7B serving model, before the train phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update({k: v for k, v in train(dev, card).items() if k in FLASH_SOURCES})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],

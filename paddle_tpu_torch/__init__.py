@@ -3,8 +3,8 @@
 The port runs on an NVIDIA Hopper card: plain PyTorch around kernels
 written by hand in CUDA C++ (``kernels/csrc``), built with ``nvcc`` for
 ``sm_90a`` at first use. It imports neither JAX nor ``paddle_tpu``; the JAX
-package stays beside it as the reference it is tested against. This first
-slice serves Llama through the continuous-batching engine::
+package stays beside it as the reference it is tested against. It serves
+Llama through the continuous-batching engine::
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -13,6 +13,18 @@ slice serves Llama through the continuous-batching engine::
     eng = ContinuousBatchingEngine(model, max_slots=8, prefill_chunk=64)
     eng.add_request(prompt_ids, max_new_tokens=32)
     results = eng.run()
+
+and trains it, with FlashMask document masks, recompute and AdamW with
+fp32 master weights::
+
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(LlamaConfig(recompute=True), seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
+    loss, logits = model(ids, labels=labels, startend_row_indices=bounds)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
 
 Entry points run on ``cuda`` and raise without it, unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs instead.

@@ -1,4 +1,4 @@
-"""The port's own copy of the few flags the serving slice reads.
+"""The port's own copy of the few flags its serving and training slices read.
 
 The JAX package keeps ~70 flags in ``paddle_tpu/flags.py``; importing it
 would import JAX, so the port carries only what its main path consults,
@@ -20,6 +20,12 @@ _FLAGS: Dict[str, tuple] = {
     "enable_prefix_cache": (False, "the prefix cache is not ported yet"),
     # 'bf16' means the unquantized pool in the model's dtype (the JAX meaning)
     "kv_cache_dtype": ("bf16", "the int8 KV pool is not ported yet"),
+    # attention runs the flash kernels (14-16); the JAX XLA fallback is a
+    # test-only reference here, never a silent path on the card
+    "use_pallas_attention": (True, "attention always runs the flash-attention kernels"),
+    # the JAX default is True for both
+    "use_pallas_fused": (False, "the RMSNorm and rope kernels (7-10) are not ported yet"),
+    "use_fused_loss": (False, "the fused linear cross-entropy kernels (17-19) are not ported yet"),
 }
 
 

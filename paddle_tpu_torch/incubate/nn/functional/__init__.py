@@ -1,12 +1,15 @@
-"""Fused functionals of the serving step (port of the serving entries of
-``paddle_tpu/incubate/nn/functional``).
+"""Fused functionals of the serving and training steps (port of their
+entries in ``paddle_tpu/incubate/nn/functional``).
 
 ``fused_embed_rms_norm`` and ``fused_rms_norm_residual`` are the kernel
 wrappers of ``kernels/fused.py`` (B and C); the paged-cache functions live
-in ``block_attention.py``.
+in ``block_attention.py``; ``fused_rotary_position_embedding`` is the rope
+of the training forward.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,6 +22,7 @@ __all__ = [
     "block_multihead_chunk_attention_fused",
     "fused_embed_rms_norm",
     "fused_rms_norm_residual",
+    "fused_rotary_position_embedding",
 ]
 
 
@@ -38,6 +42,33 @@ def _rope_apply_xla(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, use_n
     if sin.dim() == 2:
         sin, cos = sin[None, :, None, :], cos[None, :, None, :]
     return x * cos.to(x.dtype) + _rope_rotate(x, use_neox) * sin.to(x.dtype)
+
+
+def fused_rotary_position_embedding(
+    q: torch.Tensor,
+    k: Optional[torch.Tensor] = None,
+    v: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    cos: Optional[torch.Tensor] = None,
+    position_ids=None,
+    use_neox_rotary_style: bool = True,
+    time_major: bool = False,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """RoPE over ``[B, S, H, D]`` q/k/v with ``sin``/``cos`` tables ``[S, D]``
+    (or broadcastable to ``[B, S, 1, D]``); the caller builds the tables
+    (``LlamaRotaryEmbedding``). Returns the roped tensors in the order given, padded with
+    ``None`` to three (the JAX entry's packing).
+
+    With ``FLAGS_use_pallas_fused`` off — the only value the port has — this
+    is ``_rope_apply_xla`` on each tensor, and its gradient is autograd's
+    adjoint of ``x * cos + rotate(x) * sin`` (the JAX package's
+    ``_rope_adjoint_xla``)."""
+    if position_ids is not None or time_major:
+        raise NotImplementedError("fused_rotary_position_embedding: position_ids and time_major are not ported")
+    if sin is None or cos is None:
+        raise ValueError("fused_rotary_position_embedding: pass the sin and cos tables")
+    outs = [_rope_apply_xla(t, sin, cos, use_neox_rotary_style) for t in (q, k, v) if t is not None]
+    return tuple(outs + [None] * (3 - len(outs)))
 
 
 from paddle_tpu_torch.incubate.nn.functional.block_attention import (  # noqa: E402

@@ -1,0 +1,345 @@
+"""Flash attention with FlashMask bounds — forward, dq and dk/dv: CUDA
+kernels, their plain versions, and the autograd ``Function`` that joins them.
+
+Port of ``paddle_tpu/kernels/flash_attention.py``:
+
+- :func:`flash_fwd` — ``_fwd_kernel`` (kernel 14): online softmax over key
+  tiles up to the causal limit, FlashMask bounds read per key column; writes
+  ``out`` and the row logsumexp ``lse``;
+- :func:`flash_bwd_dq` — ``_bwd_dq_kernel`` (kernel 15): ``dq`` from ``lse``
+  and ``delta = sum(g * out)``;
+- :func:`flash_bwd_dkv` — ``_bwd_dkv_kernel`` (kernel 16): ``dk``/``dv``,
+  here per KV head with the group's query heads summed inside the kernel (the
+  Pallas kernel writes fp32 per-query-head partials and sums them outside).
+
+Layouts are the public ones: ``q [B, Sq, H, D]``, ``k``/``v [B, Sk, HK, D]``
+(``H % HK == 0``; query head ``h`` reads KV head ``h // (H // HK)``),
+FlashMask ``bounds [B, Hm, Sk, C]`` int32 with ``Hm`` in ``{1, H}`` and ``C``
+in ``{1, 2, 4}``, ``lse`` and ``delta [B, H, Sq]`` fp32.
+
+Semantics kept from the Pallas kernels: the forward scales q before
+``q k^T``, the backward kernels scale the product; a masked logit
+contributes exactly 0. One deliberate difference: a row whose every column
+is masked (only a FlashMask that masks the row's own diagonal makes one) is
+written as 0 with ``lse = +inf`` and gets zero gradients; the Pallas forward
+returns there an average of V over the columns it visited, which depends on
+its block size (the XLA path a uniform average over all columns).
+
+Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
+tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
+``csrc/flash_bwd_dkv.cu`` or raises — it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.select import count_launch
+
+__all__ = [
+    "FlashAttentionFunction",
+    "flash_attention",
+    "flash_bwd_dkv",
+    "flash_bwd_dkv_plain",
+    "flash_bwd_dq",
+    "flash_bwd_dq_plain",
+    "flash_fwd",
+    "flash_fwd_plain",
+    "flash_masked",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL_HEAD_DIMS = (64, 128)
+_MASK_C = (1, 2, 4)
+
+
+# -- the mask ----------------------------------------------------------------
+
+def flash_masked(sq: int, sk: int, causal: bool, bounds: Optional[torch.Tensor],
+                 device: torch.device) -> torch.Tensor:
+    """True where a logit is masked, ``[B|1, Hm|1, Sq, Sk]`` — the dense form
+    of the Pallas kernels' ``_mask_block``: causal ``col > row + (Sk - Sq)``,
+    and per key column ``j`` of ``bounds``: C=1 rows ``>= start_j``; C=2 rows
+    in ``[start_j, end_j)``; C=4 rows in ``[LTS, LTE)`` or ``[UTS, UTE)``."""
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    if causal:
+        masked = cols > rows + (sk - sq)
+    else:
+        masked = torch.zeros((sq, sk), dtype=torch.bool, device=device)
+    masked = masked[None, None]
+    if bounds is None:
+        return masked
+    c = bounds.shape[-1]
+    if c not in _MASK_C:
+        raise ValueError(f"FlashMask C must be 1/2/4, got {c}")
+    bnd = bounds.to(device=device, dtype=torch.long)
+    r = rows[None, None]  # [1, 1, Sq, 1]
+
+    def col(i: int) -> torch.Tensor:
+        return bnd[..., i][:, :, None, :]  # [B, Hm, 1, Sk]
+
+    if c == 1:
+        m = r >= col(0)
+    elif c == 2:
+        m = (r >= col(0)) & (r < col(1))
+    else:
+        m = ((r >= col(0)) & (r < col(1))) | ((r >= col(2)) & (r < col(3)))
+    return masked | m
+
+
+def _heads(x: torch.Tensor, hk: int) -> torch.Tensor:
+    """``[B, S, H, D]`` -> fp32 ``[B, HK, H // HK, S, D]``."""
+    b, s, h, d = x.shape
+    return x.float().permute(0, 2, 1, 3).reshape(b, hk, h // hk, s, d)
+
+
+def _grouped(t: torch.Tensor, h: int, hk: int) -> torch.Tensor:
+    """``[B, H|1, ...]`` -> ``[B, HK|1, H // HK|1, ...]``."""
+    if t.shape[1] == h and h > 1:
+        return t.reshape(t.shape[0], hk, h // hk, *t.shape[2:])
+    return t[:, :, None]
+
+
+def _check_geometry(q, k, v, bounds) -> Tuple[int, int, int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "must be [B, S, H, D] with k and v alike")
+    b, sq, h, d = q.shape
+    _, sk, hk, d_k = k.shape
+    if k.shape[0] != b or d_k != d or hk == 0 or h % hk:
+        raise ValueError(f"flash attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    hm, c = 0, 0
+    if bounds is not None:
+        if bounds.dim() != 4 or bounds.shape[0] != b or bounds.shape[2] != sk:
+            raise ValueError(f"flash attention: bounds {tuple(bounds.shape)} must be [{b}, Hm, {sk}, C]")
+        hm, c = bounds.shape[1], bounds.shape[3]
+        if hm not in (1, h) or c not in _MASK_C:
+            raise ValueError(f"flash attention: bounds need Hm in (1, {h}) and C in {_MASK_C}, "
+                             f"got {tuple(bounds.shape)}")
+    return b, sq, sk, h, hk, d, hm, c
+
+
+# -- plain versions ------------------------------------------------------------
+
+def flash_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor] = None,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)``, computed in
+    fp32 with the forward kernel's order (q scaled before ``q k^T``).
+    Differentiable by autograd (a plain reference path uses that)."""
+    b, sq, sk, h, hk, d, _, _ = _check_geometry(q, k, v, bounds)
+    scale = 1.0 / d**0.5 if scale is None else scale
+    qh = _heads(q, hk) * scale
+    kh, vh = _heads(k, hk), _heads(v, hk)  # [B, HK, 1, Sk, D]
+    logits = qh @ kh.transpose(-1, -2)  # [B, HK, G, Sq, Sk]
+    masked = _grouped(flash_masked(sq, sk, causal, bounds, q.device), h, hk)
+    logits = logits.masked_fill(masked, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    seen = m > float("-inf")  # rows with at least one visible column
+    m = torch.where(seen, m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l = torch.where(seen, p.sum(dim=-1, keepdim=True), torch.ones_like(m))
+    out = (p @ vh) / l
+    lse = torch.where(seen, m + torch.log(l), torch.full_like(m, float("inf")))
+    out = out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    return out, lse.reshape(b, h, sq)
+
+
+def _probs_and_ds(q, k, v, bounds, g, lse, delta, causal, scale):
+    """The backward kernels' shared recomputation, fp32 ``[B, HK, G, Sq, Sk]``:
+    ``p = exp(scale * q k^T - lse)`` (0 where masked) and
+    ``ds = p * (g v^T - delta) * scale``."""
+    b, sq, sk, h, hk, d, _, _ = _check_geometry(q, k, v, bounds)
+    scale = 1.0 / d**0.5 if scale is None else scale
+    qh, gh = _heads(q, hk), _heads(g, hk)
+    kh, vh = _heads(k, hk), _heads(v, hk)
+    logits = scale * (qh @ kh.transpose(-1, -2))
+    masked = _grouped(flash_masked(sq, sk, causal, bounds, q.device), h, hk)
+    lse5 = lse.float().reshape(b, hk, h // hk, sq, 1)
+    p = torch.exp(logits - lse5).masked_fill(masked, 0.0)
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - delta.float().reshape(b, hk, h // hk, sq, 1)) * scale
+    return qh, kh, gh, p, ds
+
+
+def flash_bwd_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor],
+    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``dq [B, Sq, H, D]`` in q's dtype: ``ds k``, accumulated in fp32."""
+    _, kh, _, _, ds = _probs_and_ds(q, k, v, bounds, g, lse, delta, causal, scale)
+    b, sq, h, d = q.shape
+    dq = ds @ kh
+    return dq.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor],
+    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv) [B, Sk, HK, D]`` in k's dtype: ``ds^T q`` and ``p^T g``,
+    accumulated in fp32 and summed over each KV head's query heads."""
+    qh, _, gh, p, ds = _probs_and_ds(q, k, v, bounds, g, lse, delta, causal, scale)
+    dk = (ds.transpose(-1, -2) @ qh).sum(dim=2)  # [B, HK, Sk, D]
+    dv = (p.transpose(-1, -2) @ gh).sum(dim=2)
+    return dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
+
+
+# -- CUDA wrappers -------------------------------------------------------------
+
+def _cuda_inputs(what: str, tensors, bounds, d: int):
+    """Contiguous bf16 views of ``tensors`` and int32 bounds on one card, or
+    an exception naming what the kernel does not take."""
+    dev = tensors[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes head dim 64 or 128, not {d}")
+    out = []
+    for name, t in tensors:
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: {name} must be a bf16 tensor on {dev}, got {t.dtype} on {t.device}")
+        out.append(t.contiguous())
+    bnd = None
+    if bounds is not None:
+        if bounds.device != dev or bounds.dtype != torch.int32:
+            raise ValueError(f"{what}: bounds must be an int32 tensor on {dev}")
+        bnd = bounds.contiguous()
+    return dev, out, bnd
+
+
+def _stats(what: str, t: torch.Tensor, shape, dev) -> torch.Tensor:
+    if tuple(t.shape) != tuple(shape) or t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"{what}: expected fp32 {list(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor] = None,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash-attention forward; returns ``(out [B, Sq, H, D], lse [B, H, Sq])``."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, bounds, causal, scale)
+    b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
+    scale = 1.0 / d**0.5 if scale is None else scale
+    dev, (q, k, v), bnd = _cuda_inputs("flash_fwd", [("q", q), ("k", k), ("v", v)], bounds, d)
+    launch = bool(b and sq and sk and h)
+    out = torch.empty_like(q) if launch else torch.zeros_like(q)
+    lse = torch.full((b, h, sq), float("inf"), dtype=torch.float32, device=dev)
+    if launch:
+        fn = build.kernel_fn("ptt_flash_fwd_bf16", [_P] * 6 + [_I] * 9 + [_F, _P])
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), out.data_ptr(),
+                     lse.data_ptr(), b, sq, sk, h, hk, d, hm, c, int(bool(causal)), float(scale),
+                     torch.cuda.current_stream().cuda_stream)
+        build.check(err, "flash_fwd")
+        count_launch("flash_fwd")
+    return out, lse
+
+
+def flash_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor],
+    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``dq [B, Sq, H, D]`` of flash attention, given the forward's ``lse``
+    and ``delta = sum(g * out, -1)`` as ``[B, H, Sq]``."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, bounds, g, lse, delta, causal, scale)
+    b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
+    if g.shape != q.shape:
+        raise ValueError(f"flash_bwd_dq: g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
+    scale = 1.0 / d**0.5 if scale is None else scale
+    dev, (q, k, v, g), bnd = _cuda_inputs("flash_bwd_dq", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
+    lse = _stats("flash_bwd_dq: lse", lse, (b, h, sq), dev)
+    delta = _stats("flash_bwd_dq: delta", delta, (b, h, sq), dev)
+    launch = bool(b and sq and sk and h)
+    dq = torch.empty_like(q) if launch else torch.zeros_like(q)
+    if launch:
+        fn = build.kernel_fn("ptt_flash_bwd_dq_bf16", [_P] * 8 + [_I] * 9 + [_F, _P])
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), g.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d, hm, c,
+                     int(bool(causal)), float(scale), torch.cuda.current_stream().cuda_stream)
+        build.check(err, "flash_bwd_dq")
+        count_launch("flash_bwd_dq")
+    return dq
+
+
+def flash_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor],
+    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv) [B, Sk, HK, D]`` of flash attention (GQA groups summed)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, bounds, g, lse, delta, causal, scale)
+    b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
+    if g.shape != q.shape:
+        raise ValueError(f"flash_bwd_dkv: g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
+    scale = 1.0 / d**0.5 if scale is None else scale
+    dev, (q, k, v, g), bnd = _cuda_inputs("flash_bwd_dkv", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
+    lse = _stats("flash_bwd_dkv: lse", lse, (b, h, sq), dev)
+    delta = _stats("flash_bwd_dkv: delta", delta, (b, h, sq), dev)
+    launch = bool(b and sq and sk and h)
+    alloc = torch.empty_like if launch else torch.zeros_like
+    dk, dv = alloc(k), alloc(v)
+    if launch:
+        fn = build.kernel_fn("ptt_flash_bwd_dkv_bf16", [_P] * 9 + [_I] * 9 + [_F, _P])
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), g.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     b, sq, sk, h, hk, d, hm, c, int(bool(causal)), float(scale),
+                     torch.cuda.current_stream().cuda_stream)
+        build.check(err, "flash_bwd_dkv")
+        count_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+# -- autograd ------------------------------------------------------------------
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention whose backward is the dq and dk/dv kernels (the
+    Pallas package's ``custom_vjp`` pair). The forward saves q, k, v, the
+    bounds, out and lse and nothing else, so a recompute rerun and the
+    backward see the same inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bounds, causal, scale):  # noqa: D401 - autograd signature
+        out, lse = flash_fwd(q, k, v, bounds, causal, scale)
+        ctx.save_for_backward(q, k, v, bounds, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bounds, out, lse = ctx.saved_tensors
+        # delta = rowsum(g * out) outside the kernels, as the Pallas _run_bwd does
+        delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, bounds, g, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, bounds, g, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor] = None,
+    causal: bool = False, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable flash attention over ``[B, S, H, D]`` with optional
+    FlashMask ``bounds``; the counterpart of ``flash_attention_pallas``."""
+    d = q.shape[-1]
+    scale = 1.0 / d**0.5 if scale is None else float(scale)
+    return FlashAttentionFunction.apply(q, k, v, bounds, bool(causal), scale)

@@ -2,10 +2,10 @@
 
 Each kernel wrapper adds one to its counter where it launches its CUDA
 kernel, and nowhere else: a plain-version call on a CPU tensor does not
-count. A run reads the counters to show that its main path went through the
-kernels (``chip_smoke.py`` resets them just before driving the engine and
-reads them just after). There is no fallback counter: on a CUDA tensor a
-wrapper launches its kernel or raises.
+count. A run reads the counters to show that its main paths went through
+the kernels (``chip_smoke.py`` resets them just before driving each path —
+the engine, the train step — and reads them just after). There is no
+fallback counter: on a CUDA tensor a wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ KERNELS: Dict[str, str] = {
     "paged_chunk_fused": "paddle_tpu/kernels/paged_attention.py:656",
     "embed_rms": "paddle_tpu/kernels/fused.py:618",
     "rms_residual": "paddle_tpu/kernels/fused.py:338",
+    "flash_fwd": "paddle_tpu/kernels/flash_attention.py:87",
+    "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
+    "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",
 }
 
 _lock = threading.Lock()

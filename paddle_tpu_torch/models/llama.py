@@ -1,12 +1,19 @@
-"""Llama-2 for serving: the continuous-batching engine's fused decode-layer
-step (port of ``paddle_tpu/models/llama.py``).
+"""Llama-2 (port of ``paddle_tpu/models/llama.py``): the training forward
+and the continuous-batching engine's fused decode-layer step.
 
-Only the serving forward is ported: ``LlamaForCausalLM(input_ids,
-past_key_values)`` runs one mixed ragged ``[S, C]`` step over the paged KV
-pool and returns logits. Module and parameter names follow the JAX package,
-so its ``state_dict`` loads by name (``models/convert.py``); linear weights
-keep Paddle's ``[in, out]`` layout. Parameters are made on the model's
-device, in its dtype, from an explicit ``torch.Generator``.
+- Training: ``LlamaForCausalLM(input_ids, labels=..., startend_row_indices=...)``
+  runs the layer modules — RMSNorm and rope as plain PyTorch (the JAX
+  package's XLA compositions, ``FLAGS_use_pallas_fused`` off), attention
+  through the flash-attention kernels with the FlashMask bounds, per-layer
+  recompute when ``config.recompute`` and the model is in train mode — and
+  returns ``(loss, logits)`` (``FLAGS_use_fused_loss`` off).
+- Serving: ``LlamaForCausalLM(input_ids, past_key_values=...)`` runs one
+  mixed ragged ``[S, C]`` step over the paged KV pool and returns logits.
+
+Module and parameter names follow the JAX package, so its ``state_dict``
+loads by name (``models/convert.py``); linear weights keep Paddle's
+``[in, out]`` layout. Parameters are made on the model's device, in its
+dtype, from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import DeviceLike, resolve_device
+from paddle_tpu_torch.distributed.fleet import recompute
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.incubate.nn.functional import (
     block_multihead_chunk_attention_fused,
     fused_embed_rms_norm,
     fused_rms_norm_residual,
+    fused_rotary_position_embedding,
 )
 from paddle_tpu_torch.nn import functional as F
 
@@ -51,6 +60,9 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False  # True is not ported yet
+    use_flash_attention: bool = True  # False is not ported: attention is always the flash kernels
+    recompute: bool = False  # per-decoder-layer activation checkpointing (train mode)
     dtype: str = "bfloat16"
 
     @staticmethod
@@ -67,7 +79,7 @@ class LlamaConfig:
 
 
 def _param(shape: Tuple[int, ...], device: torch.device, dtype: torch.dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 class Linear(nn.Module):
@@ -86,12 +98,18 @@ class Embedding(nn.Module):
         super().__init__()
         self.weight = _param((num, dim), device, dtype)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.embedding(ids.long(), self.weight)
+
 
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, epsilon: float, device: torch.device, dtype: torch.dtype) -> None:
         super().__init__()
         self.weight = _param((dim,), device, dtype)
         self.epsilon = float(epsilon)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.rms_norm(x, self.weight, self.epsilon)
 
 
 class LlamaRotaryEmbedding(nn.Module):
@@ -106,10 +124,15 @@ class LlamaRotaryEmbedding(nn.Module):
         self.register_buffer("cos_cached", torch.from_numpy(np.cos(emb)).to(device), persistent=False)
         self.register_buffer("sin_cached", torch.from_numpy(np.sin(emb)).to(device), persistent=False)
 
-    def forward(self, seq_len: int, offset: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Rows for positions ``offset[b] + 0..seq_len-1``, as ``[B, s, 1, D]``.
-        An exact per-position gather; positions past the table clip to its last
-        row (those rows are masked or beyond ``max_position`` anyway)."""
+    def forward(self, seq_len: int, offset: Any = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """With an int ``offset``: the table rows ``offset .. offset +
+        seq_len - 1`` as ``[s, D]`` (the training forward). With a ``[B]``
+        tensor: rows for positions ``offset[b] + 0..seq_len-1`` as
+        ``[B, s, 1, D]``, an exact per-position gather; positions past the
+        table clip to its last row (those rows are masked or beyond
+        ``max_position`` anyway)."""
+        if not isinstance(offset, torch.Tensor):
+            return self.cos_cached[offset: offset + seq_len], self.sin_cached[offset: offset + seq_len]
         pos = offset.long()[:, None] + torch.arange(seq_len, device=offset.device)[None, :]
         pos = pos.clamp(0, self.cos_cached.shape[0] - 1)
         return self.cos_cached[pos][:, :, None, :], self.sin_cached[pos][:, :, None, :]
@@ -126,6 +149,24 @@ class LlamaAttention(nn.Module):
         self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, device, dtype)
         self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, device, dtype)
         self.o_proj = Linear(self.num_heads * self.head_dim, h, device, dtype)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,  # normed [B, S, H]
+        startend_row_indices: Optional[torch.Tensor],  # FlashMask bounds [B, Hm, S, C] or None
+        cos: torch.Tensor,  # [S, D] rope rows of positions 0..S-1
+        sin: torch.Tensor,
+    ) -> torch.Tensor:
+        """The training attention: qkv projections, rope on q and k, causal
+        FlashMask attention (kernels 14-16), ``o_proj``. The rope rows come
+        from the model (one table; every JAX layer holds an identical copy)."""
+        b, s, _ = hidden_states.shape
+        q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q, k, _ = fused_rotary_position_embedding(q, k, None, sin=sin, cos=cos)
+        out = F.flashmask_attention(q, k, v, startend_row_indices=startend_row_indices, causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def forward_paged_fused(
         self,
@@ -160,9 +201,9 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    """Parameter holder of one layer; its serving step runs in
-    :meth:`LlamaModel._forward_paged_fused`, which pairs each residual add
-    with the norm that follows it."""
+    """One layer. :meth:`forward` is the training layer; the serving step
+    runs in :meth:`LlamaModel._forward_paged_fused`, which pairs each
+    residual add with the norm that follows it."""
 
     def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
         super().__init__()
@@ -171,6 +212,18 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, device, dtype)
         self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        startend_row_indices: Optional[torch.Tensor],
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+    ) -> torch.Tensor:
+        residual = hidden_states
+        h = self.self_attn(self.input_layernorm(hidden_states), startend_row_indices, cos, sin)
+        h = residual + h
+        return h + self.mlp(self.post_attention_layernorm(h))
 
 
 class LlamaModel(nn.Module):
@@ -188,12 +241,36 @@ class LlamaModel(nn.Module):
             config.max_position_embeddings, config.rope_theta, device,
         )
 
-    def forward(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
-        if not flag("use_fused_decode_layer"):
-            raise NotImplementedError("only the fused decode layer loop is ported")
-        if len(past_key_values) != len(self.layers):
-            raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
-        return self._forward_paged_fused(input_ids, past_key_values)
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        startend_row_indices: Optional[torch.Tensor] = None,
+        past_key_values: Optional[Sequence[Sequence[Any]]] = None,
+        use_cache: bool = False,
+        cache_position: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The final-normed hidden states ``[B, S, H]``: the training/prefill
+        layer loop, or — given the engine's paged ``past_key_values`` — the
+        fused serving step."""
+        if use_cache or cache_position is not None:
+            raise NotImplementedError("use_cache and cache_position (static-cache decode) are not ported yet")
+        if past_key_values is not None:
+            if startend_row_indices is not None:
+                raise ValueError("startend_row_indices does not apply to the paged serving step")
+            if not flag("use_fused_decode_layer"):
+                raise NotImplementedError("only the fused decode layer loop is ported")
+            if len(past_key_values) != len(self.layers):
+                raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
+            return self._forward_paged_fused(input_ids, past_key_values)
+        h = self.embed_tokens(input_ids)
+        cos, sin = self.rotary_emb(input_ids.shape[1])
+        use_recompute = self.config.recompute and self.training
+        for layer in self.layers:
+            if use_recompute:
+                h = recompute(layer, h, startend_row_indices, cos, sin)
+            else:
+                h = layer(h, startend_row_indices, cos, sin)
+        return self.norm(h)
 
     def _forward_paged_fused(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
         """The serving step's fused layer loop: the token gather + embedding +
@@ -217,13 +294,15 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Serving-only causal LM: ``forward`` returns ``[B, C, V]`` logits of one
-    paged step and appends the step's KV to the caches in place.
+    """Causal LM. With ``labels`` ``forward`` returns ``(loss, logits)``;
+    without, ``[B, S, V]`` logits — of one paged serving step (appending the
+    step's KV to the caches in place) when ``past_key_values`` is given.
 
     ``device`` defaults to ``cuda`` (and raises without one); ``dtype``
     defaults to ``config.dtype``. The weights are drawn from
     ``torch.Generator(device).manual_seed(seed)``: N(0, 0.02) matrices, unit
-    norm weights."""
+    norm weights. The model starts in train mode, as a Paddle layer does
+    (train mode only turns on ``config.recompute``)."""
 
     def __init__(
         self,
@@ -233,13 +312,16 @@ class LlamaForCausalLM(nn.Module):
         seed: int = 0,
     ) -> None:
         super().__init__()
+        if config.tie_word_embeddings:
+            raise NotImplementedError("tie_word_embeddings is not ported yet")
+        if not config.use_flash_attention:
+            raise NotImplementedError("attention other than the flash-attention kernels is not ported")
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, config.dtype)
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
         self.lm_head = Linear(config.hidden_size, config.vocab_size, dev, dtype)
         self.reset_parameters(seed)
-        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -258,8 +340,24 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, INITIALIZER_RANGE, generator=gen)
 
-    def forward(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
-        """``input_ids [B, C]``; ``past_key_values`` one ``(key_cache,
-        value_cache, block_tables, seq_lens, slot_mask, q_lens)`` per layer
-        (the JAX engine's paged 6-tuple), all on the model's device."""
-        return self.lm_head(self.llama(input_ids, past_key_values))
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        labels: Optional[torch.Tensor] = None,
+        startend_row_indices: Optional[torch.Tensor] = None,
+        past_key_values: Optional[Sequence[Sequence[Any]]] = None,
+        use_cache: bool = False,
+        cache_position: Optional[torch.Tensor] = None,
+    ) -> Any:
+        """``input_ids [B, S]``. Training: ``labels [B, S]`` (``-100`` is
+        ignored) and optionally the FlashMask ``startend_row_indices
+        [B, Hm, S, C]`` int32; returns ``(loss, logits)`` with the mean
+        cross entropy in fp32. Serving: ``past_key_values`` one
+        ``(key_cache, value_cache, block_tables, seq_lens, slot_mask,
+        q_lens)`` per layer (the JAX engine's paged 6-tuple); returns logits."""
+        out = self.llama(input_ids, startend_row_indices, past_key_values, use_cache, cache_position)
+        logits = self.lm_head(out)
+        if labels is not None:
+            # cross_entropy upcasts bf16 logits to fp32 itself
+            return F.cross_entropy(logits, labels, ignore_index=-100, reduction="mean"), logits
+        return logits

@@ -1,0 +1,20 @@
+"""Functionals of the port (counterpart of ``paddle_tpu/nn/functional``):
+the plain ops of the Llama paths, the attention entries, and the loss."""
+
+from paddle_tpu_torch.nn.functional.common import linear, rms_norm, swiglu
+from paddle_tpu_torch.nn.functional.flash_attention import (
+    flash_attention,
+    flashmask_attention,
+    make_flashmask_bias,
+)
+from paddle_tpu_torch.nn.functional.loss import cross_entropy
+
+__all__ = [
+    "cross_entropy",
+    "flash_attention",
+    "flashmask_attention",
+    "linear",
+    "make_flashmask_bias",
+    "rms_norm",
+    "swiglu",
+]

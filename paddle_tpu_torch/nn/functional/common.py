@@ -1,5 +1,5 @@
-"""Plain functionals of the Llama serving path (port of the pieces of
-``paddle_tpu/nn/functional`` it uses).
+"""Plain functionals of the Llama serving and training paths (port of the
+pieces of ``paddle_tpu/nn/functional/{common,activation}.py`` they use).
 
 Weights keep Paddle's ``[in, out]`` layout: ``linear`` is ``x @ W``, so the
 JAX package's arrays load into the port without a transpose.

@@ -190,7 +190,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     kfused.fused_rms_norm_residual(x, w, x)
     kfused.fused_embed_rms_norm(torch.tensor([[1, 2]]), x, w)
     kpaged.paged_flash_chunk_fused(*map(_t, _paged_inputs(0, 4, 4)))
-    assert launch_counts() == {"paged_chunk_fused": 0, "embed_rms": 0, "rms_residual": 0}
+    assert launch_counts() == {"paged_chunk_fused": 0, "embed_rms": 0, "rms_residual": 0,
+                               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 # -- nn functionals ----------------------------------------------------------

@@ -141,7 +141,7 @@ def test_step_logits_and_pools_match_jax_model(models):
         jcaches = [(p[0]._data, p[1]._data) for p in jpast]
         t = [torch.from_numpy(a) for a in (tables, lens, active, q_lens)]
         with torch.inference_mode():
-            logits = model(torch.from_numpy(toks), [(kc, vc, *t) for kc, vc in caches])
+            logits = model(torch.from_numpy(toks), past_key_values=[(kc, vc, *t) for kc, vc in caches])
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
     for (kc, vc), (jkc, jvc) in zip(caches, jcaches):
         np.testing.assert_allclose(kc.numpy(), np.asarray(jkc), rtol=1e-5, atol=1e-5)
@@ -210,5 +210,5 @@ def test_convert_rejects_a_mismatched_state_and_reads_bfloat16(models):
     model = from_paddle_tpu_state(bf16, _port_config(jcfg), device="cpu")
     assert model.dtype == torch.bfloat16
     np.testing.assert_array_equal(
-        model.lm_head.weight.float().numpy(), np.asarray(bf16["lm_head.weight"], np.float32)
+        model.lm_head.weight.detach().float().numpy(), np.asarray(bf16["lm_head.weight"], np.float32)
     )
