@@ -18,10 +18,13 @@ name and power limit):
    q_lens=0 rows) and the flash-attention kernels (forward, dq, dk/dv) at
    the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
    document mask, and at GQA 32/8 with C=2 and C=4 FlashMask bounds and a
-   ragged S; time kernel, plain version and, where one PyTorch call
-   computes the same function, that call (device time per call from
-   ``torch.profiler`` with the L2 flushed before each call; back-to-back
-   wall time per call, launch overhead included, as ``call_ms``);
+   ragged S; the RMSNorm forward and backward and the rope forward and
+   adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
+   ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes; time
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call (device time per call from CUDA events with the L2
+   flushed before each call; back-to-back wall time per call, launch
+   overhead included, as ``call_ms``);
 4. serve — Llama-2-7B at full width (32 layers, seeded random bf16 weights)
    through ``ContinuousBatchingEngine`` (8 slots, block 16, chunk 64,
    max_model_len 2048) on 16 seeded requests (prompts of 64-512 tokens, 32
@@ -37,10 +40,12 @@ name and power limit):
    ``AdamW(multi_precision=True)``) on 2 x 4096 document-packed tokens
    with the FlashMask document mask, 1 warm-up and 4 timed steps with the
    launch counters reset before each: every parameter gets a finite
-   non-zero gradient, each step launches flash_fwd 16x and flash_bwd_dq /
-   flash_bwd_dkv 8x, the loss falls; a profile of one step; then a 2-layer
-   S=1024 copy whose loss and gradients through the kernels must be no
-   further from an fp32 run of the plain versions than the bf16 plain path.
+   non-zero gradient, each step launches flash_fwd 16x, flash_bwd_dq /
+   flash_bwd_dkv 8x, rms_norm_fwd 33x, rms_norm_bwd 17x, rope_fwd 32x and
+   rope_bwd 16x and nothing else, the loss falls; a profile of one step;
+   then a 2-layer S=1024 copy whose loss and gradients through the kernels
+   must be no further from an fp32 run of the plain versions than the bf16
+   plain path.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -58,6 +63,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (data sheet)
 BF16_REL = 2.0 ** -7  # one bf16 ulp relative to the value (8-bit significand)
 
 
@@ -103,37 +109,40 @@ def cuda_events(prof):
 
 
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
-FLUSH_KERNEL = "FillFunctor<signed char>"  # the flush's fill kernel, left out of the sums
+HEAD_START_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock: the host enqueues the call meanwhile
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one ``fn()`` call with a cold L2: before each call
-    a 64 MB int8 buffer is filled, then ``torch.profiler`` sums the
-    durations of the kernels and copies ``fn`` ran (the flush's own fill
-    kernels excluded), over ``iters`` calls after a warm-up. Launch overhead
-    between kernels is not counted."""
+    """Mean device time of one ``fn()`` call with a cold L2, from CUDA
+    events. Before each call the device spins for ~1 ms (the host enqueues
+    the call meanwhile, so the device never waits on a launch) and then
+    fills a 64 MB int8 buffer; a pair of events around ``fn()`` alone times
+    it on the stream. Unlike a profiler trace, no record can go missing."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device="cuda")
     for i in range(warmup):
         flush.fill_(i + 1)
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            flush.fill_(i % 100 + 1)
-            fn()
-        torch.cuda.synchronize()
-    events = cuda_events(prof)
-    flushes = [e for e in events if FLUSH_KERNEL in e.name]
-    if len(flushes) != iters:
-        fail(f"expected {iters} L2-flush kernels named {FLUSH_KERNEL!r} in the profile, found {len(flushes)}")
-    return sum(e.time_range.elapsed_us() for e in events if FLUSH_KERNEL not in e.name) / iters / 1e3
+    pairs = []
+    for i in range(iters):
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        flush.fill_(i % 100 + 1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S) -> dict:
+    """The least time for moving ``nbytes`` and doing ``flops`` at the
+    card's peak rates (``flop_per_s``: the rate of the operations' type)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -262,7 +271,7 @@ def check_kernels(dev, card: dict) -> dict:
     records["embed_rms"] = dict(
         source="paddle_tpu_torch/kernels/csrc/embed_rms.cu", max_abs_err=err,
         ms=device_ms(run), plain_ms=device_ms(run_plain), library_ms=None,
-        call_ms=call_ms(run), plain_call_ms=call_ms(run_plain), **bound(n * 4 + 3 * n * h * 2 + h * 2, 4 * n * h),
+        call_ms=call_ms(run), plain_call_ms=call_ms(run_plain), **bound(n * 4 + 3 * n * h * 2 + h * 2, 4 * n * h, FP32_FLOP_PER_S),
     )
     emit({"phase": "kernel_check", "kernel": "embed_rms", "tolerance": "1 bf16 ulp; emb bitwise",
           **records["embed_rms"], "card": card})
@@ -281,11 +290,12 @@ def check_kernels(dev, card: dict) -> dict:
     records["rms_residual"] = dict(
         source="paddle_tpu_torch/kernels/csrc/rms_residual.cu", max_abs_err=err,
         ms=device_ms(run), plain_ms=device_ms(run_plain), library_ms=None,
-        call_ms=call_ms(run), plain_call_ms=call_ms(run_plain), **bound(4 * n * h * 2 + h * 2, 5 * n * h),
+        call_ms=call_ms(run), plain_call_ms=call_ms(run_plain), **bound(4 * n * h * 2 + h * 2, 5 * n * h, FP32_FLOP_PER_S),
     )
     emit({"phase": "kernel_check", "kernel": "rms_residual", "tolerance": "1 bf16 ulp; r bitwise",
           **records["rms_residual"], "card": card})
     check_flash(dev, gen, card, records)
+    check_norm_rope(dev, gen, card, records)
     return records
 
 
@@ -502,6 +512,137 @@ def check_flash(dev, gen, card: dict, records: dict) -> None:
           "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
 
 
+# -- kernels 7-10: RMSNorm forward/backward, rope forward/adjoint ---------------
+
+NORM_ROPE_SOURCES = {
+    "rms_norm_fwd": "paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+    "rms_norm_bwd": "paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+    "rope_fwd": "paddle_tpu_torch/kernels/csrc/rope.cu",
+    "rope_bwd": "paddle_tpu_torch/kernels/csrc/rope.cu",
+}
+# rel is one ulp of the I/O type (2^-7 of the value in bf16, 2^-10 in
+# fp16) and 1e-5 in fp32: both
+# versions round the same fp32 arithmetic once, summed in other orders. dx
+# adds 1e-5 of its largest value, since gw - x^ * mean cancels; dw adds
+# 1e-5 of each column's sum of |g x^|, the scale of a reordered fp32 sum
+NORM_ROPE_TOL = {
+    "rms_norm_fwd": "y: rel*max(|x|); rstd: 1e-5 relative",
+    "rms_norm_bwd": "dx: rel*|x| + 1e-5*max|dx|; dw: rel*|x| + 1e-5*sum_rows|g*x^| per column; "
+                    "two runs bitwise equal",
+    "rope_fwd": "rel*|x| (the same roundings: expected bitwise)",
+    "rope_bwd": "rel*|x| (the same roundings: expected bitwise)",
+    "rel": "2^-7 for bf16, 2^-10 for fp16, 1e-5 for fp32",
+}
+
+
+def norm_rope_case(dev, gen, lead, h: int, heads: int, d: int, dtype, label: str, card: dict,
+                   timed: bool = False) -> dict:
+    """Kernels 7-10 against their plain versions on the same inputs: the
+    RMSNorm forward and backward of ``x [*lead, h]`` and the rope forward
+    and adjoint of ``[*lead, heads, d]`` (``lead`` is ``[B, S]``) with the
+    model's rope tables for positions ``0..S-1``. Fails on a miss."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import fused as kf
+    from paddle_tpu_torch.models.llama import LlamaRotaryEmbedding
+
+    rel = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}.get(dtype, 1e-5)
+    eps = 1e-5
+    x = torch.randn((*lead, h), generator=gen, device=dev).to(dtype)
+    g = torch.randn((*lead, h), generator=gen, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn((h,), generator=gen, device=dev)).to(dtype)
+    y, rstd = kf.rms_norm_fwd(x, w, eps)
+    y_p, rstd_p = kf.rms_norm_fwd_plain(x, w, eps)
+    dx, dw = kf.rms_norm_bwd(x, w, rstd, g)
+    dx2, dw2 = kf.rms_norm_bwd(x, w, rstd, g)
+    dx_p, dw_p = kf.rms_norm_bwd_plain(x, w, rstd, g)
+    xhat = x.float() * rstd[..., None]
+    dw_scale = (g.float() * xhat).abs().reshape(-1, h).sum(0)
+    del xhat
+    torch.cuda.synchronize()
+    checks, err = {}, {}
+    err["y"], checks["y"] = within(y, y_p, atol=0.0, rel=rel)
+    err["rstd"] = float(((rstd - rstd_p).abs() / rstd_p.abs()).max())
+    checks["rstd"] = err["rstd"] <= 1e-5
+    err["dx"], checks["dx"] = within(dx, dx_p, atol=1e-5 * float(dx_p.float().abs().max()), rel=rel)
+    d_dw = (dw.float() - dw_p.float()).abs()
+    err["dw"] = float(d_dw.max())
+    checks["dw"] = bool((d_dw <= rel * torch.maximum(dw.float().abs(), dw_p.float().abs()) + 1e-5 * dw_scale).all())
+    checks["bwd_deterministic"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
+
+    b, s = lead
+    rope = LlamaRotaryEmbedding(d, max(s, 4096), 10000.0, dev)
+    cos, sin = rope(s)
+    q = torch.randn((b, s, heads, d), generator=gen, device=dev).to(dtype)
+    gq = torch.randn((b, s, heads, d), generator=gen, device=dev).to(dtype)
+    yq, yq_p = kf.rope_fwd(q, cos, sin), kf.rope_fwd_plain(q, cos, sin)
+    dq, dq_p = kf.rope_bwd(gq, cos, sin), kf.rope_bwd_plain(gq, cos, sin)
+    torch.cuda.synchronize()
+    err["rope"], checks["rope"] = within(yq, yq_p, atol=0.0, rel=rel)
+    err["rope_adjoint"], checks["rope_adjoint"] = within(dq, dq_p, atol=0.0, rel=rel)
+    bitwise = {"rope": bool(torch.equal(yq, yq_p)), "rope_adjoint": bool(torch.equal(dq, dq_p))}
+    line = {"phase": "kernel_check", "kernel": "rms_norm_fwd/rms_norm_bwd/rope_fwd/rope_bwd", "case": label,
+            "norm_shape": [*lead, h], "rope_shape": [b, s, heads, d], "dtype": str(dtype).split(".")[-1],
+            "max_err": err, "checks": checks, "rope_bitwise": bitwise, "tolerance": NORM_ROPE_TOL}
+    if not all(checks.values()):
+        emit({**line, "card": card})
+        fail(f"kernels 7-10 disagree with their plain versions ({label}): {checks} {err}")
+    res = {"max_abs_err": {"rms_norm_fwd": err["y"], "rms_norm_bwd": err["dx"], "rope_fwd": err["rope"],
+                           "rope_bwd": err["rope_adjoint"]}, "dw_max_abs_err": err["dw"]}
+    if timed:
+        rows, esz = x.numel() // h, x.element_size()
+        qn = q.numel()
+        tables = 2 * cos.numel() * 4
+        # yardsticks only (the port never calls them): PyTorch's rms_norm
+        # forward, and its autograd backward (dx and dw together)
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        lib_out = tF.rms_norm(xr, (h,), wr, eps) if hasattr(tF, "rms_norm") else None
+        runs = {
+            "rms_norm_fwd": (lambda: kf.rms_norm_fwd(x, w, eps), lambda: kf.rms_norm_fwd_plain(x, w, eps),
+                             None if lib_out is None else (lambda: tF.rms_norm(x, (h,), w, eps)),
+                             bound(2 * rows * h * esz + h * esz + rows * 4, 4 * rows * h, FP32_FLOP_PER_S)),
+            "rms_norm_bwd": (lambda: kf.rms_norm_bwd(x, w, rstd, g), lambda: kf.rms_norm_bwd_plain(x, w, rstd, g),
+                             None if lib_out is None else
+                             (lambda: torch.autograd.grad(lib_out, (xr, wr), g, retain_graph=True)),
+                             bound(3 * rows * h * esz + 2 * h * esz + rows * 4, 10 * rows * h, FP32_FLOP_PER_S)),
+            "rope_fwd": (lambda: kf.rope_fwd(q, cos, sin), lambda: kf.rope_fwd_plain(q, cos, sin), None,
+                         bound(2 * qn * esz + tables, 3 * qn, FP32_FLOP_PER_S)),
+            "rope_bwd": (lambda: kf.rope_bwd(gq, cos, sin), lambda: kf.rope_bwd_plain(gq, cos, sin), None,
+                         bound(2 * qn * esz + tables, 3 * qn, FP32_FLOP_PER_S)),
+        }
+        times = {}
+        for name, (run, run_plain, run_lib, bnd) in runs.items():
+            times[name] = dict(ms=device_ms(run), call_ms=call_ms(run), plain_ms=device_ms(run_plain, iters=5),
+                               plain_call_ms=call_ms(run_plain, iters=5),
+                               library_ms=None if run_lib is None else device_ms(run_lib), **bnd)
+        res["times"] = times
+        line["times"] = times
+        line["library"] = ("torch.nn.functional.rms_norm forward; its autograd backward (dx and dw); "
+                           "no single PyTorch call for the rope")
+        del lib_out, xr, wr
+    emit({**line, "card": card})
+    return res
+
+
+def check_norm_rope(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 7-10 at the train shapes (norm ``[2, 4096, 4096]``, rope
+    ``[2, 4096, 32, 128]``, bf16; timed), at a ragged bf16 shape (a 3-row
+    batch of 1001 positions, H 5120, 8 heads) and at ragged fp32 and fp16
+    ones."""
+    import torch
+
+    bf = torch.bfloat16
+    train = norm_rope_case(dev, gen, (2, 4096), 4096, 32, 128, bf, "train shapes", card, timed=True)
+    norm_rope_case(dev, gen, (3, 1001), 5120, 8, 128, bf, "ragged rows, H 5120, 8 heads", card)
+    norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float32, "fp32, ragged rows, D 256", card)
+    norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float16, "fp16, ragged rows, D 256", card)
+    for name, src in NORM_ROPE_SOURCES.items():
+        t = train["times"][name]
+        records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
+    records["rms_norm_bwd"]["dw_max_abs_err"] = train["dw_max_abs_err"]
+    torch.cuda.empty_cache()
+
+
 # -- serving -------------------------------------------------------------------
 
 def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
@@ -699,7 +840,7 @@ def serve(dev, card: dict):
         fail("not every request finished with 32 tokens")
     layers = cfg.num_hidden_layers  # 32: A once per layer, C twice per layer, B once per step
     want = {"paged_chunk_fused": layers * steps, "embed_rms": steps, "rms_residual": 2 * layers * steps,
-            **{name: 0 for name in FLASH_SOURCES}}  # and no training kernel
+            **{name: 0 for name in TRAIN_KERNELS}}  # and no training kernel
     if counts != want:
         fail(f"launch counts {counts} != {want} for {steps} steps")
     if pool["free"] != pool["total"]:
@@ -712,11 +853,14 @@ def serve(dev, card: dict):
 
 # -- training ------------------------------------------------------------------
 
+TRAIN_KERNELS = (*FLASH_SOURCES, *NORM_ROPE_SOURCES)
 TRAIN_LAYERS = 8  # Llama-2-7B cut from 32 layers: 16 B/parameter of weights, grads, masters, moments
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("flash_fwd_kernel", "flash fwd (kernel 14)"), ("flash_bwd_dq_kernel", "flash dq (kernel 15)"),
-    ("flash_bwd_dkv_kernel", "flash dk/dv (kernel 16)"), ("gemm", "matmul"), ("cutlass", "matmul"),
+    ("flash_bwd_dkv_kernel", "flash dk/dv (kernel 16)"), ("rms_fwd_kernel", "rmsnorm fwd (kernel 7)"),
+    ("rms_bwd", "rmsnorm bwd (kernel 8)"), ("rope_fwd_kernel", "rope fwd (kernel 9)"),
+    ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
     ("Memcpy", "memcpy"), ("Memset", "memcpy"),
 )
@@ -743,14 +887,19 @@ def train_batch(dev, vocab: int, b: int, s: int, seed: int):
 
 
 def plain_train_loss(model, ids, labels, bounds, dtype):
-    """The train step's loss written out with the attention's plain version
-    (differentiated by autograd) on ``dtype`` copies of the weights; returns
-    the loss and each weight's gradient. In bf16 it is the plain path the
-    kernel path is held to; in fp32 the reference both are measured against."""
+    """The train step's loss written out with the plain versions of the
+    attention, RMSNorm and rope kernels (differentiated by autograd; the
+    norm and rope in the kernels' rounding order) on ``dtype`` copies of the
+    weights; returns the loss and each weight's gradient. In bf16 it is the
+    plain path the kernel path is held to; in fp32 the reference both are
+    measured against."""
     import torch
-    from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla
     from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
-    from paddle_tpu_torch.nn.functional import cross_entropy, rms_norm, swiglu
+    from paddle_tpu_torch.kernels.fused import rms_norm_fwd_plain, rope_fwd_plain
+    from paddle_tpu_torch.nn.functional import cross_entropy, swiglu
+
+    def rms_norm(x, weight, epsilon):
+        return rms_norm_fwd_plain(x, weight, epsilon)[0]
 
     w = {n: p.detach().to(dtype).requires_grad_() for n, p in model.named_parameters()}
     cfg = model.config
@@ -766,7 +915,7 @@ def plain_train_loss(model, ids, labels, bounds, dtype):
         q = (x @ w[pre + "self_attn.q_proj.weight"]).reshape(b, s, nh, hd)
         k = (x @ w[pre + "self_attn.k_proj.weight"]).reshape(b, s, nkv, hd)
         v = (x @ w[pre + "self_attn.v_proj.weight"]).reshape(b, s, nkv, hd)
-        q, k = _rope_apply_xla(q, sin, cos, True), _rope_apply_xla(k, sin, cos, True)
+        q, k = rope_fwd_plain(q, cos, sin), rope_fwd_plain(k, cos, sin)
         a, _ = flash_fwd_plain(q, k, v, bounds, True)
         h = h + a.reshape(b, s, nh * hd) @ w[pre + "self_attn.o_proj.weight"]
         x = rms_norm(h, w[pre + "post_attention_layernorm.weight"], eps)
@@ -850,7 +999,9 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
     parameter has a finite non-zero gradient on step 1; each step launches
     flash_fwd 16x (twice per layer: forward and recompute), flash_bwd_dq and
-    flash_bwd_dkv 8x, and nothing else; the last loss is below the first;
+    flash_bwd_dkv 8x, rms_norm_fwd 33x (two norms per layer, twice, and the
+    final norm), rms_norm_bwd 17x, rope_fwd 32x (q and k per layer, twice)
+    and rope_bwd 16x, and nothing else; the last loss is below the first;
     then the 2-layer accuracy copy. Returns the launch counts of the 5 steps."""
     import numpy as np
     import torch
@@ -884,7 +1035,9 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         return float(loss.detach())
 
     layers = cfg.num_hidden_layers
-    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "rope_fwd": 4 * layers, "rope_bwd": 2 * layers}
     losses, step_ms, counts, total = [], [], None, {}
     for i in range(5):
         reset_launch_counts()
@@ -954,7 +1107,7 @@ def main() -> int:
     del model  # the 7B serving model, before the train phase
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update({k: v for k, v in train(dev, card).items() if k in FLASH_SOURCES})
+    counts.update({k: v for k, v in train(dev, card).items() if k in TRAIN_KERNELS})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],

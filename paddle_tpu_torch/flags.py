@@ -23,8 +23,12 @@ _FLAGS: Dict[str, tuple] = {
     # attention runs the flash kernels (14-16); the JAX XLA fallback is a
     # test-only reference here, never a silent path on the card
     "use_pallas_attention": (True, "attention always runs the flash-attention kernels"),
-    # the JAX default is True for both
-    "use_pallas_fused": (False, "the RMSNorm and rope kernels (7-10) are not ported yet"),
+    # the JAX default: RMSNorm and rope run kernels 7-10 wherever a shape is
+    # within their reach
+    "use_pallas_fused": (True, "the RMSNorm and rope kernels (7-10) run wherever a shape is within "
+                               "their reach; the unfused-order composition runs only for shapes outside "
+                               "it, as in JAX, and is not a switch of its own yet"),
+    # the JAX default is True
     "use_fused_loss": (False, "the fused linear cross-entropy kernels (17-19) are not ported yet"),
 }
 

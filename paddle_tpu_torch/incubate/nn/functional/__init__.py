@@ -4,7 +4,7 @@ entries in ``paddle_tpu/incubate/nn/functional``).
 ``fused_embed_rms_norm`` and ``fused_rms_norm_residual`` are the kernel
 wrappers of ``kernels/fused.py`` (B and C); the paged-cache functions live
 in ``block_attention.py``; ``fused_rotary_position_embedding`` is the rope
-of the training forward.
+of the training forward (kernels 9 and 10 where the shape allows).
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.kernels.fused import fused_embed_rms_norm, fused_rms_norm_residual
+from paddle_tpu_torch.flags import flag
+from paddle_tpu_torch.kernels.fused import fused_embed_rms_norm, fused_rms_norm_residual, fused_rope
 
 __all__ = [
     "BlockKVCache",
@@ -44,6 +45,23 @@ def _rope_apply_xla(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, use_n
     return x * cos.to(x.dtype) + _rope_rotate(x, use_neox) * sin.to(x.dtype)
 
 
+def _rope_kernel_tables(
+    x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, use_neox: bool
+) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """``(cos, sin)`` in the kernels' ``[S, D]`` layout when this shape is
+    kernel-eligible (the JAX package's rule), else None: neox, ``D % 128 ==
+    0``, and tables ``[S, D]`` or with a leading 1 (``[1, S, 1, D]``).
+    Per-batch tables (a leading dim > 1, ragged positions) cannot collapse
+    to ``[S, D]``: composition only."""
+    if not use_neox or x.shape[-1] % 128:
+        return None
+    if cos.dim() == 2:
+        return cos, sin
+    if cos.shape[0] == 1:
+        return cos.reshape(cos.shape[1], cos.shape[-1]), sin.reshape(sin.shape[1], sin.shape[-1])
+    return None
+
+
 def fused_rotary_position_embedding(
     q: torch.Tensor,
     k: Optional[torch.Tensor] = None,
@@ -59,15 +77,21 @@ def fused_rotary_position_embedding(
     (``LlamaRotaryEmbedding``). Returns the roped tensors in the order given, padded with
     ``None`` to three (the JAX entry's packing).
 
-    With ``FLAGS_use_pallas_fused`` off — the only value the port has — this
-    is ``_rope_apply_xla`` on each tensor, and its gradient is autograd's
-    adjoint of ``x * cos + rotate(x) * sin`` (the JAX package's
-    ``_rope_adjoint_xla``)."""
+    Each tensor, q then k then v, takes one call: where the shape is
+    kernel-eligible (:func:`_rope_kernel_tables`) the rope kernel (9) with
+    its adjoint kernel (10) as the ``x`` gradient; elsewhere
+    ``_rope_apply_xla``, whose gradient is autograd's adjoint of
+    ``x * cos + rotate(x) * sin`` (the JAX package's ``_rope_adjoint_xla``)."""
     if position_ids is not None or time_major:
         raise NotImplementedError("fused_rotary_position_embedding: position_ids and time_major are not ported")
     if sin is None or cos is None:
         raise ValueError("fused_rotary_position_embedding: pass the sin and cos tables")
-    outs = [_rope_apply_xla(t, sin, cos, use_neox_rotary_style) for t in (q, k, v) if t is not None]
+    outs = []
+    for t in (q, k, v):
+        if t is None:
+            continue
+        tabs = _rope_kernel_tables(t, sin, cos, use_neox_rotary_style) if flag("use_pallas_fused") else None
+        outs.append(fused_rope(t, *tabs) if tabs is not None else _rope_apply_xla(t, sin, cos, use_neox_rotary_style))
     return tuple(outs + [None] * (3 - len(outs)))
 
 

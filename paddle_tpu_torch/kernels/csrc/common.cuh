@@ -1,7 +1,9 @@
-// Shared device helpers for the paddle_tpu_torch kernels (bf16 I/O, fp32 math).
+// Shared device helpers for the paddle_tpu_torch kernels (bf16 I/O unless a
+// kernel is templated on its type; fp32 math).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,6 +18,25 @@ __device__ __forceinline__ bf16 to_bf(float x) { return __float2bfloat16_rn(x); 
 
 // the value a bf16 op would have produced: fp32 result rounded to bf16
 __device__ __forceinline__ float round_bf(float x) { return to_f(to_bf(x)); }
+
+// kernels templated on the I/O type T (bf16, fp16 or fp32): fp32 math always
+using f16 = __half;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return to_bf(x); }
+template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+
+// the I/O type codes of the templated kernels' C entry points
+enum IoType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// Sum of v over one warp; every lane returns the total.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 // Sum of v over the whole block; every thread returns the total.
 // `scratch` holds at least THREADS / 32 floats. Call once per kernel.
@@ -44,5 +65,23 @@ __device__ __forceinline__ const bf16* elems(const uint4& v) {
   return reinterpret_cast<const bf16*>(&v);
 }
 __device__ __forceinline__ bf16* elems(uint4& v) { return reinterpret_cast<bf16*>(&v); }
+
+// the same 16-byte access for any element type T: 16 / sizeof(T) values
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, size_t i) {
+  return reinterpret_cast<const uint4*>(p)[i];
+}
+template <typename T>
+__device__ __forceinline__ void store16(T* p, size_t i, uint4 v) {
+  reinterpret_cast<uint4*>(p)[i] = v;
+}
+template <typename T>
+__device__ __forceinline__ const T* elems_of(const uint4& v) {
+  return reinterpret_cast<const T*>(&v);
+}
+template <typename T>
+__device__ __forceinline__ T* elems_of(uint4& v) {
+  return reinterpret_cast<T*>(&v);
+}
 
 }  // namespace ptt

@@ -1,0 +1,218 @@
+// RMSNorm forward and backward over the last axis of a [rows, H] tensor,
+// bf16, fp16 or fp32, fp32 math.
+//
+// Replaces: paddle_tpu/kernels/fused.py `_rms_fwd_kernel` (forward, saves
+// rstd; launched by `_make_rms` for `fused_rms_norm_pallas`) and
+// `_rms_bwd_kernel` (dx and dw), the norms of the training forward, its
+// recompute and its backward.
+//
+// Forward: y = (x * rstd * w) in fp32, cast once (the weight multiplied
+// before the downcast, the Pallas order); rstd = rsqrt(mean(x^2) + eps) is
+// written per row in fp32 for the backward.
+// Backward: x^ = x * rstd, gw = g * w,
+//   dx = rstd * (gw - x^ * mean(gw * x^))   (in x's type)
+//   dw = sum over rows of g * x^            (fp32, cast to w's type)
+//
+// Bound on H100: bytes. At the 7B train shape (8192 rows x 4096, bf16) the
+// forward reads x and writes y (~134 MB), the backward reads x and g and
+// writes dx (~201 MB), at a few fp32 flops per element.
+//
+// Forward design: one warp per row, 16-byte loads, a warp-shuffle sum of
+// squares, then a second pass that re-reads the row (cache-resident) to
+// write y; 8 rows per block, the ragged last block bounds-checked (Pallas
+// pads rows to its block instead).
+//
+// Backward design: the Pallas kernel adds dw into one output block across
+// its sequential grid; blocks here run in parallel and in no order, so each
+// block owns a contiguous range of rows and keeps its own fp32 dw partial
+// in shared memory (each thread owns fixed columns: no races, no atomics),
+// then writes it to a [blocks, H] fp32 scratch. A second kernel sums the
+// partials per column in a fixed order. Both orders are fixed by the shape
+// and the card's SM count, so two runs give the same bits.
+#include "common.cuh"
+
+using ptt::bf16;
+using ptt::f16;
+
+namespace {
+
+constexpr int kFwdRows = 8;  // rows (warps) per forward block
+constexpr int kBwdThreads = 256;
+constexpr int kReduceCols = 32, kReduceSlices = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdRows * 32)
+rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+               float* __restrict__ rstd_out, int rows, int H, float eps) {
+  constexpr int N = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kFwdRows + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps only: no block-wide barrier below
+  const size_t base = static_cast<size_t>(row) * H;
+  const int nvec = H / N;
+  float ss = 0.f;
+  for (int i = lane; i < nvec; i += 32) {
+    const uint4 v = ptt::load16(x + base, i);
+    const T* e = ptt::elems_of<T>(v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float f = ptt::to_f(e[k]);
+      ss += f * f;
+    }
+  }
+  const float rstd = rsqrtf(ptt::warp_sum(ss) / H + eps);
+  for (int i = lane; i < nvec; i += 32) {
+    const uint4 xv = ptt::load16(x + base, i), wv = ptt::load16(w, i);
+    uint4 ov;
+    const T* xe = ptt::elems_of<T>(xv);
+    const T* we = ptt::elems_of<T>(wv);
+    T* oe = ptt::elems_of<T>(ov);
+#pragma unroll
+    for (int k = 0; k < N; ++k) oe[k] = ptt::from_f<T>(ptt::to_f(xe[k]) * rstd * ptt::to_f(we[k]));
+    ptt::store16(y + base, i, ov);
+  }
+  if (lane == 0) rstd_out[row] = rstd;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ rstd,
+               const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ dw_part,
+               int rows, int H, int rows_per_block) {
+  constexpr int N = 16 / sizeof(T);
+  // dw_acc[k * nvec + i] holds element k of vector i: neighbouring threads
+  // touch neighbouring words (no bank conflicts)
+  extern __shared__ float dw_acc[];
+  // two reduction buffers used in turn: a warp can only rewrite one after
+  // every warp has passed the barrier of the reduction between
+  __shared__ float scratch[2][32];
+  const int nvec = H / N;
+  for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) dw_acc[k * nvec + i] = 0.f;
+  }
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(r0 + rows_per_block, rows);
+  int buf = 0;
+  for (int row = r0; row < r1; ++row) {
+    const size_t base = static_cast<size_t>(row) * H;
+    const float rs = rstd[row];
+    float dot = 0.f;
+    for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
+      const uint4 xv = ptt::load16(x + base, i), gv = ptt::load16(g + base, i), wv = ptt::load16(w, i);
+      const T* xe = ptt::elems_of<T>(xv);
+      const T* ge = ptt::elems_of<T>(gv);
+      const T* we = ptt::elems_of<T>(wv);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float xh = ptt::to_f(xe[k]) * rs, gf = ptt::to_f(ge[k]);
+        dot += gf * ptt::to_f(we[k]) * xh;
+        dw_acc[k * nvec + i] += gf * xh;
+      }
+    }
+    const float mean = ptt::block_sum<kBwdThreads>(dot, scratch[buf]) / H;
+    buf ^= 1;
+    for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
+      const uint4 xv = ptt::load16(x + base, i), gv = ptt::load16(g + base, i), wv = ptt::load16(w, i);
+      uint4 ov;
+      const T* xe = ptt::elems_of<T>(xv);
+      const T* ge = ptt::elems_of<T>(gv);
+      const T* we = ptt::elems_of<T>(wv);
+      T* oe = ptt::elems_of<T>(ov);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float xh = ptt::to_f(xe[k]) * rs, gw = ptt::to_f(ge[k]) * ptt::to_f(we[k]);
+        oe[k] = ptt::from_f<T>(rs * (gw - xh * mean));
+      }
+      ptt::store16(dx + base, i, ov);
+    }
+  }
+  float* part = dw_part + static_cast<size_t>(blockIdx.x) * H;
+  for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) part[i * N + k] = dw_acc[k * nvec + i];
+  }
+}
+
+// dw[c] = sum over b of part[b, c], in a fixed order: slice s of a block
+// sums partials s, s + 8, s + 16, ... in turn, then slice 0 adds the 8
+// slice sums in order.
+template <typename T>
+__global__ void __launch_bounds__(kReduceCols * kReduceSlices)
+rms_bwd_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw, int nblk, int H) {
+  __shared__ float acc[kReduceSlices][kReduceCols + 1];
+  const int lane = threadIdx.x % kReduceCols, s = threadIdx.x / kReduceCols;
+  const int c = blockIdx.x * kReduceCols + lane;
+  float v = 0.f;
+  if (c < H) {
+    for (int b = s; b < nblk; b += kReduceSlices) v += part[static_cast<size_t>(b) * H + c];
+  }
+  acc[s][lane] = v;
+  __syncthreads();
+  if (s == 0 && c < H) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < kReduceSlices; ++j) t += acc[j][lane];
+    dw[c] = ptt::from_f<T>(t);
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, void* y, void* rstd, int rows, int H, float eps,
+               cudaStream_t stream) {
+  const int blocks = (rows + kFwdRows - 1) / kFwdRows;
+  rms_fwd_kernel<T><<<blocks, kFwdRows * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+      static_cast<float*>(rstd), rows, H, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* rstd, const void* g, void* dx, void* dw,
+               void* dw_part, int rows, int H, int rows_per_block, int nblk, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(H) * sizeof(float);
+  if (smem > 48 * 1024) {  // above 48 KB a block must opt in to dynamic shared memory
+    const cudaError_t e = cudaFuncSetAttribute(rms_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  rms_bwd_kernel<T><<<nblk, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(rstd),
+      static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(dw_part), rows, H,
+      rows_per_block);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rms_bwd_dw_reduce_kernel<T><<<(H + kReduceCols - 1) / kReduceCols, kReduceCols * kReduceSlices, 0, stream>>>(
+      static_cast<const float*>(dw_part), static_cast<T*>(dw), nblk, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y: [rows, H] of the I/O type `io` (ptt::IoType); w: [H], same type;
+// rstd: [rows] fp32. H % 8 == 0, 16-byte aligned rows.
+extern "C" int ptt_rms_norm_fwd(int io, const void* x, const void* w, void* y, void* rstd,
+                                int rows, int H, float eps, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16: return launch_fwd<bf16>(x, w, y, rstd, rows, H, eps, s);
+    case ptt::kF16: return launch_fwd<f16>(x, w, y, rstd, rows, H, eps, s);
+    case ptt::kF32: return launch_fwd<float>(x, w, y, rstd, rows, H, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// x, g, dx: [rows, H]; w, dw: [H]; rstd: [rows] fp32; dw_part: [nblk, H]
+// fp32 scratch, nblk = ceil(rows / rows_per_block). H * 4 bytes of shared
+// memory per block, at most 227 KB.
+extern "C" int ptt_rms_norm_bwd(int io, const void* x, const void* w, const void* rstd,
+                                const void* g, void* dx, void* dw, void* dw_part, int rows, int H,
+                                int rows_per_block, int nblk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16: return launch_bwd<bf16>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
+    case ptt::kF16: return launch_bwd<f16>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
+    case ptt::kF32: return launch_bwd<float>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

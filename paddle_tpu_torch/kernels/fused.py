@@ -1,23 +1,34 @@
-"""Fused residual+RMSNorm and embed+RMSNorm: CUDA kernels and plain versions.
+"""RMSNorm, rope and the fused RMSNorm epilogues: CUDA kernels, their plain
+versions, and the autograd ``Function``s of the training norms and rope.
 
-Ports of the two Pallas epilogue kernels of the serving step
-(``paddle_tpu/kernels/fused.py``):
+Ports of Pallas kernels of ``paddle_tpu/kernels/fused.py``:
 
 - :func:`fused_rms_norm_residual` — ``_rms_res_fwd_kernel`` (kernel C):
   ``r = x + residual`` in the I/O dtype, then ``y = rms(r) * w``;
 - :func:`fused_embed_rms_norm` — ``_embed_rms_kernel`` (kernel B): token-id
-  gather (ids clipped to ``[0, V-1]``), the raw row, and its RMSNorm.
+  gather (ids clipped to ``[0, V-1]``), the raw row, and its RMSNorm;
+- :func:`rms_norm_fwd` / :func:`rms_norm_bwd` — ``_rms_fwd_kernel`` and
+  ``_rms_bwd_kernel`` (kernels 7 and 8): RMSNorm saving the fp32 ``rstd``
+  per row, and its ``dx``, ``dw``; :class:`RMSNormFunction` joins them;
+- :func:`rope_fwd` / :func:`rope_bwd` — ``_rope_kernel`` and
+  ``_rope_bwd_kernel`` (kernels 9 and 10): neox rope of ``[B, S, H, D]``
+  with fp32 ``[S, D]`` tables, and its adjoint; :class:`RopeFunction`
+  joins them.
 
-Both multiply the weight in fp32 BEFORE the downcast, the Pallas order (the
-JAX package's XLA path downcasts first; in fp32 the two agree to rounding).
-Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA tensors
-it launches the kernel (``csrc/rms_residual.cu``, ``csrc/embed_rms.cu``) or
-raises — it never falls back.
+Every norm here multiplies the weight in fp32 BEFORE the downcast, the
+Pallas order (the unfused composition of ``nn.functional.rms_norm``
+downcasts first; in fp32 the two agree to rounding). The rope computes in
+fp32 from fp32 tables and casts once (the composition casts the tables to
+``x``'s dtype first). Each wrapper runs its plain PyTorch version for CPU
+tensors; for CUDA tensors it launches its kernel (``csrc/rms_residual.cu``,
+``csrc/embed_rms.cu``, ``csrc/rms_norm.cu``, ``csrc/rope.cu``) or raises —
+it never falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -26,42 +37,125 @@ from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels.select import count_launch
 
 __all__ = [
+    "RMSNormFunction",
+    "RopeFunction",
     "fused_embed_rms_norm",
     "fused_embed_rms_norm_plain",
+    "fused_rms_norm",
     "fused_rms_norm_residual",
     "fused_rms_norm_residual_plain",
+    "fused_rope",
+    "rms_norm_bwd",
+    "rms_norm_bwd_plain",
+    "rms_norm_fwd",
+    "rms_norm_fwd_plain",
+    "rope_bwd",
+    "rope_bwd_plain",
+    "rope_fwd",
+    "rope_fwd_plain",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _rms_rows(xf: torch.Tensor, weight: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
-    """``rms(xf) * w`` on fp32 rows, the weight applied before the downcast."""
+# the I/O types of kernels 7-10 -> the C entry points' type code (ptt::IoType)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can use
+_BWD_BLOCKS_PER_SM = 4  # rms_norm_bwd row blocks: 4 of 256 threads per SM
+
+
+def _rms_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rms(x) * w, rstd)``: fp32 rows, the weight applied before the
+    downcast to ``x``'s dtype (every norm kernel's order)."""
+    xf = x.float()
     rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return (xf * rstd * weight.float()).to(dtype)
+    return (xf * rstd * weight.float()).to(x.dtype), rstd
+
+
+def rms_norm_fwd_plain(
+    x: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, rstd)``: ``y = x * rstd * w`` in fp32, cast to ``x``'s dtype,
+    and the fp32 ``rstd = rsqrt(mean(x^2) + eps)`` of shape ``x.shape[:-1]``.
+    Differentiable by autograd (a plain reference path uses that)."""
+    y, rstd = _rms_rows(x, weight, epsilon)
+    return y, rstd.squeeze(-1)
+
+
+def rms_norm_bwd_plain(
+    x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rms_norm_fwd_plain` given its ``rstd``:
+    ``dx = rstd (g w - x^ mean(g w x^))`` with ``x^ = x rstd``, in ``x``'s
+    dtype; ``dw = sum over rows of g x^`` in fp32, cast to ``w``'s dtype."""
+    xf, gf = x.float(), g.float()
+    r = rstd.float().unsqueeze(-1)
+    xhat = xf * r
+    gw = gf * weight.float()
+    dot = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (r * (gw - xhat * dot)).to(x.dtype)
+    dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0).to(weight.dtype)
+    return dx, dw
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """``[x1, x2] -> [-x2, x1]`` over the last axis (neox)."""
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def _unrotate_half(v: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_rotate_half`: ``[v1, v2] -> [v2, -v1]``."""
+    half = v.shape[-1] // 2
+    return torch.cat([v[..., half:], -v[..., :half]], dim=-1)
+
+
+def _tables4(cos: torch.Tensor, sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return cos.float()[None, :, None, :], sin.float()[None, :, None, :]
+
+
+def rope_fwd_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Neox rope ``x * cos + rot(x) * sin`` of ``x [B, S, H, D]`` with
+    ``[S, D]`` tables, in fp32, cast once to ``x``'s dtype."""
+    c, s = _tables4(cos, sin)
+    xf = x.float()
+    return (xf * c + _rotate_half(xf) * s).to(x.dtype)
+
+
+def rope_bwd_plain(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The rope's adjoint in ``x``: ``g * cos + unrot(g * sin)`` (exact for
+    any tables), in fp32, cast once to ``g``'s dtype."""
+    c, s = _tables4(cos, sin)
+    gf = g.float()
+    return (gf * c + _unrotate_half(gf * s)).to(g.dtype)
 
 
 def fused_rms_norm_residual_plain(
     x: torch.Tensor, weight: torch.Tensor, residual: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     r = x + residual
-    return _rms_rows(r.float(), weight, epsilon, r.dtype), r
+    return _rms_rows(r, weight, epsilon)[0], r
 
 
 def fused_embed_rms_norm_plain(
     ids: torch.Tensor, table: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     emb = table[ids.long().clamp(0, table.shape[0] - 1)]
-    return emb, _rms_rows(emb.float(), weight, epsilon, emb.dtype)
+    return emb, _rms_rows(emb, weight, epsilon)[0]
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:
+def _kernel_operand(t: torch.Tensor, name: str, what: str, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous, 16-byte aligned ``dtype`` tensor on ``device``,
+    or an exception naming what the kernel does not take."""
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype} for the CUDA kernel, got {t.dtype}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned for the CUDA kernel")
+        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned for the CUDA kernel")
+    return t
 
 
 def fused_rms_norm_residual(
@@ -82,8 +176,9 @@ def fused_rms_norm_residual(
             f"fused_rms_norm_residual: shapes x {tuple(x.shape)}, residual "
             f"{tuple(residual.shape)}, weight {tuple(weight.shape)} do not match"
         )
-    for name, t in (("x", x), ("residual", residual), ("weight", weight)):
-        _require(t, name, torch.bfloat16, x.device)
+    dev = x.device
+    x, residual, weight = (_kernel_operand(t, name, "fused_rms_norm_residual", torch.bfloat16, dev)
+                           for name, t in (("x", x), ("residual", residual), ("weight", weight)))
     y = torch.empty_like(x)
     r = torch.empty_like(x)
     rows = x.numel() // h
@@ -113,8 +208,9 @@ def fused_embed_rms_norm(
     if weight.shape != (h,):
         raise ValueError(f"fused_embed_rms_norm: weight {tuple(weight.shape)} is not [{h}]")
     ids32 = ids.to(device=table.device, dtype=torch.int32).contiguous()
-    for name, t in (("table", table), ("weight", weight)):
-        _require(t, name, torch.bfloat16, table.device)
+    dev = table.device
+    table, weight = (_kernel_operand(t, name, "fused_embed_rms_norm", torch.bfloat16, dev)
+                     for name, t in (("table", table), ("weight", weight)))
     emb = torch.empty((*ids.shape, h), dtype=table.dtype, device=table.device)
     y = torch.empty_like(emb)
     rows = ids32.numel()
@@ -127,3 +223,188 @@ def fused_embed_rms_norm(
         build.check(err, "embed_rms")
         count_launch("embed_rms")
     return emb, y
+
+
+# -- kernels 7-10: RMSNorm forward/backward, rope forward/adjoint -------------
+
+def _io_dtype(what: str, x: torch.Tensor) -> int:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel takes bf16, fp16 or fp32, not {x.dtype}")
+    return _KERNEL_DTYPES[x.dtype]
+
+
+def _norm_width(what: str, x: torch.Tensor, weight: torch.Tensor) -> int:
+    h = x.shape[-1]
+    if h % 8 or weight.shape != (h,):
+        raise ValueError(f"{what}: needs the last axis a multiple of 8 and weight [{h}], "
+                         f"got x {tuple(x.shape)}, weight {tuple(weight.shape)}")
+    if h * 4 + 256 > _SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: hidden size {h} needs more shared memory than a block has")
+    return h
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rms_norm_fwd(
+    x: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm over the last axis, any leading shape (kernel 7); returns
+    ``(y, rstd)`` with ``rstd`` fp32 of shape ``x.shape[:-1]``."""
+    if x.device.type == "cpu":
+        return rms_norm_fwd_plain(x, weight, epsilon)
+    io = _io_dtype("rms_norm_fwd", x)
+    h = _norm_width("rms_norm_fwd", x, weight)
+    x = _kernel_operand(x, "x", "rms_norm_fwd", x.dtype, x.device)
+    weight = _kernel_operand(weight, "weight", "rms_norm_fwd", x.dtype, x.device)
+    y = torch.empty_like(x)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rows = x.numel() // h if h else 0
+    if rows:
+        fn = build.kernel_fn("ptt_rms_norm_fwd", [_I, _P, _P, _P, _P, _I, _I, _F, _P])
+        with torch.cuda.device(x.device):
+            err = fn(io, x.data_ptr(), weight.data_ptr(), y.data_ptr(), rstd.data_ptr(),
+                     rows, h, float(epsilon), torch.cuda.current_stream().cuda_stream)
+        build.check(err, "rms_norm_fwd")
+        count_launch("rms_norm_fwd")
+    return y, rstd
+
+
+def rms_norm_bwd(
+    x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rms_norm_fwd` given its ``rstd`` (kernel 8).
+    ``dw`` is summed over rows in fp32 from per-block partials in a fixed
+    order (no atomics: two runs give the same bits). The row pass and the
+    partials' sum are two launches and count as one call."""
+    if x.device.type == "cpu":
+        return rms_norm_bwd_plain(x, weight, rstd, g)
+    io = _io_dtype("rms_norm_bwd", x)
+    h = _norm_width("rms_norm_bwd", x, weight)
+    if g.shape != x.shape or rstd.shape != x.shape[:-1]:
+        raise ValueError(f"rms_norm_bwd: g {tuple(g.shape)} and rstd {tuple(rstd.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    dev = x.device
+    x = _kernel_operand(x, "x", "rms_norm_bwd", x.dtype, dev)
+    weight = _kernel_operand(weight, "weight", "rms_norm_bwd", x.dtype, dev)
+    g = _kernel_operand(g, "g", "rms_norm_bwd", x.dtype, dev)
+    rstd = _kernel_operand(rstd, "rstd", "rms_norm_bwd", torch.float32, dev)
+    dx = torch.empty_like(x)
+    rows = x.numel() // h if h else 0
+    if not rows:
+        return dx, torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    nblk = min(rows, _BWD_BLOCKS_PER_SM * _sm_count(index))
+    per_block = -(-rows // nblk)
+    nblk = -(-rows // per_block)
+    partials = torch.empty((nblk, h), dtype=torch.float32, device=dev)
+    fn = build.kernel_fn("ptt_rms_norm_bwd", [_I] + [_P] * 7 + [_I] * 4 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(io, x.data_ptr(), weight.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), partials.data_ptr(), rows, h, per_block, nblk,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rms_norm_bwd")
+    count_launch("rms_norm_bwd")
+    return dx, dw
+
+
+def _rope_launch(what: str, adjoint: bool, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    io = _io_dtype(what, x)
+    if x.dim() != 4:
+        raise ValueError(f"{what}: x must be [B, S, H, D], got {tuple(x.shape)}")
+    b, s, h, d = x.shape
+    if d % 16 or cos.shape != (s, d) or sin.shape != (s, d):
+        raise ValueError(f"{what}: needs D % 16 == 0 and cos/sin [{s}, {d}], got x {tuple(x.shape)}, "
+                         f"cos {tuple(cos.shape)}, sin {tuple(sin.shape)}")
+    x = _kernel_operand(x, "x", what, x.dtype, x.device)
+    cos = _kernel_operand(cos.float(), "cos", what, torch.float32, x.device)
+    sin = _kernel_operand(sin.float(), "sin", what, torch.float32, x.device)
+    y = torch.empty_like(x)
+    if x.numel():
+        fn = build.kernel_fn("ptt_rope", [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+        with torch.cuda.device(x.device):
+            err = fn(io, int(adjoint), x.data_ptr(), cos.data_ptr(), sin.data_ptr(), y.data_ptr(),
+                     b, s, h, d, torch.cuda.current_stream().cuda_stream)
+        build.check(err, what)
+        count_launch(what)
+    return y
+
+
+def rope_fwd(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Neox rope of ``x [B, S, H, D]`` with ``[S, D]`` tables (kernel 9)."""
+    if x.device.type == "cpu":
+        return rope_fwd_plain(x, cos, sin)
+    return _rope_launch("rope_fwd", False, x, cos, sin)
+
+
+def rope_bwd(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The rope's adjoint in ``x``, ``g * cos + unrot(g * sin)`` (kernel 10)."""
+    if g.device.type == "cpu":
+        return rope_bwd_plain(g, cos, sin)
+    return _rope_launch("rope_bwd", True, g, cos, sin)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm whose backward is kernel 8 (the Pallas package's
+    ``custom_vjp`` of ``_make_rms``). The forward saves x, w and rstd and
+    nothing else, so a recompute rerun and the backward see the same
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):  # noqa: D401 - autograd signature
+        y, rstd = rms_norm_fwd(x, weight, epsilon)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, rstd, g)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
+
+
+class RopeFunction(torch.autograd.Function):
+    """Neox rope whose ``x`` gradient is kernel 10. The table cotangents
+    (tables are buffers in every real model) are computed only when a table
+    requires a gradient, as the exact fp32 sums over batch and heads of
+    ``g * x`` (cos) and ``g * rot(x)`` (sin) that the JAX package's
+    ``custom_vjp`` computes; ``x`` is saved only then."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin):  # noqa: D401 - autograd signature
+        y = rope_fwd(x, cos, sin)
+        tables_grad = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        ctx.save_for_backward(x if tables_grad else None, cos, sin)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, cos, sin = ctx.saved_tensors
+        dx = rope_bwd(g, cos, sin) if ctx.needs_input_grad[0] else None
+        dcos = dsin = None
+        if x is not None:
+            gf, xf = g.float(), x.float()
+            if ctx.needs_input_grad[1]:
+                dcos = (gf * xf).sum(dim=(0, 2)).to(cos.dtype)
+            if ctx.needs_input_grad[2]:
+                dsin = (gf * _rotate_half(xf)).sum(dim=(0, 2)).to(sin.dtype)
+        return dx, dcos, dsin
+
+
+def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6) -> torch.Tensor:
+    """Differentiable RMSNorm through kernels 7 and 8; the counterpart of
+    ``fused_rms_norm_pallas``."""
+    return RMSNormFunction.apply(x, weight, float(epsilon))
+
+
+def fused_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Differentiable neox rope of ``x [B, S, H, D]`` with ``[S, D]`` tables
+    through kernels 9 and 10; the counterpart of ``fused_rope_pallas``."""
+    return RopeFunction.apply(x, cos, sin)

@@ -20,6 +20,10 @@ KERNELS: Dict[str, str] = {
     "paged_chunk_fused": "paddle_tpu/kernels/paged_attention.py:656",
     "embed_rms": "paddle_tpu/kernels/fused.py:618",
     "rms_residual": "paddle_tpu/kernels/fused.py:338",
+    "rms_norm_fwd": "paddle_tpu/kernels/fused.py:74",
+    "rms_norm_bwd": "paddle_tpu/kernels/fused.py:83",
+    "rope_fwd": "paddle_tpu/kernels/fused.py:204",
+    "rope_bwd": "paddle_tpu/kernels/fused.py:215",
     "flash_fwd": "paddle_tpu/kernels/flash_attention.py:87",
     "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",

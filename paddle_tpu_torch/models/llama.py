@@ -2,9 +2,10 @@
 and the continuous-batching engine's fused decode-layer step.
 
 - Training: ``LlamaForCausalLM(input_ids, labels=..., startend_row_indices=...)``
-  runs the layer modules — RMSNorm and rope as plain PyTorch (the JAX
-  package's XLA compositions, ``FLAGS_use_pallas_fused`` off), attention
-  through the flash-attention kernels with the FlashMask bounds, per-layer
+  runs the layer modules — RMSNorm and rope through their kernels (7-10,
+  ``FLAGS_use_pallas_fused`` on; widths outside the kernels' reach take the
+  unfused compositions, as in JAX), attention through the flash-attention
+  kernels with the FlashMask bounds, per-layer
   recompute when ``config.recompute`` and the model is in train mode — and
   returns ``(loss, logits)`` (``FLAGS_use_fused_loss`` off).
 - Serving: ``LlamaForCausalLM(input_ids, past_key_values=...)`` runs one

@@ -190,8 +190,13 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     kfused.fused_rms_norm_residual(x, w, x)
     kfused.fused_embed_rms_norm(torch.tensor([[1, 2]]), x, w)
     kpaged.paged_flash_chunk_fused(*map(_t, _paged_inputs(0, 4, 4)))
+    y, rstd = kfused.rms_norm_fwd(x, w)
+    kfused.rms_norm_bwd(x, w, rstd, y)
+    xr = x.reshape(1, 3, 1, 16)
+    kfused.rope_bwd(kfused.rope_fwd(xr, x, x), x, x)
     assert launch_counts() == {"paged_chunk_fused": 0, "embed_rms": 0, "rms_residual": 0,
-                               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                               "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0}
 
 
 # -- nn functionals ----------------------------------------------------------
