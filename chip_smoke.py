@@ -20,11 +20,16 @@ name and power limit):
    document mask, and at GQA 32/8 with C=2 and C=4 FlashMask bounds and a
    ragged S; the RMSNorm forward and backward and the rope forward and
    adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
-   ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes; time
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call (device time per call from CUDA events with the L2
-   flushed before each call; back-to-back wall time per call, launch
-   overhead included, as ``call_ms``);
+   ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes;
+   kernels B and C in fp16 and fp32; the KV append under
+   ``torch.cuda.set_sync_debug_mode("error")``; the fused linear cross
+   entropy forward, D recompute, dX and dW (kernels 17-19) at the train
+   shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a ragged vocab, in the
+   vocab-major layout and in fp16, with the loss head's peak memory fused
+   and unfused; time kernel, plain version and, where one PyTorch call
+   computes the same function, that call (device time per call from CUDA
+   events with the L2 flushed before each call; back-to-back wall time per
+   call, launch overhead included, as ``call_ms``);
 4. serve — Llama-2-7B at full width (32 layers, seeded random bf16 weights)
    through ``ContinuousBatchingEngine`` (8 slots, block 16, chunk 64,
    max_model_len 2048) on 16 seeded requests (prompts of 64-512 tokens, 32
@@ -37,15 +42,18 @@ name and power limit):
    same model's forward through the plain versions, on the card, each
    measured against the plain versions run in fp32;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
-   ``AdamW(multi_precision=True)``) on 2 x 4096 document-packed tokens
-   with the FlashMask document mask, 1 warm-up and 4 timed steps with the
-   launch counters reset before each: every parameter gets a finite
-   non-zero gradient, each step launches flash_fwd 16x, flash_bwd_dq /
-   flash_bwd_dkv 8x, rms_norm_fwd 33x, rms_norm_bwd 17x, rope_fwd 32x and
-   rope_bwd 16x and nothing else, the loss falls; a profile of one step;
-   then a 2-layer S=1024 copy whose loss and gradients through the kernels
-   must be no further from an fp32 run of the plain versions than the bf16
-   plain path.
+   ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
+   document-packed tokens with the FlashMask document mask, 1 warm-up and
+   4 timed steps with the launch counters reset before each: every
+   parameter gets a finite non-zero gradient, each step launches flash_fwd
+   16x, flash_bwd_dq / flash_bwd_dkv 8x, rms_norm_fwd 33x, rms_norm_bwd
+   17x, rope_fwd 32x, rope_bwd 16x, flxent_fwd 2x (partials and merge)
+   and flxent_dchunk / flxent_dx / flxent_dw 8x (one per 4096-column vocab
+   chunk) and nothing else, the loss falls; a profile of one step; the step
+   with ``FLAGS_use_fused_loss`` off and on, back to back; then a 2-layer
+   S=1024 copy whose loss and gradients through the kernels must be no
+   further from an fp32 run of the plain versions than the bf16 plain
+   path.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -294,9 +302,82 @@ def check_kernels(dev, card: dict) -> dict:
     )
     emit({"phase": "kernel_check", "kernel": "rms_residual", "tolerance": "1 bf16 ulp; r bitwise",
           **records["rms_residual"], "card": card})
+    check_b_c_dtypes(dev, gen, card)
+    check_append_sync(dev, gen, card)
     check_flash(dev, gen, card, records)
     check_norm_rope(dev, gen, card, records)
+    check_fused_loss(dev, gen, card, records)
     return records
+
+
+def check_b_c_dtypes(dev, gen, card: dict) -> None:
+    """Kernels B and C in fp16 and fp32 (ragged rows, H 384) against their
+    plain versions: y within one ulp of the type (2^-10 of the value in
+    fp16, 1e-5 in fp32: the same fp32 arithmetic, summed in another order),
+    emb and r bitwise."""
+    import torch
+    from paddle_tpu_torch.kernels.fused import (
+        fused_embed_rms_norm, fused_embed_rms_norm_plain,
+        fused_rms_norm_residual, fused_rms_norm_residual_plain,
+    )
+
+    for dtype, rel in ((torch.float16, 2.0 ** -10), (torch.float32, 1e-5)):
+        x = torch.randn((3, 77, 384), generator=gen, device=dev).to(dtype)
+        res = torch.randn((3, 77, 384), generator=gen, device=dev).to(dtype)
+        w = (1 + 0.1 * torch.randn((384,), generator=gen, device=dev)).to(dtype)
+        table = torch.randn((1000, 384), generator=gen, device=dev).to(dtype)
+        ids = torch.randint(-3, 1003, (5, 41), generator=gen, device=dev, dtype=torch.int32)
+        (y, r), (y_p, r_p) = fused_rms_norm_residual(x, w, res, 1e-5), fused_rms_norm_residual_plain(x, w, res, 1e-5)
+        (emb, ye), (emb_p, ye_p) = fused_embed_rms_norm(ids, table, w, 1e-5), fused_embed_rms_norm_plain(ids, table, w, 1e-5)
+        torch.cuda.synchronize()
+        err_c, ok_c = within(y, y_p, atol=0.0, rel=rel)
+        err_b, ok_b = within(ye, ye_p, atol=0.0, rel=rel)
+        exact = bool(torch.equal(r, r_p)) and bool(torch.equal(emb, emb_p))
+        line = {"phase": "kernel_check", "kernel": "embed_rms/rms_residual", "dtype": str(dtype).split(".")[-1],
+                "shape": [3, 77, 384], "max_abs_err": {"rms_residual": err_c, "embed_rms": err_b},
+                "tolerance": f"y within {rel} relative; emb and r bitwise", "card": card}
+        emit(line)
+        if not (ok_c and ok_b and exact):
+            fail(f"kernels B/C disagree with their plain versions in {dtype}: {line['max_abs_err']}, bitwise {exact}")
+
+
+def check_append_sync(dev, gen, card: dict) -> None:
+    """The serving step's KV append at the 7B serving shapes (8 slots x 64
+    rows, 32 KV heads of 128, a masked slot and rows past q_lens) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host synchronisation
+    raises. The pools must equal a boolean-mask reference bit for bit."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import block_cache_append_chunk
+
+    args, _ = paged_batch(dev, gen, 32, 32)
+    kc, vc, tables, lens, q_lens = (args[n] for n in ("key_cache", "value_cache", "block_tables", "seq_lens", "q_lens"))
+    mask = torch.tensor([True, True, True, True, True, False, False, True], device=dev)
+    k, v = (torch.randn(args["q"].shape, generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    # the reference: select the valid rows with a boolean mask (a host sync)
+    bs, c = kc.shape[2], k.shape[1]
+    j = torch.arange(c, device=dev)[None, :]
+    pos = lens.long()[:, None] + j
+    valid = (j < q_lens.long()[:, None]) & mask[:, None]
+    phys = torch.gather(tables.long(), 1, (pos // bs).clamp(max=tables.shape[1] - 1))[valid]
+    want_k, want_v = kc.clone(), vc.clone()
+    want_k[phys, :, (pos % bs)[valid]] = k[valid]
+    want_v[phys, :, (pos % bs)[valid]] = v[valid]
+    got_k, got_v = kc.clone(), vc.clone()
+    block_cache_append_chunk(got_k.clone(), got_v.clone(), k, v, tables, lens, q_lens, slot_mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        block_cache_append_chunk(got_k, got_v, k, v, tables, lens, q_lens, slot_mask=mask)
+    except RuntimeError as exc:
+        fail(f"the KV append synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+    emit({"phase": "append_sync", "shape": list(k.shape), "sync_debug_mode": "error", "host_syncs": 0,
+          "bitwise_equal_to_mask_reference": same, "card": card})
+    if not same:
+        fail("the sync-free KV append differs from the boolean-mask reference")
 
 
 # -- kernels 14-16: flash attention forward, dq, dk/dv ------------------------------
@@ -643,6 +724,255 @@ def check_norm_rope(dev, gen, card: dict, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- kernels 17-19: fused linear cross entropy forward, dX, dW ------------------
+
+FLXENT_SOURCES = {
+    "flxent_fwd": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+    "flxent_dchunk": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+    "flxent_dx": "paddle_tpu_torch/kernels/csrc/flxent_dx.cu",
+    "flxent_dw": "paddle_tpu_torch/kernels/csrc/flxent_dw.cu",
+}
+# lse, tl: fp32 sums of H products in another order; at |logit| ~ 1 and H
+# 4096 a reordering moves them by ~sqrt(H) * 2^-24 ~ 4e-6, held at 1e-4 of
+# max(1, |v|). D: both versions round fp32 values that agree to a few fp32
+# ulps to the I/O type, so an element may land on the other neighbour: one
+# spacing of the type at that value, at most ulp * |D| (ulp 2^-7 in bf16,
+# 2^-10 in fp16) and, below the smallest normal, the subnormal spacing
+# sub = tiny * ulp (2^-24 in fp16, where D ~ gcoef / V is subnormal; ~1e-40
+# in bf16). dX, dW: a sum of D terms, each of which may be one spacing
+# apart, so per element ulp * (|D| |W|^T) + sub * sum_v |W| for dX and
+# ulp * (|x|^T |D|) + sub * sum_n |x| for dW (the plain version run on
+# absolute values), plus the rounding of each side's fp32 sum to the I/O
+# type, ulp * max(|got|, |ref|) + sub; and over the whole tensor a
+# relative L2 error of at most half an ulp.
+FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)", "D": "per element ulp * max(|got|, |ref|) + sub",
+              "dx, dw": "per element ulp * (|D| |W|^T resp. |x|^T |D|) + sub * (sum_v |W| resp. sum_n |x|) "
+                        "+ ulp * max(|got|, |ref|) + sub; rel L2 <= ulp/2 "
+                        "(ulp 2^-7 bf16, 2^-10 fp16; sub = tiny * ulp, the subnormal spacing)"}
+
+
+def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool):
+    """x ~ N(0, 1) (a normed hidden), W ~ N(0, 0.02) (the model's init) in
+    the given layout, labels in [0, V) with every tenth row ignored (-100)
+    and two rows past V, and the gcoef of a mean over the valid rows."""
+    import torch
+
+    x = torch.randn((n, h), generator=gen, device=dev).to(dtype)
+    w = (0.02 * torch.randn((v, h) if vocab_major else (h, v), generator=gen, device=dev)).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+    lab[::10] = -100
+    lab[1], lab[n // 2 + 1] = v, v + 12345
+    valid = lab != -100
+    gcoef = torch.where(valid, 1.0 / valid.sum().float(), 0.0).contiguous()
+    return x, w, lab, gcoef
+
+
+def flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major: bool, ulp: float, sub: float):
+    """The most that D's rounding can move dX and dW, in fp32 (the second
+    in ``W``'s layout): the backward's products run on absolute values,
+    with ``|D|`` from the plain version, times ``ulp``, plus the subnormal
+    spacing ``sub`` times the sums of ``|W|`` over the vocab and of ``|x|``
+    over the rows."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    n, h = x.shape
+    v = w.shape[0] if vocab_major else w.shape[1]
+    xa = x.float().abs()
+    sx = torch.zeros((n, h), dtype=torch.float32, device=x.device)
+    sw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+    for c0 in range(0, v, kl.CHUNK):
+        c1 = min(c0 + kl.CHUNK, v)
+        da = kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, c0, c1, vocab_major).float().abs()
+        wa = (w[c0:c1] if vocab_major else w[:, c0:c1].t()).float().abs()  # [c1 - c0, H]
+        sx += da @ wa
+        swc = da.t() @ xa  # [c1 - c0, H]
+        if vocab_major:
+            sw[c0:c1] = swc
+        else:
+            sw[:, c0:c1] = swc.t()
+        del da, wa, swc
+    w_sum = w.float().abs().sum(dim=0 if vocab_major else 1)  # [H]: sum_v |W[h, v]|
+    x_sum = xa.sum(dim=0)  # [H]: sum_n |x[n, h]|
+    sx = ulp * sx + sub * w_sum[None, :]
+    sw = ulp * sw + sub * (x_sum[None, :] if vocab_major else x_sum[:, None])
+    return sx, sw
+
+
+def gate_reading(got, ref, limit) -> dict:
+    """An element-wise gate's reading: whether every element is within its
+    limit, the worst error over its limit, and the medians of |ref| and of
+    the limit (a limit far above the values would let a wrong kernel pass)."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    ratio = float(((g - r).abs() / limit.clamp(min=1e-30)).max())
+    # medians of an evenly strided sample of at most ~2^20 elements (integer strides: an fp32
+    # linspace rounds indices past 2^24)
+    idx = torch.arange(0, r.numel(), max(1, r.numel() >> 20), device=r.device)
+    return {"ok": ratio <= 1.0, "worst_err_over_limit": ratio,
+            "median_abs_ref": float(r.reshape(-1)[idx].abs().median()),
+            "median_limit": float(limit.reshape(-1)[idx].median())}
+
+
+def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, timed: bool = False) -> dict:
+    """Kernels 17-19 and the D recompute (first and last vocab chunk)
+    against their plain versions on the same inputs; with ``timed`` their
+    times, the plain versions', the unfused composition's
+    (cuBLAS ``x @ W`` + ``F.cross_entropy``: two calls, forward and
+    backward) and the loss head's peak memory fused and unfused."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
+    sub = torch.finfo(dtype).tiny * ulp  # the spacing of the type's subnormals
+    x, w, lab, gcoef = flxent_inputs(dev, gen, n, h, v, dtype, vocab_major)
+    lse, tl = kl.flxent_fwd(x, w, lab, vocab_major)
+    dx, dw = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
+    dx_only, _ = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dw=False)
+    _, dw_only = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dx=False)
+    lse_p, tl_p = kl.flxent_fwd_plain(x, w, lab, vocab_major)
+    # the backward versions from the same lse: the comparison is of the backward alone
+    dx_p, dw_p = kl.flxent_bwd_plain(x, w, lab, lse, gcoef, vocab_major)
+    torch.cuda.synchronize()
+    err, checks, readings = {}, {}, {}
+    for name, got, want in (("lse", lse, lse_p), ("tl", tl, tl_p)):
+        d = (got - want).abs()
+        err[name] = float(d.max())
+        checks[name] = bool((d <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    last = (v - 1) // kl.CHUNK * kl.CHUNK
+    err["d"] = 0.0
+    for c0 in sorted({0, last}):
+        c1 = min(c0 + kl.CHUNK, v)
+        got = kl.flxent_dchunk(x, w, lab, lse, gcoef, c0, c1, vocab_major).float()
+        want = kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, c0, c1, vocab_major).float()
+        readings[f"d[:, {c0}:{c1}]"] = r = gate_reading(got, want, ulp * torch.maximum(got.abs(), want.abs()) + sub)
+        checks[f"d[:, {c0}:{c1}]"] = r.pop("ok")
+        err["d"] = max(err["d"], float((got - want).abs().max()))
+        del got, want
+    sx, sw = flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major, ulp, sub)
+    for name, got, want, scale in (("dx", dx, dx_p, sx), ("dw", dw, dw_p, sw)):
+        g, r = got.float(), want.float()
+        err[name] = float((g - r).abs().max())
+        err[name + "_rel_l2"] = rel_l2(g, r)
+        readings[name] = gate_reading(g, r, scale + ulp * torch.maximum(g.abs(), r.abs()) + sub)
+        checks[name] = readings[name].pop("ok") and err[name + "_rel_l2"] <= ulp / 2
+        del g, r
+    checks["one product alone is the same bits"] = bool(torch.equal(dx, dx_only)) and bool(torch.equal(dw, dw_only))
+    line = {"phase": "kernel_check", "kernel": "flxent_fwd/flxent_dchunk/flxent_dx/flxent_dw", "case": label,
+            "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major}, "dtype": str(dtype).split(".")[-1],
+            "max_err": err, "checks": checks, "gate_readings": readings, "tolerance": FLXENT_TOL}
+    del dx_p, dw_p, dx_only, dw_only, sx, sw
+    if not all(checks.values()):
+        emit({**line, "card": card})
+        fail(f"kernels 17-19 disagree with their plain versions ({label}): {checks} {err} {readings}")
+    res = {"max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
+                           "flxent_dx": err["dx"], "flxent_dw": err["dw"]}}
+    if timed:
+        res.update(flxent_times(x, w, lab, lse, gcoef, vocab_major))
+        line["times"] = res["times"]
+        line["peak_memory"] = res["peak_memory"]
+    emit({**line, "card": card})
+    torch.cuda.empty_cache()
+    return res
+
+
+def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    n, h = x.shape
+    v = w.shape[0] if vocab_major else w.shape[1]
+    esz = x.element_size()
+    xw = (n * h + v * h) * esz  # x and W, each read once
+    rows = 3 * n * 4  # labels, and lse / tl or lse / gcoef
+    flop = 2.0 * n * h * v  # one product over the vocab
+    # yardsticks only (the port never calls them): the unfused loss head,
+    # cuBLAS x @ W then F.cross_entropy on fp32 logits, and its backward
+    wt = w.t() if vocab_major else w
+    lab64 = lab.long().where(lab < v, torch.full_like(lab.long(), -100))
+    xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
+    lib_loss = cross_entropy(xr @ wr, lab64, ignore_index=-100)
+    vc = min(kl.CHUNK, v)  # the D recompute: one launch, the first vocab chunk
+    runs = {
+        "flxent_fwd": (lambda: kl.flxent_fwd(x, w, lab, vocab_major),
+                       lambda: kl.flxent_fwd_plain(x, w, lab, vocab_major),
+                       lambda: cross_entropy(x @ wt, lab64, ignore_index=-100),
+                       bound(xw + rows, flop)),
+        "flxent_dchunk": (lambda: kl.flxent_dchunk(x, w, lab, lse, gcoef, 0, vc, vocab_major),
+                          lambda: kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, 0, vc, vocab_major),
+                          None,
+                          bound((n * h + vc * h + n * vc) * esz + rows, flop * vc / v)),
+        "flxent_dx": (lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dw=False),
+                      lambda: kl.flxent_bwd_plain(x, w, lab, lse, gcoef, vocab_major, need_dw=False),
+                      lambda: torch.autograd.grad(lib_loss, (xr, wr), retain_graph=True),
+                      bound(xw + rows + n * h * esz, 2 * flop)),
+        "flxent_dw": (lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dx=False),
+                      lambda: kl.flxent_bwd_plain(x, w, lab, lse, gcoef, vocab_major, need_dx=False),
+                      lambda: torch.autograd.grad(lib_loss, (xr, wr), retain_graph=True),
+                      bound(xw + rows + v * h * esz, 2 * flop)),
+    }
+    times = {}
+    for name, (run, run_plain, run_lib, bnd) in runs.items():
+        times[name] = dict(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
+                           plain_ms=device_ms(run_plain, iters=2, warmup=1),
+                           library_ms=None if run_lib is None else device_ms(run_lib, iters=5), **bnd)
+        torch.cuda.empty_cache()
+    times["bwd_shared_d"] = dict(ms=device_ms(lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major), iters=10),
+                                 **bound(xw + rows + (n + v) * h * esz, 3 * flop))
+    del lib_loss, xr, wr
+    torch.cuda.empty_cache()
+
+    def head_peak(fused: bool) -> float:
+        """Peak device memory of the loss head alone, forward and backward
+        with x and W gradients, above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        if fused:
+            loss = kl.linear_cross_entropy(xr, wr, lab, vocab_major=vocab_major)
+        else:
+            loss = cross_entropy(xr @ (wr.t() if vocab_major else wr), lab64, ignore_index=-100)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del loss, xr, wr
+        return peak
+
+    peak = {"fused_gib": head_peak(True), "unfused_gib": head_peak(False)}
+    return {"times": times, "peak_memory": peak}
+
+
+def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 17-19 and the D recompute at the train shape (x ``[8192,
+    4096]``, W ``[4096, 32000]`` bf16; timed), at a ragged vocab and row
+    count (V 32003, whose
+    ``[H, V]`` rows are not 16-byte aligned: the element-wise staging
+    path), in the vocab-major layout, and in fp16."""
+    import torch
+
+    bf = torch.bfloat16
+    train = flxent_case(dev, gen, 8192, 4096, 32000, bf, False, "train shape", card, timed=True)
+    flxent_case(dev, gen, 1000, 1024, 32003, bf, False, "ragged rows and vocab (V % 8 != 0)", card)
+    flxent_case(dev, gen, 2048, 1024, 5000, bf, True, "vocab-major W [V, H]", card)
+    flxent_case(dev, gen, 520, 512, 3001, torch.float16, False, "fp16, ragged", card)
+    for name, src in FLXENT_SOURCES.items():
+        t = train["times"][name]
+        records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
+    records["flxent_dx"]["bwd_shared_d"] = train["times"]["bwd_shared_d"]
+    emit({"phase": "flxent_times", "train_shape": {"x": [8192, 4096], "w": [4096, 32000]},
+          "library": "two calls: cuBLAS x @ W + F.cross_entropy on fp32 logits; its backward (dlogits, dX, dW) "
+                     "stands beside both 18 and 19; none for the D recompute",
+          "note": "flxent_dchunk's ms is one launch (the first 4096 columns); flxent_dx's and flxent_dw's are "
+                  "the whole backward with one product, their D recomputes included",
+          "records": {n: records[n] for n in FLXENT_SOURCES}, "bwd_shared_d": train["times"]["bwd_shared_d"],
+          "loss_head_peak_memory": train["peak_memory"], "card": card})
+    torch.cuda.empty_cache()
+
+
 # -- serving -------------------------------------------------------------------
 
 def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
@@ -705,12 +1035,16 @@ def check_logits(model, dev, card: dict) -> None:
     with torch.inference_mode():
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
         q0 = torch.tensor([64, 40, 0, 64], dtype=torch.int32, device=dev)
-        model(ids, past_key_values=[(kc, vc, tables, torch.zeros_like(q0), active, q0) for kc, vc in caches])
+        lens = torch.zeros_like(q0)
+        model(ids, past_key_values=[(kc, vc, tables, lens, active, q0) for kc, vc in caches], use_cache=True,
+              cache_position=lens)
         plain_pools = [(kc.clone(), vc.clone()) for kc, vc in caches]
         f32_pools = [(kc.float(), vc.float()) for kc, vc in caches]
         q1 = torch.tensor([1, 24, 0, 64], dtype=torch.int32, device=dev)
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
-        got = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1) for kc, vc in caches]).float()
+        got, _ = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1) for kc, vc in caches], use_cache=True,
+                       cache_position=q0)
+        got = got.float()
         plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, torch.bfloat16).float()
         ref = plain_logits(model, ids, f32_pools, tables, q0, active, q1, torch.float32)
     rows = torch.arange(64, device=dev)[None, :] < (q1 * active)[:, None]
@@ -853,14 +1187,16 @@ def serve(dev, card: dict):
 
 # -- training ------------------------------------------------------------------
 
-TRAIN_KERNELS = (*FLASH_SOURCES, *NORM_ROPE_SOURCES)
+TRAIN_KERNELS = (*FLASH_SOURCES, *NORM_ROPE_SOURCES, *FLXENT_SOURCES)
 TRAIN_LAYERS = 8  # Llama-2-7B cut from 32 layers: 16 B/parameter of weights, grads, masters, moments
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("flash_fwd_kernel", "flash fwd (kernel 14)"), ("flash_bwd_dq_kernel", "flash dq (kernel 15)"),
     ("flash_bwd_dkv_kernel", "flash dk/dv (kernel 16)"), ("rms_fwd_kernel", "rmsnorm fwd (kernel 7)"),
     ("rms_bwd", "rmsnorm bwd (kernel 8)"), ("rope_fwd_kernel", "rope fwd (kernel 9)"),
-    ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("gemm", "matmul"), ("cutlass", "matmul"),
+    ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("flxent_logits", "fused loss logits / D (kernels 17-19)"),
+    ("flxent_merge", "fused loss logits / D (kernels 17-19)"), ("flxent_gemm", "fused loss dX / dW (kernels 18/19)"),
+    ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
     ("Memcpy", "memcpy"), ("Memset", "memcpy"),
 )
@@ -889,14 +1225,16 @@ def train_batch(dev, vocab: int, b: int, s: int, seed: int):
 def plain_train_loss(model, ids, labels, bounds, dtype):
     """The train step's loss written out with the plain versions of the
     attention, RMSNorm and rope kernels (differentiated by autograd; the
-    norm and rope in the kernels' rounding order) on ``dtype`` copies of the
+    norm and rope in the kernels' rounding order) and of the fused loss head
+    (its ``Function`` on the plain versions) on ``dtype`` copies of the
     weights; returns the loss and each weight's gradient. In bf16 it is the
     plain path the kernel path is held to; in fp32 the reference both are
     measured against."""
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
     from paddle_tpu_torch.kernels.fused import rms_norm_fwd_plain, rope_fwd_plain
-    from paddle_tpu_torch.nn.functional import cross_entropy, swiglu
+    from paddle_tpu_torch.kernels.fused_loss import linear_cross_entropy
+    from paddle_tpu_torch.nn.functional import swiglu
 
     def rms_norm(x, weight, epsilon):
         return rms_norm_fwd_plain(x, weight, epsilon)[0]
@@ -921,7 +1259,7 @@ def plain_train_loss(model, ids, labels, bounds, dtype):
         x = rms_norm(h, w[pre + "post_attention_layernorm.weight"], eps)
         h = h + swiglu(x @ w[pre + "mlp.gate_proj.weight"], x @ w[pre + "mlp.up_proj.weight"]) @ w[pre + "mlp.down_proj.weight"]
     h = rms_norm(h, w["llama.norm.weight"], eps)
-    loss = cross_entropy(h @ w["lm_head.weight"], labels)
+    loss = linear_cross_entropy(h, w["lm_head.weight"], labels, use_kernels=False)
     loss.backward()
     return loss.detach(), {n: t.grad for n, t in w.items()}
 
@@ -993,6 +1331,47 @@ def profile_train_step(step, card: dict) -> None:
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
 
 
+def compare_loss_heads(step, dev, want: dict, tokens: int, n_mfu: int, card: dict) -> None:
+    """The same train step with ``FLAGS_use_fused_loss`` off (the JAX
+    package's other path: ``[B, S, V]`` logits, then ``cross_entropy``)
+    and on again, back to back on the same model: 1 warm-up and 4 timed
+    steps each, peak memory from a reset before the warm-up. The unfused
+    steps launch no loss kernel."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+
+    out = {}
+    for fused in (False, True):
+        paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": fused})
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            step()
+            ms = []
+            for _ in range(4):
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                counts = {k: v for k, v in launch_counts().items() if v}
+                expect = {k: v for k, v in want.items() if fused or not k.startswith("flxent")}
+                if counts != expect:
+                    fail(f"train step with use_fused_loss={fused} launched {counts}, expected {expect}")
+        finally:
+            paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": True})
+        p50 = float(np.median(ms))
+        out["fused" if fused else "unfused"] = {
+            "step_ms": ms, "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+            "mfu": 6 * n_mfu * tokens / (p50 / 1e3) / BF16_FLOP_PER_S,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    emit({"phase": "train_loss_heads", "order": "unfused (use_fused_loss=False), then fused, after the main run",
+          **out, "card": card})
+
+
 def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024) -> dict:
     """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
     ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
@@ -1001,10 +1380,13 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     flash_fwd 16x (twice per layer: forward and recompute), flash_bwd_dq and
     flash_bwd_dkv 8x, rms_norm_fwd 33x (two norms per layer, twice, and the
     final norm), rms_norm_bwd 17x, rope_fwd 32x (q and k per layer, twice)
-    and rope_bwd 16x, and nothing else; the last loss is below the first;
+    and rope_bwd 16x, flxent_fwd 2x (partials and merge) and flxent_dchunk,
+    flxent_dx and flxent_dw once per 4096-column vocab chunk (8x), and
+    nothing else; the last loss is below the first;
     then the 2-layer accuracy copy. Returns the launch counts of the 5 steps."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels.fused_loss import CHUNK
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -1035,9 +1417,12 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         return float(loss.detach())
 
     layers = cfg.num_hidden_layers
+    chunks = -(-cfg.vocab_size // CHUNK)
     want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            "rope_fwd": 4 * layers, "rope_bwd": 2 * layers}
+            "rope_fwd": 4 * layers, "rope_bwd": 2 * layers,
+            # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
+            "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
     losses, step_ms, counts, total = [], [], None, {}
     for i in range(5):
         reset_launch_counts()
@@ -1069,6 +1454,7 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"the loss did not decrease over the steps: {losses}")
     profile_train_step(step, card)
+    compare_loss_heads(step, dev, want, tokens, n_mfu, card)
     del model, opt
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,14 +14,15 @@ Llama through the continuous-batching engine::
     eng.add_request(prompt_ids, max_new_tokens=32)
     results = eng.run()
 
-and trains it, with FlashMask document masks, recompute and AdamW with
-fp32 master weights::
+and trains it at every JAX default — FlashMask document masks, recompute,
+AdamW with fp32 master weights, and the fused loss head (the logits are
+never materialised, so the second return is None)::
 
     from paddle_tpu_torch.optimizer import AdamW
 
     model = LlamaForCausalLM(LlamaConfig(recompute=True), seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
-    loss, logits = model(ids, labels=labels, startend_row_indices=bounds)
+    loss, _ = model(ids, labels=labels, startend_row_indices=bounds)
     loss.backward()
     opt.step()
     opt.clear_grad()

@@ -2,9 +2,10 @@
 
 The JAX package keeps ~70 flags in ``paddle_tpu/flags.py``; importing it
 would import JAX, so the port carries only what its main path consults,
-under the same names and the same ``FLAGS_`` spelling at the public
-``get_flags``/``set_flags`` surface. For now each flag has the one value the
-port implements: setting another is refused, not silently ignored.
+under the same names, with the JAX defaults, and the same ``FLAGS_``
+spelling at the public ``get_flags``/``set_flags`` surface. A flag takes
+only the values the port implements: setting another is refused, not
+silently ignored.
 """
 
 from __future__ import annotations
@@ -13,24 +14,27 @@ from typing import Any, Dict, Iterable
 
 __all__ = ["flag", "get_flags", "set_flags"]
 
-# name -> (the one supported value, why no other is)
+# name -> (the values the port implements, the first being the default;
+#          why no other is)
 _FLAGS: Dict[str, tuple] = {
-    "use_fused_decode_layer": (True, "only the fused decode layer loop is ported"),
+    "use_fused_decode_layer": ((True,), "only the fused decode layer loop is ported"),
     # the JAX default is True
-    "enable_prefix_cache": (False, "the prefix cache is not ported yet"),
+    "enable_prefix_cache": ((False,), "the prefix cache is not ported yet"),
     # 'bf16' means the unquantized pool in the model's dtype (the JAX meaning)
-    "kv_cache_dtype": ("bf16", "the int8 KV pool is not ported yet"),
+    "kv_cache_dtype": (("bf16",), "the int8 KV pool is not ported yet"),
     # attention runs the flash kernels (14-16); the JAX XLA fallback is a
     # test-only reference here, never a silent path on the card
-    "use_pallas_attention": (True, "attention always runs the flash-attention kernels"),
+    "use_pallas_attention": ((True,), "attention always runs the flash-attention kernels"),
     # the JAX default: RMSNorm and rope run kernels 7-10 wherever a shape is
     # within their reach
-    "use_pallas_fused": (True, "the RMSNorm and rope kernels (7-10) run wherever a shape is within "
-                               "their reach; the unfused-order composition runs only for shapes outside "
-                               "it, as in JAX, and is not a switch of its own yet"),
-    # the JAX default is True
-    "use_fused_loss": (False, "the fused linear cross-entropy kernels (17-19) are not ported yet"),
+    "use_pallas_fused": ((True,), "the RMSNorm and rope kernels (7-10) run wherever a shape is within "
+                                  "their reach; the unfused-order composition runs only for shapes outside "
+                                  "it, as in JAX, and is not a switch of its own yet"),
+    # the JAX default: the loss head runs the fused linear cross entropy
+    # (kernels 17-19); False materialises the logits, as in JAX
+    "use_fused_loss": ((True, False), "it is a bool"),
 }
+_values: Dict[str, Any] = {name: allowed[0] for name, (allowed, _) in _FLAGS.items()}
 
 
 def _key(name: str) -> str:
@@ -42,7 +46,7 @@ def _key(name: str) -> str:
 
 def flag(name: str) -> Any:
     """The value of one flag."""
-    return _FLAGS[_key(name)][0]
+    return _values[_key(name)]
 
 
 def get_flags(names: Iterable[str]) -> Dict[str, Any]:
@@ -53,8 +57,16 @@ def get_flags(names: Iterable[str]) -> Dict[str, Any]:
 
 
 def set_flags(values: Dict[str, Any]) -> None:
-    """Set flags by name; raises on unknown names and unsupported values."""
+    """Set flags by name; raises on unknown names and unsupported values
+    (and then sets none of them). A value must be of the flag's own type:
+    the string ``"False"`` is not a bool, and is refused rather than read
+    as ``bool("False")``."""
+    new = {}
     for name, value in values.items():
-        supported, why = _FLAGS[_key(name)]
-        if type(supported)(value) != supported:
+        key = _key(name)
+        allowed, why = _FLAGS[key]
+        match = [a for a in allowed if type(value) is type(a) and value == a]
+        if not match:
             raise ValueError(f"{name}={value!r} is not supported by paddle_tpu_torch: {why}")
+        new[key] = match[0]
+    _values.update(new)

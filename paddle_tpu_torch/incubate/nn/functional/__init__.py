@@ -1,10 +1,13 @@
 """Fused functionals of the serving and training steps (port of their
 entries in ``paddle_tpu/incubate/nn/functional``).
 
-``fused_embed_rms_norm`` and ``fused_rms_norm_residual`` are the kernel
-wrappers of ``kernels/fused.py`` (B and C); the paged-cache functions live
-in ``block_attention.py``; ``fused_rotary_position_embedding`` is the rope
-of the training forward (kernels 9 and 10 where the shape allows).
+``fused_embed_rms_norm`` and ``fused_rms_norm_residual`` run kernels B and
+C of ``kernels/fused.py`` where the JAX package runs its Pallas kernels
+(a weight of the input's dtype and a last axis that is a multiple of 128),
+and elsewhere the exact unfused composition JAX runs; the paged-cache
+functions live in ``block_attention.py``; ``fused_rotary_position_embedding``
+is the rope of the training forward (kernels 9 and 10 where the shape
+allows).
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ from typing import Optional, Tuple
 import torch
 
 from paddle_tpu_torch.flags import flag
-from paddle_tpu_torch.kernels.fused import fused_embed_rms_norm, fused_rms_norm_residual, fused_rope
+from paddle_tpu_torch.kernels import fused as _kfused
+from paddle_tpu_torch.kernels.fused import fused_rope
+from paddle_tpu_torch.nn.functional.common import rms_norm
 
 __all__ = [
     "BlockKVCache",
@@ -25,6 +30,39 @@ __all__ = [
     "fused_rms_norm_residual",
     "fused_rotary_position_embedding",
 ]
+
+
+def _kernel_norm(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """The JAX package's rule for kernels B and C: the weight in the input's
+    dtype and the last axis a multiple of 128 (``rms_norm``'s rule too, so
+    where it fails ``rms_norm`` runs the same composition JAX runs)."""
+    return weight.dtype == x.dtype and x.shape[-1] % 128 == 0 and flag("use_pallas_fused")
+
+
+def fused_rms_norm_residual(
+    x: torch.Tensor, weight: torch.Tensor, residual: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``r = x + residual; y = rms_norm(r) * weight``; returns ``(y, r)``:
+    kernel C where :func:`_kernel_norm` holds, else the composition."""
+    if _kernel_norm(x, weight):
+        return _kfused.fused_rms_norm_residual(x, weight, residual, epsilon)
+    r = x + residual
+    return rms_norm(r, weight, float(epsilon)), r
+
+
+def fused_embed_rms_norm(
+    input_ids: torch.Tensor, embed_weight: torch.Tensor, norm_weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token gather + embedding rows + their RMSNorm; returns ``(emb, y)``:
+    kernel B where :func:`_kernel_norm` holds, else the composition (a
+    negative id counts from the end, then ids clip to ``[0, V-1]``, as a JAX
+    gather does)."""
+    if _kernel_norm(embed_weight, norm_weight):
+        return _kfused.fused_embed_rms_norm(input_ids, embed_weight, norm_weight, epsilon)
+    v = embed_weight.shape[0]
+    ids = input_ids.long()
+    emb = embed_weight[torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)]
+    return emb, rms_norm(emb, norm_weight, float(epsilon))
 
 
 def _rope_rotate(x: torch.Tensor, use_neox: bool) -> torch.Tensor:

@@ -102,23 +102,38 @@ def block_cache_append_chunk(
 ) -> None:
     """Write token ``j`` of sequence ``b`` at position ``seq_lens[b] + j``.
 
-    Rows past ``q_lens`` and rows of masked-off slots are DROPPED — never
-    clamped onto a real block, where they would collide with a valid write
-    (a padded slot's table row may alias blocks of live sequences). The drop
-    selects the valid rows with a boolean mask, which on a CUDA tensor costs
-    one host synchronisation per call."""
-    b, c, _, _ = k.shape
-    bs = key_cache.shape[2]
+    Rows past ``q_lens`` and rows of masked-off slots must never land on a
+    block (a padded slot's table row may alias blocks of live sequences).
+    The JAX scatter routes them out of bounds and drops them; PyTorch's has
+    no drop mode, and selecting the valid rows with a boolean mask costs a
+    host synchronisation on a CUDA tensor. Here every row is written, with
+    no data-dependent shape: an invalid row takes the target and the value
+    of the first valid row (a duplicate write of the same bits), and when
+    no row is valid, the first row's clamped target and the bits already
+    stored there. So the pools change exactly at the valid rows' positions."""
+    b, c, h, d = k.shape
+    n = b * c
+    if not n:
+        return
+    nb, bs = key_cache.shape[0], key_cache.shape[2]
     j = torch.arange(c, device=k.device)[None, :]
     pos = seq_lens.long()[:, None] + j
     valid = j < q_lens.long()[:, None]
     if slot_mask is not None:
         valid = valid & slot_mask.bool()[:, None]
     blk_idx = (pos // bs).clamp(max=block_tables.shape[1] - 1)
-    phys = torch.gather(block_tables.long(), 1, blk_idx)[valid]
-    off = (pos % bs)[valid]
-    key_cache[phys, :, off] = k[valid].to(key_cache.dtype)
-    value_cache[phys, :, off] = v[valid].to(value_cache.dtype)
+    phys = torch.gather(block_tables.long(), 1, blk_idx).clamp(0, nb - 1).reshape(n)
+    off = (pos % bs).reshape(n)
+    valid = valid.reshape(n)
+    donor = torch.argmax(valid.to(torch.int32)).reshape(1)  # the first valid row, or row 0
+    any_valid = valid.any()
+    d_phys, d_off = phys.index_select(0, donor), off.index_select(0, donor)
+    phys = torch.where(valid, phys, d_phys)
+    off = torch.where(valid, off, d_off)
+    for cache, new in ((key_cache, k), (value_cache, v)):
+        rows = new.reshape(n, h, d).to(cache.dtype)
+        fill = torch.where(any_valid, rows.index_select(0, donor), cache[d_phys, :, d_off])
+        cache[phys, :, off] = torch.where(valid[:, None, None], rows, fill)
 
 
 def block_cache_cow_copy(
@@ -157,8 +172,11 @@ def block_multihead_chunk_attention_fused(
 ) -> torch.Tensor:
     """One mixed prefill/decode step of one layer: rope k, append the chunk's
     KV to the cache (in place), then attend with q's rope folded into the
-    paged kernel. Returns the attention output ``[B, C, HQ, D]``; rows past
-    ``q_lens`` and masked slots are exact zeros."""
+    paged kernel (A). Returns the attention output ``[B, C, HQ, D]``; rows
+    past ``q_lens`` and masked slots are exact zeros. A head dim that is not
+    a multiple of 64, which the JAX package cannot lower to its kernel,
+    takes its composition here too: q roped by ``_rope_apply_xla``, then
+    the dense-gather attention."""
     b, c, _, d = q.shape
     k = _rope_apply_xla(k, sin, cos, True)
     block_cache_append_chunk(
@@ -167,6 +185,11 @@ def block_multihead_chunk_attention_fused(
     attend_q = q_lens
     if slot_mask is not None:
         attend_q = torch.where(slot_mask.bool(), q_lens, torch.zeros_like(q_lens))
+    if d % 64:
+        return _gather_chunk_attend(
+            _rope_apply_xla(q, sin, cos, True), key_cache, value_cache, block_tables, seq_lens,
+            attend_q, 1.0 / d**0.5 if scale is None else scale,
+        )
     return paged_flash_chunk_fused(
         q, cos.reshape(b, c, d), sin.reshape(b, c, d), key_cache, value_cache,
         block_tables, seq_lens, attend_q, scale=scale,

@@ -323,7 +323,8 @@ class ContinuousBatchingEngine:
         qlens_t = torch.from_numpy(q_lens).to(dev)
         mask_t = torch.from_numpy(active).to(dev)
         pkv = [(kc, vc, tables_t, lens_t, mask_t, qlens_t) for kc, vc in self._caches]
-        logits = self.model(ids, past_key_values=pkv)
+        # the JAX engine's call; the pools come back updated in place
+        logits, _ = self.model(ids, past_key_values=pkv, use_cache=True, cache_position=lens_t)
         nxt = logits.float().argmax(dim=-1).to(torch.int32)
         return nxt.cpu().numpy()  # device sync: the step's tokens are real here
 

@@ -1,6 +1,6 @@
 // Token-id gather + embedding row + its RMSNorm, one token row per block:
 // emb = table[clip(id, 0, V-1)], y = rms(emb) * w with the weight multiplied
-// in fp32 before the downcast.
+// in fp32 before the downcast; bf16, fp16 or fp32, fp32 math.
 //
 // Replaces: paddle_tpu/kernels/fused.py `_embed_rms_kernel` (launched by
 // `fused_embed_rms_norm_pallas`), the serving step's entry.
@@ -14,51 +14,67 @@
 #include "common.cuh"
 
 using ptt::bf16;
+using ptt::f16;
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-embed_rms_kernel(const int* __restrict__ ids, const bf16* __restrict__ table,
-                 const bf16* __restrict__ w, bf16* __restrict__ emb, bf16* __restrict__ y,
+embed_rms_kernel(const int* __restrict__ ids, const T* __restrict__ table,
+                 const T* __restrict__ w, T* __restrict__ emb, T* __restrict__ y,
                  int V, int H, float eps) {
+  constexpr int N = 16 / sizeof(T);
   __shared__ float scratch[32];
   const int id = min(max(ids[blockIdx.x], 0), V - 1);  // ids clip to [0, V-1]
-  const bf16* row = table + static_cast<size_t>(id) * H;
+  const T* row = table + static_cast<size_t>(id) * H;
   const size_t base = static_cast<size_t>(blockIdx.x) * H;
-  const int nvec = H / 8;
+  const int nvec = H / N;
   float ss = 0.f;
   for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    uint4 v = ptt::load8(row, i);
-    const bf16* e = ptt::elems(v);
+    const uint4 v = ptt::load16(row, i);
+    const T* e = ptt::elems_of<T>(v);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < N; ++k) {
       const float f = ptt::to_f(e[k]);
       ss += f * f;
     }
-    ptt::store8(emb + base, i, v);
+    ptt::store16(emb + base, i, v);
   }
   const float rstd = rsqrtf(ptt::block_sum<kThreads>(ss, scratch) / H + eps);
   for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    uint4 v = ptt::load8(emb + base, i), wv = ptt::load8(w, i), ov;
-    const bf16* e = ptt::elems(v);
-    const bf16* we = ptt::elems(wv);
-    bf16* oe = ptt::elems(ov);
+    const uint4 v = ptt::load16(emb + base, i), wv = ptt::load16(w, i);
+    uint4 ov;
+    const T* e = ptt::elems_of<T>(v);
+    const T* we = ptt::elems_of<T>(wv);
+    T* oe = ptt::elems_of<T>(ov);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) oe[k] = ptt::to_bf(ptt::to_f(e[k]) * rstd * ptt::to_f(we[k]));
-    ptt::store8(y + base, i, ov);
+    for (int k = 0; k < N; ++k) oe[k] = ptt::from_f<T>(ptt::to_f(e[k]) * rstd * ptt::to_f(we[k]));
+    ptt::store16(y + base, i, ov);
   }
+}
+
+template <typename T>
+int launch(const void* ids, const void* table, const void* w, void* emb, void* y, int rows, int V,
+           int H, float eps, cudaStream_t stream) {
+  embed_rms_kernel<T><<<rows, kThreads, 0, stream>>>(
+      static_cast<const int*>(ids), static_cast<const T*>(table), static_cast<const T*>(w),
+      static_cast<T*>(emb), static_cast<T*>(y), V, H, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ids: [rows] int32; table: [V, H] bf16; w: [H] bf16; emb, y: [rows, H] bf16.
-// H % 8 == 0 and 16-byte aligned rows.
-extern "C" int ptt_embed_rms_bf16(const void* ids, const void* table, const void* w, void* emb,
-                                  void* y, int rows, int V, int H, float eps, void* stream) {
-  embed_rms_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const bf16*>(table), static_cast<const bf16*>(w),
-      static_cast<bf16*>(emb), static_cast<bf16*>(y), V, H, eps);
-  return static_cast<int>(cudaGetLastError());
+// io: ptt::IoType of table, w, emb and y. ids: [rows] int32; table: [V, H];
+// w: [H]; emb, y: [rows, H]. H * sizeof(T) % 16 == 0, 16-byte aligned rows.
+extern "C" int ptt_embed_rms(int io, const void* ids, const void* table, const void* w, void* emb,
+                             void* y, int rows, int V, int H, float eps, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16: return launch<bf16>(ids, table, w, emb, y, rows, V, H, eps, s);
+    case ptt::kF16: return launch<f16>(ids, table, w, emb, y, rows, V, H, eps, s);
+    case ptt::kF32: return launch<float>(ids, table, w, emb, y, rows, V, H, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

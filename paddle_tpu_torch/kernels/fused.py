@@ -15,8 +15,8 @@ Ports of Pallas kernels of ``paddle_tpu/kernels/fused.py``:
   with fp32 ``[S, D]`` tables, and its adjoint; :class:`RopeFunction`
   joins them.
 
-Every norm here multiplies the weight in fp32 BEFORE the downcast, the
-Pallas order (the unfused composition of ``nn.functional.rms_norm``
+Every kernel here takes bf16, fp16 or fp32. Every norm here multiplies the
+weight in fp32 BEFORE the downcast, the Pallas order (the unfused composition of ``nn.functional.rms_norm``
 downcasts first; in fp32 the two agree to rounding). The rope computes in
 fp32 from fp32 tables and casts once (the composition casts the tables to
 ``x``'s dtype first). Each wrapper runs its plain PyTorch version for CPU
@@ -162,32 +162,31 @@ def fused_rms_norm_residual(
     x: torch.Tensor, weight: torch.Tensor, residual: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``r = x + residual; y = rms_norm(r) * weight``; returns ``(y, r)``,
-    any leading shape, the norm over the last axis. The argument order is the
-    JAX package's incubate entry's."""
+    any leading shape, the norm over the last axis, bf16, fp16 or fp32 (all
+    three of one type). The argument order is the JAX package's incubate
+    entry's."""
     if x.device.type == "cpu":
         return fused_rms_norm_residual_plain(x, weight, residual, epsilon)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_rms_norm_residual: unsupported device {x.device}")
+    io = _io_dtype("fused_rms_norm_residual", x)
     h = x.shape[-1]
-    if h % 8:
-        raise ValueError(f"fused_rms_norm_residual: hidden size {h} is not a multiple of 8")
+    if (h * x.element_size()) % 16:
+        raise ValueError(f"fused_rms_norm_residual: a row of {h} {x.dtype} is not a whole number of 16 bytes")
     if residual.shape != x.shape or weight.shape != (h,):
         raise ValueError(
             f"fused_rms_norm_residual: shapes x {tuple(x.shape)}, residual "
             f"{tuple(residual.shape)}, weight {tuple(weight.shape)} do not match"
         )
     dev = x.device
-    x, residual, weight = (_kernel_operand(t, name, "fused_rms_norm_residual", torch.bfloat16, dev)
+    x, residual, weight = (_kernel_operand(t, name, "fused_rms_norm_residual", x.dtype, dev)
                            for name, t in (("x", x), ("residual", residual), ("weight", weight)))
     y = torch.empty_like(x)
     r = torch.empty_like(x)
     rows = x.numel() // h
     if rows:
-        fn = build.kernel_fn("ptt_rms_residual_bf16", [_P, _P, _P, _P, _P, _I, _I, _F, _P])
+        fn = build.kernel_fn("ptt_rms_residual", [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P])
         with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(), y.data_ptr(),
-                     r.data_ptr(), rows, h, float(epsilon),
-                     torch.cuda.current_stream().cuda_stream)
+            err = fn(io, x.data_ptr(), residual.data_ptr(), weight.data_ptr(), y.data_ptr(),
+                     r.data_ptr(), rows, h, float(epsilon), torch.cuda.current_stream().cuda_stream)
         build.check(err, "rms_residual")
         count_launch("rms_residual")
     return y, r
@@ -197,29 +196,28 @@ def fused_embed_rms_norm(
     ids: torch.Tensor, table: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather ``table`` rows for ``ids`` (clipped to ``[0, V-1]``) and norm
-    them with ``weight``; returns ``(emb, y)``, both ``[*ids.shape, H]``."""
+    them with ``weight``; returns ``(emb, y)``, both ``[*ids.shape, H]``;
+    bf16, fp16 or fp32 (table and weight of one type)."""
     if table.device.type == "cpu":
         return fused_embed_rms_norm_plain(ids, table, weight, epsilon)
-    if table.device.type != "cuda":
-        raise ValueError(f"fused_embed_rms_norm: unsupported device {table.device}")
+    io = _io_dtype("fused_embed_rms_norm", table)
     v, h = table.shape
-    if h % 8:
-        raise ValueError(f"fused_embed_rms_norm: hidden size {h} is not a multiple of 8")
+    if (h * table.element_size()) % 16:
+        raise ValueError(f"fused_embed_rms_norm: a row of {h} {table.dtype} is not a whole number of 16 bytes")
     if weight.shape != (h,):
         raise ValueError(f"fused_embed_rms_norm: weight {tuple(weight.shape)} is not [{h}]")
     ids32 = ids.to(device=table.device, dtype=torch.int32).contiguous()
     dev = table.device
-    table, weight = (_kernel_operand(t, name, "fused_embed_rms_norm", torch.bfloat16, dev)
+    table, weight = (_kernel_operand(t, name, "fused_embed_rms_norm", table.dtype, dev)
                      for name, t in (("table", table), ("weight", weight)))
     emb = torch.empty((*ids.shape, h), dtype=table.dtype, device=table.device)
     y = torch.empty_like(emb)
     rows = ids32.numel()
     if rows:
-        fn = build.kernel_fn("ptt_embed_rms_bf16", [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P])
+        fn = build.kernel_fn("ptt_embed_rms", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P])
         with torch.cuda.device(table.device):
-            err = fn(ids32.data_ptr(), table.data_ptr(), weight.data_ptr(), emb.data_ptr(),
-                     y.data_ptr(), rows, v, h, float(epsilon),
-                     torch.cuda.current_stream().cuda_stream)
+            err = fn(io, ids32.data_ptr(), table.data_ptr(), weight.data_ptr(), emb.data_ptr(),
+                     y.data_ptr(), rows, v, h, float(epsilon), torch.cuda.current_stream().cuda_stream)
         build.check(err, "embed_rms")
         count_launch("embed_rms")
     return emb, y

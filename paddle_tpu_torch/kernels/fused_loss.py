@@ -1,0 +1,336 @@
+"""Fused linear cross entropy — forward, dX and dW: CUDA kernels, their plain
+versions, and the autograd ``Function`` that joins them.
+
+Port of ``paddle_tpu/kernels/fused_loss.py``:
+
+- :func:`flxent_fwd` — ``_flxent_fwd_kernel`` (kernel 17): per row of
+  ``x [N, H]`` the fp32 logsumexp ``lse`` of the logits ``x W`` and the
+  target logit ``tl``, without the ``[N, V]`` logits in device memory;
+- :func:`flxent_dchunk` — ``_flxent_block_d``, which kernels 18 and 19
+  share: ``D = (softmax - onehot) * gcoef`` of a range of vocab columns,
+  rounded to the input dtype;
+- :func:`flxent_bwd` — ``_flxent_dx_kernel`` (kernel 18) and
+  ``_flxent_dw_kernel`` (kernel 19): ``dX = D W^T`` and ``dW = x^T D``. On
+  the card the vocab is walked in chunks of :data:`CHUNK` columns; each
+  chunk's ``D`` is computed once and feeds both products (the Pallas split
+  recomputes the logits in each kernel). Either product runs alone when
+  only one gradient is wanted;
+- :class:`FusedLinearCrossEntropyFunction` — the custom-VJP shell
+  ``_build_core``: the forward saves ``x``, ``W``, the labels and the
+  ``[N]`` fp32 ``lse`` only; the backward builds the per-row ``gcoef``
+  from the reduction and the ``ignore_index`` mask (``mean`` divides by
+  ``max(#valid, 1)``).
+
+``W`` is ``[H, V]`` (``nn.Linear``'s layout) or ``[V, H]`` with
+``vocab_major=True`` (a tied embedding), read in place either way. Columns
+``>= V`` are ``NEG_INF`` in the forward and have probability 0 in the
+backward; a label equal to ``ignore_index`` or outside ``[0, V)`` matches
+no column (its ``tl`` is 0). The plain versions walk the vocab in the JAX
+scan reference's chunks (``_REF_BLOCK``), in fp32 from the inputs' values.
+Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
+launches ``csrc/flxent_fwd.cu``, ``csrc/flxent_dx.cu`` and
+``csrc/flxent_dw.cu`` (bf16 or fp16; fp32 is refused) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.select import count_launch
+
+__all__ = [
+    "CHUNK",
+    "FusedLinearCrossEntropyFunction",
+    "flxent_bwd",
+    "flxent_bwd_plain",
+    "flxent_dchunk",
+    "flxent_dchunk_plain",
+    "flxent_fwd",
+    "flxent_fwd_plain",
+    "linear_cross_entropy",
+]
+
+NEG_INF = -1e30  # the Pallas kernels' masked logit
+REF_BLOCK = 512  # the JAX scan reference's vocab chunk, which the plain versions follow
+CHUNK = 4096  # vocab columns per backward chunk on the card: D is [N, CHUNK]
+TILE = 128  # the CUDA kernels' output tile (rows and columns)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_KERNEL_DTYPES = {torch.bfloat16: 1, torch.float16: 2}  # ptt::IoType
+
+
+def _vocab(w: torch.Tensor, vocab_major: bool) -> int:
+    return w.shape[0] if vocab_major else w.shape[1]
+
+
+def _w_block(w: torch.Tensor, vocab_major: bool, j0: int, j1: int) -> torch.Tensor:
+    """The vocab rows ``j0:j1`` of ``W`` as fp32 ``[j1 - j0, H]``."""
+    return (w[j0:j1] if vocab_major else w[:, j0:j1].t()).float()
+
+
+def flxent_fwd_plain(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lse, tl)`` fp32 ``[N]``: the JAX scan reference's online softmax
+    over vocab chunks of :data:`REF_BLOCK`, logits in fp32 from the inputs'
+    values (the Pallas kernel's fp32 accumulation)."""
+    n = x.shape[0]
+    v = _vocab(w, vocab_major)
+    xf = x.float()
+    lab = labels.long()
+    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=x.device)
+    l = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    tl = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for j0 in range(0, v, REF_BLOCK):
+        j1 = min(j0 + REF_BLOCK, v)
+        logits = xf @ _w_block(w, vocab_major, j0, j1).t()
+        cols = torch.arange(j0, j1, device=x.device)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+        tl = tl + torch.where(cols[None, :] == lab[:, None], logits, 0.0).sum(dim=-1)
+        m = m_new
+    return m + torch.log(l), tl
+
+
+def flxent_dchunk_plain(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, gcoef: torch.Tensor,
+    c0: int, c1: int, vocab_major: bool = False,
+) -> torch.Tensor:
+    """``D [N, c1 - c0]`` of the vocab columns ``c0:c1`` (``c1 <= V``):
+    ``(exp(logits - lse) - onehot) * gcoef`` from fp32 logits, rounded to
+    ``x``'s dtype (``_flxent_block_d``)."""
+    p = torch.exp(x.float() @ _w_block(w, vocab_major, c0, c1).t() - lse[:, None])
+    onehot = (torch.arange(c0, c1, device=x.device)[None, :] == labels.long()[:, None]).float()
+    return ((p - onehot) * gcoef[:, None]).to(x.dtype)
+
+
+def flxent_bwd_plain(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, gcoef: torch.Tensor,
+    vocab_major: bool = False, need_dx: bool = True, need_dw: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(dx, dw)``: per vocab chunk ``D = ((exp(logits - lse) - onehot) *
+    gcoef)`` rounded to ``x``'s dtype, ``dx += D W_c^T`` in fp32 (cast to
+    ``x``'s dtype at the end) and ``dW_c = x^T D`` in fp32 (cast to ``W``'s
+    dtype) — the scan reference's ``engine_bwd``. A gradient not asked for
+    is None."""
+    n, h = x.shape
+    v = _vocab(w, vocab_major)
+    xf = x.float()
+    dx = torch.zeros((n, h), dtype=torch.float32, device=x.device) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    for j0 in range(0, v, REF_BLOCK):
+        j1 = min(j0 + REF_BLOCK, v)
+        d = flxent_dchunk_plain(x, w, labels, lse, gcoef, j0, j1, vocab_major).float()
+        if need_dx:
+            dx += d @ _w_block(w, vocab_major, j0, j1)
+        if need_dw:
+            dwj = (d.t() @ xf).to(w.dtype)
+            if vocab_major:
+                dw[j0:j1] = dwj
+            else:
+                dw[:, j0:j1] = dwj.t()
+    return (dx.to(x.dtype) if need_dx else None), dw
+
+
+def _io_dtype(what: str, x: torch.Tensor, w: torch.Tensor) -> int:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernels take bf16 or fp16, not {x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{what}: x is {x.dtype} but the weight is {w.dtype}; the kernels take one dtype")
+    return _KERNEL_DTYPES[x.dtype]
+
+
+def _operands(what: str, x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool):
+    """Contiguous x and W and int32 labels on one card with their geometry,
+    or an exception naming what the kernels do not take."""
+    io = _io_dtype(what, x, w)
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"{what}: x must be [N, H] and the weight 2-D, got {tuple(x.shape)}, {tuple(w.shape)}")
+    n, h = x.shape
+    hw = w.shape[1] if vocab_major else w.shape[0]
+    if hw != h or h % 8:
+        raise ValueError(f"{what}: the weight {tuple(w.shape)} does not fit x {tuple(x.shape)} "
+                         f"(vocab_major={vocab_major}), or H % 8 != 0")
+    if labels.shape != (n,):
+        raise ValueError(f"{what}: labels {tuple(labels.shape)} are not [{n}]")
+    dev = x.device
+    if w.device != dev or labels.device != dev:
+        raise ValueError(f"{what}: x, the weight and the labels must be on {dev}")
+    x, w = x.contiguous(), w.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned for the CUDA kernels")
+    return io, x, w, labels.to(torch.int32).contiguous(), n, h, _vocab(w, vocab_major)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def flxent_fwd(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` against ``W``. Kernel 17
+    is two launches, each counted: the logits tiles' partials, then their
+    fixed-order merge."""
+    if x.device.type == "cpu":
+        return flxent_fwd_plain(x, w, labels, vocab_major)
+    io, x, w, lab, n, h, v = _operands("flxent_fwd", x, w, labels, vocab_major)
+    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
+    tl = torch.empty_like(lse)
+    if n and v:
+        tiles = -(-v // TILE)
+        part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
+        fn = build.kernel_fn("ptt_flxent_fwd", [_I, _I] + [_P] * 4 + [_I] * 3 + [_P])
+        merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
+        with torch.cuda.device(x.device):
+            build.check(fn(io, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), part.data_ptr(),
+                           n, h, v, _stream()), "flxent_fwd")
+            count_launch("flxent_fwd")
+            build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), "flxent_fwd merge")
+            count_launch("flxent_fwd")
+    return lse, tl
+
+
+def _backward_operands(what, x, w, labels, lse, gcoef, vocab_major):
+    io, x, w, lab, n, h, v = _operands(what, x, w, labels, vocab_major)
+    for name, t in (("lse", lse), ("gcoef", gcoef)):
+        if t.shape != (n,) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{what}: {name} must be fp32 [{n}] on {x.device}")
+    return io, x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
+
+
+def _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc) -> None:
+    """One launch: ``D`` of the vocab columns ``[c0, c0 + vc)`` into ``d [N, ldd]``."""
+    fn = build.kernel_fn("ptt_flxent_dchunk", [_I, _I] + [_P] * 6 + [_L] + [_I] * 5 + [_P])
+    build.check(fn(io, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+                   gcoef.data_ptr(), d.data_ptr(), ldd, n, h, v, c0, vc, _stream()), "flxent_dchunk")
+    count_launch("flxent_dchunk")
+
+
+def flxent_dchunk(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, gcoef: torch.Tensor,
+    c0: int, c1: int, vocab_major: bool = False,
+) -> torch.Tensor:
+    """``D [N, c1 - c0]`` in ``x``'s dtype of the vocab columns ``c0:c1``
+    (``0 <= c0 < c1 <= V``; one launch of the recompute that kernels 18
+    and 19 share)."""
+    if x.device.type == "cpu":
+        return flxent_dchunk_plain(x, w, labels, lse, gcoef, c0, c1, vocab_major)
+    io, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_dchunk", x, w, labels, lse, gcoef, vocab_major)
+    if not 0 <= c0 < c1 <= v:
+        raise ValueError(f"flxent_dchunk: columns {c0}:{c1} are not a range of [0, {v})")
+    ldd = -(-(c1 - c0) // 8) * 8
+    d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, c1 - c0)
+    return d[:, :c1 - c0]
+
+
+def flxent_bwd(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, gcoef: torch.Tensor,
+    vocab_major: bool = False, need_dx: bool = True, need_dw: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(dx, dw)`` of the loss given the forward's ``lse`` and the per-row
+    ``gcoef`` (fp32 ``[N]``); a gradient not asked for is None. Per vocab
+    chunk of :data:`CHUNK` columns, three launches, each counted: the
+    chunk's ``D`` (``[N, CHUNK]`` in x's dtype), then kernel 18 adds ``D
+    W_c^T`` into an fp32 ``[N, H]`` partial (the last chunk writes ``dx``)
+    and kernel 19 writes ``dW_c = x^T D``."""
+    if x.device.type == "cpu":
+        return flxent_bwd_plain(x, w, labels, lse, gcoef, vocab_major, need_dx, need_dw)
+    io, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_bwd", x, w, labels, lse, gcoef, vocab_major)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    if not (need_dx or need_dw):
+        return dx, dw
+    if not (n and v):
+        return (None if dx is None else dx.zero_()), (None if dw is None else dw.zero_())
+    chunks = list(range(0, v, CHUNK))
+    ldd = -(-min(CHUNK, v) // 8) * 8
+    d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
+    acc = torch.empty((n, h), dtype=torch.float32, device=x.device) if need_dx and len(chunks) > 1 else None
+    fn_dx = build.kernel_fn("ptt_flxent_dx", [_I, _I, _P, _L, _P, _P, _P] + [_I] * 7 + [_P])
+    fn_dw = build.kernel_fn("ptt_flxent_dw", [_I, _I, _P, _P, _L, _P] + [_I] * 5 + [_P])
+    with torch.cuda.device(x.device):
+        for i, c0 in enumerate(chunks):
+            vc = min(CHUNK, v - c0)
+            _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc)
+            if need_dx:
+                build.check(fn_dx(io, int(vocab_major), d.data_ptr(), ldd, w.data_ptr(),
+                                  0 if acc is None else acc.data_ptr(), dx.data_ptr(), n, h, v, c0, vc,
+                                  int(i == 0), int(i == len(chunks) - 1), _stream()), "flxent_dx")
+                count_launch("flxent_dx")
+            if need_dw:
+                build.check(fn_dw(io, int(vocab_major), x.data_ptr(), d.data_ptr(), ldd, dw.data_ptr(),
+                                  n, h, v, c0, vc, _stream()), "flxent_dw")
+                count_launch("flxent_dw")
+    return dx, dw
+
+
+def _reduce(per: torch.Tensor, valid: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return per.sum() / valid.sum().to(torch.float32).clamp(min=1.0)
+    if reduction == "sum":
+        return per.sum()
+    return per
+
+
+class FusedLinearCrossEntropyFunction(torch.autograd.Function):
+    """The loss of ``x2 [N, H]``, ``W`` and int32 labels ``[N]`` (the JAX
+    package's ``_build_core`` shell) on either engine: the kernels
+    (:func:`flxent_fwd`, :func:`flxent_bwd`) or their plain versions. The
+    forward saves ``x``, ``W``, the labels and the ``[N]`` fp32 ``lse``
+    only; no ``[N, V]`` tensor outlives a call."""
+
+    @staticmethod
+    def forward(ctx, x2, w, lab, ignore_index, reduction, vocab_major, use_kernels):  # noqa: D401
+        fwd = flxent_fwd if use_kernels else flxent_fwd_plain
+        lse, tl = fwd(x2, w, lab, vocab_major)
+        valid = lab != ignore_index
+        ctx.save_for_backward(x2, w, lab, lse)
+        ctx.cfg = (ignore_index, reduction, vocab_major, use_kernels)
+        return _reduce(torch.where(valid, lse - tl, 0.0), valid, reduction)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, lab, lse = ctx.saved_tensors
+        ignore_index, reduction, vocab_major, use_kernels = ctx.cfg
+        valid = lab != ignore_index
+        g = g.float()
+        if reduction == "mean":
+            g_row = (g / valid.sum().to(torch.float32).clamp(min=1.0)).expand(lse.shape)
+        elif reduction == "sum":
+            g_row = g.expand(lse.shape)
+        else:
+            g_row = g  # the [N] cotangent of reduction="none"
+        gcoef = torch.where(valid, g_row, 0.0).contiguous()
+        bwd = flxent_bwd if use_kernels else flxent_bwd_plain
+        dx, dw = bwd(x2, w, lab, lse, gcoef, vocab_major, ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return dx, dw, None, None, None, None, None
+
+
+def linear_cross_entropy(
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+    reduction: str = "mean", vocab_major: bool = False, use_kernels: bool = True,
+) -> torch.Tensor:
+    """``cross_entropy(x @ W, labels)`` through
+    :class:`FusedLinearCrossEntropyFunction` for any leading shape of ``x``
+    (``[..., H]``) and ``labels`` (``[...]``); fp32, ``[...]`` for
+    ``reduction="none"``. ``use_kernels=False`` runs the plain versions on
+    any device."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"fused_linear_cross_entropy: unsupported reduction {reduction!r}")
+    lead, h = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, h)
+    lab = labels.reshape(-1).to(device=x.device, dtype=torch.int32)
+    if lab.shape[0] != x2.shape[0]:
+        raise ValueError(f"fused_linear_cross_entropy: labels {tuple(labels.shape)} do not fit x {tuple(x.shape)}")
+    loss = FusedLinearCrossEntropyFunction.apply(
+        x2, w, lab, int(ignore_index), reduction, bool(vocab_major), bool(use_kernels))
+    return loss.reshape(lead) if reduction == "none" else loss

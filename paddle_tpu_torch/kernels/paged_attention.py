@@ -135,7 +135,8 @@ def paged_flash_chunk_fused(
             f"{tuple(key_cache.shape)} / {tuple(value_cache.shape)}"
         )
     if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_flash_chunk_fused: the CUDA kernel takes head dim 64 or 128, not {d}")
+        raise ValueError(f"paged_flash_chunk_fused: the CUDA kernel takes head dim 64 or 128, not {d} "
+                         "(a head dim that is not a multiple of 64 takes the composition)")
     if cos.shape != (b, c, d) or sin.shape != (b, c, d):
         raise ValueError(f"paged_flash_chunk_fused: rope rows must be [{b}, {c}, {d}]")
     if block_tables.shape[0] != b or seq_lens.shape != (b,) or q_lens.shape != (b,):
@@ -145,7 +146,8 @@ def paged_flash_chunk_fused(
     dev = q.device
     for name, t in (("q", q), ("key_cache", key_cache), ("value_cache", value_cache)):
         if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"paged_flash_chunk_fused: {name} must be a contiguous bf16 tensor on {dev}")
+            raise ValueError(f"paged_flash_chunk_fused: the CUDA kernel takes bf16 only: {name} must be a "
+                             f"contiguous bf16 tensor on {dev}, got {t.dtype} on {t.device}")
     # the kernel reads the rope rows in q's dtype, as the Pallas kernel casts them
     cos_q = cos.to(device=dev, dtype=q.dtype).contiguous()
     sin_q = sin.to(device=dev, dtype=q.dtype).contiguous()

@@ -27,6 +27,12 @@ KERNELS: Dict[str, str] = {
     "flash_fwd": "paddle_tpu/kernels/flash_attention.py:87",
     "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",
+    # kernel 17: two launches per call (the logits tiles' partials, their merge)
+    "flxent_fwd": "paddle_tpu/kernels/fused_loss.py:261",
+    # the recompute of D that kernels 18 and 19 share, one launch per vocab chunk
+    "flxent_dchunk": "paddle_tpu/kernels/fused_loss.py:302",
+    "flxent_dx": "paddle_tpu/kernels/fused_loss.py:322",
+    "flxent_dw": "paddle_tpu/kernels/fused_loss.py:343",
 }
 
 _lock = threading.Lock()

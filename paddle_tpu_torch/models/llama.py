@@ -7,9 +7,13 @@ and the continuous-batching engine's fused decode-layer step.
   unfused compositions, as in JAX), attention through the flash-attention
   kernels with the FlashMask bounds, per-layer
   recompute when ``config.recompute`` and the model is in train mode — and
-  returns ``(loss, logits)`` (``FLAGS_use_fused_loss`` off).
-- Serving: ``LlamaForCausalLM(input_ids, past_key_values=...)`` runs one
-  mixed ragged ``[S, C]`` step over the paged KV pool and returns logits.
+  returns ``(loss, None)`` from the fused loss head (kernels 17-19,
+  ``FLAGS_use_fused_loss`` on, the JAX default), or ``(loss, logits)`` with
+  the flag off.
+- Serving: ``LlamaForCausalLM(input_ids, past_key_values=...,
+  use_cache=True, cache_position=lens)`` (the JAX engine's call) runs one
+  mixed ragged ``[S, C]`` step over the paged KV pool and returns
+  ``(logits, past_key_values)``; that is the only serving call.
 
 Module and parameter names follow the JAX package, so its ``state_dict``
 loads by name (``models/convert.py``); linear weights keep Paddle's
@@ -250,19 +254,32 @@ class LlamaModel(nn.Module):
         use_cache: bool = False,
         cache_position: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """The final-normed hidden states ``[B, S, H]``: the training/prefill
-        layer loop, or — given the engine's paged ``past_key_values`` — the
-        fused serving step."""
-        if use_cache or cache_position is not None:
-            raise NotImplementedError("use_cache and cache_position (static-cache decode) are not ported yet")
-        if past_key_values is not None:
+        """The final-normed hidden states ``[B, S, H]`` of the
+        training/prefill layer loop, or ``(h, past_key_values)`` of the fused
+        serving step, given the engine's paged ``past_key_values`` (one
+        6-tuple per layer) in the reference engine's call (``use_cache=True,
+        cache_position=lens``; the pools are updated in place, so the pasts
+        returned are the tensors passed in)."""
+        if past_key_values is None:
+            if use_cache or cache_position is not None:
+                raise NotImplementedError(
+                    "use_cache / cache_position without a paged past (static-cache prefill and decode) "
+                    "are not ported yet (ROADMAP Queue 1 item 3)")
+        else:
             if startend_row_indices is not None:
                 raise ValueError("startend_row_indices does not apply to the paged serving step")
+            if not use_cache or cache_position is None:
+                raise NotImplementedError(
+                    "the paged serving step is ported for the JAX engine's call only: "
+                    "past_key_values=<6-tuples>, use_cache=True, cache_position=seq_lens")
             if not flag("use_fused_decode_layer"):
                 raise NotImplementedError("only the fused decode layer loop is ported")
             if len(past_key_values) != len(self.layers):
                 raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
-            return self._forward_paged_fused(input_ids, past_key_values)
+            if any(p is None or len(p) != 6 for p in past_key_values):
+                raise NotImplementedError("only the engine's paged 6-tuple pasts are ported "
+                                          "(ROADMAP Queue 1 items 5 and 6)")
+            return self._forward_paged_fused(input_ids, past_key_values), past_key_values
         h = self.embed_tokens(input_ids)
         cos, sin = self.rotary_emb(input_ids.shape[1])
         use_recompute = self.config.recompute and self.training
@@ -295,9 +312,10 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM. With ``labels`` ``forward`` returns ``(loss, logits)``;
-    without, ``[B, S, V]`` logits — of one paged serving step (appending the
-    step's KV to the caches in place) when ``past_key_values`` is given.
+    """Causal LM. With ``labels`` ``forward`` returns ``(loss, None)``
+    (``(loss, logits)`` with ``FLAGS_use_fused_loss`` off); without,
+    ``[B, S, V]`` logits — of one paged serving step (appending the step's
+    KV to the caches in place) when ``past_key_values`` is given.
 
     ``device`` defaults to ``cuda`` (and raises without one); ``dtype``
     defaults to ``config.dtype``. The weights are drawn from
@@ -352,13 +370,27 @@ class LlamaForCausalLM(nn.Module):
     ) -> Any:
         """``input_ids [B, S]``. Training: ``labels [B, S]`` (``-100`` is
         ignored) and optionally the FlashMask ``startend_row_indices
-        [B, Hm, S, C]`` int32; returns ``(loss, logits)`` with the mean
-        cross entropy in fp32. Serving: ``past_key_values`` one
-        ``(key_cache, value_cache, block_tables, seq_lens, slot_mask,
-        q_lens)`` per layer (the JAX engine's paged 6-tuple); returns logits."""
+        [B, Hm, S, C]`` int32; returns ``(loss, None)`` with the mean cross
+        entropy in fp32 from the fused loss head (kernels 17-19) while
+        ``FLAGS_use_fused_loss`` is on (the default: the ``[B, S, V]``
+        logits never exist), ``(loss, logits)`` with it off. Serving:
+        ``past_key_values`` one ``(key_cache, value_cache, block_tables,
+        seq_lens, slot_mask, q_lens)`` per layer (the JAX engine's paged
+        6-tuple) with ``use_cache=True, cache_position=seq_lens`` (the JAX
+        engine's call); returns ``(logits, past_key_values)``. Without
+        ``past_key_values``, ``labels=None`` returns the logits."""
         out = self.llama(input_ids, startend_row_indices, past_key_values, use_cache, cache_position)
+        caches = None
+        if use_cache:
+            out, caches = out
+        if labels is not None and flag("use_fused_loss"):
+            loss = F.fused_linear_cross_entropy(out, self.lm_head.weight, labels, ignore_index=-100,
+                                                reduction="mean")
+            return loss, None
         logits = self.lm_head(out)
         if labels is not None:
             # cross_entropy upcasts bf16 logits to fp32 itself
             return F.cross_entropy(logits, labels, ignore_index=-100, reduction="mean"), logits
+        if use_cache:
+            return logits, caches
         return logits

@@ -7,12 +7,13 @@ from paddle_tpu_torch.nn.functional.flash_attention import (
     flashmask_attention,
     make_flashmask_bias,
 )
-from paddle_tpu_torch.nn.functional.loss import cross_entropy
+from paddle_tpu_torch.nn.functional.loss import cross_entropy, fused_linear_cross_entropy
 
 __all__ = [
     "cross_entropy",
     "flash_attention",
     "flashmask_attention",
+    "fused_linear_cross_entropy",
     "linear",
     "make_flashmask_bias",
     "rms_norm",

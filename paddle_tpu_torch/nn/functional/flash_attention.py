@@ -3,11 +3,12 @@
 
 Both entries run the flash-attention kernels (forward, dq, dk/dv) through
 :class:`~paddle_tpu_torch.kernels.flash_attention.FlashAttentionFunction`;
-on CPU tensors those are the kernels' plain versions. The JAX package sends
-a head dim that is not a multiple of 64 to its XLA composition; the port
-has no such path on the card — there a head dim the kernels do not take (64
-or 128) raises. :func:`_xla_attention`, the XLA composition's counterpart,
-is kept as a plain reference for the tests and is never dispatched to.
+on CPU tensors those are the kernels' plain versions. A head dim that is
+not a multiple of 64 takes :func:`_xla_attention`, the counterpart of the
+JAX package's XLA composition (differentiated by autograd), as the JAX
+package's gate sends it there. On the card the kernels take bf16 and head
+dim 64 or 128; another dtype or head dim the gate lets through raises,
+naming what the kernel does not take.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ def flash_attention(
     """Paddle's ``flash_attention`` over ``[B, S, H, D]``; returns
     ``(out, None)`` (the softmax is never materialised)."""
     _no_dropout(dropout, training)
+    if query.shape[-1] % 64:
+        return _xla_attention(query, key, value, causal=causal), None
     return _flash(query, key, value, None, causal=causal), None
 
 
@@ -72,6 +75,11 @@ def flashmask_attention(
     _no_dropout(dropout, training)
     if startend_row_indices is None:
         return flash_attention(query, key, value, dropout=dropout, causal=causal, training=training)[0]
+    if query.shape[-1] % 64:
+        if startend_row_indices.dtype != torch.int32:
+            raise TypeError(f"startend_row_indices must be int32, got {startend_row_indices.dtype}")
+        bias = make_flashmask_bias(startend_row_indices, query.shape[1], key.shape[1], causal)
+        return _xla_attention(query, key, value, bias=bias, causal=causal)
     return _flashmask(query, key, value, startend_row_indices, causal=causal)
 
 
@@ -86,7 +94,7 @@ def make_flashmask_bias(startend_row_indices: torch.Tensor, sq: int, sk: int, ca
 def _xla_attention(q, k, v, bias=None, causal=False, scale=None):
     """The JAX package's XLA composition, in fp32 over ``[B, S, H, D]``:
     masked logits are ``-1e30`` (so a fully masked row averages V uniformly).
-    A reference for the tests; no entry point dispatches to it."""
+    The entries run it for head dims that are not a multiple of 64."""
     d = q.shape[-1]
     scale = 1.0 / d**0.5 if scale is None else scale
     qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
@@ -96,8 +104,8 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None):
     logits = torch.einsum("bhsd,bhtd->bhst", qh, kh) * scale
     sq, sk = logits.shape[-2:]
     if causal:
-        row = torch.arange(sq)[:, None] + (sk - sq)
-        logits = torch.where(torch.arange(sk)[None, :] <= row, logits, NEG_INF)
+        row = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        logits = torch.where(torch.arange(sk, device=q.device)[None, :] <= row, logits, NEG_INF)
     if bias is not None:
         logits = logits + bias.float()
     out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(logits, dim=-1), vh)

@@ -1,11 +1,15 @@
-"""Softmax cross entropy, the hard-label path (port of
-``paddle_tpu/nn/functional/loss.py`` ``cross_entropy``)."""
+"""Softmax cross entropy, the hard-label path, and the fused linear cross
+entropy of the loss head (port of ``paddle_tpu/nn/functional/loss.py``
+``cross_entropy`` and ``fused_linear_cross_entropy``)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cross_entropy"]
+from paddle_tpu_torch.flags import flag
+from paddle_tpu_torch.kernels.fused_loss import linear_cross_entropy
+
+__all__ = ["cross_entropy", "fused_linear_cross_entropy"]
 
 
 def cross_entropy(
@@ -43,3 +47,32 @@ def cross_entropy(
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def fused_linear_cross_entropy(
+    input: torch.Tensor,  # noqa: A002 - Paddle's argument name
+    weight: torch.Tensor,
+    label: torch.Tensor,
+    ignore_index: int = -100,
+    reduction: str = "mean",
+    weight_vocab_major: bool = False,
+    weight_scale=None,
+) -> torch.Tensor:
+    """Fused lm head + softmax cross entropy: ``cross_entropy(input @ W,
+    label)`` with the ``[..., V]`` logits never materialised (the forward
+    keeps an fp32 logsumexp and the target logit per row; the backward
+    recomputes the logits chunk by chunk). ``weight`` is ``[H, V]`` or, with
+    ``weight_vocab_major``, ``[V, H]``. The loss is fp32; ``ignore_index``
+    and ``reduction`` behave as in :func:`cross_entropy`.
+
+    The JAX package's gate picks the engine: with ``FLAGS_use_fused_loss``
+    on and the hidden size a multiple of 128, kernels 17-19 (their plain
+    versions on CPU tensors); otherwise the plain versions, the counterpart
+    of its ``lax.scan`` reference, on any device. ``weight_scale`` (the int8
+    lm head) is not ported yet."""
+    if weight_scale is not None:
+        raise NotImplementedError("fused_linear_cross_entropy: weight_scale (the weight-only int8 lm head) "
+                                  "is not ported yet (ROADMAP Queue 1 item 6)")
+    use_kernels = bool(flag("use_fused_loss")) and input.shape[-1] % 128 == 0
+    return linear_cross_entropy(input, weight, label, ignore_index=ignore_index, reduction=reduction,
+                                vocab_major=weight_vocab_major, use_kernels=use_kernels)

@@ -226,9 +226,17 @@ def test_cpu_wrappers_count_no_launch_and_other_devices_raise():
 def test_flags_refuse_the_unported_train_kernels():
     assert paddle_tpu_torch.get_flags(["FLAGS_use_pallas_fused", "FLAGS_use_fused_loss",
                                        "FLAGS_use_pallas_attention"]) == {
-        "FLAGS_use_pallas_fused": True, "FLAGS_use_fused_loss": False, "FLAGS_use_pallas_attention": True}
-    paddle_tpu_torch.set_flags({"FLAGS_use_pallas_fused": True, "FLAGS_use_fused_loss": False})
-    for name, value, why in [("FLAGS_use_pallas_fused", False, "outside"), ("FLAGS_use_fused_loss", True, "17-19"),
-                             ("FLAGS_use_pallas_attention", False, "flash")]:
+        "FLAGS_use_pallas_fused": True, "FLAGS_use_fused_loss": True, "FLAGS_use_pallas_attention": True}
+    try:  # both values of use_fused_loss are real paths, as in JAX
+        for value in (False, True):
+            paddle_tpu_torch.set_flags({"FLAGS_use_pallas_fused": True, "FLAGS_use_fused_loss": value})
+            assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_loss"]) == {"FLAGS_use_fused_loss": value}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": True})
+    for name, value, why in [("FLAGS_use_pallas_fused", False, "outside"),
+                             ("FLAGS_use_pallas_attention", False, "flash"),
+                             ("FLAGS_use_fused_loss", "False", "bool"), ("FLAGS_use_fused_loss", 0, "bool")]:
         with pytest.raises(ValueError, match=why):
             paddle_tpu_torch.set_flags({name: value})
+    # a refused value sets nothing: the string "False" did not turn the fused loss on or off
+    assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_loss"]) == {"FLAGS_use_fused_loss": True}

@@ -295,14 +295,17 @@ def jax_model():
 
 @pytest.fixture()
 def jax_unfused_loss():
-    """The JAX package with its loss head unfused (returns logits), as the
-    port implements it; the prior flag value is put back afterwards."""
+    """Both packages with their loss heads unfused (the model returns
+    logits); the prior flag values are put back afterwards."""
     prior = paddle.get_flags(["FLAGS_use_fused_loss"])
+    prior_port = paddle_tpu_torch.get_flags(["FLAGS_use_fused_loss"])
     paddle.set_flags({"FLAGS_use_fused_loss": False})
+    paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": False})
     try:
         yield
     finally:
         paddle.set_flags(prior)
+        paddle_tpu_torch.set_flags(prior_port)
 
 
 def _port_config(jcfg, **kw):

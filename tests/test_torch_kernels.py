@@ -38,6 +38,7 @@ from paddle_tpu_torch.incubate.nn.functional import (
     block_multihead_chunk_attention_fused,
 )
 from paddle_tpu_torch.kernels import fused as kfused
+from paddle_tpu_torch.kernels import fused_loss as kloss
 from paddle_tpu_torch.kernels import paged_attention as kpaged
 from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -194,9 +195,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     kfused.rms_norm_bwd(x, w, rstd, y)
     xr = x.reshape(1, 3, 1, 16)
     kfused.rope_bwd(kfused.rope_fwd(xr, x, x), x, x)
+    lab = torch.tensor([0, 5, -100])
+    lse, _ = kloss.flxent_fwd(x, w.reshape(16, 1).expand(16, 8), lab)
+    kloss.flxent_bwd(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3))
+    kloss.flxent_dchunk(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3), 2, 7)
     assert launch_counts() == {"paged_chunk_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                               "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0}
+                               "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
+                               "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0}
 
 
 # -- nn functionals ----------------------------------------------------------

@@ -141,7 +141,8 @@ def test_step_logits_and_pools_match_jax_model(models):
         jcaches = [(p[0]._data, p[1]._data) for p in jpast]
         t = [torch.from_numpy(a) for a in (tables, lens, active, q_lens)]
         with torch.inference_mode():
-            logits = model(torch.from_numpy(toks), past_key_values=[(kc, vc, *t) for kc, vc in caches])
+            logits, _ = model(torch.from_numpy(toks), past_key_values=[(kc, vc, *t) for kc, vc in caches],
+                              use_cache=True, cache_position=t[1])
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
     for (kc, vc), (jkc, jvc) in zip(caches, jcaches):
         np.testing.assert_allclose(kc.numpy(), np.asarray(jkc), rtol=1e-5, atol=1e-5)

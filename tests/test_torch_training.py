@@ -27,6 +27,7 @@ from paddle_tpu.incubate.nn.functional import fused_rotary_position_embedding as
 from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 
+import paddle_tpu_torch
 from paddle_tpu_torch.incubate.nn.functional import fused_rotary_position_embedding
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, from_paddle_tpu_state
 from paddle_tpu_torch.nn import functional as F
@@ -48,14 +49,17 @@ def _one_torch_thread():
 
 @pytest.fixture()
 def jax_unfused_loss():
-    """The JAX package with its loss head unfused (returns logits), as the
-    port implements it; the prior flag value is put back afterwards."""
+    """Both packages with their loss heads unfused (the model returns
+    logits); the prior flag values are put back afterwards."""
     prior = paddle.get_flags(["FLAGS_use_fused_loss"])
+    prior_port = paddle_tpu_torch.get_flags(["FLAGS_use_fused_loss"])
     paddle.set_flags({"FLAGS_use_fused_loss": False})
+    paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": False})
     try:
         yield
     finally:
         paddle.set_flags(prior)
+        paddle_tpu_torch.set_flags(prior_port)
 
 
 def _port_config(jcfg, **kw):
