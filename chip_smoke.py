@@ -41,6 +41,21 @@ name and power limit):
 5. logits — one mixed step's logits through the kernel path against the
    same model's forward through the plain versions, on the card, each
    measured against the plain versions run in fp32;
+   then, on the same model: serve_unfused — the same requests through a
+   second engine with ``FLAGS_use_fused_decode_layer=False`` (each step
+   launches kernel 4 32x, RMSNorm kernel 7 65x, none of A, B, C; its
+   logits through the same gate; token agreement with the fused engine
+   reported); generate_paged — ``model.generate_paged`` on 8 prompts of 512
+   tokens, 32 new tokens (the prefill launches flash_fwd 32x, rope_fwd 64x,
+   rms_norm_fwd 65x; each of the 31 decode steps kernel 5 32x and
+   rms_norm_fwd 65x; output ``[8, 544]``; every block freed; decode ms per
+   step beside the ~4.0 ms it takes to read the weights; one decode step's
+   logits through the relative gate); decode_fused — the public
+   ``block_multihead_attention_fused`` at the 7B decode shape (kernel 6
+   once, its output against the plain version, the pools bit for bit the
+   plain append's); the kernel phase also holds kernels 4, 5, 6 at 7B
+   (MHA and GQA 32/8) and A, 4, 5, 6 in fp16 and fp32 against their plain
+   versions, and the decode and prefill appends under the sync check;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
    ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
    document-packed tokens with the FlashMask document mask, 1 warm-up and
@@ -70,6 +85,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+WEIGHT_BYTES_7B = 6_738_415_616 * 2  # Llama-2-7B's parameters in bf16: one decode step reads them all
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (data sheet)
 BF16_REL = 2.0 ** -7  # one bf16 ulp relative to the value (8-bit significand)
@@ -166,10 +182,12 @@ def within(got, want, atol: float, rel: float):
 
 # -- kernel A inputs -----------------------------------------------------------
 
-def paged_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, c: int = 64, mbs: int = 128):
+def paged_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, c: int = 64, mbs: int = 128,
+                dtype=None):
     """A mixed batch of 8 slots: two full prompt chunks, decode rows, a
     partial chunk and an idle slot (q_lens 0) with stale lens. Table entries
-    past each slot's used blocks hold out-of-range garbage."""
+    past each slot's used blocks hold out-of-range garbage. bf16 unless
+    ``dtype`` says otherwise."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaRotaryEmbedding
 
@@ -184,7 +202,7 @@ def paged_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, c: int 
     for i in range(b):
         tables[i, : used[i]] = torch.tensor(perm[at: at + used[i]], dtype=torch.int32)
         at += used[i]
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     q = torch.randn((b, c, hq, d), generator=gen, device=dev).to(bf)
     kc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(bf)
     vc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(bf)
@@ -194,18 +212,181 @@ def paged_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, c: int 
                 seq_lens=lens.to(dev), q_lens=q_lens.to(dev)), used
 
 
-def paged_cost(args: dict, used) -> tuple:
-    """Bytes the attention must move (q, rope rows, the used K/V blocks,
-    tables, lens, output) and the flops its valid rows need."""
+def paged_cost(args: dict, rope: bool = True) -> tuple:
+    """Bytes the chunk attention must move and the flops its valid rows
+    need, counted from this run's lengths: q rows below ``q_lens`` (and
+    their rope rows if ``rope``), the K/V rows below ``lens + q_lens`` of
+    each slot with a valid row, the table entries those rows sit in,
+    ``lens`` and ``q_lens``, and the whole output."""
     q, kc = args["q"], args["key_cache"]
     b, c, hq, d = q.shape
     _, hkv, bs, _ = kc.shape
     lens, q_lens = args["seq_lens"].tolist(), args["q_lens"].tolist()
-    cos = args["cos"]
-    nbytes = 2 * q.numel() * q.element_size() + 2 * cos.numel() * cos.element_size()  # q, out; cos, sin
-    nbytes += sum(used) * 2 * hkv * bs * d * kc.element_size() + args["block_tables"].numel() * 4 + 2 * b * 4
+    ends = [n + m for n, m in zip(lens, q_lens) if m]
+    rows = sum(q_lens)
+    nbytes = (rows + b * c) * hq * d * q.element_size() + rope * 2 * rows * d * args["cos"].element_size()
+    nbytes += sum(ends) * 2 * hkv * d * kc.element_size() + sum(-(-e // bs) for e in ends) * 4 + 2 * b * 4
     flops = sum(4 * d * hq * (lens[i] + j + 1) for i in range(b) for j in range(q_lens[i]))
     return nbytes, flops
+
+
+def decode_cost(args: dict, rope: bool = True) -> tuple:
+    """Bytes the decode attention must move and its flops, counted from this
+    run's lengths (which include the current token): q of each slot with a
+    length above 0 (and its rope rows if ``rope``), the K/V rows below
+    ``lens``, the table entries those rows sit in, ``lens``, and the whole
+    output."""
+    q, kc = args["q"], args["key_cache"]
+    b, hq, d = q.shape
+    _, hkv, bs, _ = kc.shape
+    lens = [n for n in args["seq_lens"].tolist() if n]
+    rows = len(lens)
+    nbytes = (rows + b) * hq * d * q.element_size() + rope * 2 * rows * d * args["cos"].element_size()
+    nbytes += sum(lens) * 2 * hkv * d * kc.element_size() + sum(-(-n // bs) for n in lens) * 4 + b * 4
+    return nbytes, sum(4 * d * hq * n for n in lens)
+
+
+def decode_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, mbs: int = 128, dtype=None):
+    """The C = 1 form of :func:`paged_batch` for kernels 5 and 6: 8 slots,
+    one query token each, lengths INCLUDING it — two of them exact multiples
+    of the block size (512, 64) and an idle slot of length 0; table entries
+    past each slot's used blocks hold out-of-range garbage. Rope rows are
+    those of each slot's current position ``[8, 1, D]``. Returns the
+    arguments and each slot's used blocks."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaRotaryEmbedding
+
+    lens = torch.tensor([1, 193, 512, 301, 64, 449, 0, 1001], dtype=torch.int32)
+    b = lens.numel()
+    used = [-(-int(n) // bs) for n in lens]
+    nb = sum(used) + 8
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(2)).tolist()
+    tables = torch.full((b, mbs), 1 << 30, dtype=torch.int32)
+    at = 0
+    for i in range(b):
+        tables[i, : used[i]] = torch.tensor(perm[at: at + used[i]], dtype=torch.int32)
+        at += used[i]
+    dt = dtype or torch.bfloat16
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dt)
+    kc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(dt)
+    vc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(dt)
+    rope = LlamaRotaryEmbedding(d, 4096, 10000.0, dev)
+    cos, sin = (t.reshape(b, 1, d) for t in rope(1, (lens - 1).clamp(min=0).to(dev)))
+    return dict(q=q, cos=cos, sin=sin, key_cache=kc, value_cache=vc, block_tables=tables.to(dev),
+                seq_lens=lens.to(dev)), used
+
+
+def gathered_kv(args: dict, n_pos):
+    """K and V of each slot's first ``n_pos`` positions gathered dense,
+    ``[B, HKV, L, D]``, and L (the library yardstick's operands)."""
+    kc, vc, tables = args["key_cache"], args["value_cache"], args["block_tables"]
+    nb, hkv, bs, d = kc.shape
+    b = tables.shape[0]
+    n_blk = -(-max(n_pos) // bs)
+    tab = tables[:, :n_blk].long().clamp(0, nb - 1)
+    kd = kc[tab].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_blk * bs, d)
+    vd = vc[tab].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_blk * bs, d)
+    return kd, vd, n_blk * bs
+
+
+PAGED_TOL = {"bfloat16": (1e-4, BF16_REL), "float16": (1e-4, 2.0 ** -10), "float32": (2e-5, 1e-5)}
+
+
+def check_paged_new(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 4, 5 and 6 against their plain versions at the 7B serving
+    geometry (HQ = HKV = 32, D = 128, BS = 16) and GQA 32/8: kernel 4 over
+    :func:`paged_batch`'s mixed batch, 5 and 6 over :func:`decode_batch`;
+    timed at the 7B geometry, with SDPA over the gathered K/V as the library
+    yardstick."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    atol, rel = PAGED_TOL["bfloat16"]
+    tol = f"{atol} + 2^-7*|x|"
+    for hq, hkv in ((32, 32), (32, 8)):
+        args, _ = paged_batch(dev, gen, hq, hkv)
+        cargs = {k: args[k] for k in ("q", "key_cache", "value_cache", "block_tables", "seq_lens", "q_lens")}
+        got, want = kp.paged_flash_chunk(**cargs), kp.paged_flash_chunk_plain(**cargs)
+        dargs, _ = decode_batch(dev, gen, hq, hkv)
+        pargs = {k: dargs[k] for k in ("q", "key_cache", "value_cache", "block_tables", "seq_lens")}
+        dgot, dwant = kp.paged_flash_decode(**pargs), kp.paged_flash_decode_plain(**pargs)
+        fgot, fwant = kp.paged_flash_decode_fused(**dargs), kp.paged_flash_decode_fused_plain(**dargs)
+        torch.cuda.synchronize()
+        for name, g, w, zero in (("paged_chunk", got, want, bool((got[6] == 0).all()) and bool((got[2, 1:] == 0).all())),
+                                 ("paged_decode", dgot, dwant, bool((dgot[6] == 0).all())),
+                                 ("paged_decode_fused", fgot, fwant, bool((fgot[6] == 0).all()))):
+            err, ok = within(g, w, atol=atol, rel=rel)
+            if not ok or not zero:
+                fail(f"{name} disagrees with its plain version at HQ={hq} HKV={hkv} "
+                     f"(max abs err {err}, idle rows zero: {zero})")
+            if hq != hkv:
+                emit({"phase": "kernel_check", "kernel": name, "hq": hq, "hkv": hkv, "max_abs_err": err,
+                      "tolerance": tol, "card": card})
+                continue
+            records[name] = {"max_abs_err": err}
+        if hq != hkv:
+            continue
+        b, c, _, d = args["q"].shape
+        # yardsticks only (the port never calls them): SDPA over the dense gathered K/V
+        kd, vd, L = gathered_kv(args, [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])])
+        pos = torch.arange(L, device=dev)
+        cmask = (pos[None, None, :] < (args["seq_lens"][:, None] + torch.arange(c, device=dev)[None] + 1)[:, :, None])[:, None]
+        qt = args["q"].transpose(1, 2)
+        kd1, vd1, L1 = gathered_kv(dargs, [int(n) for n in dargs["seq_lens"]])
+        dmask = (torch.arange(L1, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
+        qd = dargs["q"][:, :, None]
+        qdr = kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"])[:, :, None]
+        cases = {
+            "paged_chunk": (lambda: kp.paged_flash_chunk(**cargs), lambda: kp.paged_flash_chunk_plain(**cargs),
+                            lambda: tF.scaled_dot_product_attention(qt, kd, vd, attn_mask=cmask),
+                            paged_cost(args, rope=False)),
+            "paged_decode": (lambda: kp.paged_flash_decode(**pargs), lambda: kp.paged_flash_decode_plain(**pargs),
+                             lambda: tF.scaled_dot_product_attention(qd, kd1, vd1, attn_mask=dmask),
+                             decode_cost(dargs, rope=False)),
+            "paged_decode_fused": (lambda: kp.paged_flash_decode_fused(**dargs),
+                                   lambda: kp.paged_flash_decode_fused_plain(**dargs),
+                                   lambda: tF.scaled_dot_product_attention(qdr, kd1, vd1, attn_mask=dmask),
+                                   decode_cost(dargs)),
+        }
+        for name, (run, run_plain, run_lib, (nbytes, flops)) in cases.items():
+            source = "paged_chunk_fused.cu" if name == "paged_chunk" else "paged_decode.cu"
+            records[name].update(
+                source=f"paddle_tpu_torch/kernels/csrc/{source}", ms=device_ms(run),
+                plain_ms=device_ms(run_plain, iters=5), library_ms=device_ms(run_lib),
+                call_ms=call_ms(run), plain_call_ms=call_ms(run_plain, iters=5), **bound(nbytes, flops))
+            emit({"phase": "kernel_check", "kernel": name, "hq": hq, "hkv": hkv, "tolerance": tol,
+                  "bytes": nbytes, "flops": flops, **records[name], "card": card})
+
+
+def check_paged_dtypes(dev, gen, card: dict) -> None:
+    """Kernels A, 4, 5 and 6 in fp16 and fp32 at GQA 32/8 against their
+    plain versions (the same fp32 math summed in another order: within one
+    ulp of the type, plus a small absolute term for values near 0)."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    for dtype in (torch.float16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        atol, rel = PAGED_TOL[name]
+        args, _ = paged_batch(dev, gen, 32, 8, dtype=dtype)
+        cargs = {k: args[k] for k in ("q", "key_cache", "value_cache", "block_tables", "seq_lens", "q_lens")}
+        dargs, _ = decode_batch(dev, gen, 32, 8, dtype=dtype)
+        pargs = {k: dargs[k] for k in ("q", "key_cache", "value_cache", "block_tables", "seq_lens")}
+        pairs = {
+            "paged_chunk_fused": (kp.paged_flash_chunk_fused(**args), kp.paged_flash_chunk_fused_plain(**args)),
+            "paged_chunk": (kp.paged_flash_chunk(**cargs), kp.paged_flash_chunk_plain(**cargs)),
+            "paged_decode": (kp.paged_flash_decode(**pargs), kp.paged_flash_decode_plain(**pargs)),
+            "paged_decode_fused": (kp.paged_flash_decode_fused(**dargs), kp.paged_flash_decode_fused_plain(**dargs)),
+        }
+        torch.cuda.synchronize()
+        errs = {}
+        for k, (g, w) in pairs.items():
+            errs[k], ok = within(g, w, atol=atol, rel=rel)
+            if not ok or g.dtype != dtype:
+                fail(f"{k} in {name} disagrees with its plain version (max abs err {errs[k]}, dtype {g.dtype})")
+        emit({"phase": "kernel_check", "kernel": "paged A/4/5/6", "dtype": name, "hq": 32, "hkv": 8,
+              "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
 
 
 def check_kernels(dev, card: dict) -> dict:
@@ -239,7 +420,7 @@ def check_kernels(dev, card: dict) -> dict:
             emit({"phase": "kernel_check", "kernel": "paged_chunk_fused", "hq": hq, "hkv": hkv,
                   "max_abs_err": err, "tolerance": "1e-4 + 2^-7*|x|", "card": card})
             continue
-        nbytes, flops = paged_cost(args, used)
+        nbytes, flops = paged_cost(args)
         run, run_plain = (lambda: paged_flash_chunk_fused(**args)), (lambda: paged_flash_chunk_fused_plain(**args))
         # yardstick only (the port never calls it): SDPA over the dense
         # gathered K/V of the used blocks, q already roped
@@ -302,6 +483,8 @@ def check_kernels(dev, card: dict) -> dict:
     )
     emit({"phase": "kernel_check", "kernel": "rms_residual", "tolerance": "1 bf16 ulp; r bitwise",
           **records["rms_residual"], "card": card})
+    check_paged_new(dev, gen, card, records)
+    check_paged_dtypes(dev, gen, card)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
     check_flash(dev, gen, card, records)
@@ -341,43 +524,95 @@ def check_b_c_dtypes(dev, gen, card: dict) -> None:
             fail(f"kernels B/C disagree with their plain versions in {dtype}: {line['max_abs_err']}, bitwise {exact}")
 
 
-def check_append_sync(dev, gen, card: dict) -> None:
-    """The serving step's KV append at the 7B serving shapes (8 slots x 64
-    rows, 32 KV heads of 128, a masked slot and rows past q_lens) runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: any host synchronisation
-    raises. The pools must equal a boolean-mask reference bit for bit."""
+def run_sync_free(label: str, fn) -> None:
+    """``fn()`` once to warm up, then once under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
     import torch
-    from paddle_tpu_torch.incubate.nn.functional import block_cache_append_chunk
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as exc:
+        fail(f"{label} synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def mask_reference(kc, vc, k, v, tables, pos, valid):
+    """Pools with rows ``k``/``v`` (``[N, H, D]``) written at positions
+    ``pos`` where ``valid`` (``[N]`` each; tables row per entry ``[N, MBS]``),
+    selected through a boolean mask (a host sync): the reference."""
+    import torch
+
+    bs = kc.shape[2]
+    phys = torch.gather(tables.long(), 1, (pos.long() // bs).clamp(max=tables.shape[1] - 1)[:, None])[:, 0]
+    want_k, want_v = kc.clone(), vc.clone()
+    want_k[phys[valid], :, (pos.long() % bs)[valid]] = k[valid]
+    want_v[phys[valid], :, (pos.long() % bs)[valid]] = v[valid]
+    return want_k, want_v
+
+
+def check_append_sync(dev, gen, card: dict) -> None:
+    """The KV appends at the 7B serving shapes (32 KV heads of 128) run
+    under ``torch.cuda.set_sync_debug_mode("error")``, so any host
+    synchronisation raises, and must leave pools equal bit for bit to a
+    boolean-mask reference: the serving step's chunk append (8 slots x 64
+    rows, a masked slot and rows past q_lens), the decode append
+    ``block_cache_append`` (a masked idle slot, garbage table tails) and the
+    prompt write ``block_cache_prefill`` (lengths shorter than S, one 0)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import (
+        block_cache_append, block_cache_append_chunk, block_cache_prefill,
+    )
 
     args, _ = paged_batch(dev, gen, 32, 32)
     kc, vc, tables, lens, q_lens = (args[n] for n in ("key_cache", "value_cache", "block_tables", "seq_lens", "q_lens"))
     mask = torch.tensor([True, True, True, True, True, False, False, True], device=dev)
     k, v = (torch.randn(args["q"].shape, generator=gen, device=dev).to(kc.dtype) for _ in range(2))
-    # the reference: select the valid rows with a boolean mask (a host sync)
-    bs, c = kc.shape[2], k.shape[1]
+    c = k.shape[1]
     j = torch.arange(c, device=dev)[None, :]
-    pos = lens.long()[:, None] + j
-    valid = (j < q_lens.long()[:, None]) & mask[:, None]
-    phys = torch.gather(tables.long(), 1, (pos // bs).clamp(max=tables.shape[1] - 1))[valid]
-    want_k, want_v = kc.clone(), vc.clone()
-    want_k[phys, :, (pos % bs)[valid]] = k[valid]
-    want_v[phys, :, (pos % bs)[valid]] = v[valid]
+    valid = ((j < q_lens.long()[:, None]) & mask[:, None]).reshape(-1)
+    rows_tables = tables.repeat_interleave(c, dim=0)
+    results = {}
+    want_k, want_v = mask_reference(kc, vc, flat_s(k), flat_s(v), rows_tables, (lens[:, None] + j).reshape(-1), valid)
     got_k, got_v = kc.clone(), vc.clone()
-    block_cache_append_chunk(got_k.clone(), got_v.clone(), k, v, tables, lens, q_lens, slot_mask=mask)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        block_cache_append_chunk(got_k, got_v, k, v, tables, lens, q_lens, slot_mask=mask)
-    except RuntimeError as exc:
-        fail(f"the KV append synchronised with the host: {exc}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
-    emit({"phase": "append_sync", "shape": list(k.shape), "sync_debug_mode": "error", "host_syncs": 0,
-          "bitwise_equal_to_mask_reference": same, "card": card})
-    if not same:
-        fail("the sync-free KV append differs from the boolean-mask reference")
+    run_sync_free("block_cache_append_chunk", lambda: block_cache_append_chunk(
+        got_k, got_v, k, v, tables, lens, q_lens, slot_mask=mask))
+    results["block_cache_append_chunk"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+
+    dargs, _ = decode_batch(dev, gen, 32, 32)
+    kc, vc, tables = (dargs[n] for n in ("key_cache", "value_cache", "block_tables"))
+    pos = (dargs["seq_lens"] - 1).clamp(min=0)
+    dmask = torch.tensor([True, True, True, False, True, True, False, True], device=dev)
+    k1, v1 = (torch.randn((8, 32, kc.shape[3]), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    want_k, want_v = mask_reference(kc, vc, k1, v1, tables, pos, dmask)
+    got_k, got_v = kc.clone(), vc.clone()
+    run_sync_free("block_cache_append", lambda: block_cache_append(got_k, got_v, k1, v1, tables, pos, slot_mask=dmask))
+    results["block_cache_append"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+
+    s = 64
+    plens = torch.tensor([1, 40, 64, 17, 64, 64, 0, 63], dtype=torch.int32, device=dev)
+    kp, vp = (torch.randn((8, s, 32, kc.shape[3]), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    t = torch.arange(s, device=dev)[None, :]
+    pvalid = (t < plens[:, None]).reshape(-1)
+    want_k, want_v = mask_reference(kc, vc, flat_s(kp), flat_s(vp), tables.repeat_interleave(s, dim=0),
+                                    t.expand(8, s).reshape(-1), pvalid)
+    got_k, got_v = kc.clone(), vc.clone()
+    run_sync_free("block_cache_prefill", lambda: block_cache_prefill(got_k, got_v, kp, vp, tables, plens))
+    results["block_cache_prefill"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+    emit({"phase": "append_sync", "chunk_shape": list(k.shape), "decode_shape": list(k1.shape),
+          "prefill_shape": list(kp.shape), "sync_debug_mode": "error", "host_syncs": 0,
+          "bitwise_equal_to_mask_reference": results, "card": card})
+    if not all(results.values()):
+        fail(f"a sync-free KV append differs from the boolean-mask reference: {results}")
+
+
+def flat_s(t):
+    """``[B, S, H, D]`` as ``[B * S, H, D]``."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
 
 
 # -- kernels 14-16: flash attention forward, dq, dk/dv ------------------------------
@@ -1013,7 +1248,7 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
     return h @ w(model.lm_head)
 
 
-def check_logits(model, dev, card: dict) -> None:
+def check_logits(model, dev, card: dict, label: str = "logits") -> None:
     """Phase 5: prefill a small pool through the kernel path, then run one
     mixed step (decode row, continuing chunk, idle slot, full chunk) through
     the kernel path, through the plain versions in bf16, and through the
@@ -1048,7 +1283,15 @@ def check_logits(model, dev, card: dict) -> None:
         plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, torch.bfloat16).float()
         ref = plain_logits(model, ids, f32_pools, tables, q0, active, q1, torch.float32)
     rows = torch.arange(64, device=dev)[None, :] < (q1 * active)[:, None]
-    got, plain, ref = got[rows], plain[rows], ref[rows]
+    logits_gate(got[rows], plain[rows], ref[rows], label, card)
+
+
+def logits_gate(got, plain, ref, label: str, card: dict, gate_top1: bool = True) -> None:
+    """The kernel path's logits ``got`` against the plain bf16 path's and
+    the fp32 reference's, row by row (``[rows, V]``): relative L2 error at
+    most 1.25x the plain path's, all finite, and (``gate_top1``) top-1
+    agreement with the reference within 0.05 of the plain path's."""
+    import torch
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
@@ -1059,44 +1302,270 @@ def check_logits(model, dev, card: dict) -> None:
     out = {"kernel_vs_fp32_rel_l2": rel(got, ref), "plain_vs_fp32_rel_l2": rel(plain, ref),
            "kernel_vs_plain_rel_l2": rel(got, plain), "kernel_vs_fp32_top1": top1(got, ref),
            "plain_vs_fp32_top1": top1(plain, ref), "kernel_vs_plain_max_abs_err": float((got - plain).abs().max())}
-    ok = (out["kernel_vs_fp32_rel_l2"] <= 1.25 * out["plain_vs_fp32_rel_l2"]
-          and out["kernel_vs_fp32_top1"] >= out["plain_vs_fp32_top1"] - 0.05 and bool(torch.isfinite(got).all()))
-    emit({"phase": "logits", "rows": int(rows.sum()), **out,
-          "tolerance": "kernel_vs_fp32_rel_l2 <= 1.25 * plain_vs_fp32_rel_l2; top1 within 0.05 of plain's",
-          "card": card})
+    ok = out["kernel_vs_fp32_rel_l2"] <= 1.25 * out["plain_vs_fp32_rel_l2"] and bool(torch.isfinite(got).all())
+    tol = "kernel_vs_fp32_rel_l2 <= 1.25 * plain_vs_fp32_rel_l2"
+    if gate_top1:
+        ok = ok and out["kernel_vs_fp32_top1"] >= out["plain_vs_fp32_top1"] - 0.05
+        tol += "; top1 within 0.05 of plain's"
+    emit({"phase": label, "rows": got.shape[0], **out, "tolerance": tol, "card": card})
     if not ok:
-        fail(f"kernel-path logits are further from the fp32 reference than the plain path's: {out}")
+        fail(f"{label}: kernel-path logits are further from the fp32 reference than the plain path's: {out}")
+
+
+def plain_decode_logits(model, tok, caches, tables, lens, dtype):
+    """One ``generate_paged`` decode step (``tok [B]``, pools holding
+    ``lens`` tokens) written out with the plain versions, computed in
+    ``dtype`` (each weight cast as it is used)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla, block_cache_append
+    from paddle_tpu_torch.kernels.fused import rms_norm_fwd_plain
+    from paddle_tpu_torch.kernels.paged_attention import paged_flash_decode_plain
+    from paddle_tpu_torch.nn.functional import swiglu
+
+    def w(mod):
+        return mod.weight.to(dtype)
+
+    def norm(x, mod):
+        return rms_norm_fwd_plain(x, w(mod), mod.epsilon)[0]
+
+    llama = model.llama
+    b = tok.shape[0]
+    h = w(llama.embed_tokens)[tok.long()][:, None]
+    cos, sin = llama.rotary_emb(1, lens)
+    for i, layer in enumerate(llama.layers):
+        att, mlp = layer.self_attn, layer.mlp
+        nh, nkv, hd = att.num_heads, att.num_kv_heads, att.head_dim
+        x = norm(h, layer.input_layernorm)
+        q = _rope_apply_xla((x @ w(att.q_proj)).reshape(b, 1, nh, hd), sin, cos, True)
+        k = _rope_apply_xla((x @ w(att.k_proj)).reshape(b, 1, nkv, hd), sin, cos, True)
+        v = (x @ w(att.v_proj)).reshape(b, 1, nkv, hd)
+        kc, vc = caches[i]
+        block_cache_append(kc, vc, k[:, 0], v[:, 0], tables, lens)
+        a = paged_flash_decode_plain(q[:, 0], kc, vc, tables, lens + 1)
+        h = h + a.reshape(b, 1, nh * hd) @ w(att.o_proj)
+        x = norm(h, layer.post_attention_layernorm)
+        h = h + swiglu(x @ w(mlp.gate_proj), x @ w(mlp.up_proj)) @ w(mlp.down_proj)
+    return norm(h, llama.norm) @ w(model.lm_head)
+
+
+def check_decode_logits(model, dev, card: dict) -> None:
+    """One ``generate_paged`` decode step (32 sequences of 64 prompt tokens,
+    prefilled through the kernel path) through the kernel path (kernel 5),
+    through the plain versions in bf16 and in fp32 on copies of the pools:
+    the relative L2 gate of :func:`logits_gate`. Top-1 agreement over 32
+    single rows moves by 1/32 a flip, so it is reported, not gated."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import block_cache_prefill
+
+    cfg = model.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    b, s, bs = 32, 64, 16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tables = torch.arange(b * 5, dtype=torch.int32, device=dev).reshape(b, 5)  # 4 prompt blocks + 1
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+        logits, dense = model(ids, use_cache=True)
+        pools = []
+        for k, v in dense:
+            kc = torch.zeros((b * 5, cfg.num_key_value_heads, bs, hd), dtype=model.dtype, device=dev)
+            pools.append(block_cache_prefill(kc, torch.zeros_like(kc), k, v, tables, lens))
+        del dense, logits
+        tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev, dtype=torch.int32)
+        plain_pools = [(kc.clone(), vc.clone()) for kc, vc in pools]
+        f32_pools = [(kc.float(), vc.float()) for kc, vc in pools]
+        got, _ = model(tok[:, None], past_key_values=[(kc, vc, tables, lens) for kc, vc in pools],
+                       use_cache=True, cache_position=lens)
+        plain = plain_decode_logits(model, tok, plain_pools, tables, lens, torch.bfloat16).float()
+        ref = plain_decode_logits(model, tok, f32_pools, tables, lens, torch.float32)
+    logits_gate(got[:, 0].float(), plain[:, 0], ref[:, 0], "logits_decode", card, gate_top1=False)
+
+
+GEN_SHAPE = (8, 512, 32)  # prompts, prompt tokens, new tokens
+
+
+def generate_paged_phase(model, dev, card: dict) -> dict:
+    """Phase 4c: ``model.generate_paged`` at Llama-2-7B width on 8 seeded
+    prompts of 512 tokens, 32 new tokens, ``block_size=16``, after a small
+    warm-up call. Forward hooks snapshot the launch counters and record a
+    CUDA event around every model call: the prefill must launch flash_fwd
+    32x, rope_fwd 64x and rms_norm_fwd 65x, each of the 31 decode steps
+    paged_decode 32x and rms_norm_fwd 65x, and nothing else; the output is
+    ``[8, 544]`` int32 with the prompts in front; every block is freed (the
+    call's allocator is local, so its ``free`` is checked by counting). The
+    host syncs of the timed call are counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``. Returns the call's launch
+    counts."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import block_attention
+    from paddle_tpu_torch.kernels.select import KERNELS, launch_counts, reset_launch_counts
+
+    cfg = model.config
+    b, prompt, new = GEN_SHAPE
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, prompt)).astype(np.int32)).to(dev)
+    model.generate_paged(ids[:2, :64], max_new_tokens=4, block_size=16)  # warm-up
+    snaps, marks = [], []
+
+    def pre(mod, args, kwargs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        snaps.append(launch_counts())
+
+    def post(mod, args, kwargs, out):
+        snaps.append(launch_counts())
+
+    freed = []
+    real_free = block_attention.BlockKVCache.free
+
+    def counting_free(self, seq_id):
+        freed.append(self.blocks_allocated(seq_id))
+        real_free(self, seq_id)
+
+    hooks = [model.register_forward_pre_hook(pre, with_kwargs=True),
+             model.register_forward_hook(post, with_kwargs=True)]
+    block_attention.BlockKVCache.free = counting_free
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                out = model.generate_paged(ids, max_new_tokens=new, block_size=16)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+        block_attention.BlockKVCache.free = real_free
+    counts = launch_counts()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    deltas = [{k: after[k] - before[k] for k in KERNELS if after[k] != before[k]}
+              for before, after in zip(snaps[0::2], snaps[1::2])]
+    marks.append(end)
+    step_ms = [a.elapsed_time(z) for a, z in zip(marks[:-1], marks[1:])]
+    decode_ms = float(np.median(step_ms[1:]))
+    blocks = -(-(prompt + new) // 16)
+    emit({"phase": "generate_paged", "model": "llama2_7b (seeded random bf16 weights)", "batch": b,
+          "prompt_tokens": prompt, "new_tokens": new, "block_size": 16, "calls": len(deltas),
+          "prefill_launches": deltas[0] if deltas else None,
+          "decode_launches_per_step": deltas[1] if len(deltas) > 1 else None,
+          "wall_s": wall_s, "prefill_ms": step_ms[0], "decode_ms_per_step_p50": decode_ms,
+          "decode_ms_per_step_mean": float(np.mean(step_ms[1:])), "decode_tokens_per_s": b * 1e3 / decode_ms,
+          "weights_bound_ms": WEIGHT_BYTES_7B / HBM_BYTES_PER_S * 1e3,
+          "decode_step_over_weights_bound": decode_ms / (WEIGHT_BYTES_7B / HBM_BYTES_PER_S * 1e3),
+          "host_syncs": syncs, "blocks_freed": sum(freed), "launches": counts, "card": card})
+    layers = cfg.num_hidden_layers
+    want_prefill = {"flash_fwd": layers, "rope_fwd": 2 * layers, "rms_norm_fwd": 2 * layers + 1}
+    want_decode = {"paged_decode": layers, "rms_norm_fwd": 2 * layers + 1}
+    if tuple(out.shape) != (b, prompt + new) or out.dtype != torch.int32 or not torch.equal(out[:, :prompt], ids):
+        fail(f"generate_paged returned {tuple(out.shape)} {out.dtype}, want [{b}, {prompt + new}] int32 after the prompts")
+    if len(deltas) != new or deltas[0] != want_prefill or any(d != want_decode for d in deltas[1:]):
+        fail(f"generate_paged launches: prefill {deltas[:1]}, decode steps {deltas[1:3]}...; want "
+             f"{want_prefill} then {new - 1} x {want_decode}")
+    if sum(freed) != b * blocks or len(freed) != b:
+        fail(f"generate_paged freed {freed}, want {b} sequences of {blocks} blocks")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail("generate_paged emitted a token outside the vocabulary")
+    profile_decode(model, ids, card)
+    check_decode_logits(model, dev, card)
+    return counts
+
+
+def check_decode_fused(dev, gen, card: dict) -> dict:
+    """Phase 4d: the public ``block_multihead_attention_fused`` at the 7B
+    decode shape (8 slots, 32 heads of 128, block 16, an idle masked slot,
+    garbage table tails): one launch of kernel 6 and nothing else; the
+    output against the plain version on the same pools; the pools bit for
+    bit those of the plain append (k roped by the same composition, written
+    through a boolean mask). Returns the launch counts."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla, block_multihead_attention_fused
+    from paddle_tpu_torch.kernels.paged_attention import paged_flash_decode_fused_plain
+    from paddle_tpu_torch.kernels.select import KERNELS, launch_counts, reset_launch_counts
+
+    args, _ = decode_batch(dev, gen, 32, 32)
+    kc, vc, tables, lens_in = (args[n] for n in ("key_cache", "value_cache", "block_tables", "seq_lens"))
+    active = lens_in > 0
+    seq_lens = (lens_in - 1).clamp(min=0)  # tokens cached before this one
+    b, hq, d = args["q"].shape
+    q = args["q"][:, None]
+    k, v = (torch.randn((b, 1, 32, d), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    cos, sin = args["cos"][:, :, None], args["sin"][:, :, None]
+    want_k, want_v = kc.clone(), vc.clone()
+    kr = _rope_apply_xla(k, sin, cos, True)
+    bs = kc.shape[2]
+    phys = torch.gather(tables.long(), 1, (seq_lens.long() // bs)[:, None])[:, 0][active]
+    off = (seq_lens.long() % bs)[active]
+    want_k[phys, :, off] = kr[:, 0][active]
+    want_v[phys, :, off] = v[:, 0][active]
+    want = paged_flash_decode_fused_plain(args["q"], args["cos"], args["sin"], want_k, want_v, tables,
+                                          torch.where(active, seq_lens + 1, torch.zeros_like(seq_lens)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, kc2, vc2 = block_multihead_attention_fused(q, k, v, cos, sin, kc, vc, tables, seq_lens, slot_mask=active)
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    err, ok = within(out[:, 0], want, *PAGED_TOL["bfloat16"])
+    same = bool(torch.equal(kc2, want_k)) and bool(torch.equal(vc2, want_v))
+    idle_zero = bool((out[6] == 0).all())
+    emit({"phase": "decode_fused", "shape": [b, 1, hq, d], "launches": {n: c for n, c in counts.items() if c},
+          "max_abs_err": err, "tolerance": "1e-4 + 2^-7*|x|", "pools_bitwise_equal_to_plain_append": same,
+          "idle_slot_zero": idle_zero, "card": card})
+    if counts != {n: int(n == "paged_decode_fused") for n in KERNELS}:
+        fail(f"block_multihead_attention_fused launched {counts}, want paged_decode_fused once and nothing else")
+    if not (ok and same and idle_zero):
+        fail(f"block_multihead_attention_fused: max abs err {err}, pools bitwise {same}, idle slot zero {idle_zero}")
+    return counts
 
 
 KERNEL_CATEGORIES = (  # device kernel name substring -> category
-    ("paged_chunk_fused", "attention (kernel A)"), ("embed_rms", "embed_rms (kernel B)"),
-    ("rms_residual", "rms_residual (kernel C)"), ("gemm", "matmul"), ("cutlass", "matmul"),
-    ("xmma", "matmul"), ("nvjet", "matmul"), ("Memcpy", "memcpy"), ("Memset", "memcpy"),
+    ("paged_chunk_kernel", "attention (kernels A / 4)"), ("paged_decode_kernel", "attention (kernels 5 / 6)"),
+    ("embed_rms", "embed_rms (kernel B)"), ("rms_fwd_kernel", "rmsnorm (kernel 7)"),
+    ("rms_residual", "rms_residual (kernel C)"), ("flash_fwd_kernel", "flash fwd (kernel 14)"),
+    ("gemm", "matmul"), ("cutlass", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
+    ("Memcpy", "memcpy"), ("Memset", "memcpy"),
     ("index", "kv append / gathers"), ("nonzero", "kv append / gathers"), ("gather", "kv append / gathers"),
     ("scatter", "kv append / gathers"),
 )
 
 
-def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3) -> None:
-    """Where a serving step's time goes: ``torch.profiler`` over ``steps``
-    engine steps (after ``warm`` unprofiled ones) on a fresh set of
-    requests; device time by kernel category, and the device's idle share
-    of the wall time. The engine is drained afterwards."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3, label: str = "profile") -> None:
+    """Where a serving step's time goes: :func:`profile_window` over
+    ``steps`` engine steps (after ``warm`` unprofiled ones) on a fresh set
+    of requests. The engine is drained afterwards."""
     for p in prompts:
         eng.add_request(p, max_new_tokens=32)
     for _ in range(warm):
         eng.step()
+    profile_window(eng.step, steps, label, card)
+    eng.run()
+
+
+def profile_window(step, steps: int, label: str, card: dict) -> None:
+    """``torch.profiler`` over ``steps`` calls of ``step()``: device time by
+    kernel category, the device-busy time (the union of kernel intervals)
+    and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    eng.run()
     spans, by_cat, by_name = [], {}, {}
     for e in cuda_events(prof):
         start, dur = e.time_range.start, e.time_range.elapsed_us()
@@ -1110,38 +1579,71 @@ def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3) -> No
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+    emit({"phase": label, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
           "device_busy_ms_per_step": busy / steps / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_per_step_by_category": {k: v / steps / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
           "top_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in top},
-          "cuda_events": len(spans), "card": card})
+          "cuda_events": len(spans), "kernels_per_step": len(spans) / steps, "card": card})
 
 
-def serve(dev, card: dict):
-    """Phase 4: Llama-2-7B through the engine; returns the model and the
-    launch counts of the timed run."""
-    import numpy as np
+def profile_decode(model, ids, card: dict, steps: int = 5) -> None:
+    """Where a ``generate_paged`` decode step's time goes: its model call
+    (4-tuple pasts over pools prefilled from ``ids``, then the greedy
+    argmax) under :func:`profile_window`, after 2 unprofiled steps."""
     import torch
-    from paddle_tpu_torch.inference import ContinuousBatchingEngine
-    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.incubate.nn.functional import block_cache_prefill
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    cfg = LlamaConfig.llama2_7b()
-    model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    eng = ContinuousBatchingEngine(model, max_slots=8, block_size=16, prefill_chunk=64,
-                                   max_model_len=2048, prompt_bucket=512)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    cfg = model.config
+    b, prompt = ids.shape
+    per = -(-(prompt + steps + 2) // 16)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    tables = torch.arange(b * per, dtype=torch.int32, device=ids.device).reshape(b, per)
+    state = {"lens": torch.full((b,), prompt, dtype=torch.int32, device=ids.device)}
+    with torch.inference_mode():
+        logits, dense = model(ids, use_cache=True)
+        pools = []
+        for k, v in dense:
+            kc = torch.zeros((b * per, cfg.num_key_value_heads, 16, hd), dtype=model.dtype, device=ids.device)
+            pools.append(block_cache_prefill(kc, torch.zeros_like(kc), k, v, tables, state["lens"]))
+        state["tok"] = logits[:, -1].float().argmax(-1).to(torch.int32)
+        del dense, logits
+
+    @torch.inference_mode()
+    def step():
+        lens = state["lens"]
+        out, _ = model(state["tok"][:, None], past_key_values=[(kc, vc, tables, lens) for kc, vc in pools],
+                       use_cache=True, cache_position=lens)
+        state["tok"] = out[:, -1].float().argmax(-1).to(torch.int32)
+        state["lens"] = lens + 1
+
+    step()
+    step()
+    profile_window(step, steps, "profile_decode", card)
+
+
+SERVE_ENGINE = dict(max_slots=8, block_size=16, prefill_chunk=64, max_model_len=2048, prompt_bucket=512)
+
+
+def serve_prompts(vocab: int):
+    """The 16 seeded requests of the serve phases: prompts of 64-512 tokens."""
+    import numpy as np
+
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in rng.integers(64, 513, 16)]
+    return [rng.integers(0, vocab, int(n)) for n in rng.integers(64, 513, 16)]
+
+
+def drive_engine(eng, prompts) -> dict:
+    """Queue every prompt (32 new tokens each) and step the engine dry, each
+    step timed on the host clock (the step ends in the host reading its
+    tokens back, a device sync). The launch counters are reset just before
+    and read just after."""
+    import numpy as np
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 
     reset_launch_counts()
     t_run = time.perf_counter()
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=32)
+    ids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
     done, prefill_ms, decode_ms = {}, [], []
     while eng.has_work():
         before = eng.stats["prompt_tokens_computed"]
@@ -1152,37 +1654,94 @@ def serve(dev, card: dict):
         (prefill_ms if eng.stats["prompt_tokens_computed"] > before else decode_ms).append(dt)
     run_s = time.perf_counter() - t_run
     counts = launch_counts()
-    steps = eng.stats["steps"]
-
     gen_tokens = sum(len(r.generated) for r in done.values())
     ttft = sorted(r.admit_time - r.arrival_time for r in done.values())
-    pool = eng.pool_stats()
-    emit({
-        "phase": "serve", "model": "llama2_7b (seeded random bf16 weights)", "requests": len(prompts),
-        "finished": len(done), "prompt_tokens": int(sum(p.size for p in prompts)),
-        "generated_tokens": gen_tokens, "steps": steps, "prefill_steps": len(prefill_ms),
-        "decode_only_steps": len(decode_ms), "setup_s": setup_s, "run_s": run_s,
-        "decode_tokens_per_s": gen_tokens / run_s,
+    stats = {
+        "requests": len(prompts), "finished": len(done), "prompt_tokens": int(sum(p.size for p in prompts)),
+        "generated_tokens": gen_tokens, "steps": eng.stats["steps"], "prefill_steps": len(prefill_ms),
+        "decode_only_steps": len(decode_ms), "run_s": run_s, "decode_tokens_per_s": gen_tokens / run_s,
         "step_ms_p50": float(np.median(prefill_ms + decode_ms)),
         "prefill_step_ms_p50": float(np.median(prefill_ms)) if prefill_ms else None,
         "decode_step_ms_p50": float(np.median(decode_ms)) if decode_ms else None,
         "ttft_ms_p50": float(np.median(ttft)) * 1e3, "ttft_ms_max": ttft[-1] * 1e3,
-        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "launches": counts, "pool": pool, "card": card,
-    })
-    if len(done) != len(prompts) or any(len(r.generated) != 32 for r in done.values()):
-        fail("not every request finished with 32 tokens")
-    layers = cfg.num_hidden_layers  # 32: A once per layer, C twice per layer, B once per step
-    want = {"paged_chunk_fused": layers * steps, "embed_rms": steps, "rms_residual": 2 * layers * steps,
-            **{name: 0 for name in TRAIN_KERNELS}}  # and no training kernel
-    if counts != want:
-        fail(f"launch counts {counts} != {want} for {steps} steps")
+    }
+    streams = [list(done[i].generated) if i in done else None for i in ids]
+    return {"stats": stats, "counts": counts, "streams": streams, "done": done}
+
+
+def check_served(run: dict, eng, want: dict, label: str) -> None:
+    """Every request finished with 32 tokens, the launch counts are ``want``
+    for every kernel (per step times the steps), the pool drained."""
+    from paddle_tpu_torch.kernels.select import KERNELS
+
+    steps = run["stats"]["steps"]
+    if run["stats"]["finished"] != run["stats"]["requests"] or any(len(s or ()) != 32 for s in run["streams"]):
+        fail(f"{label}: not every request finished with 32 tokens")
+    expect = {name: want.get(name, 0) * steps for name in KERNELS}
+    if run["counts"] != expect:
+        fail(f"{label}: launch counts {run['counts']} != {expect} for {steps} steps")
+    pool = eng.pool_stats()
     if pool["free"] != pool["total"]:
-        fail(f"the pool did not drain: {pool}")
+        fail(f"{label}: the pool did not drain: {pool}")
+
+
+def serve(dev, card: dict):
+    """Phase 4: Llama-2-7B through the engine; returns the model, the launch
+    counts of the timed run and its token streams."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size)
+    run = drive_engine(eng, prompts)
+    emit({"phase": "serve", "model": "llama2_7b (seeded random bf16 weights)", **run["stats"],
+          "setup_s": setup_s, "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "launches": run["counts"], "pool": eng.pool_stats(), "card": card})
+    layers = cfg.num_hidden_layers  # 32: A once per layer, C twice per layer, B once per step
+    check_served(run, eng, {"paged_chunk_fused": layers, "embed_rms": 1, "rms_residual": 2 * layers}, "serve")
     profile_steps(eng, prompts[:8], card)
-    if eng.pool_stats()["free"] != pool["total"]:
+    if eng.pool_stats()["free"] != eng.pool_stats()["total"]:
         fail("the pool did not drain after the profiled steps")
-    return model, counts
+    return model, run["counts"], run["streams"]
+
+
+def serve_unfused(model, dev, card: dict, fused_streams) -> dict:
+    """Phase 4b: the same 16 requests through a second engine with
+    ``FLAGS_use_fused_decode_layer=False`` (restored afterwards): the layer
+    modules, attention through kernel 4 (32x a step), every RMSNorm through
+    kernel 7 (65x a step), none of A, B, C. One mixed step's logits must
+    pass :func:`check_logits`' gate. The token agreement with the fused
+    engine's streams is reported, not gated (bf16 paths that round
+    differently part ways on near ties). Returns the launch counts."""
+    import numpy as np
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    cfg = model.config
+    paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": False})
+    try:
+        eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
+        run = drive_engine(eng, serve_prompts(cfg.vocab_size))
+        layers = cfg.num_hidden_layers
+        agree = [float(np.mean(np.array(a) == np.array(b))) for a, b in zip(run["streams"], fused_streams)]
+        emit({"phase": "serve_unfused", "flag": "FLAGS_use_fused_decode_layer=False", **run["stats"],
+              "token_agreement_with_fused_mean": float(np.mean(agree)),
+              "streams_identical_to_fused": sum(a == 1.0 for a in agree), "launches": run["counts"],
+              "card": card})
+        check_served(run, eng, {"paged_chunk": layers, "rms_norm_fwd": 2 * layers + 1}, "serve_unfused")
+        profile_steps(eng, serve_prompts(cfg.vocab_size)[:8], card, label="profile_unfused")
+        del eng
+        check_logits(model, dev, card, label="logits_unfused")
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
+    return run["counts"]
 
 
 # -- training ------------------------------------------------------------------
@@ -1488,8 +2047,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"], "ptxas": ptxas})
 
     records = check_kernels(dev, card)
-    model, counts = serve(dev, card)  # the engine and its pool are released here
+    model, counts, streams = serve(dev, card)  # the engine and its pool are released here
     check_logits(model, dev, card)
+    counts["paged_chunk"] = serve_unfused(model, dev, card, streams)["paged_chunk"]
+    counts["paged_decode"] = generate_paged_phase(model, dev, card)["paged_decode"]
+    counts["paged_decode_fused"] = check_decode_fused(dev, torch.Generator(device=dev).manual_seed(5),
+                                                      card)["paged_decode_fused"]
     del model  # the 7B serving model, before the train phase
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,6 +14,10 @@ Llama through the continuous-batching engine::
     eng.add_request(prompt_ids, max_new_tokens=32)
     results = eng.run()
 
+decodes a static batch greedily over the paged cache::
+
+    out = model.generate_paged(ids, max_new_tokens=32, block_size=16)  # [B, S + 32] int32
+
 and trains it at every JAX default — FlashMask document masks, recompute,
 AdamW with fp32 master weights, and the fused loss head (the logits are
 never materialised, so the second return is None)::

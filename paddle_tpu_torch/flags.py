@@ -17,7 +17,10 @@ __all__ = ["flag", "get_flags", "set_flags"]
 # name -> (the values the port implements, the first being the default;
 #          why no other is)
 _FLAGS: Dict[str, tuple] = {
-    "use_fused_decode_layer": ((True,), "only the fused decode layer loop is ported"),
+    # the JAX default: the engine's paged step runs the fused decode layer
+    # loop (kernels A, B, C); False runs the layer modules (kernel 4, RMSNorm
+    # kernel 7), as in JAX
+    "use_fused_decode_layer": ((True, False), "it is a bool"),
     # the JAX default is True
     "enable_prefix_cache": ((False,), "the prefix cache is not ported yet"),
     # 'bf16' means the unquantized pool in the model's dtype (the JAX meaning)

@@ -23,8 +23,13 @@ from paddle_tpu_torch.nn.functional.common import rms_norm
 
 __all__ = [
     "BlockKVCache",
+    "block_cache_append",
     "block_cache_append_chunk",
     "block_cache_cow_copy",
+    "block_cache_prefill",
+    "block_multihead_attention",
+    "block_multihead_attention_fused",
+    "block_multihead_chunk_attention",
     "block_multihead_chunk_attention_fused",
     "fused_embed_rms_norm",
     "fused_rms_norm_residual",
@@ -135,7 +140,12 @@ def fused_rotary_position_embedding(
 
 from paddle_tpu_torch.incubate.nn.functional.block_attention import (  # noqa: E402
     BlockKVCache,
+    block_cache_append,
     block_cache_append_chunk,
     block_cache_cow_copy,
+    block_cache_prefill,
+    block_multihead_attention,
+    block_multihead_attention_fused,
+    block_multihead_chunk_attention,
     block_multihead_chunk_attention_fused,
 )

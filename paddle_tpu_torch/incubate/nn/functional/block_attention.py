@@ -1,53 +1,139 @@
-"""Paged KV cache for the continuous-batching engine: the host-side block
-allocator and the device-side cache operations of one serving step.
+"""Paged KV cache for serving: the host-side block allocator and the
+device-side cache operations of a decode or serving step.
 
-Port of the serving half of ``paddle_tpu/incubate/nn/functional/
-block_attention.py``. The cache layout is the JAX package's: one
+Port of ``paddle_tpu/incubate/nn/functional/block_attention.py`` (the
+unquantized pool on one device). The cache layout is the JAX package's: one
 ``[NB, HKV, BS, D]`` key pool and one value pool per layer, addressed by
 ``[B, MBS]`` block tables. Where the JAX functions return updated caches
-(JAX arrays are immutable), these update the caches in place and say so.
+(JAX arrays are immutable), these update the caches in place and return the
+same tensors. Every append is sync-free: no data-dependent shape, so a step
+never waits on the device. The attention entries run the paged kernels (A,
+4, 5, 6) for a head dim that is a multiple of 64, and the dense-gather
+composition otherwise, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla
 from paddle_tpu_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
     _gather_chunk_attend,
+    _no_scale_planes,
+    paged_flash_chunk,
     paged_flash_chunk_fused,
+    paged_flash_decode,
+    paged_flash_decode_fused,
 )
 
 __all__ = [
     "BlockKVCache",
+    "block_cache_append",
     "block_cache_append_chunk",
     "block_cache_cow_copy",
+    "block_cache_prefill",
+    "block_multihead_attention",
+    "block_multihead_attention_fused",
+    "block_multihead_chunk_attention",
     "block_multihead_chunk_attention_fused",
     "_gather_chunk_attend",
 ]
 
+Caches = Tuple[torch.Tensor, torch.Tensor]
+
 
 class BlockKVCache:
-    """Host-side refcounted allocator over the physical block pool.
+    """Host-side paged-cache manager over the physical block pool.
 
-    The serving engine maps blocks into per-slot tables with
-    :meth:`acquire_block` and hands them back with :meth:`decref`; a block
-    returns to the free list only when its last owner drops it. Accounting is
-    guarded by one lock (a serving front end may size requests against
-    ``free_blocks`` from another thread). The device pools themselves belong
-    to the engine, one pair per layer."""
+    Two allocation surfaces share the one free list, as in the JAX package:
 
-    def __init__(self, num_blocks: int, block_size: int) -> None:
+    - per-sequence tables (:meth:`allocate`, :meth:`free`, :meth:`truncate`,
+      :meth:`block_table`, :meth:`seq_lens`), used by ``generate_paged``,
+      where a sequence owns its blocks exclusively;
+    - refcounted blocks (:meth:`acquire_block`, :meth:`incref`,
+      :meth:`decref`), used by the serving engine, where a block returns to
+      the free list only when its last owner drops it.
+
+    Accounting is guarded by one lock (a serving front end may size requests
+    against ``free_blocks`` from another thread). The device pools belong to
+    the caller, one pair per layer. ``max_blocks_per_seq`` bounds a table
+    (default: the whole pool)."""
+
+    def __init__(self, num_blocks: int, block_size: int, max_blocks_per_seq: Optional[int] = None) -> None:
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
+        self.max_blocks_per_seq = int(self.num_blocks if max_blocks_per_seq is None else max_blocks_per_seq)
         self._lock = threading.Lock()
         # LIFO over block ids, lowest id first out — the JAX allocator's order
         self._free: List[int] = list(range(self.num_blocks - 1, -1, -1))
         self._ref: Dict[int, int] = {}
+        self._tables: Dict[int, List[int]] = {}  # seq id -> physical block ids
+        self._lens: Dict[int, int] = {}  # seq id -> tokens stored
 
+    # -- per-sequence tables ---------------------------------------------------
+    def allocate(self, seq_id: int, num_tokens: int) -> None:
+        """Ensure ``seq_id`` has blocks for ``num_tokens`` more tokens."""
+        with self._lock:
+            table = self._tables.setdefault(seq_id, [])
+            cur = self._lens.get(seq_id, 0)
+            need = -(-(cur + num_tokens) // self.block_size)
+            while len(table) < need:
+                if not self._free:
+                    raise MemoryError("paged KV cache out of physical blocks")
+                if len(table) >= self.max_blocks_per_seq:
+                    raise MemoryError(f"sequence {seq_id} exceeds max_blocks_per_seq={self.max_blocks_per_seq}")
+                table.append(self._free.pop())
+            self._lens[seq_id] = cur + num_tokens
+
+    def free(self, seq_id: int) -> None:
+        """Return a finished sequence's blocks to the pool."""
+        with self._lock:
+            self._free.extend(self._tables.pop(seq_id, []))
+            self._lens.pop(seq_id, None)
+
+    def truncate(self, seq_id: int, num_tokens: int) -> None:
+        """Roll ``seq_id`` back to ``num_tokens`` stored tokens, returning
+        now-unused tail blocks to the pool."""
+        with self._lock:
+            table = self._tables.get(seq_id)
+            if table is None:
+                return
+            keep = -(-num_tokens // self.block_size) if num_tokens > 0 else 0
+            while len(table) > keep:
+                self._free.append(table.pop())
+            self._lens[seq_id] = num_tokens
+
+    def seq_len(self, seq_id: int) -> int:
+        with self._lock:
+            return self._lens.get(seq_id, 0)
+
+    def blocks_allocated(self, seq_id: Optional[int] = None) -> int:
+        """Blocks held by ``seq_id`` (all sequences when None); refcounted
+        blocks belong to no sequence."""
+        with self._lock:
+            if seq_id is not None:
+                return len(self._tables.get(seq_id, ()))
+            return sum(len(t) for t in self._tables.values())
+
+    def block_table(self, seq_ids: Sequence[int]) -> torch.Tensor:
+        """Dense ``[B, max_blocks_per_seq]`` int32 table on the host; entries
+        past a sequence's blocks are 0 (the kernels never read them)."""
+        out = torch.zeros((len(seq_ids), self.max_blocks_per_seq), dtype=torch.int32)
+        with self._lock:
+            for i, sid in enumerate(seq_ids):
+                t = self._tables.get(sid, [])
+                out[i, : len(t)] = torch.tensor(t, dtype=torch.int32)
+        return out
+
+    def seq_lens(self, seq_ids: Sequence[int]) -> torch.Tensor:
+        """``[B]`` int32 tokens stored, on the host."""
+        with self._lock:
+            return torch.tensor([self._lens.get(s, 0) for s in seq_ids], dtype=torch.int32)
+
+    # -- refcounted blocks -----------------------------------------------------
     @property
     def free_blocks(self) -> int:
         with self._lock:
@@ -99,8 +185,9 @@ def block_cache_append_chunk(
     seq_lens: torch.Tensor,  # [B] tokens already stored (the chunk goes after them)
     q_lens: torch.Tensor,  # [B] valid new tokens (0 = none)
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-) -> None:
-    """Write token ``j`` of sequence ``b`` at position ``seq_lens[b] + j``.
+) -> Caches:
+    """Write token ``j`` of sequence ``b`` at position ``seq_lens[b] + j``;
+    returns the two pools (updated in place).
 
     Rows past ``q_lens`` and rows of masked-off slots must never land on a
     block (a padded slot's table row may alias blocks of live sequences).
@@ -114,7 +201,7 @@ def block_cache_append_chunk(
     b, c, h, d = k.shape
     n = b * c
     if not n:
-        return
+        return key_cache, value_cache
     nb, bs = key_cache.shape[0], key_cache.shape[2]
     j = torch.arange(c, device=k.device)[None, :]
     pos = seq_lens.long()[:, None] + j
@@ -134,6 +221,47 @@ def block_cache_append_chunk(
         rows = new.reshape(n, h, d).to(cache.dtype)
         fill = torch.where(any_valid, rows.index_select(0, donor), cache[d_phys, :, d_off])
         cache[phys, :, off] = torch.where(valid[:, None, None], rows, fill)
+    return key_cache, value_cache
+
+
+def block_cache_append(
+    key_cache: torch.Tensor,  # [NB, H, BS, D], updated in place
+    value_cache: torch.Tensor,
+    k: torch.Tensor,  # [B, H, D] one new token per sequence
+    v: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS]
+    positions: torch.Tensor,  # [B] index of the token being written
+    slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> Caches:
+    """Write one new token per sequence at ``positions``; a masked slot
+    writes nothing (its table row may alias live sequences' blocks). The
+    one-row case of :func:`block_cache_append_chunk`, so just as sync-free.
+    Returns the two pools (updated in place)."""
+    _no_scale_planes("block_cache_append", key_scale, value_scale)
+    ones = torch.ones_like(positions)
+    return block_cache_append_chunk(key_cache, value_cache, k[:, None], v[:, None], block_tables, positions,
+                                    ones, slot_mask=slot_mask)
+
+
+def block_cache_prefill(
+    key_cache: torch.Tensor,  # [NB, H, BS, D], updated in place
+    value_cache: torch.Tensor,
+    k: torch.Tensor,  # [B, S, H, D] prompt KV
+    v: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS]
+    seq_lens: torch.Tensor,  # [B] prompt lengths (<= S)
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> Caches:
+    """Write whole prompts into the paged cache: token ``t < seq_lens[b]``
+    of sequence ``b`` at position ``t``; positions past ``seq_lens`` write
+    nothing. The chunk append from position 0, so just as sync-free.
+    Returns the two pools (updated in place)."""
+    _no_scale_planes("block_cache_prefill", key_scale, value_scale)
+    return block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, torch.zeros_like(seq_lens),
+                                    seq_lens)
 
 
 def block_cache_cow_copy(
@@ -194,3 +322,108 @@ def block_multihead_chunk_attention_fused(
         q, cos.reshape(b, c, d), sin.reshape(b, c, d), key_cache, value_cache,
         block_tables, seq_lens, attend_q, scale=scale,
     )
+
+
+def block_multihead_chunk_attention(
+    q: torch.Tensor,  # [B, C, HQ, D] ragged chunk, roped
+    k: torch.Tensor,  # [B, C, HKV, D] roped new keys
+    v: torch.Tensor,
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D], updated in place
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS]
+    seq_lens: torch.Tensor,  # [B] tokens cached, EXCLUDING this chunk
+    q_lens: torch.Tensor,  # [B] valid new tokens (1 = decode row)
+    scale: Optional[float] = None,
+    slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One mixed prefill/decode step of one layer over the paged cache (the
+    unfused serving step): append the chunk's KV, then attend — kernel 4,
+    or the dense-gather composition for a head dim that is not a multiple
+    of 64. Query token ``j`` sees positions ``<= seq_lens + j``; rows past
+    ``q_lens`` and masked slots are exact zeros. Returns ``(out [B, C, HQ,
+    D], key_cache, value_cache)``."""
+    _no_scale_planes("block_multihead_chunk_attention", key_scale, value_scale)
+    block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, seq_lens, q_lens, slot_mask=slot_mask)
+    attend_q = q_lens
+    if slot_mask is not None:
+        attend_q = torch.where(slot_mask.bool(), q_lens, torch.zeros_like(q_lens))
+    d = q.shape[-1]
+    if d % 64:
+        out = _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens, attend_q,
+                                   1.0 / d**0.5 if scale is None else scale)
+    else:
+        out = paged_flash_chunk(q, key_cache, value_cache, block_tables, seq_lens, attend_q, scale=scale)
+    return out, key_cache, value_cache
+
+
+def _decode_lens(seq_lens: torch.Tensor, slot_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decode kernels' lengths: INCLUDING the token just appended, 0 for
+    a padded slot."""
+    attend = seq_lens + 1
+    return attend if slot_mask is None else torch.where(slot_mask.bool(), attend, torch.zeros_like(attend))
+
+
+def block_multihead_attention(
+    q: torch.Tensor,  # [B, 1, HQ, D] decode query, roped
+    k: torch.Tensor,  # [B, 1, HKV, D] roped new key
+    v: torch.Tensor,
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D], updated in place
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS]
+    seq_lens: torch.Tensor,  # [B] tokens cached, EXCLUDING this one
+    scale: Optional[float] = None,
+    slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One paged decode step of one layer: append the new KV, attend over
+    the sequence's blocks with lengths ``seq_lens + 1`` — kernel 5, or the
+    dense-gather composition for a head dim that is not a multiple of 64.
+    A masked slot appends nothing and returns exact zeros. Returns ``(out
+    [B, 1, HQ, D], key_cache, value_cache)``."""
+    _no_scale_planes("block_multihead_attention", key_scale, value_scale)
+    block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens, slot_mask=slot_mask)
+    attend_lens = _decode_lens(seq_lens, slot_mask)
+    d = q.shape[-1]
+    if d % 64:
+        out = _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens,
+                                   (attend_lens > 0).to(seq_lens.dtype), 1.0 / d**0.5 if scale is None else scale)
+    else:
+        out = paged_flash_decode(q[:, 0], key_cache, value_cache, block_tables, attend_lens, scale=scale)[:, None]
+    return out, key_cache, value_cache
+
+
+def block_multihead_attention_fused(
+    q: torch.Tensor,  # [B, 1, HQ, D] PRE-rope decode query
+    k: torch.Tensor,  # [B, 1, HKV, D] PRE-rope new key
+    v: torch.Tensor,
+    cos: torch.Tensor,  # [B, 1, 1, D] the slots' rope rows (model layout)
+    sin: torch.Tensor,
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D], updated in place
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS]
+    seq_lens: torch.Tensor,  # [B] tokens cached, EXCLUDING this one
+    scale: Optional[float] = None,
+    slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`block_multihead_attention` with rope folded in: k is roped by
+    ``_rope_apply_xla`` and appended, q is roped inside the decode walk
+    (kernel 6); a head dim that is not a multiple of 64 takes the
+    composition (q roped the same way, then the dense gather)."""
+    _no_scale_planes("block_multihead_attention_fused", key_scale, value_scale)
+    b, _, _, d = q.shape
+    k = _rope_apply_xla(k, sin, cos, True)
+    block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens, slot_mask=slot_mask)
+    attend_lens = _decode_lens(seq_lens, slot_mask)
+    if d % 64:
+        out = _gather_chunk_attend(_rope_apply_xla(q, sin, cos, True), key_cache, value_cache, block_tables,
+                                   seq_lens, (attend_lens > 0).to(seq_lens.dtype),
+                                   1.0 / d**0.5 if scale is None else scale)
+    else:
+        out = paged_flash_decode_fused(q[:, 0], cos.reshape(b, 1, d), sin.reshape(b, 1, d), key_cache,
+                                       value_cache, block_tables, attend_lens, scale=scale)[:, None]
+    return out, key_cache, value_cache

@@ -14,7 +14,10 @@ This slice serves without the prefix cache (so there are no copy-on-write
 forks), speculative decoding, recovery, the KV host tier, tensor
 parallelism, int8 KV or metrics; asking for the prefix cache or a quantized
 pool raises. The device pools are one ``[NB, HKV, BS, D]`` key and value
-tensor per layer, updated in place by each step.
+tensor per layer, updated in place by each step. The model follows
+``FLAGS_use_fused_decode_layer`` at every step (the JAX engine reads it
+once, when it traces its step), so an engine serves unfused while the
+flag is off.
 """
 
 from __future__ import annotations

@@ -28,6 +28,21 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return to_bf
 template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
+// the value an op in type T would have produced: fp32 result rounded to T
+template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// neox rope of element d of a row, in the row's type T as the reference
+// computes it: x*cos and rotate(x)*sin each rounded to T, then their sum
+// (__fmul_rn/__fadd_rn: never contracted into an FMA, so fp32 rounds too)
+template <typename T, int D>
+__device__ __forceinline__ float rope_elem(const T* row, const T* cos_row, const T* sin_row, int d) {
+  const float x = to_f(row[d]);
+  const float rot = d < D / 2 ? -to_f(row[d + D / 2]) : to_f(row[d - D / 2]);
+  const float a = round_to<T>(__fmul_rn(x, to_f(cos_row[d])));
+  const float c = round_to<T>(__fmul_rn(rot, to_f(sin_row[d])));
+  return round_to<T>(__fadd_rn(a, c));
+}
+
 // the I/O type codes of the templated kernels' C entry points
 enum IoType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 

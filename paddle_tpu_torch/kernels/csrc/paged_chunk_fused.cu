@@ -1,18 +1,23 @@
-// Rope-fused paged attention over a mixed ragged chunk: every slot carries
-// up to C new query tokens (a decode row has q_lens == 1, a prompt chunk up
-// to C, an idle slot 0); query row j of slot b attends to cached positions
-// < lens[b] + j + 1 of its paged KV blocks, after neox rope is applied to q.
+// Paged attention over a mixed ragged chunk: every slot carries up to C new
+// query tokens (a decode row has q_lens == 1, a prompt chunk up to C, an idle
+// slot 0); query row j of slot b attends to cached positions
+// < lens[b] + j + 1 of its paged KV blocks. Two kernels share this source:
+// with ROPE on, neox rope is applied to q first (kernel A); with it off, q is
+// taken as given (kernel 4, the unfused step, whose q was roped beforehand).
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py `_chunk_fused_kernel`
-// (launched by `paged_flash_chunk_fused`), the serving step's attention.
+// (launched by `paged_flash_chunk_fused`, the fused serving step's
+// attention) and `_chunk_kernel` (launched by `paged_flash_chunk`, the
+// unfused step's).
 //
-// Semantics kept from the Pallas kernel: q is roped in q's dtype (each
-// product and the sum rounded to bf16) before the cast to fp32 and the
+// Semantics kept from the Pallas kernels: q is roped in q's type (each
+// product and the sum rounded to that type) before the cast to fp32 and the
 // multiply by `scale`; scores of invalid positions are -1e30 and their p is
 // exactly 0; the validity mask is (pos < lens + j + 1) & (j < q_lens); the
 // softmax is an fp32 online softmax with denominator max(l, 1e-30); rows with
 // j >= q_lens are written as exact 0; block-table entries at or past
 // ceil((lens + q_lens) / BS) are never read, and neither are their blocks.
+// Storage is bf16, fp16 or fp32 (the template type T); the math is fp32.
 //
 // Design (simple first, not yet fast). One CUDA block per (tile of 32 packed
 // query rows, KV head, slot); packed row = j * G + g with G = HQ / HKV, so
@@ -33,6 +38,7 @@
 #include "common.cuh"
 
 using ptt::bf16;
+using ptt::f16;
 
 namespace {
 
@@ -41,18 +47,18 @@ constexpr int kRows = 32;          // packed query rows per block
 constexpr int kTile = 16;          // KV positions per inner step
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 
-template <int D>
+template <typename T, int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
-paged_chunk_fused_kernel(const bf16* __restrict__ q,      // [B, C, HQ, D] pre-rope
-                         const bf16* __restrict__ cos_t,  // [B, C, D] in q's dtype
-                         const bf16* __restrict__ sin_t,
-                         const bf16* __restrict__ kc,     // [NB, HKV, BS, D]
-                         const bf16* __restrict__ vc,
-                         const int* __restrict__ tables,  // [B, MBS]
-                         const int* __restrict__ lens,    // [B] cached before the chunk
-                         const int* __restrict__ qlens,   // [B] valid new rows
-                         bf16* __restrict__ out,          // [B, C, HQ, D]
-                         int C, int HQ, int HKV, int BS, int MBS, float scale) {
+paged_chunk_kernel(const T* __restrict__ q,      // [B, C, HQ, D], pre-rope when ROPE
+                   const T* __restrict__ cos_t,  // [B, C, D] in q's type (ROPE only)
+                   const T* __restrict__ sin_t,
+                   const T* __restrict__ kc,     // [NB, HKV, BS, D]
+                   const T* __restrict__ vc,
+                   const int* __restrict__ tables,  // [B, MBS]
+                   const int* __restrict__ lens,    // [B] cached before the chunk
+                   const int* __restrict__ qlens,   // [B] valid new rows
+                   T* __restrict__ out,             // [B, C, HQ, D]
+                   int C, int HQ, int HKV, int BS, int MBS, float scale) {
   static_assert(D % 32 == 0 && D <= 128, "head dim: a multiple of 32, at most 128");
   constexpr int kDV = D / 32;                         // columns per lane, PV phase
   constexpr int kGroups = kThreads / kTile;           // row groups, score phase (8)
@@ -74,31 +80,31 @@ paged_chunk_fused_kernel(const bf16* __restrict__ q,      // [B, C, HQ, D] pre-r
   const int len = lens[b], ql = qlens[b];
 
   // output element (r, d) of this tile; row r is query token j, head h*G + g
-  auto out_at = [&](int r, int d) -> bf16* {
+  auto out_at = [&](int r, int d) -> T* {
     const int pr = row0 + r;
     return out + ((static_cast<size_t>(b) * C + pr / G) * HQ + h * G + pr % G) * D + d;
   };
 
   if (row0 / G >= ql) {  // every row of the tile is past q_lens: exact 0, no KV read
-    for (int idx = tid; idx < rows_here * D; idx += kThreads) *out_at(idx / D, idx % D) = ptt::to_bf(0.f);
+    for (int idx = tid; idx < rows_here * D; idx += kThreads) *out_at(idx / D, idx % D) = ptt::from_f<T>(0.f);
     return;
   }
   const int j_last = min((row0 + rows_here - 1) / G, ql - 1);
   const int n_pos = len + j_last + 1;  // the tile's causal limit: positions past it are masked
 
-  // q rows, roped in q's dtype then scaled in fp32 (rows past the tile: 0)
+  // q rows (roped in q's type when ROPE) scaled in fp32; rows past the tile: 0
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     float val = 0.f;
     if (r < rows_here) {
       const int pr = row0 + r, j = pr / G;
-      const bf16* qrow = q + ((static_cast<size_t>(b) * C + j) * HQ + h * G + pr % G) * D;
-      const size_t trow = (static_cast<size_t>(b) * C + j) * D;
-      const float x = ptt::to_f(qrow[d]);
-      const float rot = d < D / 2 ? -ptt::to_f(qrow[d + D / 2]) : ptt::to_f(qrow[d - D / 2]);
-      const float a = ptt::round_bf(x * ptt::to_f(cos_t[trow + d]));
-      const float c = ptt::round_bf(rot * ptt::to_f(sin_t[trow + d]));
-      val = ptt::round_bf(a + c) * scale;
+      const T* qrow = q + ((static_cast<size_t>(b) * C + j) * HQ + h * G + pr % G) * D;
+      if constexpr (ROPE) {
+        const size_t trow = (static_cast<size_t>(b) * C + j) * D;
+        val = ptt::rope_elem<T, D>(qrow, cos_t + trow, sin_t + trow, d) * scale;
+      } else {
+        val = ptt::to_f(qrow[d]) * scale;
+      }
     }
     q_s[r][d] = val;
   }
@@ -201,27 +207,21 @@ paged_chunk_fused_kernel(const bf16* __restrict__ q,      // [B, C, HQ, D] pre-r
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int k = 0; k < kDV; ++k)
-      *out_at(r, lane + 32 * k) = ptt::to_bf(valid_row ? acc[m][k] / denom : 0.f);
+      *out_at(r, lane + 32 * k) = ptt::from_f<T>(valid_row ? acc[m][k] / denom : 0.f);
   }
 }
 
-}  // namespace
-
-// Returns cudaErrorInvalidValue for a head dim other than 64 or 128.
-extern "C" int ptt_paged_chunk_fused_bf16(const void* q, const void* cos_t, const void* sin_t,
-                                          const void* kc, const void* vc, const void* tables,
-                                          const void* lens, const void* qlens, void* out, int B,
-                                          int C, int HQ, int HKV, int D, int BS, int MBS,
-                                          float scale, void* stream) {
+template <typename T, bool ROPE>
+int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
+           const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
+           int HQ, int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
   const dim3 grid((C * (HQ / HKV) + kRows - 1) / kRows, HKV, B);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PTT_LAUNCH(DIM)                                                                    \
-  paged_chunk_fused_kernel<DIM><<<grid, kThreads, 0, st>>>(                                \
-      static_cast<const bf16*>(q), static_cast<const bf16*>(cos_t),                        \
-      static_cast<const bf16*>(sin_t), static_cast<const bf16*>(kc),                       \
-      static_cast<const bf16*>(vc), static_cast<const int*>(tables),                       \
-      static_cast<const int*>(lens), static_cast<const int*>(qlens), static_cast<bf16*>(out), \
-      C, HQ, HKV, BS, MBS, scale)
+#define PTT_LAUNCH(DIM)                                                                          \
+  paged_chunk_kernel<T, DIM, ROPE><<<grid, kThreads, 0, st>>>(                                   \
+      static_cast<const T*>(q), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),      \
+      static_cast<const T*>(kc), static_cast<const T*>(vc), static_cast<const int*>(tables),     \
+      static_cast<const int*>(lens), static_cast<const int*>(qlens), static_cast<T*>(out), C, HQ, \
+      HKV, BS, MBS, scale)
   if (D == 128) {
     PTT_LAUNCH(128);
   } else if (D == 64) {
@@ -231,4 +231,43 @@ extern "C" int ptt_paged_chunk_fused_bf16(const void* q, const void* cos_t, cons
   }
 #undef PTT_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROPE>
+int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
+              const void* vc, const void* tables, const void* lens, const void* qlens, void* out,
+              int B, int C, int HQ, int HKV, int D, int BS, int MBS, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16:
+      return launch<bf16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+    case ptt::kF16:
+      return launch<f16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+    case ptt::kF32:
+      return launch<float, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Kernel A. `io` is the storage type (ptt::IoType). Returns
+// cudaErrorInvalidValue for a head dim other than 64 or 128 or an unknown type.
+extern "C" int ptt_paged_chunk_fused(int io, const void* q, const void* cos_t, const void* sin_t,
+                                     const void* kc, const void* vc, const void* tables,
+                                     const void* lens, const void* qlens, void* out, int B, int C,
+                                     int HQ, int HKV, int D, int BS, int MBS, float scale,
+                                     void* stream) {
+  return launch_io<true>(io, q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS,
+                         MBS, scale, stream);
+}
+
+// Kernel 4: the same walk with q taken as given.
+extern "C" int ptt_paged_chunk(int io, const void* q, const void* kc, const void* vc,
+                               const void* tables, const void* lens, const void* qlens, void* out,
+                               int B, int C, int HQ, int HKV, int D, int BS, int MBS, float scale,
+                               void* stream) {
+  return launch_io<false>(io, q, nullptr, nullptr, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D,
+                          BS, MBS, scale, stream);
 }

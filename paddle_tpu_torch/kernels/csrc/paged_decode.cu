@@ -1,0 +1,273 @@
+// Flash decode over the paged KV cache: one new query token per slot, whose
+// G = HQ / HKV query heads of one KV head attend to positions < lens[b] of
+// the slot's paged KV blocks (lens INCLUDES the token just appended). Two
+// kernels share this source: with ROPE off, q is taken as given (kernel 5);
+// with it on, neox rope is applied to q in q's type first (kernel 6).
+//
+// Replaces: paddle_tpu/kernels/paged_attention.py `_decode_kernel`
+// (launched by `paged_flash_decode`, the decode step of `generate_paged`)
+// and `_decode_fused_kernel` (launched by `paged_flash_decode_fused`).
+//
+// Semantics kept from the Pallas kernels: q (roped in its type when ROPE:
+// each product and the sum rounded to that type) is cast to fp32 and
+// multiplied by `scale`; scores are fp32; the softmax is an fp32 online
+// softmax with denominator max(l, 1e-30), so a slot with lens == 0 is
+// written as exact 0; positions >= lens contribute p == 0 exactly (here:
+// they are never visited); block-table entries at or past ceil(lens / BS)
+// are never read, and neither are their blocks. Storage is bf16, fp16 or
+// fp32 (the template type T); the math is fp32.
+//
+// Design (simple first, not yet fast). One CUDA block of 4 warps per (up to
+// ROWS query heads of one KV head, KV head, slot): ROWS is 1 for MHA and 4
+// otherwise, so GQA heads share each K/V row they read. The block splits the
+// slot's positions over 16 lane groups of 8 lanes: group t takes positions
+// t, t + 16, t + 32, ...; its 8 lanes each hold D / 8 elements of the K and
+// V row (16-byte loads, a group reads whole 128-byte lines), reduce the dot
+// product with 3 shuffles and keep their own online-softmax state (m, l and
+// a D / 8 slice of the accumulator per row). At the end the 16 partial
+// states are merged: across the 4 groups of a warp with shuffles, across
+// the 4 warps through shared memory.
+//
+// Bound on H100: bytes. Each used K/V row is read once per block, ~1 flop
+// per byte for MHA, far under the card's ~295 flop/byte ridge. With G = 1
+// at the 7B decode shape there are only B * HKV blocks (256 at 8 slots,
+// 32 KV heads) for 132 SMs, each walking its slot's whole history with one
+// K/V row in flight per lane group: latency-bound, not bandwidth-bound.
+// Splitting the walk over more blocks (flash-decoding) is later work.
+#include "common.cuh"
+
+using ptt::bf16;
+using ptt::f16;
+
+namespace {
+
+constexpr int kThreads = 128;             // 4 warps
+constexpr int kLanes = 8;                 // lanes that share one K/V row
+constexpr int kGroups = kThreads / kLanes;  // positions in flight per block (16)
+constexpr float kNegInf = -1e30f;         // the Pallas kernel's NEG_INF
+
+// the kVec elements of 16-byte chunk c of a row, as fp32
+template <typename T, int kVec>
+__device__ __forceinline__ void load_chunk(const T* row, int c, float* dst) {
+  const uint4 raw = ptt::load16<T>(row, c);
+  const T* e = ptt::elems_of<T>(raw);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
+}
+
+template <typename T, int D, int ROWS, bool ROPE>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when ROPE
+                    const T* __restrict__ cos_t,  // [B, D] in q's type (ROPE only)
+                    const T* __restrict__ sin_t,
+                    const T* __restrict__ kc,     // [NB, HKV, BS, D]
+                    const T* __restrict__ vc,
+                    const int* __restrict__ tables,  // [B, MBS]
+                    const int* __restrict__ lens,    // [B] INCLUDING the current token
+                    T* __restrict__ out,             // [B, HQ, D]
+                    int HQ, int HKV, int BS, int MBS, float scale) {
+  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int kE = D / kLanes;         // elements per lane of a row
+  constexpr int kLoads = kE / kVec;      // 16-byte loads per lane of a row
+  static_assert(kE % kVec == 0 && kLoads >= 1, "a lane's slice must be whole 16-byte chunks");
+  constexpr int kWarps = kThreads / 32;
+
+  __shared__ float q_s[ROWS][D];
+  __shared__ float m_s[kWarps][ROWS];
+  __shared__ float l_s[kWarps][ROWS];
+  __shared__ float acc_s[kWarps][ROWS][D];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int sub = tid % kLanes, grp = tid / kLanes;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = HQ / HKV;
+  const int g0 = blockIdx.x * ROWS;
+  const int rows_here = min(ROWS, G - g0);
+  const int len = lens[b];
+  const T* qbase = q + (static_cast<size_t>(b) * HQ + h * G + g0) * D;
+
+  // q rows (roped in q's type when ROPE) scaled in fp32; rows past G: 0
+  for (int idx = tid; idx < ROWS * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float val = 0.f;
+    if (r < rows_here) {
+      if constexpr (ROPE) {
+        val = ptt::rope_elem<T, D>(qbase + r * D, cos_t + static_cast<size_t>(b) * D,
+                                   sin_t + static_cast<size_t>(b) * D, d) * scale;
+      } else {
+        val = ptt::to_f(qbase[r * D + d]) * scale;
+      }
+    }
+    q_s[r][d] = val;
+  }
+  __syncthreads();
+
+  // this lane's slice: 16-byte chunks sub, sub + 8, ... of the row
+  float qr[ROWS][kE];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j)
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) qr[r][j * kVec + i] = q_s[r][(j * kLanes + sub) * kVec + i];
+
+  float m[ROWS], l[ROWS], acc[ROWS][kE];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
+  }
+
+  // every lane runs every step (the shuffles need the whole warp); a group
+  // whose position is past len loads nothing and leaves its state as it is
+  const int* table = tables + static_cast<size_t>(b) * MBS;
+  for (int base = 0; base < len; base += kGroups) {
+    const int pos = base + grp;
+    const bool valid = pos < len;  // so pos / BS < ceil(len / BS)
+    float kf[kE], vf[kE];
+    if (valid) {
+      const size_t row = (static_cast<size_t>(table[pos / BS]) * HKV + h) * BS + pos % BS;
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        load_chunk<T, kVec>(kc + row * D, j * kLanes + sub, kf + j * kVec);
+        load_chunk<T, kVec>(vc + row * D, j * kLanes + sub, vf + j * kVec);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) kf[e] = vf[e] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) s += qr[r][e] * kf[e];
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (valid) {
+        const float m_new = fmaxf(m[r], s);
+        const float alpha = expf(m[r] - m_new);
+        const float p = expf(s - m_new);
+        l[r] = l[r] * alpha + p;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[r][e] = acc[r][e] * alpha + p * vf[e];
+        m[r] = m_new;
+      }
+    }
+  }
+
+  // merge the 4 lane groups of each warp (lanes sub, sub + 8, sub + 16, sub + 24);
+  // a group that visited nothing holds m = -1e30, l = 0, acc = 0
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    float mw = m[r];
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+    const float f = expf(m[r] - mw);
+    float lw = l[r] * f;
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      float a = acc[r][e] * f;
+#pragma unroll
+      for (int o = kLanes; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      acc[r][e] = a;
+    }
+    if (grp % (32 / kLanes) == 0) {  // the first group of the warp writes its state
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc_s[warp][r][(j * kLanes + sub) * kVec + i] = acc[r][j * kVec + i];
+      if (sub == 0) {
+        m_s[warp][r] = mw;
+        l_s[warp][r] = lw;
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the 4 warps and write: out = acc / max(l, 1e-30)
+  for (int idx = tid; idx < rows_here * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, m_s[w][r]);
+    float lb = 0.f, ab = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(m_s[w][r] - mb);
+      lb += l_s[w][r] * f;
+      ab += acc_s[w][r][d] * f;
+    }
+    out[(static_cast<size_t>(b) * HQ + h * G + g0 + r) * D + d] = ptt::from_f<T>(ab / fmaxf(lb, 1e-30f));
+  }
+}
+
+template <typename T, int ROWS, bool ROPE>
+int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
+                const void* tables, const void* lens, void* out, int B, int HQ, int HKV, int D, int BS,
+                int MBS, float scale, cudaStream_t st) {
+  const dim3 grid((HQ / HKV + ROWS - 1) / ROWS, HKV, B);
+#define PTT_LAUNCH(DIM)                                                                           \
+  paged_decode_kernel<T, DIM, ROWS, ROPE><<<grid, kThreads, 0, st>>>(                             \
+      static_cast<const T*>(q), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),       \
+      static_cast<const T*>(kc), static_cast<const T*>(vc), static_cast<const int*>(tables),      \
+      static_cast<const int*>(lens), static_cast<T*>(out), HQ, HKV, BS, MBS, scale)
+  if (D == 128) {
+    PTT_LAUNCH(128);
+  } else if (D == 64) {
+    PTT_LAUNCH(64);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PTT_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool ROPE>
+int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
+           const void* tables, const void* lens, void* out, int B, int HQ, int HKV, int D, int BS,
+           int MBS, float scale, cudaStream_t st) {
+  if (HQ == HKV)
+    return launch_rows<T, 1, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+  return launch_rows<T, 4, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+}
+
+template <bool ROPE>
+int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
+              const void* vc, const void* tables, const void* lens, void* out, int B, int HQ,
+              int HKV, int D, int BS, int MBS, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16:
+      return launch<bf16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+    case ptt::kF16:
+      return launch<f16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+    case ptt::kF32:
+      return launch<float, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Kernel 5. `io` is the storage type (ptt::IoType). Returns
+// cudaErrorInvalidValue for a head dim other than 64 or 128 or an unknown type.
+extern "C" int ptt_paged_decode(int io, const void* q, const void* kc, const void* vc,
+                                const void* tables, const void* lens, void* out, int B, int HQ,
+                                int HKV, int D, int BS, int MBS, float scale, void* stream) {
+  return launch_io<false>(io, q, nullptr, nullptr, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS,
+                          scale, stream);
+}
+
+// Kernel 6: kernel 5 with q roped first; cos/sin are the slots' rope rows [B, D].
+extern "C" int ptt_paged_decode_fused(int io, const void* q, const void* cos_t, const void* sin_t,
+                                      const void* kc, const void* vc, const void* tables,
+                                      const void* lens, void* out, int B, int HQ, int HKV, int D,
+                                      int BS, int MBS, float scale, void* stream) {
+  return launch_io<true>(io, q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS,
+                         scale, stream);
+}

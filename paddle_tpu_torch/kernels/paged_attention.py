@@ -1,17 +1,29 @@
-"""Rope-fused paged attention over a mixed ragged chunk: CUDA kernel and
-plain version.
+"""Paged attention over the serving KV cache: CUDA kernels and their plain
+versions.
 
-Port of ``paddle_tpu/kernels/paged_attention.py`` ``_chunk_fused_kernel``
-(launched by ``paged_flash_chunk_fused``, kernel A of the serving step).
-Each slot carries up to ``C`` new query tokens — a decode row has
-``q_lens == 1``, a prompt chunk up to ``C``, an idle slot 0. Query row ``j``
-of slot ``b`` is roped (neox, in q's dtype) and attends over positions
-``< lens[b] + j + 1`` of the slot's paged KV blocks (keys were roped on
-append); rows ``j >= q_lens[b]`` are exact zeros.
+Port of ``paddle_tpu/kernels/paged_attention.py``. The cache is one
+``[NB, HKV, BS, D]`` key pool and one value pool, addressed by ``[B, MBS]``
+block tables; keys are stored roped. Four kernels:
 
-:func:`paged_flash_chunk_fused` runs :func:`paged_flash_chunk_fused_plain`
-for CPU tensors and launches ``csrc/paged_chunk_fused.cu`` for CUDA tensors,
-or raises.
+- ``paged_flash_chunk_fused`` (kernel A, ``_chunk_fused_kernel``): a mixed
+  ragged chunk — each slot carries up to ``C`` new query tokens (a decode
+  row has ``q_lens == 1``, a prompt chunk up to ``C``, an idle slot 0).
+  Query row ``j`` of slot ``b`` is roped (neox, in q's dtype) and attends
+  over positions ``< lens[b] + j + 1``; rows ``j >= q_lens[b]`` are exact
+  zeros. ``lens`` EXCLUDES the chunk.
+- ``paged_flash_chunk`` (kernel 4, ``_chunk_kernel``): the same with q
+  already roped (the unfused serving step).
+- ``paged_flash_decode`` (kernel 5, ``_decode_kernel``): one query token per
+  slot attends over positions ``< lens[b]``, where ``lens`` INCLUDES that
+  token; a slot with ``lens == 0`` is exact zeros.
+- ``paged_flash_decode_fused`` (kernel 6, ``_decode_fused_kernel``): kernel 5
+  with q roped first, from the slots' rope rows ``[B, 1, D]``.
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
+CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
+``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
+kernels take bf16, fp16 or fp32 storage (fp32 math) and head dim 64 or 128.
+The int8 pool's scale planes are not ported (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -22,11 +34,18 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.fused import _io_dtype, _kernel_operand
 from paddle_tpu_torch.kernels.select import count_launch
 
 __all__ = [
+    "paged_flash_chunk",
     "paged_flash_chunk_fused",
     "paged_flash_chunk_fused_plain",
+    "paged_flash_chunk_plain",
+    "paged_flash_decode",
+    "paged_flash_decode_fused",
+    "paged_flash_decode_fused_plain",
+    "paged_flash_decode_plain",
     "rope_rows",
     "_gather_chunk_attend",
 ]
@@ -85,6 +104,23 @@ def _gather_chunk_attend(
     return out.reshape(b, c, hq, d).to(q.dtype)
 
 
+def _scale_or_default(scale: Optional[float], d: int) -> float:
+    return 1.0 / d**0.5 if scale is None else float(scale)
+
+
+def _no_scale_planes(what: str, k_scale, v_scale) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(f"{what}: the int8 pool's scale planes are not ported yet (ROADMAP Queue 1 item 6)")
+
+
+# -- plain versions (each calls only the shared compositions, never another) ----
+
+def paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale=None):
+    """Kernel 4's plain version: :func:`_gather_chunk_attend` of q as given."""
+    return _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens, q_lens,
+                                _scale_or_default(scale, q.shape[-1]))
+
+
 def paged_flash_chunk_fused_plain(
     q: torch.Tensor,  # [B, C, HQ, D] pre-rope
     cos: torch.Tensor,  # [B, C, D]
@@ -96,14 +132,71 @@ def paged_flash_chunk_fused_plain(
     q_lens: torch.Tensor,  # [B] valid new rows
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """The kernel's plain version: rope q in its dtype, then
+    """Kernel A's plain version: rope q in its dtype, then
     :func:`_gather_chunk_attend`."""
-    if scale is None:
-        scale = 1.0 / q.shape[-1] ** 0.5
     qr = rope_rows(q, cos[:, :, None, :], sin[:, :, None, :])
-    return _gather_chunk_attend(
-        qr, key_cache, value_cache, block_tables, seq_lens, q_lens, scale
-    )
+    return _gather_chunk_attend(qr, key_cache, value_cache, block_tables, seq_lens, q_lens,
+                                _scale_or_default(scale, q.shape[-1]))
+
+
+def _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale) -> torch.Tensor:
+    """One-token attention as the one-row chunk of a slot whose ``seq_lens``
+    include the token (``seq_lens - 1`` cached before it; a slot of length 0
+    has no valid row)."""
+    lens = seq_lens.long()
+    return _gather_chunk_attend(q[:, None], key_cache, value_cache, block_tables, lens - 1, (lens > 0).long(),
+                                _scale_or_default(scale, q.shape[-1]))[:, 0]
+
+
+def paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale=None):
+    """Kernel 5's plain version (``q [B, HQ, D]``)."""
+    return _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale)
+
+
+def paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale=None):
+    """Kernel 6's plain version: rope q (``[B, HQ, D]``, rows ``cos``/``sin``
+    ``[B, 1, D]``) in its dtype, then the one-token attention."""
+    return _decode_attend(rope_rows(q, cos, sin), key_cache, value_cache, block_tables, seq_lens, scale)
+
+
+# -- the kernels -----------------------------------------------------------------
+
+def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor,
+                     block_tables: torch.Tensor, *lens: torch.Tensor):
+    """Check what every paged kernel takes; returns ``(io, q, kc, vc,
+    tables32, *lens32)`` ready for the launch (``lens``: the ``[B]`` length
+    vectors)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    io = _io_dtype(what, q)
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    nb, hkv, bs, d_c = key_cache.shape
+    if d_c != d or hq % hkv or value_cache.shape != key_cache.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit the cache "
+                         f"{tuple(key_cache.shape)} / {tuple(value_cache.shape)}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes head dim 64 or 128, not {d} "
+                         "(a head dim that is not a multiple of 64 takes the composition)")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or any(t.shape != (b,) for t in lens):
+        raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / lengths "
+                         f"{[tuple(t.shape) for t in lens]} do not match the batch of {b}")
+    dev = q.device
+    q, key_cache, value_cache = (_kernel_operand(t, name, what, q.dtype, dev) for name, t in
+                                 (("q", q), ("key_cache", key_cache), ("value_cache", value_cache)))
+    ints = (t.to(device=dev, dtype=torch.int32).contiguous() for t in (block_tables, *lens))
+    return (io, q, key_cache, value_cache, *ints)
+
+
+def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, shape) -> tuple:
+    """The rope rows in q's dtype (the kernels read them so, as the Pallas
+    kernels cast them)."""
+    if cos.shape != shape or sin.shape != shape:
+        raise ValueError(f"{what}: rope rows must be {list(shape)}, got {tuple(cos.shape)} / {tuple(sin.shape)}")
+    return tuple(t.to(device=q.device, dtype=q.dtype).contiguous() for t in (cos, sin))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def paged_flash_chunk_fused(
@@ -116,57 +209,122 @@ def paged_flash_chunk_fused(
     seq_lens: torch.Tensor,
     q_lens: torch.Tensor,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of a ragged chunk over the paged cache with q-rope folded
-    in; the signature of the JAX package's ``paged_flash_chunk_fused``.
-    ``cos``/``sin`` are the per-token rope rows ``[B, C, D]``."""
+    in (kernel A); the signature of the JAX package's
+    ``paged_flash_chunk_fused``. ``cos``/``sin`` are the per-token rope rows
+    ``[B, C, D]``."""
+    _no_scale_planes("paged_flash_chunk_fused", k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_flash_chunk_fused_plain(
-            q, cos, sin, key_cache, value_cache, block_tables, seq_lens, q_lens, scale
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_chunk_fused: unsupported device {q.device}")
+        return paged_flash_chunk_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens,
+                                             q_lens, scale)
+    what = "paged_flash_chunk_fused"
+    io, q, kc, vc, tables32, lens32, qlens32 = _launch_operands(
+        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens)
     b, c, hq, d = q.shape
-    nb, hkv, bs, d_c = key_cache.shape
-    mbs = block_tables.shape[1]
-    if d_c != d or hq % hkv or value_cache.shape != key_cache.shape:
-        raise ValueError(
-            f"paged_flash_chunk_fused: q {tuple(q.shape)} does not fit the cache "
-            f"{tuple(key_cache.shape)} / {tuple(value_cache.shape)}"
-        )
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_flash_chunk_fused: the CUDA kernel takes head dim 64 or 128, not {d} "
-                         "(a head dim that is not a multiple of 64 takes the composition)")
-    if cos.shape != (b, c, d) or sin.shape != (b, c, d):
-        raise ValueError(f"paged_flash_chunk_fused: rope rows must be [{b}, {c}, {d}]")
-    if block_tables.shape[0] != b or seq_lens.shape != (b,) or q_lens.shape != (b,):
-        raise ValueError("paged_flash_chunk_fused: tables/lens/q_lens do not match the batch")
-    if scale is None:
-        scale = 1.0 / d**0.5
-    dev = q.device
-    for name, t in (("q", q), ("key_cache", key_cache), ("value_cache", value_cache)):
-        if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"paged_flash_chunk_fused: the CUDA kernel takes bf16 only: {name} must be a "
-                             f"contiguous bf16 tensor on {dev}, got {t.dtype} on {t.device}")
-    # the kernel reads the rope rows in q's dtype, as the Pallas kernel casts them
-    cos_q = cos.to(device=dev, dtype=q.dtype).contiguous()
-    sin_q = sin.to(device=dev, dtype=q.dtype).contiguous()
-    tables32 = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    lens32 = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
-    qlens32 = q_lens.to(device=dev, dtype=torch.int32).contiguous()
+    cos_q, sin_q = _rope_operands(what, q, cos, sin, (b, c, d))
     out = torch.empty_like(q)
     if b and c:
-        fn = build.kernel_fn(
-            "ptt_paged_chunk_fused_bf16",
-            [_P] * 9 + [_I] * 7 + [_F, _P],
-        )
-        with torch.cuda.device(dev):
-            err = fn(
-                q.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), key_cache.data_ptr(),
-                value_cache.data_ptr(), tables32.data_ptr(), lens32.data_ptr(),
-                qlens32.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, bs, mbs, float(scale),
-                torch.cuda.current_stream().cuda_stream,
-            )
+        fn = build.kernel_fn("ptt_paged_chunk_fused", [_I] + [_P] * 9 + [_I] * 7 + [_F, _P])
+        with torch.cuda.device(q.device):
+            err = fn(io, q.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                     tables32.data_ptr(), lens32.data_ptr(), qlens32.data_ptr(), out.data_ptr(), b, c, hq,
+                     kc.shape[1], d, kc.shape[2], tables32.shape[1], _scale_or_default(scale, d), _stream())
         build.check(err, "paged_chunk_fused")
         count_launch("paged_chunk_fused")
+    return out
+
+
+def paged_flash_chunk(
+    q: torch.Tensor,  # [B, C, HQ, D] ragged chunk, already roped
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D], the chunk's KV already appended
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS] int
+    seq_lens: torch.Tensor,  # [B] tokens cached BEFORE the chunk
+    q_lens: torch.Tensor,  # [B] valid new rows (0 = inactive slot)
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of one mixed prefill/decode step over the paged cache
+    (kernel 4); the JAX package's ``paged_flash_chunk``. Returns
+    ``[B, C, HQ, D]`` with rows past ``q_lens`` exactly 0."""
+    _no_scale_planes("paged_flash_chunk", k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale)
+    what = "paged_flash_chunk"
+    io, q, kc, vc, tables32, lens32, qlens32 = _launch_operands(
+        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens)
+    b, c, hq, d = q.shape
+    out = torch.empty_like(q)
+    if b and c:
+        fn = build.kernel_fn("ptt_paged_chunk", [_I] + [_P] * 7 + [_I] * 7 + [_F, _P])
+        with torch.cuda.device(q.device):
+            err = fn(io, q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables32.data_ptr(), lens32.data_ptr(),
+                     qlens32.data_ptr(), out.data_ptr(), b, c, hq, kc.shape[1], d, kc.shape[2],
+                     tables32.shape[1], _scale_or_default(scale, d), _stream())
+        build.check(err, "paged_chunk")
+        count_launch("paged_chunk")
+    return out
+
+
+def paged_flash_decode(
+    q: torch.Tensor,  # [B, HQ, D]
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D]
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MBS] int
+    seq_lens: torch.Tensor,  # [B] length INCLUDING the current token
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash decode over the paged cache (kernel 5); the JAX package's
+    ``paged_flash_decode``. Returns ``[B, HQ, D]``."""
+    _no_scale_planes("paged_flash_decode", k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale)
+    return _decode_launch("paged_flash_decode", q, None, None, key_cache, value_cache, block_tables,
+                          seq_lens, scale)
+
+
+def paged_flash_decode_fused(
+    q: torch.Tensor,  # [B, HQ, D] PRE-rope
+    cos: torch.Tensor,  # [B, 1, D] the slots' rope rows
+    sin: torch.Tensor,
+    key_cache: torch.Tensor,  # [NB, HKV, BS, D], keys roped on append
+    value_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,  # [B] length INCLUDING the current token
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`paged_flash_decode` with q-rope folded into the walk (kernel
+    6); the JAX package's ``paged_flash_decode_fused``."""
+    _no_scale_planes("paged_flash_decode_fused", k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale)
+    return _decode_launch("paged_flash_decode_fused", q, cos, sin, key_cache, value_cache, block_tables,
+                          seq_lens, scale)
+
+
+def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale) -> torch.Tensor:
+    io, q, kc, vc, tables32, lens32 = _launch_operands(what, q, key_cache, value_cache, block_tables, seq_lens)
+    b, hq, d = q.shape
+    out = torch.empty_like(q)
+    if not b:
+        return out
+    args = [q.data_ptr()]
+    if cos is not None:
+        cos_q, sin_q = _rope_operands(what, q, cos, sin, (b, 1, d))
+        args += [cos_q.data_ptr(), sin_q.data_ptr()]
+    name = "paged_decode_fused" if cos is not None else "paged_decode"
+    fn = build.kernel_fn(f"ptt_{name}", [_I] + [_P] * (len(args) + 5) + [_I] * 6 + [_F, _P])
+    with torch.cuda.device(q.device):
+        err = fn(io, *args, kc.data_ptr(), vc.data_ptr(), tables32.data_ptr(), lens32.data_ptr(), out.data_ptr(),
+                 b, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], _scale_or_default(scale, d), _stream())
+    build.check(err, name)
+    count_launch(name)
     return out

@@ -4,8 +4,9 @@ Each kernel wrapper adds one to its counter where it launches its CUDA
 kernel, and nowhere else: a plain-version call on a CPU tensor does not
 count. A run reads the counters to show that its main paths went through
 the kernels (``chip_smoke.py`` resets them just before driving each path —
-the engine, the train step — and reads them just after). There is no
-fallback counter: on a CUDA tensor a wrapper launches its kernel or raises.
+the engine, the unfused engine, ``generate_paged``, the train step — and
+reads them just after). There is no fallback counter: on a CUDA tensor a
+wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ __all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts"]
 # kernel name -> the TPU kernel it replaces (file:line of the Pallas body)
 KERNELS: Dict[str, str] = {
     "paged_chunk_fused": "paddle_tpu/kernels/paged_attention.py:656",
+    "paged_chunk": "paddle_tpu/kernels/paged_attention.py:246",
+    "paged_decode": "paddle_tpu/kernels/paged_attention.py:54",
+    "paged_decode_fused": "paddle_tpu/kernels/paged_attention.py:472",
     "embed_rms": "paddle_tpu/kernels/fused.py:618",
     "rms_residual": "paddle_tpu/kernels/fused.py:338",
     "rms_norm_fwd": "paddle_tpu/kernels/fused.py:74",

@@ -1,5 +1,6 @@
-"""Llama-2 (port of ``paddle_tpu/models/llama.py``): the training forward
-and the continuous-batching engine's fused decode-layer step.
+"""Llama-2 (port of ``paddle_tpu/models/llama.py``): the training forward,
+the dense prefill, and the paged serving and decode steps (the engine's
+fused decode-layer loop and the layer modules).
 
 - Training: ``LlamaForCausalLM(input_ids, labels=..., startend_row_indices=...)``
   runs the layer modules — RMSNorm and rope through their kernels (7-10,
@@ -10,10 +11,18 @@ and the continuous-batching engine's fused decode-layer step.
   returns ``(loss, None)`` from the fused loss head (kernels 17-19,
   ``FLAGS_use_fused_loss`` on, the JAX default), or ``(loss, logits)`` with
   the flag off.
-- Serving: ``LlamaForCausalLM(input_ids, past_key_values=...,
-  use_cache=True, cache_position=lens)`` (the JAX engine's call) runs one
-  mixed ragged ``[S, C]`` step over the paged KV pool and returns
-  ``(logits, past_key_values)``; that is the only serving call.
+- Prefill: ``LlamaForCausalLM(input_ids, use_cache=True)`` runs the layer
+  modules and returns ``(logits, caches)``, one ``(k, v)`` pair of
+  ``[B, S, HKV, D]`` per layer, keys roped (``generate_paged``'s prefill).
+- Paged serving and decode: ``LlamaForCausalLM(input_ids,
+  past_key_values=..., use_cache=True, cache_position=lens)`` (the JAX
+  engine's and ``generate_paged``'s call) runs one step over the paged KV
+  pools and returns ``(logits, past_key_values)``. With the engine's
+  6-tuple pasts and ``FLAGS_use_fused_decode_layer`` on (the JAX default)
+  it is the fused decode layer loop (kernels A, B, C); otherwise the layer
+  modules, where attention is kernel 4 (with ``q_lens``) or kernel 5 (the
+  4- and 5-tuple pasts of ``generate_paged``). ``generate_paged`` itself is
+  in ``generation.py``.
 
 Module and parameter names follow the JAX package, so its ``state_dict``
 loads by name (``models/convert.py``); linear weights keep Paddle's
@@ -33,7 +42,10 @@ from torch import nn
 from paddle_tpu_torch.core.device import DeviceLike, resolve_device
 from paddle_tpu_torch.distributed.fleet import recompute
 from paddle_tpu_torch.flags import flag
+from paddle_tpu_torch.generation import GenerationMixin
 from paddle_tpu_torch.incubate.nn.functional import (
+    block_multihead_attention,
+    block_multihead_chunk_attention,
     block_multihead_chunk_attention_fused,
     fused_embed_rms_norm,
     fused_rms_norm_residual,
@@ -159,19 +171,37 @@ class LlamaAttention(nn.Module):
         self,
         hidden_states: torch.Tensor,  # normed [B, S, H]
         startend_row_indices: Optional[torch.Tensor],  # FlashMask bounds [B, Hm, S, C] or None
-        cos: torch.Tensor,  # [S, D] rope rows of positions 0..S-1
+        cos: torch.Tensor,  # [S, D] rope rows of positions 0..S-1, or [B, S, 1, D] per slot
         sin: torch.Tensor,
-    ) -> torch.Tensor:
-        """The training attention: qkv projections, rope on q and k, causal
-        FlashMask attention (kernels 14-16), ``o_proj``. The rope rows come
-        from the model (one table; every JAX layer holds an identical copy)."""
+        past_key_value: Optional[Sequence[Any]] = None,  # a paged 4-, 5- or 6-tuple
+        use_cache: bool = False,
+    ) -> Any:
+        """qkv projections, rope on q and k, attention, ``o_proj``. Without
+        a past: causal FlashMask attention (kernels 14-16), and with
+        ``use_cache`` also the ``(k, v)`` cache (keys roped). With a paged
+        past ``(key_cache, value_cache, block_tables, seq_lens[, slot_mask[,
+        q_lens]])``: append this step's KV to the pools in place, then
+        attend over them — the chunk entry (kernel 4) when ``q_lens`` is
+        given, else the decode entry (kernel 5); returns ``(out, past)``.
+        The rope rows come from the model (one table; every JAX layer holds
+        an identical copy)."""
         b, s, _ = hidden_states.shape
         q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
         q, k, _ = fused_rotary_position_embedding(q, k, None, sin=sin, cos=cos)
+        if past_key_value is not None:
+            kc, vc, tables, lens = past_key_value[:4]
+            slot_mask = past_key_value[4] if len(past_key_value) >= 5 else None
+            if len(past_key_value) >= 6:
+                out, _, _ = block_multihead_chunk_attention(
+                    q, k, v, kc, vc, tables, lens, past_key_value[5], slot_mask=slot_mask)
+            else:
+                out, _, _ = block_multihead_attention(q, k, v, kc, vc, tables, lens, slot_mask=slot_mask)
+            return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim)), past_key_value
         out = F.flashmask_attention(q, k, v, startend_row_indices=startend_row_indices, causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return (out, (k, v)) if use_cache else out
 
     def forward_paged_fused(
         self,
@@ -206,9 +236,10 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    """One layer. :meth:`forward` is the training layer; the serving step
-    runs in :meth:`LlamaModel._forward_paged_fused`, which pairs each
-    residual add with the norm that follows it."""
+    """One layer. :meth:`forward` is the training, prefill and unfused paged
+    layer; the fused serving step runs in
+    :meth:`LlamaModel._forward_paged_fused`, which pairs each residual add
+    with the norm that follows it."""
 
     def __init__(self, config: LlamaConfig, device: torch.device, dtype: torch.dtype) -> None:
         super().__init__()
@@ -224,11 +255,19 @@ class LlamaDecoderLayer(nn.Module):
         startend_row_indices: Optional[torch.Tensor],
         cos: torch.Tensor,
         sin: torch.Tensor,
-    ) -> torch.Tensor:
+        past_key_value: Optional[Sequence[Any]] = None,
+        use_cache: bool = False,
+    ) -> Any:
+        """``h`` — or ``(h, cache)`` with a paged past or ``use_cache``."""
         residual = hidden_states
-        h = self.self_attn(self.input_layernorm(hidden_states), startend_row_indices, cos, sin)
+        h = self.self_attn(self.input_layernorm(hidden_states), startend_row_indices, cos, sin,
+                           past_key_value, use_cache)
+        cache = None
+        if past_key_value is not None or use_cache:
+            h, cache = h
         h = residual + h
-        return h + self.mlp(self.post_attention_layernorm(h))
+        h = h + self.mlp(self.post_attention_layernorm(h))
+        return h if cache is None else (h, cache)
 
 
 class LlamaModel(nn.Module):
@@ -253,42 +292,55 @@ class LlamaModel(nn.Module):
         past_key_values: Optional[Sequence[Sequence[Any]]] = None,
         use_cache: bool = False,
         cache_position: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """The final-normed hidden states ``[B, S, H]`` of the
-        training/prefill layer loop, or ``(h, past_key_values)`` of the fused
-        serving step, given the engine's paged ``past_key_values`` (one
-        6-tuple per layer) in the reference engine's call (``use_cache=True,
+    ) -> Any:
+        """The final-normed hidden states ``[B, S, H]``; with ``use_cache``
+        ``(h, caches)``. Given paged ``past_key_values`` (one tuple per
+        layer, in the reference call ``use_cache=True,
         cache_position=lens``; the pools are updated in place, so the pasts
-        returned are the tensors passed in)."""
+        returned are the tensors passed in), the dispatch is JAX's: the
+        fused decode layer loop only while ``FLAGS_use_fused_decode_layer``
+        is on and every past is the engine's 6-tuple, else the layer
+        modules."""
         if past_key_values is None:
-            if use_cache or cache_position is not None:
+            if cache_position is not None:
                 raise NotImplementedError(
-                    "use_cache / cache_position without a paged past (static-cache prefill and decode) "
-                    "are not ported yet (ROADMAP Queue 1 item 3)")
+                    "cache_position without a paged past (static-cache decode) is not ported yet "
+                    "(ROADMAP Queue 1 item 3)")
         else:
             if startend_row_indices is not None:
                 raise ValueError("startend_row_indices does not apply to the paged serving step")
             if not use_cache or cache_position is None:
                 raise NotImplementedError(
-                    "the paged serving step is ported for the JAX engine's call only: "
-                    "past_key_values=<6-tuples>, use_cache=True, cache_position=seq_lens")
-            if not flag("use_fused_decode_layer"):
-                raise NotImplementedError("only the fused decode layer loop is ported")
+                    "the paged step is ported for the reference call only: "
+                    "past_key_values=<paged tuples>, use_cache=True, cache_position=seq_lens")
             if len(past_key_values) != len(self.layers):
                 raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
-            if any(p is None or len(p) != 6 for p in past_key_values):
-                raise NotImplementedError("only the engine's paged 6-tuple pasts are ported "
-                                          "(ROADMAP Queue 1 items 5 and 6)")
-            return self._forward_paged_fused(input_ids, past_key_values), past_key_values
+            sizes = {len(p) if p is not None else 0 for p in past_key_values}
+            if 8 in sizes:
+                raise NotImplementedError("the int8 pool's 8-tuple pasts are not ported yet (ROADMAP Queue 1 item 6)")
+            if not sizes <= {4, 5, 6}:
+                raise NotImplementedError("only paged pasts (4-, 5- and 6-tuples) are ported; a dense past "
+                                          "(static-cache decode) is ROADMAP Queue 1 item 3")
+            if flag("use_fused_decode_layer") and sizes == {6}:
+                return self._forward_paged_fused(input_ids, past_key_values), past_key_values
         h = self.embed_tokens(input_ids)
-        cos, sin = self.rotary_emb(input_ids.shape[1])
-        use_recompute = self.config.recompute and self.training
-        for layer in self.layers:
+        if past_key_values is None:
+            cos, sin = self.rotary_emb(input_ids.shape[1])
+        else:  # ragged positions: rows gathered per slot, shared by every layer
+            cos, sin = self.rotary_emb(input_ids.shape[1], past_key_values[0][3])
+        use_recompute = self.config.recompute and self.training and not use_cache and past_key_values is None
+        caches = [] if use_cache else None
+        for i, layer in enumerate(self.layers):
             if use_recompute:
                 h = recompute(layer, h, startend_row_indices, cos, sin)
-            else:
-                h = layer(h, startend_row_indices, cos, sin)
-        return self.norm(h)
+                continue
+            past = past_key_values[i] if past_key_values is not None else None
+            h = layer(h, startend_row_indices, cos, sin, past, use_cache)
+            if use_cache:
+                h, cache = h
+                caches.append(cache)
+        h = self.norm(h)
+        return (h, caches) if use_cache else h
 
     def _forward_paged_fused(self, input_ids: torch.Tensor, past_key_values: Sequence[Sequence[Any]]) -> torch.Tensor:
         """The serving step's fused layer loop: the token gather + embedding +
@@ -311,11 +363,13 @@ class LlamaModel(nn.Module):
         return h
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Causal LM. With ``labels`` ``forward`` returns ``(loss, None)``
     (``(loss, logits)`` with ``FLAGS_use_fused_loss`` off); without,
-    ``[B, S, V]`` logits — of one paged serving step (appending the step's
-    KV to the caches in place) when ``past_key_values`` is given.
+    ``[B, S, V]`` logits, and with ``use_cache`` ``(logits, caches)`` — of
+    one paged step (appending the step's KV to the caches in place) when
+    ``past_key_values`` is given. ``generate_paged`` (the mixin) decodes
+    greedily over the paged cache.
 
     ``device`` defaults to ``cuda`` (and raises without one); ``dtype``
     defaults to ``config.dtype``. The weights are drawn from
@@ -376,9 +430,11 @@ class LlamaForCausalLM(nn.Module):
         logits never exist), ``(loss, logits)`` with it off. Serving:
         ``past_key_values`` one ``(key_cache, value_cache, block_tables,
         seq_lens, slot_mask, q_lens)`` per layer (the JAX engine's paged
-        6-tuple) with ``use_cache=True, cache_position=seq_lens`` (the JAX
-        engine's call); returns ``(logits, past_key_values)``. Without
-        ``past_key_values``, ``labels=None`` returns the logits."""
+        6-tuple; ``generate_paged`` passes the first four) with
+        ``use_cache=True, cache_position=seq_lens`` (the JAX engine's call);
+        returns ``(logits, past_key_values)``. Without ``past_key_values``,
+        ``labels=None`` returns the logits, and ``(logits, caches)`` with
+        ``use_cache``."""
         out = self.llama(input_ids, startend_row_indices, past_key_values, use_cache, cache_position)
         caches = None
         if use_cache:

@@ -190,7 +190,11 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     w = _t(np.ones(16, np.float32))
     kfused.fused_rms_norm_residual(x, w, x)
     kfused.fused_embed_rms_norm(torch.tensor([[1, 2]]), x, w)
-    kpaged.paged_flash_chunk_fused(*map(_t, _paged_inputs(0, 4, 4)))
+    q, cos, sin, kc, vc, tables, lens, q_lens = map(_t, _paged_inputs(0, 4, 4))
+    kpaged.paged_flash_chunk_fused(q, cos, sin, kc, vc, tables, lens, q_lens)
+    kpaged.paged_flash_chunk(q, kc, vc, tables, lens, q_lens)
+    kpaged.paged_flash_decode(q[:, 0], kc, vc, tables, lens)
+    kpaged.paged_flash_decode_fused(q[:, 0], cos[:, :1], sin[:, :1], kc, vc, tables, lens)
     y, rstd = kfused.rms_norm_fwd(x, w)
     kfused.rms_norm_bwd(x, w, rstd, y)
     xr = x.reshape(1, 3, 1, 16)
@@ -199,7 +203,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     lse, _ = kloss.flxent_fwd(x, w.reshape(16, 1).expand(16, 8), lab)
     kloss.flxent_bwd(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3))
     kloss.flxent_dchunk(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3), 2, 7)
-    assert launch_counts() == {"paged_chunk_fused": 0, "embed_rms": 0, "rms_residual": 0,
+    assert launch_counts() == {"paged_chunk_fused": 0, "paged_chunk": 0, "paged_decode": 0,
+                               "paged_decode_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
                                "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0}
@@ -244,9 +249,17 @@ def test_flags_refuse_what_the_port_lacks():
     assert paddle_tpu_torch.get_flags(["FLAGS_kv_cache_dtype"]) == {"FLAGS_kv_cache_dtype": "bf16"}
     paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
     for name, value in [("FLAGS_kv_cache_dtype", "int8"), ("FLAGS_enable_prefix_cache", True),
-                        ("FLAGS_use_fused_decode_layer", False)]:
+                        ("FLAGS_use_fused_decode_layer", "False")]:
         with pytest.raises(ValueError):
             paddle_tpu_torch.set_flags({name: value})
+    # the unfused decode layer loop is ported: False is accepted, True is the default
+    assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_decode_layer"]) == {"FLAGS_use_fused_decode_layer": True}
+    paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": False})
+    try:
+        assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_decode_layer"]) == {"FLAGS_use_fused_decode_layer": False}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
+    assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_decode_layer"]) == {"FLAGS_use_fused_decode_layer": True}
     with pytest.raises(KeyError):
         paddle_tpu_torch.get_flags(["FLAGS_no_such_flag"])
 

@@ -123,10 +123,19 @@ def test_reference_serving_call_returns_logits_and_the_pools_passed_in():
     for p, jp in zip(past, jpast):
         np.testing.assert_allclose(p[0].numpy(), np.asarray(jp[0]._data), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(p[1].numpy(), np.asarray(jp[1]._data), rtol=1e-5, atol=1e-5)
-    # without a paged past, use_cache is static-cache decoding, not ported yet
-    for kw in (dict(use_cache=True), dict(cache_position=torch.from_numpy(lens))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            model(torch.from_numpy(toks), **kw)
+    # without a past, use_cache is the dense prefill: (logits, one (k, v) per layer), as in JAX
+    with paddle.no_grad():
+        jlogits, jcaches = jmodel(Tensor(toks), use_cache=True)
+    with torch.inference_mode():
+        logits, caches = model(torch.from_numpy(toks), use_cache=True)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
+    assert len(caches) == len(jcaches) == jcfg.num_hidden_layers
+    for (k, v), (jk, jv) in zip(caches, jcaches):
+        np.testing.assert_allclose(k.numpy(), np.asarray(jk._data), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv._data), rtol=1e-5, atol=1e-5)
+    # cache_position without a past is static-cache decoding, not ported yet
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        model(torch.from_numpy(toks), cache_position=torch.from_numpy(lens))
     # a paged past is the reference call's alone: no second, logits-only form
     for kw in (dict(), dict(use_cache=True), dict(cache_position=torch.from_numpy(lens))):
         with pytest.raises(NotImplementedError, match="use_cache=True, cache_position"):

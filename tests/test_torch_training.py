@@ -229,8 +229,11 @@ def test_train_entry_points_refuse_what_the_port_lacks(jax_model):
             LlamaForCausalLM(cfg, device="cpu")
     model = from_paddle_tpu_state(_state(jax_model), _port_config(jax_model.config), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        model(ids, use_cache=True)
+    # the dense prefill (use_cache without a past) is ported; static-cache decode is not
+    logits, caches = model(ids, use_cache=True)
+    assert logits.shape == (1, 4, jax_model.config.vocab_size) and len(caches) == jax_model.config.num_hidden_layers
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        model(ids, cache_position=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         F.flashmask_attention(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
                               dropout=0.1)
