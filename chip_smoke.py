@@ -22,11 +22,16 @@ name and power limit):
    adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
    ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes;
    kernels B and C in fp16 and fp32; the KV append under
-   ``torch.cuda.set_sync_debug_mode("error")``; the fused linear cross
-   entropy forward, D recompute, dX and dW (kernels 17-19) at the train
-   shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a ragged vocab, in the
-   vocab-major layout and in fp16, with the loss head's peak memory fused
-   and unfused; time kernel, plain version and, where one PyTorch call
+   ``torch.cuda.set_sync_debug_mode("error")``; the residual LayerNorm and
+   its adjoint (kernels 12 and 13) at GPT-3 13B's train shape ``[4, 2048,
+   5120]`` and the residual RMSNorm's adjoint (kernel 11) at ``[2, 4096,
+   4096]``, bf16, and all three at ragged rows in fp16 and fp32; the fused
+   linear cross entropy forward, D recompute, dX and dW (kernels 17-19) at
+   the train shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a
+   ragged vocab, in the vocab-major layout, in fp16 and at GPT-3 13B's tied
+   head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk), with
+   the loss head's peak memory fused and unfused; time kernel, plain
+   version and, where one PyTorch call
    computes the same function, that call (device time per call from CUDA
    events with the L2 flushed before each call; back-to-back wall time per
    call, launch overhead included, as ``call_ms``);
@@ -68,7 +73,25 @@ name and power limit):
    with ``FLAGS_use_fused_loss`` off and on, back to back; then a 2-layer
    S=1024 copy whose loss and gradients through the kernels must be no
    further from an fp32 run of the plain versions than the bf16 plain
-   path.
+   path;
+7. train_gpt — after the Llama model is freed, GPT-3 13B widths cut to 8
+   layers (hidden 5120, 40 heads of dim 128, vocab 50304, biases, the lm
+   head tied to the word embedding; bf16, every JAX default:
+   ``FLAGS_use_fused_decode_layer`` and ``FLAGS_use_fused_loss`` on,
+   ``AdamW(multi_precision=True)``) on 4 x 2048 next-token pairs, 1
+   warm-up and 4 timed steps with the launch counters reset before each:
+   every parameter gets a finite non-zero gradient, each step launches
+   flash_fwd / flash_bwd_dq / flash_bwd_dkv 8x, ln_residual /
+   ln_residual_bwd 8x (``ln_2``'s residual LayerNorm), flxent_fwd 2x and
+   flxent_dchunk / dx / dw 13x (the vocab-major head's 4096-column chunks)
+   and nothing else, the loss falls; tokens/s, MFU, peak memory, a
+   profile of one step; then a 2-layer S=1024 copy held to the fp32 plain
+   path as for Llama;
+8. residual_repair — the incubate ``fused_rms_norm_residual`` with inputs
+   that need gradients: its outputs carry ``ResidualNormFunction``'s node,
+   kernel C and kernel 11 each launch once between a reset and a read of
+   the counters, and the x, residual and weight gradients match the plain
+   versions'.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -91,7 +114,14 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (data she
 BF16_REL = 2.0 ** -7  # one bf16 ulp relative to the value (8-bit significand)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -489,6 +519,7 @@ def check_kernels(dev, card: dict) -> dict:
     check_append_sync(dev, gen, card)
     check_flash(dev, gen, card, records)
     check_norm_rope(dev, gen, card, records)
+    check_residual_norms(dev, gen, card, records)
     check_fused_loss(dev, gen, card, records)
     return records
 
@@ -959,6 +990,205 @@ def check_norm_rope(dev, gen, card: dict, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- kernels 11-13: the residual norms' adjoints and the residual LayerNorm ------
+
+RESIDUAL_NORM_SOURCES = {
+    "rms_residual_bwd": "paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+    "ln_residual": "paddle_tpu_torch/kernels/csrc/ln_residual.cu",
+    "ln_residual_bwd": "paddle_tpu_torch/kernels/csrc/ln_residual.cu",
+}
+# rel is one ulp of the I/O type as for kernels 7-10. y and dx add 1e-5 of
+# their largest value: y = (r - mean) rstd w + b and dx = rstd (g w -
+# mean(g w) - x^ mean(g w x^)) cancel to near 0 where the terms do not, and
+# both versions' fp32 statistics are sums in other orders. dw and db add
+# 1e-5 of each column's sum of |g x^| resp. |g| (a reordered fp32 sum).
+RESIDUAL_NORM_TOL = {
+    "ln_residual": "r bitwise; y: rel*max(|got|, |ref|) + 1e-5*max|y|",
+    "ln_residual_bwd": "dx: rel*|x| + 1e-5*max|dx|; dw, db: rel*|x| + 1e-5*sum_rows|g*x^| resp. |g| per column; "
+                       "two runs bitwise equal",
+    "rms_residual_bwd": "as ln_residual_bwd's dx and dw",
+    "rel": "2^-7 for bf16, 2^-10 for fp16, 1e-5 for fp32",
+}
+
+
+def column_gate(got, want, rel: float, scale) -> tuple:
+    """(max abs error, ok) of a weight or bias gradient: per column within
+    ``rel * max(|got|, |want|) + 1e-5 * scale``."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    lim = rel * torch.maximum(got.float().abs(), want.float().abs()) + 1e-5 * scale
+    return float(d.max()), bool((d <= lim).all())
+
+
+def residual_norm_case(dev, gen, lead, h: int, dtype, label: str, card: dict, timed: bool = False,
+                       which=("ln", "rms")) -> dict:
+    """Kernels 12 and 13 (``"ln"``) and 11 (``"rms"``) against their plain
+    versions on the same inputs, ``[*lead, h]``; with ``timed`` their
+    times. Fails on a miss."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import fused as kf
+
+    rel = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}.get(dtype, 1e-5)
+    eps = 1e-5
+    x = torch.randn((*lead, h), generator=gen, device=dev).to(dtype)
+    res = (2 * torch.randn((*lead, h), generator=gen, device=dev)).to(dtype)
+    g = torch.randn((*lead, h), generator=gen, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn((h,), generator=gen, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((h,), generator=gen, device=dev)).to(dtype)
+    rows, esz = x.numel() // h, x.element_size()
+    checks, err, res_out, runs = {}, {}, {"max_abs_err": {}}, {}
+    if "ln" in which:
+        (y, r), (y_p, r_p) = kf.ln_residual(x, w, b, res, eps), kf.ln_residual_plain(x, w, b, res, eps)
+        dx, dw, db = kf.ln_residual_bwd(g, r, w, eps)
+        dx2, dw2, db2 = kf.ln_residual_bwd(g, r, w, eps)
+        dx_p, dw_p, db_p = kf.ln_residual_bwd_plain(g, r, w, eps)
+        rf = r.float()
+        xhat = (rf - rf.mean(-1, keepdim=True)) * torch.rsqrt((rf - rf.mean(-1, keepdim=True)).square().mean(-1, keepdim=True) + eps)
+        dw_scale = (g.float() * xhat).abs().reshape(-1, h).sum(0)
+        db_scale = g.float().abs().reshape(-1, h).sum(0)
+        del rf, xhat
+        torch.cuda.synchronize()
+        checks["r"] = bool(torch.equal(r, r_p))
+        err["y"], checks["y"] = within(y, y_p, atol=1e-5 * float(y_p.float().abs().max()), rel=rel)
+        err["ln_dx"], checks["ln_dx"] = within(dx, dx_p, atol=1e-5 * float(dx_p.float().abs().max()), rel=rel)
+        err["ln_dw"], checks["ln_dw"] = column_gate(dw, dw_p, rel, dw_scale)
+        err["ln_db"], checks["ln_db"] = column_gate(db, db_p, rel, db_scale)
+        checks["ln_bwd_deterministic"] = all(bool(torch.equal(a, c)) for a, c in ((dx, dx2), (dw, dw2), (db, db2)))
+        res_out["max_abs_err"].update(ln_residual=err["y"], ln_residual_bwd=err["ln_dx"])
+        res_out["ln_residual_bwd_dw_db_max_abs_err"] = [err["ln_dw"], err["ln_db"]]
+        del y, y_p, r_p, dx2, dw2, db2, dx_p
+        if timed:
+            # yardstick only (the port never calls it): PyTorch's layer_norm
+            # backward (dx, dw, db) through autograd; no single PyTorch call
+            # adds the residual and normalises
+            rr, wr, br = r.detach().requires_grad_(), w.detach().requires_grad_(), b.detach().requires_grad_()
+            lib_out = tF.layer_norm(rr, (h,), wr, br, eps)
+            runs["ln_residual"] = (lambda: kf.ln_residual(x, w, b, res, eps),
+                                   lambda: kf.ln_residual_plain(x, w, b, res, eps), None,
+                                   bound(4 * rows * h * esz + 2 * h * esz, 8 * rows * h, FP32_FLOP_PER_S))
+            runs["ln_residual_bwd"] = (lambda: kf.ln_residual_bwd(g, r, w, eps),
+                                       lambda: kf.ln_residual_bwd_plain(g, r, w, eps),
+                                       lambda: torch.autograd.grad(lib_out, (rr, wr, br), g, retain_graph=True),
+                                       bound(3 * rows * h * esz + 3 * h * esz, 14 * rows * h, FP32_FLOP_PER_S))
+    if "rms" in which:
+        rs = x + res
+        dx, dw = kf.rms_residual_bwd(g, rs, w, eps)
+        dx2, dw2 = kf.rms_residual_bwd(g, rs, w, eps)
+        dx_p, dw_p = kf.rms_residual_bwd_plain(g, rs, w, eps)
+        rf = rs.float()
+        dw_scale = (g.float() * rf * torch.rsqrt(rf.square().mean(-1, keepdim=True) + eps)).abs().reshape(-1, h).sum(0)
+        del rf
+        torch.cuda.synchronize()
+        err["rms_dx"], checks["rms_dx"] = within(dx, dx_p, atol=1e-5 * float(dx_p.float().abs().max()), rel=rel)
+        err["rms_dw"], checks["rms_dw"] = column_gate(dw, dw_p, rel, dw_scale)
+        checks["rms_bwd_deterministic"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
+        res_out["max_abs_err"]["rms_residual_bwd"] = err["rms_dx"]
+        res_out["rms_residual_bwd_dw_max_abs_err"] = err["rms_dw"]
+        del dx2, dw2, dx_p
+        if timed:
+            # yardstick only: PyTorch's rms_norm backward (dx, dw) through autograd, as for kernel 8
+            rs_leaf, w_leaf = rs.detach().requires_grad_(), w.detach().requires_grad_()
+            rms_out = tF.rms_norm(rs_leaf, (h,), w_leaf, eps) if hasattr(tF, "rms_norm") else None
+            runs["rms_residual_bwd"] = (lambda: kf.rms_residual_bwd(g, rs, w, eps),
+                                        lambda: kf.rms_residual_bwd_plain(g, rs, w, eps),
+                                        None if rms_out is None else
+                                        (lambda: torch.autograd.grad(rms_out, (rs_leaf, w_leaf), g, retain_graph=True)),
+                                        bound(3 * rows * h * esz + 2 * h * esz, 10 * rows * h, FP32_FLOP_PER_S))
+    line = {"phase": "kernel_check", "kernel": "/".join(k for k in RESIDUAL_NORM_SOURCES
+                                                     if k.startswith(tuple(which))),
+            "case": label, "shape": [*lead, h], "dtype": str(dtype).split(".")[-1], "max_err": err,
+            "checks": checks, "tolerance": RESIDUAL_NORM_TOL}
+    if not all(checks.values()):
+        emit({**line, "card": card})
+        fail(f"kernels 11-13 disagree with their plain versions ({label}): {checks} {err}")
+    if timed:
+        times = {}
+        for name, (run, run_plain, run_lib, bnd) in runs.items():
+            times[name] = dict(ms=device_ms(run), call_ms=call_ms(run), plain_ms=device_ms(run_plain, iters=5),
+                               plain_call_ms=call_ms(run_plain, iters=5),
+                               library_ms=None if run_lib is None else device_ms(run_lib), **bnd)
+        res_out["times"] = line["times"] = times
+        line["library"] = ("ln_residual: none (no single PyTorch call adds and normalises); ln_residual_bwd: "
+                           "autograd backward of torch.nn.functional.layer_norm (dx, dw, db); rms_residual_bwd: "
+                           "autograd backward of torch.nn.functional.rms_norm (dx, dw)")
+    emit({**line, "card": card})
+    runs.clear()
+    torch.cuda.empty_cache()
+    return res_out
+
+
+def check_residual_norms(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 12 and 13 at the GPT-3 13B train shape ``[4, 2048, 5120]``
+    and kernel 11 at the Llama-2-7B one ``[2, 4096, 4096]``, bf16 and
+    timed; all three at ragged rows in fp16 and fp32."""
+    import torch
+
+    bf = torch.bfloat16
+    ln = residual_norm_case(dev, gen, (4, 2048), 5120, bf, "GPT-3 13B train shape", card, timed=True, which=("ln",))
+    rms = residual_norm_case(dev, gen, (2, 4096), 4096, bf, "Llama-2-7B train shape", card, timed=True,
+                             which=("rms",))
+    for dtype in (torch.float16, torch.float32):
+        residual_norm_case(dev, gen, (3, 77), 384, dtype, f"{str(dtype).split('.')[-1]}, ragged rows", card)
+    for name, src in RESIDUAL_NORM_SOURCES.items():
+        rec = ln if name.startswith("ln") else rms
+        records[name] = dict(source=src, max_abs_err=rec["max_abs_err"][name], **rec["times"][name])
+
+
+def check_residual_repair(dev, gen, card: dict) -> dict:
+    """The repaired ``fused_rms_norm_residual`` on the card: with inputs that
+    need gradients its outputs carry ``ResidualNormFunction``'s node, and
+    the x, residual and weight gradients through kernels C and 11 equal the
+    plain versions' (kernel 11's dx gate; dw per column). The launch
+    counters are reset just before and read just after: C once, 11 once.
+    Returns the counts."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm_residual
+    from paddle_tpu_torch.kernels import fused as kf
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+
+    lead, h, eps = (2, 1024), 4096, 1e-5
+    x, res, g, gr = (torch.randn((*lead, h), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    w = (1 + 0.1 * torch.randn((h,), generator=gen, device=dev)).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (x, w, res)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y, r = fused_rms_norm_residual(*leaves, eps)
+    torch.autograd.backward([y, r], [g, gr])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    node = type(y.grad_fn).__name__
+    y_p, r_p = kf.fused_rms_norm_residual_plain(x, w, res, eps)
+    dx_p, dw_p = kf.rms_residual_bwd_plain(g, r_p, w, eps)
+    dr_p = dx_p + gr
+    rf = r_p.float()
+    dw_scale = (g.float() * rf * torch.rsqrt(rf.square().mean(-1, keepdim=True) + eps)).abs().reshape(-1, h).sum(0)
+    err, checks = {}, {"grad_fn": node == "ResidualNormFunctionBackward",
+                       "launches": counts == {"rms_residual": 1, "rms_residual_bwd": 1},
+                       "r": bool(torch.equal(r, r_p))}
+    err["y"], checks["y"] = within(y.detach(), y_p, atol=0.0, rel=BF16_REL)
+    # kernel 11's dx gate (one ulp of the adjoint, 1e-5 of its largest
+    # value) carried through the add of the residual stream's cotangent,
+    # plus one ulp of the sum's own rounding
+    lim = (BF16_REL * dx_p.float().abs() + 1e-5 * float(dx_p.float().abs().max())).reshape(-1)
+    for name, leaf in (("x", leaves[0]), ("residual", leaves[2])):
+        got, want = leaf.grad.float().reshape(-1), dr_p.float().reshape(-1)
+        d = (got - want).abs()
+        err[name] = float(d.max())
+        checks[name] = bool((d <= lim + BF16_REL * torch.maximum(got.abs(), want.abs())).all())
+    err["weight"], checks["weight"] = column_gate(leaves[1].grad, dw_p, BF16_REL, dw_scale)
+    emit({"phase": "residual_repair", "entry": "incubate fused_rms_norm_residual", "shape": [*lead, h],
+          "dtype": "bfloat16", "grad_fn": node, "launches": counts, "max_abs_err": err, "checks": checks,
+          "tolerance": "x, residual against d_r = dx + the residual stream's cotangent, dx from "
+                       "rms_residual_bwd_plain: rel*|dx| + 1e-5*max|dx| + rel*max(|got|, |ref|); weight: "
+                       "rel*|x| + 1e-5*sum_rows|g*x^| per column (rel 2^-7); r bitwise",
+          "card": card})
+    if not all(checks.values()):
+        fail(f"fused_rms_norm_residual's gradients on the card: {checks} {err} (launched {counts})")
+    return counts
+
+
 # -- kernels 17-19: fused linear cross entropy forward, dX, dW ------------------
 
 FLXENT_SOURCES = {
@@ -1186,7 +1416,8 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     4096]``, W ``[4096, 32000]`` bf16; timed), at a ragged vocab and row
     count (V 32003, whose
     ``[H, V]`` rows are not 16-byte aligned: the element-wise staging
-    path), in the vocab-major layout, and in fp16."""
+    path), in the vocab-major layout, in fp16, and at GPT-3 13B's tied
+    head (x ``[8192, 5120]``, W ``[50304, 5120]`` vocab-major)."""
     import torch
 
     bf = torch.bfloat16
@@ -1194,6 +1425,8 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     flxent_case(dev, gen, 1000, 1024, 32003, bf, False, "ragged rows and vocab (V % 8 != 0)", card)
     flxent_case(dev, gen, 2048, 1024, 5000, bf, True, "vocab-major W [V, H]", card)
     flxent_case(dev, gen, 520, 512, 3001, torch.float16, False, "fp16, ragged", card)
+    flxent_case(dev, gen, 8192, 5120, 50304, bf, True, "GPT-3 13B tied head: W [50304, 5120], a 1152-column "
+                "tail chunk", card)
     for name, src in FLXENT_SOURCES.items():
         t = train["times"][name]
         records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
@@ -1753,7 +1986,9 @@ TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("flash_fwd_kernel", "flash fwd (kernel 14)"), ("flash_bwd_dq_kernel", "flash dq (kernel 15)"),
     ("flash_bwd_dkv_kernel", "flash dk/dv (kernel 16)"), ("rms_fwd_kernel", "rmsnorm fwd (kernel 7)"),
     ("rms_bwd", "rmsnorm bwd (kernel 8)"), ("rope_fwd_kernel", "rope fwd (kernel 9)"),
-    ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("flxent_logits", "fused loss logits / D (kernels 17-19)"),
+    ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("column_sum", "norm backward column sums (kernels 8, 11, 13)"),
+    ("ln_residual_bwd", "LN-residual bwd (kernel 13)"), ("ln_residual_kernel", "LN-residual fwd (kernel 12)"),
+    ("flxent_logits", "fused loss logits / D (kernels 17-19)"),
     ("flxent_merge", "fused loss logits / D (kernels 17-19)"), ("flxent_gemm", "fused loss dX / dW (kernels 18/19)"),
     ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
@@ -1859,7 +2094,7 @@ def check_train_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
              f"(worst {worst}: {ratios[worst]}; loss errors {err_k} vs {err_p})")
 
 
-def profile_train_step(step, card: dict) -> None:
+def profile_train_step(step, card: dict, label: str = "train_profile") -> None:
     """Where one train step's time goes: ``torch.profiler`` over one step,
     device time by category and the device's idle share of its wall time."""
     import torch
@@ -1884,7 +2119,7 @@ def profile_train_step(step, card: dict) -> None:
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "train_profile", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_by_category": {k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
@@ -2021,6 +2256,188 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     return total
 
 
+# -- GPT-3 13B widths: pretraining through kernels 12, 13, 14-16, 17-19 ----------
+
+GPT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_residual", "ln_residual_bwd",
+               "flxent_fwd", "flxent_dchunk", "flxent_dx", "flxent_dw")
+GPT_LAYERS = 8  # GPT-3 13B cut from 40 layers: 16 B/parameter of weights, grads, masters, moments
+GPT_BATCH, GPT_SEQ = 4, 2048
+
+
+def gpt_batch(dev, vocab: int, b: int, s: int, seed: int):
+    """Seeded ids and their next-token labels (-100 at each row's end)."""
+    import numpy as np
+    import torch
+
+    ids = np.random.default_rng(seed).integers(0, vocab, (b, s))
+    labels = np.full((b, s), -100, np.int64)
+    labels[:, :-1] = ids[:, 1:]
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def plain_gpt_loss(model, ids, labels, dtype):
+    """The GPT train step's loss written out with the plain versions of the
+    flash-attention forward, the residual LayerNorm (kernel 12) and the
+    fused loss head (vocab-major, its ``Function`` on the plain versions),
+    differentiated by autograd, and the JAX composition for ``ln_1`` and
+    ``ln_f``, on ``dtype`` copies of the weights; returns the loss and each
+    weight's gradient (as ``plain_train_loss`` does for Llama)."""
+    import torch
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
+    from paddle_tpu_torch.kernels.fused import ln_residual_plain
+    from paddle_tpu_torch.kernels.fused_loss import linear_cross_entropy
+    from paddle_tpu_torch.nn.functional import gelu, layer_norm
+
+    w = {n: p.detach().to(dtype).requires_grad_() for n, p in model.named_parameters()}
+    cfg = model.config
+    nh, hd, eps = cfg.num_heads, cfg.hidden_size // cfg.num_heads, cfg.layer_norm_epsilon
+    b, s = ids.shape
+    h = w["gpt.embeddings.word_embeddings.weight"][ids] + w["gpt.embeddings.position_embeddings.weight"][:s][None]
+    for i in range(cfg.num_layers):
+        pre = f"gpt.layers.{i}."
+
+        def lin(t, name):
+            return t @ w[pre + name + ".weight"] + w[pre + name + ".bias"]
+
+        x = layer_norm(h, None, w[pre + "ln_1.weight"], w[pre + "ln_1.bias"], eps)
+        qkv = lin(x, "attn.qkv_proj").reshape(b, s, 3, nh, hd)
+        a, _ = flash_fwd_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None, True)
+        attn = lin(a.reshape(b, s, nh * hd), "attn.out_proj")
+        h2, x2 = ln_residual_plain(attn, w[pre + "ln_2.weight"], w[pre + "ln_2.bias"], h, eps)
+        h = x2 + lin(gelu(lin(h2, "mlp.fc1")), "mlp.fc2")
+    h = layer_norm(h, None, w["gpt.ln_f.weight"], w["gpt.ln_f.bias"], eps)
+    loss = linear_cross_entropy(h, w["gpt.embeddings.word_embeddings.weight"], labels, vocab_major=True,
+                                use_kernels=False)
+    loss.backward()
+    return loss.detach(), {n: t.grad for n, t in w.items()}
+
+
+def check_gpt_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
+    """A 2-layer, full-width, S=1024 copy of the GPT train step: the kernel
+    path's loss and every parameter's gradient against an fp32 run of the
+    plain versions, beside the bf16 plain path's distance from it; the gate
+    of ``check_train_accuracy`` (per parameter rel L2 at most 1.25x the
+    plain bf16 path's; the loss error at most max(1.25x the plain path's,
+    1e-3 relative))."""
+    import torch
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+
+    cfg = cfg or GPTConfig(num_layers=2)
+    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16, seed=1)
+    ids, labels = gpt_batch(dev, cfg.vocab_size, 2, seq, seed=1)
+    loss, _ = model(ids, labels=labels)
+    loss.backward()
+    loss = loss.detach()
+    got = {n: p.grad for n, p in model.named_parameters()}
+    loss_plain, plain = plain_gpt_loss(model, ids, labels, torch.bfloat16)
+    loss_ref, ref = plain_gpt_loss(model, ids, labels, torch.float32)
+    ratios = {n: rel_l2(got[n], ref[n]) / max(rel_l2(plain[n], ref[n]), 1e-30) for n in ref}
+    worst = max(ratios, key=ratios.get)
+    err_k, err_p = abs(float(loss) - float(loss_ref)), abs(float(loss_plain) - float(loss_ref))
+    ok = (all(r <= 1.25 for r in ratios.values()) and err_k <= max(1.25 * err_p, 1e-3 * abs(float(loss_ref)))
+          and all(bool(torch.isfinite(g).all()) for g in got.values()))
+    emit({"phase": "train_gpt_accuracy", "layers": cfg.num_layers, "seq": seq, "loss_kernel": float(loss),
+          "loss_plain_bf16": float(loss_plain), "loss_fp32": float(loss_ref),
+          "grad_rel_l2_kernel_vs_fp32": {n: rel_l2(got[n], ref[n]) for n in ref},
+          "grad_rel_l2_plain_vs_fp32": {n: rel_l2(plain[n], ref[n]) for n in ref},
+          "worst_ratio": [worst, ratios[worst]],
+          "tolerance": "per parameter kernel rel L2 <= 1.25 x plain bf16's; loss err <= max(1.25 x plain's, 1e-3 rel)",
+          "card": card})
+    if not ok:
+        fail(f"GPT train-step gradients through the kernels are further from fp32 than the plain path's "
+             f"(worst {worst}: {ratios[worst]}; loss errors {err_k} vs {err_p})")
+
+
+def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_SEQ, accuracy_cfg=None,
+              accuracy_seq: int = 1024) -> dict:
+    """Phase 7: GPT-3 13B widths (hidden 5120, 40 heads of dim 128, vocab
+    50304, FFN 4x, biases, tied lm head) cut to 8 layers, bf16 parameters
+    (seeded N(0, 0.02), LayerNorm weights 1, biases 0), every JAX default
+    (``FLAGS_use_fused_decode_layer`` and ``FLAGS_use_fused_loss`` on,
+    dropout 0), ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded
+    batch of 4 x 2048 tokens with the next token as label (1 warm-up step,
+    4 timed). Gates: every parameter has a finite non-zero gradient on step
+    1; each step launches flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+    ln_residual and ln_residual_bwd once per layer, flxent_fwd 2x and
+    flxent_dchunk / dx / dw once per 4096-column vocab chunk (13x), and
+    nothing else; the last loss is below the first; then the 2-layer
+    accuracy copy. Returns the launch counts of the 5 steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.fused_loss import CHUNK
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = cfg or GPTConfig(num_layers=GPT_LAYERS)
+    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
+    ids, labels = gpt_batch(dev, cfg.vocab_size, batch, seq, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    # MFU counts the 8 layers and the tied head's product: not the position
+    # table (a gather), not the attention's score products
+    n_mfu = n_params - model.gpt.embeddings.position_embeddings.weight.numel()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def step(check_grads: bool = False) -> float:
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        if check_grads:  # _assert_grad_coverage's gate
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+            if bad:
+                fail(f"GPT parameters without a finite non-zero gradient: {bad}")
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    layers = cfg.num_layers
+    chunks = -(-cfg.vocab_size // CHUNK)
+    want = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            "ln_residual": layers, "ln_residual_bwd": layers,
+            "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    losses, step_ms, counts, total = [], [], None, {}
+    for i in range(5):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(check_grads=i == 0))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        if {k: v for k, v in counts.items() if v} != want:
+            fail(f"GPT train step {i + 1} launched {counts}, expected {want} and nothing else")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if i:
+            step_ms.append(dt)
+    tokens = batch * seq
+    p50 = float(np.median(step_ms))
+    emit({
+        "phase": "train_gpt", "model": f"GPT-3 13B widths, {layers} of 40 layers (seeded random bf16 weights)",
+        "params": n_params, "batch": [batch, seq], "optimizer": "AdamW(lr=1e-4, multi_precision=True)",
+        "flags": {"use_fused_decode_layer": True, "use_fused_loss": True}, "setup_s": setup_s,
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+        "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / (p50 / 1e3) / BF16_FLOP_PER_S,
+        "mfu_note": "6 N T / step p50 / 989e12; N: the layers and the tied head, not the position table; "
+                    "attention flops left out",
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "launches_per_step": counts, "launches_5_steps": total, "card": card,
+    })
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"the GPT loss did not decrease over the steps: {losses}")
+    profile_train_step(step, card, "train_gpt_profile")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_gpt_accuracy(dev, card, accuracy_cfg, accuracy_seq)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2057,6 +2474,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts.update({k: v for k, v in train(dev, card).items() if k in TRAIN_KERNELS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update({k: v for k, v in train_gpt(dev, card).items() if k in ("ln_residual", "ln_residual_bwd")})
+    counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),
+                                                       card)["rms_residual_bwd"]
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],

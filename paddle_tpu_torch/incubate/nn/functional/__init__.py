@@ -1,13 +1,17 @@
 """Fused functionals of the serving and training steps (port of their
 entries in ``paddle_tpu/incubate/nn/functional``).
 
-``fused_embed_rms_norm`` and ``fused_rms_norm_residual`` run kernels B and
-C of ``kernels/fused.py`` where the JAX package runs its Pallas kernels
-(a weight of the input's dtype and a last axis that is a multiple of 128),
-and elsewhere the exact unfused composition JAX runs; the paged-cache
-functions live in ``block_attention.py``; ``fused_rotary_position_embedding``
-is the rope of the training forward (kernels 9 and 10 where the shape
-allows).
+``fused_embed_rms_norm``, ``fused_rms_norm_residual`` and
+``fused_layer_norm_residual`` run kernels B, C and 12 of
+``kernels/fused.py`` where the JAX package runs its Pallas kernels (a
+weight of the input's dtype and a last axis that is a multiple of 128),
+and elsewhere the exact unfused composition JAX runs. The two residual
+norms are differentiable through :class:`ResidualNormFunction`, whose
+backward is the adjoint kernel (11 or 13) under the same rule and JAX's
+fp32 adjoint formula elsewhere — the JAX entries' tape node. The
+paged-cache functions live in ``block_attention.py``;
+``fused_rotary_position_embedding`` is the rope of the training forward
+(kernels 9 and 10 where the shape allows).
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ import torch
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.kernels import fused as _kfused
 from paddle_tpu_torch.kernels.fused import fused_rope
-from paddle_tpu_torch.nn.functional.common import rms_norm
+from paddle_tpu_torch.nn.functional.common import layer_norm, rms_norm
 
 __all__ = [
+    "ResidualNormFunction",
     "BlockKVCache",
     "block_cache_append",
     "block_cache_append_chunk",
@@ -32,27 +37,106 @@ __all__ = [
     "block_multihead_chunk_attention",
     "block_multihead_chunk_attention_fused",
     "fused_embed_rms_norm",
+    "fused_layer_norm_residual",
     "fused_rms_norm_residual",
     "fused_rotary_position_embedding",
 ]
 
 
 def _kernel_norm(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """The JAX package's rule for kernels B and C: the weight in the input's
-    dtype and the last axis a multiple of 128 (``rms_norm``'s rule too, so
-    where it fails ``rms_norm`` runs the same composition JAX runs)."""
+    """The JAX package's rule for kernels B, C, 11, 12 and 13: the weight in
+    the input's dtype and the last axis a multiple of 128 (``rms_norm``'s
+    rule too, so where it fails ``rms_norm`` runs the same composition JAX
+    runs)."""
     return weight.dtype == x.dtype and x.shape[-1] % 128 == 0 and flag("use_pallas_fused")
+
+
+def _residual_norm_fwd(x, weight, bias, residual, epsilon: float, is_rms: bool):
+    """``(y, r)``: kernel C or 12 where :func:`_kernel_norm` holds, else the
+    JAX composition — ``r = x + residual``, then ``rms_norm``'s order
+    (fp32 statistics, downcast, then the weight) or ``layer_norm``'s
+    (statistics in the I/O dtype, the weight, the bias when present)."""
+    if _kernel_norm(x, weight):
+        if is_rms:
+            return _kfused.fused_rms_norm_residual(x, weight, residual, epsilon)
+        return _kfused.ln_residual(x, weight, bias, residual, epsilon)
+    r = x + residual
+    if is_rms:
+        return rms_norm(r, weight, epsilon), r
+    return layer_norm(r, None, weight, bias, epsilon), r
+
+
+def _residual_norm_bwd(g, r, weight, epsilon: float, is_rms: bool):
+    """``(d_r, dw, db)`` of the norm half (``db`` None for RMSNorm): the
+    adjoint kernel (11 or 13) where :func:`_kernel_norm` holds for ``g``,
+    else JAX's fp32 adjoint formula — never autograd of the composition."""
+    kernel = _kernel_norm(g, weight)
+    if is_rms:
+        adjoint = _kfused.rms_residual_bwd if kernel else _kfused.rms_residual_adjoint
+        return (*adjoint(g, r, weight, epsilon), None)
+    adjoint = _kfused.ln_residual_bwd if kernel else _kfused.ln_residual_adjoint
+    return adjoint(g, r, weight, epsilon)
+
+
+class ResidualNormFunction(torch.autograd.Function):
+    """``r = x + residual; y = norm(r)`` with the JAX entries' tape backward:
+    the norm's adjoint ``d_r`` from the saved ``r`` (statistics recomputed),
+    plus the cotangent of the residual stream ``r`` in the I/O dtype, goes to
+    BOTH ``x`` and ``residual`` (the add's adjoint is the identity); ``dw``
+    and ``db`` come in the weight's dtype. Only ``r`` and the weight are
+    saved."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, epsilon, is_rms):  # noqa: D401 - autograd signature
+        y, r = _residual_norm_fwd(x, weight, bias, residual, epsilon, is_rms)
+        ctx.save_for_backward(r, weight)
+        ctx.epsilon, ctx.is_rms, ctx.y_dtype = epsilon, is_rms, y.dtype
+        ctx.set_materialize_grads(False)
+        return y, r
+
+    @staticmethod
+    def backward(ctx, gy, gr):
+        r, weight = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(r.shape, dtype=ctx.y_dtype, device=r.device)
+        dr, dw, db = _residual_norm_bwd(gy, r, weight, ctx.epsilon, ctx.is_rms)
+        if gr is not None:
+            dr = dr + gr.to(dr.dtype)
+        need = ctx.needs_input_grad
+        return (dr if need[0] else None, dw if need[1] else None, db if need[2] else None,
+                dr if need[3] else None, None, None)
+
+
+def _residual_norm(x, weight, bias, residual, epsilon: float, is_rms: bool):
+    """The entry of both residual norms: through :class:`ResidualNormFunction`
+    while a gradient is recorded, else the forward alone (the serving step:
+    kernel C once per call, nothing saved)."""
+    epsilon = float(epsilon)
+    tensors = (x, weight, bias, residual)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return ResidualNormFunction.apply(x, weight, bias, residual, epsilon, is_rms)
+    return _residual_norm_fwd(x, weight, bias, residual, epsilon, is_rms)
 
 
 def fused_rms_norm_residual(
     x: torch.Tensor, weight: torch.Tensor, residual: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``r = x + residual; y = rms_norm(r) * weight``; returns ``(y, r)``:
-    kernel C where :func:`_kernel_norm` holds, else the composition."""
-    if _kernel_norm(x, weight):
-        return _kfused.fused_rms_norm_residual(x, weight, residual, epsilon)
-    r = x + residual
-    return rms_norm(r, weight, float(epsilon)), r
+    kernel C where :func:`_kernel_norm` holds, else the composition; its
+    backward is kernel 11 under the same rule, else JAX's fp32 formula."""
+    return _residual_norm(x, weight, None, residual, epsilon, True)
+
+
+def fused_layer_norm_residual(
+    x: torch.Tensor, norm_weight: torch.Tensor, norm_bias: Optional[torch.Tensor], residual: torch.Tensor,
+    epsilon: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``r = x + residual; y = layer_norm(r, norm_weight, norm_bias)``;
+    returns ``(y, r)``: kernel 12 where :func:`_kernel_norm` holds (a
+    missing bias counts as zeros), else the composition with statistics in
+    the I/O dtype; its backward is kernel 13 under the same rule, else
+    JAX's fp32 formula."""
+    return _residual_norm(x, norm_weight, norm_bias, residual, epsilon, False)
 
 
 def fused_embed_rms_norm(
@@ -61,13 +145,15 @@ def fused_embed_rms_norm(
     """Token gather + embedding rows + their RMSNorm; returns ``(emb, y)``:
     kernel B where :func:`_kernel_norm` holds, else the composition (a
     negative id counts from the end, then ids clip to ``[0, V-1]``, as a JAX
-    gather does)."""
-    if _kernel_norm(embed_weight, norm_weight):
-        return _kfused.fused_embed_rms_norm(input_ids, embed_weight, norm_weight, epsilon)
-    v = embed_weight.shape[0]
-    ids = input_ids.long()
-    emb = embed_weight[torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)]
-    return emb, rms_norm(emb, norm_weight, float(epsilon))
+    gather does). Inference only: both outputs are cut from the graph on
+    every device, as the JAX entry returns them with ``stop_gradient``."""
+    with torch.no_grad():
+        if _kernel_norm(embed_weight, norm_weight):
+            return _kfused.fused_embed_rms_norm(input_ids, embed_weight, norm_weight, epsilon)
+        v = embed_weight.shape[0]
+        ids = input_ids.long()
+        emb = embed_weight[torch.where(ids < 0, ids + v, ids).clamp(0, v - 1)]
+        return emb, rms_norm(emb, norm_weight, float(epsilon))
 
 
 def _rope_rotate(x: torch.Tensor, use_neox: bool) -> torch.Tensor:

@@ -69,6 +69,49 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return v;
 }
 
+// Column sums of an fp32 [nblk, ncols] array of per-block partials, in a
+// fixed order (no atomics: two runs give the same bits): slice s of a block
+// sums partials s, s + 8, s + 16, ... in turn, then slice 0 adds the 8 slice
+// sums in order and writes out[c] in T. The norm backwards (kernels 8, 11,
+// 13) reduce their weight (and bias) gradients with it.
+constexpr int kColSumCols = 32, kColSumSlices = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kColSumCols * kColSumSlices)
+column_sum_kernel(const float* __restrict__ part, T* __restrict__ out, int nblk, int ncols) {
+  __shared__ float acc[kColSumSlices][kColSumCols + 1];
+  const int lane = threadIdx.x % kColSumCols, s = threadIdx.x / kColSumCols;
+  const int c = blockIdx.x * kColSumCols + lane;
+  float v = 0.f;
+  if (c < ncols) {
+    for (int b = s; b < nblk; b += kColSumSlices) v += part[static_cast<size_t>(b) * ncols + c];
+  }
+  acc[s][lane] = v;
+  __syncthreads();
+  if (s == 0 && c < ncols) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < kColSumSlices; ++j) t += acc[j][lane];
+    out[c] = from_f<T>(t);
+  }
+}
+
+template <typename T>
+int launch_column_sum(const float* part, T* out, int nblk, int ncols, cudaStream_t stream) {
+  column_sum_kernel<T><<<(ncols + kColSumCols - 1) / kColSumCols, kColSumCols * kColSumSlices, 0, stream>>>(
+      part, out, nblk, ncols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Let a kernel use `smem` bytes of dynamic shared memory (above 48 KB a
+// block must opt in); returns a cudaError_t.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
 // 8 bf16 values moved as one 16-byte access (callers check 16-byte alignment)
 __device__ __forceinline__ uint4 load8(const bf16* p, int i) {
   return reinterpret_cast<const uint4*>(p)[i];

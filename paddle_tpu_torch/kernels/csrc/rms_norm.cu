@@ -1,10 +1,13 @@
 // RMSNorm forward and backward over the last axis of a [rows, H] tensor,
-// bf16, fp16 or fp32, fp32 math.
+// bf16, fp16 or fp32, fp32 math; and the adjoint of the residual RMSNorm.
 //
 // Replaces: paddle_tpu/kernels/fused.py `_rms_fwd_kernel` (forward, saves
 // rstd; launched by `_make_rms` for `fused_rms_norm_pallas`) and
 // `_rms_bwd_kernel` (dx and dw), the norms of the training forward, its
-// recompute and its backward.
+// recompute and its backward; and `_rms_res_bwd_kernel` (launched by
+// `rms_norm_residual_adjoint_pallas`), the backward of
+// `fused_rms_norm_residual`, which takes the saved residual stream r and
+// recomputes rstd from it instead of reading a saved one.
 //
 // Forward: y = (x * rstd * w) in fp32, cast once (the weight multiplied
 // before the downcast, the Pallas order); rstd = rsqrt(mean(x^2) + eps) is
@@ -12,10 +15,13 @@
 // Backward: x^ = x * rstd, gw = g * w,
 //   dx = rstd * (gw - x^ * mean(gw * x^))   (in x's type)
 //   dw = sum over rows of g * x^            (fp32, cast to w's type)
+// The residual adjoint is the same with x = r and rstd = rsqrt(mean(r^2) +
+// eps) recomputed per row (one more pass over the row, cache-resident).
 //
 // Bound on H100: bytes. At the 7B train shape (8192 rows x 4096, bf16) the
 // forward reads x and writes y (~134 MB), the backward reads x and g and
-// writes dx (~201 MB), at a few fp32 flops per element.
+// writes dx (~201 MB), at a few fp32 flops per element; the residual
+// adjoint moves the same bytes (r, g in, dx out).
 //
 // Forward design: one warp per row, 16-byte loads, a warp-shuffle sum of
 // squares, then a second pass that re-reads the row (cache-resident) to
@@ -26,9 +32,10 @@
 // its sequential grid; blocks here run in parallel and in no order, so each
 // block owns a contiguous range of rows and keeps its own fp32 dw partial
 // in shared memory (each thread owns fixed columns: no races, no atomics),
-// then writes it to a [blocks, H] fp32 scratch. A second kernel sums the
-// partials per column in a fixed order. Both orders are fixed by the shape
-// and the card's SM count, so two runs give the same bits.
+// then writes it to a [blocks, H] fp32 scratch. A second kernel
+// (ptt::column_sum_kernel) sums the partials per column in a fixed order.
+// Both orders are fixed by the shape and the card's SM count, so two runs
+// give the same bits.
 #include "common.cuh"
 
 using ptt::bf16;
@@ -38,7 +45,6 @@ namespace {
 
 constexpr int kFwdRows = 8;  // rows (warps) per forward block
 constexpr int kBwdThreads = 256;
-constexpr int kReduceCols = 32, kReduceSlices = 8;
 
 template <typename T>
 __global__ void __launch_bounds__(kFwdRows * 32)
@@ -74,11 +80,13 @@ rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   if (lane == 0) rstd_out[row] = rstd;
 }
 
-template <typename T>
+// kRecompute: rstd is null and each row's rstd is recomputed from x (the
+// residual adjoint, kernel 11); otherwise it is read (kernel 8).
+template <typename T, bool kRecompute>
 __global__ void __launch_bounds__(kBwdThreads)
 rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ rstd,
                const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ dw_part,
-               int rows, int H, int rows_per_block) {
+               int rows, int H, int rows_per_block, float eps) {
   constexpr int N = 16 / sizeof(T);
   // dw_acc[k * nvec + i] holds element k of vector i: neighbouring threads
   // touch neighbouring words (no bank conflicts)
@@ -96,7 +104,23 @@ rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __
   int buf = 0;
   for (int row = r0; row < r1; ++row) {
     const size_t base = static_cast<size_t>(row) * H;
-    const float rs = rstd[row];
+    float rs;
+    if constexpr (kRecompute) {
+      float ss = 0.f;
+      for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
+        const uint4 xv = ptt::load16(x + base, i);
+        const T* xe = ptt::elems_of<T>(xv);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float f = ptt::to_f(xe[k]);
+          ss += f * f;
+        }
+      }
+      rs = rsqrtf(ptt::block_sum<kBwdThreads>(ss, scratch[buf]) / H + eps);
+      buf ^= 1;
+    } else {
+      rs = rstd[row];
+    }
     float dot = 0.f;
     for (int i = threadIdx.x; i < nvec; i += kBwdThreads) {
       const uint4 xv = ptt::load16(x + base, i), gv = ptt::load16(g + base, i), wv = ptt::load16(w, i);
@@ -134,29 +158,6 @@ rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __
   }
 }
 
-// dw[c] = sum over b of part[b, c], in a fixed order: slice s of a block
-// sums partials s, s + 8, s + 16, ... in turn, then slice 0 adds the 8
-// slice sums in order.
-template <typename T>
-__global__ void __launch_bounds__(kReduceCols * kReduceSlices)
-rms_bwd_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw, int nblk, int H) {
-  __shared__ float acc[kReduceSlices][kReduceCols + 1];
-  const int lane = threadIdx.x % kReduceCols, s = threadIdx.x / kReduceCols;
-  const int c = blockIdx.x * kReduceCols + lane;
-  float v = 0.f;
-  if (c < H) {
-    for (int b = s; b < nblk; b += kReduceSlices) v += part[static_cast<size_t>(b) * H + c];
-  }
-  acc[s][lane] = v;
-  __syncthreads();
-  if (s == 0 && c < H) {
-    float t = 0.f;
-#pragma unroll
-    for (int j = 0; j < kReduceSlices; ++j) t += acc[j][lane];
-    dw[c] = ptt::from_f<T>(t);
-  }
-}
-
 template <typename T>
 int launch_fwd(const void* x, const void* w, void* y, void* rstd, int rows, int H, float eps,
                cudaStream_t stream) {
@@ -167,24 +168,19 @@ int launch_fwd(const void* x, const void* w, void* y, void* rstd, int rows, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kRecompute>
 int launch_bwd(const void* x, const void* w, const void* rstd, const void* g, void* dx, void* dw,
-               void* dw_part, int rows, int H, int rows_per_block, int nblk, cudaStream_t stream) {
+               void* dw_part, int rows, int H, int rows_per_block, int nblk, float eps, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(H) * sizeof(float);
-  if (smem > 48 * 1024) {  // above 48 KB a block must opt in to dynamic shared memory
-    const cudaError_t e = cudaFuncSetAttribute(rms_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  rms_bwd_kernel<T><<<nblk, kBwdThreads, smem, stream>>>(
+  int e = ptt::allow_smem(rms_bwd_kernel<T, kRecompute>, smem);
+  if (e) return e;
+  rms_bwd_kernel<T, kRecompute><<<nblk, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(rstd),
       static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(dw_part), rows, H,
-      rows_per_block);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rms_bwd_dw_reduce_kernel<T><<<(H + kReduceCols - 1) / kReduceCols, kReduceCols * kReduceSlices, 0, stream>>>(
-      static_cast<const float*>(dw_part), static_cast<T*>(dw), nblk, H);
-  return static_cast<int>(cudaGetLastError());
+      rows_per_block, eps);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  return ptt::launch_column_sum<T>(static_cast<const float*>(dw_part), static_cast<T*>(dw), nblk, H, stream);
 }
 
 }  // namespace
@@ -210,9 +206,24 @@ extern "C" int ptt_rms_norm_bwd(int io, const void* x, const void* w, const void
                                 int rows_per_block, int nblk, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (io) {
-    case ptt::kBF16: return launch_bwd<bf16>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
-    case ptt::kF16: return launch_bwd<f16>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
-    case ptt::kF32: return launch_bwd<float>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, s);
+    case ptt::kBF16: return launch_bwd<bf16, false>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, 0.f, s);
+    case ptt::kF16: return launch_bwd<f16, false>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, 0.f, s);
+    case ptt::kF32: return launch_bwd<float, false>(x, w, rstd, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, 0.f, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The residual RMSNorm's adjoint (kernel 11): r, g, dx: [rows, H]; w, dw:
+// [H]; dw_part: [nblk, H] fp32 scratch as for ptt_rms_norm_bwd; rstd is
+// recomputed per row from r with eps.
+extern "C" int ptt_rms_residual_bwd(int io, const void* r, const void* w, const void* g, void* dx,
+                                    void* dw, void* dw_part, int rows, int H, int rows_per_block,
+                                    int nblk, float eps, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16: return launch_bwd<bf16, true>(r, w, nullptr, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, eps, s);
+    case ptt::kF16: return launch_bwd<f16, true>(r, w, nullptr, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, eps, s);
+    case ptt::kF32: return launch_bwd<float, true>(r, w, nullptr, g, dx, dw, dw_part, rows, H, rows_per_block, nblk, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,6 +5,11 @@ Ports of Pallas kernels of ``paddle_tpu/kernels/fused.py``:
 
 - :func:`fused_rms_norm_residual` — ``_rms_res_fwd_kernel`` (kernel C):
   ``r = x + residual`` in the I/O dtype, then ``y = rms(r) * w``;
+  :func:`rms_residual_bwd` — ``_rms_res_bwd_kernel`` (kernel 11): its
+  adjoint, ``dx``, ``dw`` from the saved ``r`` (rstd recomputed);
+- :func:`ln_residual` / :func:`ln_residual_bwd` — ``_ln_res_fwd_kernel``
+  and ``_ln_res_bwd_kernel`` (kernels 12 and 13): ``r = x + residual``,
+  LayerNorm with bias, and its adjoint ``dx``, ``dw``, ``db`` from ``r``;
 - :func:`fused_embed_rms_norm` — ``_embed_rms_kernel`` (kernel B): token-id
   gather (ids clipped to ``[0, V-1]``), the raw row, and its RMSNorm;
 - :func:`rms_norm_fwd` / :func:`rms_norm_bwd` — ``_rms_fwd_kernel`` and
@@ -21,15 +26,17 @@ downcasts first; in fp32 the two agree to rounding). The rope computes in
 fp32 from fp32 tables and casts once (the composition casts the tables to
 ``x``'s dtype first). Each wrapper runs its plain PyTorch version for CPU
 tensors; for CUDA tensors it launches its kernel (``csrc/rms_residual.cu``,
-``csrc/embed_rms.cu``, ``csrc/rms_norm.cu``, ``csrc/rope.cu``) or raises —
-it never falls back.
+``csrc/embed_rms.cu``, ``csrc/rms_norm.cu``, ``csrc/ln_residual.cu``,
+``csrc/rope.cu``) or raises — it never falls back. The residual norms'
+plain adjoints are also the JAX package's fp32 adjoint formulas, which its
+incubate entries run for shapes outside the kernels' gate.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,10 +52,18 @@ __all__ = [
     "fused_rms_norm_residual",
     "fused_rms_norm_residual_plain",
     "fused_rope",
+    "ln_residual",
+    "ln_residual_adjoint",
+    "ln_residual_bwd",
+    "ln_residual_bwd_plain",
+    "ln_residual_plain",
     "rms_norm_bwd",
     "rms_norm_bwd_plain",
     "rms_norm_fwd",
     "rms_norm_fwd_plain",
+    "rms_residual_adjoint",
+    "rms_residual_bwd",
+    "rms_residual_bwd_plain",
     "rope_bwd",
     "rope_bwd_plain",
     "rope_fwd",
@@ -61,7 +76,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the I/O types of kernels 7-10 -> the C entry points' type code (ptt::IoType)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can use
-_BWD_BLOCKS_PER_SM = 4  # rms_norm_bwd row blocks: 4 of 256 threads per SM
+_SMEM_PER_SM = 233472  # bytes of shared memory an SM shares among its blocks
+_SMEM_RESERVED = 1024 + 256  # per block: the runtime's reserve and the static reduction buffers
+_BWD_BLOCKS_PER_SM = 4  # norm backward row blocks: at most 4 of 256 threads per SM
 
 
 def _rms_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,6 +161,81 @@ def fused_embed_rms_norm_plain(
     return emb, _rms_rows(emb, weight, epsilon)[0]
 
 
+def rms_residual_adjoint(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of the norm half of :func:`fused_rms_norm_residual` given
+    ``y``'s cotangent ``g`` and the saved residual stream ``r``, in fp32:
+    ``rstd = rsqrt(mean(r^2) + eps)``, ``x^ = r rstd``, ``dx = rstd (g w -
+    x^ mean(g w x^))`` in ``g``'s dtype, ``dw = sum over rows of g x^`` cast
+    to ``w``'s dtype. The JAX package's fp32 adjoint formula, which its
+    incubate entry runs outside kernel 11's gate."""
+    rf, gf = r.float(), g.float()
+    rstd = torch.rsqrt(rf.square().mean(dim=-1, keepdim=True) + epsilon)
+    xhat = rf * rstd
+    gw = gf * weight.float()
+    dot = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (gw - xhat * dot)).to(g.dtype)
+    dw = (gf * xhat).reshape(-1, r.shape[-1]).sum(dim=0).to(weight.dtype)
+    return dx, dw
+
+
+def rms_residual_bwd_plain(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 11's plain version: :func:`rms_residual_adjoint`, the
+    arithmetic of the Pallas kernel."""
+    return rms_residual_adjoint(g, r, weight, epsilon)
+
+
+def ln_residual_plain(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], residual: torch.Tensor,
+    epsilon: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, r)``: ``r = x + residual`` in the I/O dtype, then in fp32 ``y =
+    (r - mean) rsqrt(var + eps) w + b`` cast once to ``x``'s dtype (a
+    missing bias counts as zeros). Differentiable by autograd."""
+    r = x + residual
+    rf = r.float()
+    mu = rf.mean(dim=-1, keepdim=True)
+    var = (rf - mu).square().mean(dim=-1, keepdim=True)
+    y = (rf - mu) * torch.rsqrt(var + epsilon) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype), r
+
+
+def ln_residual_adjoint(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw, db)`` of :func:`ln_residual_plain`'s norm half given ``y``'s
+    cotangent ``g`` and the saved ``r``, in fp32: mean and rstd recomputed
+    from ``r``, ``x^ = (r - mean) rstd``, ``dx = rstd (g w - mean(g w) -
+    x^ mean(g w x^))`` in ``g``'s dtype; ``dw = sum g x^`` and ``db = sum
+    g`` over rows, cast to ``w``'s dtype. The JAX package's fp32 adjoint
+    formula, which its incubate entry runs outside kernel 13's gate."""
+    rf, gf = r.float(), g.float()
+    mu = rf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((rf - mu).square().mean(dim=-1, keepdim=True) + epsilon)
+    xhat = (rf - mu) * rstd
+    gw = gf * weight.float()
+    m1 = gw.mean(dim=-1, keepdim=True)
+    m2 = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (gw - m1 - xhat * m2)).to(g.dtype)
+    h = r.shape[-1]
+    dw = (gf * xhat).reshape(-1, h).sum(dim=0).to(weight.dtype)
+    db = gf.reshape(-1, h).sum(dim=0).to(weight.dtype)
+    return dx, dw, db
+
+
+def ln_residual_bwd_plain(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 13's plain version: :func:`ln_residual_adjoint`, the
+    arithmetic of the Pallas kernel."""
+    return ln_residual_adjoint(g, r, weight, epsilon)
+
+
 def _kernel_operand(t: torch.Tensor, name: str, what: str, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """``t`` as a contiguous, 16-byte aligned ``dtype`` tensor on ``device``,
@@ -197,9 +289,11 @@ def fused_embed_rms_norm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather ``table`` rows for ``ids`` (clipped to ``[0, V-1]``) and norm
     them with ``weight``; returns ``(emb, y)``, both ``[*ids.shape, H]``;
-    bf16, fp16 or fp32 (table and weight of one type)."""
+    bf16, fp16 or fp32 (table and weight of one type). Inference only: the
+    outputs carry no gradient on any device (the kernel's never could)."""
     if table.device.type == "cpu":
-        return fused_embed_rms_norm_plain(ids, table, weight, epsilon)
+        with torch.no_grad():
+            return fused_embed_rms_norm_plain(ids, table, weight, epsilon)
     io = _io_dtype("fused_embed_rms_norm", table)
     v, h = table.shape
     if (h * table.element_size()) % 16:
@@ -233,14 +327,27 @@ def _io_dtype(what: str, x: torch.Tensor) -> int:
     return _KERNEL_DTYPES[x.dtype]
 
 
-def _norm_width(what: str, x: torch.Tensor, weight: torch.Tensor) -> int:
+def _norm_width(what: str, x: torch.Tensor, weight: torch.Tensor, row_buffers: int = 1) -> int:
+    """The last axis, checked: a multiple of 8, the weight ``[H]``, and
+    ``row_buffers`` fp32 ``[H]`` buffers within a block's shared memory."""
     h = x.shape[-1]
     if h % 8 or weight.shape != (h,):
         raise ValueError(f"{what}: needs the last axis a multiple of 8 and weight [{h}], "
                          f"got x {tuple(x.shape)}, weight {tuple(weight.shape)}")
-    if h * 4 + 256 > _SMEM_PER_BLOCK:
+    if row_buffers * h * 4 + 256 > _SMEM_PER_BLOCK:
         raise ValueError(f"{what}: hidden size {h} needs more shared memory than a block has")
     return h
+
+
+def _row_blocks(dev: torch.device, rows: int, smem: int) -> Tuple[int, int]:
+    """``(rows_per_block, blocks)`` of a norm backward: at most
+    ``_BWD_BLOCKS_PER_SM`` blocks per SM, fewer where ``smem`` bytes each
+    do not fit an SM together, each owning a contiguous range of rows."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    per_sm = max(1, min(_BWD_BLOCKS_PER_SM, _SMEM_PER_SM // (smem + _SMEM_RESERVED)))
+    nblk = min(rows, per_sm * _sm_count(index))
+    per_block = -(-rows // nblk)
+    return per_block, -(-rows // per_block)
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,10 +403,7 @@ def rms_norm_bwd(
     if not rows:
         return dx, torch.zeros_like(weight)
     dw = torch.empty_like(weight)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    nblk = min(rows, _BWD_BLOCKS_PER_SM * _sm_count(index))
-    per_block = -(-rows // nblk)
-    nblk = -(-rows // per_block)
+    per_block, nblk = _row_blocks(dev, rows, h * 4)
     partials = torch.empty((nblk, h), dtype=torch.float32, device=dev)
     fn = build.kernel_fn("ptt_rms_norm_bwd", [_I] + [_P] * 7 + [_I] * 4 + [_P])
     with torch.cuda.device(dev):
@@ -309,6 +413,112 @@ def rms_norm_bwd(
     build.check(err, "rms_norm_bwd")
     count_launch("rms_norm_bwd")
     return dx, dw
+
+
+def _adjoint_operands(what: str, g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor,
+                      row_buffers: int) -> Tuple[int, int, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(io, h, g, r, weight)`` of a residual norm's adjoint kernel, checked
+    and contiguous, or an exception naming what the kernel does not take."""
+    io = _io_dtype(what, g)
+    h = _norm_width(what, g, weight, row_buffers)
+    if r.shape != g.shape:
+        raise ValueError(f"{what}: g {tuple(g.shape)} and r {tuple(r.shape)} differ")
+    dev = g.device
+    g, r, weight = (_kernel_operand(t, name, what, g.dtype, dev)
+                    for name, t in (("g", g), ("r", r), ("weight", weight)))
+    return io, h, g, r, weight
+
+
+def rms_residual_bwd(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`fused_rms_norm_residual`'s norm half from the
+    saved residual stream ``r`` (kernel 11; rstd recomputed per row). ``dw``
+    is summed as kernel 8's is (per-block fp32 partials, a fixed-order
+    column sum: two launches, one call)."""
+    if g.device.type == "cpu":
+        return rms_residual_bwd_plain(g, r, weight, epsilon)
+    io, h, g, r, weight = _adjoint_operands("rms_residual_bwd", g, r, weight, 1)
+    dx = torch.empty_like(g)
+    rows = g.numel() // h if h else 0
+    if not rows:
+        return dx, torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    per_block, nblk = _row_blocks(g.device, rows, h * 4)
+    partials = torch.empty((nblk, h), dtype=torch.float32, device=g.device)
+    fn = build.kernel_fn("ptt_rms_residual_bwd", [_I] + [_P] * 6 + [_I] * 4 + [_F, _P])
+    with torch.cuda.device(g.device):
+        err = fn(io, r.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                 partials.data_ptr(), rows, h, per_block, nblk, float(epsilon),
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rms_residual_bwd")
+    count_launch("rms_residual_bwd")
+    return dx, dw
+
+
+def ln_residual(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], residual: torch.Tensor,
+    epsilon: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``r = x + residual; y = layer_norm(r) * weight + bias`` (kernel 12);
+    returns ``(y, r)``, any leading shape, bf16, fp16 or fp32 (x, residual
+    and weight of one type; the bias of that type, fp32, or None for
+    zeros). The argument order is the JAX package's incubate entry's."""
+    if x.device.type == "cpu":
+        return ln_residual_plain(x, weight, bias, residual, epsilon)
+    io = _io_dtype("ln_residual", x)
+    h = _norm_width("ln_residual", x, weight)
+    if residual.shape != x.shape or (bias is not None and bias.shape != (h,)):
+        raise ValueError(f"ln_residual: shapes x {tuple(x.shape)}, residual {tuple(residual.shape)}, "
+                         f"bias {None if bias is None else tuple(bias.shape)} do not match")
+    dev = x.device
+    x, residual, weight = (_kernel_operand(t, name, "ln_residual", x.dtype, dev)
+                           for name, t in (("x", x), ("residual", residual), ("weight", weight)))
+    bias_f32 = bias is not None and bias.dtype != x.dtype
+    if bias is not None:
+        # a bias of another type is read in fp32, as the Pallas kernel reads it
+        bias = _kernel_operand(bias.float() if bias_f32 else bias, "bias", "ln_residual",
+                               torch.float32 if bias_f32 else x.dtype, dev)
+    y = torch.empty_like(x)
+    r = torch.empty_like(x)
+    rows = x.numel() // h if h else 0
+    if rows:
+        fn = build.kernel_fn("ptt_ln_residual", [_I, _I] + [_P] * 6 + [_I, _I, _F, _P])
+        with torch.cuda.device(dev):
+            err = fn(io, int(bias_f32), x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
+                     None if bias is None else bias.data_ptr(), y.data_ptr(), r.data_ptr(), rows, h,
+                     float(epsilon), torch.cuda.current_stream().cuda_stream)
+        build.check(err, "ln_residual")
+        count_launch("ln_residual")
+    return y, r
+
+
+def ln_residual_bwd(
+    g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw, db)`` of :func:`ln_residual`'s norm half from the saved
+    ``r`` (kernel 13; mean and rstd recomputed per row). ``dw`` and ``db``
+    come from per-block fp32 partials summed per column in a fixed order
+    (no atomics: two runs give the same bits); the row pass and the column
+    sum are two launches and count as one call."""
+    if g.device.type == "cpu":
+        return ln_residual_bwd_plain(g, r, weight, epsilon)
+    io, h, g, r, weight = _adjoint_operands("ln_residual_bwd", g, r, weight, 3)
+    dx = torch.empty_like(g)
+    rows = g.numel() // h if h else 0
+    if not rows:
+        return dx, torch.zeros_like(weight), torch.zeros_like(weight)
+    dwdb = torch.empty((2, h), dtype=weight.dtype, device=g.device)
+    per_block, nblk = _row_blocks(g.device, rows, 3 * h * 4)
+    partials = torch.empty((nblk, 2 * h), dtype=torch.float32, device=g.device)
+    fn = build.kernel_fn("ptt_ln_residual_bwd", [_I] + [_P] * 6 + [_I] * 4 + [_F, _P])
+    with torch.cuda.device(g.device):
+        err = fn(io, r.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr(), dwdb.data_ptr(),
+                 partials.data_ptr(), rows, h, per_block, nblk, float(epsilon),
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "ln_residual_bwd")
+    count_launch("ln_residual_bwd")
+    return dx, dwdb[0], dwdb[1]
 
 
 def _rope_launch(what: str, adjoint: bool, x: torch.Tensor, cos: torch.Tensor,

@@ -4,9 +4,9 @@ Each kernel wrapper adds one to its counter where it launches its CUDA
 kernel, and nowhere else: a plain-version call on a CPU tensor does not
 count. A run reads the counters to show that its main paths went through
 the kernels (``chip_smoke.py`` resets them just before driving each path —
-the engine, the unfused engine, ``generate_paged``, the train step — and
-reads them just after). There is no fallback counter: on a CUDA tensor a
-wrapper launches its kernel or raises.
+the engine, the unfused engine, ``generate_paged``, the train steps, the
+residual-norm backward — and reads them just after). There is no fallback
+counter: on a CUDA tensor a wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ KERNELS: Dict[str, str] = {
     "rms_norm_bwd": "paddle_tpu/kernels/fused.py:83",
     "rope_fwd": "paddle_tpu/kernels/fused.py:204",
     "rope_bwd": "paddle_tpu/kernels/fused.py:215",
+    # kernels 11-13: the residual norms' adjoints and the residual LayerNorm;
+    # each backward is two launches per call (row pass, column sum)
+    "rms_residual_bwd": "paddle_tpu/kernels/fused.py:351",
+    "ln_residual": "paddle_tpu/kernels/fused.py:372",
+    "ln_residual_bwd": "paddle_tpu/kernels/fused.py:383",
     "flash_fwd": "paddle_tpu/kernels/flash_attention.py:87",
     "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",

@@ -1,20 +1,22 @@
-"""Carry the JAX package's Llama parameters into the port.
+"""Carry the JAX package's Llama and GPT parameters into the port.
 
-The port's module tree and parameter names follow the JAX package's and its
-linear weights keep Paddle's ``[in, out]`` layout, so the conversion is a
-by-name copy with no transpose. The rope tables are not parameters: the port
-recomputes them from the config (the JAX ``state_dict`` carries them as
-``...rotary_emb.{cos,sin}_cached`` buffers, which are skipped).
+The port's module trees and parameter names follow the JAX package's and
+its linear weights keep Paddle's ``[in, out]`` layout, so the conversion is
+a by-name copy with no transpose. The rope tables are not parameters: the
+port recomputes them from the config (the JAX Llama ``state_dict`` carries
+them as ``...rotary_emb.{cos,sin}_cached`` buffers, which are skipped).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from paddle_tpu_torch.core.device import DeviceLike
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_state"]
@@ -30,15 +32,25 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def from_paddle_tpu_state(
-    state: Mapping[str, np.ndarray], config: LlamaConfig, device: DeviceLike = None
-) -> LlamaForCausalLM:
-    """A port ``LlamaForCausalLM`` holding exactly the given parameters.
+    state: Mapping[str, np.ndarray], config: Union[LlamaConfig, GPTConfig], device: DeviceLike = None
+) -> Union[LlamaForCausalLM, GPTForPretraining]:
+    """A port model holding exactly the given parameters: a
+    ``LlamaForCausalLM`` for a ``LlamaConfig``, a ``GPTForPretraining`` for
+    a ``GPTConfig``.
 
     ``state`` maps the JAX package's ``state_dict`` names to numpy arrays; the
     model takes their dtype. Missing, unexpected or misshapen entries raise."""
+    if isinstance(config, GPTConfig):
+        dtype = _to_tensor(state["gpt.embeddings.word_embeddings.weight"]).dtype
+        return _load(GPTForPretraining(config, device=device, dtype=dtype), state)
+    if not isinstance(config, LlamaConfig):
+        raise TypeError(f"no port model for a {type(config).__name__}")
     params = {k: v for k, v in state.items() if not k.endswith(_ROPE_BUFFERS)}
     dtype = _to_tensor(params["llama.embed_tokens.weight"]).dtype
-    model = LlamaForCausalLM(config, device=device, dtype=dtype)
+    return _load(LlamaForCausalLM(config, device=device, dtype=dtype), params)
+
+
+def _load(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Module:
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(params))
     unexpected = sorted(set(params) - set(own))

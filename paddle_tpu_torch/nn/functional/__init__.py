@@ -1,7 +1,8 @@
 """Functionals of the port (counterpart of ``paddle_tpu/nn/functional``):
-the plain ops of the Llama paths, the attention entries, and the loss."""
+the plain ops of the Llama and GPT paths, the attention entries, and the
+loss."""
 
-from paddle_tpu_torch.nn.functional.common import linear, rms_norm, swiglu
+from paddle_tpu_torch.nn.functional.common import gelu, layer_norm, linear, rms_norm, swiglu
 from paddle_tpu_torch.nn.functional.flash_attention import (
     flash_attention,
     flashmask_attention,
@@ -14,6 +15,8 @@ __all__ = [
     "flash_attention",
     "flashmask_attention",
     "fused_linear_cross_entropy",
+    "gelu",
+    "layer_norm",
     "linear",
     "make_flashmask_bias",
     "rms_norm",

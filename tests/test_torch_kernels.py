@@ -197,6 +197,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     kpaged.paged_flash_decode_fused(q[:, 0], cos[:, :1], sin[:, :1], kc, vc, tables, lens)
     y, rstd = kfused.rms_norm_fwd(x, w)
     kfused.rms_norm_bwd(x, w, rstd, y)
+    kfused.rms_residual_bwd(y, x, w)
+    kfused.ln_residual_bwd(kfused.ln_residual(x, w, None, x)[0], x, w)
     xr = x.reshape(1, 3, 1, 16)
     kfused.rope_bwd(kfused.rope_fwd(xr, x, x), x, x)
     lab = torch.tensor([0, 5, -100])
@@ -207,6 +209,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
                                "paged_decode_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
+                               "rms_residual_bwd": 0, "ln_residual": 0, "ln_residual_bwd": 0,
                                "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0}
 
 

@@ -18,6 +18,13 @@ CPU:
    shape depends on the data, the host sync on a CUDA tensor), which shows
    on the CPU as an append that runs on ``meta`` tensors. The pools it
    leaves are bit-identical to the JAX append's.
+4. The residual RMSNorm's gradient. The JAX entry records a tape node whose
+   backward is the standalone adjoint kernel (11); the port's entry is a
+   ``torch.autograd.Function`` whose backward is kernel 11's wrapper (on
+   the card a raw launch would leave outputs with no ``grad_fn`` and lose
+   every gradient), giving JAX's x, residual and weight gradients. And
+   ``fused_embed_rms_norm`` returns both outputs cut from the graph, as the
+   JAX entry returns them with ``stop_gradient``.
 """
 
 import contextlib
@@ -275,3 +282,57 @@ def test_append_has_no_data_dependent_shape():
     kc, vc, k, v, tables, lens, q_lens, mask = _append_inputs(np.random.default_rng(4))
     meta = [torch.from_numpy(a).to("meta") for a in (kc, vc, k, v, tables, lens, q_lens, mask)]
     incubate.block_cache_append_chunk(*meta[:7], slot_mask=meta[7])
+
+
+# -- 4. the residual RMSNorm's gradient; the embed norm's stop-gradient -------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_residual_backward_is_kernel_11_with_jax_gradients(monkeypatch, dtype):
+    calls = []
+    real = kfused.rms_residual_bwd_plain
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(kfused, "rms_residual_bwd_plain", spy)
+    rng = np.random.default_rng(21)
+    h = 256
+    # on a grid of 1/32 below 4 in magnitude: x + residual is exact in bf16
+    x, res = (rng.integers(-127, 128, (2, 5, h)).astype(np.float32) / 32 for _ in range(2))
+    w = (1 + 0.1 * rng.normal(size=(h,))).astype(np.float32)
+    g, gr = (rng.normal(size=(2, 5, h)).astype(np.float32) for _ in range(2))
+
+    def pair(a):
+        j = jnp.asarray(a, getattr(jnp, dtype))
+        t = torch.from_numpy(np.array(j, np.float32)).to(getattr(torch, dtype))
+        return j, t
+
+    (xj, xt), (rj, rt), (wj, wt), (gj, gt), (grj, grt) = map(pair, (x, res, w, g, gr))
+    jin = [Tensor(a, stop_gradient=False) for a in (xj, wj, rj)]
+    tin = [t.requires_grad_() for t in (xt, wt, rt)]
+    jy, jr = jax_incubate.fused_rms_norm_residual(*jin, EPS)
+    y, r = incubate.fused_rms_norm_residual(*tin, EPS)
+    assert type(y.grad_fn).__name__ == "ResidualNormFunctionBackward" and r.grad_fn is y.grad_fn
+    paddle.autograd.backward([jy, jr], [Tensor(gj), Tensor(grj)])
+    torch.autograd.backward([y, r], [gt, grt])
+    assert calls == [1]
+    for t, j in zip(tin, jin):
+        got, want = t.grad.float().numpy(), np.asarray(j.grad._data, np.float32)
+        assert t.grad.dtype == t.dtype
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(got, want, rtol=2.0 ** -8, atol=0)  # 1 bf16 ulp
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the residual add's adjoint is the identity: x and residual get the same
+    assert torch.equal(tin[0].grad, tin[2].grad)
+
+
+@pytest.mark.parametrize("h", [128, 64], ids=["kernel-B", "composition"])
+def test_embed_rms_norm_outputs_carry_no_gradient(h):
+    rng = np.random.default_rng(22)
+    table = torch.from_numpy(rng.normal(size=(10, h)).astype(np.float32)).requires_grad_()
+    w = torch.ones(h, requires_grad=True)
+    for fn in (incubate.fused_embed_rms_norm, kfused.fused_embed_rms_norm):
+        emb, y = fn(torch.tensor([[1, 9, 3]]), table, w, EPS)
+        assert not emb.requires_grad and not y.requires_grad
