@@ -61,6 +61,23 @@ name and power limit):
    plain append's); the kernel phase also holds kernels 4, 5, 6 at 7B
    (MHA and GQA 32/8) and A, 4, 5, 6 in fp16 and fp32 against their plain
    versions, and the decode and prefill appends under the sync check;
+   then int8 serving on the same model: eval_loss_bf16 — ``model(ids,
+   labels=labels)`` on 2 x 2048 tokens under ``no_grad``; serve_int8 —
+   the serve phase's engine and requests with ``kv_cache_dtype="int8",
+   weight_only_int8=True`` (the model quantized in place): each step
+   launches A's int8 instance 32x, B 1x, C 64x and the weight-only int8
+   matmul (kernel 20) 97x and nothing else, its logits through the gate
+   against an fp32 run of the int8 plain path, ``bytes_per_token`` and
+   the greedy agreement with the bf16 streams reported; serve_int8_unfused
+   — the same with ``FLAGS_use_fused_decode_layer=False`` (kernel 4's int8
+   instance 32x, RMSNorm 65x, kernel 20 97x); eval_loss_int8 — the
+   quantized model's loss through kernel 17's int8 site (2 launches,
+   kernel 20 96x) against the plain int8 head's; and the two decode
+   entries over an int8 pool (kernels 5 and 6's int8 instances once each).
+   The kernel phase holds kernel 20 at the step's three projection shapes
+   and a ragged fp16 one, A/4/5/6 over int8 pools with q in bf16, fp16 and
+   fp32, 17's int8 site at the loss head's shape, vocab-major and in fp16,
+   and the int8 appends under the sync check;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
    ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
    document-packed tokens with the FlashMask document mask, 1 warm-up and
@@ -521,6 +538,7 @@ def check_kernels(dev, card: dict) -> dict:
     check_norm_rope(dev, gen, card, records)
     check_residual_norms(dev, gen, card, records)
     check_fused_loss(dev, gen, card, records)
+    check_int8_kernels(dev, gen, card, records)
     return records
 
 
@@ -586,59 +604,77 @@ def mask_reference(kc, vc, k, v, tables, pos, valid):
     return want_k, want_v
 
 
-def check_append_sync(dev, gen, card: dict) -> None:
+def check_append_sync(dev, gen, card: dict, int8: bool = False) -> None:
     """The KV appends at the 7B serving shapes (32 KV heads of 128) run
     under ``torch.cuda.set_sync_debug_mode("error")``, so any host
     synchronisation raises, and must leave pools equal bit for bit to a
     boolean-mask reference: the serving step's chunk append (8 slots x 64
     rows, a masked slot and rows past q_lens), the decode append
     ``block_cache_append`` (a masked idle slot, garbage table tails) and the
-    prompt write ``block_cache_prefill`` (lengths shorter than S, one 0)."""
+    prompt write ``block_cache_prefill`` (lengths shorter than S, one 0).
+    With ``int8`` the pools are the int8 pool's: the appends quantize their
+    rows on the way in, and payload and scale planes must equal a
+    boolean-mask write of the same quantized rows."""
     import torch
     from paddle_tpu_torch.incubate.nn.functional import (
         block_cache_append, block_cache_append_chunk, block_cache_prefill,
     )
+    from paddle_tpu_torch.incubate.nn.functional.block_attention import _quantize_kv_rows
+
+    names = ("key_cache", "value_cache", "k_scale", "v_scale") if int8 else ("key_cache", "value_cache")
+
+    def reference(pools, k, v, tables, pos, valid):
+        if not int8:
+            return mask_reference(pools["key_cache"], pools["value_cache"], k, v, tables, pos, valid)
+        (qk, sk), (qv, sv) = _quantize_kv_rows(k), _quantize_kv_rows(v)
+        want = mask_reference(pools["key_cache"], pools["value_cache"], qk, qv, tables, pos, valid)
+        scales = mask_reference(pools["k_scale"][..., None], pools["v_scale"][..., None], sk[..., None],
+                                sv[..., None], tables, pos, valid)
+        return (*want, *(t[..., 0] for t in scales))
+
+    def run(label, fn, pools, want):
+        got = [pools[n].clone() for n in names]
+        planes = dict(key_scale=got[2], value_scale=got[3]) if int8 else {}
+        run_sync_free(label + " (int8)" * int8, lambda: fn(*got[:2], **planes))
+        return all(bool(torch.equal(g, w)) for g, w in zip(got, want))
 
     args, _ = paged_batch(dev, gen, 32, 32)
-    kc, vc, tables, lens, q_lens = (args[n] for n in ("key_cache", "value_cache", "block_tables", "seq_lens", "q_lens"))
+    pools = int8_pool(args) if int8 else args
+    tables, lens, q_lens = (args[n] for n in ("block_tables", "seq_lens", "q_lens"))
     mask = torch.tensor([True, True, True, True, True, False, False, True], device=dev)
-    k, v = (torch.randn(args["q"].shape, generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    k, v = (torch.randn(args["q"].shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     c = k.shape[1]
     j = torch.arange(c, device=dev)[None, :]
     valid = ((j < q_lens.long()[:, None]) & mask[:, None]).reshape(-1)
-    rows_tables = tables.repeat_interleave(c, dim=0)
     results = {}
-    want_k, want_v = mask_reference(kc, vc, flat_s(k), flat_s(v), rows_tables, (lens[:, None] + j).reshape(-1), valid)
-    got_k, got_v = kc.clone(), vc.clone()
-    run_sync_free("block_cache_append_chunk", lambda: block_cache_append_chunk(
-        got_k, got_v, k, v, tables, lens, q_lens, slot_mask=mask))
-    results["block_cache_append_chunk"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+    want = reference(pools, flat_s(k), flat_s(v), tables.repeat_interleave(c, dim=0), (lens[:, None] + j).reshape(-1),
+                     valid)
+    results["block_cache_append_chunk"] = run("block_cache_append_chunk", lambda kc, vc, **pl: block_cache_append_chunk(
+        kc, vc, k, v, tables, lens, q_lens, slot_mask=mask, **pl), pools, want)
 
     dargs, _ = decode_batch(dev, gen, 32, 32)
-    kc, vc, tables = (dargs[n] for n in ("key_cache", "value_cache", "block_tables"))
+    dpools = int8_pool(dargs) if int8 else dargs
+    tables = dargs["block_tables"]
     pos = (dargs["seq_lens"] - 1).clamp(min=0)
     dmask = torch.tensor([True, True, True, False, True, True, False, True], device=dev)
-    k1, v1 = (torch.randn((8, 32, kc.shape[3]), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
-    want_k, want_v = mask_reference(kc, vc, k1, v1, tables, pos, dmask)
-    got_k, got_v = kc.clone(), vc.clone()
-    run_sync_free("block_cache_append", lambda: block_cache_append(got_k, got_v, k1, v1, tables, pos, slot_mask=dmask))
-    results["block_cache_append"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
+    k1, v1 = (torch.randn((8, 32, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    want = reference(dpools, k1, v1, tables, pos, dmask)
+    results["block_cache_append"] = run("block_cache_append", lambda kc, vc, **pl: block_cache_append(
+        kc, vc, k1, v1, tables, pos, slot_mask=dmask, **pl), dpools, want)
 
     s = 64
     plens = torch.tensor([1, 40, 64, 17, 64, 64, 0, 63], dtype=torch.int32, device=dev)
-    kp, vp = (torch.randn((8, s, 32, kc.shape[3]), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    kp, vp = (torch.randn((8, s, 32, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     t = torch.arange(s, device=dev)[None, :]
-    pvalid = (t < plens[:, None]).reshape(-1)
-    want_k, want_v = mask_reference(kc, vc, flat_s(kp), flat_s(vp), tables.repeat_interleave(s, dim=0),
-                                    t.expand(8, s).reshape(-1), pvalid)
-    got_k, got_v = kc.clone(), vc.clone()
-    run_sync_free("block_cache_prefill", lambda: block_cache_prefill(got_k, got_v, kp, vp, tables, plens))
-    results["block_cache_prefill"] = bool(torch.equal(got_k, want_k)) and bool(torch.equal(got_v, want_v))
-    emit({"phase": "append_sync", "chunk_shape": list(k.shape), "decode_shape": list(k1.shape),
-          "prefill_shape": list(kp.shape), "sync_debug_mode": "error", "host_syncs": 0,
+    want = reference(dpools, flat_s(kp), flat_s(vp), tables.repeat_interleave(s, dim=0), t.expand(8, s).reshape(-1),
+                     (t < plens[:, None]).reshape(-1))
+    results["block_cache_prefill"] = run("block_cache_prefill", lambda kc, vc, **pl: block_cache_prefill(
+        kc, vc, kp, vp, tables, plens, **pl), dpools, want)
+    emit({"phase": "append_sync_int8" if int8 else "append_sync", "chunk_shape": list(k.shape),
+          "decode_shape": list(k1.shape), "prefill_shape": list(kp.shape), "sync_debug_mode": "error", "host_syncs": 0,
           "bitwise_equal_to_mask_reference": results, "card": card})
     if not all(results.values()):
-        fail(f"a sync-free KV append differs from the boolean-mask reference: {results}")
+        fail(f"a sync-free {'int8 ' * int8}KV append differs from the boolean-mask reference: {results}")
 
 
 def flat_s(t):
@@ -1447,15 +1483,23 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
     """The same step as ``model(ids, pasts)``, written out with every
     kernel's plain version, computed in ``dtype`` (each weight cast as it is
     used): in bf16 it is the plain path the kernel path is held to, in fp32
-    the reference both are measured against."""
+    the reference both are measured against. A weight-only int8 projection
+    runs kernel 20's plain version on its int8 weight, and an int8 pool
+    (``caches`` of ``(kc, vc, ks, vs)``) its scale planes."""
     import torch
     from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla, block_cache_append_chunk
     from paddle_tpu_torch.kernels.fused import fused_embed_rms_norm_plain, fused_rms_norm_residual_plain
     from paddle_tpu_torch.kernels.paged_attention import paged_flash_chunk_fused_plain
+    from paddle_tpu_torch.kernels.quant import int8_weight_matmul_plain
     from paddle_tpu_torch.nn.functional import swiglu
 
     def w(mod):
         return mod.weight.to(dtype)
+
+    def proj(x, mod):
+        if mod.weight_scale is not None:
+            return int8_weight_matmul_plain(x, mod.weight, mod.weight_scale)
+        return x @ w(mod)
 
     llama = model.llama
     layers = list(llama.layers)
@@ -1470,18 +1514,20 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
         q = (h @ w(att.q_proj)).reshape(b, c, nh, hd)
         k = _rope_apply_xla((h @ w(att.k_proj)).reshape(b, c, nkv, hd), sin, cos, True)
         v = (h @ w(att.v_proj)).reshape(b, c, nkv, hd)
-        kc, vc = caches[i]
-        block_cache_append_chunk(kc, vc, k, v, tables, lens, q_lens, slot_mask=active)
-        a = paged_flash_chunk_fused_plain(q, cos.reshape(b, c, hd), sin.reshape(b, c, hd), kc, vc, tables, lens, attend)
+        kc, vc, *planes = caches[i]
+        ks, vs = planes or (None, None)
+        block_cache_append_chunk(kc, vc, k, v, tables, lens, q_lens, slot_mask=active, key_scale=ks, value_scale=vs)
+        a = paged_flash_chunk_fused_plain(q, cos.reshape(b, c, hd), sin.reshape(b, c, hd), kc, vc, tables, lens, attend,
+                                          k_scale=ks, v_scale=vs)
         post = layer.post_attention_layernorm
         h, residual = fused_rms_norm_residual_plain(a.reshape(b, c, nh * hd) @ w(att.o_proj), w(post), residual, post.epsilon)
-        m = swiglu(h @ w(mlp.gate_proj), h @ w(mlp.up_proj)) @ w(mlp.down_proj)
+        m = proj(swiglu(proj(h, mlp.gate_proj), proj(h, mlp.up_proj)), mlp.down_proj)
         nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) else llama.norm
         h, residual = fused_rms_norm_residual_plain(m, w(nxt), residual, nxt.epsilon)
-    return h @ w(model.lm_head)
+    return proj(h, model.lm_head)
 
 
-def check_logits(model, dev, card: dict, label: str = "logits") -> None:
+def check_logits(model, dev, card: dict, label: str = "logits", kv_int8: bool = False) -> None:
     """Phase 5: prefill a small pool through the kernel path, then run one
     mixed step (decode row, continuing chunk, idle slot, full chunk) through
     the kernel path, through the plain versions in bf16, and through the
@@ -1489,14 +1535,21 @@ def check_logits(model, dev, card: dict, label: str = "logits") -> None:
     differences grow through 32 layers of random weights, so the kernel path
     is held to the plain bf16 path's own distance from the fp32 reference:
     its relative L2 error may exceed the plain path's by at most 25%, and its
-    top-1 agreement may trail the plain path's by at most 0.05."""
+    top-1 agreement may trail the plain path's by at most 0.05. With
+    ``kv_int8`` the pool is the engine's int8 one (8-tuple pasts); a
+    weight-only int8 model's projections stay int8 in every run."""
     import torch
 
     cfg = model.config
     hd = cfg.hidden_size // cfg.num_attention_heads
     shape = (64, cfg.num_key_value_heads, 16, hd)
-    caches = [(torch.zeros(shape, dtype=model.dtype, device=dev), torch.zeros(shape, dtype=model.dtype, device=dev))
-              for _ in range(cfg.num_hidden_layers)]
+    if kv_int8:
+        caches = [(torch.zeros(shape, dtype=torch.int8, device=dev), torch.zeros(shape, dtype=torch.int8, device=dev),
+                   torch.ones(shape[:3], device=dev), torch.ones(shape[:3], device=dev))
+                  for _ in range(cfg.num_hidden_layers)]
+    else:
+        caches = [(torch.zeros(shape, dtype=model.dtype, device=dev), torch.zeros(shape, dtype=model.dtype, device=dev))
+                  for _ in range(cfg.num_hidden_layers)]
     gen = torch.Generator(device=dev).manual_seed(3)
     tables = torch.arange(64, dtype=torch.int32, device=dev).reshape(4, 16)
     active = torch.tensor([True, True, False, True], device=dev)
@@ -1504,14 +1557,16 @@ def check_logits(model, dev, card: dict, label: str = "logits") -> None:
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
         q0 = torch.tensor([64, 40, 0, 64], dtype=torch.int32, device=dev)
         lens = torch.zeros_like(q0)
-        model(ids, past_key_values=[(kc, vc, tables, lens, active, q0) for kc, vc in caches], use_cache=True,
-              cache_position=lens)
-        plain_pools = [(kc.clone(), vc.clone()) for kc, vc in caches]
-        f32_pools = [(kc.float(), vc.float()) for kc, vc in caches]
+        model(ids, past_key_values=[(kc, vc, tables, lens, active, q0, *planes) for kc, vc, *planes in caches],
+              use_cache=True, cache_position=lens)
+        plain_pools = [tuple(t.clone() for t in pools) for pools in caches]
+        # fp32 copies of a bf16 pool; an int8 pool and its fp32 scale planes are copied as they are
+        f32_pools = [tuple(t.clone() if t.dtype in (torch.int8, torch.float32) else t.float() for t in pools)
+                     for pools in caches]
         q1 = torch.tensor([1, 24, 0, 64], dtype=torch.int32, device=dev)
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
-        got, _ = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1) for kc, vc in caches], use_cache=True,
-                       cache_position=q0)
+        got, _ = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1, *planes) for kc, vc, *planes in caches],
+                       use_cache=True, cache_position=q0)
         got = got.float()
         plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, torch.bfloat16).float()
         ref = plain_logits(model, ids, f32_pools, tables, q0, active, q1, torch.float32)
@@ -1715,55 +1770,76 @@ def generate_paged_phase(model, dev, card: dict) -> dict:
     return counts
 
 
-def check_decode_fused(dev, gen, card: dict) -> dict:
-    """Phase 4d: the public ``block_multihead_attention_fused`` at the 7B
-    decode shape (8 slots, 32 heads of 128, block 16, an idle masked slot,
-    garbage table tails): one launch of kernel 6 and nothing else; the
-    output against the plain version on the same pools; the pools bit for
-    bit those of the plain append (k roped by the same composition, written
-    through a boolean mask). Returns the launch counts."""
+def check_decode_entry(dev, gen, card: dict, fused: bool = True, int8: bool = False) -> dict:
+    """Phase 4d: one public decode entry at the 7B decode shape (8 slots,
+    32 heads of 128, block 16, an idle masked slot, garbage table tails) —
+    ``block_multihead_attention_fused`` (kernel 6) with ``fused``, else
+    ``block_multihead_attention`` (kernel 5), over the int8 pool (their
+    ``_int8`` instances) with ``int8``: one launch of its kernel and nothing
+    else; the output against the plain version on the same pools; the pools
+    (and scale planes) bit for bit those of the plain append (k roped by the
+    same composition for the fused entry, quantized for the int8 pool,
+    written through a boolean mask). Returns the launch counts."""
     import torch
-    from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla, block_multihead_attention_fused
-    from paddle_tpu_torch.kernels.paged_attention import paged_flash_decode_fused_plain
+    from paddle_tpu_torch.incubate.nn.functional import (
+        _rope_apply_xla, block_multihead_attention, block_multihead_attention_fused,
+    )
+    from paddle_tpu_torch.incubate.nn.functional.block_attention import _quantize_kv_rows
+    from paddle_tpu_torch.kernels.paged_attention import paged_flash_decode_fused_plain, paged_flash_decode_plain
     from paddle_tpu_torch.kernels.select import KERNELS, launch_counts, reset_launch_counts
 
     args, _ = decode_batch(dev, gen, 32, 32)
-    kc, vc, tables, lens_in = (args[n] for n in ("key_cache", "value_cache", "block_tables", "seq_lens"))
+    pools = int8_pool(args) if int8 else args
+    names = ("key_cache", "value_cache", "k_scale", "v_scale") if int8 else ("key_cache", "value_cache")
+    tables, lens_in = args["block_tables"], args["seq_lens"]
     active = lens_in > 0
     seq_lens = (lens_in - 1).clamp(min=0)  # tokens cached before this one
     b, hq, d = args["q"].shape
     q = args["q"][:, None]
-    k, v = (torch.randn((b, 1, 32, d), generator=gen, device=dev).to(kc.dtype) for _ in range(2))
+    k, v = (torch.randn((b, 1, 32, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     cos, sin = args["cos"][:, :, None], args["sin"][:, :, None]
-    want_k, want_v = kc.clone(), vc.clone()
-    kr = _rope_apply_xla(k, sin, cos, True)
-    bs = kc.shape[2]
+    kr = _rope_apply_xla(k, sin, cos, True) if fused else k
+    rows = (*_quantize_kv_rows(kr[:, 0]), *_quantize_kv_rows(v[:, 0])) if int8 else (kr[:, 0], v[:, 0])
+    rows = (rows[0], rows[2], rows[1], rows[3]) if int8 else rows  # in the order of `names`
+    want = [pools[n].clone() for n in names]
+    bs = want[0].shape[2]
     phys = torch.gather(tables.long(), 1, (seq_lens.long() // bs)[:, None])[:, 0][active]
     off = (seq_lens.long() % bs)[active]
-    want_k[phys, :, off] = kr[:, 0][active]
-    want_v[phys, :, off] = v[:, 0][active]
-    want = paged_flash_decode_fused_plain(args["q"], args["cos"], args["sin"], want_k, want_v, tables,
-                                          torch.where(active, seq_lens + 1, torch.zeros_like(seq_lens)))
+    for plane, new in zip(want, rows):
+        plane[phys, :, off] = new[active]
+    attend = torch.where(active, seq_lens + 1, torch.zeros_like(seq_lens))
+    planes = dict(k_scale=want[2], v_scale=want[3]) if int8 else {}
+    ref = (paged_flash_decode_fused_plain(args["q"], args["cos"], args["sin"], *want[:2], tables, attend, **planes)
+           if fused else paged_flash_decode_plain(args["q"], *want[:2], tables, attend, **planes))
+    got = [pools[n] for n in names]
+    entry_planes = dict(key_scale=got[2], value_scale=got[3]) if int8 else {}
     torch.cuda.synchronize()
     reset_launch_counts()
-    out, kc2, vc2 = block_multihead_attention_fused(q, k, v, cos, sin, kc, vc, tables, seq_lens, slot_mask=active)
+    if fused:
+        out = block_multihead_attention_fused(q, k, v, cos, sin, *got[:2], tables, seq_lens, slot_mask=active,
+                                              **entry_planes)[0]
+    else:
+        out = block_multihead_attention(q, k, v, *got[:2], tables, seq_lens, slot_mask=active, **entry_planes)[0]
     counts = launch_counts()
     torch.cuda.synchronize()
-    err, ok = within(out[:, 0], want, *PAGED_TOL["bfloat16"])
-    same = bool(torch.equal(kc2, want_k)) and bool(torch.equal(vc2, want_v))
+    name = ("paged_decode_fused" if fused else "paged_decode") + "_int8" * int8
+    err, ok = within(out[:, 0], ref, *PAGED_TOL["bfloat16"])
+    same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
     idle_zero = bool((out[6] == 0).all())
-    emit({"phase": "decode_fused", "shape": [b, 1, hq, d], "launches": {n: c for n, c in counts.items() if c},
-          "max_abs_err": err, "tolerance": "1e-4 + 2^-7*|x|", "pools_bitwise_equal_to_plain_append": same,
-          "idle_slot_zero": idle_zero, "card": card})
-    if counts != {n: int(n == "paged_decode_fused") for n in KERNELS}:
-        fail(f"block_multihead_attention_fused launched {counts}, want paged_decode_fused once and nothing else")
+    emit({"phase": "decode_" + ("fused" if fused else "plain") + "_int8" * int8, "shape": [b, 1, hq, d],
+          "launches": {n: c for n, c in counts.items() if c}, "max_abs_err": err, "tolerance": "1e-4 + 2^-7*|x|",
+          "pools_bitwise_equal_to_plain_append": same, "idle_slot_zero": idle_zero, "card": card})
+    entry = "block_multihead_attention" + "_fused" * fused
+    if counts != {n: int(n == name) for n in KERNELS}:
+        fail(f"{entry} launched {counts}, want {name} once and nothing else")
     if not (ok and same and idle_zero):
-        fail(f"block_multihead_attention_fused: max abs err {err}, pools bitwise {same}, idle slot zero {idle_zero}")
+        fail(f"{entry}: max abs err {err}, pools bitwise {same}, idle slot zero {idle_zero}")
     return counts
 
 
 KERNEL_CATEGORIES = (  # device kernel name substring -> category
     ("paged_chunk_kernel", "attention (kernels A / 4)"), ("paged_decode_kernel", "attention (kernels 5 / 6)"),
+    ("wo_matmul", "weight-only int8 matmul (kernel 20)"),
     ("embed_rms", "embed_rms (kernel B)"), ("rms_fwd_kernel", "rmsnorm (kernel 7)"),
     ("rms_residual", "rms_residual (kernel C)"), ("flash_fwd_kernel", "flash fwd (kernel 14)"),
     ("gemm", "matmul"), ("cutlass", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
@@ -1787,8 +1863,9 @@ def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3, label
 
 def profile_window(step, steps: int, label: str, card: dict) -> None:
     """``torch.profiler`` over ``steps`` calls of ``step()``: device time by
-    kernel category, the device-busy time (the union of kernel intervals)
-    and the device's idle share of the wall time."""
+    kernel category, the device-busy time (the union of kernel intervals),
+    the device's idle share of the wall time, and the host's kernel
+    launches and syncs a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1812,7 +1889,12 @@ def profile_window(step, steps: int, label: str, card: dict) -> None:
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the host's CUDA runtime calls a step: launches and syncs, with their CPU ms
+    runtime = {e.key: {"calls": e.count / steps, "cpu_ms": e.cpu_time_total / steps / 1e3}
+               for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")}
     emit({"phase": label, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+          "host_runtime_calls_per_step": runtime,
           "device_busy_ms_per_step": busy / steps / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_per_step_by_category": {k: v / steps / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
@@ -1972,6 +2054,353 @@ def serve_unfused(model, dev, card: dict, fused_streams) -> dict:
         profile_steps(eng, serve_prompts(cfg.vocab_size)[:8], card, label="profile_unfused")
         del eng
         check_logits(model, dev, card, label="logits_unfused")
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
+    return run["counts"]
+
+
+# -- the int8 serving path ---------------------------------------------------------
+
+INT8_SOURCES = {
+    "wo_matmul": "paddle_tpu_torch/kernels/csrc/wo_matmul.cu",
+    "paged_chunk_fused_int8": "paddle_tpu_torch/kernels/csrc/paged_chunk_fused.cu",
+    "paged_chunk_int8": "paddle_tpu_torch/kernels/csrc/paged_chunk_fused.cu",
+    "paged_decode_int8": "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+    "paged_decode_fused_int8": "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+    "flxent_fwd_int8": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+}
+# the serving step's projections at 8 slots x 64 rows: gate/up, down, lm head
+WO_SHAPES = {"gate_up": (512, 4096, 11008), "down": (512, 11008, 4096), "lm_head": (512, 4096, 32000)}
+
+
+def wo_case(dev, gen, m: int, k: int, n: int, dtype, label: str, card: dict, timed: bool = False) -> dict:
+    """Kernel 20 against its plain version on x ~ N(0, 1) and a weight
+    quantized from N(0, 0.02): the same fp32 products summed in another
+    order, each output rounded once to x's type, so within one ulp of the
+    type plus 1e-4 for values near 0. With ``timed`` its time, the plain
+    version's and cuBLAS's ``x @ W`` with the unquantized weight in x's
+    type (the projection it stands in for)."""
+    import torch
+    from paddle_tpu_torch.kernels.quant import int8_weight_matmul, int8_weight_matmul_plain, quantize_weight_int8
+
+    ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = 0.02 * torch.randn((k, n), generator=gen, device=dev)
+    w8, scale = quantize_weight_int8(w)
+    got, want = int8_weight_matmul(x, w8, scale), int8_weight_matmul_plain(x, w8, scale)
+    torch.cuda.synchronize()
+    err, ok = within(got, want, atol=1e-4, rel=ulp)
+    line = {"phase": "kernel_check", "kernel": "wo_matmul", "case": label, "shape": {"x": [m, k], "w8": [k, n]},
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": f"1e-4 + {ulp}*|x|"}
+    if not ok or got.dtype != dtype:
+        emit({**line, "card": card})
+        fail(f"wo_matmul disagrees with its plain version ({label}): max abs err {err}")
+    res = {"max_abs_err": err}
+    if timed:
+        wd = w.to(dtype)
+        run, run_plain = (lambda: int8_weight_matmul(x, w8, scale)), (lambda: int8_weight_matmul_plain(x, w8, scale))
+        res.update(ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
+                   library_ms=device_ms(lambda: torch.matmul(x, wd)),
+                   **bound(m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(), 2.0 * m * k * n))
+        line.update({kk: res[kk] for kk in ("ms", "plain_ms", "call_ms", "library_ms", "bound_ms", "bound_by")})
+        line["library"] = "torch.matmul(x, W) with the unquantized weight in x's dtype (cuBLAS)"
+    emit({**line, "card": card})
+    return res
+
+
+def int8_pool(args: dict) -> dict:
+    """``args`` with its K/V pools quantized per token (the engine's int8
+    pool: int8 payload, fp32 ``k_scale`` / ``v_scale`` planes)."""
+    from paddle_tpu_torch.incubate.nn.functional.block_attention import _quantize_kv_rows
+
+    k8, ks = _quantize_kv_rows(args["key_cache"])
+    v8, vs = _quantize_kv_rows(args["value_cache"])
+    return {**args, "key_cache": k8, "value_cache": v8, "k_scale": ks, "v_scale": vs}
+
+
+def dequant_gathered(args: dict, n_pos):
+    """The int8 pool's K and V of each slot's first ``n_pos`` positions,
+    dequantized into q's dtype and gathered dense (the SDPA yardstick's
+    operands)."""
+    kd, vd, L = gathered_kv({**args, "key_cache": args["key_cache"].float() * args["k_scale"][..., None],
+                             "value_cache": args["value_cache"].float() * args["v_scale"][..., None]}, n_pos)
+    return kd.to(args["q"].dtype), vd.to(args["q"].dtype), L
+
+
+def check_int8_paged(dev, gen, card: dict, records: dict) -> None:
+    """Kernels A, 4, 5 and 6 over int8 pools (``check_paged_new``'s 7B
+    batches, quantized per token) against their plain versions, with q in
+    bf16, fp16 and fp32 at the 7B MHA geometry and in bf16 at GQA 32/8:
+    both sides dequantize to the same fp32 values, so the tolerance is the
+    bf16 pools' by q's dtype. Timed in bf16 at the 7B geometry, with SDPA
+    over the gathered, dequantized K/V as the library yardstick."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    for dtype, hq, hkv in ((torch.bfloat16, 32, 32), (torch.bfloat16, 32, 8), (torch.float16, 32, 32),
+                           (torch.float32, 32, 32)):
+        name = str(dtype).split(".")[-1]
+        atol, rel = PAGED_TOL[name]
+        args, used = paged_batch(dev, gen, hq, hkv, dtype=dtype)
+        args = int8_pool(args)
+        cargs = {k: v for k, v in args.items() if k not in ("cos", "sin")}
+        dargs, _ = decode_batch(dev, gen, hq, hkv, dtype=dtype)
+        dargs = int8_pool(dargs)
+        pargs = {k: v for k, v in dargs.items() if k not in ("cos", "sin")}
+        pairs = {
+            "paged_chunk_fused_int8": (lambda: kp.paged_flash_chunk_fused(**args),
+                                       lambda: kp.paged_flash_chunk_fused_plain(**args)),
+            "paged_chunk_int8": (lambda: kp.paged_flash_chunk(**cargs), lambda: kp.paged_flash_chunk_plain(**cargs)),
+            "paged_decode_int8": (lambda: kp.paged_flash_decode(**pargs), lambda: kp.paged_flash_decode_plain(**pargs)),
+            "paged_decode_fused_int8": (lambda: kp.paged_flash_decode_fused(**dargs),
+                                        lambda: kp.paged_flash_decode_fused_plain(**dargs)),
+        }
+        errs = {}
+        for k, (run, run_plain) in pairs.items():
+            g, w = run(), run_plain()
+            torch.cuda.synchronize()
+            errs[k], ok = within(g, w, atol=atol, rel=rel)
+            zero = bool((g[6] == 0).all())
+            if not ok or not zero or g.dtype != dtype:
+                fail(f"{k} in {name} at HQ={hq} HKV={hkv} disagrees with its plain version "
+                     f"(max abs err {errs[k]}, idle slot zero {zero}, dtype {g.dtype})")
+        emit({"phase": "kernel_check", "kernel": "paged A/4/5/6 over the int8 pool", "dtype": name, "hq": hq,
+              "hkv": hkv, "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
+        if not (dtype == torch.bfloat16 and hq == hkv):
+            continue
+        b, c, _, d = args["q"].shape
+        ends = [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])]
+        kd, vd, L = dequant_gathered(args, ends)
+        pos = torch.arange(L, device=dev)
+        cmask = (pos[None, None, :] < (args["seq_lens"][:, None] + torch.arange(c, device=dev)[None] + 1)[:, :, None])[:, None]
+        qt = args["q"].transpose(1, 2)
+        qr = kp.rope_rows(args["q"], args["cos"][:, :, None], args["sin"][:, :, None]).transpose(1, 2)
+        dl = [int(n) for n in dargs["seq_lens"]]
+        kd1, vd1, L1 = dequant_gathered(dargs, dl)
+        dmask = (torch.arange(L1, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
+        qd = dargs["q"][:, :, None]
+        qdr = kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"])[:, :, None]
+        # the scale planes: one fp32 per used row and KV head, K and V
+        chunk_scales, decode_scales = 2 * hkv * 4 * sum(e for e, m in zip(ends, args["q_lens"]) if m), 2 * hkv * 4 * sum(dl)
+        libs = {
+            "paged_chunk_fused_int8": (lambda: tF.scaled_dot_product_attention(qr, kd, vd, attn_mask=cmask),
+                                       paged_cost(args), chunk_scales),
+            "paged_chunk_int8": (lambda: tF.scaled_dot_product_attention(qt, kd, vd, attn_mask=cmask),
+                                 paged_cost(args, rope=False), chunk_scales),
+            "paged_decode_int8": (lambda: tF.scaled_dot_product_attention(qd, kd1, vd1, attn_mask=dmask),
+                                  decode_cost(dargs, rope=False), decode_scales),
+            "paged_decode_fused_int8": (lambda: tF.scaled_dot_product_attention(qdr, kd1, vd1, attn_mask=dmask),
+                                        decode_cost(dargs), decode_scales),
+        }
+        for k, (run_lib, (nbytes, flops), sbytes) in libs.items():
+            run, run_plain = pairs[k]
+            records[k] = dict(source=INT8_SOURCES[k], max_abs_err=errs[k], ms=device_ms(run),
+                              plain_ms=device_ms(run_plain, iters=5), library_ms=device_ms(run_lib),
+                              call_ms=call_ms(run), **bound(nbytes + sbytes, flops))
+            emit({"phase": "kernel_check", "kernel": k, "hq": hq, "hkv": hkv, "bytes": nbytes + sbytes,
+                  "flops": flops, "library": "SDPA over the gathered K/V, dequantized to bf16",
+                  **records[k], "card": card})
+        del kd, vd, kd1, vd1
+
+
+def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, label: str, card: dict,
+                     timed: bool = False) -> dict:
+    """Kernel 17's int8 site against its plain version: lse and tl within
+    1e-4 of max(1, |v|) (fp32 sums in another order, as for kernel 17). W
+    is quantized from N(0, 0.02) per vocab column. With ``timed`` its time,
+    the plain version's and the bf16 head's two library calls (cuBLAS ``x @
+    W`` with the dequantized weight in x's type, then ``F.cross_entropy``)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+    from paddle_tpu_torch.kernels.quant import quantize_weight_int8
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    x, w, lab, _ = flxent_inputs(dev, gen, n, h, v, torch.float32, vocab_major)
+    x = x.to(dtype)
+    w8, scale = quantize_weight_int8(w.t() if vocab_major else w)  # per vocab column of [H, V]
+    w8 = w8.t().contiguous() if vocab_major else w8
+    del w
+    lse, tl = kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)
+    lse_p, tl_p = kl.flxent_fwd_int8_plain(x, w8, scale, lab, vocab_major)
+    torch.cuda.synchronize()
+    err, ok = {}, True
+    for name, got, want in (("lse", lse, lse_p), ("tl", tl, tl_p)):
+        d = (got - want).abs()
+        err[name] = float(d.max())
+        ok = ok and bool((d <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    line = {"phase": "kernel_check", "kernel": "flxent_fwd_int8", "case": label,
+            "shape": {"x": [n, h], "w8": list(w8.shape), "vocab_major": vocab_major},
+            "dtype": str(dtype).split(".")[-1], "max_err": err, "tolerance": "1e-4 * max(1, |v|)"}
+    if not ok:
+        emit({**line, "card": card})
+        fail(f"flxent_fwd_int8 disagrees with its plain version ({label}): {err}")
+    res = {"max_abs_err": max(err.values())}
+    if timed:
+        wd = ((w8.t() if vocab_major else w8).float() * scale[None, :]).to(dtype)  # [H, V], dequantized
+        lab64 = lab.long().where(lab < v, torch.full_like(lab.long(), -100))
+        run = lambda: kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)  # noqa: E731
+        res.update(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
+                   plain_ms=device_ms(lambda: kl.flxent_fwd_int8_plain(x, w8, scale, lab, vocab_major), iters=2,
+                                      warmup=1),
+                   library_ms=device_ms(lambda: cross_entropy(x @ wd, lab64, ignore_index=-100), iters=5),
+                   **bound(n * h * x.element_size() + v * h + 4 * v + 3 * n * 4, 2.0 * n * h * v))
+        line.update({kk: res[kk] for kk in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        line["library"] = "two calls: cuBLAS x @ W (the dequantized head in x's dtype) + F.cross_entropy"
+        del wd
+    emit({**line, "card": card})
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
+    """The int8 serving path's kernels against their plain versions: kernel
+    20 at the step's three projection shapes in bf16 (timed) and at a
+    ragged fp16 shape; A, 4, 5, 6 over int8 pools; kernel 17's int8 site at
+    the loss head's shape (x ``[8192, 4096]`` bf16, W int8 ``[4096,
+    32000]``; timed), vocab-major and in fp16 at ragged shapes; the int8
+    appends under the sync check."""
+    import torch
+
+    shapes = {label: wo_case(dev, gen, m, k, n, torch.bfloat16, label, card, timed=True)
+              for label, (m, k, n) in WO_SHAPES.items()}
+    wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
+    wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
+    records["wo_matmul"] = dict(source=INT8_SOURCES["wo_matmul"], shapes=shapes,
+                                max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+                                **{k: shapes["gate_up"][k] for k in ("ms", "plain_ms", "library_ms", "call_ms",
+                                                                     "bound_ms", "bound_by")})
+    check_int8_paged(dev, gen, card, records)
+    head = flxent_int8_case(dev, gen, 8192, 4096, 32000, torch.bfloat16, False, "loss head shape", card, timed=True)
+    flxent_int8_case(dev, gen, 1000, 1024, 32003, torch.bfloat16, False, "ragged rows and vocab (V % 16 != 0)", card)
+    flxent_int8_case(dev, gen, 2048, 1024, 5000, torch.bfloat16, True, "vocab-major W [V, H]", card)
+    flxent_int8_case(dev, gen, 520, 512, 3001, torch.float16, False, "fp16, ragged", card)
+    records["flxent_fwd_int8"] = dict(source=INT8_SOURCES["flxent_fwd_int8"], **head)
+    check_append_sync(dev, gen, card, int8=True)
+
+
+EVAL_SHAPE = (2, 2048)  # sequences, tokens
+
+
+def eval_loss(model, dev, card: dict, label: str) -> tuple:
+    """``model(ids, labels=labels)`` under ``torch.no_grad()`` on one seeded
+    ``2 x 2048`` batch of next-token pairs (the last position ignored), the
+    launch counters reset just before and read just after; returns the loss
+    and the launch counts.
+    On a weight-only int8 model (``eval_loss_int8``) the loss head is kernel
+    17's int8 site, launched twice (partials, merge), and the MLP kernel 20,
+    96 times; the loss must match the plain int8 head's on the same final
+    hidden states within 1e-4 of max(1, |loss|)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+    from paddle_tpu_torch.kernels.select import KERNELS, launch_counts, reset_launch_counts
+
+    cfg = model.config
+    b, s = EVAL_SHAPE
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64)).to(dev)
+    labels = torch.roll(ids, -1, 1)
+    labels[:, -1] = -100
+    quant = model.lm_head.weight_scale is not None
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, logits = model(ids, labels=labels)
+        loss_v = float(loss)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    line = {"phase": label, "batch": [b, s], "loss": loss_v, "ms": ms, "logits_returned": logits is not None,
+            "launches": {n: c for n, c in counts.items() if c}, "card": card}
+    if quant:
+        layers = cfg.num_hidden_layers
+        want = {"flxent_fwd_int8": 2, "wo_matmul": 3 * layers, "flash_fwd": layers, "rope_fwd": 2 * layers,
+                "rms_norm_fwd": 2 * layers + 1}
+        with torch.no_grad():
+            h = model.llama(ids)
+            plain = float(kl.linear_cross_entropy(h, model.lm_head.weight, labels.to(torch.int32), use_kernels=False,
+                                                  weight_scale=model.lm_head.weight_scale))
+        line.update(plain_head_loss=plain, tolerance="1e-4 * max(1, |loss|)")
+        emit(line)
+        if counts != {n: want.get(n, 0) for n in KERNELS}:
+            fail(f"{label}: launches {counts}, want {want} and nothing else")
+        if not (np.isfinite(loss_v) and abs(loss_v - plain) <= 1e-4 * max(1.0, abs(plain))):
+            fail(f"{label}: loss {loss_v} vs the plain int8 head's {plain}")
+    else:
+        emit(line)
+        if not np.isfinite(loss_v):
+            fail(f"{label}: the loss is not finite")
+    return loss_v, counts
+
+
+def serve_int8(model, dev, card: dict, bf16_streams) -> dict:
+    """``serve_int8``: the serve phase's engine configuration and 16
+    requests with ``kv_cache_dtype="int8", weight_only_int8=True`` (the JAX
+    engine's int8 configuration; it quantizes the model's MLP projections
+    and lm head in place). Every request finishes with 32 tokens; each step
+    launches kernel A's int8 instance 32x, B 1x, C 64x and kernel 20 97x (3
+    projections per layer and the head) and nothing else; the pool drains;
+    a profile of three steps; one step's logits through :func:`logits_gate`
+    against an fp32 run of the int8 plain path. Reports the step times,
+    TTFT, peak memory, ``bytes_per_token`` and the greedy-token agreement
+    with the bf16 engine's streams (reported, not gated: the JAX package's
+    own >= 0.99 quality gate does not hold on the CPU). Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    cfg = model.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE, kv_cache_dtype="int8", weight_only_int8=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = drive_engine(eng, serve_prompts(cfg.vocab_size))
+    layers = cfg.num_hidden_layers
+    agree = [float(np.mean(np.array(a) == np.array(b))) for a, b in zip(run["streams"], bf16_streams)]
+    emit({"phase": "serve_int8", "config": "kv_cache_dtype=int8, weight_only_int8=True", **run["stats"],
+          "setup_s": setup_s, "quantized_params": len(eng._wq_params),
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "token_agreement_with_bf16_mean": float(np.mean(agree)),
+          "streams_identical_to_bf16": sum(a == 1.0 for a in agree), "launches": run["counts"],
+          "pool": eng.pool_stats(), "card": card})
+    if len(eng._wq_params) != 3 * layers + 1 or eng.pool_stats()["bytes_per_token"] != 2 * layers * cfg.num_key_value_heads * (
+            cfg.hidden_size // cfg.num_attention_heads + 4):
+        fail(f"serve_int8: {len(eng._wq_params)} projections quantized, pool {eng.pool_stats()}")
+    check_served(run, eng, {"paged_chunk_fused_int8": layers, "embed_rms": 1, "rms_residual": 2 * layers,
+                            "wo_matmul": 3 * layers + 1}, "serve_int8")
+    profile_steps(eng, serve_prompts(cfg.vocab_size)[:8], card, label="profile_int8")
+    del eng
+    check_logits(model, dev, card, label="logits_int8", kv_int8=True)
+    return run["counts"]
+
+
+def serve_int8_unfused(model, dev, card: dict) -> dict:
+    """``serve_int8_unfused``: :func:`serve_int8` with
+    ``FLAGS_use_fused_decode_layer=False`` (restored afterwards): each step
+    launches kernel 4's int8 instance 32x, RMSNorm kernel 7 65x and kernel
+    20 97x, and nothing else; its logits through the same gate. Returns the
+    launch counts."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    cfg = model.config
+    paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": False})
+    try:
+        eng = ContinuousBatchingEngine(model, **SERVE_ENGINE, kv_cache_dtype="int8", weight_only_int8=True)
+        run = drive_engine(eng, serve_prompts(cfg.vocab_size))
+        layers = cfg.num_hidden_layers
+        emit({"phase": "serve_int8_unfused", "flag": "FLAGS_use_fused_decode_layer=False",
+              "config": "kv_cache_dtype=int8, weight_only_int8=True", **run["stats"], "launches": run["counts"],
+              "card": card})
+        check_served(run, eng, {"paged_chunk_int8": layers, "rms_norm_fwd": 2 * layers + 1,
+                                "wo_matmul": 3 * layers + 1}, "serve_int8_unfused")
+        profile_steps(eng, serve_prompts(cfg.vocab_size)[:8], card, label="profile_int8_unfused")
+        del eng
+        check_logits(model, dev, card, label="logits_int8_unfused", kv_int8=True)
     finally:
         paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
     return run["counts"]
@@ -2468,8 +2897,19 @@ def main() -> int:
     check_logits(model, dev, card)
     counts["paged_chunk"] = serve_unfused(model, dev, card, streams)["paged_chunk"]
     counts["paged_decode"] = generate_paged_phase(model, dev, card)["paged_decode"]
-    counts["paged_decode_fused"] = check_decode_fused(dev, torch.Generator(device=dev).manual_seed(5),
+    counts["paged_decode_fused"] = check_decode_entry(dev, torch.Generator(device=dev).manual_seed(5),
                                                       card)["paged_decode_fused"]
+    bf16_loss, _ = eval_loss(model, dev, card, "eval_loss_bf16")  # before the int8 engine quantizes the model
+    int8_counts = serve_int8(model, dev, card, streams)  # quantizes the MLP projections and the lm head in place
+    counts.update({k: int8_counts[k] for k in ("paged_chunk_fused_int8", "wo_matmul")})
+    counts["paged_chunk_int8"] = serve_int8_unfused(model, dev, card)["paged_chunk_int8"]
+    int8_loss, eval_counts = eval_loss(model, dev, card, "eval_loss_int8")
+    emit({"phase": "eval_loss_int8_vs_bf16", "loss_bf16": bf16_loss, "loss_int8": int8_loss,
+          "difference": int8_loss - bf16_loss, "card": card})
+    counts["flxent_fwd_int8"] = eval_counts["flxent_fwd_int8"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for fused in (False, True):  # no model path reaches kernels 5 and 6 with an int8 pool: their public entries
+        counts.update({k: c for k, c in check_decode_entry(dev, gen, card, fused=fused, int8=True).items() if c})
     del model  # the 7B serving model, before the train phase
     gc.collect()
     torch.cuda.empty_cache()

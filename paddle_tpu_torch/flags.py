@@ -23,8 +23,12 @@ _FLAGS: Dict[str, tuple] = {
     "use_fused_decode_layer": ((True, False), "it is a bool"),
     # the JAX default is True
     "enable_prefix_cache": ((False,), "the prefix cache is not ported yet"),
-    # 'bf16' means the unquantized pool in the model's dtype (the JAX meaning)
-    "kv_cache_dtype": (("bf16",), "the int8 KV pool is not ported yet"),
+    # 'bf16' means the unquantized pool in the model's dtype (the JAX
+    # meaning); 'int8' the pool of int8 K/V rows with fp32 per-token scales
+    "kv_cache_dtype": (("bf16", "int8"), "it is 'bf16' or 'int8'"),
+    # the JAX default: the engine quantizes the MLP projections and the lm
+    # head to int8 with per-output-channel scales when True (kernel 20)
+    "weight_only_int8": ((False, True), "it is a bool"),
     # attention runs the flash kernels (14-16); the JAX XLA fallback is a
     # test-only reference here, never a silent path on the card
     "use_pallas_attention": ((True,), "attention always runs the flash-attention kernels"),

@@ -2,7 +2,7 @@
 device-side cache operations of a decode or serving step.
 
 Port of ``paddle_tpu/incubate/nn/functional/block_attention.py`` (the
-unquantized pool on one device). The cache layout is the JAX package's: one
+pool on one device). The cache layout is the JAX package's: one
 ``[NB, HKV, BS, D]`` key pool and one value pool per layer, addressed by
 ``[B, MBS]`` block tables. Where the JAX functions return updated caches
 (JAX arrays are immutable), these update the caches in place and return the
@@ -10,6 +10,14 @@ same tensors. Every append is sync-free: no data-dependent shape, so a step
 never waits on the device. The attention entries run the paged kernels (A,
 4, 5, 6) for a head dim that is a multiple of 64, and the dense-gather
 composition otherwise, as the JAX package does.
+
+The int8 pool (the engine's ``kv_cache_dtype="int8"``): int8 pools plus two
+fp32 scale planes ``[NB, HKV, BS]`` (``key_scale``, ``value_scale``), one
+scale per cached token and head. Every write quantizes its rows on the way
+in (:func:`_quantize_kv_rows`, per token over D) and places the scales with
+the same indices as the rows; the attention dequantizes inside the kernels'
+block walk (or right after the composition's gather). Given the planes, a
+function returns them too: ``(kc, vc, ks, vs)``, ``(out, kc, vc, ks, vs)``.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla
 from paddle_tpu_torch.kernels.paged_attention import (  # noqa: F401  (re-export)
     _gather_chunk_attend,
-    _no_scale_planes,
+    _scale_planes,
     paged_flash_chunk,
     paged_flash_chunk_fused,
     paged_flash_decode,
@@ -40,9 +48,10 @@ __all__ = [
     "block_multihead_chunk_attention",
     "block_multihead_chunk_attention_fused",
     "_gather_chunk_attend",
+    "_quantize_kv_rows",
 ]
 
-Caches = Tuple[torch.Tensor, torch.Tensor]
+Caches = Tuple[torch.Tensor, ...]  # (kc, vc), or (kc, vc, ks, vs) for the int8 pool
 
 
 class BlockKVCache:
@@ -176,6 +185,18 @@ class BlockKVCache:
             return dict(self._ref)
 
 
+def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token absmax int8 quantization over the head dim: each
+    ``[..., D]`` row gets its own fp32 scale (``absmax / 127``; 1.0 for an
+    all-zero row, so it dequantizes to exact zeros). The JAX package's
+    arithmetic op for op, so the two give the same bits."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def block_cache_append_chunk(
     key_cache: torch.Tensor,  # [NB, H, BS, D], updated in place
     value_cache: torch.Tensor,
@@ -185,9 +206,11 @@ def block_cache_append_chunk(
     seq_lens: torch.Tensor,  # [B] tokens already stored (the chunk goes after them)
     q_lens: torch.Tensor,  # [B] valid new tokens (0 = none)
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
+    key_scale: Optional[torch.Tensor] = None,  # [NB, H, BS] fp32 (int8 pool), updated in place
+    value_scale: Optional[torch.Tensor] = None,
 ) -> Caches:
     """Write token ``j`` of sequence ``b`` at position ``seq_lens[b] + j``;
-    returns the two pools (updated in place).
+    returns the pools (updated in place), with the scale planes when given.
 
     Rows past ``q_lens`` and rows of masked-off slots must never land on a
     block (a padded slot's table row may alias blocks of live sequences).
@@ -197,11 +220,15 @@ def block_cache_append_chunk(
     no data-dependent shape: an invalid row takes the target and the value
     of the first valid row (a duplicate write of the same bits), and when
     no row is valid, the first row's clamped target and the bits already
-    stored there. So the pools change exactly at the valid rows' positions."""
+    stored there. So the pools change exactly at the valid rows' positions.
+    With scale planes the rows are quantized first and their scales take
+    the same targets by the same rule."""
+    quant = _scale_planes("block_cache_append_chunk", key_scale, value_scale)
     b, c, h, d = k.shape
     n = b * c
+    planes = (key_cache, value_cache) + ((key_scale, value_scale) if quant else ())
     if not n:
-        return key_cache, value_cache
+        return planes
     nb, bs = key_cache.shape[0], key_cache.shape[2]
     j = torch.arange(c, device=k.device)[None, :]
     pos = seq_lens.long()[:, None] + j
@@ -217,11 +244,18 @@ def block_cache_append_chunk(
     d_phys, d_off = phys.index_select(0, donor), off.index_select(0, donor)
     phys = torch.where(valid, phys, d_phys)
     off = torch.where(valid, off, d_off)
-    for cache, new in ((key_cache, k), (value_cache, v)):
-        rows = new.reshape(n, h, d).to(cache.dtype)
-        fill = torch.where(any_valid, rows.index_select(0, donor), cache[d_phys, :, d_off])
-        cache[phys, :, off] = torch.where(valid[:, None, None], rows, fill)
-    return key_cache, value_cache
+    if quant:
+        qk, sk = _quantize_kv_rows(k.reshape(n, h, d))
+        qv, sv = _quantize_kv_rows(v.reshape(n, h, d))
+        rows = (qk, qv, sk, sv)
+    else:
+        rows = (k.reshape(n, h, d), v.reshape(n, h, d))
+    for plane, new in zip(planes, rows):
+        new = new.to(plane.dtype)
+        keep = valid.reshape(n, *([1] * (new.dim() - 1)))
+        fill = torch.where(any_valid, new.index_select(0, donor), plane[d_phys, :, d_off])
+        plane[phys, :, off] = torch.where(keep, new, fill)
+    return planes
 
 
 def block_cache_append(
@@ -232,17 +266,16 @@ def block_cache_append(
     block_tables: torch.Tensor,  # [B, MBS]
     positions: torch.Tensor,  # [B] index of the token being written
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-    key_scale: Optional[torch.Tensor] = None,
+    key_scale: Optional[torch.Tensor] = None,  # [NB, H, BS] fp32 (int8 pool)
     value_scale: Optional[torch.Tensor] = None,
 ) -> Caches:
     """Write one new token per sequence at ``positions``; a masked slot
     writes nothing (its table row may alias live sequences' blocks). The
     one-row case of :func:`block_cache_append_chunk`, so just as sync-free.
-    Returns the two pools (updated in place)."""
-    _no_scale_planes("block_cache_append", key_scale, value_scale)
+    Returns the pools (updated in place), with the scale planes when given."""
     ones = torch.ones_like(positions)
     return block_cache_append_chunk(key_cache, value_cache, k[:, None], v[:, None], block_tables, positions,
-                                    ones, slot_mask=slot_mask)
+                                    ones, slot_mask=slot_mask, key_scale=key_scale, value_scale=value_scale)
 
 
 def block_cache_prefill(
@@ -252,16 +285,15 @@ def block_cache_prefill(
     v: torch.Tensor,
     block_tables: torch.Tensor,  # [B, MBS]
     seq_lens: torch.Tensor,  # [B] prompt lengths (<= S)
-    key_scale: Optional[torch.Tensor] = None,
+    key_scale: Optional[torch.Tensor] = None,  # [NB, H, BS] fp32 (int8 pool)
     value_scale: Optional[torch.Tensor] = None,
 ) -> Caches:
     """Write whole prompts into the paged cache: token ``t < seq_lens[b]``
     of sequence ``b`` at position ``t``; positions past ``seq_lens`` write
     nothing. The chunk append from position 0, so just as sync-free.
-    Returns the two pools (updated in place)."""
-    _no_scale_planes("block_cache_prefill", key_scale, value_scale)
+    Returns the pools (updated in place), with the scale planes when given."""
     return block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, torch.zeros_like(seq_lens),
-                                    seq_lens)
+                                    seq_lens, key_scale=key_scale, value_scale=value_scale)
 
 
 def block_cache_cow_copy(
@@ -269,19 +301,31 @@ def block_cache_cow_copy(
     value_cache: torch.Tensor,
     src: torch.Tensor,  # [B] physical block to fork from
     dst: torch.Tensor,  # [B] private destination; == NB means no fork
-) -> None:
+    key_scale: Optional[torch.Tensor] = None,  # [NB, H, BS] fp32 (int8 pool), updated in place
+    value_scale: Optional[torch.Tensor] = None,
+) -> Caches:
     """Copy-on-write fork: duplicate whole blocks ``src`` into ``dst`` so a
     request diverging inside a shared block never writes the shared copy.
     Entries with ``dst == NB`` are no-ops (the JAX scatter's dropped rows).
-    All sources are read before any destination is written."""
+    All sources are read before any destination is written. With scale
+    planes the same fork copies them: a forked int8 block is its source's
+    bits, scales included. Returns the pools (updated in place)."""
+    quant = _scale_planes("block_cache_cow_copy", key_scale, value_scale)
+    planes = (key_cache, value_cache) + ((key_scale, value_scale) if quant else ())
     nb = key_cache.shape[0]
     dst = dst.long()
     fork = dst < nb
     src = src.long().clamp(0, nb - 1)[fork]
     dst = dst[fork]
     if dst.numel():
-        key_cache[dst] = key_cache[src]
-        value_cache[dst] = value_cache[src]
+        for plane in planes:
+            plane[dst] = plane[src]
+    return planes
+
+
+def _attend_q(q_lens: torch.Tensor, slot_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The chunk kernels' valid rows: ``q_lens``, 0 for a padded slot."""
+    return q_lens if slot_mask is None else torch.where(slot_mask.bool(), q_lens, torch.zeros_like(q_lens))
 
 
 def block_multihead_chunk_attention_fused(
@@ -297,31 +341,33 @@ def block_multihead_chunk_attention_fused(
     q_lens: torch.Tensor,  # [B] valid new tokens (1 = decode row)
     scale: Optional[float] = None,
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-) -> torch.Tensor:
+    key_scale: Optional[torch.Tensor] = None,  # [NB, HKV, BS] fp32 (int8 pool), updated in place
+    value_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """One mixed prefill/decode step of one layer: rope k, append the chunk's
-    KV to the cache (in place), then attend with q's rope folded into the
-    paged kernel (A). Returns the attention output ``[B, C, HQ, D]``; rows
-    past ``q_lens`` and masked slots are exact zeros. A head dim that is not
-    a multiple of 64, which the JAX package cannot lower to its kernel,
-    takes its composition here too: q roped by ``_rope_apply_xla``, then
-    the dense-gather attention."""
+    KV to the cache (in place; quantized after the rope for the int8 pool),
+    then attend with q's rope folded into the paged kernel (A). Returns
+    ``(out [B, C, HQ, D], key_cache, value_cache)`` plus the scale planes
+    when given; rows past ``q_lens`` and masked slots are exact zeros. A head
+    dim that is not a multiple of 64, which the JAX package cannot lower to
+    its kernel, takes its composition here too: q roped by
+    ``_rope_apply_xla``, then the dense-gather attention."""
     b, c, _, d = q.shape
     k = _rope_apply_xla(k, sin, cos, True)
-    block_cache_append_chunk(
-        key_cache, value_cache, k, v, block_tables, seq_lens, q_lens, slot_mask=slot_mask
-    )
-    attend_q = q_lens
-    if slot_mask is not None:
-        attend_q = torch.where(slot_mask.bool(), q_lens, torch.zeros_like(q_lens))
+    pools = block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, seq_lens, q_lens,
+                                     slot_mask=slot_mask, key_scale=key_scale, value_scale=value_scale)
+    attend_q = _attend_q(q_lens, slot_mask)
     if d % 64:
-        return _gather_chunk_attend(
+        out = _gather_chunk_attend(
             _rope_apply_xla(q, sin, cos, True), key_cache, value_cache, block_tables, seq_lens,
-            attend_q, 1.0 / d**0.5 if scale is None else scale,
+            attend_q, 1.0 / d**0.5 if scale is None else scale, key_scale, value_scale,
         )
-    return paged_flash_chunk_fused(
-        q, cos.reshape(b, c, d), sin.reshape(b, c, d), key_cache, value_cache,
-        block_tables, seq_lens, attend_q, scale=scale,
-    )
+    else:
+        out = paged_flash_chunk_fused(
+            q, cos.reshape(b, c, d), sin.reshape(b, c, d), key_cache, value_cache,
+            block_tables, seq_lens, attend_q, scale=scale, k_scale=key_scale, v_scale=value_scale,
+        )
+    return (out, *pools)
 
 
 def block_multihead_chunk_attention(
@@ -335,27 +381,26 @@ def block_multihead_chunk_attention(
     q_lens: torch.Tensor,  # [B] valid new tokens (1 = decode row)
     scale: Optional[float] = None,
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-    key_scale: Optional[torch.Tensor] = None,
+    key_scale: Optional[torch.Tensor] = None,  # [NB, HKV, BS] fp32 (int8 pool), updated in place
     value_scale: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """One mixed prefill/decode step of one layer over the paged cache (the
     unfused serving step): append the chunk's KV, then attend — kernel 4,
     or the dense-gather composition for a head dim that is not a multiple
     of 64. Query token ``j`` sees positions ``<= seq_lens + j``; rows past
     ``q_lens`` and masked slots are exact zeros. Returns ``(out [B, C, HQ,
-    D], key_cache, value_cache)``."""
-    _no_scale_planes("block_multihead_chunk_attention", key_scale, value_scale)
-    block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, seq_lens, q_lens, slot_mask=slot_mask)
-    attend_q = q_lens
-    if slot_mask is not None:
-        attend_q = torch.where(slot_mask.bool(), q_lens, torch.zeros_like(q_lens))
+    D], key_cache, value_cache)`` plus the scale planes when given."""
+    pools = block_cache_append_chunk(key_cache, value_cache, k, v, block_tables, seq_lens, q_lens,
+                                     slot_mask=slot_mask, key_scale=key_scale, value_scale=value_scale)
+    attend_q = _attend_q(q_lens, slot_mask)
     d = q.shape[-1]
     if d % 64:
         out = _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens, attend_q,
-                                   1.0 / d**0.5 if scale is None else scale)
+                                   1.0 / d**0.5 if scale is None else scale, key_scale, value_scale)
     else:
-        out = paged_flash_chunk(q, key_cache, value_cache, block_tables, seq_lens, attend_q, scale=scale)
-    return out, key_cache, value_cache
+        out = paged_flash_chunk(q, key_cache, value_cache, block_tables, seq_lens, attend_q, scale=scale,
+                                k_scale=key_scale, v_scale=value_scale)
+    return (out, *pools)
 
 
 def _decode_lens(seq_lens: torch.Tensor, slot_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -375,24 +420,27 @@ def block_multihead_attention(
     seq_lens: torch.Tensor,  # [B] tokens cached, EXCLUDING this one
     scale: Optional[float] = None,
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-    key_scale: Optional[torch.Tensor] = None,
+    key_scale: Optional[torch.Tensor] = None,  # [NB, HKV, BS] fp32 (int8 pool), updated in place
     value_scale: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """One paged decode step of one layer: append the new KV, attend over
     the sequence's blocks with lengths ``seq_lens + 1`` — kernel 5, or the
     dense-gather composition for a head dim that is not a multiple of 64.
     A masked slot appends nothing and returns exact zeros. Returns ``(out
-    [B, 1, HQ, D], key_cache, value_cache)``."""
-    _no_scale_planes("block_multihead_attention", key_scale, value_scale)
-    block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens, slot_mask=slot_mask)
+    [B, 1, HQ, D], key_cache, value_cache)`` plus the scale planes when
+    given."""
+    pools = block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens,
+                               slot_mask=slot_mask, key_scale=key_scale, value_scale=value_scale)
     attend_lens = _decode_lens(seq_lens, slot_mask)
     d = q.shape[-1]
     if d % 64:
         out = _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens,
-                                   (attend_lens > 0).to(seq_lens.dtype), 1.0 / d**0.5 if scale is None else scale)
+                                   (attend_lens > 0).to(seq_lens.dtype), 1.0 / d**0.5 if scale is None else scale,
+                                   key_scale, value_scale)
     else:
-        out = paged_flash_decode(q[:, 0], key_cache, value_cache, block_tables, attend_lens, scale=scale)[:, None]
-    return out, key_cache, value_cache
+        out = paged_flash_decode(q[:, 0], key_cache, value_cache, block_tables, attend_lens, scale=scale,
+                                 k_scale=key_scale, v_scale=value_scale)[:, None]
+    return (out, *pools)
 
 
 def block_multihead_attention_fused(
@@ -407,23 +455,25 @@ def block_multihead_attention_fused(
     seq_lens: torch.Tensor,  # [B] tokens cached, EXCLUDING this one
     scale: Optional[float] = None,
     slot_mask: Optional[torch.Tensor] = None,  # [B] bool; False = padded slot
-    key_scale: Optional[torch.Tensor] = None,
+    key_scale: Optional[torch.Tensor] = None,  # [NB, HKV, BS] fp32 (int8 pool), updated in place
     value_scale: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """:func:`block_multihead_attention` with rope folded in: k is roped by
-    ``_rope_apply_xla`` and appended, q is roped inside the decode walk
-    (kernel 6); a head dim that is not a multiple of 64 takes the
-    composition (q roped the same way, then the dense gather)."""
-    _no_scale_planes("block_multihead_attention_fused", key_scale, value_scale)
+    ``_rope_apply_xla`` and appended (quantized after the rope for the int8
+    pool), q is roped inside the decode walk (kernel 6); a head dim that is
+    not a multiple of 64 takes the composition (q roped the same way, then
+    the dense gather)."""
     b, _, _, d = q.shape
     k = _rope_apply_xla(k, sin, cos, True)
-    block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens, slot_mask=slot_mask)
+    pools = block_cache_append(key_cache, value_cache, k[:, 0], v[:, 0], block_tables, seq_lens,
+                               slot_mask=slot_mask, key_scale=key_scale, value_scale=value_scale)
     attend_lens = _decode_lens(seq_lens, slot_mask)
     if d % 64:
         out = _gather_chunk_attend(_rope_apply_xla(q, sin, cos, True), key_cache, value_cache, block_tables,
                                    seq_lens, (attend_lens > 0).to(seq_lens.dtype),
-                                   1.0 / d**0.5 if scale is None else scale)
+                                   1.0 / d**0.5 if scale is None else scale, key_scale, value_scale)
     else:
         out = paged_flash_decode_fused(q[:, 0], cos.reshape(b, 1, d), sin.reshape(b, 1, d), key_cache,
-                                       value_cache, block_tables, attend_lens, scale=scale)[:, None]
-    return out, key_cache, value_cache
+                                       value_cache, block_tables, attend_lens, scale=scale,
+                                       k_scale=key_scale, v_scale=value_scale)[:, None]
+    return (out, *pools)

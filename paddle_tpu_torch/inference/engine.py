@@ -12,12 +12,22 @@ back to the host, where tokens are emitted.
 
 This slice serves without the prefix cache (so there are no copy-on-write
 forks), speculative decoding, recovery, the KV host tier, tensor
-parallelism, int8 KV or metrics; asking for the prefix cache or a quantized
-pool raises. The device pools are one ``[NB, HKV, BS, D]`` key and value
-tensor per layer, updated in place by each step. The model follows
+parallelism or metrics; asking for the prefix cache raises. The device pools
+are one ``[NB, HKV, BS, D]`` key and value tensor per layer, in the model's
+dtype, updated in place by each step. The model follows
 ``FLAGS_use_fused_decode_layer`` at every step (the JAX engine reads it
 once, when it traces its step), so an engine serves unfused while the
 flag is off.
+
+The JAX engine's int8 configuration is ported: ``kv_cache_dtype="int8"``
+makes each layer's pool ``(kc, vc, ks, vs)`` — int8 K/V and fp32 per-token
+scale planes ``[NB, HKV, BS]`` that start at ones, so an empty block
+dequantizes to exact zeros — and the step passes 8-tuple pasts (the kernels'
+``_int8`` instances: quantize on write, dequantize in the block walk);
+``weight_only_int8=True`` quantizes the model's MLP projections and lm head
+to int8 in place at construction (kernel 20 in every projection).
+``pool_stats()["bytes_per_token"]`` counts the int8 pool's true footprint,
+``2 L KVH (D + 4)``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.incubate.nn.functional import BlockKVCache
+from paddle_tpu_torch.kernels.quant import quantize_module_weights
 
 __all__ = [
     "AdmissionPolicy",
@@ -118,7 +129,11 @@ class ContinuousBatchingEngine:
     shared by all slots (default: ``max_slots`` full-length sequences);
     ``prompt_bucket`` caps prompt length at intake; ``prefill_chunk`` is the
     chunk width ``C`` of the ``[max_slots, C]`` step (default: one block).
-    The pools live on the model's device, in its dtype."""
+    The pools live on the model's device, in its dtype — or int8 with scale
+    planes under ``kv_cache_dtype="int8"``. ``kv_cache_dtype`` and
+    ``weight_only_int8`` default to their flags (``FLAGS_kv_cache_dtype``,
+    ``FLAGS_weight_only_int8``); ``weight_only_int8`` quantizes the model in
+    place, as the JAX engine does."""
 
     def __init__(
         self,
@@ -132,6 +147,7 @@ class ContinuousBatchingEngine:
         prefill_chunk: Optional[int] = None,
         enable_prefix_cache: Optional[bool] = None,
         kv_cache_dtype: Optional[str] = None,
+        weight_only_int8: Optional[bool] = None,
     ) -> None:
         cfg = model.config
         self.model = model
@@ -158,20 +174,21 @@ class ContinuousBatchingEngine:
         if enable_prefix_cache:
             raise NotImplementedError("paddle_tpu_torch has no prefix cache yet")
         kvd = str(flag("kv_cache_dtype") if kv_cache_dtype is None else kv_cache_dtype)
-        if kvd != "bf16":
-            raise NotImplementedError(f"kv_cache_dtype {kvd!r}: only 'bf16' (the unquantized pool) is ported")
+        if kvd not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {kvd!r}")
         self.kv_cache_dtype = kvd
+        self._quant_kv = kvd == "int8"
+        if weight_only_int8 is None:
+            weight_only_int8 = flag("weight_only_int8")
+        # the projections quantized in place (the JAX engine's _wq_params)
+        self._wq_params: List[str] = quantize_module_weights(model) if weight_only_int8 else []
 
         self._kvh = cfg.num_key_value_heads
         self._hd = cfg.hidden_size // cfg.num_attention_heads
         self._num_layers = cfg.num_hidden_layers
+        self._cache_dtype = torch.int8 if self._quant_kv else model.dtype
         self._mgr = BlockKVCache(self.num_blocks, self.block_size)
-        shape = (self.num_blocks, self._kvh, self.block_size, self._hd)
-        self._caches = [
-            (torch.zeros(shape, dtype=model.dtype, device=self.device),
-             torch.zeros(shape, dtype=model.dtype, device=self.device))
-            for _ in range(self._num_layers)
-        ]
+        self._caches = [self._new_cache_pair() for _ in range(self._num_layers)]
         # per-slot host state, rewritten between steps
         self._slot_req: List[Optional[InferenceRequest]] = [None] * self.max_slots
         self._blocks: List[List[int]] = [[] for _ in range(self.max_slots)]
@@ -184,10 +201,25 @@ class ContinuousBatchingEngine:
         self._pending_done: List[InferenceRequest] = []
         self.stats = {"steps": 0, "prompt_tokens_computed": 0}
 
+    def _new_cache_pair(self) -> tuple:
+        """One layer's pools: ``(kc, vc)`` zeros of the pool dtype, or under
+        ``kv_cache_dtype="int8"`` ``(kc, vc, ks, vs)`` with the scale planes
+        ``[NB, KVH, BS]`` fp32 at ones (quantizing zeros gives ``q = 0,
+        scale = 1``, so a fresh pool dequantizes to exact zeros)."""
+        shape = (self.num_blocks, self._kvh, self.block_size, self._hd)
+        pools = tuple(torch.zeros(shape, dtype=self._cache_dtype, device=self.device) for _ in range(2))
+        if self._quant_kv:
+            pools += tuple(torch.ones(shape[:3], dtype=torch.float32, device=self.device) for _ in range(2))
+        return pools
+
     # -- pool accounting -----------------------------------------------------
     def _bytes_per_token(self) -> int:
-        """KV bytes across all layers for one token."""
-        return 2 * self._num_layers * self._kvh * self._hd * self.model.dtype.itemsize
+        """KV bytes across all layers for one token: ``2 L KVH D`` elements,
+        and under int8 one fp32 scale per (token, head) beside each int8
+        row, ``2 L KVH (D + 4)`` bytes."""
+        if self._quant_kv:
+            return 2 * self._num_layers * self._kvh * (self._hd + 4)
+        return 2 * self._num_layers * self._kvh * self._hd * self._cache_dtype.itemsize
 
     def pool_stats(self) -> Dict[str, Any]:
         free = self._mgr.free_blocks
@@ -325,7 +357,8 @@ class ContinuousBatchingEngine:
         lens_t = torch.from_numpy(lens).to(dev)
         qlens_t = torch.from_numpy(q_lens).to(dev)
         mask_t = torch.from_numpy(active).to(dev)
-        pkv = [(kc, vc, tables_t, lens_t, mask_t, qlens_t) for kc, vc in self._caches]
+        # 6-tuples, or the int8 pool's 8-tuples with the two scale planes last
+        pkv = [(kc, vc, tables_t, lens_t, mask_t, qlens_t, *planes) for kc, vc, *planes in self._caches]
         # the JAX engine's call; the pools come back updated in place
         logits, _ = self.model(ids, past_key_values=pkv, use_cache=True, cache_position=lens_t)
         nxt = logits.float().argmax(dim=-1).to(torch.int32)

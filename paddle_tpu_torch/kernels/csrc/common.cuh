@@ -23,6 +23,9 @@ __device__ __forceinline__ float round_bf(float x) { return to_f(to_bf(x)); }
 using f16 = __half;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
+// the int8 payload of the quantized KV pool and of the weight-only
+// projections: every int8 value is exact in fp32 (and in bf16 and fp16)
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return to_bf(x); }
 template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }

@@ -1,6 +1,8 @@
 // Shared pieces of the fused linear cross-entropy kernels (flxent_fwd.cu,
-// flxent_dx.cu, flxent_dw.cu): one tensor-core GEMM mainloop that serves
-// every product of the loss head, and the output-tile order.
+// flxent_dx.cu, flxent_dw.cu) and the weight-only int8 matmul
+// (wo_matmul.cu): one tensor-core GEMM mainloop that serves every product of
+// the loss head, its form with an int8 B operand (gemm_tile_i8: the int8
+// lm head and the int8 projections), and the output-tile order.
 //
 // The three products differ only in how their operands lie in memory:
 //   logits  = x W       A = x [rows][H] (k contiguous);
@@ -57,7 +59,7 @@ struct Operand {
 
 template <typename T>
 Operand<T> operand(const void* ptr, long long ld, int outer, int k) {
-  const bool vec = ld % 8 == 0 && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const bool vec = (ld * static_cast<long long>(sizeof(T))) % 16 == 0 && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   return Operand<T>{static_cast<const T*>(ptr), ld, outer, k, vec ? 1 : 0};
 }
 
@@ -142,6 +144,46 @@ __device__ __forceinline__ void load_tile(T* s, const Operand<T>& op, int o0, in
   }
 }
 
+// acc += the products of one staged k slab: a and b are its A and B tiles
+// in shared memory, each in its operand's layout (see load_tile).
+template <typename T, bool A_K, bool B_K>
+__device__ __forceinline__ void mma_slab(float (&acc)[kMT][kNT][4], const T* a, const T* b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which of its rows
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    uint32_t af[kMT][4], bfr[kNT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int mb = wm * kWM + mt * 16;
+      if (A_K) {  // [m][k]: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+        ldsm_x4(af[mt], smem_u32(a + (mb + (lane & 15)) * kLdK + kk + (lane >> 4) * 8));
+      } else {    // [k][m]: the same four matrices, transposed on the way out
+        ldsm_x4_t(af[mt], smem_u32(a + (kk + lr + (li >> 1) * 8) * kLdO + mb + (li & 1) * 8));
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      const int nb = wn * kWN + np * 16;
+      uint32_t r[4];
+      if (B_K) {  // [n][k]: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+        ldsm_x4(r, smem_u32(b + (nb + lr + (li >> 1) * 8) * kLdK + kk + (li & 1) * 8));
+      } else {    // [k][n]: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+        ldsm_x4_t(r, smem_u32(b + (kk + lr + (li & 1) * 8) * kLdO + nb + (li >> 1) * 8));
+      }
+      bfr[2 * np][0] = r[0];
+      bfr[2 * np][1] = r[1];
+      bfr[2 * np + 1][0] = r[2];
+      bfr[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) mma<T>(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+  }
+}
+
 // acc = A[m0:m0+128, :] B[:, n0:n0+128] over the whole k extent (A.k ==
 // B.k). Each thread holds the accumulators of its warp's kWM x kWN
 // sub-tile: acc[mt][nt][e] is row wm*kWM + mt*16 + gid + 8*(e/2), column
@@ -152,9 +194,6 @@ __device__ __forceinline__ void gemm_tile(float (&acc)[kMT][kNT][4], const Opera
                                           const Operand<T>& B, int m0, int n0, T* smem) {
   T* sA = smem;
   T* sB = smem + kStages * kTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which of its rows
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -178,39 +217,123 @@ __device__ __forceinline__ void gemm_tile(float (&acc)[kMT][kNT][4], const Opera
       load_tile<T, B_K>(sB + (nk % kStages) * kTile, B, n0, nk * kBK);
     }
     cp_async_commit();
-    const T* a = sA + (kt % kStages) * kTile;
-    const T* b = sB + (kt % kStages) * kTile;
+    mma_slab<T, A_K, B_K>(acc, sA + (kt % kStages) * kTile, sB + (kt % kStages) * kTile);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Stage the int8 slab k in [k0, k0 + kBK) x outer in [o0, o0 + 128) of `op`
+// into `s` as it lies: [outer][kBK] bytes when KCONTIG, else [k][kBM].
+// Bytes past the operand's extents are zero.
+template <bool KCONTIG>
+__device__ __forceinline__ void load_tile_i8(int8_t* s, const Operand<int8_t>& op, int o0, int k0) {
+  constexpr int kChunks = kBM * kBK / 16;  // 16-byte chunks of 16 values
+  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMT][4], bfr[kNT][2];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int mb = wm * kWM + mt * 16;
-        if (A_K) {  // [m][k]: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-          ldsm_x4(af[mt], smem_u32(a + (mb + (lane & 15)) * kLdK + kk + (lane >> 4) * 8));
-        } else {    // [k][m]: the same four matrices, transposed on the way out
-          ldsm_x4_t(af[mt], smem_u32(a + (kk + lr + (li >> 1) * 8) * kLdO + mb + (li & 1) * 8));
-        }
-      }
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        const int nb = wn * kWN + np * 16;
-        uint32_t r[4];
-        if (B_K) {  // [n][k]: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-          ldsm_x4(r, smem_u32(b + (nb + lr + (li >> 1) * 8) * kLdK + kk + (li & 1) * 8));
-        } else {    // [k][n]: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-          ldsm_x4_t(r, smem_u32(b + (kk + lr + (li & 1) * 8) * kLdO + nb + (li >> 1) * 8));
-        }
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma<T>(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    int n_valid, soff;
+    const int8_t* src;
+    if (KCONTIG) {
+      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
+      const int o = o0 + r, kk = k0 + c;
+      n_valid = o < op.outer ? max(0, min(16, op.k - kk)) : 0;
+      src = op.ptr + static_cast<long long>(o) * op.ld + kk;
+      soff = r * kBK + c;
+    } else {
+      const int r = i / (kBM / 16), c = (i % (kBM / 16)) * 16;
+      const int kk = k0 + r, o = o0 + c;
+      n_valid = kk < op.k ? max(0, min(16, op.outer - o)) : 0;
+      src = op.ptr + static_cast<long long>(kk) * op.ld + o;
+      soff = r * kBM + c;
     }
+    if (op.vec) {
+      cp_async16(smem_u32(s + soff), n_valid ? src : op.ptr, n_valid);
+    } else {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      int8_t* e = elems_of<int8_t>(v);
+      for (int j = 0; j < n_valid; ++j) e[j] = src[j];
+      *reinterpret_cast<uint4*>(s + soff) = v;
+    }
+  }
+}
+
+// The staged int8 slab as a tile of T in the layout gemm_tile's B tiles have
+// ([outer][kLdK] when KCONTIG, else [k][kLdO]): every int8 value is exact in
+// bf16 and fp16, so the products below are those of the int8 weight itself.
+template <typename T, bool KCONTIG>
+__device__ __forceinline__ void upcast_tile_i8(T* dst, const int8_t* src) {
+  constexpr int kChunks = kBM * kBK / 16;
+#pragma unroll
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    int soff, doff;
+    if (KCONTIG) {
+      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
+      soff = r * kBK + c;
+      doff = r * kLdK + c;
+    } else {
+      const int r = i / (kBM / 16), c = (i % (kBM / 16)) * 16;
+      soff = r * kBM + c;
+      doff = r * kLdO + c;
+    }
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + soff);
+    const int8_t* e = elems_of<int8_t>(raw);
+    uint4 lo, hi;
+    T* l = elems_of<T>(lo);
+    T* h = elems_of<T>(hi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l[j] = from_f<T>(to_f(e[j]));
+      h[j] = from_f<T>(to_f(e[8 + j]));
+    }
+    *reinterpret_cast<uint4*>(dst + doff) = lo;
+    *reinterpret_cast<uint4*>(dst + doff + 8) = hi;
+  }
+}
+
+constexpr int kTileI8 = kBM * kBK;  // bytes of one staged int8 slab
+static_assert(kStages * kTile * 2 + kStages * kTileI8 + kTile * 2 <= kSmemBytes, "the int8 ring fits");
+
+// gemm_tile with an int8 B operand (a weight-only int8 matrix): B's slabs
+// are staged as int8 by cp.async in their own ring (half the bytes of a
+// bf16 slab) and each, once landed, is upcast to T into one T tile that the
+// warps' ldmatrix reads; A is staged as in gemm_tile. Accumulators and
+// return state as in gemm_tile. Hopper has no mixed bf16 x int8 MMA, and
+// the upcast is exact, so acc is the fp32 product of A and the int8 values.
+template <typename T, bool B_K>
+__device__ __forceinline__ void gemm_tile_i8(float (&acc)[kMT][kNT][4], const Operand<T>& A,
+                                             const Operand<int8_t>& B, int m0, int n0, unsigned char* smem) {
+  T* sA = reinterpret_cast<T*>(smem);
+  int8_t* sB8 = reinterpret_cast<int8_t*>(smem + kStages * kTile * sizeof(T));
+  T* sB = reinterpret_cast<T*>(smem + kStages * kTile * sizeof(T) + kStages * kTileI8);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+  const int ktiles = (A.k + kBK - 1) / kBK;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < ktiles) {
+      load_tile<T, true>(sA + st * kTile, A, m0, st * kBK);
+      load_tile_i8<B_K>(sB8 + st * kTileI8, B, n0, st * kBK);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slab kt has landed; every warp is done with slab kt - 1 and with sB
+    upcast_tile_i8<T, B_K>(sB, sB8 + (kt % kStages) * kTileI8);
+    const int nk = kt + kStages - 1;
+    if (nk < ktiles) {
+      load_tile<T, true>(sA + (nk % kStages) * kTile, A, m0, nk * kBK);
+      load_tile_i8<B_K>(sB8 + (nk % kStages) * kTileI8, B, n0, nk * kBK);
+    }
+    cp_async_commit();
+    __syncthreads();  // sB holds slab kt in T
+    mma_slab<T, true, B_K>(acc, sA + (kt % kStages) * kTile, sB);
   }
   cp_async_wait<0>();
   __syncthreads();

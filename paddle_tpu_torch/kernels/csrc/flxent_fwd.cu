@@ -36,6 +36,18 @@
 // Bound on H100: operations. 2 N H V flops (2.15e12 at N 8192, H 4096,
 // V 32000: 2.17 ms at 989 TFLOP/s) against ~330 MB of operands. This first
 // version runs mma.sync, not wgmma/TMA, so it reaches a fraction of that.
+//
+// The int8 site (`ptt_flxent_fwd_int8`; replaces the quantized call of the
+// same Pallas body, `_make_pallas_quant_fwd`, the weight-only int8 lm head's
+// forward-only loss): W is int8 with one fp32 scale per vocab column. Its
+// slabs are staged as int8 and upcast to x's type in shared memory before
+// ldmatrix (gemm_tile_i8, for the H-major and the vocab-major layout: exact,
+// so the logits tile is x times the int8 values in fp32), and each logit is
+// multiplied by its column's scale before the cols < V mask and the
+// max / sum / target-logit partials, in the Pallas kernel's order. The
+// partials and their merge are the bf16 forward's.
+#include <type_traits>
+
 #include "flxent_common.cuh"
 
 using ptt::bf16;
@@ -44,19 +56,26 @@ namespace fx = ptt::flx;
 
 namespace {
 
-// mode 0: (m, l, tl) partials per (row, vocab tile); mode 1: the D tile
-template <typename T, bool B_K, int MODE>
+// mode 0: (m, l, tl) partials per (row, vocab tile); mode 1: the D tile.
+// TW is W's type: T, or int8_t with the per-column scales `wscale` (mode 0).
+template <typename T, typename TW, bool B_K, int MODE>
 __global__ void __launch_bounds__(fx::kThreads, 2)
-flxent_logits_kernel(fx::Operand<T> X, fx::Operand<T> W, const int* __restrict__ labels,
-              const float* __restrict__ lse, const float* __restrict__ gcoef, int N, int vc, int c0,
-              float* __restrict__ part, T* __restrict__ d, long long ldd) {
+flxent_logits_kernel(fx::Operand<T> X, fx::Operand<TW> W, const float* __restrict__ wscale,
+              const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gcoef,
+              int N, int vc, int c0, float* __restrict__ part, T* __restrict__ d, long long ldd) {
+  constexpr bool kQuant = std::is_same<TW, int8_t>::value;
+  static_assert(!kQuant || MODE == 0, "the int8 head is forward-only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tiles_m = (N + fx::kBM - 1) / fx::kBM, tiles_n = (vc + fx::kBN - 1) / fx::kBN;
   int tm, tn;
   fx::tile_coords(tiles_m, tiles_n, tm, tn);
   const int m0 = tm * fx::kBM, n0 = tn * fx::kBN;
   float acc[fx::kMT][fx::kNT][4];
-  fx::gemm_tile<T, true, B_K>(acc, X, W, m0, n0, reinterpret_cast<T*>(smem_raw));
+  if constexpr (kQuant) {
+    fx::gemm_tile_i8<T, B_K>(acc, X, W, m0, n0, smem_raw);
+  } else {
+    fx::gemm_tile<T, true, B_K>(acc, X, W, m0, n0, reinterpret_cast<T*>(smem_raw));
+  }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / fx::kWarpsN, wn = warp % fx::kWarpsN, gid = lane >> 2, tig = lane & 3;
@@ -110,6 +129,9 @@ flxent_logits_kernel(fx::Operand<T> X, fx::Operand<T> W, const int* __restrict__
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + wn * fx::kWN + nt * 8 + 2 * tig + e;
           float& v = acc[mt][nt][2 * h + e];
+          if constexpr (kQuant) {  // dequant factors out of the contraction: scale the logit
+            if (col < vc) v *= wscale[col];
+          }
           if (col >= vc) v = fx::kNegInf;
           mx = fmaxf(mx, v);
         }
@@ -188,26 +210,26 @@ __global__ void flxent_merge_kernel(const float* __restrict__ part, int tiles_n,
   tl[row] = s;
 }
 
-template <typename T, bool B_K, int MODE>
-int launch_logits(const void* x, fx::Operand<T> w, const void* labels, const void* lse,
+template <typename T, typename TW, bool B_K, int MODE>
+int launch_logits(const void* x, fx::Operand<TW> w, const float* wscale, const void* labels, const void* lse,
                   const void* gcoef, int N, int H, int vc, int c0, void* part, void* d, long long ldd,
                   cudaStream_t stream) {
-  auto kernel = flxent_logits_kernel<T, B_K, MODE>;
+  auto kernel = flxent_logits_kernel<T, TW, B_K, MODE>;
   cudaError_t err = fx::allow_smem(kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = ((N + fx::kBM - 1) / fx::kBM) * ((vc + fx::kBN - 1) / fx::kBN);
   kernel<<<tiles, fx::kThreads, fx::kSmemBytes, stream>>>(
-      fx::operand<T>(x, H, N, H), w, static_cast<const int*>(labels), static_cast<const float*>(lse),
+      fx::operand<T>(x, H, N, H), w, wscale, static_cast<const int*>(labels), static_cast<const float*>(lse),
       static_cast<const float*>(gcoef), N, vc, c0, static_cast<float*>(part), static_cast<T*>(d), ldd);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The vocab columns [c0, c0 + vc) of W as the B operand of x W (k = H).
-template <typename T>
-fx::Operand<T> w_columns(const void* w, int vocab_major, int H, int V, int c0, int vc) {
-  const T* p = static_cast<const T*>(w);
-  return vocab_major ? fx::operand<T>(p + static_cast<long long>(c0) * H, H, vc, H)   // [n][k]
-                     : fx::operand<T>(p + c0, V, vc, H);                              // [k][n]
+template <typename TW>
+fx::Operand<TW> w_columns(const void* w, int vocab_major, int H, int V, int c0, int vc) {
+  const TW* p = static_cast<const TW*>(w);
+  return vocab_major ? fx::operand<TW>(p + static_cast<long long>(c0) * H, H, vc, H)   // [n][k]
+                     : fx::operand<TW>(p + c0, V, vc, H);                              // [k][n]
 }
 
 template <typename T>
@@ -215,8 +237,18 @@ int fwd(int vocab_major, const void* x, const void* w, const void* labels, void*
         cudaStream_t stream) {
   const fx::Operand<T> wo = w_columns<T>(w, vocab_major, H, V, 0, V);
   return vocab_major
-      ? launch_logits<T, true, 0>(x, wo, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream)
-      : launch_logits<T, false, 0>(x, wo, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream);
+      ? launch_logits<T, T, true, 0>(x, wo, nullptr, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream)
+      : launch_logits<T, T, false, 0>(x, wo, nullptr, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream);
+}
+
+template <typename T>
+int fwd_int8(int vocab_major, const void* x, const void* w8, const void* wscale, const void* labels, void* part,
+             int N, int H, int V, cudaStream_t stream) {
+  const fx::Operand<int8_t> wo = w_columns<int8_t>(w8, vocab_major, H, V, 0, V);
+  const float* s = static_cast<const float*>(wscale);
+  return vocab_major
+      ? launch_logits<T, int8_t, true, 0>(x, wo, s, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream)
+      : launch_logits<T, int8_t, false, 0>(x, wo, s, labels, nullptr, nullptr, N, H, V, 0, part, nullptr, 0, stream);
 }
 
 template <typename T>
@@ -225,8 +257,8 @@ int dchunk(int vocab_major, const void* x, const void* w, const void* labels, co
            cudaStream_t stream) {
   const fx::Operand<T> wo = w_columns<T>(w, vocab_major, H, V, c0, vc);
   return vocab_major
-      ? launch_logits<T, true, 1>(x, wo, labels, lse, gcoef, N, H, vc, c0, nullptr, d, ldd, stream)
-      : launch_logits<T, false, 1>(x, wo, labels, lse, gcoef, N, H, vc, c0, nullptr, d, ldd, stream);
+      ? launch_logits<T, T, true, 1>(x, wo, nullptr, labels, lse, gcoef, N, H, vc, c0, nullptr, d, ldd, stream)
+      : launch_logits<T, T, false, 1>(x, wo, nullptr, labels, lse, gcoef, N, H, vc, c0, nullptr, d, ldd, stream);
 }
 
 }  // namespace
@@ -240,6 +272,18 @@ extern "C" int ptt_flxent_fwd(int io, int vocab_major, const void* x, const void
   switch (io) {
     case ptt::kBF16: return fwd<bf16>(vocab_major, x, w, labels, part, N, H, V, s);
     case ptt::kF16: return fwd<f16>(vocab_major, x, w, labels, part, N, H, V, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The int8 head's partials: as ptt_flxent_fwd with w8 int8 ([H, V] or, with
+// vocab_major, [V, H]) and wscale fp32 [V]; io is x's type (bf16 or fp16).
+extern "C" int ptt_flxent_fwd_int8(int io, int vocab_major, const void* x, const void* w8, const void* wscale,
+                                   const void* labels, void* part, int N, int H, int V, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case ptt::kBF16: return fwd_int8<bf16>(vocab_major, x, w8, wscale, labels, part, N, H, V, s);
+    case ptt::kF16: return fwd_int8<f16>(vocab_major, x, w8, wscale, labels, part, N, H, V, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,7 +8,8 @@
 // Replaces: paddle_tpu/kernels/paged_attention.py `_chunk_fused_kernel`
 // (launched by `paged_flash_chunk_fused`, the fused serving step's
 // attention) and `_chunk_kernel` (launched by `paged_flash_chunk`, the
-// unfused step's).
+// unfused step's), each with `_dequant_tile` in its block walk when the pool
+// is int8.
 //
 // Semantics kept from the Pallas kernels: q is roped in q's type (each
 // product and the sum rounded to that type) before the cast to fp32 and the
@@ -18,6 +19,14 @@
 // j >= q_lens are written as exact 0; block-table entries at or past
 // ceil((lens + q_lens) / BS) are never read, and neither are their blocks.
 // Storage is bf16, fp16 or fp32 (the template type T); the math is fp32.
+//
+// The int8 pool (KV = int8_t, the `_int8` entry points): the cache holds
+// int8 K/V rows and two fp32 scale planes [NB, HKV, BS], one scale per
+// (block, head, slot), addressed by the same physical block id as the
+// payload. Each staged element is dequantized as float(int8) * scale — the
+// Pallas `_dequant_tile` and the plain version's `gathered.float() * scale`,
+// one fp32 multiply, so both see the same fp32 K/V bits. q and out keep
+// their own type T (bf16, fp16 or fp32).
 //
 // Design (simple first, not yet fast). One CUDA block per (tile of 32 packed
 // query rows, KV head, slot); packed row = j * G + g with G = HQ / HKV, so
@@ -35,6 +44,8 @@
 // block once per row tile and runs its 4*D flops per (row, position) on the
 // fp32 FMA units, not the tensor cores — the mma/wgmma path with TMA-fed
 // K/V tiles is later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 using ptt::bf16;
@@ -47,19 +58,22 @@ constexpr int kRows = 32;          // packed query rows per block
 constexpr int kTile = 16;          // KV positions per inner step
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 
-template <typename T, int D, bool ROPE>
+template <typename T, typename KV, int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const T* __restrict__ q,      // [B, C, HQ, D], pre-rope when ROPE
                    const T* __restrict__ cos_t,  // [B, C, D] in q's type (ROPE only)
                    const T* __restrict__ sin_t,
-                   const T* __restrict__ kc,     // [NB, HKV, BS, D]
-                   const T* __restrict__ vc,
+                   const KV* __restrict__ kc,    // [NB, HKV, BS, D]
+                   const KV* __restrict__ vc,
+                   const float* __restrict__ ks,  // [NB, HKV, BS] (int8 KV only)
+                   const float* __restrict__ vs,
                    const int* __restrict__ tables,  // [B, MBS]
                    const int* __restrict__ lens,    // [B] cached before the chunk
                    const int* __restrict__ qlens,   // [B] valid new rows
                    T* __restrict__ out,             // [B, C, HQ, D]
                    int C, int HQ, int HKV, int BS, int MBS, float scale) {
   static_assert(D % 32 == 0 && D <= 128, "head dim: a multiple of 32, at most 128");
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int kDV = D / 32;                         // columns per lane, PV phase
   constexpr int kGroups = kThreads / kTile;           // row groups, score phase (8)
   constexpr int kRowsPerThread = kRows / kGroups;     // score phase (4)
@@ -131,10 +145,13 @@ paged_chunk_kernel(const T* __restrict__ q,      // [B, C, HQ, D], pre-rope when
       const int tt = idx / D, d = idx % D, pos = p0 + tt;
       float kv = 0.f, vv = 0.f;
       if (pos < n_pos) {  // pos / BS stays below ceil((lens + q_lens) / BS)
-        const size_t off =
-            ((static_cast<size_t>(table[pos / BS]) * HKV + h) * BS + pos % BS) * D + d;
-        kv = ptt::to_f(kc[off]);
-        vv = ptt::to_f(vc[off]);
+        const size_t row = (static_cast<size_t>(table[pos / BS]) * HKV + h) * BS + pos % BS;
+        kv = ptt::to_f(kc[row * D + d]);
+        vv = ptt::to_f(vc[row * D + d]);
+        if constexpr (kQuant) {  // the dequant tile: the token's scale, one fp32 multiply
+          kv = __fmul_rn(kv, ks[row]);
+          vv = __fmul_rn(vv, vs[row]);
+        }
       }
       k_s[tt][d] = kv;
       v_s[tt][d] = vv;
@@ -211,15 +228,16 @@ paged_chunk_kernel(const T* __restrict__ q,      // [B, C, HQ, D], pre-rope when
   }
 }
 
-template <typename T, bool ROPE>
+template <typename T, typename KV, bool ROPE>
 int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
-           const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-           int HQ, int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
+           const void* ks, const void* vs, const void* tables, const void* lens, const void* qlens,
+           void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
   const dim3 grid((C * (HQ / HKV) + kRows - 1) / kRows, HKV, B);
 #define PTT_LAUNCH(DIM)                                                                          \
-  paged_chunk_kernel<T, DIM, ROPE><<<grid, kThreads, 0, st>>>(                                   \
+  paged_chunk_kernel<T, KV, DIM, ROPE><<<grid, kThreads, 0, st>>>(                               \
       static_cast<const T*>(q), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),      \
-      static_cast<const T*>(kc), static_cast<const T*>(vc), static_cast<const int*>(tables),     \
+      static_cast<const KV*>(kc), static_cast<const KV*>(vc), static_cast<const float*>(ks),     \
+      static_cast<const float*>(vs), static_cast<const int*>(tables),                            \
       static_cast<const int*>(lens), static_cast<const int*>(qlens), static_cast<T*>(out), C, HQ, \
       HKV, BS, MBS, scale)
   if (D == 128) {
@@ -233,21 +251,28 @@ int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool ROPE>
+// QUANT: the cache is int8 with scale planes; else it is of q's type
+template <bool ROPE, bool QUANT>
 int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
-              const void* vc, const void* tables, const void* lens, const void* qlens, void* out,
-              int B, int C, int HQ, int HKV, int D, int BS, int MBS, float scale, void* stream) {
+              const void* vc, const void* ks, const void* vs, const void* tables, const void* lens,
+              const void* qlens, void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS,
+              float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PTT_IO(TYPE)                                                                             \
+  launch<TYPE, std::conditional_t<QUANT, int8_t, TYPE>, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs,   \
+                                                              tables, lens, qlens, out, B, C, HQ, \
+                                                              HKV, D, BS, MBS, scale, st)
   switch (io) {
     case ptt::kBF16:
-      return launch<bf16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(bf16);
     case ptt::kF16:
-      return launch<f16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(f16);
     case ptt::kF32:
-      return launch<float, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(float);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PTT_IO
 }
 
 }  // namespace
@@ -259,8 +284,8 @@ extern "C" int ptt_paged_chunk_fused(int io, const void* q, const void* cos_t, c
                                      const void* lens, const void* qlens, void* out, int B, int C,
                                      int HQ, int HKV, int D, int BS, int MBS, float scale,
                                      void* stream) {
-  return launch_io<true>(io, q, cos_t, sin_t, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D, BS,
-                         MBS, scale, stream);
+  return launch_io<true, false>(io, q, cos_t, sin_t, kc, vc, nullptr, nullptr, tables, lens, qlens, out,
+                                B, C, HQ, HKV, D, BS, MBS, scale, stream);
 }
 
 // Kernel 4: the same walk with q taken as given.
@@ -268,6 +293,26 @@ extern "C" int ptt_paged_chunk(int io, const void* q, const void* kc, const void
                                const void* tables, const void* lens, const void* qlens, void* out,
                                int B, int C, int HQ, int HKV, int D, int BS, int MBS, float scale,
                                void* stream) {
-  return launch_io<false>(io, q, nullptr, nullptr, kc, vc, tables, lens, qlens, out, B, C, HQ, HKV, D,
-                          BS, MBS, scale, stream);
+  return launch_io<false, false>(io, q, nullptr, nullptr, kc, vc, nullptr, nullptr, tables, lens, qlens,
+                                 out, B, C, HQ, HKV, D, BS, MBS, scale, stream);
+}
+
+// Kernel A over the int8 pool: kc/vc int8 [NB, HKV, BS, D], ks/vs fp32
+// [NB, HKV, BS]; `io` is the type of q, the rope rows and out.
+extern "C" int ptt_paged_chunk_fused_int8(int io, const void* q, const void* cos_t, const void* sin_t,
+                                          const void* kc, const void* vc, const void* ks, const void* vs,
+                                          const void* tables, const void* lens, const void* qlens,
+                                          void* out, int B, int C, int HQ, int HKV, int D, int BS,
+                                          int MBS, float scale, void* stream) {
+  return launch_io<true, true>(io, q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ,
+                               HKV, D, BS, MBS, scale, stream);
+}
+
+// Kernel 4 over the int8 pool.
+extern "C" int ptt_paged_chunk_int8(int io, const void* q, const void* kc, const void* vc, const void* ks,
+                                    const void* vs, const void* tables, const void* lens,
+                                    const void* qlens, void* out, int B, int C, int HQ, int HKV, int D,
+                                    int BS, int MBS, float scale, void* stream) {
+  return launch_io<false, true>(io, q, nullptr, nullptr, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
+                                HQ, HKV, D, BS, MBS, scale, stream);
 }

@@ -6,7 +6,8 @@
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py `_decode_kernel`
 // (launched by `paged_flash_decode`, the decode step of `generate_paged`)
-// and `_decode_fused_kernel` (launched by `paged_flash_decode_fused`).
+// and `_decode_fused_kernel` (launched by `paged_flash_decode_fused`), each
+// with `_dequant_tile` in its block walk when the pool is int8.
 //
 // Semantics kept from the Pallas kernels: q (roped in its type when ROPE:
 // each product and the sum rounded to that type) is cast to fp32 and
@@ -16,6 +17,15 @@
 // they are never visited); block-table entries at or past ceil(lens / BS)
 // are never read, and neither are their blocks. Storage is bf16, fp16 or
 // fp32 (the template type T); the math is fp32.
+//
+// The int8 pool (KV = int8_t, the `_int8` entry points): int8 K/V rows and
+// two fp32 scale planes [NB, HKV, BS] addressed by the same physical block
+// id; each loaded element is dequantized as float(int8) * scale (the
+// Pallas `_dequant_tile`, one fp32 multiply, the plain version's bits). A
+// lane's 16-byte load then carries 16 int8 values: with D = 128 each lane's
+// D / 8 = 16 elements are one load, with D = 64 its 8 elements one 8-byte
+// load, so the lanes of a row and their shuffle reduction stay as they are.
+// q and out keep their own type T.
 //
 // Design (simple first, not yet fast). One CUDA block of 4 warps per (up to
 // ROWS query heads of one KV head, KV head, slot): ROWS is 1 for MHA and 4
@@ -34,6 +44,8 @@
 // 32 KV heads) for 132 SMs, each walking its slot's whole history with one
 // K/V row in flight per lane group: latency-bound, not bandwidth-bound.
 // Splitting the walk over more blocks (flash-decoding) is later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 using ptt::bf16;
@@ -46,30 +58,43 @@ constexpr int kLanes = 8;                 // lanes that share one K/V row
 constexpr int kGroups = kThreads / kLanes;  // positions in flight per block (16)
 constexpr float kNegInf = -1e30f;         // the Pallas kernel's NEG_INF
 
-// the kVec elements of 16-byte chunk c of a row, as fp32
+// the kVec elements of chunk c of a row (kVec * sizeof(T) bytes: 16, or 8
+// for an int8 row of D = 64), as fp32
 template <typename T, int kVec>
 __device__ __forceinline__ void load_chunk(const T* row, int c, float* dst) {
-  const uint4 raw = ptt::load16<T>(row, c);
-  const T* e = ptt::elems_of<T>(raw);
+  constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
+  static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte loads");
+  if constexpr (kBytes == 16) {
+    const uint4 raw = ptt::load16<T>(row, c);
+    const T* e = ptt::elems_of<T>(raw);
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
+    for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
+  } else {
+    const uint2 raw = reinterpret_cast<const uint2*>(row)[c];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
+  }
 }
 
-template <typename T, int D, int ROWS, bool ROPE>
+template <typename T, typename KV, int D, int ROWS, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when ROPE
                     const T* __restrict__ cos_t,  // [B, D] in q's type (ROPE only)
                     const T* __restrict__ sin_t,
-                    const T* __restrict__ kc,     // [NB, HKV, BS, D]
-                    const T* __restrict__ vc,
+                    const KV* __restrict__ kc,    // [NB, HKV, BS, D]
+                    const KV* __restrict__ vc,
+                    const float* __restrict__ ks,  // [NB, HKV, BS] (int8 KV only)
+                    const float* __restrict__ vs,
                     const int* __restrict__ tables,  // [B, MBS]
                     const int* __restrict__ lens,    // [B] INCLUDING the current token
                     T* __restrict__ out,             // [B, HQ, D]
                     int HQ, int HKV, int BS, int MBS, float scale) {
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int kE = D / kLanes;         // elements per lane of a row
-  constexpr int kLoads = kE / kVec;      // 16-byte loads per lane of a row
-  static_assert(kE % kVec == 0 && kLoads >= 1, "a lane's slice must be whole 16-byte chunks");
+  constexpr int kVec = 16 / static_cast<int>(sizeof(KV)) < kE ? 16 / static_cast<int>(sizeof(KV)) : kE;
+  constexpr int kLoads = kE / kVec;      // loads per lane of a row (16 bytes, or 8 for int8 at D 64)
+  static_assert(kE % kVec == 0 && kLoads >= 1, "a lane's slice must be whole chunks");
   constexpr int kWarps = kThreads / 32;
 
   __shared__ float q_s[ROWS][D];
@@ -131,8 +156,16 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
       const size_t row = (static_cast<size_t>(table[pos / BS]) * HKV + h) * BS + pos % BS;
 #pragma unroll
       for (int j = 0; j < kLoads; ++j) {
-        load_chunk<T, kVec>(kc + row * D, j * kLanes + sub, kf + j * kVec);
-        load_chunk<T, kVec>(vc + row * D, j * kLanes + sub, vf + j * kVec);
+        load_chunk<KV, kVec>(kc + row * D, j * kLanes + sub, kf + j * kVec);
+        load_chunk<KV, kVec>(vc + row * D, j * kLanes + sub, vf + j * kVec);
+      }
+      if constexpr (kQuant) {  // the dequant tile: the token's scale, one fp32 multiply
+        const float sk = ks[row], sv = vs[row];
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          kf[e] = __fmul_rn(kf[e], sk);
+          vf[e] = __fmul_rn(vf[e], sv);
+        }
       }
     } else {
 #pragma unroll
@@ -205,15 +238,16 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
   }
 }
 
-template <typename T, int ROWS, bool ROPE>
+template <typename T, typename KV, int ROWS, bool ROPE>
 int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
-                const void* tables, const void* lens, void* out, int B, int HQ, int HKV, int D, int BS,
-                int MBS, float scale, cudaStream_t st) {
+                const void* ks, const void* vs, const void* tables, const void* lens, void* out, int B,
+                int HQ, int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
   const dim3 grid((HQ / HKV + ROWS - 1) / ROWS, HKV, B);
 #define PTT_LAUNCH(DIM)                                                                           \
-  paged_decode_kernel<T, DIM, ROWS, ROPE><<<grid, kThreads, 0, st>>>(                             \
+  paged_decode_kernel<T, KV, DIM, ROWS, ROPE><<<grid, kThreads, 0, st>>>(                         \
       static_cast<const T*>(q), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),       \
-      static_cast<const T*>(kc), static_cast<const T*>(vc), static_cast<const int*>(tables),      \
+      static_cast<const KV*>(kc), static_cast<const KV*>(vc), static_cast<const float*>(ks),      \
+      static_cast<const float*>(vs), static_cast<const int*>(tables),                             \
       static_cast<const int*>(lens), static_cast<T*>(out), HQ, HKV, BS, MBS, scale)
   if (D == 128) {
     PTT_LAUNCH(128);
@@ -226,30 +260,38 @@ int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool ROPE>
+template <typename T, typename KV, bool ROPE>
 int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
-           const void* tables, const void* lens, void* out, int B, int HQ, int HKV, int D, int BS,
-           int MBS, float scale, cudaStream_t st) {
+           const void* ks, const void* vs, const void* tables, const void* lens, void* out, int B, int HQ,
+           int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
   if (HQ == HKV)
-    return launch_rows<T, 1, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
-  return launch_rows<T, 4, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+    return launch_rows<T, KV, 1, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D, BS,
+                                       MBS, scale, st);
+  return launch_rows<T, KV, 4, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D, BS,
+                                     MBS, scale, st);
 }
 
-template <bool ROPE>
+// QUANT: the cache is int8 with scale planes; else it is of q's type
+template <bool ROPE, bool QUANT>
 int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
-              const void* vc, const void* tables, const void* lens, void* out, int B, int HQ,
-              int HKV, int D, int BS, int MBS, float scale, void* stream) {
+              const void* vc, const void* ks, const void* vs, const void* tables, const void* lens,
+              void* out, int B, int HQ, int HKV, int D, int BS, int MBS, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PTT_IO(TYPE)                                                                             \
+  launch<TYPE, std::conditional_t<QUANT, int8_t, TYPE>, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs,   \
+                                                              tables, lens, out, B, HQ, HKV, D,  \
+                                                              BS, MBS, scale, st)
   switch (io) {
     case ptt::kBF16:
-      return launch<bf16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(bf16);
     case ptt::kF16:
-      return launch<f16, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(f16);
     case ptt::kF32:
-      return launch<float, ROPE>(q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS, scale, st);
+      return PTT_IO(float);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PTT_IO
 }
 
 }  // namespace
@@ -259,8 +301,8 @@ int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const
 extern "C" int ptt_paged_decode(int io, const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* lens, void* out, int B, int HQ,
                                 int HKV, int D, int BS, int MBS, float scale, void* stream) {
-  return launch_io<false>(io, q, nullptr, nullptr, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS,
-                          scale, stream);
+  return launch_io<false, false>(io, q, nullptr, nullptr, kc, vc, nullptr, nullptr, tables, lens, out, B,
+                                 HQ, HKV, D, BS, MBS, scale, stream);
 }
 
 // Kernel 6: kernel 5 with q roped first; cos/sin are the slots' rope rows [B, D].
@@ -268,6 +310,25 @@ extern "C" int ptt_paged_decode_fused(int io, const void* q, const void* cos_t, 
                                       const void* kc, const void* vc, const void* tables,
                                       const void* lens, void* out, int B, int HQ, int HKV, int D,
                                       int BS, int MBS, float scale, void* stream) {
-  return launch_io<true>(io, q, cos_t, sin_t, kc, vc, tables, lens, out, B, HQ, HKV, D, BS, MBS,
-                         scale, stream);
+  return launch_io<true, false>(io, q, cos_t, sin_t, kc, vc, nullptr, nullptr, tables, lens, out, B, HQ,
+                                HKV, D, BS, MBS, scale, stream);
+}
+
+// Kernel 5 over the int8 pool: kc/vc int8 [NB, HKV, BS, D], ks/vs fp32
+// [NB, HKV, BS]; `io` is the type of q and out.
+extern "C" int ptt_paged_decode_int8(int io, const void* q, const void* kc, const void* vc, const void* ks,
+                                     const void* vs, const void* tables, const void* lens, void* out,
+                                     int B, int HQ, int HKV, int D, int BS, int MBS, float scale,
+                                     void* stream) {
+  return launch_io<false, true>(io, q, nullptr, nullptr, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D,
+                                BS, MBS, scale, stream);
+}
+
+// Kernel 6 over the int8 pool.
+extern "C" int ptt_paged_decode_fused_int8(int io, const void* q, const void* cos_t, const void* sin_t,
+                                           const void* kc, const void* vc, const void* ks, const void* vs,
+                                           const void* tables, const void* lens, void* out, int B, int HQ,
+                                           int HKV, int D, int BS, int MBS, float scale, void* stream) {
+  return launch_io<true, true>(io, q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D, BS,
+                               MBS, scale, stream);
 }

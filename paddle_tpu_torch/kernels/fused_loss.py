@@ -21,6 +21,13 @@ Port of ``paddle_tpu/kernels/fused_loss.py``:
   from the reduction and the ``ignore_index`` mask (``mean`` divides by
   ``max(#valid, 1)``).
 
+- :func:`flxent_fwd_int8` — kernel 17's int8 site (``_make_pallas_quant_fwd``):
+  the forward of a weight-only int8 head, ``W`` int8 with one fp32 scale
+  per vocab column, each logit scaled before the softmax statistics. It has
+  no backward (nothing differentiates through an int8 weight, as in JAX):
+  :func:`linear_cross_entropy` with ``weight_scale`` runs it forward only,
+  and a gradient request raises.
+
 ``W`` is ``[H, V]`` (``nn.Linear``'s layout) or ``[V, H]`` with
 ``vocab_major=True`` (a tied embedding), read in place either way. Columns
 ``>= V`` are ``NEG_INF`` in the forward and have probability 0 in the
@@ -45,11 +52,14 @@ from paddle_tpu_torch.kernels.select import count_launch
 __all__ = [
     "CHUNK",
     "FusedLinearCrossEntropyFunction",
+    "Int8HeadLossFunction",
     "flxent_bwd",
     "flxent_bwd_plain",
     "flxent_dchunk",
     "flxent_dchunk_plain",
     "flxent_fwd",
+    "flxent_fwd_int8",
+    "flxent_fwd_int8_plain",
     "flxent_fwd_plain",
     "linear_cross_entropy",
 ]
@@ -72,11 +82,14 @@ def _w_block(w: torch.Tensor, vocab_major: bool, j0: int, j1: int) -> torch.Tens
 
 
 def flxent_fwd_plain(
-    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
+    x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(lse, tl)`` fp32 ``[N]``: the JAX scan reference's online softmax
     over vocab chunks of :data:`REF_BLOCK`, logits in fp32 from the inputs'
-    values (the Pallas kernel's fp32 accumulation)."""
+    values (the Pallas kernel's fp32 accumulation); with ``scale`` (``[V]``
+    fp32, ``W`` int8) each chunk's logits times their columns' scales, the
+    walk of ``_reference_quant_path``."""
     n = x.shape[0]
     v = _vocab(w, vocab_major)
     xf = x.float()
@@ -87,12 +100,22 @@ def flxent_fwd_plain(
     for j0 in range(0, v, REF_BLOCK):
         j1 = min(j0 + REF_BLOCK, v)
         logits = xf @ _w_block(w, vocab_major, j0, j1).t()
+        if scale is not None:  # per-column dequant factors out of the contraction
+            logits = logits * scale[j0:j1].float()[None, :]
         cols = torch.arange(j0, j1, device=x.device)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
         tl = tl + torch.where(cols[None, :] == lab[:, None], logits, 0.0).sum(dim=-1)
         m = m_new
     return m + torch.log(l), tl
+
+
+def flxent_fwd_int8_plain(
+    x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 17's int8 site's plain version: :func:`flxent_fwd_plain` of
+    the int8 values with the per-column scales."""
+    return flxent_fwd_plain(x, w8, labels, vocab_major, scale=scale)
 
 
 def flxent_dchunk_plain(
@@ -135,20 +158,23 @@ def flxent_bwd_plain(
     return (dx.to(x.dtype) if need_dx else None), dw
 
 
-def _io_dtype(what: str, x: torch.Tensor, w: torch.Tensor) -> int:
+def _io_dtype(what: str, x: torch.Tensor, w: torch.Tensor, w_dtype: Optional[torch.dtype] = None) -> int:
+    """x's kernel type code; W must be of x's dtype (or ``w_dtype``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{what}: the CUDA kernels take bf16 or fp16, not {x.dtype}")
-    if w.dtype != x.dtype:
-        raise TypeError(f"{what}: x is {x.dtype} but the weight is {w.dtype}; the kernels take one dtype")
+    want = x.dtype if w_dtype is None else w_dtype
+    if w.dtype != want:
+        raise TypeError(f"{what}: x is {x.dtype} and the weight {w.dtype}; the kernel takes a {want} weight")
     return _KERNEL_DTYPES[x.dtype]
 
 
-def _operands(what: str, x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool):
+def _operands(what: str, x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool,
+              w_dtype: Optional[torch.dtype] = None):
     """Contiguous x and W and int32 labels on one card with their geometry,
     or an exception naming what the kernels do not take."""
-    io = _io_dtype(what, x, w)
+    io = _io_dtype(what, x, w, w_dtype)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{what}: x must be [N, H] and the weight 2-D, got {tuple(x.shape)}, {tuple(w.shape)}")
     n, h = x.shape
@@ -193,6 +219,37 @@ def flxent_fwd(
             count_launch("flxent_fwd")
             build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), "flxent_fwd merge")
             count_launch("flxent_fwd")
+    return lse, tl
+
+
+def flxent_fwd_int8(
+    x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` (bf16 or fp16) against the
+    int8 ``W`` with per-column fp32 ``scale [V]``: kernel 17's int8 site,
+    two launches, each counted as ``flxent_fwd_int8`` (the logits tiles'
+    partials, then the bf16 forward's merge)."""
+    if x.device.type == "cpu":
+        return flxent_fwd_int8_plain(x, w8, scale, labels, vocab_major)
+    what = "flxent_fwd_int8"
+    io, x, w8, lab, n, h, v = _operands(what, x, w8, labels, vocab_major, w_dtype=torch.int8)
+    if scale.shape != (v,) or scale.dtype != torch.float32 or scale.device != x.device:
+        raise ValueError(f"{what}: the scale must be fp32 [{v}] on {x.device}, got {scale.dtype} "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    scale = scale.contiguous()
+    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
+    tl = torch.empty_like(lse)
+    if n and v:
+        tiles = -(-v // TILE)
+        part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
+        fn = build.kernel_fn("ptt_flxent_fwd_int8", [_I, _I] + [_P] * 5 + [_I] * 3 + [_P])
+        merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
+        with torch.cuda.device(x.device):
+            build.check(fn(io, int(vocab_major), x.data_ptr(), w8.data_ptr(), scale.data_ptr(), lab.data_ptr(),
+                           part.data_ptr(), n, h, v, _stream()), what)
+            count_launch(what)
+            build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), f"{what} merge")
+            count_launch(what)
     return lse, tl
 
 
@@ -315,15 +372,36 @@ class FusedLinearCrossEntropyFunction(torch.autograd.Function):
         return dx, dw, None, None, None, None, None
 
 
+class Int8HeadLossFunction(torch.autograd.Function):
+    """The loss of ``x2 [N, H]`` against an int8 ``W`` with per-column
+    ``scale`` (the JAX package's forward-only quantized walk and its
+    ``_quant_epilogue``): kernel 17's int8 site or its plain version. Its
+    backward raises: the JAX package has no VJP there either."""
+
+    @staticmethod
+    def forward(ctx, x2, w8, scale, lab, ignore_index, reduction, vocab_major, use_kernels):  # noqa: D401
+        fwd = flxent_fwd_int8 if use_kernels else flxent_fwd_int8_plain
+        lse, tl = fwd(x2, w8, scale, lab, vocab_major)
+        valid = lab != ignore_index
+        return _reduce(torch.where(valid, lse - tl, 0.0), valid, reduction)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("fused_linear_cross_entropy with weight_scale (a weight-only int8 lm head) is "
+                           "forward-only: it has no gradient")
+
+
 def linear_cross_entropy(
     x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
     reduction: str = "mean", vocab_major: bool = False, use_kernels: bool = True,
+    weight_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``cross_entropy(x @ W, labels)`` through
     :class:`FusedLinearCrossEntropyFunction` for any leading shape of ``x``
     (``[..., H]``) and ``labels`` (``[...]``); fp32, ``[...]`` for
     ``reduction="none"``. ``use_kernels=False`` runs the plain versions on
-    any device."""
+    any device. With ``weight_scale`` (``W`` int8) it is
+    :class:`Int8HeadLossFunction`, forward only."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"fused_linear_cross_entropy: unsupported reduction {reduction!r}")
     lead, h = x.shape[:-1], x.shape[-1]
@@ -331,6 +409,10 @@ def linear_cross_entropy(
     lab = labels.reshape(-1).to(device=x.device, dtype=torch.int32)
     if lab.shape[0] != x2.shape[0]:
         raise ValueError(f"fused_linear_cross_entropy: labels {tuple(labels.shape)} do not fit x {tuple(x.shape)}")
-    loss = FusedLinearCrossEntropyFunction.apply(
-        x2, w, lab, int(ignore_index), reduction, bool(vocab_major), bool(use_kernels))
+    if weight_scale is not None:
+        loss = Int8HeadLossFunction.apply(
+            x2, w, weight_scale, lab, int(ignore_index), reduction, bool(vocab_major), bool(use_kernels))
+    else:
+        loss = FusedLinearCrossEntropyFunction.apply(
+            x2, w, lab, int(ignore_index), reduction, bool(vocab_major), bool(use_kernels))
     return loss.reshape(lead) if reduction == "none" else loss

@@ -23,7 +23,14 @@ Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
 ``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
 kernels take bf16, fp16 or fp32 storage (fp32 math) and head dim 64 or 128.
-The int8 pool's scale planes are not ported (ROADMAP Queue 1 item 6).
+
+The int8 pool: with ``k_scale``/``v_scale`` (fp32 ``[NB, HKV, BS]``, one
+scale per cached token and head, addressed by the same physical block as
+its row) the pools are int8 and every gathered K/V element is dequantized
+as ``float(int8) * scale`` (the Pallas ``_dequant_tile``) before the
+attention; q and the output keep their dtype. Each kernel then launches its
+``_int8`` instance, counted under its own name (``paged_chunk_fused_int8``,
+``paged_chunk_int8``, ``paged_decode_int8``, ``paged_decode_fused_int8``).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ __all__ = [
     "paged_flash_decode_plain",
     "rope_rows",
     "_gather_chunk_attend",
+    "_scale_planes",
 ]
 
 NEG_INF = -1e30  # the Pallas kernel's masked score
@@ -71,12 +79,15 @@ def _gather_chunk_attend(
     seq_lens: torch.Tensor,  # [B] tokens cached before the chunk
     attend_q: torch.Tensor,  # [B] valid new rows (0 = masked slot: exact zeros)
     scale: float,
+    k_scale: Optional[torch.Tensor] = None,  # [NB, HKV, BS] fp32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense-gather attention, the JAX package's ``_gather_chunk_attend``:
     gather each slot's used blocks, mask row ``j`` to positions
     ``< seq_lens + j + 1``, fp32 softmax; rows past ``attend_q`` are exact
     zeros. Table entries past the used blocks are clamped into range for the
-    gather; what they point at is masked."""
+    gather; what they point at is masked. With scale planes the gathered
+    rows are dequantized right after the gather, ``x.float() * scale``."""
     b, c, hq, d = q.shape
     nb, hkv, bs, _ = key_cache.shape
     if hq % hkv:
@@ -90,6 +101,9 @@ def _gather_chunk_attend(
     # [B, n_blk, HKV, BS, D] -> [B, HKV, L, D]
     gk = key_cache[tables].permute(0, 2, 1, 3, 4).reshape(b, hkv, L, d).float()
     gv = value_cache[tables].permute(0, 2, 1, 3, 4).reshape(b, hkv, L, d).float()
+    if k_scale is not None:  # the per-token scales ride the same gather
+        gk = gk * k_scale[tables].permute(0, 2, 1, 3).reshape(b, hkv, L)[..., None]
+        gv = gv * v_scale[tables].permute(0, 2, 1, 3).reshape(b, hkv, L)[..., None]
     qf = (q.float() * scale).reshape(b, c, hkv, g, d)
     scores = torch.einsum("bchgd,bhld->bchgl", qf, gk)
     j = torch.arange(c, device=q.device)
@@ -108,17 +122,20 @@ def _scale_or_default(scale: Optional[float], d: int) -> float:
     return 1.0 / d**0.5 if scale is None else float(scale)
 
 
-def _no_scale_planes(what: str, k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"{what}: the int8 pool's scale planes are not ported yet (ROADMAP Queue 1 item 6)")
+def _scale_planes(what: str, k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor]) -> bool:
+    """Whether the int8 pool's scale planes were given: both or neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: the int8 pool takes both scale planes, key and value, or neither")
+    return k_scale is not None
 
 
 # -- plain versions (each calls only the shared compositions, never another) ----
 
-def paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale=None):
+def paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale=None,
+                            k_scale=None, v_scale=None):
     """Kernel 4's plain version: :func:`_gather_chunk_attend` of q as given."""
     return _gather_chunk_attend(q, key_cache, value_cache, block_tables, seq_lens, q_lens,
-                                _scale_or_default(scale, q.shape[-1]))
+                                _scale_or_default(scale, q.shape[-1]), k_scale, v_scale)
 
 
 def paged_flash_chunk_fused_plain(
@@ -131,41 +148,47 @@ def paged_flash_chunk_fused_plain(
     seq_lens: torch.Tensor,  # [B] tokens cached before the chunk
     q_lens: torch.Tensor,  # [B] valid new rows
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel A's plain version: rope q in its dtype, then
     :func:`_gather_chunk_attend`."""
     qr = rope_rows(q, cos[:, :, None, :], sin[:, :, None, :])
     return _gather_chunk_attend(qr, key_cache, value_cache, block_tables, seq_lens, q_lens,
-                                _scale_or_default(scale, q.shape[-1]))
+                                _scale_or_default(scale, q.shape[-1]), k_scale, v_scale)
 
 
-def _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale) -> torch.Tensor:
+def _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale, k_scale, v_scale) -> torch.Tensor:
     """One-token attention as the one-row chunk of a slot whose ``seq_lens``
     include the token (``seq_lens - 1`` cached before it; a slot of length 0
     has no valid row)."""
     lens = seq_lens.long()
     return _gather_chunk_attend(q[:, None], key_cache, value_cache, block_tables, lens - 1, (lens > 0).long(),
-                                _scale_or_default(scale, q.shape[-1]))[:, 0]
+                                _scale_or_default(scale, q.shape[-1]), k_scale, v_scale)[:, 0]
 
 
-def paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale=None):
+def paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale=None, k_scale=None,
+                             v_scale=None):
     """Kernel 5's plain version (``q [B, HQ, D]``)."""
-    return _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale)
+    return _decode_attend(q, key_cache, value_cache, block_tables, seq_lens, scale, k_scale, v_scale)
 
 
-def paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale=None):
+def paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale=None,
+                                   k_scale=None, v_scale=None):
     """Kernel 6's plain version: rope q (``[B, HQ, D]``, rows ``cos``/``sin``
     ``[B, 1, D]``) in its dtype, then the one-token attention."""
-    return _decode_attend(rope_rows(q, cos, sin), key_cache, value_cache, block_tables, seq_lens, scale)
+    return _decode_attend(rope_rows(q, cos, sin), key_cache, value_cache, block_tables, seq_lens, scale,
+                          k_scale, v_scale)
 
 
 # -- the kernels -----------------------------------------------------------------
 
 def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor,
-                     block_tables: torch.Tensor, *lens: torch.Tensor):
-    """Check what every paged kernel takes; returns ``(io, q, kc, vc,
-    tables32, *lens32)`` ready for the launch (``lens``: the ``[B]`` length
-    vectors)."""
+                     block_tables: torch.Tensor, *lens: torch.Tensor, k_scale=None, v_scale=None):
+    """Check what every paged kernel takes; returns ``(io, q, pools,
+    tables32, *lens32)`` ready for the launch: ``pools`` is ``[kc, vc]``,
+    and ``[kc, vc, k_scale, v_scale]`` for the int8 pool (``lens``: the
+    ``[B]`` length vectors)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     io = _io_dtype(what, q)
@@ -181,10 +204,17 @@ def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / lengths "
                          f"{[tuple(t.shape) for t in lens]} do not match the batch of {b}")
     dev = q.device
-    q, key_cache, value_cache = (_kernel_operand(t, name, what, q.dtype, dev) for name, t in
-                                 (("q", q), ("key_cache", key_cache), ("value_cache", value_cache)))
+    kv_dtype = q.dtype if k_scale is None else torch.int8
+    q = _kernel_operand(q, "q", what, q.dtype, dev)
+    pools = [_kernel_operand(t, name, what, kv_dtype, dev)
+             for name, t in (("key_cache", key_cache), ("value_cache", value_cache))]
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != (nb, hkv, bs):
+                raise ValueError(f"{what}: {name} must be [{nb}, {hkv}, {bs}], got {tuple(t.shape)}")
+            pools.append(_kernel_operand(t, name, what, torch.float32, dev))
     ints = (t.to(device=dev, dtype=torch.int32).contiguous() for t in (block_tables, *lens))
-    return (io, q, key_cache, value_cache, *ints)
+    return (io, q, pools, *ints)
 
 
 def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, shape) -> tuple:
@@ -195,8 +225,15 @@ def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Ten
     return tuple(t.to(device=q.device, dtype=q.dtype).contiguous() for t in (cos, sin))
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _launch(name: str, io: int, ptrs: list, dims: tuple, scale: float, device: torch.device) -> None:
+    """One launch of the C entry ``ptt_<name>`` (the pointers, then the int
+    dims, the softmax scale and the stream), checked and counted under
+    ``name``."""
+    fn = build.kernel_fn(f"ptt_{name}", [_I] + [_P] * len(ptrs) + [_I] * len(dims) + [_F, _P])
+    with torch.cuda.device(device):
+        err = fn(io, *ptrs, *dims, scale, torch.cuda.current_stream().cuda_stream)
+    build.check(err, name)
+    count_launch(name)
 
 
 def paged_flash_chunk_fused(
@@ -216,24 +253,21 @@ def paged_flash_chunk_fused(
     in (kernel A); the signature of the JAX package's
     ``paged_flash_chunk_fused``. ``cos``/``sin`` are the per-token rope rows
     ``[B, C, D]``."""
-    _no_scale_planes("paged_flash_chunk_fused", k_scale, v_scale)
+    quant = _scale_planes("paged_flash_chunk_fused", k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_chunk_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens,
-                                             q_lens, scale)
+                                             q_lens, scale, k_scale, v_scale)
     what = "paged_flash_chunk_fused"
-    io, q, kc, vc, tables32, lens32, qlens32 = _launch_operands(
-        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens)
+    io, q, pools, tables32, lens32, qlens32 = _launch_operands(
+        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
     cos_q, sin_q = _rope_operands(what, q, cos, sin, (b, c, d))
     out = torch.empty_like(q)
     if b and c:
-        fn = build.kernel_fn("ptt_paged_chunk_fused", [_I] + [_P] * 9 + [_I] * 7 + [_F, _P])
-        with torch.cuda.device(q.device):
-            err = fn(io, q.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                     tables32.data_ptr(), lens32.data_ptr(), qlens32.data_ptr(), out.data_ptr(), b, c, hq,
-                     kc.shape[1], d, kc.shape[2], tables32.shape[1], _scale_or_default(scale, d), _stream())
-        build.check(err, "paged_chunk_fused")
-        count_launch("paged_chunk_fused")
+        kc = pools[0]
+        _launch("paged_chunk_fused" + "_int8" * quant, io,
+                [t.data_ptr() for t in (q, cos_q, sin_q, *pools, tables32, lens32, qlens32, out)],
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
     return out
 
 
@@ -251,22 +285,20 @@ def paged_flash_chunk(
     """Attention of one mixed prefill/decode step over the paged cache
     (kernel 4); the JAX package's ``paged_flash_chunk``. Returns
     ``[B, C, HQ, D]`` with rows past ``q_lens`` exactly 0."""
-    _no_scale_planes("paged_flash_chunk", k_scale, v_scale)
+    quant = _scale_planes("paged_flash_chunk", k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale)
-    what = "paged_flash_chunk"
-    io, q, kc, vc, tables32, lens32, qlens32 = _launch_operands(
-        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens)
+        return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale,
+                                       k_scale, v_scale)
+    io, q, pools, tables32, lens32, qlens32 = _launch_operands(
+        "paged_flash_chunk", q, key_cache, value_cache, block_tables, seq_lens, q_lens,
+        k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
     out = torch.empty_like(q)
     if b and c:
-        fn = build.kernel_fn("ptt_paged_chunk", [_I] + [_P] * 7 + [_I] * 7 + [_F, _P])
-        with torch.cuda.device(q.device):
-            err = fn(io, q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables32.data_ptr(), lens32.data_ptr(),
-                     qlens32.data_ptr(), out.data_ptr(), b, c, hq, kc.shape[1], d, kc.shape[2],
-                     tables32.shape[1], _scale_or_default(scale, d), _stream())
-        build.check(err, "paged_chunk")
-        count_launch("paged_chunk")
+        kc = pools[0]
+        _launch("paged_chunk" + "_int8" * quant, io,
+                [t.data_ptr() for t in (q, *pools, tables32, lens32, qlens32, out)],
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
     return out
 
 
@@ -282,11 +314,11 @@ def paged_flash_decode(
 ) -> torch.Tensor:
     """Flash decode over the paged cache (kernel 5); the JAX package's
     ``paged_flash_decode``. Returns ``[B, HQ, D]``."""
-    _no_scale_planes("paged_flash_decode", k_scale, v_scale)
+    _scale_planes("paged_flash_decode", k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale)
+        return paged_flash_decode_plain(q, key_cache, value_cache, block_tables, seq_lens, scale, k_scale, v_scale)
     return _decode_launch("paged_flash_decode", q, None, None, key_cache, value_cache, block_tables,
-                          seq_lens, scale)
+                          seq_lens, scale, k_scale, v_scale)
 
 
 def paged_flash_decode_fused(
@@ -303,28 +335,27 @@ def paged_flash_decode_fused(
 ) -> torch.Tensor:
     """:func:`paged_flash_decode` with q-rope folded into the walk (kernel
     6); the JAX package's ``paged_flash_decode_fused``."""
-    _no_scale_planes("paged_flash_decode_fused", k_scale, v_scale)
+    _scale_planes("paged_flash_decode_fused", k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale)
+        return paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale,
+                                              k_scale, v_scale)
     return _decode_launch("paged_flash_decode_fused", q, cos, sin, key_cache, value_cache, block_tables,
-                          seq_lens, scale)
+                          seq_lens, scale, k_scale, v_scale)
 
 
-def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale) -> torch.Tensor:
-    io, q, kc, vc, tables32, lens32 = _launch_operands(what, q, key_cache, value_cache, block_tables, seq_lens)
+def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale, k_scale,
+                   v_scale) -> torch.Tensor:
+    io, q, pools, tables32, lens32 = _launch_operands(what, q, key_cache, value_cache, block_tables, seq_lens,
+                                                      k_scale=k_scale, v_scale=v_scale)
     b, hq, d = q.shape
     out = torch.empty_like(q)
     if not b:
         return out
-    args = [q.data_ptr()]
+    rope = ()
     if cos is not None:
-        cos_q, sin_q = _rope_operands(what, q, cos, sin, (b, 1, d))
-        args += [cos_q.data_ptr(), sin_q.data_ptr()]
-    name = "paged_decode_fused" if cos is not None else "paged_decode"
-    fn = build.kernel_fn(f"ptt_{name}", [_I] + [_P] * (len(args) + 5) + [_I] * 6 + [_F, _P])
-    with torch.cuda.device(q.device):
-        err = fn(io, *args, kc.data_ptr(), vc.data_ptr(), tables32.data_ptr(), lens32.data_ptr(), out.data_ptr(),
-                 b, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], _scale_or_default(scale, d), _stream())
-    build.check(err, name)
-    count_launch(name)
+        rope = _rope_operands(what, q, cos, sin, (b, 1, d))
+    name = ("paged_decode_fused" if cos is not None else "paged_decode") + "_int8" * (k_scale is not None)
+    kc = pools[0]
+    _launch(name, io, [t.data_ptr() for t in (q, *rope, *pools, tables32, lens32, out)],
+            (b, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
     return out

@@ -5,7 +5,8 @@ kernel, and nowhere else: a plain-version call on a CPU tensor does not
 count. A run reads the counters to show that its main paths went through
 the kernels (``chip_smoke.py`` resets them just before driving each path —
 the engine, the unfused engine, ``generate_paged``, the train steps, the
-residual-norm backward — and reads them just after). There is no fallback
+residual-norm backward, the int8 engines and the int8 evaluation loss — and
+reads them just after). There is no fallback
 counter: on a CUDA tensor a wrapper launches its kernel or raises.
 """
 
@@ -42,6 +43,17 @@ KERNELS: Dict[str, str] = {
     "flxent_dchunk": "paddle_tpu/kernels/fused_loss.py:302",
     "flxent_dx": "paddle_tpu/kernels/fused_loss.py:322",
     "flxent_dw": "paddle_tpu/kernels/fused_loss.py:343",
+    # the int8 serving path. Kernel 20, the weight-only int8 matmul:
+    "wo_matmul": "paddle_tpu/kernels/quant.py:107",
+    # kernels A, 4, 5, 6 over the int8 KV pool: each Pallas body with its
+    # `_dequant_tile` (paged_attention.py:39) in the block walk
+    "paged_chunk_fused_int8": "paddle_tpu/kernels/paged_attention.py:656",
+    "paged_chunk_int8": "paddle_tpu/kernels/paged_attention.py:246",
+    "paged_decode_int8": "paddle_tpu/kernels/paged_attention.py:54",
+    "paged_decode_fused_int8": "paddle_tpu/kernels/paged_attention.py:472",
+    # kernel 17's int8 site (`_make_pallas_quant_fwd`, the weight-only int8
+    # lm head's forward-only loss): two launches per call, as flxent_fwd
+    "flxent_fwd_int8": "paddle_tpu/kernels/fused_loss.py:464",
 }
 
 _lock = threading.Lock()

@@ -21,8 +21,13 @@ fused decode-layer loop and the layer modules).
   6-tuple pasts and ``FLAGS_use_fused_decode_layer`` on (the JAX default)
   it is the fused decode layer loop (kernels A, B, C); otherwise the layer
   modules, where attention is kernel 4 (with ``q_lens``) or kernel 5 (the
-  4- and 5-tuple pasts of ``generate_paged``). ``generate_paged`` itself is
-  in ``generation.py``.
+  4- and 5-tuple pasts of ``generate_paged``). The engine's int8 pool
+  passes 8-tuples (the two scale planes appended) down the same paths.
+  ``generate_paged`` itself is in ``generation.py``.
+- Weight-only int8: ``kernels.quant.quantize_module_weights(model)`` (the
+  engine's ``weight_only_int8``) quantizes the MLP projections and the lm
+  head in place; their ``Linear`` then runs kernel 20, and the loss head
+  with labels kernel 17's int8 site.
 
 Module and parameter names follow the JAX package, so its ``state_dict``
 loads by name (``models/convert.py``); linear weights keep Paddle's
@@ -52,6 +57,7 @@ from paddle_tpu_torch.incubate.nn.functional import (
     fused_rotary_position_embedding,
 )
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer.common import linear_forward
 
 __all__ = [
     "LlamaAttention",
@@ -100,14 +106,17 @@ def _param(shape: Tuple[int, ...], device: torch.device, dtype: torch.dtype) -> 
 
 
 class Linear(nn.Module):
-    """Bias-free projection with Paddle's ``[in, out]`` weight."""
+    """Bias-free projection with Paddle's ``[in, out]`` weight; weight-only
+    int8 (kernel 20) once ``quantize_module_weights`` gave it a
+    ``weight_scale``."""
 
     def __init__(self, in_features: int, out_features: int, device: torch.device, dtype: torch.dtype) -> None:
         super().__init__()
         self.weight = _param((in_features, out_features), device, dtype)
+        self.register_buffer("weight_scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        return linear_forward(self, x)
 
 
 class Embedding(nn.Module):
@@ -173,18 +182,19 @@ class LlamaAttention(nn.Module):
         startend_row_indices: Optional[torch.Tensor],  # FlashMask bounds [B, Hm, S, C] or None
         cos: torch.Tensor,  # [S, D] rope rows of positions 0..S-1, or [B, S, 1, D] per slot
         sin: torch.Tensor,
-        past_key_value: Optional[Sequence[Any]] = None,  # a paged 4-, 5- or 6-tuple
+        past_key_value: Optional[Sequence[Any]] = None,  # a paged 4-, 5-, 6- or 8-tuple
         use_cache: bool = False,
     ) -> Any:
         """qkv projections, rope on q and k, attention, ``o_proj``. Without
         a past: causal FlashMask attention (kernels 14-16), and with
         ``use_cache`` also the ``(k, v)`` cache (keys roped). With a paged
         past ``(key_cache, value_cache, block_tables, seq_lens[, slot_mask[,
-        q_lens]])``: append this step's KV to the pools in place, then
-        attend over them — the chunk entry (kernel 4) when ``q_lens`` is
-        given, else the decode entry (kernel 5); returns ``(out, past)``.
-        The rope rows come from the model (one table; every JAX layer holds
-        an identical copy)."""
+        q_lens[, key_scale, value_scale]]])``: append this step's KV to the
+        pools in place, then attend over them — the chunk entry (kernel 4)
+        when ``q_lens`` is given, else the decode entry (kernel 5); the
+        8-tuple's scale planes make it the int8 pool. Returns ``(out,
+        past)``. The rope rows come from the model (one table; every JAX
+        layer holds an identical copy)."""
         b, s, _ = hidden_states.shape
         q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -194,10 +204,12 @@ class LlamaAttention(nn.Module):
             kc, vc, tables, lens = past_key_value[:4]
             slot_mask = past_key_value[4] if len(past_key_value) >= 5 else None
             if len(past_key_value) >= 6:
-                out, _, _ = block_multihead_chunk_attention(
-                    q, k, v, kc, vc, tables, lens, past_key_value[5], slot_mask=slot_mask)
+                ks, vs = past_key_value[6:8] if len(past_key_value) == 8 else (None, None)
+                out = block_multihead_chunk_attention(
+                    q, k, v, kc, vc, tables, lens, past_key_value[5], slot_mask=slot_mask,
+                    key_scale=ks, value_scale=vs)[0]
             else:
-                out, _, _ = block_multihead_attention(q, k, v, kc, vc, tables, lens, slot_mask=slot_mask)
+                out = block_multihead_attention(q, k, v, kc, vc, tables, lens, slot_mask=slot_mask)[0]
             return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim)), past_key_value
         out = F.flashmask_attention(q, k, v, startend_row_indices=startend_row_indices, causal=True)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
@@ -206,20 +218,22 @@ class LlamaAttention(nn.Module):
     def forward_paged_fused(
         self,
         hidden_states: torch.Tensor,  # pre-normed [B, s, H]
-        past_key_value: Sequence[Any],  # (kc, vc, tables, lens, slot_mask, q_lens)
+        past_key_value: Sequence[Any],  # (kc, vc, tables, lens, slot_mask, q_lens[, ks, vs])
         cos: torch.Tensor,  # [B, s, 1, D], gathered once per step
         sin: torch.Tensor,
     ) -> torch.Tensor:
         """qkv projections, the rope-fused paged attention (k roped and
-        appended in place, q roped inside kernel A), then ``o_proj``."""
+        appended in place — quantized after the rope into the int8 pool of
+        an 8-tuple — q roped inside kernel A), then ``o_proj``."""
         b, s, _ = hidden_states.shape
         q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
-        kc, vc, tables, lens, slot_mask, q_lens = past_key_value
+        kc, vc, tables, lens, slot_mask, q_lens = past_key_value[:6]
+        ks, vs = past_key_value[6:8] if len(past_key_value) == 8 else (None, None)
         out = block_multihead_chunk_attention_fused(
-            q, k, v, cos, sin, kc, vc, tables, lens, q_lens, slot_mask=slot_mask
-        )
+            q, k, v, cos, sin, kc, vc, tables, lens, q_lens, slot_mask=slot_mask, key_scale=ks, value_scale=vs
+        )[0]
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -300,7 +314,8 @@ class LlamaModel(nn.Module):
         returned are the tensors passed in), the dispatch is JAX's: the
         fused decode layer loop only while ``FLAGS_use_fused_decode_layer``
         is on and every past is the engine's 6-tuple, else the layer
-        modules."""
+        modules. An 8-tuple past (the engine's int8 pool) adds the scale
+        planes and takes the same paths."""
         if past_key_values is None:
             if cache_position is not None:
                 raise NotImplementedError(
@@ -316,12 +331,10 @@ class LlamaModel(nn.Module):
             if len(past_key_values) != len(self.layers):
                 raise ValueError(f"{len(past_key_values)} layer pasts for {len(self.layers)} layers")
             sizes = {len(p) if p is not None else 0 for p in past_key_values}
-            if 8 in sizes:
-                raise NotImplementedError("the int8 pool's 8-tuple pasts are not ported yet (ROADMAP Queue 1 item 6)")
-            if not sizes <= {4, 5, 6}:
-                raise NotImplementedError("only paged pasts (4-, 5- and 6-tuples) are ported; a dense past "
+            if not sizes <= {4, 5, 6, 8}:
+                raise NotImplementedError("only paged pasts (4-, 5-, 6- and 8-tuples) are ported; a dense past "
                                           "(static-cache decode) is ROADMAP Queue 1 item 3")
-            if flag("use_fused_decode_layer") and sizes == {6}:
+            if flag("use_fused_decode_layer") and sizes <= {6, 8}:
                 return self._forward_paged_fused(input_ids, past_key_values), past_key_values
         h = self.embed_tokens(input_ids)
         if past_key_values is None:
@@ -398,14 +411,22 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.llama.embed_tokens.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.lm_head.weight.dtype
+        """The compute dtype: the embedding's, which weight-only int8 never
+        quantizes (the projections it does quantize become int8)."""
+        return self.llama.embed_tokens.weight.dtype
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
+        """N(0, 0.02) matrices and unit norm weights from ``seed``; refused
+        once the projections are quantized to int8."""
+        int8 = [name for name, p in self.named_parameters() if not p.is_floating_point()]
+        if int8:
+            raise RuntimeError(f"reset_parameters: {len(int8)} weights are quantized to int8 ({int8[0]}, ...); "
+                               "draw the weights before quantize_module_weights")
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
@@ -440,8 +461,9 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         if use_cache:
             out, caches = out
         if labels is not None and flag("use_fused_loss"):
+            # a weight-only int8 head takes kernel 17's int8 site (forward only)
             loss = F.fused_linear_cross_entropy(out, self.lm_head.weight, labels, ignore_index=-100,
-                                                reduction="mean")
+                                                reduction="mean", weight_scale=self.lm_head.weight_scale)
             return loss, None
         logits = self.lm_head(out)
         if labels is not None:

@@ -2,7 +2,7 @@
 the plain ops of the Llama and GPT paths, the attention entries, and the
 loss."""
 
-from paddle_tpu_torch.nn.functional.common import gelu, layer_norm, linear, rms_norm, swiglu
+from paddle_tpu_torch.nn.functional.common import gelu, layer_norm, linear, rms_norm, swiglu, weight_only_linear
 from paddle_tpu_torch.nn.functional.flash_attention import (
     flash_attention,
     flashmask_attention,
@@ -21,4 +21,5 @@ __all__ = [
     "make_flashmask_bias",
     "rms_norm",
     "swiglu",
+    "weight_only_linear",
 ]

@@ -15,13 +15,25 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.kernels.fused import fused_rms_norm
+from paddle_tpu_torch.kernels.quant import int8_weight_matmul
 
-__all__ = ["gelu", "layer_norm", "linear", "rms_norm", "swiglu"]
+__all__ = ["gelu", "layer_norm", "linear", "rms_norm", "swiglu", "weight_only_linear"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ W (+ b)`` with ``W`` in Paddle's ``[in, out]`` layout."""
     out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def weight_only_linear(
+    x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``x @ dequant(W) (+ b)`` with ``W`` int8 ``[in, out]`` and one fp32
+    scale per output column (Paddle's ``weight_only_linear``): kernel 20
+    (``int8_weight_matmul``), so the dequantized weight never exists.
+    Inference only."""
+    out = int8_weight_matmul(x, weight, weight_scale)
     return out if bias is None else out + bias
 
 

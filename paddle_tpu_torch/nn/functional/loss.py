@@ -68,11 +68,13 @@ def fused_linear_cross_entropy(
     The JAX package's gate picks the engine: with ``FLAGS_use_fused_loss``
     on and the hidden size a multiple of 128, kernels 17-19 (their plain
     versions on CPU tensors); otherwise the plain versions, the counterpart
-    of its ``lax.scan`` reference, on any device. ``weight_scale`` (the int8
-    lm head) is not ported yet."""
-    if weight_scale is not None:
-        raise NotImplementedError("fused_linear_cross_entropy: weight_scale (the weight-only int8 lm head) "
-                                  "is not ported yet (ROADMAP Queue 1 item 6)")
+    of its ``lax.scan`` reference, on any device.
+
+    ``weight_scale`` (``[V]`` fp32, with ``weight`` int8: the weight-only
+    int8 lm head) takes the forward-only quantized walk under the same gate:
+    kernel 17's int8 site, or the plain version of JAX's
+    ``_reference_quant_path``. A gradient through it raises, as JAX has no
+    VJP there."""
     use_kernels = bool(flag("use_fused_loss")) and input.shape[-1] % 128 == 0
     return linear_cross_entropy(input, weight, label, ignore_index=ignore_index, reduction=reduction,
-                                vocab_major=weight_vocab_major, use_kernels=use_kernels)
+                                vocab_major=weight_vocab_major, use_kernels=use_kernels, weight_scale=weight_scale)

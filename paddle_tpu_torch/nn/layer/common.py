@@ -17,9 +17,29 @@ from torch import nn
 from paddle_tpu_torch.core.device import DeviceLike, resolve_device
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["Dropout", "Embedding", "INIT_STD", "Linear"]
+__all__ = ["Dropout", "Embedding", "INIT_STD", "Linear", "linear_forward"]
 
 INIT_STD = 0.02  # std of the seeded random matrices and embeddings
+
+
+def linear_forward(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The forward of a projection layer with a Paddle ``[in, out]``
+    ``weight`` and an optional ``bias``: ``F.weight_only_linear`` when the
+    layer carries a ``weight_scale`` (its weight quantized in place by
+    ``kernels.quant.quantize_module_weights``), else ``F.linear`` — the JAX
+    ``nn.Linear.forward``'s dispatch on ``_quant_scale``. Every ``Linear``
+    of the port runs it."""
+    bias = getattr(layer, "bias", None)
+    scale = getattr(layer, "weight_scale", None)
+    if scale is not None:
+        return F.weight_only_linear(x, layer.weight, scale, bias)
+    return F.linear(x, layer.weight, bias)
+
+
+def _refuse_int8(layer: nn.Module) -> None:
+    if not layer.weight.is_floating_point():
+        raise RuntimeError(f"{type(layer).__name__}: the weight is quantized to {layer.weight.dtype}; "
+                           "reset_parameters draws floating weights only")
 
 
 def _generator(t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Generator:
@@ -37,17 +57,20 @@ class Linear(nn.Module):
         self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(torch.empty((in_features, out_features), device=dev, dtype=dtype))
         self.bias = nn.Parameter(torch.empty((out_features,), device=dev, dtype=dtype)) if bias else None
+        # [out] fp32 scales once the weight is quantized to int8 in place
+        self.register_buffer("weight_scale", None)
         self.reset_parameters()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """N(0, 0.02) weight, zero bias."""
+        """N(0, 0.02) weight, zero bias; refused once the weight is int8."""
+        _refuse_int8(self)
         self.weight.normal_(0.0, INIT_STD, generator=_generator(self.weight, generator))
         if self.bias is not None:
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return linear_forward(self, x)
 
 
 class Embedding(nn.Module):

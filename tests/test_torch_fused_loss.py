@@ -254,8 +254,13 @@ def test_public_entry_gate_and_refusals(plain_calls, fused_loss_on, monkeypatch)
     paddle_tpu_torch.set_flags({"FLAGS_use_fused_loss": False})
     F.fused_linear_cross_entropy(tx, tw, tl)
     assert seen == ["kernel"] and plain_calls["flxent_fwd_plain"] == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        F.fused_linear_cross_entropy(tx, tw, tl, weight_scale=torch.ones(V))
+    # weight_scale (the int8 lm head) is ported: forward only, a backward raises
+    w8 = torch.from_numpy(np.clip(np.round(w * 100), -127, 127).astype(np.int8))
+    xg = tx.clone().requires_grad_()
+    loss8 = F.fused_linear_cross_entropy(xg, w8, tl, weight_scale=torch.full((V,), 0.01))
+    assert loss8.dtype == torch.float32 and torch.isfinite(loss8)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        loss8.backward()
     with pytest.raises(ValueError, match="reduction"):
         F.fused_linear_cross_entropy(tx, tw, tl, reduction="max")
     per = F.fused_linear_cross_entropy(tx.reshape(2, 12, H), tw, tl.reshape(2, 12), reduction="none")

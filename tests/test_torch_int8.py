@@ -1,0 +1,603 @@
+"""The PyTorch port's int8 serving path against the JAX package.
+
+- The quantizers (``quantize_weight_int8``, ``_quantize_kv_rows``): bit for
+  bit, all-zero columns and rows included; ``quantize_module_weights``
+  picks JAX's leaves and never a shared or tied weight.
+- Kernel 20's plain version (``int8_weight_matmul`` on CPU tensors) against
+  the JAX XLA composition and the Pallas kernel in interpret mode: fp32 at
+  1e-5 relative, bf16 within one bf16 ulp of the output's largest magnitude.
+- The four cache writes with scale planes (chunk append, decode append,
+  prefill, copy-on-write fork): payload and scales bit for bit, masked
+  slots and rows past ``q_lens`` included.
+- The plain versions of kernels A, 4, 5 and 6 over int8 pools against the
+  Pallas kernels in interpret mode, MHA and GQA, head dim 64 and 128, at the
+  paged tests' tolerances (fp32 1e-5, kernel 6 2e-5; bf16 one ulp).
+- The weight-only int8 loss (kernel 17's int8 site): the public entry,
+  H-major and vocab-major, every reduction, against ``_reference_quant_path``
+  and the interpret ``_pallas_quant_path`` at 1e-5.
+- End to end on a tiny fp32 Llama carried across: both engines with
+  ``kv_cache_dtype="int8", weight_only_int8=True``, fused and unfused, give
+  the same greedy streams and ``bytes_per_token``; one step's logits
+  agree at 1e-4 (the serving tests' tolerance); a JAX-quantized model
+  carried across with ``quant_scales`` gives the port-quantized model's
+  logits; a bf16 weight-only engine keeps bf16 pools (``model.dtype`` is the
+  embedding's, not the int8 head's).
+- At a width within the kernels' reach (hidden 256, head dim 128), spying
+  on the plain versions shows each int8 step runs kernel A's int8 instance
+  once per layer and kernel 20 for every MLP projection and the head.
+"""
+
+import contextlib
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as paddle
+import paddle_tpu.incubate.nn.functional.block_attention as jax_ba
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.inference import ContinuousBatchingEngine as JaxEngine
+from paddle_tpu.kernels import fused_loss as jax_loss
+from paddle_tpu.kernels import paged_attention as jax_paged
+from paddle_tpu.kernels import quant as jax_quant
+from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.observability.flight_recorder import GLOBAL_FLIGHT_RECORDER
+from paddle_tpu.observability.recompile import GLOBAL_WATCHDOG
+
+import paddle_tpu_torch
+from paddle_tpu_torch.incubate.nn import functional as incubate
+from paddle_tpu_torch.incubate.nn.functional.block_attention import _quantize_kv_rows
+from paddle_tpu_torch.inference import ContinuousBatchingEngine
+from paddle_tpu_torch.kernels import fused_loss as kloss
+from paddle_tpu_torch.kernels import paged_attention as kpaged
+from paddle_tpu_torch.kernels import quant as kquant
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, from_paddle_tpu_state
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer import Linear
+
+ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8)
+JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, tp=1)
+INT8_KW = dict(kv_cache_dtype="int8", weight_only_int8=True)
+GEOMETRIES = [(64, 4, 4), (64, 8, 2), (128, 4, 4), (128, 8, 2)]  # (D, HQ, HKV)
+GEOMETRY_IDS = ["d64-mha", "d64-gqa", "d128-mha", "d128-gqa"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tests share CPU workers with timing-sensitive JAX tests."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prior)
+
+
+@contextlib.contextmanager
+def _jax_engine_globals_preserved():
+    """Put the process-wide compile watchdog and flight recorder back as
+    they were, so no other test in this worker sees this file's engines."""
+    with GLOBAL_WATCHDOG._lock:
+        ledger = copy.deepcopy(GLOBAL_WATCHDOG._fns)
+    events = GLOBAL_FLIGHT_RECORDER.snapshot()
+    try:
+        yield
+    finally:
+        with GLOBAL_WATCHDOG._lock:
+            GLOBAL_WATCHDOG._fns.clear()
+            GLOBAL_WATCHDOG._fns.update(ledger)
+        GLOBAL_FLIGHT_RECORDER.clear()
+        GLOBAL_FLIGHT_RECORDER._events.extend(events)
+
+
+@contextlib.contextmanager
+def _flags(**values):
+    """Flags set in both packages (``FLAGS_`` added), the prior values put
+    back afterwards."""
+    names = [f"FLAGS_{k}" for k in values]
+    jprior, prior = paddle.get_flags(names), paddle_tpu_torch.get_flags(names)
+    new = {f"FLAGS_{k}": v for k, v in values.items()}
+    paddle.set_flags(new)
+    paddle_tpu_torch.set_flags(new)
+    try:
+        yield
+    finally:
+        paddle.set_flags(jprior)
+        paddle_tpu_torch.set_flags(prior)
+
+
+def _port_config(jcfg, dtype="float32"):
+    return LlamaConfig(
+        vocab_size=jcfg.vocab_size, hidden_size=jcfg.hidden_size,
+        intermediate_size=jcfg.intermediate_size, num_hidden_layers=jcfg.num_hidden_layers,
+        num_attention_heads=jcfg.num_attention_heads, num_key_value_heads=jcfg.num_key_value_heads,
+        max_position_embeddings=jcfg.max_position_embeddings, rms_norm_eps=jcfg.rms_norm_eps,
+        rope_theta=jcfg.rope_theta, dtype=dtype,
+    )
+
+
+def _jax_tiny(seed):
+    paddle.seed(seed)
+    jcfg = JaxLlamaConfig.tiny()
+    jmodel = JaxLlama(jcfg)
+    jmodel.eval()
+    return jmodel, jcfg
+
+
+def _state(jmodel):
+    return {k: np.asarray(v._data) for k, v in jmodel.state_dict().items()}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a torch tensor and a JAX array of ``dtype``
+    (integer arrays keep their type)."""
+    t = torch.from_numpy(np.array(a))
+    if a.dtype.kind == "f":
+        return t.to(getattr(torch, dtype)), jnp.asarray(a, getattr(jnp, dtype))
+    return t, jnp.asarray(a)
+
+
+def _close(got: torch.Tensor, want, dtype: str, fp32_tol: float = 1e-5) -> None:
+    """fp32: ``fp32_tol`` relative and absolute; bf16: within one bf16 ulp of
+    the largest output magnitude (the same fp32 products summed in another
+    order, then rounded to bf16)."""
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=fp32_tol, atol=fp32_tol)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
+
+
+def _bits(t: torch.Tensor, a) -> None:
+    np.testing.assert_array_equal(t.numpy(), np.asarray(a))
+
+
+# -- the quantizers ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_weight_int8_bit_identical_to_jax(dtype):
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(48, 40)) * rng.uniform(0.01, 3.0, size=(1, 40))).astype(np.float32)
+    w[:, 3] = 0.0  # an all-zero column: scale 1, int8 zeros
+    w[:, 6] = 0.0
+    w[:4, 6] = [127.0, 0.5, 1.5, -2.5]  # scale 1: exact halves, rounded half to even as jnp.round does
+    t, j = _pair(w, dtype)
+    w8, scale = kquant.quantize_weight_int8(t)
+    jw8, jscale = jax_quant.quantize_weight_int8(j)
+    assert w8.dtype == torch.int8 and scale.dtype == torch.float32 and float(scale[3]) == 1.0
+    _bits(w8, jw8)
+    _bits(scale, jscale)
+    assert not w8[:, 3].any() and int(w8.abs().max()) == 127
+    assert w8[:4, 6].tolist() == [127, 0, 2, -2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_rows_bit_identical_to_jax(dtype):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(5, 3, 4, 32)).astype(np.float32) * 3
+    x[1, 2, 0] = 0.0  # an all-zero row
+    x[4, 0, 3, :] = np.linspace(-0.5, 0.5, 32)  # exact halves after the scale
+    t, j = _pair(x, dtype)
+    q, s = _quantize_kv_rows(t)
+    jq, js = jax_ba._quantize_kv_rows(j)
+    _bits(q, jq)
+    _bits(s, js)
+    assert float(s[1, 2, 0]) == 1.0 and not q[1, 2, 0].any()
+
+
+def test_quantize_module_weights_picks_jax_leaves_and_skips_shared():
+    jmodel, jcfg = _jax_tiny(3)
+    model = from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu")
+    ids = {id(p): name for name, p in jmodel.named_parameters()}
+    jnames = [ids[id(p)] for p in jax_quant.quantize_module_weights(jmodel)]
+    names = kquant.quantize_module_weights(model)
+    assert names == jnames and len(names) == 3 * jcfg.num_hidden_layers + 1
+    params = dict(model.named_parameters())
+    for name, p in params.items():
+        assert (p.dtype == torch.int8) == (name in names), name
+        assert p.requires_grad == (name not in names)
+    for name in names:
+        mod = model.get_submodule(name.rsplit(".", 1)[0])
+        jp = dict(jmodel.named_parameters())[name]
+        _bits(mod.weight, jp._data)
+        _bits(mod.weight_scale, jp._quant_scale)
+    assert set(model.state_dict()) == set(params) | {n + "_scale" for n in names}
+    assert kquant.quantize_module_weights(model) == []  # idempotent
+    with pytest.raises(RuntimeError, match="int8"):
+        model.reset_parameters(0)
+
+    class Tied(torch.nn.Module):  # a parameter shared by an lm_head and a non-target layer
+        def __init__(self):
+            super().__init__()
+            self.lm_head = Linear(8, 16, bias=False, device="cpu")
+            self.proj = Linear(8, 16, bias=False, device="cpu")
+            self.proj.weight = self.lm_head.weight
+
+    tied = Tied()
+    assert kquant.quantize_module_weights(tied) == [] and tied.lm_head.weight.is_floating_point()
+    assert tied.lm_head.weight_scale is None
+
+
+# -- kernel 20 --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 64, 32), (3, 5, 48, 80)], ids=["2d", "3d-ragged"])
+def test_int8_weight_matmul_plain_matches_jax(shape, dtype):
+    rng = np.random.default_rng(2)
+    *lead, k, n = shape
+    x = rng.normal(size=(*lead, k)).astype(np.float32)
+    w8, scale = jax_quant.quantize_weight_int8(jnp.asarray(rng.normal(size=(k, n)), jnp.float32))
+    tx, jx = _pair(x, dtype)
+    tw8, ts = torch.from_numpy(np.array(w8)), torch.from_numpy(np.array(scale))
+    got = kquant.int8_weight_matmul(tx, tw8, ts)
+    assert got.dtype == tx.dtype and got.shape == (*lead, n)
+    xla = jax_quant.int8_weight_matmul(jx, w8, scale)
+    _close(got, xla, dtype)
+    if len(lead) == 1:  # the interpret kernel takes the 2-D geometry its blocks divide
+        _close(got, jax_quant.int8_weight_matmul(jx, w8, scale, interpret=True), dtype)
+    # the public functional and a quantized layer take the same path
+    _close(F.weight_only_linear(tx, tw8, ts), xla, dtype)
+
+
+# -- the cache writes with scale planes ----------------------------------------------------
+
+def _int8_pools(rng, nb=16, h=2, bs=4, d=16):
+    kq = rng.integers(-127, 128, size=(nb, h, bs, d)).astype(np.int8)
+    vq = rng.integers(-127, 128, size=(nb, h, bs, d)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.05, size=(nb, h, bs)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.05, size=(nb, h, bs)).astype(np.float32)
+    return kq, vq, ks, vs
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "slot-mask"])
+def test_cache_writes_with_planes_bit_identical_to_jax(masked):
+    rng = np.random.default_rng(4)
+    pools = _int8_pools(rng)
+    b, c, h, d = 3, 5, 2, 16
+    k = rng.normal(size=(b, c, h, d)).astype(np.float32)
+    v = rng.normal(size=(b, c, h, d)).astype(np.float32)
+    k[0, 1, 1] = 0.0  # an all-zero row
+    # masked: slot 2's table aliases slot 0's blocks, and its rows must be dropped
+    tables = np.array([[3, 7, 0, 0], [9, 1, 12, 0], [3, 7, 0, 0] if masked else [10, 11, 0, 0]], np.int32)
+    lens = np.array([2, 5, 2], np.int32)
+    q_lens = np.array([5, 2, 3], np.int32)
+    mask = np.array([True, True, not masked])
+    kw = dict(slot_mask=mask) if masked else {}
+
+    want = jax_ba.block_cache_append_chunk(*map(jnp.asarray, (*pools[:2], k, v, tables, lens, q_lens)),
+                                           key_scale=jnp.asarray(pools[2]), value_scale=jnp.asarray(pools[3]),
+                                           **{n: jnp.asarray(a) for n, a in kw.items()})
+    t = [_t(a) for a in pools]
+    got = incubate.block_cache_append_chunk(t[0], t[1], _t(k), _t(v), _t(tables), _t(lens), _t(q_lens),
+                                            key_scale=t[2], value_scale=t[3], **{n: _t(a) for n, a in kw.items()})
+    assert len(got) == 4 and all(g is p for g, p in zip(got, t))
+    for g, w in zip(got, want):
+        _bits(g, w)
+
+    pos = np.array([6, 1, 3], np.int32)  # decode append: one row per slot
+    want = jax_ba.block_cache_append(*map(jnp.asarray, (*pools[:2], k[:, 0], v[:, 0], tables, pos)),
+                                     key_scale=jnp.asarray(pools[2]), value_scale=jnp.asarray(pools[3]),
+                                     **{n: jnp.asarray(a) for n, a in kw.items()})
+    t = [_t(a) for a in pools]
+    got = incubate.block_cache_append(t[0], t[1], _t(k[:, 0]), _t(v[:, 0]), _t(tables), _t(pos),
+                                      key_scale=t[2], value_scale=t[3], **{n: _t(a) for n, a in kw.items()})
+    for g, w in zip(got, want):
+        _bits(g, w)
+
+    plens = np.array([5, 3, 0], np.int32)  # prefill: lengths shorter than S, one 0
+    want = jax_ba.block_cache_prefill(*map(jnp.asarray, (*pools[:2], k, v, tables, plens)),
+                                      key_scale=jnp.asarray(pools[2]), value_scale=jnp.asarray(pools[3]))
+    t = [_t(a) for a in pools]
+    got = incubate.block_cache_prefill(t[0], t[1], _t(k), _t(v), _t(tables), _t(plens),
+                                       key_scale=t[2], value_scale=t[3])
+    for g, w in zip(got, want):
+        _bits(g, w)
+
+    src, dst = np.array([3, 9, 1], np.int32), np.array([5, 16, 14], np.int32)  # 16 == NB: no fork
+    want = jax_ba.block_cache_cow_copy(*map(jnp.asarray, (*pools[:2], src, dst)),
+                                       key_scale=jnp.asarray(pools[2]), value_scale=jnp.asarray(pools[3]))
+    t = [_t(a) for a in pools]
+    got = incubate.block_cache_cow_copy(t[0], t[1], _t(src), _t(dst), key_scale=t[2], value_scale=t[3])
+    for g, w in zip(got, want):
+        _bits(g, w)
+
+
+# -- kernels A, 4, 5, 6 over int8 pools ------------------------------------------------------
+
+def _tables(rng, lens_after, b, bs, mbs, nb):
+    """Distinct blocks for each slot's used positions; every entry past them
+    is out-of-range garbage that must never be dereferenced."""
+    tables = rng.permutation(nb)[: b * mbs].reshape(b, mbs).astype(np.int32)
+    for i in range(b):
+        tables[i, -(-int(lens_after[i]) // bs):] = nb + 1000 + i
+    return tables
+
+
+def _quant_cache(rng, d, hkv, nb=16, bs=8):
+    """An int8 pool from normal rows through the JAX quantizer: payload and
+    per-token scales."""
+    k8, ks = jax_ba._quantize_kv_rows(jnp.asarray(rng.normal(size=(nb, hkv, bs, d)), jnp.float32))
+    v8, vs = jax_ba._quantize_kv_rows(jnp.asarray(rng.normal(size=(nb, hkv, bs, d)), jnp.float32))
+    return [np.asarray(a) for a in (k8, v8, ks, vs)]
+
+
+PAGED_CASES = [(g, "float32") for g in GEOMETRIES] + [(GEOMETRIES[1], "bfloat16"), (GEOMETRIES[3], "bfloat16")]
+PAGED_IDS = [f"{i}-fp32" for i in GEOMETRY_IDS] + [f"{GEOMETRY_IDS[1]}-bf16", f"{GEOMETRY_IDS[3]}-bf16"]
+
+
+@pytest.mark.parametrize("geometry,dtype", PAGED_CASES, ids=PAGED_IDS)
+@pytest.mark.parametrize("kernel", ["chunk_fused", "chunk", "decode", "decode_fused"])
+def test_int8_paged_plain_matches_pallas_interpret(kernel, geometry, dtype):
+    d, hq, hkv = geometry
+    rng = np.random.default_rng(5)
+    k8, v8, ks, vs = _quant_cache(rng, d, hkv)
+    planes = [_pair(a, dtype) for a in (k8, v8)]
+    scales = [(torch.from_numpy(np.array(a)), jnp.asarray(a)) for a in (ks, vs)]
+    if kernel.startswith("chunk"):
+        c = 4
+        q = rng.normal(size=(4, c, hq, d)).astype(np.float32)
+        lens = np.array([13, 4, 0, 16], np.int32)  # EXCLUDE the chunk; slot 1 ends on a block edge
+        q_lens = np.array([1, 4, 0, 3], np.int32)
+        tables = _tables(rng, lens + q_lens, 4, 8, 4, 16)
+        rope = [np.cos(rng.normal(size=(4, c, d))).astype(np.float32),
+                np.sin(rng.normal(size=(4, c, d))).astype(np.float32)]
+        tail = [tables, lens, q_lens]
+    else:
+        q = rng.normal(size=(4, hq, d)).astype(np.float32)
+        lens = np.array([13, 0, 16, 24], np.int32)  # INCLUDE the current token; 0 is idle
+        tables = _tables(rng, lens, 4, 8, 4, 16)
+        rope = [np.cos(rng.normal(size=(4, 1, d))).astype(np.float32),
+                np.sin(rng.normal(size=(4, 1, d))).astype(np.float32)]
+        tail = [tables, lens]
+    head = [_pair(q, dtype)] + ([_pair(a, dtype) for a in rope] if kernel.endswith("fused") else [])
+    args = head + planes + [_pair(a, dtype) for a in tail]
+    jfn, tfn = getattr(jax_paged, f"paged_flash_{kernel}"), getattr(kpaged, f"paged_flash_{kernel}")
+    want = jfn(*(j for _, j in args), interpret=True, k_scale=scales[0][1], v_scale=scales[1][1])
+    got = tfn(*(t for t, _ in args), k_scale=scales[0][0], v_scale=scales[1][0])
+    assert got.dtype == getattr(torch, dtype)
+    _close(got, want, dtype, fp32_tol=2e-5 if kernel == "decode_fused" else 1e-5)
+    if kernel.startswith("chunk"):
+        assert not got[2].any() and not got[0, 1:].any() and not got[3, 3:].any()  # rows past q_lens
+    else:
+        assert not got[1].any()  # a slot of length 0
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["decode", "decode-fused"])
+def test_int8_decode_entries_match_jax(fused):
+    """The public decode entries with scale planes (kernels 5 and 6's
+    callers): the quantizing append (k quantized after the rope in the
+    fused entry), the dequantizing attention and all four planes."""
+    rng = np.random.default_rng(6)
+    d, hq, hkv = 64, 8, 2
+    pools = _quant_cache(rng, d, hkv)
+    q = rng.normal(size=(4, 1, hq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(4, 1, hkv, d)).astype(np.float32) for _ in range(2))
+    cos = np.cos(rng.normal(size=(4, 1, 1, d))).astype(np.float32)
+    sin = np.sin(rng.normal(size=(4, 1, 1, d))).astype(np.float32)
+    cached = np.array([12, 0, 15, 23], np.int32)
+    tables = _tables(rng, cached + 1, 4, 8, 4, 16)
+    mask = np.array([True, False, True, True])
+    rope = (cos, sin) if fused else ()
+    name = "block_multihead_attention_fused" if fused else "block_multihead_attention"
+    jout = getattr(jax_ba, name)(*map(jnp.asarray, (q, k, v, *rope, pools[0], pools[1], tables, cached)),
+                                 slot_mask=jnp.asarray(mask), key_scale=jnp.asarray(pools[2]),
+                                 value_scale=jnp.asarray(pools[3]))
+    t = [_t(a) for a in pools]
+    tout = getattr(incubate, name)(*map(_t, (q, k, v, *rope)), t[0], t[1], _t(tables), _t(cached),
+                                   slot_mask=_t(mask), key_scale=t[2], value_scale=t[3])
+    _close(tout[0], jout[0], "float32", fp32_tol=2e-5)
+    assert not tout[0][1].any()
+    for g, w in zip(tout[1:], jout[1:]):
+        _bits(g, w)
+
+
+# -- kernel 17's int8 site ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("vocab_major", [False, True], ids=["h-major", "vocab-major"])
+@pytest.mark.parametrize("h", [128, 96], ids=["kernel-gate", "plain-gate"])
+def test_int8_loss_matches_jax_reference_and_interpret_kernel(h, vocab_major, reduction):
+    rng = np.random.default_rng(7)
+    n, v = 40, 300
+    x = rng.normal(size=(n, h)).astype(np.float32)
+    w = rng.normal(size=(v, h) if vocab_major else (h, v)) * 0.05
+    w8, scale = jax_quant.quantize_weight_int8(jnp.asarray(w.T if vocab_major else w, jnp.float32))
+    w8 = jnp.asarray(np.asarray(w8).T) if vocab_major else w8  # [V, H] for the vocab-major layout
+    lab = rng.integers(0, v, (n,)).astype(np.int32)
+    lab[[3, 11, 30]] = -100
+    kw = dict(ignore_index=-100, reduction=reduction, vocab_major=vocab_major)
+    ref = jax_loss._reference_quant_path(jnp.asarray(x), w8, scale, jnp.asarray(lab), v=v, h=h, **kw)
+    interp = jax_loss._pallas_quant_path(jnp.asarray(x), w8, scale, jnp.asarray(lab), v=v, h=h, interpret=True,
+                                         block=(16, 128), **kw)
+    with _flags(use_fused_loss=True):
+        got = F.fused_linear_cross_entropy(torch.from_numpy(x), torch.from_numpy(np.asarray(w8)),
+                                           torch.from_numpy(lab), ignore_index=-100, reduction=reduction,
+                                           weight_vocab_major=vocab_major,
+                                           weight_scale=torch.from_numpy(np.asarray(scale)))
+    assert got.dtype == torch.float32 and got.shape == ((n,) if reduction == "none" else ())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(interp), rtol=1e-5, atol=1e-5)
+
+
+# -- end to end on a tiny Llama ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def quantized_pair():
+    """A seeded tiny JAX Llama and its port twin, both quantized by their
+    own engines' ``weight_only_int8`` (in place, as in JAX)."""
+    jmodel, jcfg = _jax_tiny(21)
+    model = from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu")
+    return jmodel, model, jcfg
+
+
+def _drive(eng, schedule):
+    """Feed ``schedule`` (step index -> prompts to add before that step) and
+    step to completion; returns the generated tokens in submission order."""
+    ids, out, step = [], {}, 0
+    while step in schedule or eng.has_work() or any(s > step for s in schedule):
+        for prompt, budget in schedule.get(step, ()):
+            ids.append(eng.add_request(prompt, max_new_tokens=budget))
+        for req in eng.step():
+            out[req.req_id] = list(req.generated)
+        step += 1
+    return [out[i] for i in ids]
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_int8_engine_streams_identical_to_jax_engine(quantized_pair, fused):
+    jmodel, model, jcfg = quantized_pair
+    rng = np.random.default_rng(8)
+    schedule = {
+        0: [(rng.integers(0, jcfg.vocab_size, 19), 7), (rng.integers(0, jcfg.vocab_size, 3), 9)],
+        2: [(rng.integers(0, jcfg.vocab_size, 11), 5)],
+        3: [(rng.integers(0, jcfg.vocab_size, 24), 6), (rng.integers(0, jcfg.vocab_size, 1), 4)],
+    }
+    with _flags(use_fused_decode_layer=fused):
+        with _jax_engine_globals_preserved():
+            jeng = JaxEngine(jmodel, **ENGINE_KW, **JAX_ONLY_KW, **INT8_KW)
+            want = _drive(jeng, schedule)
+        eng = ContinuousBatchingEngine(model, **ENGINE_KW, **INT8_KW)
+        got = _drive(eng, schedule)
+    assert [len(g) for g in got] == [7, 9, 5, 6, 4]
+    assert got == want
+    assert eng.pool_stats()["bytes_per_token"] == jeng.pool_stats()["bytes_per_token"] == 160
+    assert eng.pool_stats()["free"] == eng.num_blocks
+    assert model.lm_head.weight.dtype == torch.int8 and len(eng._caches[0]) == 4
+
+
+def test_int8_step_logits_and_planes_match_jax_model(quantized_pair):
+    """Two steps of the engine's call with 8-tuple pasts (fused loop) on
+    identical int8 weights: logits at 1e-4; the planes the steps leave
+    behind agree (the payload to one int8 step where a k of the two
+    packages sits on a rounding edge, the scales at 1e-6)."""
+    jmodel, model, jcfg = quantized_pair
+    kquant.quantize_module_weights(model)
+    jax_quant.quantize_module_weights(jmodel)
+    toks1 = np.array([[5, 17, 3, 99, 0, 0], [8, 1, 2, 3, 4, 250], [0] * 6], np.int32)
+    toks2 = np.array([[42, 0, 0, 0, 0, 0], [7, 7, 9, 0, 0, 0], [0] * 6], np.int32)
+    q1, q2 = np.array([4, 6, 0], np.int32), np.array([1, 3, 0], np.int32)
+    tables = np.array([[2, 0, 0, 0], [5, 1, 3, 0], [0, 0, 0, 0]], np.int32)
+    active = np.array([True, True, False])
+    kvh, hd = jcfg.num_key_value_heads, jcfg.hidden_size // jcfg.num_attention_heads
+    shape = (8, kvh, 4, hd)
+    jcaches = [(jnp.zeros(shape, jnp.int8), jnp.zeros(shape, jnp.int8), jnp.ones(shape[:3], jnp.float32),
+                jnp.ones(shape[:3], jnp.float32))] * jcfg.num_hidden_layers
+    caches = [(torch.zeros(shape, dtype=torch.int8), torch.zeros(shape, dtype=torch.int8),
+               torch.ones(shape[:3]), torch.ones(shape[:3])) for _ in range(jcfg.num_hidden_layers)]
+    for toks, lens, q_lens in ((toks1, np.zeros(3, np.int32), q1), (toks2, q1, q2)):
+        pkv = [tuple(Tensor(a) for a in (kc, vc, tables, lens, active, q_lens, ks, vs))
+               for kc, vc, ks, vs in jcaches]
+        with paddle.no_grad():
+            jlogits, jpast = jmodel(Tensor(toks), past_key_values=pkv, use_cache=True, cache_position=Tensor(lens))
+        jcaches = [(p[0]._data, p[1]._data, p[6]._data, p[7]._data) for p in jpast]
+        t = [torch.from_numpy(a) for a in (tables, lens, active, q_lens)]
+        with torch.inference_mode():
+            logits, _ = model(torch.from_numpy(toks), past_key_values=[(kc, vc, *t, ks, vs) for kc, vc, ks, vs in caches],
+                              use_cache=True, cache_position=t[1])
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
+    for got, want in zip(caches, jcaches):
+        for g, w in zip(got[:2], want[:2]):
+            assert np.abs(g.numpy().astype(np.int32) - np.asarray(w, np.int32)).max() <= 1
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=0)
+
+
+def test_from_paddle_tpu_state_carries_a_jax_quantized_model():
+    jmodel, jcfg = _jax_tiny(22)
+    port_quant = from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu")
+    kquant.quantize_module_weights(port_quant)
+    params = dict(jmodel.named_parameters())
+    quantized = {id(p) for p in jax_quant.quantize_module_weights(jmodel)}
+    scales = {n: np.asarray(p._quant_scale) for n, p in params.items() if id(p) in quantized}
+    carried = from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu", quant_scales=scales)
+    assert carried.lm_head.weight.dtype == torch.int8
+    ids = np.random.default_rng(9).integers(0, jcfg.vocab_size, (2, 11)).astype(np.int32)
+    with torch.inference_mode():
+        got = carried(torch.from_numpy(ids))
+        want = port_quant(torch.from_numpy(ids))
+    assert torch.equal(got, want)
+    with paddle.no_grad():
+        jlogits = jmodel(Tensor(jnp.asarray(ids)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError, match="quant_scales"):  # int8 arrays without their scales
+        from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu")
+    with pytest.raises(KeyError, match="quant_scales"):
+        from_paddle_tpu_state(_state(jmodel), _port_config(jcfg), device="cpu",
+                              quant_scales={k: v for k, v in scales.items() if "lm_head" not in k})
+
+
+def test_weight_only_bf16_engine_keeps_bf16_pools_and_jax_bytes_per_token():
+    """A weight-only int8 model's dtype is its embedding's: the engine's bf16
+    pool stays bf16 (sized from ``model.dtype``, which an int8 lm head must
+    not decide), with JAX's ``bytes_per_token``."""
+    jmodel, jcfg = _jax_tiny(23)
+    bf16 = {k: np.asarray(jnp.asarray(v, jnp.bfloat16)) for k, v in _state(jmodel).items()}
+    model = from_paddle_tpu_state(bf16, _port_config(jcfg), device="cpu")
+    eng = ContinuousBatchingEngine(model, **ENGINE_KW, kv_cache_dtype="bf16", weight_only_int8=True)
+    assert model.lm_head.weight.dtype == torch.int8 and model.dtype == torch.bfloat16
+    assert [t.dtype for t in eng._caches[0]] == [torch.bfloat16, torch.bfloat16]
+    jmodel.bfloat16()
+    with _jax_engine_globals_preserved():
+        jeng = JaxEngine(jmodel, **ENGINE_KW, **JAX_ONLY_KW, kv_cache_dtype="bf16", weight_only_int8=True)
+    assert eng.pool_stats()["bytes_per_token"] == jeng.pool_stats()["bytes_per_token"] == 2 * 2 * 2 * 16 * 2
+    eng.add_request(np.arange(9), max_new_tokens=3)
+    assert [len(r.generated) for r in eng.run().values()] == [3]
+
+
+# -- the dispatch at a width within the kernels' reach -------------------------------------------
+
+SPIED = {kpaged: ("paged_flash_chunk_fused_plain", "paged_flash_chunk_plain"),
+         kquant: ("int8_weight_matmul_plain",), kloss: ("flxent_fwd_int8_plain",)}
+
+
+@pytest.fixture
+def plain_calls(monkeypatch):
+    """Calls of the plain versions the wrappers run on the CPU, with whether
+    each got an int8 operand — on the card each would be one launch of its
+    kernel's int8 instance."""
+    calls = []
+    for mod, names in SPIED.items():
+        for name in names:
+            real = getattr(mod, name)
+
+            def spy(*args, _name=name, _real=real, **kwargs):
+                calls.append((_name, any(torch.is_tensor(a) and a.dtype == torch.int8 for a in args)))
+                return _real(*args, **kwargs)
+
+            monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_int8_step_dispatch_at_kernel_width(plain_calls, fused):
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=128, dtype="float32")
+    model = LlamaForCausalLM(cfg, device="cpu", seed=1)
+    with _flags(use_fused_decode_layer=fused):
+        eng = ContinuousBatchingEngine(model, max_slots=2, block_size=16, prompt_bucket=32, max_model_len=64,
+                                       prefill_chunk=16, **INT8_KW)
+        eng.add_request(np.arange(20), max_new_tokens=2)
+        eng.step()
+        del plain_calls[:]
+        eng.step()  # one step: the prompt's second chunk
+    attention = "paged_flash_chunk_fused_plain" if fused else "paged_flash_chunk_plain"
+    layers = cfg.num_hidden_layers
+    assert sorted(plain_calls) == sorted([(attention, True)] * layers + [("int8_weight_matmul_plain", True)]
+                                         * (3 * layers + 1))
+    del plain_calls[:]
+    ids = torch.from_numpy(np.arange(32).reshape(2, 16))
+    with _flags(use_fused_loss=True), torch.no_grad():
+        loss, none = model(ids, labels=ids)
+    assert none is None and torch.isfinite(loss)
+    assert [c for c, _ in plain_calls].count("flxent_fwd_int8_plain") == 1
+    assert [c for c, _ in plain_calls].count("int8_weight_matmul_plain") == 3 * layers

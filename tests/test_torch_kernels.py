@@ -40,6 +40,7 @@ from paddle_tpu_torch.incubate.nn.functional import (
 from paddle_tpu_torch.kernels import fused as kfused
 from paddle_tpu_torch.kernels import fused_loss as kloss
 from paddle_tpu_torch.kernels import paged_attention as kpaged
+from paddle_tpu_torch.kernels import quant as kquant
 from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as F
@@ -120,10 +121,11 @@ def test_chunk_attention_fused_matches_xla_fallback_with_append(hq, hkv):
         slot_mask=jnp.asarray(mask),
     )
     kc_t, vc_t = _t(kc.copy()), _t(vc.copy())
-    out_t = block_multihead_chunk_attention_fused(
+    out_t, kc_r, vc_r = block_multihead_chunk_attention_fused(
         *map(_t, (q, k, v, cos, sin)), kc_t, vc_t,
         *map(_t, (tables, lens, q_lens)), slot_mask=_t(mask),
     )
+    assert kc_r is kc_t and vc_r is vc_t  # the pools, updated in place
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
     np.testing.assert_allclose(kc_t.numpy(), np.asarray(kc_j), **TOL)
     np.testing.assert_array_equal(vc_t.numpy(), np.asarray(vc_j))
@@ -205,12 +207,24 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     lse, _ = kloss.flxent_fwd(x, w.reshape(16, 1).expand(16, 8), lab)
     kloss.flxent_bwd(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3))
     kloss.flxent_dchunk(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3), 2, 7)
+    # the int8 serving path's wrappers
+    k8, v8 = (torch.zeros(t.shape, dtype=torch.int8) for t in (kc, vc))
+    ks = torch.ones(kc.shape[:3])
+    kpaged.paged_flash_chunk_fused(q, cos, sin, k8, v8, tables, lens, q_lens, k_scale=ks, v_scale=ks)
+    kpaged.paged_flash_chunk(q, k8, v8, tables, lens, q_lens, k_scale=ks, v_scale=ks)
+    kpaged.paged_flash_decode(q[:, 0], k8, v8, tables, lens, k_scale=ks, v_scale=ks)
+    kpaged.paged_flash_decode_fused(q[:, 0], cos[:, :1], sin[:, :1], k8, v8, tables, lens, k_scale=ks, v_scale=ks)
+    w8 = torch.ones((16, 8), dtype=torch.int8)
+    kquant.int8_weight_matmul(x, w8, torch.ones(8))
+    kloss.flxent_fwd_int8(x, w8, torch.ones(8), lab)
     assert launch_counts() == {"paged_chunk_fused": 0, "paged_chunk": 0, "paged_decode": 0,
                                "paged_decode_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
                                "rms_residual_bwd": 0, "ln_residual": 0, "ln_residual_bwd": 0,
-                               "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0}
+                               "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0,
+                               "wo_matmul": 0, "paged_chunk_fused_int8": 0, "paged_chunk_int8": 0,
+                               "paged_decode_int8": 0, "paged_decode_fused_int8": 0, "flxent_fwd_int8": 0}
 
 
 # -- nn functionals ----------------------------------------------------------
@@ -251,10 +265,18 @@ def test_block_pool_refcounts():
 def test_flags_refuse_what_the_port_lacks():
     assert paddle_tpu_torch.get_flags(["FLAGS_kv_cache_dtype"]) == {"FLAGS_kv_cache_dtype": "bf16"}
     paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
-    for name, value in [("FLAGS_kv_cache_dtype", "int8"), ("FLAGS_enable_prefix_cache", True),
-                        ("FLAGS_use_fused_decode_layer", "False")]:
+    for name, value in [("FLAGS_kv_cache_dtype", "fp8"), ("FLAGS_enable_prefix_cache", True),
+                        ("FLAGS_use_fused_decode_layer", "False"), ("FLAGS_weight_only_int8", "True")]:
         with pytest.raises(ValueError):
             paddle_tpu_torch.set_flags({name: value})
+    # the int8 pool and the weight-only int8 projections are ported: accepted, off by default
+    assert paddle_tpu_torch.get_flags(["FLAGS_weight_only_int8"]) == {"FLAGS_weight_only_int8": False}
+    paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "int8", "FLAGS_weight_only_int8": True})
+    try:
+        assert paddle_tpu_torch.get_flags(["FLAGS_kv_cache_dtype", "FLAGS_weight_only_int8"]) == {
+            "FLAGS_kv_cache_dtype": "int8", "FLAGS_weight_only_int8": True}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "bf16", "FLAGS_weight_only_int8": False})
     # the unfused decode layer loop is ported: False is accepted, True is the default
     assert paddle_tpu_torch.get_flags(["FLAGS_use_fused_decode_layer"]) == {"FLAGS_use_fused_decode_layer": True}
     paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": False})

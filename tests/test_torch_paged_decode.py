@@ -189,15 +189,40 @@ def test_decode_fused_plain_matches_pallas_interpret(geometry, dtype):
 
 
 def test_wrappers_refuse_scale_planes():
-    _, q, kc, vc, _, _ = _cache_inputs(3, 64, 4, 4)
-    q, kc, vc = map(torch.from_numpy, (q, kc, vc))
-    tables, lens = torch.zeros((4, 4), dtype=torch.int32), torch.ones(4, dtype=torch.int32)
-    scale = torch.ones(kc.shape[:3])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        kpaged.paged_flash_decode(q, kc, vc, tables, lens, k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        incubate.block_multihead_attention(q[:, None], kc[:4, None, 0], vc[:4, None, 0], kc, vc, tables, lens,
-                                           key_scale=scale, value_scale=scale)
+    """A lone scale plane is refused; the pair (the int8 pool) is the JAX
+    package's: kernel 5's plain version against the Pallas kernel in
+    interpret mode, and the decode entry (quantizing append, dequantizing
+    attention) against JAX's, pools and scale planes included."""
+    rng, q, kc, vc, _, _ = _cache_inputs(3, 64, 4, 4)
+    kq, ksc = (np.clip(np.round(kc * 40), -127, 127).astype(np.int8), np.abs(rng.normal(size=kc.shape[:3])) / 40)
+    vq, vsc = (np.clip(np.round(vc * 40), -127, 127).astype(np.int8), np.abs(rng.normal(size=kc.shape[:3])) / 40)
+    ksc, vsc = ksc.astype(np.float32), vsc.astype(np.float32)
+    lens = np.array([13, 0, 16, 24], np.int32)
+    tables = _tables(rng, lens, 4, 8, 4, 16)
+    t = [torch.from_numpy(a) for a in (q, kq, vq, tables, lens, ksc, vsc)]
+    with pytest.raises(ValueError, match="both scale planes"):
+        kpaged.paged_flash_decode(*t[:5], k_scale=t[5])
+    with pytest.raises(ValueError, match="both scale planes"):
+        incubate.block_multihead_attention(t[0][:, None], t[0][:, None], t[0][:, None], *t[1:5], value_scale=t[6])
+    want = jax_paged.paged_flash_decode(*map(jnp.asarray, (q, kq, vq, tables, lens)), k_scale=jnp.asarray(ksc),
+                                        v_scale=jnp.asarray(vsc), interpret=True)
+    got = kpaged.paged_flash_decode(*t[:5], k_scale=t[5], v_scale=t[6])
+    _close(got, want, "float32")
+    assert not got[1].any()
+    k_new, v_new = (rng.normal(size=(4, 1, 4, 64)).astype(np.float32) for _ in range(2))
+    cached = np.maximum(lens - 1, 0)
+    mask = lens > 0
+    jout = jax_ba.block_multihead_attention(
+        *map(jnp.asarray, (q[:, None], k_new, v_new, kq, vq, tables, cached)), slot_mask=jnp.asarray(mask),
+        key_scale=jnp.asarray(ksc), value_scale=jnp.asarray(vsc))
+    pools = [a.clone() for a in (t[1], t[2], t[5], t[6])]
+    tout = incubate.block_multihead_attention(
+        t[0][:, None], torch.from_numpy(k_new), torch.from_numpy(v_new), pools[0], pools[1], t[3],
+        torch.from_numpy(cached), slot_mask=torch.from_numpy(mask), key_scale=pools[2], value_scale=pools[3])
+    assert len(tout) == 5 and all(a is b for a, b in zip(tout[1:], pools))
+    _close(tout[0], jout[0], "float32")
+    for got_p, want_p in zip(tout[1:], jout[1:]):
+        np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
 
 
 # -- the cache appends -----------------------------------------------------------------

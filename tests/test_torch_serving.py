@@ -197,8 +197,14 @@ def test_engine_refuses_what_the_port_lacks(models):
     _, model, _ = models
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(model, enable_prefix_cache=True)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(model, kv_cache_dtype="int8")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        ContinuousBatchingEngine(model, kv_cache_dtype="fp8")
+    # the int8 pool is ported: 4 planes per layer, int8 payload, fp32 scales at ones
+    eng = ContinuousBatchingEngine(model, **ENGINE_KW, kv_cache_dtype="int8")
+    kc, vc, ks, vs = eng._caches[0]
+    assert kc.dtype == vc.dtype == torch.int8 and not kc.any()
+    assert ks.shape == kc.shape[:3] and ks.dtype == torch.float32 and bool((ks == 1).all() and (vs == 1).all())
+    assert eng.pool_stats()["kv_cache_dtype"] == "int8" and model.dtype == torch.float32
 
 
 def test_convert_rejects_a_mismatched_state_and_reads_bfloat16(models):
