@@ -15,7 +15,9 @@ name and power limit):
 3. kernels — hold each CUDA kernel against its plain PyTorch version on the
    card at the Llama-2-7B serving shapes (kernel A also at a GQA geometry,
    HQ=32/HKV=8, over a mixed batch of decode rows, prompt-chunk rows and
-   q_lens=0 rows) and the flash-attention kernels (forward, dq, dk/dv) at
+   q_lens=0 rows; kernels A and 4 also at head dims 192 and 256, over rows
+   that end in every rank of their cluster split, and timed over a
+   decode-heavy batch and the GQA mixed batch: ``check_paged_split``) and the flash-attention kernels (forward, dq, dk/dv) at
    the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
    document mask, and at GQA 32/8 with C=2 and C=4 FlashMask bounds and a
    ragged S; the RMSNorm forward and backward and the rope forward and
@@ -230,16 +232,16 @@ def within(got, want, atol: float, rel: float):
 # -- kernel A inputs -----------------------------------------------------------
 
 def paged_batch(dev, gen, hq: int, hkv: int, d: int = 128, bs: int = 16, c: int = 64, mbs: int = 128,
-                dtype=None):
-    """A mixed batch of 8 slots: two full prompt chunks, decode rows, a
-    partial chunk and an idle slot (q_lens 0) with stale lens. Table entries
-    past each slot's used blocks hold out-of-range garbage. bf16 unless
-    ``dtype`` says otherwise."""
+                dtype=None, q_lens=(64, 64, 1, 1, 1, 40, 0, 1), lens=(0, 192, 511, 300, 63, 448, 200, 1000)):
+    """A batch of chunk rows, by default the mixed one of 8 slots: two full
+    prompt chunks, decode rows, a partial chunk and an idle slot (q_lens 0)
+    with stale lens. Table entries past each slot's used blocks hold
+    out-of-range garbage. bf16 unless ``dtype`` says otherwise."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaRotaryEmbedding
 
-    q_lens = torch.tensor([64, 64, 1, 1, 1, 40, 0, 1], dtype=torch.int32)
-    lens = torch.tensor([0, 192, 511, 300, 63, 448, 200, 1000], dtype=torch.int32)
+    q_lens = torch.tensor(q_lens, dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32)
     b = q_lens.numel()
     used = [-(-(int(lens[i]) + int(q_lens[i])) // bs) if q_lens[i] else 0 for i in range(b)]
     nb = sum(used) + 8
@@ -339,6 +341,101 @@ def gathered_kv(args: dict, n_pos):
 PAGED_TOL = {"bfloat16": (1e-4, BF16_REL), "float16": (1e-4, 2.0 ** -10), "float32": (2e-5, 1e-5)}
 
 
+def decode_heavy_batch(dev, gen, hq: int, hkv: int, d: int = 128, dtype=None):
+    """8 decode rows (q_lens 1) over long histories at the serve engine's
+    geometry (chunk width 64, block 16, max_model_len 2048: MBS 128): lens
+    drawn from 1500-2047 with a fixed seed."""
+    import torch
+
+    lens = torch.randint(1500, 2048, (8,), generator=torch.Generator().manual_seed(3)).tolist()
+    return paged_batch(dev, gen, hq, hkv, d=d, dtype=dtype, q_lens=(1,) * 8, lens=lens)[0]
+
+
+SPLIT_SLOTS = ((128, 0), (1, 127), (1, 383), (29, 100))  # (q_lens, lens) of the split cases
+
+
+def split_batches(dev, gen, hq: int, hkv: int, dtype=None):
+    """One-slot batches (chunk width 128, block 16, MBS 128) whose rows end
+    in every rank of kernels A / 4's split: one slot keeps the grid small
+    enough that the card holds 8 ranks a cluster (rank r walks blocks [r *
+    per, (r + 1) * per), per = ceil(blocks / 8)). A 128-row prompt from
+    position 0 (per = 1, so row j's last position lies in rank j // 16 and
+    the row is fully masked in every later rank), a decode row ending on
+    the last position of rank 7 (lens 127), one on a 3-blocks-per-rank
+    boundary (lens 383), and a chunk whose split leaves ranks 5-7 empty
+    (lens 100, q_lens 29)."""
+    return [paged_batch(dev, gen, hq, hkv, c=128, dtype=dtype, q_lens=(m,), lens=(n,))[0] for m, n in SPLIT_SLOTS]
+
+
+def chunk_sdpa(args: dict, rope: bool = True):
+    """Yardstick only (the port never calls it): SDPA over each slot's used
+    positions gathered dense, with the chunk's causal mask, q roped
+    beforehand when ``rope`` (kernel A) and taken as given otherwise
+    (kernel 4); GQA through SDPA's ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels.paged_attention import rope_rows
+
+    q, lens = args["q"], args["seq_lens"]
+    b, c, hq, _ = q.shape
+    hkv = args["key_cache"].shape[1]
+    kd, vd, L = gathered_kv(args, [int(n) + int(m) for n, m in zip(lens, args["q_lens"])])
+    pos = torch.arange(L, device=q.device)
+    mask = (pos[None, None, :] < (lens[:, None] + torch.arange(c, device=q.device)[None] + 1)[:, :, None])[:, None]
+    qt = (rope_rows(q, args["cos"][:, :, None], args["sin"][:, :, None]) if rope else q).transpose(1, 2)
+    gqa = {"enable_gqa": True} if hq != hkv else {}
+    return lambda: tF.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, **gqa)
+
+
+def check_paged_split(dev, gen, card: dict) -> None:
+    """Kernels A and 4 (bf16) against their plain versions where the
+    history split across the cluster and the head dims of the redesign
+    matter: head dims 192 and 256 at GQA 32/8 over the mixed batch;
+    :func:`split_batches` at the 7B MHA geometry and GQA 32/8; the
+    decode-heavy batch at the 7B geometry and the mixed batch at GQA 32/8,
+    both timed (device ms, the bound of this run's lengths, SDPA over the
+    gathered K/V in the same call). Rows past q_lens must be exact 0. Each
+    line carries the cluster size the kernels ran with."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    atol, rel = PAGED_TOL["bfloat16"]
+    cases = [(f"mixed_d{d}", paged_batch(dev, gen, 32, 8, d=d)[0], False) for d in (192, 256)]
+    cases += [(f"split_{hq}_{hkv}_{m}_{n}", args, False) for hq, hkv in ((32, 32), (32, 8))
+              for (m, n), args in zip(SPLIT_SLOTS, split_batches(dev, gen, hq, hkv))]
+    cases += [("decode_heavy", decode_heavy_batch(dev, gen, 32, 32), True),
+              ("mixed_gqa", paged_batch(dev, gen, 32, 8)[0], True)]
+    for label, args, timed in cases:
+        cargs = {k: v for k, v in args.items() if k not in ("cos", "sin")}
+        runs = {"paged_chunk_fused": (lambda: kp.paged_flash_chunk_fused(**args),
+                                      lambda: kp.paged_flash_chunk_fused_plain(**args), True),
+                "paged_chunk": (lambda: kp.paged_flash_chunk(**cargs), lambda: kp.paged_flash_chunk_plain(**cargs),
+                                False)}
+        b, c, hq, d = args["q"].shape
+        past = torch.arange(c, device=dev)[None, :] >= args["q_lens"][:, None]  # [B, C]: rows past q_lens
+        line = {"phase": "kernel_check", "kernel": "paged A/4 (split)", "case": label, "hq": hq,
+                "hkv": args["key_cache"].shape[1], "d": d, "chunk": c, "lens": args["seq_lens"].tolist(),
+                "q_lens": args["q_lens"].tolist(), "cluster_size": kp.chunk_cluster_size(args["q"], args["key_cache"],
+                                                                                         args["block_tables"]),
+                "tolerance": f"{atol} + 2^-7*|x|"}
+        for name, (run, run_plain, rope) in runs.items():
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            err, ok = within(got, want, atol=atol, rel=rel)
+            zero = bool((got[past] == 0).all())
+            if not ok or not zero:
+                fail(f"{name} disagrees with its plain version on {label} (max abs err {err}, rows past q_lens "
+                     f"zero: {zero})")
+            line[name] = {"max_abs_err": err}
+            if timed:
+                nbytes, flops = paged_cost(args, rope=rope)
+                ms = device_ms(run)
+                line[name].update(ms=ms, library_ms=device_ms(chunk_sdpa(args, rope)), bytes=nbytes, flops=flops,
+                                  **bound(nbytes, flops))
+                line[name]["share_of_bound"] = line[name]["bound_ms"] / ms
+        emit({**line, "card": card})
+
+
 def check_paged_new(dev, gen, card: dict, records: dict) -> None:
     """Kernels 4, 5 and 6 against their plain versions at the 7B serving
     geometry (HQ = HKV = 32, D = 128, BS = 16) and GQA 32/8: kernel 4 over
@@ -374,20 +471,14 @@ def check_paged_new(dev, gen, card: dict, records: dict) -> None:
             records[name] = {"max_abs_err": err}
         if hq != hkv:
             continue
-        b, c, _, d = args["q"].shape
         # yardsticks only (the port never calls them): SDPA over the dense gathered K/V
-        kd, vd, L = gathered_kv(args, [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])])
-        pos = torch.arange(L, device=dev)
-        cmask = (pos[None, None, :] < (args["seq_lens"][:, None] + torch.arange(c, device=dev)[None] + 1)[:, :, None])[:, None]
-        qt = args["q"].transpose(1, 2)
         kd1, vd1, L1 = gathered_kv(dargs, [int(n) for n in dargs["seq_lens"]])
         dmask = (torch.arange(L1, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
         qd = dargs["q"][:, :, None]
         qdr = kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"])[:, :, None]
         cases = {
             "paged_chunk": (lambda: kp.paged_flash_chunk(**cargs), lambda: kp.paged_flash_chunk_plain(**cargs),
-                            lambda: tF.scaled_dot_product_attention(qt, kd, vd, attn_mask=cmask),
-                            paged_cost(args, rope=False)),
+                            chunk_sdpa(args, rope=False), paged_cost(args, rope=False)),
             "paged_decode": (lambda: kp.paged_flash_decode(**pargs), lambda: kp.paged_flash_decode_plain(**pargs),
                              lambda: tF.scaled_dot_product_attention(qd, kd1, vd1, attn_mask=dmask),
                              decode_cost(dargs, rope=False)),
@@ -436,25 +527,15 @@ def check_paged_dtypes(dev, gen, card: dict) -> None:
               "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
 
 
-def check_kernels(dev, card: dict) -> dict:
-    """Phase 3: every kernel against its plain version at the 7B serving
-    shapes, with its times; returns the per-kernel records."""
+def check_paged_fused(dev, gen, card: dict, records: dict) -> None:
+    """Kernel A (rope-fused paged chunk attention) against its plain version
+    over :func:`paged_batch`'s mixed batch at the 7B MHA geometry and GQA
+    32/8, timed at 7B with SDPA over the gathered K/V as the yardstick."""
     import torch
-    import torch.nn.functional as tF
-    from paddle_tpu_torch.kernels.fused import (
-        fused_embed_rms_norm, fused_embed_rms_norm_plain,
-        fused_rms_norm_residual, fused_rms_norm_residual_plain,
-    )
-    from paddle_tpu_torch.kernels.paged_attention import (
-        paged_flash_chunk_fused, paged_flash_chunk_fused_plain, rope_rows,
-    )
+    from paddle_tpu_torch.kernels.paged_attention import paged_flash_chunk_fused, paged_flash_chunk_fused_plain
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    records = {}
-
-    # A: rope-fused paged chunk attention, 7B MHA geometry and a GQA one
     for hq, hkv in ((32, 32), (32, 8)):
-        args, used = paged_batch(dev, gen, hq, hkv)
+        args, _ = paged_batch(dev, gen, hq, hkv)
         got = paged_flash_chunk_fused(**args)
         want = paged_flash_chunk_fused_plain(**args)
         torch.cuda.synchronize()
@@ -469,27 +550,29 @@ def check_kernels(dev, card: dict) -> dict:
             continue
         nbytes, flops = paged_cost(args)
         run, run_plain = (lambda: paged_flash_chunk_fused(**args)), (lambda: paged_flash_chunk_fused_plain(**args))
-        # yardstick only (the port never calls it): SDPA over the dense
-        # gathered K/V of the used blocks, q already roped
-        b, c, _, d = args["q"].shape
-        nb, _, bs, _ = args["key_cache"].shape
-        n_blk = max(used)
-        tab = args["block_tables"][:, :n_blk].long().clamp(0, nb - 1)
-        kd = args["key_cache"][tab].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_blk * bs, d)
-        vd = args["value_cache"][tab].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_blk * bs, d)
-        qr = rope_rows(args["q"], args["cos"][:, :, None], args["sin"][:, :, None]).transpose(1, 2)
-        pos = torch.arange(n_blk * bs, device=dev)
-        mask = pos[None, None, :] < (args["seq_lens"][:, None] + torch.arange(c, device=dev)[None] + 1)[:, :, None]
-        mask = mask[:, None]
         records["paged_chunk_fused"] = dict(
             source="paddle_tpu_torch/kernels/csrc/paged_chunk_fused.cu", max_abs_err=err,
-            ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5),
-            library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qr, kd, vd, attn_mask=mask)),
+            ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), library_ms=device_ms(chunk_sdpa(args)),
             call_ms=call_ms(run), plain_call_ms=call_ms(run_plain, iters=5), **bound(nbytes, flops),
         )
         emit({"phase": "kernel_check", "kernel": "paged_chunk_fused", "hq": hq, "hkv": hkv,
               "tolerance": "1e-4 + 2^-7*|x|", "bytes": nbytes, "flops": flops,
               **records["paged_chunk_fused"], "card": card})
+
+
+def check_kernels(dev, card: dict) -> dict:
+    """Phase 3: every kernel against its plain version at the 7B serving
+    shapes, with its times; returns the per-kernel records."""
+    import torch
+    from paddle_tpu_torch.kernels.fused import (
+        fused_embed_rms_norm, fused_embed_rms_norm_plain,
+        fused_rms_norm_residual, fused_rms_norm_residual_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    records = {}
+
+    check_paged_fused(dev, gen, card, records)
 
     # B: token gather + embedding + RMSNorm, ids [8, 64] over the 32000 x 4096 table
     table = (torch.randn((32000, 4096), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
@@ -532,6 +615,7 @@ def check_kernels(dev, card: dict) -> dict:
           **records["rms_residual"], "card": card})
     check_paged_new(dev, gen, card, records)
     check_paged_dtypes(dev, gen, card)
+    check_paged_split(dev, gen, card)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
     check_flash(dev, gen, card, records)

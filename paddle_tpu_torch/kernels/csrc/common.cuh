@@ -34,16 +34,23 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 // the value an op in type T would have produced: fp32 result rounded to T
 template <typename T> __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
-// neox rope of element d of a row, in the row's type T as the reference
-// computes it: x*cos and rotate(x)*sin each rounded to T, then their sum
+// neox rope of one element in type T as the reference computes it: the
+// table values c, s rounded to T (the reference casts its fp32 tables to
+// x's type), x*c and rot*s each rounded to T, then their sum
 // (__fmul_rn/__fadd_rn: never contracted into an FMA, so fp32 rounds too)
-template <typename T, int D>
-__device__ __forceinline__ float rope_elem(const T* row, const T* cos_row, const T* sin_row, int d) {
+template <typename T>
+__device__ __forceinline__ float rope_val(float x, float rot, float c, float s) {
+  const float a = round_to<T>(__fmul_rn(x, round_to<T>(c)));
+  const float b = round_to<T>(__fmul_rn(rot, round_to<T>(s)));
+  return round_to<T>(__fadd_rn(a, b));
+}
+
+// rope_val of element d of a row of T, the tables' rows of type R (T or fp32)
+template <typename T, int D, typename R = T>
+__device__ __forceinline__ float rope_elem(const T* row, const R* cos_row, const R* sin_row, int d) {
   const float x = to_f(row[d]);
   const float rot = d < D / 2 ? -to_f(row[d + D / 2]) : to_f(row[d - D / 2]);
-  const float a = round_to<T>(__fmul_rn(x, to_f(cos_row[d])));
-  const float c = round_to<T>(__fmul_rn(rot, to_f(sin_row[d])));
-  return round_to<T>(__fadd_rn(a, c));
+  return rope_val<T>(x, rot, to_f(cos_row[d]), to_f(sin_row[d]));
 }
 
 // the I/O type codes of the templated kernels' C entry points

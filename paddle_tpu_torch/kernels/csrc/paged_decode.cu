@@ -10,13 +10,13 @@
 // with `_dequant_tile` in its block walk when the pool is int8.
 //
 // Semantics kept from the Pallas kernels: q (roped in its type when ROPE:
-// each product and the sum rounded to that type) is cast to fp32 and
-// multiplied by `scale`; scores are fp32; the softmax is an fp32 online
-// softmax with denominator max(l, 1e-30), so a slot with lens == 0 is
-// written as exact 0; positions >= lens contribute p == 0 exactly (here:
-// they are never visited); block-table entries at or past ceil(lens / BS)
-// are never read, and neither are their blocks. Storage is bf16, fp16 or
-// fp32 (the template type T); the math is fp32.
+// the fp32 rope rows rounded to that type, each product and the sum rounded
+// to it) is cast to fp32 and multiplied by `scale`; scores are fp32; the
+// softmax is an fp32 online softmax with denominator max(l, 1e-30), so a
+// slot with lens == 0 is written as exact 0; positions >= lens contribute
+// p == 0 exactly (here: they are never visited); block-table entries at or
+// past ceil(lens / BS) are never read, and neither are their blocks.
+// Storage is bf16, fp16 or fp32 (the template type T); the math is fp32.
 //
 // The int8 pool (KV = int8_t, the `_int8` entry points): int8 K/V rows and
 // two fp32 scale planes [NB, HKV, BS] addressed by the same physical block
@@ -80,8 +80,8 @@ __device__ __forceinline__ void load_chunk(const T* row, int c, float* dst) {
 template <typename T, typename KV, int D, int ROWS, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when ROPE
-                    const T* __restrict__ cos_t,  // [B, D] in q's type (ROPE only)
-                    const T* __restrict__ sin_t,
+                    const float* __restrict__ cos_t,  // [B, D] fp32 (ROPE only)
+                    const float* __restrict__ sin_t,
                     const KV* __restrict__ kc,    // [NB, HKV, BS, D]
                     const KV* __restrict__ vc,
                     const float* __restrict__ ks,  // [NB, HKV, BS] (int8 KV only)
@@ -117,7 +117,7 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
     float val = 0.f;
     if (r < rows_here) {
       if constexpr (ROPE) {
-        val = ptt::rope_elem<T, D>(qbase + r * D, cos_t + static_cast<size_t>(b) * D,
+        val = ptt::rope_elem<T, D, float>(qbase + r * D, cos_t + static_cast<size_t>(b) * D,
                                    sin_t + static_cast<size_t>(b) * D, d) * scale;
       } else {
         val = ptt::to_f(qbase[r * D + d]) * scale;
@@ -245,7 +245,7 @@ int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void*
   const dim3 grid((HQ / HKV + ROWS - 1) / ROWS, HKV, B);
 #define PTT_LAUNCH(DIM)                                                                           \
   paged_decode_kernel<T, KV, DIM, ROWS, ROPE><<<grid, kThreads, 0, st>>>(                         \
-      static_cast<const T*>(q), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),       \
+      static_cast<const T*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), \
       static_cast<const KV*>(kc), static_cast<const KV*>(vc), static_cast<const float*>(ks),      \
       static_cast<const float*>(vs), static_cast<const int*>(tables),                             \
       static_cast<const int*>(lens), static_cast<T*>(out), HQ, HKV, BS, MBS, scale)
@@ -305,7 +305,8 @@ extern "C" int ptt_paged_decode(int io, const void* q, const void* kc, const voi
                                  HQ, HKV, D, BS, MBS, scale, stream);
 }
 
-// Kernel 6: kernel 5 with q roped first; cos/sin are the slots' rope rows [B, D].
+// Kernel 6: kernel 5 with q roped first; cos/sin are the slots' fp32 rope rows [B, D],
+// rounded to q's type as they are read.
 extern "C" int ptt_paged_decode_fused(int io, const void* q, const void* cos_t, const void* sin_t,
                                       const void* kc, const void* vc, const void* tables,
                                       const void* lens, void* out, int B, int HQ, int HKV, int D,

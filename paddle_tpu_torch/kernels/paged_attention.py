@@ -22,7 +22,9 @@ block tables; keys are stored roped. Four kernels:
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
 ``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
-kernels take bf16, fp16 or fp32 storage (fp32 math) and head dim 64 or 128.
+kernels take bf16, fp16 or fp32 storage; A and 4 take head dims 64, 128,
+192 and 256, 5 and 6 head dims 64 and 128. The rope rows reach A and 6 in
+fp32, as the engine gathers them; the kernels round them to q's dtype.
 
 The int8 pool: with ``k_scale``/``v_scale`` (fp32 ``[NB, HKV, BS]``, one
 scale per cached token and head, addressed by the same physical block as
@@ -45,6 +47,7 @@ from paddle_tpu_torch.kernels.fused import _io_dtype, _kernel_operand
 from paddle_tpu_torch.kernels.select import count_launch
 
 __all__ = [
+    "chunk_cluster_size",
     "paged_flash_chunk",
     "paged_flash_chunk_fused",
     "paged_flash_chunk_fused_plain",
@@ -60,7 +63,9 @@ __all__ = [
 
 NEG_INF = -1e30  # the Pallas kernel's masked score
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_KERNEL_HEAD_DIMS = (64, 128)
+# head dims each CUDA kernel takes: the chunk kernels A and 4, the decode kernels 5 and 6
+CHUNK_HEAD_DIMS = (64, 128, 192, 256)
+DECODE_HEAD_DIMS = (64, 128)
 
 
 def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -183,12 +188,14 @@ def paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_ta
 
 # -- the kernels -----------------------------------------------------------------
 
-def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor,
-                     block_tables: torch.Tensor, *lens: torch.Tensor, k_scale=None, v_scale=None):
-    """Check what every paged kernel takes; returns ``(io, q, pools,
-    tables32, *lens32)`` ready for the launch: ``pools`` is ``[kc, vc]``,
-    and ``[kc, vc, k_scale, v_scale]`` for the int8 pool (``lens``: the
-    ``[B]`` length vectors)."""
+def _launch_operands(what: str, head_dims: tuple, q: torch.Tensor, key_cache: torch.Tensor,
+                     value_cache: torch.Tensor, block_tables: torch.Tensor, *lens: torch.Tensor, k_scale=None,
+                     v_scale=None):
+    """Check what every paged kernel takes (``head_dims``: those its CUDA
+    kernel is built for); returns ``(io, q, pools, tables32, *lens32)``
+    ready for the launch: ``pools`` is ``[kc, vc]``, and ``[kc, vc,
+    k_scale, v_scale]`` for the int8 pool (``lens``: the ``[B]`` length
+    vectors)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     io = _io_dtype(what, q)
@@ -197,8 +204,8 @@ def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_
     if d_c != d or hq % hkv or value_cache.shape != key_cache.shape:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not fit the cache "
                          f"{tuple(key_cache.shape)} / {tuple(value_cache.shape)}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes head dim 64 or 128, not {d} "
+    if d not in head_dims:
+        raise ValueError(f"{what}: the CUDA kernel takes head dim {', '.join(map(str, head_dims))}, not {d} "
                          "(a head dim that is not a multiple of 64 takes the composition)")
     if block_tables.dim() != 2 or block_tables.shape[0] != b or any(t.shape != (b,) for t in lens):
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / lengths "
@@ -218,11 +225,28 @@ def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_
 
 
 def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, shape) -> tuple:
-    """The rope rows in q's dtype (the kernels read them so, as the Pallas
-    kernels cast them)."""
+    """The rope rows in fp32, as the kernels read them (the engine's rows
+    are fp32 already: no cast; a bf16 or fp16 row widens exactly). Each
+    kernel rounds them to q's dtype, as the Pallas kernels cast them."""
     if cos.shape != shape or sin.shape != shape:
         raise ValueError(f"{what}: rope rows must be {list(shape)}, got {tuple(cos.shape)} / {tuple(sin.shape)}")
-    return tuple(t.to(device=q.device, dtype=q.dtype).contiguous() for t in (cos, sin))
+    return tuple(_kernel_operand(t.to(device=q.device, dtype=torch.float32), name, what, torch.float32, q.device)
+                 for name, t in (("cos", cos), ("sin", sin)))
+
+
+def chunk_cluster_size(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor) -> int:
+    """The CTAs of one cluster over which kernel A splits each history for
+    these shapes on this card (``q`` ``[B, C, HQ, D]`` on the card; an int8
+    ``key_cache`` asks for A's int8 instance): a launch plan from the shapes
+    and the kernel's occupancy only; nothing runs."""
+    b, c, hq, d = q.shape
+    fn = build.kernel_fn("ptt_paged_chunk_ranks", [_I] * 9)
+    with torch.cuda.device(q.device):
+        ranks = fn(_io_dtype("chunk_cluster_size", q), int(key_cache.dtype == torch.int8), 1, b, c, hq,
+                   key_cache.shape[1], d, block_tables.shape[1])
+    if ranks < 0:
+        build.check(-ranks, "chunk_cluster_size")
+    return ranks
 
 
 def _launch(name: str, io: int, ptrs: list, dims: tuple, scale: float, device: torch.device) -> None:
@@ -259,14 +283,15 @@ def paged_flash_chunk_fused(
                                              q_lens, scale, k_scale, v_scale)
     what = "paged_flash_chunk_fused"
     io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale, v_scale=v_scale)
+        what, CHUNK_HEAD_DIMS, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale,
+        v_scale=v_scale)
     b, c, hq, d = q.shape
-    cos_q, sin_q = _rope_operands(what, q, cos, sin, (b, c, d))
+    cos32, sin32 = _rope_operands(what, q, cos, sin, (b, c, d))
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
         _launch("paged_chunk_fused" + "_int8" * quant, io,
-                [t.data_ptr() for t in (q, cos_q, sin_q, *pools, tables32, lens32, qlens32, out)],
+                [t.data_ptr() for t in (q, cos32, sin32, *pools, tables32, lens32, qlens32, out)],
                 (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
     return out
 
@@ -290,7 +315,7 @@ def paged_flash_chunk(
         return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale,
                                        k_scale, v_scale)
     io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        "paged_flash_chunk", q, key_cache, value_cache, block_tables, seq_lens, q_lens,
+        "paged_flash_chunk", CHUNK_HEAD_DIMS, q, key_cache, value_cache, block_tables, seq_lens, q_lens,
         k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
     out = torch.empty_like(q)
@@ -345,8 +370,8 @@ def paged_flash_decode_fused(
 
 def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale, k_scale,
                    v_scale) -> torch.Tensor:
-    io, q, pools, tables32, lens32 = _launch_operands(what, q, key_cache, value_cache, block_tables, seq_lens,
-                                                      k_scale=k_scale, v_scale=v_scale)
+    io, q, pools, tables32, lens32 = _launch_operands(what, DECODE_HEAD_DIMS, q, key_cache, value_cache,
+                                                      block_tables, seq_lens, k_scale=k_scale, v_scale=v_scale)
     b, hq, d = q.shape
     out = torch.empty_like(q)
     if not b:
