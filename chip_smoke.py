@@ -19,8 +19,11 @@ name and power limit):
    that end in every rank of their cluster split, and timed over a
    decode-heavy batch and the GQA mixed batch: ``check_paged_split``) and the flash-attention kernels (forward, dq, dk/dv) at
    the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
-   document mask, and at GQA 32/8 with C=2 and C=4 FlashMask bounds and a
-   ragged S; the RMSNorm forward and backward and the rope forward and
+   document mask (each timed beside its bound, with its share of the
+   bound and of the FlashMask tiles it visits, and beside SDPA: causal, or
+   given the dense document mask), at GQA 32/8 with C=2 and C=4 FlashMask
+   bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 192
+   and 256 in bf16; the RMSNorm forward and backward and the rope forward and
    adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
    ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes;
    kernels B and C in fp16 and fp32; the KV append under
@@ -88,11 +91,16 @@ name and power limit):
    16x, flash_bwd_dq / flash_bwd_dkv 8x, rms_norm_fwd 33x, rms_norm_bwd
    17x, rope_fwd 32x, rope_bwd 16x, flxent_fwd 2x (partials and merge)
    and flxent_dchunk / flxent_dx / flxent_dw 8x (one per 4096-column vocab
-   chunk) and nothing else, the loss falls; a profile of one step; the step
+   chunk) and nothing else, the loss falls; a profile of one step, whose
+   flash kernel events must equal the step's flash launch counters; the step
    with ``FLAGS_use_fused_loss`` off and on, back to back; then a 2-layer
    S=1024 copy whose loss and gradients through the kernels must be no
    further from an fp32 run of the plain versions than the bf16 plain
-   path;
+   path; then fp16 — a 2-layer Llama-2-7B-width model with
+   ``dtype="float16"`` trains one step (the same gates, flash 4/2/2) and a
+   fresh one runs ``generate_paged`` on 2 x 512 prompts, 8 new tokens
+   (launches, and the dense prefill's logits through kernel 14 in fp16
+   against the fp16 plain path's distance from fp32);
 7. train_gpt — after the Llama model is freed, GPT-3 13B widths cut to 8
    layers (hidden 5120, 40 heads of dim 128, vocab 50304, biases, the lm
    head tied to the word embedding; bf16, every JAX default:
@@ -104,8 +112,8 @@ name and power limit):
    ln_residual_bwd 8x (``ln_2``'s residual LayerNorm), flxent_fwd 2x and
    flxent_dchunk / dx / dw 13x (the vocab-major head's 4096-column chunks)
    and nothing else, the loss falls; tokens/s, MFU, peak memory, a
-   profile of one step; then a 2-layer S=1024 copy held to the fp32 plain
-   path as for Llama;
+   profile of one step (flash events held to the counters); then a
+   2-layer S=1024 copy held to the fp32 plain path as for Llama;
 8. residual_repair — the incubate ``fused_rms_norm_residual`` with inputs
    that need gradients: its outputs carry ``ResidualNormFunction``'s node,
    kernel C and kernel 11 each launch once between a reset and a read of
@@ -773,6 +781,7 @@ FLASH_SOURCES = {
     "flash_bwd_dq": "paddle_tpu_torch/kernels/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
 }
+FLASH_FP32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fp32.cu"
 # out: the kernel rounds P to bf16 for the P V product (as flash attention
 # does) while l sums the fp32 p, so each p moves by at most 2^-8 of itself and
 # an output element out[i, e] by at most 2^-8 * (sum_j p_ij |v_je|) / l_i —
@@ -780,6 +789,13 @@ FLASH_SOURCES = {
 # rounding of out itself to bf16 is covered by one bf16 ulp of |x|
 FLASH_TOL = {"out": "2^-8*(P|v|)/l per element + 2^-7*|x|", "lse": "1e-4 * max(1, |lse|)",
              "grads": "rel L2 <= 1e-2"}
+# per input dtype: (P's rounding, out's ulp, lse rel, grads rel L2). fp16
+# rounds P and out with a 10-bit significand: the bf16 gate with 2^-10 in
+# place of both 2^-8 and 2^-7. fp32 rounds nothing: the kernel and its plain
+# version differ only in the fp32 summation order (products over D <= 256,
+# softmax sums over <= 4096 columns), ~1e-6 relative, so 1e-5 relative.
+FLASH_GATES = {"bfloat16": (2.0**-8, 2.0**-7, 1e-4, 1e-2), "float16": (2.0**-10, 2.0**-10, 1e-4, 1e-2),
+               "float32": (1e-5, 1e-5, 1e-5, 1e-5)}
 
 
 def doc_bounds(rng, b: int, s: int, lo: int = 128, hi: int = 2048):
@@ -817,8 +833,9 @@ def band_bounds(gen, dev, b: int, hm: int, s: int, c: int):
 def flash_cost(q, k, bounds, causal: bool) -> dict:
     """What this input's attention needs: visible (row, column) pairs summed
     over batch and query heads, the flops of each kernel (2 D flops per
-    pair and product: forward 2 products, dq 3, dk/dv 4) and the bytes
-    each must move (inputs read once, outputs written once)."""
+    pair and product: forward 2 products, dq 3, dk/dv 4) at the peak of the
+    inputs' type (fp32: the CUDA cores' 67 TFLOP/s) and the bytes each must
+    move (inputs read once, outputs written once)."""
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_masked
 
@@ -829,15 +846,36 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
         mb = None if bounds is None else bounds[bi: bi + 1]
         vis = (~flash_masked(sq, sk, causal, mb, q.device)).sum(dim=(-1, -2))  # [1, Hm|1]
         pairs += int(vis.sum()) * (h // vis.numel())
-    qb, kb = q.numel() * 2, k.numel() * 2  # bf16 q (= out, g, dq) and k (= v, dk, dv)
+    es = q.element_size()
+    qb, kb = q.numel() * es, k.numel() * es  # q (= out, g, dq) and k (= v, dk, dv)
     stats = b * h * sq * 4  # one fp32 lse or delta
     mb = 0 if bounds is None else bounds.numel() * 4
+    rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
     return {
         "pairs": pairs,
-        "flash_fwd": bound(2 * qb + 2 * kb + stats + mb, 4 * d * pairs),
-        "flash_bwd_dq": bound(3 * qb + 2 * kb + 2 * stats + mb, 6 * d * pairs),
-        "flash_bwd_dkv": bound(2 * qb + 4 * kb + 2 * stats + mb, 8 * d * pairs),
+        "flash_fwd": bound(2 * qb + 2 * kb + stats + mb, 4 * d * pairs, rate),
+        "flash_bwd_dq": bound(3 * qb + 2 * kb + 2 * stats + mb, 6 * d * pairs, rate),
+        "flash_bwd_dkv": bound(2 * qb + 4 * kb + 2 * stats + mb, 8 * d * pairs, rate),
     }
+
+
+def flash_tiles(bounds, sq: int, sk: int, causal: bool, d: int, dtype) -> dict:
+    """Per kernel that classes tiles (``flash_tile_classes``, the kernels'
+    FlashMask tile classes): SKIP / PARTIAL / FULL counts over the launch
+    and the share of tiles visited (not SKIP) of all (query tile, key tile)
+    pairs; per (batch, mask head), so Hm 1 counts once for all heads."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    out = {}
+    kernels = ("flash_fwd", "flash_bwd_dq") + (("flash_bwd_dkv",) if dtype == torch.float32 else ())
+    for name in kernels:
+        bm, bn = kfa.flash_tile_shape(name, d, dtype)
+        cls = kfa.flash_tile_classes(bounds, sq, sk, bm, bn, causal)
+        counts = [int((cls == c).sum()) for c in (kfa.SKIP, kfa.PARTIAL, kfa.FULL)]
+        out[name] = {"tile": [bm, bn], "skip_partial_full": counts,
+                     "visited_share": (counts[1] + counts[2]) / max(1, sum(counts))}
+    return out
 
 
 def rel_l2(a, b) -> float:
@@ -845,19 +883,22 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, timed: bool = False) -> dict:
+def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, timed: bool = False,
+               dtype=None, d: int = 128) -> dict:
     """Each flash kernel against its plain version run in fp32 on the same
-    bf16 inputs (one batch row at a time, to bound the plain versions'
+    inputs (one batch row at a time, to bound the plain versions'
     ``[H, Sq, Sk]`` fp32 temporaries); the backward kernels get the same
-    ``g``, ``lse`` and ``delta`` as their plain versions. Fails on a miss."""
+    ``g``, ``lse`` and ``delta`` as their plain versions. Gates per input
+    dtype: ``FLASH_GATES``. Fails on a miss."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
-    bf = torch.bfloat16
-    q = torch.randn((b, s, h, 128), generator=gen, device=dev).to(bf)
-    k = torch.randn((b, s, hk, 128), generator=gen, device=dev).to(bf)
-    v = torch.randn((b, s, hk, 128), generator=gen, device=dev).to(bf)
-    g = torch.randn((b, s, h, 128), generator=gen, device=dev).to(bf)
+    dtype = dtype or torch.bfloat16
+    p_ulp, out_ulp, lse_rel, grad_rel = FLASH_GATES[str(dtype)[6:]]
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hk, d), generator=gen, device=dev).to(dtype)
+    g = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
     out, lse = kfa.flash_fwd(q, k, v, bounds, causal)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = kfa.flash_bwd_dq(q, k, v, bounds, g, lse, delta, causal)
@@ -873,8 +914,8 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
         f32 = [t[sl].float() for t in (q, k, v)]
         bnd = None if bounds is None else bounds[sl]
         ref_out, ref_lse = kfa.flash_fwd_plain(*f32, bnd, causal)
-        limit = 2.0**-8 * kfa.flash_fwd_plain(f32[0], f32[1], f32[2].abs(), bnd, causal)[0]
-        limit += BF16_REL * torch.maximum(out[sl].float().abs(), ref_out.abs())
+        limit = p_ulp * kfa.flash_fwd_plain(f32[0], f32[1], f32[2].abs(), bnd, causal)[0]
+        limit += out_ulp * torch.maximum(out[sl].float().abs(), ref_out.abs())
         diff = (out[sl].float() - ref_out).abs()
         ratio = float((diff / limit.clamp(min=1e-30)).max())
         ok &= ratio <= 1.0
@@ -898,11 +939,14 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
             abs_err[name] = max(abs_err[name], float((got.float() - want).abs().max()))
         del grads, ref_dk, ref_dv, args, f32
         torch.cuda.empty_cache()
-    ok &= err["lse"] <= 1e-4 and max(err["dq"], err["dk"], err["dv"]) <= 1e-2
+    ok &= err["lse"] <= lse_rel and max(err["dq"], err["dk"], err["dv"]) <= grad_rel
+    gate = FLASH_TOL if dtype == torch.bfloat16 else {
+        "out": f"{p_ulp:g}*(P|v|)/l per element + {out_ulp:g}*|x|", "lse": f"{lse_rel:g} * max(1, |lse|)",
+        "grads": f"rel L2 <= {grad_rel:g}"}
     line = {"phase": "kernel_check", "kernel": "flash_fwd/flash_bwd_dq/flash_bwd_dkv", "case": label,
-            "shape": [b, s, h, hk, 128], "causal": causal,
+            "dtype": str(dtype)[6:], "shape": [b, s, h, hk, d], "causal": causal,
             "mask": None if bounds is None else list(bounds.shape), "max_err": err,
-            "out_check": out_check, "grad_max_abs_err": abs_err, "tolerance": FLASH_TOL}
+            "out_check": out_check, "grad_max_abs_err": abs_err, "tolerance": gate}
     if not ok:
         emit({**line, "card": card})
         fail(f"flash kernels disagree with their plain versions ({label}): {err}")
@@ -910,6 +954,7 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
                            "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}}
     if timed:
         cost = flash_cost(q, k, bounds, causal)
+        tiles = flash_tiles(bounds, s, s, causal, d, dtype)
         runs = {
             "flash_fwd": (lambda: kfa.flash_fwd(q, k, v, bounds, causal),
                           lambda: kfa.flash_fwd_plain(q, k, v, bounds, causal)),
@@ -920,8 +965,10 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
         }
         times = {}
         for name, (run, run_plain) in runs.items():
-            times[name] = dict(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
-                               plain_ms=device_ms(run_plain, iters=2, warmup=1), **cost[name])
+            ms = device_ms(run, iters=10)
+            times[name] = dict(ms=ms, call_ms=call_ms(run, iters=10),
+                               plain_ms=device_ms(run_plain, iters=2, warmup=1), **cost[name],
+                               share_of_bound=cost[name]["bound_ms"] / ms, tiles=tiles.get(name))
             torch.cuda.empty_cache()
         res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g))
         line["times"] = times
@@ -930,17 +977,20 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
     return res
 
 
-def sdpa_ms(q, k, v, g) -> dict:
+def sdpa_ms(q, k, v, g, mask=None) -> dict:
     """Yardstick only (the port never calls it): PyTorch's
-    ``scaled_dot_product_attention`` with ``is_causal`` on the same
-    unmasked inputs, forward, and its backward (dq, dk and dv together)."""
+    ``scaled_dot_product_attention`` on the same inputs, forward, and its
+    backward (dq, dk and dv together): with ``is_causal`` unmasked, or with
+    ``mask`` (True where a logit is masked, ``[B, 1, S, S]``) given as the
+    dense boolean ``attn_mask``."""
     import torch
     import torch.nn.functional as tF
 
     qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
-    fwd = device_ms(lambda: tF.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=10)
+    kw = {"is_causal": True} if mask is None else {"attn_mask": ~mask}
+    fwd = device_ms(lambda: tF.scaled_dot_product_attention(qh, kh, vh, **kw), iters=10)
     qr, kr, vr = (t.detach().requires_grad_() for t in (qh, kh, vh))
-    out = tF.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    out = tF.scaled_dot_product_attention(qr, kr, vr, **kw)
     bwd = device_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), gh, retain_graph=True), iters=10)
     return {"fwd": fwd, "bwd_dq_dk_dv": bwd}
 
@@ -948,23 +998,44 @@ def sdpa_ms(q, k, v, g) -> dict:
 def check_flash(dev, gen, card: dict, records: dict) -> None:
     """Kernels 14-16 at the train shape ``[2, 4096, 32, 128]`` causal, with
     no mask (timed, with the SDPA yardstick) and with the train phase's
-    document mask (timed), then at a GQA geometry (HQ 32 / HKV 8, S 1024)
-    with C=2 causal and C=4 non-causal masks for Hm 1 and H, and at a ragged
-    S of 1000 with a document mask."""
+    document mask (timed, with SDPA given the dense document mask), then at
+    a GQA geometry (HQ 32 / HKV 8, S 1024) with C=2 causal and C=4
+    non-causal masks for Hm 1 and H, at a ragged S of 1000 with a document
+    mask, at S 4096 with C=2 and C=4 (HQ 8 / HKV 2), in fp16 and fp32 at the GQA geometry (C=2 causal timed, C=4
+    non-causal) and at head dims 192 and 256 in bf16 (256 timed)."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels.flash_attention import flash_masked
 
     plain = flash_case(dev, gen, 2, 4096, 32, 32, True, None, "train shape, causal", card, timed=True)
     lib = sdpa_ms(*plain["tensors"])
     ends = doc_bounds(np.random.default_rng(0), 2, 4096)
     doc = torch.from_numpy(ends[:, None, :, None].copy()).to(dev)
     masked = flash_case(dev, gen, 2, 4096, 32, 32, True, doc, "train shape, document mask", card, timed=True)
+    lib_doc = sdpa_ms(*masked["tensors"], mask=flash_masked(4096, 4096, True, doc, dev))
+    del plain["tensors"], masked["tensors"]
+    torch.cuda.empty_cache()
     for c, causal in ((2, True), (4, False)):
         for hm in (1, 32):
             flash_case(dev, gen, 2, 1024, 32, 8, causal, band_bounds(gen, dev, 2, hm, 1024, c),
                        f"gqa 32/8, C={c}, Hm={hm}", card)
     ragged = torch.from_numpy(doc_bounds(np.random.default_rng(1), 2, 1000)[:, None, :, None].copy()).to(dev)
     flash_case(dev, gen, 2, 1000, 32, 8, True, ragged, "gqa 32/8, ragged S 1000, document mask", card)
+    for c, causal in ((2, True), (4, False)):  # walks of 32 key tiles: several staging rounds of bounds
+        flash_case(dev, gen, 1, 4096, 8, 2, causal, band_bounds(gen, dev, 1, 8, 4096, c),
+                   f"gqa 8/2, S 4096, C={c}, Hm=H", card)
+    extra = {}
+    for dtype in (torch.float16, torch.float32):
+        for c, causal in ((2, True), (4, False)):
+            res = flash_case(dev, gen, 2, 1024, 32, 8, causal, band_bounds(gen, dev, 2, 1, 1024, c),
+                             f"gqa 32/8, C={c}, {str(dtype)[6:]}", card, timed=causal, dtype=dtype)
+            if causal:
+                extra[str(dtype)[6:]] = res["times"]
+    for d in (192, 256):
+        res = flash_case(dev, gen, 2, 1024, 32, 8, True, band_bounds(gen, dev, 2, 1, 1024, 2),
+                         f"gqa 32/8, C=2, D {d}", card, timed=d == 256, d=d)
+        if d == 256:
+            extra["d256"] = res["times"]
     for name in FLASH_SOURCES:
         t = plain["times"][name]
         records[name] = dict(
@@ -972,10 +1043,16 @@ def check_flash(dev, gen, card: dict, records: dict) -> None:
             ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=lib["fwd"] if name == "flash_fwd" else lib["bwd_dq_dk_dv"],
             doc_mask_ms=masked["times"][name]["ms"], doc_mask_bound_ms=masked["times"][name]["bound_ms"],
+            doc_mask_library_ms=lib_doc["fwd"] if name == "flash_fwd" else lib_doc["bwd_dq_dk_dv"],
         )
     emit({"phase": "flash_times", "train_shape": [2, 4096, 32, 128],
-          "library": "torch scaled_dot_product_attention(is_causal=True), unmasked; bwd is dq+dk+dv in one figure",
-          "sdpa_ms": lib, "records": {n: records[n] for n in FLASH_SOURCES},
+          "library": "torch scaled_dot_product_attention: is_causal=True unmasked; the dense boolean document mask "
+                     "as attn_mask; bwd is dq+dk+dv in one figure",
+          "sdpa_ms": lib, "sdpa_doc_mask_ms": lib_doc, "records": {n: records[n] for n in FLASH_SOURCES},
+          "doc_over_causal": {n: records[n]["doc_mask_ms"] / records[n]["ms"] for n in FLASH_SOURCES},
+          "fwd_over_sdpa": records["flash_fwd"]["ms"] / lib["fwd"],
+          "dq_over_sdpa_bwd": records["flash_bwd_dq"]["ms"] / lib["bwd_dq_dk_dv"],
+          "gqa_1024_c2_causal": extra, "fp32_source": FLASH_FP32_SOURCE,
           "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
 
 
@@ -2532,40 +2609,15 @@ def train_batch(dev, vocab: int, b: int, s: int, seed: int):
 def plain_train_loss(model, ids, labels, bounds, dtype):
     """The train step's loss written out with the plain versions of the
     attention, RMSNorm and rope kernels (differentiated by autograd; the
-    norm and rope in the kernels' rounding order) and of the fused loss head
-    (its ``Function`` on the plain versions) on ``dtype`` copies of the
-    weights; returns the loss and each weight's gradient. In bf16 it is the
-    plain path the kernel path is held to; in fp32 the reference both are
-    measured against."""
-    import torch
-    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
-    from paddle_tpu_torch.kernels.fused import rms_norm_fwd_plain, rope_fwd_plain
+    norm and rope in the kernels' rounding order: :func:`plain_llama_hidden`)
+    and of the fused loss head (its ``Function`` on the plain versions) on
+    ``dtype`` copies of the weights; returns the loss and each weight's
+    gradient. In bf16 it is the plain path the kernel path is held to; in
+    fp32 the reference both are measured against."""
     from paddle_tpu_torch.kernels.fused_loss import linear_cross_entropy
-    from paddle_tpu_torch.nn.functional import swiglu
-
-    def rms_norm(x, weight, epsilon):
-        return rms_norm_fwd_plain(x, weight, epsilon)[0]
 
     w = {n: p.detach().to(dtype).requires_grad_() for n, p in model.named_parameters()}
-    cfg = model.config
-    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    hd = cfg.hidden_size // nh
-    b, s = ids.shape
-    eps = cfg.rms_norm_eps
-    cos, sin = model.llama.rotary_emb(s)
-    h = w["llama.embed_tokens.weight"][ids]
-    for i in range(cfg.num_hidden_layers):
-        pre = f"llama.layers.{i}."
-        x = rms_norm(h, w[pre + "input_layernorm.weight"], eps)
-        q = (x @ w[pre + "self_attn.q_proj.weight"]).reshape(b, s, nh, hd)
-        k = (x @ w[pre + "self_attn.k_proj.weight"]).reshape(b, s, nkv, hd)
-        v = (x @ w[pre + "self_attn.v_proj.weight"]).reshape(b, s, nkv, hd)
-        q, k = rope_fwd_plain(q, cos, sin), rope_fwd_plain(k, cos, sin)
-        a, _ = flash_fwd_plain(q, k, v, bounds, True)
-        h = h + a.reshape(b, s, nh * hd) @ w[pre + "self_attn.o_proj.weight"]
-        x = rms_norm(h, w[pre + "post_attention_layernorm.weight"], eps)
-        h = h + swiglu(x @ w[pre + "mlp.gate_proj.weight"], x @ w[pre + "mlp.up_proj.weight"]) @ w[pre + "mlp.down_proj.weight"]
-    h = rms_norm(h, w["llama.norm.weight"], eps)
+    h = plain_llama_hidden(model, w, ids, bounds)
     loss = linear_cross_entropy(h, w["lm_head.weight"], labels, use_kernels=False)
     loss.backward()
     return loss.detach(), {n: t.grad for n, t in w.items()}
@@ -2607,35 +2659,53 @@ def check_train_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
              f"(worst {worst}: {ratios[worst]}; loss errors {err_k} vs {err_p})")
 
 
-def profile_train_step(step, card: dict, label: str = "train_profile") -> None:
+FLASH_EVENTS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel"}  # launch counter -> device kernel name substring
+
+
+def profile_train_step(step, card: dict, label: str = "train_profile") -> dict:
     """Where one train step's time goes: ``torch.profiler`` over one step,
-    device time by category and the device's idle share of its wall time."""
+    device time by category and the device's idle share of its wall time.
+    The step's flash kernel events, counted by name, must equal the launch
+    counters of the same step (so the profile's flash ms a step are those
+    launches' time). Returns the device ms by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = launch_counts()
     spans, by_cat, by_name = [], {}, {}
+    flash_events = {n: 0 for n in FLASH_EVENTS}
     for e in cuda_events(prof):
         start, dur = e.time_range.start, e.time_range.elapsed_us()
         spans.append((start, start + dur))
         cat = next((c for key, c in TRAIN_CATEGORIES if key in e.name), "elementwise / other")
         by_cat[cat] = by_cat.get(cat, 0.0) + dur
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + dur
+        for n, key in FLASH_EVENTS.items():
+            flash_events[n] += key in e.name
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    by_cat_ms = {k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])}
+    flash_launches = {n: launches[n] for n in FLASH_EVENTS}
     emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
-          "device_ms_by_category": {k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
+          "device_ms_by_category": by_cat_ms, "flash_events": flash_events, "flash_launches": flash_launches,
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
+    if flash_events != flash_launches:
+        fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches}")
+    return by_cat_ms
 
 
 def compare_loss_heads(step, dev, want: dict, tokens: int, n_mfu: int, card: dict) -> None:
@@ -2679,7 +2749,8 @@ def compare_loss_heads(step, dev, want: dict, tokens: int, n_mfu: int, card: dic
           **out, "card": card})
 
 
-def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024) -> dict:
+def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024,
+          steps: int = 5, full: bool = True, label: str = "train") -> dict:
     """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
     ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
     batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
@@ -2690,7 +2761,9 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     and rope_bwd 16x, flxent_fwd 2x (partials and merge) and flxent_dchunk,
     flxent_dx and flxent_dw once per 4096-column vocab chunk (8x), and
     nothing else; the last loss is below the first;
-    then the 2-layer accuracy copy. Returns the launch counts of the 5 steps."""
+    then the 2-layer accuracy copy. Returns the launch counts of the 5 steps.
+    With ``full`` False it runs ``steps`` steps under the same gates (the
+    loss's fall only over more than one step) and nothing after them."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels.fused_loss import CHUNK
@@ -2731,7 +2804,7 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
             # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
             "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
     losses, step_ms, counts, total = [], [], None, {}
-    for i in range(5):
+    for i in range(steps):
         reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2746,20 +2819,22 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         if i:
             step_ms.append(dt)
     tokens = TRAIN_BATCH * seq
-    step_s = sum(step_ms) / len(step_ms) / 1e3
+    step_s = sum(step_ms or [dt]) / len(step_ms or [dt]) / 1e3
     emit({
-        "phase": "train", "model": f"llama2_7b widths, {layers} of 32 layers (seeded random bf16 weights)",
+        "phase": label, "model": f"llama2_7b widths, {layers} of 32 layers (seeded random {cfg.dtype} weights)",
         "params": n_params, "batch": [TRAIN_BATCH, seq], "documents": docs,
         "recompute": True, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
-        "losses": losses, "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms)),
+        "losses": losses, "step_ms": step_ms or [dt], "step_ms_p50": float(np.median(step_ms or [dt])),
         "tokens_per_s": tokens / step_s,
         "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / step_s / BF16_FLOP_PER_S,
         "mfu_note": "6 N T / step time / 989e12; N leaves out the embedding table (a gather); attention flops left out",
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches_per_step": counts, "launches_5_steps": total, "card": card,
     })
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if not all(np.isfinite(losses)) or (steps > 1 and not losses[-1] < losses[0]):
         fail(f"the loss did not decrease over the steps: {losses}")
+    if not full:
+        return total
     profile_train_step(step, card)
     compare_loss_heads(step, dev, want, tokens, n_mfu, card)
     del model, opt
@@ -2767,6 +2842,106 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     torch.cuda.empty_cache()
     check_train_accuracy(dev, card, accuracy_cfg, accuracy_seq)
     return total
+
+
+# -- fp16: the flash kernels' dtype repair, end to end -------------------------
+
+FP16_LAYERS = 2
+FP16_GEN = (2, 512, 8)  # prompts, prompt tokens, new tokens
+
+
+def plain_llama_hidden(model, w: dict, ids, bounds):
+    """The Llama forward up to the final norm written out with the plain
+    versions of the attention, RMSNorm and rope kernels (in the kernels'
+    rounding order) on the weights ``w`` (name -> tensor, of the dtype the
+    run computes in)."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_plain
+    from paddle_tpu_torch.kernels.fused import rms_norm_fwd_plain, rope_fwd_plain
+    from paddle_tpu_torch.nn.functional import swiglu
+
+    def rms_norm(x, weight, epsilon):
+        return rms_norm_fwd_plain(x, weight, epsilon)[0]
+
+    cfg = model.config
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = cfg.hidden_size // nh
+    b, s = ids.shape
+    eps = cfg.rms_norm_eps
+    cos, sin = model.llama.rotary_emb(s)
+    h = w["llama.embed_tokens.weight"][ids]
+    for i in range(cfg.num_hidden_layers):
+        pre = f"llama.layers.{i}."
+        x = rms_norm(h, w[pre + "input_layernorm.weight"], eps)
+        q = (x @ w[pre + "self_attn.q_proj.weight"]).reshape(b, s, nh, hd)
+        k = (x @ w[pre + "self_attn.k_proj.weight"]).reshape(b, s, nkv, hd)
+        v = (x @ w[pre + "self_attn.v_proj.weight"]).reshape(b, s, nkv, hd)
+        q, k = rope_fwd_plain(q, cos, sin), rope_fwd_plain(k, cos, sin)
+        a, _ = flash_fwd_plain(q, k, v, bounds, True)
+        h = h + a.reshape(b, s, nh * hd) @ w[pre + "self_attn.o_proj.weight"]
+        x = rms_norm(h, w[pre + "post_attention_layernorm.weight"], eps)
+        h = h + swiglu(x @ w[pre + "mlp.gate_proj.weight"], x @ w[pre + "mlp.up_proj.weight"]) @ w[pre + "mlp.down_proj.weight"]
+    return rms_norm(h, w["llama.norm.weight"], eps)
+
+
+def fp16_phase(dev, card: dict) -> dict:
+    """The flash kernels' fp16 repair end to end: a 2-layer Llama-2-7B-width
+    model with ``dtype="float16"`` and recompute on trains one step through
+    :func:`train` (2 x 4096 document-packed tokens: every parameter a finite
+    non-zero gradient, flash 4/2/2 launches and the rest of the train
+    step's, the loss reported), then a fresh fp16 model runs
+    ``generate_paged`` on 2 x 512 prompts with 8 new tokens: output
+    ``[2, 520]`` int32 after the prompts, launches gated (the dense prefill:
+    flash_fwd 2, rope_fwd 4, rms_norm_fwd 5; each of the 7 decode steps
+    paged_decode 2, rms_norm_fwd 5), and the prefill's logits through the
+    relative gate of :func:`logits_gate` against the fp16 plain path's own
+    distance from an fp32 run of the plain versions. Returns the launches
+    of both."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(num_hidden_layers=FP16_LAYERS, recompute=True, dtype="float16")
+    counts = train(dev, card, cfg=cfg, steps=1, full=False, label="train_fp16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(cfg, device=dev, seed=2)
+    model.eval()
+    b, prompt, new = FP16_GEN
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, prompt)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = model.generate_paged(ids, max_new_tokens=new, block_size=16)
+    torch.cuda.synchronize()
+    gen_counts = {k: v for k, v in launch_counts().items() if v}
+    layers = cfg.num_hidden_layers
+    want = {"flash_fwd": layers, "rope_fwd": 2 * layers, "paged_decode": (new - 1) * layers,
+            "rms_norm_fwd": new * (2 * layers + 1)}
+    if tuple(out.shape) != (b, prompt + new) or out.dtype != torch.int32 or not torch.equal(out[:, :prompt], ids):
+        fail(f"fp16 generate_paged returned {tuple(out.shape)} {out.dtype}, want [{b}, {prompt + new}] int32 "
+             "after the prompts")
+    if gen_counts != want:
+        fail(f"fp16 generate_paged launched {gen_counts}, want {want} and nothing else")
+    with torch.inference_mode():
+        reset_launch_counts()
+        got, _ = model(ids.long(), use_cache=True)  # the dense prefill: kernel 14 in fp16
+        prefill = {k: v for k, v in launch_counts().items() if v}
+        if prefill.get("flash_fwd") != layers:
+            fail(f"the fp16 dense prefill launched {prefill}, want flash_fwd {layers}")
+        got = got.float().reshape(-1, cfg.vocab_size)
+        params = dict(model.named_parameters())
+        lm = "lm_head.weight"
+        plain = (plain_llama_hidden(model, params, ids.long(), None) @ params[lm]).float()
+        f32 = {n: p.float() for n, p in params.items()}
+        ref = plain_llama_hidden(model, f32, ids.long(), None) @ f32[lm]
+    emit({"phase": "generate_paged_fp16", "layers": layers, "batch": b, "prompt_tokens": prompt, "new_tokens": new,
+          "launches": gen_counts, "prefill_launches": prefill, "card": card})
+    logits_gate(got, plain.reshape(-1, cfg.vocab_size), ref.reshape(-1, cfg.vocab_size), "logits_prefill_fp16", card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": counts, "generate": gen_counts}
 
 
 # -- GPT-3 13B widths: pretraining through kernels 12, 13, 14-16, 17-19 ----------
@@ -3000,6 +3175,7 @@ def main() -> int:
     counts.update({k: v for k, v in train(dev, card).items() if k in TRAIN_KERNELS})
     gc.collect()
     torch.cuda.empty_cache()
+    fp16_phase(dev, card)
     counts.update({k: v for k, v in train_gpt(dev, card).items() if k in ("ln_residual", "ln_residual_bwd")})
     counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),
                                                        card)["rms_residual_bwd"]

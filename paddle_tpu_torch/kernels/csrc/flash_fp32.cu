@@ -1,0 +1,404 @@
+// The fp32 instances of the flash-attention kernels 14 (forward), 15 (dq)
+// and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu and
+// flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
+// kernels) on fp32 q, k, v, g, computed with fp32 FMAs on the CUDA cores.
+// No TF32: its 10-bit significand could not meet an fp32 gate.
+//
+// Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs.
+//
+// Design (simple first). The same tile walks and FlashMask tile classes as
+// the bf16/fp16 kernels (flash_common.cuh `warp_tile_class`, computed by
+// every warp alike, so the block agrees): SKIP tiles are neither staged nor
+// computed, FULL tiles run without the mask. Blocks of 4 warps.
+// - Forward and dq: a block owns 16 query rows (4 per warp) and walks
+//   32-key tiles staged in shared memory; lane j computes the logits of
+//   column j for the warp's 4 rows (q rows read as shared-memory
+//   broadcasts), the softmax statistics are warp reductions, and each lane
+//   accumulates D / 32 output columns of each row (p or dS broadcast by
+//   shuffles).
+// - dk/dv: a block owns 16 keys (4 per warp) and walks 32-row query tiles of
+//   each query head of the group; lane i computes row i's logits against the
+//   warp's keys, and each lane accumulates D / 32 columns of dk and dv.
+//
+// Bound on H100: operations at fp32's 67 TFLOP/s; this version issues one
+// FMA per shared-memory load and reaches a fraction of it.
+#include "flash_common.cuh"
+
+namespace fl = ptt::flash;
+
+namespace {
+
+constexpr int kThreads = 128;        // 4 warps
+constexpr int kRowsPerWarp = 4;
+constexpr int kQRows = 4 * kRowsPerWarp;  // forward / dq: query rows per block
+constexpr int kKeys = 32;                 // forward / dq: keys per tile
+constexpr int kDkvKeys = 16;              // dk/dv: keys per block (4 per warp)
+constexpr int kDkvRows = 32;              // dk/dv: query rows per tile
+
+// rows [r0, r0 + R) of a [S][stride] fp32 tensor into s[R][ld] (0 past S)
+template <int R, int D>
+__device__ __forceinline__ void stage(float* s, int ld, const float* src, size_t stride, int r0, int S) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    s[r * ld + c] = r0 + r < S ? src[(r0 + r) * stride + c] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const int* __restrict__ bounds, float* __restrict__ out, float* __restrict__ lse, int Sq,
+                      int Sk, int H, int HK, int Hm, int C, int causal, float scale) {
+  constexpr int kLd = D + 1;  // padded: lane j reads row j
+  constexpr int kDD = D / 32;
+  extern __shared__ float smf[];
+  float* q_s = smf;                  // [kQRows][D]
+  float* k_s = q_s + kQRows * D;     // [kKeys][kLd]
+  float* v_s = k_s + kKeys * kLd;    // [kKeys][D]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_qt = (Sq + kQRows - 1) / kQRows;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / HK);
+  const int r0 = qt * kQRows;
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(HK) * D;
+  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
+  stage<kQRows, D>(q_s, D, qb, q_stride, r0, Sq);
+
+  float o[kRowsPerWarp][kDD], m[kRowsPerWarp], l[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m[i] = -fl::kInf, l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) o[i][d] = 0.f;
+  }
+  const int hi = fl::walk_end(qt * kQRows, kQRows, kKeys, Sq, Sk, causal);
+  fl::TileBounds<kKeys> tb;
+  for (int t = 0; t < hi; ++t) {
+    const int c0 = t * kKeys;
+    const int cls = fl::warp_tile_class<kKeys>(tb, bb, C, r0, kQRows, c0, Sq, Sk, causal, lane);
+    if (cls == fl::kSkip) continue;
+    __syncthreads();  // the previous tile's reads are done (and q staged)
+    stage<kKeys, D>(k_s, kLd, kb, kv_stride, c0, Sk);
+    stage<kKeys, D>(v_s, D, vb, kv_stride, c0, Sk);
+    __syncthreads();
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kv = k_s[lane * kLd + d];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) s[i] = fmaf(q_s[(warp * kRowsPerWarp + i) * D + d], kv, s[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int row = r0 + warp * kRowsPerWarp + i;
+      float x = s[i] * scale;
+      if (cls == fl::kPartial && fl::masked(row, c0 + lane, Sq, Sk, causal, tb.v[0], C)) x = -fl::kInf;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = m_new == -fl::kInf ? 1.f : expf(m[i] - m_new);
+      const float p = m_new == -fl::kInf ? 0.f : expf(x - m_new);
+      m[i] = m_new;
+      l[i] = l[i] * alpha + p;  // this lane's column; summed over the warp at the end
+#pragma unroll
+      for (int d = 0; d < kDD; ++d) o[i][d] *= alpha;
+      for (int j = 0; j < kKeys; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int d = 0; d < kDD; ++d) o[i][d] = fmaf(pj, v_s[j * D + lane + 32 * d], o[i][d]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = r0 + warp * kRowsPerWarp + i;
+    const float lt = ptt::warp_sum(l[i]);
+    if (row >= Sq) continue;
+    const bool seen = lt > 0.f;
+    float* orow = out + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) orow[lane + 32 * d] = seen ? o[i][d] / lt : 0.f;
+    if (lane == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + row] = seen ? m[i] + logf(lt) : fl::kInf;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const int* __restrict__ bounds, const float* __restrict__ g, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk, int H, int HK,
+                         int Hm, int C, int causal, float scale) {
+  constexpr int kLd = D + 1;
+  constexpr int kDD = D / 32;
+  extern __shared__ float smf[];
+  float* q_s = smf;                  // [kQRows][D]
+  float* g_s = q_s + kQRows * D;     // [kQRows][D]
+  float* k_s = g_s + kQRows * D;     // [kKeys][kLd]
+  float* v_s = k_s + kKeys * kLd;    // [kKeys][kLd]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_qt = (Sq + kQRows - 1) / kQRows;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / HK);
+  const int r0 = qt * kQRows;
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(HK) * D;
+  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const float* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
+  stage<kQRows, D>(q_s, D, qb, q_stride, r0, Sq);
+  stage<kQRows, D>(g_s, D, gb, q_stride, r0, Sq);
+
+  float acc[kRowsPerWarp][kDD], row_lse[kRowsPerWarp], row_dl[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = r0 + warp * kRowsPerWarp + i;
+    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + row;
+    row_lse[i] = row < Sq ? lse[at] : fl::kInf;
+    row_dl[i] = row < Sq ? delta[at] : 0.f;
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) acc[i][d] = 0.f;
+  }
+  const int hi = fl::walk_end(qt * kQRows, kQRows, kKeys, Sq, Sk, causal);
+  fl::TileBounds<kKeys> tb;
+  for (int t = 0; t < hi; ++t) {
+    const int c0 = t * kKeys;
+    const int cls = fl::warp_tile_class<kKeys>(tb, bb, C, r0, kQRows, c0, Sq, Sk, causal, lane);
+    if (cls == fl::kSkip) continue;
+    __syncthreads();
+    stage<kKeys, D>(k_s, kLd, kb, kv_stride, c0, Sk);
+    stage<kKeys, D>(v_s, kLd, vb, kv_stride, c0, Sk);
+    __syncthreads();
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = dp[i] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kx = k_s[lane * kLd + d], vx = v_s[lane * kLd + d];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        s[i] = fmaf(q_s[(warp * kRowsPerWarp + i) * D + d], kx, s[i]);
+        dp[i] = fmaf(g_s[(warp * kRowsPerWarp + i) * D + d], vx, dp[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int row = r0 + warp * kRowsPerWarp + i;
+      const bool off = cls == fl::kPartial && fl::masked(row, c0 + lane, Sq, Sk, causal, tb.v[0], C);
+      const float p = off ? 0.f : expf(scale * s[i] - row_lse[i]);
+      const float ds = p * (dp[i] - row_dl[i]) * scale;
+      for (int j = 0; j < kKeys; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, ds, j);
+#pragma unroll
+        for (int d = 0; d < kDD; ++d) acc[i][d] = fmaf(dj, k_s[j * kLd + lane + 32 * d], acc[i][d]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = r0 + warp * kRowsPerWarp + i;
+    if (row >= Sq) continue;
+    float* drow = dq + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) drow[lane + 32 * d] = acc[i][d];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const int* __restrict__ bounds, const float* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                          int Sk, int H, int HK, int Hm, int C, int causal, float scale) {
+  constexpr int kLd = D + 1;
+  constexpr int kDD = D / 32;
+  constexpr int kKPW = kDkvKeys / 4;  // keys per warp
+  extern __shared__ float smf[];
+  float* k_s = smf;                    // [kDkvKeys][D]
+  float* v_s = k_s + kDkvKeys * D;     // [kDkvKeys][D]
+  float* q_s = v_s + kDkvKeys * D;     // [kDkvRows][kLd]
+  float* g_s = q_s + kDkvRows * kLd;   // [kDkvRows][kLd]
+  float* lse_s = g_s + kDkvRows * kLd; // [kDkvRows]
+  float* dl_s = lse_s + kDkvRows;      // [kDkvRows]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, b = blockIdx.z, G = H / HK;
+  const int k0 = blockIdx.x * kDkvKeys;
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(HK) * D;
+  stage<kDkvKeys, D>(k_s, D, k + (static_cast<size_t>(b) * Sk * HK + hk) * D, kv_stride, k0, Sk);
+  stage<kDkvKeys, D>(v_s, D, v + (static_cast<size_t>(b) * Sk * HK + hk) * D, kv_stride, k0, Sk);
+
+  float dka[kKPW][kDD], dva[kKPW][kDD];
+#pragma unroll
+  for (int j = 0; j < kKPW; ++j)
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) dka[j][d] = dva[j][d] = 0.f;
+  const int n_qt = (Sq + kDkvRows - 1) / kDkvRows;
+  int lo = 0;
+  if (causal) {
+    const int first = k0 - (Sk - Sq);
+    lo = first <= 0 ? 0 : first / kDkvRows;
+  }
+  fl::TileBounds<kDkvKeys> tb;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = hk * G + gi;
+    const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+    const float* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
+    const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
+    int kbnd[kKPW][4];  // the warp's keys' bounds (0 past Sk: masked anyway)
+#pragma unroll
+    for (int j = 0; j < kKPW; ++j) {
+      const int key = k0 + warp * kKPW + j;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) kbnd[j][x] = (x < C && key < Sk) ? bb[static_cast<size_t>(key) * C + x] : 0;
+    }
+    for (int qt = lo; qt < n_qt; ++qt) {
+      const int q0 = qt * kDkvRows;
+      const int cls = fl::warp_tile_class<kDkvKeys>(tb, bb, C, q0, kDkvRows, k0, Sq, Sk, causal, lane);
+      if (cls == fl::kSkip) continue;
+      __syncthreads();  // the previous tile's reads are done (and K, V staged)
+      stage<kDkvRows, D>(q_s, kLd, qb, q_stride, q0, Sq);
+      stage<kDkvRows, D>(g_s, kLd, gb, q_stride, q0, Sq);
+      for (int i = threadIdx.x; i < kDkvRows; i += kThreads) {
+        const bool in = q0 + i < Sq;
+        const size_t at = (static_cast<size_t>(b) * H + h) * Sq + q0 + i;
+        lse_s[i] = in ? lse[at] : fl::kInf;
+        dl_s[i] = in ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      const int row = q0 + lane;
+#pragma unroll
+      for (int j = 0; j < kKPW; ++j) {
+        const int kl = warp * kKPW + j, key = k0 + kl;
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < D; ++d) {
+          s = fmaf(q_s[lane * kLd + d], k_s[kl * D + d], s);
+          dp = fmaf(g_s[lane * kLd + d], v_s[kl * D + d], dp);
+        }
+        const bool off = row >= Sq || key >= Sk ||
+                         (cls == fl::kPartial && fl::masked(row, key, Sq, Sk, causal, kbnd[j], C));
+        const float p = off ? 0.f : expf(scale * s - lse_s[lane]);
+        const float ds = p * (dp - dl_s[lane]) * scale;
+        for (int i = 0; i < kDkvRows; ++i) {
+          const float pi = __shfl_sync(0xffffffffu, p, i), di = __shfl_sync(0xffffffffu, ds, i);
+#pragma unroll
+          for (int d = 0; d < kDD; ++d) {
+            dva[j][d] = fmaf(pi, g_s[i * kLd + lane + 32 * d], dva[j][d]);
+            dka[j][d] = fmaf(di, q_s[i * kLd + lane + 32 * d], dka[j][d]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kKPW; ++j) {
+    const int key = k0 + warp * kKPW + j;
+    if (key >= Sk) continue;
+    const size_t at = (static_cast<size_t>(b) * Sk + key) * kv_stride + static_cast<size_t>(hk) * D;
+#pragma unroll
+    for (int d = 0; d < kDD; ++d) {
+      dk[at + lane + 32 * d] = dka[j][d];
+      dv[at + lane + 32 * d] = dva[j][d];
+    }
+  }
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq,
+               int Sk, int H, int HK, int Hm, int C, int causal, float scale, cudaStream_t stream) {
+  const size_t bytes = (kQRows * D + kKeys * (D + 1) + kKeys * D) * sizeof(float);
+  auto kernel = flash_fwd_fp32_kernel<D>;
+  const int err = ptt::allow_smem(kernel, bytes);
+  if (err) return err;
+  const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                            static_cast<const float*>(v), static_cast<const int*>(bounds),
+                                            static_cast<float*>(out), static_cast<float*>(lse), Sq, Sk, H, HK, Hm, C,
+                                            causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
+              const void* delta, void* dq, int B, int Sq, int Sk, int H, int HK, int Hm, int C, int causal,
+              float scale, cudaStream_t stream) {
+  const size_t bytes = (2 * kQRows * D + 2 * kKeys * (D + 1)) * sizeof(float);
+  auto kernel = flash_bwd_dq_fp32_kernel<D>;
+  const int err = ptt::allow_smem(kernel, bytes);
+  if (err) return err;
+  const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(bounds), static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, HK, Hm, C, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int HK, int Hm, int C,
+               int causal, float scale, cudaStream_t stream) {
+  const size_t bytes = (2 * kDkvKeys * D + 2 * kDkvRows * (D + 1) + 2 * kDkvRows) * sizeof(float);
+  auto kernel = flash_bwd_dkv_fp32_kernel<D>;
+  const int err = ptt::allow_smem(kernel, bytes);
+  if (err) return err;
+  const dim3 grid((Sk + kDkvKeys - 1) / kDkvKeys, HK, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(bounds), static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, HK, Hm, C,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The three entries take the bf16/fp16 entries' arguments (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) with every q/k/v/g/out tensor fp32;
+// the blocks here take fixed tiles, so the scheduler counter goes unused.
+extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
+                                  void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
+                                  float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_fwd<64>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 128: return launch_fwd<128>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 192: return launch_fwd<192>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 256: return launch_fwd<256>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int ptt_flash_bwd_dq_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
+                                     const void* lse, const void* delta, void* dq, void* /*sched: unused*/, int B, int Sq, int Sk, int H,
+                                     int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_dq<64>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 128: return launch_dq<128>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 192: return launch_dq<192>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 256: return launch_dq<256>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int ptt_flash_bwd_dkv_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
+                                      const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
+                                      int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_dkv<64>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 128:
+      return launch_dkv<128>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 192:
+      return launch_dkv<192>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    case 256:
+      return launch_dkv<256>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

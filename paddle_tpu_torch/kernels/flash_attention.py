@@ -27,7 +27,17 @@ its block size (the XLA path a uniform average over all columns).
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
-``csrc/flash_bwd_dkv.cu`` or raises — it never falls back.
+``csrc/flash_bwd_dkv.cu`` (bf16 and fp16; ``csrc/flash_fp32.cu`` for fp32)
+or raises — it never falls back. On the card the kernels take q, k, v (and
+g) of one dtype, bf16, fp16 or fp32, and a head dim in
+:data:`KERNEL_HEAD_DIMS` (64, 128, 192, 256); a larger head dim raises.
+
+Kernels 14 and 15 (and the fp32 instances of all three) walk the key tiles
+of a query tile under FlashMask *tile classes* computed on the card from
+the bounds: a tile whose every logit is masked is skipped (no copy, no
+product), one with no masked logit runs without the mask.
+:func:`flash_tile_classes` is the same classing in PyTorch, for the tests
+and for ``chip_smoke.py``'s share of tiles visited; no wrapper calls it.
 """
 
 from __future__ import annotations
@@ -50,11 +60,33 @@ __all__ = [
     "flash_fwd",
     "flash_fwd_plain",
     "flash_masked",
+    "flash_tile_classes",
+    "flash_tile_shape",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 _MASK_C = (1, 2, 4)
+_KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
+
+# tile classes (csrc/flash_common.cuh TileClass)
+SKIP, PARTIAL, FULL = 0, 1, 2
+
+
+def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """``(BM, BN)`` of the tile walk that ``kernel`` (``"flash_fwd"``,
+    ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
+    the query rows and keys of one (query tile, key tile) pair. bf16/fp16:
+    the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128 x 64; fp32:
+    forward and dq 16 x 32, dk/dv 32 query rows x 16 keys. The bf16/fp16
+    dk/dv kernel skips no tile (its own redesign will)."""
+    if dtype == torch.float32:
+        return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
+    if kernel == "flash_fwd":
+        return (128, 128) if d <= 128 else (128, 64)
+    if kernel == "flash_bwd_dq":
+        return (128, 64)
+    raise ValueError(f"{kernel} at {dtype} classes no tiles")
 
 
 # -- the mask ----------------------------------------------------------------
@@ -90,6 +122,67 @@ def flash_masked(sq: int, sk: int, causal: bool, bounds: Optional[torch.Tensor],
     else:
         m = ((r >= col(0)) & (r < col(1))) | ((r >= col(2)) & (r < col(3)))
     return masked | m
+
+
+def flash_tile_classes(bounds: Optional[torch.Tensor], sq: int, sk: int, bm: int, bn: int,
+                       causal: bool) -> torch.Tensor:
+    """The kernels' FlashMask tile classes (``csrc/flash_common.cuh``
+    ``warp_tile_class``), int ``[B|1, Hm|1, ceil(Sq / bm), ceil(Sk / bn)]``:
+    :data:`SKIP` where every logit of the (query tile, key tile) pair is
+    masked, :data:`FULL` where none is, :data:`PARTIAL` otherwise. The same
+    conservative rules from the same per-tile min and max of each bounds
+    slot over the tile's real columns: SKIP causally when the tile starts
+    past the last real row's limit, or when one band covers every real row
+    for every column (C=1 ``max s <= r0``; C=2 ``max s <= r0`` and
+    ``min e >= r1``; C=4 either band so); FULL when no row or column is
+    padding, the tile is causally clear, and every band lies outside the
+    tile's rows (C=1 ``min s >= r1``; C=2 ``min s >= r1`` or ``max e <= r0``;
+    C=4 both bands so)."""
+    n_qt, n_kt = -(-sq // bm), -(-sk // bn)
+    dev = bounds.device if bounds is not None else torch.device("cpu")
+    r0 = torch.arange(n_qt, device=dev)[:, None] * bm  # [n_qt, 1]
+    c0 = torch.arange(n_kt, device=dev)[None, :] * bn  # [1, n_kt]
+    r1 = (r0 + bm).clamp(max=sq)  # the real rows end here
+    rb = r0 + bm  # FULL needs every row real
+    shift = sk - sq
+    skip = torch.zeros((n_qt, n_kt), dtype=torch.bool, device=dev)
+    if causal:
+        skip |= c0 > r1 - 1 + shift
+    full = (rb <= sq) & (c0 + bn <= sk)
+    if causal:
+        full &= c0 + bn - 1 <= r0 + shift
+    skip, full = skip[None, None], full[None, None]
+    if bounds is not None:
+        b, hm, _, c = bounds.shape
+        if c not in _MASK_C:
+            raise ValueError(f"FlashMask C must be 1/2/4, got {c}")
+        pad = n_kt * bn - sk
+        bnd = bounds.to(torch.long)
+        big = torch.iinfo(torch.long).max // 2
+        lo = torch.cat([bnd, bnd.new_full((b, hm, pad, c), big)], 2).reshape(b, hm, n_kt, bn, c).amin(3)
+        hi = torch.cat([bnd, bnd.new_full((b, hm, pad, c), -big)], 2).reshape(b, hm, n_kt, bn, c).amax(3)
+        mn = [lo[..., j][:, :, None, :] for j in range(c)]  # [B, Hm, 1, n_kt]
+        mx = [hi[..., j][:, :, None, :] for j in range(c)]
+        r0_, r1_, rb_ = r0[None, None], r1[None, None], rb[None, None]
+
+        def covers(i):  # band i ([s, e) in slots i, i + 1) masks every real row
+            return (mx[i] <= r0_) & (mn[i + 1] >= r1_)
+
+        def clear(i):  # band i masks no row of the tile
+            return (mn[i] >= rb_) | (mx[i + 1] <= r0_)
+
+        if c == 1:
+            skip = skip | (mx[0] <= r0_)
+            full = full & (mn[0] >= rb_)
+        elif c == 2:
+            skip = skip | covers(0)
+            full = full & clear(0)
+        else:
+            skip = skip | covers(0) | covers(2)
+            full = full & clear(0) & clear(2)
+    cls = torch.full(torch.broadcast_shapes(skip.shape, full.shape), PARTIAL, dtype=torch.int8, device=dev)
+    cls = cls.masked_fill(full, FULL)
+    return cls.masked_fill(skip, SKIP)
 
 
 def _heads(x: torch.Tensor, hk: int) -> torch.Tensor:
@@ -196,24 +289,34 @@ def flash_bwd_dkv_plain(
 # -- CUDA wrappers -------------------------------------------------------------
 
 def _cuda_inputs(what: str, tensors, bounds, d: int):
-    """Contiguous bf16 views of ``tensors`` and int32 bounds on one card, or
-    an exception naming what the kernel does not take."""
+    """Contiguous, 16-byte-aligned views of ``tensors`` (one dtype of
+    bf16, fp16 and fp32) and int32 bounds on one card, with the C entry's
+    dtype suffix; or an exception naming what the kernels do not take."""
+    if d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{what}: head dim {d} is above the kernels' {KERNEL_HEAD_DIMS[-1]} "
+                         "(ROADMAP Queue 3 fault 2: D above 256 is not ported yet)")
+    dtype = tensors[0][1].dtype
+    for name, t in tensors:
+        if t.dtype not in _KERNEL_DTYPES or t.dtype != dtype:
+            raise ValueError(f"{what}: q, k, v and g must share one of bf16, fp16 and fp32; "
+                             f"{name} is {t.dtype} beside {tensors[0][0]} {dtype}")
     dev = tensors[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes head dim 64 or 128, not {d}")
+        raise ValueError(f"{what}: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, not {d}")
     out = []
     for name, t in tensors:
-        if t.device != dev or t.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: {name} must be a bf16 tensor on {dev}, got {t.dtype} on {t.device}")
-        out.append(t.contiguous())
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())  # TMA reads 16-byte-aligned rows
     bnd = None
     if bounds is not None:
         if bounds.device != dev or bounds.dtype != torch.int32:
             raise ValueError(f"{what}: bounds must be an int32 tensor on {dev}")
         bnd = bounds.contiguous()
-    return dev, out, bnd
+    return dev, out, bnd, _KERNEL_DTYPES[dtype]
 
 
 def _stats(what: str, t: torch.Tensor, shape, dev) -> torch.Tensor:
@@ -226,6 +329,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
+    """The item scheduler's counter of the persistent bf16/fp16 kernels 14
+    and 15 (one int32, zero before each launch); the fp32 kernels take none."""
+    return None if suffix == "fp32" else torch.zeros(1, dtype=torch.int32, device=dev)
+
+
 def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor] = None,
     causal: bool = False, scale: Optional[float] = None,
@@ -235,16 +344,16 @@ def flash_fwd(
         return flash_fwd_plain(q, k, v, bounds, causal, scale)
     b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
     scale = 1.0 / d**0.5 if scale is None else scale
-    dev, (q, k, v), bnd = _cuda_inputs("flash_fwd", [("q", q), ("k", k), ("v", v)], bounds, d)
+    dev, (q, k, v), bnd, suffix = _cuda_inputs("flash_fwd", [("q", q), ("k", k), ("v", v)], bounds, d)
     launch = bool(b and sq and sk and h)
     out = torch.empty_like(q) if launch else torch.zeros_like(q)
     lse = torch.full((b, h, sq), float("inf"), dtype=torch.float32, device=dev)
     if launch:
-        fn = build.kernel_fn("ptt_flash_fwd_bf16", [_P] * 6 + [_I] * 9 + [_F, _P])
+        fn = build.kernel_fn(f"ptt_flash_fwd_{suffix}", [_P] * 7 + [_I] * 9 + [_F, _P])
         with torch.cuda.device(dev):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), out.data_ptr(),
-                     lse.data_ptr(), b, sq, sk, h, hk, d, hm, c, int(bool(causal)), float(scale),
-                     torch.cuda.current_stream().cuda_stream)
+                     lse.data_ptr(), _ptr(_sched(suffix, dev)), b, sq, sk, h, hk, d, hm, c, int(bool(causal)),
+                     float(scale), torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_fwd")
         count_launch("flash_fwd")
     return out, lse
@@ -263,17 +372,17 @@ def flash_bwd_dq(
     if g.shape != q.shape:
         raise ValueError(f"flash_bwd_dq: g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
     scale = 1.0 / d**0.5 if scale is None else scale
-    dev, (q, k, v, g), bnd = _cuda_inputs("flash_bwd_dq", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
+    dev, (q, k, v, g), bnd, suffix = _cuda_inputs("flash_bwd_dq", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
     lse = _stats("flash_bwd_dq: lse", lse, (b, h, sq), dev)
     delta = _stats("flash_bwd_dq: delta", delta, (b, h, sq), dev)
     launch = bool(b and sq and sk and h)
     dq = torch.empty_like(q) if launch else torch.zeros_like(q)
     if launch:
-        fn = build.kernel_fn("ptt_flash_bwd_dq_bf16", [_P] * 8 + [_I] * 9 + [_F, _P])
+        fn = build.kernel_fn(f"ptt_flash_bwd_dq_{suffix}", [_P] * 9 + [_I] * 9 + [_F, _P])
         with torch.cuda.device(dev):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), g.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk, h, hk, d, hm, c,
-                     int(bool(causal)), float(scale), torch.cuda.current_stream().cuda_stream)
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(_sched(suffix, dev)), b, sq, sk, h,
+                     hk, d, hm, c, int(bool(causal)), float(scale), torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_bwd_dq")
         count_launch("flash_bwd_dq")
     return dq
@@ -291,14 +400,14 @@ def flash_bwd_dkv(
     if g.shape != q.shape:
         raise ValueError(f"flash_bwd_dkv: g {tuple(g.shape)} is not q's shape {tuple(q.shape)}")
     scale = 1.0 / d**0.5 if scale is None else scale
-    dev, (q, k, v, g), bnd = _cuda_inputs("flash_bwd_dkv", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
+    dev, (q, k, v, g), bnd, suffix = _cuda_inputs("flash_bwd_dkv", [("q", q), ("k", k), ("v", v), ("g", g)], bounds, d)
     lse = _stats("flash_bwd_dkv: lse", lse, (b, h, sq), dev)
     delta = _stats("flash_bwd_dkv: delta", delta, (b, h, sq), dev)
     launch = bool(b and sq and sk and h)
     alloc = torch.empty_like if launch else torch.zeros_like
     dk, dv = alloc(k), alloc(v)
     if launch:
-        fn = build.kernel_fn("ptt_flash_bwd_dkv_bf16", [_P] * 9 + [_I] * 9 + [_F, _P])
+        fn = build.kernel_fn(f"ptt_flash_bwd_dkv_{suffix}", [_P] * 9 + [_I] * 9 + [_F, _P])
         with torch.cuda.device(dev):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), g.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

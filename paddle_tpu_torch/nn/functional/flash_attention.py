@@ -6,9 +6,11 @@ Both entries run the flash-attention kernels (forward, dq, dk/dv) through
 on CPU tensors those are the kernels' plain versions. A head dim that is
 not a multiple of 64 takes :func:`_xla_attention`, the counterpart of the
 JAX package's XLA composition (differentiated by autograd), as the JAX
-package's gate sends it there. On the card the kernels take bf16 and head
-dim 64 or 128; another dtype or head dim the gate lets through raises,
-naming what the kernel does not take.
+package's gate sends it there. On the card the kernels take bf16, fp16
+and fp32 at head dims 64, 128, 192 and 256 (kernels 14 and 15 on Hopper's
+wgmma for bf16 and fp16, with FlashMask tiles that are masked whole
+skipped; fp32 on the CUDA cores); a head dim above 256, which the gate lets
+through, raises, naming what the kernels do not take.
 """
 
 from __future__ import annotations
