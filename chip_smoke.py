@@ -22,8 +22,13 @@ name and power limit):
    document mask (each timed beside its bound, with its share of the
    bound and of the FlashMask tiles it visits, and beside SDPA: causal, or
    given the dense document mask), at GQA 32/8 with C=2 and C=4 FlashMask
-   bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 192
-   and 256 in bf16; the RMSNorm forward and backward and the rope forward and
+   bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
+   192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
+   given the dense band mask); kernel 16 (dk/dv) gated at most SDPA's whole
+   backward causal, at most half its own causal time under the document
+   mask, and bitwise equal over two runs; each flash kernel's cold-L2 time
+   per call under the Llama step's document mask and at the GPT step's
+   causal ``[4, 2048, 40, 128]``; the RMSNorm forward and backward and the rope forward and
    adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
    ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes;
    kernels B and C in fp16 and fp32; the KV append under
@@ -93,7 +98,9 @@ name and power limit):
    and flxent_dchunk / flxent_dx / flxent_dw 8x (one per 4096-column vocab
    chunk) and nothing else, the loss falls; a profile of one step, whose
    flash kernel events must equal the step's flash launch counters; the step
-   with ``FLAGS_use_fused_loss`` off and on, back to back; then a 2-layer
+   with ``FLAGS_use_fused_loss`` off and on, back to back (the profile
+   reports each flash kernel's in-step ms per launch beside its cold-L2 ms
+   per call); then a 2-layer
    S=1024 copy whose loss and gradients through the kernels must be no
    further from an fp32 run of the plain versions than the bf16 plain
    path; then fp16 — a 2-layer Llama-2-7B-width model with
@@ -112,7 +119,8 @@ name and power limit):
    ln_residual_bwd 8x (``ln_2``'s residual LayerNorm), flxent_fwd 2x and
    flxent_dchunk / dx / dw 13x (the vocab-major head's 4096-column chunks)
    and nothing else, the loss falls; tokens/s, MFU, peak memory, a
-   profile of one step (flash events held to the counters); then a
+   profile of one step (flash events held to the counters, in-step ms per
+   launch beside cold-L2 ms per call); then a
    2-layer S=1024 copy held to the fp32 plain path as for Llama;
 8. residual_repair — the incubate ``fused_rms_norm_residual`` with inputs
    that need gradients: its outputs carry ``ResidualNormFunction``'s node,
@@ -568,9 +576,11 @@ def check_paged_fused(dev, gen, card: dict, records: dict) -> None:
               **records["paged_chunk_fused"], "card": card})
 
 
-def check_kernels(dev, card: dict) -> dict:
+def check_kernels(dev, card: dict) -> tuple:
     """Phase 3: every kernel against its plain version at the 7B serving
-    shapes, with its times; returns the per-kernel records."""
+    shapes, with its times; returns the per-kernel records and the flash
+    kernels' cold-L2 ms per call under each train step's mask
+    (``check_flash``)."""
     import torch
     from paddle_tpu_torch.kernels.fused import (
         fused_embed_rms_norm, fused_embed_rms_norm_plain,
@@ -626,12 +636,12 @@ def check_kernels(dev, card: dict) -> dict:
     check_paged_split(dev, gen, card)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
-    check_flash(dev, gen, card, records)
+    flash_cold = check_flash(dev, gen, card, records)
     check_norm_rope(dev, gen, card, records)
     check_residual_norms(dev, gen, card, records)
     check_fused_loss(dev, gen, card, records)
     check_int8_kernels(dev, gen, card, records)
-    return records
+    return records, flash_cold
 
 
 def check_b_c_dtypes(dev, gen, card: dict) -> None:
@@ -860,16 +870,15 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
 
 
 def flash_tiles(bounds, sq: int, sk: int, causal: bool, d: int, dtype) -> dict:
-    """Per kernel that classes tiles (``flash_tile_classes``, the kernels'
-    FlashMask tile classes): SKIP / PARTIAL / FULL counts over the launch
+    """Per flash kernel (``flash_tile_classes``, the kernels' FlashMask
+    tile classes, at each kernel's tile): SKIP / PARTIAL / FULL counts over the launch
     and the share of tiles visited (not SKIP) of all (query tile, key tile)
     pairs; per (batch, mask head), so Hm 1 counts once for all heads."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     out = {}
-    kernels = ("flash_fwd", "flash_bwd_dq") + (("flash_bwd_dkv",) if dtype == torch.float32 else ())
-    for name in kernels:
+    for name in FLASH_SOURCES:
         bm, bn = kfa.flash_tile_shape(name, d, dtype)
         cls = kfa.flash_tile_classes(bounds, sq, sk, bm, bn, causal)
         counts = [int((cls == c).sum()) for c in (kfa.SKIP, kfa.PARTIAL, kfa.FULL)]
@@ -970,7 +979,8 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
                                plain_ms=device_ms(run_plain, iters=2, warmup=1), **cost[name],
                                share_of_bound=cost[name]["bound_ms"] / ms, tiles=tiles.get(name))
             torch.cuda.empty_cache()
-        res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g))
+        res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g),
+                   bwd_args=(q, k, v, bounds, g, lse, delta, causal))
         line["times"] = times
         line["visible_pairs"] = cost["pairs"]
     emit({**line, "card": card})
@@ -982,11 +992,14 @@ def sdpa_ms(q, k, v, g, mask=None) -> dict:
     ``scaled_dot_product_attention`` on the same inputs, forward, and its
     backward (dq, dk and dv together): with ``is_causal`` unmasked, or with
     ``mask`` (True where a logit is masked, ``[B, 1, S, S]``) given as the
-    dense boolean ``attn_mask``."""
+    dense boolean ``attn_mask``. Under GQA, K and V are repeated to the
+    query heads before the timed calls."""
     import torch
     import torch.nn.functional as tF
 
     qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    if kh.shape[1] != qh.shape[1]:
+        kh, vh = (t.repeat_interleave(qh.shape[1] // kh.shape[1], dim=1) for t in (kh, vh))
     kw = {"is_causal": True} if mask is None else {"attn_mask": ~mask}
     fwd = device_ms(lambda: tF.scaled_dot_product_attention(qh, kh, vh, **kw), iters=10)
     qr, kr, vr = (t.detach().requires_grad_() for t in (qh, kh, vh))
@@ -995,14 +1008,47 @@ def sdpa_ms(q, k, v, g, mask=None) -> dict:
     return {"fwd": fwd, "bwd_dq_dk_dv": bwd}
 
 
-def check_flash(dev, gen, card: dict, records: dict) -> None:
+def flash_cold_ms(dev, gen, b: int, s: int, h: int, causal: bool) -> dict:
+    """Each flash kernel's device time per call with a cold L2 (``device_ms``)
+    at ``[b, s, h, 128]`` bf16, no FlashMask: the GPT train step's attention,
+    for the in-step reading of ``profile_train_step``."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    q, k, v, g = (torch.randn((b, s, h, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    out, lse = kfa.flash_fwd(q, k, v, None, causal)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return {"flash_fwd": device_ms(lambda: kfa.flash_fwd(q, k, v, None, causal), iters=10),
+            "flash_bwd_dq": device_ms(lambda: kfa.flash_bwd_dq(q, k, v, None, g, lse, delta, causal), iters=10),
+            "flash_bwd_dkv": device_ms(lambda: kfa.flash_bwd_dkv(q, k, v, None, g, lse, delta, causal), iters=10)}
+
+
+def dkv_deterministic(args) -> bool:
+    """Kernel 16 twice on the same inputs: dk and dv bitwise equal (no
+    atomics, a fixed order per work item whatever CTA takes it)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    dk0, dv0 = kfa.flash_bwd_dkv(*args)
+    dk1, dv1 = kfa.flash_bwd_dkv(*args)
+    return bool(torch.equal(dk0, dk1)) and bool(torch.equal(dv0, dv1))
+
+
+def check_flash(dev, gen, card: dict, records: dict) -> dict:
     """Kernels 14-16 at the train shape ``[2, 4096, 32, 128]`` causal, with
     no mask (timed, with the SDPA yardstick) and with the train phase's
     document mask (timed, with SDPA given the dense document mask), then at
     a GQA geometry (HQ 32 / HKV 8, S 1024) with C=2 causal and C=4
     non-causal masks for Hm 1 and H, at a ragged S of 1000 with a document
-    mask, at S 4096 with C=2 and C=4 (HQ 8 / HKV 2), in fp16 and fp32 at the GQA geometry (C=2 causal timed, C=4
-    non-causal) and at head dims 192 and 256 in bf16 (256 timed)."""
+    mask, at S 4096 with C=2 and C=4 (HQ 8 / HKV 2), in fp16 and fp32 at the
+    GQA geometry (C=2 causal timed, with SDPA given the dense band mask;
+    C=4 non-causal) and at head dims 64, 192 and 256 in bf16 (256 timed,
+    with SDPA). Kernel 16's gates: at most SDPA's whole backward causal at the
+    train shape, at most half its own causal time under the document mask,
+    and two runs bitwise equal (causal and document mask). Returns each
+    kernel's cold-L2 ms per call under the Llama step's mask (the document
+    mask) and at the GPT step's causal ``[4, 2048, 40, 128]``, for the
+    train profiles' in-step readings."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_masked
@@ -1013,7 +1059,9 @@ def check_flash(dev, gen, card: dict, records: dict) -> None:
     doc = torch.from_numpy(ends[:, None, :, None].copy()).to(dev)
     masked = flash_case(dev, gen, 2, 4096, 32, 32, True, doc, "train shape, document mask", card, timed=True)
     lib_doc = sdpa_ms(*masked["tensors"], mask=flash_masked(4096, 4096, True, doc, dev))
-    del plain["tensors"], masked["tensors"]
+    deterministic = {"causal": dkv_deterministic(plain["bwd_args"]),
+                     "document mask": dkv_deterministic(masked["bwd_args"])}
+    del plain["tensors"], masked["tensors"], plain["bwd_args"], masked["bwd_args"]
     torch.cuda.empty_cache()
     for c, causal in ((2, True), (4, False)):
         for hm in (1, 32):
@@ -1024,18 +1072,23 @@ def check_flash(dev, gen, card: dict, records: dict) -> None:
     for c, causal in ((2, True), (4, False)):  # walks of 32 key tiles: several staging rounds of bounds
         flash_case(dev, gen, 1, 4096, 8, 2, causal, band_bounds(gen, dev, 1, 8, 4096, c),
                    f"gqa 8/2, S 4096, C={c}, Hm=H", card)
-    extra = {}
+    extra, extra_lib = {}, {}
     for dtype in (torch.float16, torch.float32):
         for c, causal in ((2, True), (4, False)):
-            res = flash_case(dev, gen, 2, 1024, 32, 8, causal, band_bounds(gen, dev, 2, 1, 1024, c),
-                             f"gqa 32/8, C={c}, {str(dtype)[6:]}", card, timed=causal, dtype=dtype)
+            bnd = band_bounds(gen, dev, 2, 1, 1024, c)
+            res = flash_case(dev, gen, 2, 1024, 32, 8, causal, bnd, f"gqa 32/8, C={c}, {str(dtype)[6:]}", card,
+                             timed=causal, dtype=dtype)
             if causal:
                 extra[str(dtype)[6:]] = res["times"]
-    for d in (192, 256):
-        res = flash_case(dev, gen, 2, 1024, 32, 8, True, band_bounds(gen, dev, 2, 1, 1024, 2),
-                         f"gqa 32/8, C=2, D {d}", card, timed=d == 256, d=d)
+                extra_lib[str(dtype)[6:]] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
+    for d in (64, 192, 256):
+        bnd = band_bounds(gen, dev, 2, 1, 1024, 2)
+        res = flash_case(dev, gen, 2, 1024, 32, 8, True, bnd, f"gqa 32/8, C=2, D {d}", card, timed=d == 256, d=d)
         if d == 256:
             extra["d256"] = res["times"]
+            extra_lib["d256"] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
+    del res
+    torch.cuda.empty_cache()
     for name in FLASH_SOURCES:
         t = plain["times"][name]
         records[name] = dict(
@@ -1045,15 +1098,33 @@ def check_flash(dev, gen, card: dict, records: dict) -> None:
             doc_mask_ms=masked["times"][name]["ms"], doc_mask_bound_ms=masked["times"][name]["bound_ms"],
             doc_mask_library_ms=lib_doc["fwd"] if name == "flash_fwd" else lib_doc["bwd_dq_dk_dv"],
         )
+    dkv = records["flash_bwd_dkv"]
+    cold = {"llama, document mask [2, 4096, 32, 128]": {n: records[n]["doc_mask_ms"] for n in FLASH_SOURCES},
+            "gpt, causal [4, 2048, 40, 128]": flash_cold_ms(dev, gen, 4, 2048, 40, True)}
     emit({"phase": "flash_times", "train_shape": [2, 4096, 32, 128],
-          "library": "torch scaled_dot_product_attention: is_causal=True unmasked; the dense boolean document mask "
-                     "as attn_mask; bwd is dq+dk+dv in one figure",
+          "library": "torch scaled_dot_product_attention: is_causal=True unmasked; the dense boolean document "
+                     "(or band) mask as attn_mask; GQA K/V repeated to the query heads; bwd is dq+dk+dv in one figure",
           "sdpa_ms": lib, "sdpa_doc_mask_ms": lib_doc, "records": {n: records[n] for n in FLASH_SOURCES},
           "doc_over_causal": {n: records[n]["doc_mask_ms"] / records[n]["ms"] for n in FLASH_SOURCES},
           "fwd_over_sdpa": records["flash_fwd"]["ms"] / lib["fwd"],
           "dq_over_sdpa_bwd": records["flash_bwd_dq"]["ms"] / lib["bwd_dq_dk_dv"],
-          "gqa_1024_c2_causal": extra, "fp32_source": FLASH_FP32_SOURCE,
+          "dkv_over_sdpa_bwd": dkv["ms"] / lib["bwd_dq_dk_dv"],
+          "dq_plus_dkv_over_sdpa_bwd": (records["flash_bwd_dq"]["ms"] + dkv["ms"]) / lib["bwd_dq_dk_dv"],
+          "dkv_share_of_bound": {"causal": dkv["bound_ms"] / dkv["ms"],
+                                 "document mask": dkv["doc_mask_bound_ms"] / dkv["doc_mask_ms"]},
+          "dkv_doc_over_causal": dkv["doc_mask_ms"] / dkv["ms"], "dkv_bitwise_deterministic": deterministic,
+          "gqa_1024_c2_causal": extra, "gqa_1024_c2_causal_sdpa_ms": extra_lib, "fp32_source": FLASH_FP32_SOURCE,
+          "cold_ms_per_call": cold,
           "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
+    if not all(deterministic.values()):
+        fail(f"flash_bwd_dkv: two runs on the same inputs differ ({deterministic})")
+    if dkv["ms"] > lib["bwd_dq_dk_dv"]:
+        fail(f"flash_bwd_dkv takes {dkv['ms']:.4f} ms causal, above SDPA's whole backward "
+             f"({lib['bwd_dq_dk_dv']:.4f} ms)")
+    if dkv["doc_mask_ms"] > 0.5 * dkv["ms"]:
+        fail(f"flash_bwd_dkv takes {dkv['doc_mask_ms']:.4f} ms under the document mask, above half of its "
+             f"causal {dkv['ms']:.4f} ms: its tiles are not skipped")
+    return cold
 
 
 # -- kernels 7-10: RMSNorm forward/backward, rope forward/adjoint ---------------
@@ -2663,12 +2734,15 @@ FLASH_EVENTS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_k
                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}  # launch counter -> device kernel name substring
 
 
-def profile_train_step(step, card: dict, label: str = "train_profile") -> dict:
+def profile_train_step(step, card: dict, label: str = "train_profile", flash_cold=None) -> dict:
     """Where one train step's time goes: ``torch.profiler`` over one step,
     device time by category and the device's idle share of its wall time.
     The step's flash kernel events, counted by name, must equal the launch
     counters of the same step (so the profile's flash ms a step are those
-    launches' time). Returns the device ms by category."""
+    launches' time). Each flash kernel's in-step ms per launch (its events'
+    ms over its launches) stands beside ``flash_cold``, its cold-L2 ms per
+    call from ``check_flash`` under the step's mask. Returns the device ms
+    by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
@@ -2683,6 +2757,7 @@ def profile_train_step(step, card: dict, label: str = "train_profile") -> dict:
     launches = launch_counts()
     spans, by_cat, by_name = [], {}, {}
     flash_events = {n: 0 for n in FLASH_EVENTS}
+    flash_us = {n: 0.0 for n in FLASH_EVENTS}
     for e in cuda_events(prof):
         start, dur = e.time_range.start, e.time_range.elapsed_us()
         spans.append((start, start + dur))
@@ -2690,7 +2765,9 @@ def profile_train_step(step, card: dict, label: str = "train_profile") -> dict:
         by_cat[cat] = by_cat.get(cat, 0.0) + dur
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + dur
         for n, key in FLASH_EVENTS.items():
-            flash_events[n] += key in e.name
+            if key in e.name:
+                flash_events[n] += 1
+                flash_us[n] += dur
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -2699,9 +2776,12 @@ def profile_train_step(step, card: dict, label: str = "train_profile") -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     by_cat_ms = {k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])}
     flash_launches = {n: launches[n] for n in FLASH_EVENTS}
+    in_step = {n: {"in_step_ms_per_launch": flash_us[n] / 1e3 / max(1, flash_launches[n]),
+                   "cold_ms_per_call": (flash_cold or {}).get(n)} for n in FLASH_EVENTS}
     emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_by_category": by_cat_ms, "flash_events": flash_events, "flash_launches": flash_launches,
+          "flash_in_step_vs_cold": in_step,
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
     if flash_events != flash_launches:
         fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches}")
@@ -2750,7 +2830,7 @@ def compare_loss_heads(step, dev, want: dict, tokens: int, n_mfu: int, card: dic
 
 
 def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024,
-          steps: int = 5, full: bool = True, label: str = "train") -> dict:
+          steps: int = 5, full: bool = True, label: str = "train", flash_cold=None) -> dict:
     """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
     ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
     batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
@@ -2835,7 +2915,7 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         fail(f"the loss did not decrease over the steps: {losses}")
     if not full:
         return total
-    profile_train_step(step, card)
+    profile_train_step(step, card, flash_cold=flash_cold)
     compare_loss_heads(step, dev, want, tokens, n_mfu, card)
     del model, opt
     gc.collect()
@@ -3037,7 +3117,7 @@ def check_gpt_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
 
 
 def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_SEQ, accuracy_cfg=None,
-              accuracy_seq: int = 1024) -> dict:
+              accuracy_seq: int = 1024, flash_cold=None) -> dict:
     """Phase 7: GPT-3 13B widths (hidden 5120, 40 heads of dim 128, vocab
     50304, FFN 4x, biases, tied lm head) cut to 8 layers, bf16 parameters
     (seeded N(0, 0.02), LayerNorm weights 1, biases 0), every JAX default
@@ -3118,7 +3198,7 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
     })
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"the GPT loss did not decrease over the steps: {losses}")
-    profile_train_step(step, card, "train_gpt_profile")
+    profile_train_step(step, card, "train_gpt_profile", flash_cold)
     del model, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3151,7 +3231,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln)]
     emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"], "ptxas": ptxas})
 
-    records = check_kernels(dev, card)
+    records, flash_cold = check_kernels(dev, card)
     model, counts, streams = serve(dev, card)  # the engine and its pool are released here
     check_logits(model, dev, card)
     counts["paged_chunk"] = serve_unfused(model, dev, card, streams)["paged_chunk"]
@@ -3172,11 +3252,13 @@ def main() -> int:
     del model  # the 7B serving model, before the train phase
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update({k: v for k, v in train(dev, card).items() if k in TRAIN_KERNELS})
+    counts.update({k: v for k, v in train(dev, card, flash_cold=flash_cold["llama, document mask [2, 4096, 32, 128]"]).items()
+                   if k in TRAIN_KERNELS})
     gc.collect()
     torch.cuda.empty_cache()
     fp16_phase(dev, card)
-    counts.update({k: v for k, v in train_gpt(dev, card).items() if k in ("ln_residual", "ln_residual_bwd")})
+    counts.update({k: v for k, v in train_gpt(dev, card, flash_cold=flash_cold["gpt, causal [4, 2048, 40, 128]"]).items()
+                   if k in ("ln_residual", "ln_residual_bwd")})
     counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),
                                                        card)["rms_residual_bwd"]
     emit({"kernels": [

@@ -1,19 +1,17 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_fp32.cu): the FlashMask test, the
-// FlashMask tile classes, and for kernel 16 the mma.sync product, fragment
-// loads from shared memory and tile staging.
+// FlashMask tile classes, the producer/consumer rings of the wgmma kernels
+// 14-16 and their walks.
 //
-// Tensor-core tiles of kernel 16 are mma.sync m16n8k16 (bf16 or fp16
-// inputs, fp32 accumulators). Per warp, with lane = 4 * gid + tig:
+// wgmma keeps mma.sync m16n8k16's fragment layouts per warp (hopper.cuh).
+// With lane = 4 * gid + tig:
 //   A 16x16 (row-major): a0 = (gid, 2tig..+1), a1 = (gid+8, 2tig..+1),
 //                        a2 = (gid, 2tig+8..+9), a3 = (gid+8, 2tig+8..+9)
-//   B 16x8  (k x n):     b0 = (k 2tig..+1, n gid), b1 = (k 2tig+8..+9, n gid)
 //   C 16x8  (fp32):      c0,c1 = (gid, 2tig..+1), c2,c3 = (gid+8, 2tig..+1)
 // Two adjacent C tiles (n = 0..7 and 8..15) of one row block are exactly the
-// A fragment of a k16 step, so probabilities and dS feed the next product
-// straight from registers. Each 32-bit register holds two 16-bit values, the
-// lower column in the low half. (wgmma keeps the same layouts per warp: see
-// hopper.cuh.)
+// A fragment of a k16 step, so probabilities and dS (14, 15) or their
+// transposes (16) feed the next product straight from registers. Each
+// 32-bit register holds two 16-bit values, the lower column in the low half.
 #pragma once
 
 #include <climits>
@@ -25,53 +23,7 @@ namespace flash {
 
 constexpr float kInf = __builtin_huge_valf();
 
-// mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32: c += a b
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, f16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two 16-bit values at p (p 4-byte aligned) as one register
-template <typename T>
-__device__ __forceinline__ uint32_t ld2(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 using hopper::pack2;
-
-// A fragment of a 16-row block of a row-major [rows][ld] array, at
-// columns k0..k0+15
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* s, int ld, int row0, int k0,
-                                       int gid, int tig) {
-  const T* p = s + (row0 + gid) * ld + k0 + 2 * tig;
-  a[0] = ld2(p);
-  a[1] = ld2(p + 8 * ld);
-  a[2] = ld2(p + 8);
-  a[3] = ld2(p + 8 * ld + 8);
-}
-
-// B fragment (k x n = 16 x 8) from an array stored n-major: s[n][k] with
-// row stride ld; n0, k0 the tile's origin
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const T* s, int ld, int n0, int k0,
-                                       int gid, int tig) {
-  const T* p = s + (n0 + gid) * ld + k0 + 2 * tig;
-  b0 = ld2(p);
-  b1 = ld2(p + 8);
-}
 
 // the A fragment of k16 step t built from C tiles 2t and 2t+1 (fp32 -> T)
 template <typename T>
@@ -80,44 +32,6 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float* c0, const 
   a[1] = pack2<T>(c0[2], c0[3]);
   a[2] = pack2<T>(c1[0], c1[1]);
   a[3] = pack2<T>(c1[2], c1[3]);
-}
-
-// Stage rows [r0, r0 + R) of a [S][row_stride] tensor of a 2-byte T (D
-// contiguous values per row) row-major into `s` (row stride ld). Rows at or
-// past S are zero. 16-byte global loads, neighbouring threads on
-// neighbouring chunks of a row (coalesced); all threads of the block take
-// part.
-template <int R, int D, int THREADS, typename T>
-__device__ __forceinline__ void stage_rows(T* s, int ld, const T* src, size_t row_stride, int r0, int S) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < R * kVec; i += THREADS) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(s + r * ld + c) = v;
-  }
-}
-
-// The same rows staged row-major into `s` AND, for columns [d0, d0 + DT),
-// transposed into t[d - d0][r] (row stride ldt), from one read of each 16
-// bytes. Neighbouring threads take neighbouring rows of one 8-column chunk,
-// so each of a warp's 8 transposed 2-byte stores hits 16 distinct banks
-// (with chunks along a row, 16 threads' stores would share one bank).
-template <int R, int D, int DT, int THREADS, typename T>
-__device__ __forceinline__ void stage_rows_both(T* s, int ld, T* t, int ldt, int d0, const T* src,
-                                                size_t row_stride, int r0, int S) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < R * kVec; i += THREADS) {
-    const int r = i % R, c = (i / R) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(s + r * ld + c) = v;
-    if (c >= d0 && c < d0 + DT) {
-      const T* e = elems_of<T>(v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t[(c - d0 + j) * ldt + r] = e[j];
-    }
-  }
 }
 
 // True where the logit of query row `row` and key column `col` is masked:
@@ -453,9 +367,115 @@ __device__ __forceinline__ void store_rows_tma(unsigned char* buf, const uint32_
   hopper::named_barrier(1 + wg, 128);
 }
 
-// A consumer warp is done with its ring slot (its wgmmas have completed).
-template <int BN, int D, int S>
-__device__ __forceinline__ void release_slot(KvRing<BN, D, S>& ring, int lane) {
+// -- the transposed walk of kernel 16 (flash_bwd_dkv.cu) ---------------------
+
+// One CTA owns a work item (BN-key tile, KV head, batch) and walks the query
+// tiles of the KV head's query heads past its resident K and V. The key
+// tile runs fastest, so the items in flight at once share a few heads' Q and
+// g in L2. Under `causal` the lowest key tile has the longest walk (every
+// query row at or after it sees it), so this order is the longest first
+// within a head, as item_of's is for 14 and 15.
+struct KeyItem {
+  int kt, hk, b;
+};
+
+__device__ __forceinline__ KeyItem key_item_of(int i, int n_kt, int HK) {
+  const int bh = i / n_kt;
+  return KeyItem{i % n_kt, bh % HK, bh / HK};
+}
+
+// The first BM-row query tile that can see key k0 under `causal` (the rows
+// before (k0 - (Sk - Sq)) see none of the tile's keys); 0 without causal.
+__device__ __forceinline__ int key_walk_floor(int k0, int BM, int Sq, int Sk, int causal) {
+  const int first = k0 - (Sk - Sq);  // the first query row that can see key k0
+  return causal && first > 0 ? first / BM : 0;
+}
+
+// The end of a key tile's walk over n_qt query tiles, from the per-slot
+// min and max of its bounds: under C=1 (rows [s, Sq) masked), and under C=2
+// when every band reaches Sq (min e >= Sq), no row at or past max s is
+// visible, so the walk ends at the tile holding row max s - 1. Every tile
+// past that end is SKIP in tile_class_of, so the cut only saves classing.
+__device__ __forceinline__ int key_walk_end(const int (&mn)[4], const int (&mx)[4], int C, int BM, int Sq, int n_qt) {
+  if (C == 1 || (C == 2 && mn[1] >= Sq)) {
+    const int end = mx[0] <= 0 ? 0 : (mx[0] + BM - 1) / BM;
+    return end < n_qt ? end : n_qt;
+  }
+  return n_qt;
+}
+
+// The per-slot min and max of a key tile's bounds staged in shared memory
+// (`v`: ncols columns of C ints), in every lane of the calling warp (whole
+// and converged; lane l reads columns l + 32 i).
+__device__ __forceinline__ void warp_bounds_minmax(const int* v, int ncols, int C, int (&mn)[4], int (&mx)[4],
+                                                   int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mn[j] = INT_MAX, mx[j] = INT_MIN;
+  for (int cl = lane; cl < ncols; cl += 32) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < C) mn[j] = min(mn[j], v[cl * C + j]), mx[j] = max(mx[j], v[cl * C + j]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mn[j] = min(mn[j], __shfl_xor_sync(0xffffffffu, mn[j], o));
+      mx[j] = max(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
+    }
+  }
+}
+
+// The masked rows of a 64-row query tile from r0 (bit r = row r0 + r) for
+// key column `col`, whose C bounds `vc` holds: `masked` for the whole
+// column at once, as at most three row intervals (the causal prefix and C's
+// bands); every row of a column past Sk.
+__device__ __forceinline__ uint64_t rows_mask64(const int* vc, int C, int col, int r0, int Sq, int Sk, int causal) {
+  if (col >= Sk) return ~0ull;
+  uint64_t m[2] = {0ull, 0ull};  // add_rows' 128-row form: rows 64-127 are dropped
+  if (causal) add_rows(m, -1, col - (Sk - Sq) - r0);  // col > row + Sk - Sq: the rows before
+  if (C == 1) add_rows(m, vc[0] - r0, 128);
+  if (C >= 2) add_rows(m, vc[0] - r0, vc[1] - r0);
+  if (C == 4) add_rows(m, vc[2] - r0, vc[3] - r0);
+  return m[0];
+}
+
+// The ring of query-tile slots between kernel 16's producer warp and its
+// consumer warpgroups: S slots of a Q and a g tile (BM x D each, as D / 64
+// swizzled boxes), the tile rows' lse and delta (fp32; lse +inf and delta 0
+// past Sq), for a PARTIAL tile one 64-bit row mask per key column
+// (rows_mask64), an info word (the tile's first row, its class and the
+// kLastTile flag; row -1 ends an item's walk) and a full / empty mbarrier
+// pair. The producer and every consumer thread keep their own (stage, phase).
+template <int BN, int BM, int D, int S>
+struct QgRing {
+  static_assert(BM == 64, "the row masks and the stats cover a 64-row query tile");
+  static constexpr int kTileBytes = BM * D * 2;
+  unsigned char* q;  // S Q tiles, then...
+  unsigned char* g;  // ...S g tiles
+  uint64_t* mask;    // [S][BN]
+  float* stats;      // [S][2][BM]: lse, delta
+  int2* info;        // [S]
+  uint64_t* full;    // [S]: 32 arrivals of the producer warp, 32 of its lanes' cp.async (the stats), the tiles' bytes
+  uint64_t* empty;   // [S], one arrival per consumer warp
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ __forceinline__ unsigned char* q_tile() const { return q + stage * kTileBytes; }
+  __device__ __forceinline__ unsigned char* g_tile() const { return g + stage * kTileBytes; }
+  __device__ __forceinline__ uint64_t* masks() const { return mask + stage * BN; }
+  __device__ __forceinline__ float* lse() const { return stats + stage * 2 * BM; }
+  __device__ __forceinline__ float* delta() const { return stats + stage * 2 * BM + BM; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == S) stage = 0, phase ^= 1;
+  }
+};
+
+// A consumer warp is done with its ring slot (its wgmmas have completed):
+// a KvRing's or a QgRing's.
+template <typename Ring>
+__device__ __forceinline__ void release_slot(Ring& ring, int lane) {
   __syncwarp();
   if (lane == 0) hopper::mbar_arrive(&ring.empty[ring.stage]);
   ring.advance();

@@ -387,8 +387,9 @@ extern "C" int ptt_flash_bwd_dq_fp32(const void* q, const void* k, const void* v
 }
 
 extern "C" int ptt_flash_bwd_dkv_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
-                                      const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
-                                      int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
+                                      const void* lse, const void* delta, void* dk, void* dv, void* /*sched: unused*/,
+                                      int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
+                                      float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

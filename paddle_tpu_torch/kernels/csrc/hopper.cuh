@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels 14 and 15:
+// Hopper (sm_90a) building blocks of the flash-attention kernels 14, 15 and 16:
 // warpgroup matrix products (wgmma), their shared-memory matrix descriptors,
 // mbarriers, TMA tiled loads and the host-side encoding of a tensor map.
-// Each helper notes the PTX it emits. Later kernels (16, 20, 17-19) reuse it.
+// Each helper notes the PTX it emits. Kernel 16 reuses it; 20 and 17-19 may.
 //
 // Layout conventions (the ones the TMA maps in this file produce):
 // a "row tile" of R rows and D columns of a 2-byte type is stored as D / 64
@@ -13,6 +13,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda symbol is linked)
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
@@ -119,6 +120,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// cp.async.mbarrier.arrive.noinc.shared::cta.b64: one arrival on `bar` once
+// every cp.async this thread issued before it has landed (the barrier's
+// count includes it: .noinc adds no pending arrival of its own)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // cp.async.commit_group + cp.async.wait_group 0: this thread's copies landed
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
@@ -149,6 +157,13 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 
 // bar.sync id, n: a named barrier of n threads (whole warps)
 __device__ __forceinline__ void named_barrier(int id, int n) { asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory"); }
+
+// bar.arrive id, n: this warp's arrival at named barrier id of n threads,
+// without waiting (its shared-memory writes before it are seen by the
+// threads that wait there with bar.sync)
+__device__ __forceinline__ void named_barrier_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 // prefetch.tensormap: bring a __grid_constant__ map's descriptor into the cache
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -194,6 +209,15 @@ __device__ __forceinline__ void fence_regs(R (&r)[N]) {
 // 64 columns (the next box) and the stride offset, 1024, to the next 8 k.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
   uint64_t d = static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+// desc_sw128 of a 32-bit shared address (smem_u32 of the operand)
+__device__ __forceinline__ uint64_t desc_sw128_at(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(1) << 62;
@@ -249,6 +273,60 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes
                  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
                  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+// SS and RS with each descriptor's start address advanced inside the asm
+// by an immediate (kAOff / kBOff bytes, multiples of 16, added to the low
+// word: the address field cannot carry past bit 13 within shared memory): a
+// chain of k-steps keeps one base descriptor per operand live instead of one
+// per step. With warp-uniform bases, ptxas keeps them in uniform registers.
+#define PTT_WGMMA_SS_N64_AT(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\n.reg .b64 ta, tb;\n.reg .b32 al, ah, bl, bh;\nsetp.ne.b32 p, %34, 0;\n"  \
+               "mov.b64 {al, ah}, %32;\nadd.u32 al, al, %35;\nmov.b64 ta, {al, ah};\n"   \
+               "mov.b64 {bl, bh}, %33;\nadd.u32 bl, bl, %36;\nmov.b64 tb, {bl, bh};\n"   \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+               "ta, tb, p, 1, 1, 0, 0;\n}\n"                                    \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(kAOff >> 4), "n"(kBOff >> 4))
+
+#define PTT_WGMMA_RS_N64_AT(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\n.reg .b64 tb;\n.reg .b32 bl, bh;\nsetp.ne.b32 p, %37, 0;\n"      \
+               "mov.b64 {bl, bh}, %36;\nadd.u32 bl, bl, %38;\nmov.b64 tb, {bl, bh};\n"   \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+               "{%32, %33, %34, %35}, tb, p, 1, 1, 1;\n}\n"                     \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kBOff >> 4))
+
+// wgmma.mma_async.sync.aligned.m64n64k16.f32.{bf16,f16} (SS) on da + kAOff, db + kBOff: d (+)= A B
+template <typename T, int kAOff, int kBOff>
+__device__ __forceinline__ void wgmma_ss_n64_at(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(kAOff % 16 == 0 && kBOff % 16 == 0, "descriptor addresses step in 16 bytes");
+  if constexpr (std::is_same<T, f16>::value) {
+    PTT_WGMMA_SS_N64_AT("f16");
+  } else {
+    PTT_WGMMA_SS_N64_AT("bf16");
+  }
+}
+
+// wgmma.mma_async.sync.aligned.m64n64k16.f32.{bf16,f16} (RS) on db + kBOff: d (+)= a B
+template <typename T, int kBOff>
+__device__ __forceinline__ void wgmma_rs_n64_at(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(kBOff % 16 == 0, "descriptor addresses step in 16 bytes");
+  if constexpr (std::is_same<T, f16>::value) {
+    PTT_WGMMA_RS_N64_AT("f16");
+  } else {
+    PTT_WGMMA_RS_N64_AT("bf16");
+  }
+}
 
 // wgmma.mma_async.sync.aligned.m64n64k16.f32.{bf16,f16} (SS): d (+)= A B
 template <typename T>

@@ -32,10 +32,11 @@ or raises — it never falls back. On the card the kernels take q, k, v (and
 g) of one dtype, bf16, fp16 or fp32, and a head dim in
 :data:`KERNEL_HEAD_DIMS` (64, 128, 192, 256); a larger head dim raises.
 
-Kernels 14 and 15 (and the fp32 instances of all three) walk the key tiles
-of a query tile under FlashMask *tile classes* computed on the card from
-the bounds: a tile whose every logit is masked is skipped (no copy, no
-product), one with no masked logit runs without the mask.
+Kernels 14 and 15 walk the key tiles of a query tile, kernel 16 the query
+tiles of a key tile (and the fp32 instances of all three likewise), under
+FlashMask *tile classes* computed on the card from the bounds: a tile whose
+every logit is masked is skipped (no copy, no product), one with no masked
+logit runs without the mask.
 :func:`flash_tile_classes` is the same classing in PyTorch, for the tests
 and for ``chip_smoke.py``'s share of tiles visited; no wrapper calls it.
 """
@@ -77,16 +78,18 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     """``(BM, BN)`` of the tile walk that ``kernel`` (``"flash_fwd"``,
     ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
     the query rows and keys of one (query tile, key tile) pair. bf16/fp16:
-    the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128 x 64; fp32:
-    forward and dq 16 x 32, dk/dv 32 query rows x 16 keys. The bf16/fp16
-    dk/dv kernel skips no tile (its own redesign will)."""
+    the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128 x 64, dk/dv
+    64 query rows x 64 keys; fp32: forward and dq 16 x 32, dk/dv 32 query
+    rows x 16 keys."""
+    if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        raise ValueError(f"{kernel} is not a flash kernel")
     if dtype == torch.float32:
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
     if kernel == "flash_fwd":
         return (128, 128) if d <= 128 else (128, 64)
     if kernel == "flash_bwd_dq":
         return (128, 64)
-    raise ValueError(f"{kernel} at {dtype} classes no tiles")
+    return (64, 64)
 
 
 # -- the mask ----------------------------------------------------------------
@@ -330,8 +333,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
-    """The item scheduler's counter of the persistent bf16/fp16 kernels 14
-    and 15 (one int32, zero before each launch); the fp32 kernels take none."""
+    """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
+    15 and 16 (one int32, zero before each launch); the fp32 kernels take
+    none."""
     return None if suffix == "fp32" else torch.zeros(1, dtype=torch.int32, device=dev)
 
 
@@ -407,10 +411,10 @@ def flash_bwd_dkv(
     alloc = torch.empty_like if launch else torch.zeros_like
     dk, dv = alloc(k), alloc(v)
     if launch:
-        fn = build.kernel_fn(f"ptt_flash_bwd_dkv_{suffix}", [_P] * 9 + [_I] * 9 + [_F, _P])
+        fn = build.kernel_fn(f"ptt_flash_bwd_dkv_{suffix}", [_P] * 10 + [_I] * 9 + [_F, _P])
         with torch.cuda.device(dev):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bnd), g.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(_sched(suffix, dev)),
                      b, sq, sk, h, hk, d, hm, c, int(bool(causal)), float(scale),
                      torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_bwd_dkv")

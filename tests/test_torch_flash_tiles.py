@@ -1,5 +1,6 @@
-"""The tile walk of the port's redesigned flash kernels (14 forward and 15
-dq on wgmma, and the fp32 instances of 14, 15 and 16), checked on the CPU.
+"""The tile walk of the port's redesigned flash kernels (14 forward, 15 dq
+and 16 dk/dv on wgmma, and the fp32 instances of 14, 15 and 16), checked on
+the CPU.
 
 The CUDA kernels cannot run here. What they add to the function is the
 FlashMask tile classing (``csrc/flash_common.cuh`` ``warp_tile_class``:
@@ -13,7 +14,9 @@ product, the fp32 product scaled). So:
 - a PyTorch emulation of the kernels' arithmetic, written here, walks the
   tiles in the kernels' order at their BM x BN under those classes and is
   held against the Pallas kernels in interpret mode and the port's plain
-  versions;
+  versions; for dk/dv that is the transposed walk (per key tile, the query
+  tiles of its group's heads from the causal floor to the walk's early
+  end, ``dkv_walk``), whose skipped tiles are held to the dense mask;
 - the train phase's document mask has FULL, PARTIAL and SKIP tiles;
 - the plain versions are held against the Pallas kernels at fp16 inputs and
   at head dims 192 and 256, which the card now takes, and the wrappers'
@@ -34,7 +37,8 @@ from paddle_tpu.kernels.flash_attention import _pad_to, _run_bwd, _run_fwd
 from paddle_tpu_torch.kernels import flash_attention as kfa
 
 LOG2E = 1.4426950408889634
-TILE_SHAPES = [(128, 128), (128, 64), (16, 32), (32, 16)]  # fwd D<=128, fwd D>128 and dq, fp32 fwd/dq, fp32 dk/dv
+# fwd D<=128, fwd D>128 and dq, fp32 fwd/dq, fp32 dk/dv, dk/dv
+TILE_SHAPES = [(128, 128), (128, 64), (16, 32), (32, 16), (64, 64)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -101,7 +105,7 @@ def test_tile_classes_never_contradict_the_dense_mask(c, causal, hm):
     rng = np.random.default_rng(100 * c + 10 * causal + hm)
     seen = torch.zeros(3, dtype=torch.long)
     for case in range(20):
-        bm, bn = TILE_SHAPES[case % 4]
+        bm, bn = TILE_SHAPES[case % len(TILE_SHAPES)]
         sq = int(rng.integers(1, 420))
         sk = sq if case % 5 == 0 else int(rng.integers(1, 420))
         bounds = _t(_random_bounds(rng, 2, hm, sq, sk, c))
@@ -246,6 +250,97 @@ def emulate_dkv_fp32(q, k, v, bounds, g, lse, delta, causal, scale, bm=32, bn=16
     return dk, dv
 
 
+def dkv_walk(bounds, sq, sk, bm, bn, causal):
+    """Kernel 16's walk of each key tile (``csrc/flash_common.cuh``
+    ``key_walk_floor`` and ``key_walk_end``), int ``[B|1, Hm|1, n_kt, 2]``:
+    the first query tile, the causal floor ``(k0 - (Sk - Sq)) // bm``
+    (clamped at 0), and the end, cut under C=1, or C=2 with every band
+    reaching Sq, at the tile holding the key tile's last visible row
+    ``max s - 1``, from the per-slot min and max of the tile's real
+    columns."""
+    n_qt, n_kt = -(-sq // bm), -(-sk // bn)
+    b, hm = (1, 1) if bounds is None else bounds.shape[:2]
+    walk = torch.zeros((b, hm, n_kt, 2), dtype=torch.long)
+    for t in range(n_kt):
+        c0, c1 = t * bn, min(t * bn + bn, sk)
+        walk[:, :, t, 0] = max(c0 - (sk - sq), 0) // bm if causal else 0
+        walk[:, :, t, 1] = n_qt
+        if bounds is None:
+            continue
+        c = bounds.shape[-1]
+        cols = bounds[:, :, c0:c1].long()
+        mn, mx = cols.amin(2), cols.amax(2)  # [B, Hm, C]
+        cut = torch.full((b, hm), c == 1, dtype=torch.bool)
+        if c == 2:
+            cut = mn[..., 1] >= sq
+        end = torch.where(mx[..., 0] <= 0, 0, -(-mx[..., 0] // bm)).clamp(max=n_qt)
+        walk[:, :, t, 1] = torch.where(cut, end, n_qt)
+    return walk
+
+
+def emulate_dkv(q, k, v, bounds, g, lse, delta, causal, scale, bm, bn):
+    """Kernel 16's walk: per (batch, KV head, BN-key tile) the group's query
+    heads in order and, for each, the BM-row query tiles of ``dkv_walk``,
+    SKIP tiles passed over, the mask on PARTIAL tiles only; the fp32
+    products K q^T and V g^T of the input-type values, the first scaled,
+    P^T = exp2(s scale log2e - lse log2e) and dS^T = P^T (dP^T - delta)
+    scale in fp32, each rounded to the input type before dV += P^T g and
+    dK += dS^T q in fp32; dk and dv written once, in the input type."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    cls = kfa.flash_tile_classes(bounds, sq, sk, bm, bn, causal)
+    walk = dkv_walk(bounds, sq, sk, bm, bn, causal)
+    dense = kfa.flash_masked(sq, sk, causal, bounds, q.device)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for bi in range(b):
+        bb = min(bi, cls.shape[0] - 1)
+        for kvh in range(hk):
+            kh, vh = k[bi, :, kvh].float(), v[bi, :, kvh].float()
+            for t in range(cls.shape[3]):
+                c0, c1 = t * bn, min(t * bn + bn, sk)
+                acc_k, acc_v = torch.zeros((c1 - c0, d)), torch.zeros((c1 - c0, d))
+                for hi in range(kvh * (h // hk), (kvh + 1) * (h // hk)):
+                    hm = hi if cls.shape[1] > 1 else 0
+                    qh, gh = q[bi, :, hi].float(), g[bi, :, hi].float()
+                    lo, end = (int(x) for x in walk[min(bi, walk.shape[0] - 1), hm, t])
+                    for qt in range(lo, end):
+                        kind = int(cls[bb, hm, qt, t])
+                        if kind == kfa.SKIP:
+                            continue
+                        r0, r1 = qt * bm, min(qt * bm + bm, sq)
+                        s_t = kh[c0:c1] @ qh[r0:r1].T  # [keys, rows]
+                        p = torch.exp2(s_t * (scale * LOG2E) - lse[bi, hi, None, r0:r1] * LOG2E)
+                        if kind == kfa.PARTIAL:
+                            p = p.masked_fill(dense[min(bi, dense.shape[0] - 1), hm if dense.shape[1] > 1 else 0,
+                                                    r0:r1, c0:c1].T, 0.0)
+                        ds = p * (vh[c0:c1] @ gh[r0:r1].T - delta[bi, hi, None, r0:r1]) * scale
+                        acc_v += p.to(q.dtype).float() @ gh[r0:r1]
+                        acc_k += ds.to(q.dtype).float() @ qh[r0:r1]
+                dk[bi, c0:c1, kvh], dv[bi, c0:c1, kvh] = acc_k, acc_v
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dkv_limits(q, k, v, bounds, g, lse, delta, causal, dtype):
+    """Elementwise limits for dk and dv of a walk that rounds P^T and dS^T
+    to ``dtype`` (each by at most ULP of itself) and then dk and dv (OUT_ULP
+    of the value), plus 1e-5 of the fp32 terms before cancellation for the
+    fp32 summation order: ULP (|P|^T |g|) and ULP (|dS|^T |q|) summed over
+    the group, as fp32 ``[B, Sk, HK, D]``."""
+    qh, kh, gh, p, ds = kfa._probs_and_ds(*(x.float() for x in (q, k, v)), bounds, g.float(), lse, delta, causal,
+                                          None)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    vh = kfa._heads(v, k.shape[2])
+    dp_abs = (gh @ vh.transpose(-1, -2)).abs() + delta.float().reshape(p.shape[:-1] + (1,)).abs()
+    terms = [(p.transpose(-1, -2) @ gh.abs(), p.transpose(-1, -2) @ gh.abs()),
+             (ds.abs().transpose(-1, -2) @ qh.abs(), (p * dp_abs * scale).transpose(-1, -2) @ qh.abs())]
+    dk_ref, dv_ref = kfa.flash_bwd_dkv_plain(*(x.float() for x in (q, k, v)), bounds, g.float(), lse, delta, causal)
+    out = []
+    for (rounded, raw), ref in zip(terms[::-1], (dk_ref, dv_ref)):
+        lim = ULP[dtype] * rounded.sum(2) + 1e-5 * raw.sum(2)  # [B, HK, Sk, D]
+        out.append(lim.permute(0, 2, 1, 3) + OUT_ULP[dtype] * ref.abs() + 1e-6)
+    return out
+
+
 def _pallas(q, k, v, g, bounds, causal, blk=64):
     """The Pallas kernels in interpret mode (block ``blk``) on fp32 copies of
     the inputs; out, lse, dq, dk, dv sliced back, as fp32 tensors."""
@@ -360,6 +455,76 @@ def test_emulated_kernels_match_pallas_and_plain(dtype, bm, bn, c, hm, causal, s
             assert _rel_l2(got, want) <= GRAD_REL_L2[dtype]
 
 
+# (dtype, C, Hm, causal, S, H, HK): kernel 16's 64 x 64 walk (the same at
+# every head dim), every mask family, Hm 1 and H, groups of 1, 2 and 4 query
+# heads, ragged S
+DKV_CASES = [
+    (torch.bfloat16, 0, 1, True, 300, 2, 2),
+    (torch.bfloat16, 1, 1, True, 333, 4, 2),
+    (torch.float16, 2, 4, True, 270, 4, 1),
+    (torch.bfloat16, 4, 1, False, 300, 2, 1),
+    (torch.bfloat16, 1, 2, True, 200, 2, 1),
+    (torch.float16, 4, 4, False, 190, 4, 2),
+]
+
+
+@pytest.mark.parametrize("dtype,c,hm,causal,s,h,hk", DKV_CASES,
+                         ids=[f"{str(t)[6:]}-c{c}-hm{hm}-{'causal' if k else 'full'}-s{s}-g{h // hk}"
+                              for t, c, hm, k, s, h, hk in DKV_CASES])
+def test_emulated_dkv_matches_pallas_and_plain(dtype, c, hm, causal, s, h, hk):
+    """Kernel 16's transposed walk and rounding against the Pallas dk/dv in
+    interpret mode and the plain version, on the Pallas forward's lse and
+    delta, elementwise within the rounding of P^T and dS^T (``_dkv_limits``)."""
+    q, k, v, g, bounds = _inputs(3 * s + c + h, s, h, hk, 64, dtype, c, hm)
+    out_j, lse_j, _, dk_j, dv_j = _pallas(q, k, v, g, bounds, causal)
+    delta = (g.float() * out_j).sum(-1).transpose(1, 2).contiguous()
+    bm, bn = kfa.flash_tile_shape("flash_bwd_dkv", 64, dtype)
+    dk, dv = emulate_dkv(q, k, v, bounds, g, lse_j, delta, causal, 1.0 / 64**0.5, bm, bn)
+    assert dk.dtype == dtype and dv.dtype == dtype
+    lim_k, lim_v = _dkv_limits(q, k, v, bounds, g, lse_j, delta, causal, dtype)
+    dk_p, dv_p = kfa.flash_bwd_dkv_plain(*(x.float() for x in (q, k, v)), bounds, g.float(), lse_j, delta, causal)
+    _gate(dk, dk_j, lim_k)
+    _gate(dv, dv_j, lim_v)
+    _gate(dk, dk_p, lim_k)
+    _gate(dv, dv_p, lim_v)
+    assert _rel_l2(dk, dk_j) <= GRAD_REL_L2[dtype] and _rel_l2(dv, dv_j) <= GRAD_REL_L2[dtype]
+
+
+WALK_CASES = [(c, causal) for c in (1, 2, 4) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("c,causal", WALK_CASES, ids=[f"c{c}-{'causal' if k else 'full'}" for c, k in WALK_CASES])
+def test_dkv_walk_skips_only_masked_tiles(c, causal):
+    """Kernel 16's walk (``dkv_walk``) leaves out only query tiles that are
+    fully masked in the dense mask and SKIP in ``flash_tile_classes``: those
+    before the causal floor and those at or past the early end. On seeded
+    random bounds at the dk/dv tile (``flash_tile_shape``, the same at every
+    head dim), Hm 1 and 3, Sq != Sk and ragged S; under C=1 the early end
+    cuts some walks."""
+    for d in (64, 128, 192, 256):
+        for dtype in (torch.bfloat16, torch.float16):
+            assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (64, 64)
+    bm, bn = kfa.flash_tile_shape("flash_bwd_dkv", 128)
+    rng = np.random.default_rng(50 + 10 * c + causal)
+    cut = 0
+    for case in range(12):
+        hm = 1 if case % 3 else 3
+        sq = int(rng.integers(1, 420))
+        sk = sq if case % 4 == 0 else int(rng.integers(1, 420))
+        bounds = _t(_random_bounds(rng, 2, hm, sq, sk, c))
+        walk = dkv_walk(bounds, sq, sk, bm, bn, causal)
+        cls = kfa.flash_tile_classes(bounds, sq, sk, bm, bn, causal)
+        all_masked, _ = _dense_tile_truth(kfa.flash_masked(sq, sk, causal, bounds, torch.device("cpu")), bm, bn)
+        n_qt = cls.shape[2]
+        qt = torch.arange(n_qt)[None, None, :, None]
+        left_out = (qt < walk[..., 0][:, :, None, :]) | (qt >= walk[..., 1][:, :, None, :])
+        assert not (left_out & ~all_masked).any(), f"case {case}: the walk leaves out a visible tile"
+        assert not (left_out & (cls != kfa.SKIP)).any(), f"case {case}: the walk disagrees with the classes"
+        cut += int((walk[..., 1] < n_qt).sum())
+    if c == 1:
+        assert cut > 0, "the early end never cut a walk"
+
+
 def test_the_walk_alone_is_exact_and_p_rounding_shows():
     """The tile walk itself (classes, skips, unmasked FULL tiles, the
     log2-unit softmax) costs nothing: on fp32 inputs the emulated forward
@@ -405,9 +570,9 @@ def test_document_mask_tiles_and_walk():
 
 def test_train_document_mask_skips_most_tiles():
     """The train phase's bounds (2 x 4096 tokens of 128-2048-token
-    documents, chip_smoke.py's seed): the forward's 128 x 128 walk visits
-    about a third of the causal walk's tiles, and every SKIP tile is fully
-    masked in the dense mask."""
+    documents, chip_smoke.py's seed): the forward's 128 x 128 walk and the
+    dk/dv kernel's 64 x 64 walk each visit about a third of the causal
+    walk's tiles, and every SKIP tile is fully masked in the dense mask."""
     rng = np.random.default_rng(0)
     ends = np.zeros((2, 4096), np.int32)
     for i in range(2):  # chip_smoke.doc_bounds
@@ -421,6 +586,11 @@ def test_train_document_mask_skips_most_tiles():
     causal = kfa.flash_tile_classes(None, 4096, 4096, 128, 128, True)
     share = float((cls != kfa.SKIP).sum()) / (2 * float((causal != kfa.SKIP).sum()))
     assert 0.2 < share < 0.5, share
+    # the dk/dv walk (64 x 64) visits a like share of the causal walk's tiles
+    dkv = kfa.flash_tile_classes(bounds, 4096, 4096, 64, 64, True)
+    dkv_causal = kfa.flash_tile_classes(None, 4096, 4096, 64, 64, True)
+    dkv_share = float((dkv != kfa.SKIP).sum()) / (2 * float((dkv_causal != kfa.SKIP).sum()))
+    assert 0.2 < dkv_share < 0.5, dkv_share
     for bi in range(2):
         all_masked, none_masked = _dense_tile_truth(
             kfa.flash_masked(4096, 4096, True, bounds[bi:bi + 1], torch.device("cpu")), 128, 128)
