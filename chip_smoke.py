@@ -85,9 +85,12 @@ name and power limit):
    kernel 20 96x) against the plain int8 head's; and the two decode
    entries over an int8 pool (kernels 5 and 6's int8 instances once each).
    The kernel phase holds kernel 20 at the step's three projection shapes
-   and a ragged fp16 one, A/4/5/6 over int8 pools with q in bf16, fp16 and
-   fp32, 17's int8 site at the loss head's shape, vocab-major and in fp16,
-   and the int8 appends under the sync check;
+   (each at most 1.25x cuBLAS's bf16 ``x @ W`` in the same call), at eight
+   rows, in fp32, at fp16 ragged rows, one row, 4096 rows and
+   ``[77, 4100] x [4100, 32003]`` (its CUDA-core route), A/4/5/6 over int8
+   pools with q in bf16, fp16 and fp32, 17's int8 site at the loss head's
+   shape, vocab-major and in fp16, and the int8 appends under the sync
+   check;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
    ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
    document-packed tokens with the FlashMask document mask, 1 warm-up and
@@ -107,7 +110,10 @@ name and power limit):
    ``dtype="float16"`` trains one step (the same gates, flash 4/2/2) and a
    fresh one runs ``generate_paged`` on 2 x 512 prompts, 8 new tokens
    (launches, and the dense prefill's logits through kernel 14 in fp16
-   against the fp16 plain path's distance from fp32);
+   against the fp16 plain path's distance from fp32); then 2-layer fp16 and
+   fp32 models served through the engine with ``weight_only_int8=True``
+   (kernel 20 7x a step on its wgmma and CUDA-core instances; logits
+   against the plain path's distance from an fp32 / fp64 reference);
 7. train_gpt — after the Llama model is freed, GPT-3 13B widths cut to 8
    layers (hidden 5120, 40 heads of dim 128, vocab 50304, biases, the lm
    head tied to the word embedding; bf16, every JAX default:
@@ -1715,9 +1721,10 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
     """The same step as ``model(ids, pasts)``, written out with every
     kernel's plain version, computed in ``dtype`` (each weight cast as it is
     used): in bf16 it is the plain path the kernel path is held to, in fp32
-    the reference both are measured against. A weight-only int8 projection
-    runs kernel 20's plain version on its int8 weight, and an int8 pool
-    (``caches`` of ``(kc, vc, ks, vs)``) its scale planes."""
+    the reference both are measured against (fp64 for an fp32 model). A
+    weight-only int8 projection runs kernel 20's plain version on its int8
+    weight (in fp64, the same product in fp64), and an int8 pool (``caches``
+    of ``(kc, vc, ks, vs)``) its scale planes."""
     import torch
     from paddle_tpu_torch.incubate.nn.functional import _rope_apply_xla, block_cache_append_chunk
     from paddle_tpu_torch.kernels.fused import fused_embed_rms_norm_plain, fused_rms_norm_residual_plain
@@ -1729,9 +1736,11 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
         return mod.weight.to(dtype)
 
     def proj(x, mod):
-        if mod.weight_scale is not None:
-            return int8_weight_matmul_plain(x, mod.weight, mod.weight_scale)
-        return x @ w(mod)
+        if mod.weight_scale is None:
+            return x @ w(mod)
+        if dtype == torch.float64:  # the reference of an fp32 model: the int8 product in fp64 too
+            return (x @ mod.weight.to(dtype)) * mod.weight_scale.to(dtype)
+        return int8_weight_matmul_plain(x, mod.weight, mod.weight_scale)
 
     llama = model.llama
     layers = list(llama.layers)
@@ -1762,14 +1771,16 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
 def check_logits(model, dev, card: dict, label: str = "logits", kv_int8: bool = False) -> None:
     """Phase 5: prefill a small pool through the kernel path, then run one
     mixed step (decode row, continuing chunk, idle slot, full chunk) through
-    the kernel path, through the plain versions in bf16, and through the
-    plain versions in fp32 on copies of the pool. A bf16 path's rounding
-    differences grow through 32 layers of random weights, so the kernel path
-    is held to the plain bf16 path's own distance from the fp32 reference:
-    its relative L2 error may exceed the plain path's by at most 25%, and its
-    top-1 agreement may trail the plain path's by at most 0.05. With
-    ``kv_int8`` the pool is the engine's int8 one (8-tuple pasts); a
-    weight-only int8 model's projections stay int8 in every run."""
+    the kernel path, through the plain versions in the model's dtype (bf16
+    for the 7B model), and through the plain versions in a higher precision
+    (fp32; fp64 for an fp32 model) on copies of the pool. A bf16 path's
+    rounding differences grow through 32 layers of random weights, so the
+    kernel path is held to the plain path's own distance from the
+    higher-precision reference: its relative L2 error may exceed the plain
+    path's by at most 25%, and its top-1 agreement may trail the plain
+    path's by at most 0.05. With ``kv_int8`` the pool is the engine's int8
+    one (8-tuple pasts); a weight-only int8 model's projections stay int8 in
+    every run."""
     import torch
 
     cfg = model.config
@@ -1792,16 +1803,16 @@ def check_logits(model, dev, card: dict, label: str = "logits", kv_int8: bool = 
         model(ids, past_key_values=[(kc, vc, tables, lens, active, q0, *planes) for kc, vc, *planes in caches],
               use_cache=True, cache_position=lens)
         plain_pools = [tuple(t.clone() for t in pools) for pools in caches]
-        # fp32 copies of a bf16 pool; an int8 pool and its fp32 scale planes are copied as they are
-        f32_pools = [tuple(t.clone() if t.dtype in (torch.int8, torch.float32) else t.float() for t in pools)
-                     for pools in caches]
+        # higher-precision copies of a float pool; an int8 pool and its fp32 scale planes are copied as they are
+        ref_dtype = torch.float64 if model.dtype == torch.float32 else torch.float32
+        ref_pools = [tuple(t.clone() if kv_int8 else t.to(ref_dtype) for t in pools) for pools in caches]
         q1 = torch.tensor([1, 24, 0, 64], dtype=torch.int32, device=dev)
         ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
         got, _ = model(ids, past_key_values=[(kc, vc, tables, q0, active, q1, *planes) for kc, vc, *planes in caches],
                        use_cache=True, cache_position=q0)
         got = got.float()
-        plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, torch.bfloat16).float()
-        ref = plain_logits(model, ids, f32_pools, tables, q0, active, q1, torch.float32)
+        plain = plain_logits(model, ids, plain_pools, tables, q0, active, q1, model.dtype).float()
+        ref = plain_logits(model, ids, ref_pools, tables, q0, active, q1, ref_dtype).float()
     rows = torch.arange(64, device=dev)[None, :] < (q1 * active)[:, None]
     logits_gate(got[rows], plain[rows], ref[rows], label, card)
 
@@ -2307,37 +2318,92 @@ WO_SHAPES = {"gate_up": (512, 4096, 11008), "down": (512, 11008, 4096), "lm_head
 
 def wo_case(dev, gen, m: int, k: int, n: int, dtype, label: str, card: dict, timed: bool = False) -> dict:
     """Kernel 20 against its plain version on x ~ N(0, 1) and a weight
-    quantized from N(0, 0.02): the same fp32 products summed in another
-    order, each output rounded once to x's type, so within one ulp of the
-    type plus 1e-4 for values near 0. With ``timed`` its time, the plain
-    version's and cuBLAS's ``x @ W`` with the unquantized weight in x's
-    type (the projection it stands in for)."""
+    quantized from N(0, 0.02), on the instance ``wo_route`` names. bf16 and
+    fp16: the same fp32 products summed in another order, each output
+    rounded once to x's type, so within one ulp of the type plus 1e-4 for
+    values near 0. fp32 (the CUDA-core instance, against the plain fp32
+    product with TF32 off): two fp32 sums of the same K products in
+    different orders, so within 2^-16 of the sum of the products'
+    magnitudes, ``(|x| @ |w8|) * scale`` (a dropped product costs ~2^-12 of
+    it at K 4096), plus 1e-6. With ``timed`` its time, the plain version's
+    and one PyTorch call's, ``x @ W`` with the unquantized weight in x's
+    type (cuBLAS: the projection it stands in for), and its share of the
+    bound (operations at the type's peak, or bytes)."""
     import torch
-    from paddle_tpu_torch.kernels.quant import int8_weight_matmul, int8_weight_matmul_plain, quantize_weight_int8
+    from paddle_tpu_torch.kernels.quant import (int8_weight_matmul, int8_weight_matmul_plain, quantize_weight_int8,
+                                                wo_route)
 
-    ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     w = 0.02 * torch.randn((k, n), generator=gen, device=dev)
     w8, scale = quantize_weight_int8(w)
     got, want = int8_weight_matmul(x, w8, scale), int8_weight_matmul_plain(x, w8, scale)
     torch.cuda.synchronize()
-    err, ok = within(got, want, atol=1e-4, rel=ulp)
-    line = {"phase": "kernel_check", "kernel": "wo_matmul", "case": label, "shape": {"x": [m, k], "w8": [k, n]},
-            "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": f"1e-4 + {ulp}*|x|"}
-    if not ok or got.dtype != dtype:
+    route = wo_route(dtype, m, k, n)
+    if dtype == torch.float32:
+        mag = (x.abs() @ w8.abs().float()) * scale[None, :]
+        err_t = (got - want).abs()
+        err, ok = float(err_t.max()), bool((err_t <= 2.0 ** -16 * mag + 1e-6).all())
+        tol = "2^-16 * (|x| @ |w8|) * scale + 1e-6"
+    else:
+        ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
+        err, ok = within(got, want, atol=1e-4, rel=ulp)
+        tol = f"1e-4 + {ulp}*|x|"
+    line = {"phase": "kernel_check", "kernel": "wo_matmul", "case": label, "route": route,
+            "shape": {"x": [m, k], "w8": [k, n]}, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "tolerance": tol}
+    if not ok or got.dtype != dtype or not bool(torch.isfinite(got).all()):
         emit({**line, "card": card})
         fail(f"wo_matmul disagrees with its plain version ({label}): max abs err {err}")
-    res = {"max_abs_err": err}
+    res = {"max_abs_err": err, "route": route}
     if timed:
         wd = w.to(dtype)
         run, run_plain = (lambda: int8_weight_matmul(x, w8, scale)), (lambda: int8_weight_matmul_plain(x, w8, scale))
+        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
         res.update(ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
                    library_ms=device_ms(lambda: torch.matmul(x, wd)),
-                   **bound(m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(), 2.0 * m * k * n))
-        line.update({kk: res[kk] for kk in ("ms", "plain_ms", "call_ms", "library_ms", "bound_ms", "bound_by")})
+                   **bound(m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(), 2.0 * m * k * n, rate))
+        res.update(share_of_bound=res["bound_ms"] / res["ms"], vs_library=res["ms"] / res["library_ms"])
+        line.update({kk: res[kk] for kk in ("ms", "plain_ms", "call_ms", "library_ms", "bound_ms", "bound_by",
+                                            "share_of_bound", "vs_library")})
         line["library"] = "torch.matmul(x, W) with the unquantized weight in x's dtype (cuBLAS)"
     emit({**line, "card": card})
     return res
+
+
+WO_GATE = 1.25  # kernel 20 at most this times cuBLAS's bf16 x @ W at each serving shape, in the same call
+
+
+def check_wo_matmul(dev, gen, card: dict) -> dict:
+    """Kernel 20 at the step's three projection shapes in bf16, timed beside
+    cuBLAS's bf16 ``x @ W`` and gated at :data:`WO_GATE` times it; eight
+    rows at gate/up (a decode batch: the weight's bytes bound it), and fp32
+    at gate/up beside ``torch.matmul`` in fp32 with TF32 off, both timed;
+    checked only: fp16 ragged rows, one row, ``[77, 4100] x [4100, 32003]``
+    in bf16 (the CUDA-core route: K % 8 and N % 16 both non-zero) and the
+    eval loss's 4096 rows. Returns the timed cases."""
+    import torch
+
+    shapes = {label: wo_case(dev, gen, m, k, n, torch.bfloat16, label, card, timed=True)
+              for label, (m, k, n) in WO_SHAPES.items()}
+    shapes["eight_rows"] = wo_case(dev, gen, 8, 4096, 11008, torch.bfloat16, "eight rows", card, timed=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        shapes["fp32_gate_up"] = wo_case(dev, gen, 512, 4096, 11008, torch.float32, "fp32, gate/up", card, timed=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
+    wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
+    wo_case(dev, gen, 77, 4100, 32003, torch.bfloat16, "ragged K and N (CUDA-core route)", card)
+    wo_case(dev, gen, 4096, 4096, 11008, torch.bfloat16, "eval rows (M 4096)", card)
+    ratios = {label: shapes[label]["vs_library"] for label in WO_SHAPES}
+    emit({"phase": "wo_matmul_gate", "ms_over_cublas_bf16": ratios, "limit": WO_GATE,
+          "share_of_bound": {label: r["share_of_bound"] for label, r in shapes.items()},
+          "routes": {label: r["route"] for label, r in shapes.items()}, "card": card})
+    slow = {label: r for label, r in ratios.items() if r > WO_GATE}
+    if slow:
+        fail(f"wo_matmul is slower than {WO_GATE}x cuBLAS's bf16 x @ W at {slow}")
+    return shapes
 
 
 def int8_pool(args: dict) -> dict:
@@ -2487,17 +2553,13 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
 
 def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
     """The int8 serving path's kernels against their plain versions: kernel
-    20 at the step's three projection shapes in bf16 (timed) and at a
-    ragged fp16 shape; A, 4, 5, 6 over int8 pools; kernel 17's int8 site at
+    20 by :func:`check_wo_matmul`; A, 4, 5, 6 over int8 pools; kernel 17's int8 site at
     the loss head's shape (x ``[8192, 4096]`` bf16, W int8 ``[4096,
     32000]``; timed), vocab-major and in fp16 at ragged shapes; the int8
     appends under the sync check."""
     import torch
 
-    shapes = {label: wo_case(dev, gen, m, k, n, torch.bfloat16, label, card, timed=True)
-              for label, (m, k, n) in WO_SHAPES.items()}
-    wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
-    wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
+    shapes = check_wo_matmul(dev, gen, card)
     records["wo_matmul"] = dict(source=INT8_SOURCES["wo_matmul"], shapes=shapes,
                                 max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
                                 **{k: shapes["gate_up"][k] for k in ("ms", "plain_ms", "library_ms", "call_ms",
@@ -3024,6 +3086,50 @@ def fp16_phase(dev, card: dict) -> dict:
     return {"train": counts, "generate": gen_counts}
 
 
+WO_SERVE_LAYERS = 2  # the fp16 / fp32 weight-only serve phases: Llama-2-7B widths cut to 2 of 32 layers
+
+
+def serve_weight_only(dev, card: dict, dtype: str) -> dict:
+    """Kernel 20 on the serving path in fp16 and fp32: a 2-layer
+    Llama-2-7B-width model of ``dtype`` (seeded random weights) served
+    through ``ContinuousBatchingEngine`` with ``weight_only_int8=True`` (its
+    pools in the model's dtype) on 4 of the serve phase's requests, the
+    launch counters reset just before and read just after: every request
+    finishes with 32 tokens, each step launches kernel A 2x, B 1x, C 4x and
+    kernel 20 7x (three projections a layer and the head: fp16 on the wgmma
+    instance, fp32 on the CUDA-core one) and nothing else, the pool drains;
+    then one mixed step's logits through :func:`check_logits` (the int8
+    plain path in ``dtype`` and a higher-precision run of it). Returns the
+    launch counts."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.kernels.quant import wo_route
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    label = f"serve_weight_only_{dtype}"
+    cfg = LlamaConfig(num_hidden_layers=WO_SERVE_LAYERS, dtype=dtype)
+    model = LlamaForCausalLM(cfg, device=dev, seed=4)
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE, weight_only_int8=True)
+    run = drive_engine(eng, serve_prompts(cfg.vocab_size)[:4])
+    layers = cfg.num_hidden_layers
+    h, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    routes = {name: wo_route(model.dtype, 512, k, n) for name, (k, n) in
+              {"gate_up": (h, inter), "down": (inter, h), "lm_head": (h, v)}.items()}
+    emit({"phase": label, "model": f"llama2_7b widths, {layers} of 32 layers (seeded random {dtype} weights)",
+          "config": "weight_only_int8=True", **run["stats"], "quantized_params": len(eng._wq_params),
+          "wo_matmul_routes": routes, "launches": run["counts"], "pool": eng.pool_stats(), "card": card})
+    if len(eng._wq_params) != 3 * layers + 1:
+        fail(f"{label}: {len(eng._wq_params)} projections quantized, want {3 * layers + 1}")
+    check_served(run, eng, {"paged_chunk_fused": layers, "embed_rms": 1, "rms_residual": 2 * layers,
+                            "wo_matmul": 3 * layers + 1}, label)
+    del eng
+    check_logits(model, dev, card, label=f"logits_weight_only_{dtype}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
 # -- GPT-3 13B widths: pretraining through kernels 12, 13, 14-16, 17-19 ----------
 
 GPT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_residual", "ln_residual_bwd",
@@ -3257,6 +3363,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fp16_phase(dev, card)
+    for dtype in ("float16", "float32"):  # kernel 20 on the serving path in every dtype it takes
+        serve_weight_only(dev, card, dtype)
     counts.update({k: v for k, v in train_gpt(dev, card, flash_cold=flash_cold["gpt, causal [4, 2048, 40, 128]"]).items()
                    if k in ("ln_residual", "ln_residual_bwd")})
     counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),

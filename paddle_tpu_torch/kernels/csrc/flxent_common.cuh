@@ -1,8 +1,8 @@
 // Shared pieces of the fused linear cross-entropy kernels (flxent_fwd.cu,
-// flxent_dx.cu, flxent_dw.cu) and the weight-only int8 matmul
-// (wo_matmul.cu): one tensor-core GEMM mainloop that serves every product of
-// the loss head, its form with an int8 B operand (gemm_tile_i8: the int8
-// lm head and the int8 projections), and the output-tile order.
+// flxent_dx.cu, flxent_dw.cu): one tensor-core GEMM mainloop that serves
+// every product of the loss head, its form with an int8 B operand
+// (gemm_tile_i8: the int8 lm head of kernel 17's int8 site), and the
+// output-tile order.
 //
 // The three products differ only in how their operands lie in memory:
 //   logits  = x W       A = x [rows][H] (k contiguous);

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels 14, 15 and 16:
-// warpgroup matrix products (wgmma), their shared-memory matrix descriptors,
-// mbarriers, TMA tiled loads and the host-side encoding of a tensor map.
-// Each helper notes the PTX it emits. Kernel 16 reuses it; 20 and 17-19 may.
+// Hopper (sm_90a) building blocks of kernels 14, 15, 16 (flash attention) and 20
+// (the weight-only int8 matmul): warpgroup matrix products (wgmma), their
+// shared-memory matrix descriptors, mbarriers, TMA tiled loads and the
+// host-side encoding of a tensor map. Each helper notes the PTX it emits;
+// 17-19 may reuse it.
 //
 // Layout conventions (the ones the TMA maps in this file produce):
 // a "row tile" of R rows and D columns of a 2-byte type is stored as D / 64
@@ -111,6 +112,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes:
+// one box of a 2-d tensor map at coordinates (c0 innermost, c1) into shared
+// memory; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // cp.async.cg.shared.global (16 bytes; p and dst 16-byte aligned) and
 // cp.async.ca.shared.global (4 bytes): a copy in flight without a register
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -163,6 +175,17 @@ __device__ __forceinline__ void named_barrier(int id, int n) { asm volatile("bar
 // threads that wait there with bar.sync)
 __device__ __forceinline__ void named_barrier_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16: four 8 x 8 matrices of
+// 16-bit elements, transposed; lanes 8 i..8 i + 7 give the 16-byte rows of
+// matrix i, and lane (gid = lane / 4, tig = lane % 4) gets r[i] = (row
+// 2 tig, row 2 tig + 1) of column gid of matrix i, row 2 tig in the low half
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
 }
 
 // prefetch.tensormap: bring a __grid_constant__ map's descriptor into the cache
@@ -358,6 +381,104 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
   }
 }
 
+// RS with a K-major B (trans-b = 0: B's reduction dim contiguous, [n][64]
+// boxes, as a TMA row tile lies), for the N widths of kernel 20's x tile:
+// A = a[4] from registers (the m16n8k16 A layout per warp), d m64nN.
+#define PTT_WGMMA_RS_K_N8(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3}, "  \
+               "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define PTT_WGMMA_RS_K_N64(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+               "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define PTT_WGMMA_RS_K_N128(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+               "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define PTT_WGMMA_RS_K_N256(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+               "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+               "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
+               "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+               "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "  \
+               "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
+                 "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+                 "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),  \
+                 "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),  \
+                 "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),  \
+                 "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),  \
+                 "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),  \
+                 "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+                 "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.{bf16,f16} (RS, B K-major), N 8, 64, 128 or 256: d (+)= a B
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 64 || N == 128 || N == 256, "kernel 20's x tiles are 8, 64, 128 or 256 rows");
+  if constexpr (std::is_same<T, f16>::value) {
+    if constexpr (N == 8) {
+      PTT_WGMMA_RS_K_N8("f16");
+    } else if constexpr (N == 64) {
+      PTT_WGMMA_RS_K_N64("f16");
+    } else if constexpr (N == 128) {
+      PTT_WGMMA_RS_K_N128("f16");
+    } else {
+      PTT_WGMMA_RS_K_N256("f16");
+    }
+  } else {
+    if constexpr (N == 8) {
+      PTT_WGMMA_RS_K_N8("bf16");
+    } else if constexpr (N == 64) {
+      PTT_WGMMA_RS_K_N64("bf16");
+    } else if constexpr (N == 128) {
+      PTT_WGMMA_RS_K_N128("bf16");
+    } else {
+      PTT_WGMMA_RS_K_N256("bf16");
+    }
+  }
+}
+
 // S (+)= A B for an m64 x N tile: one m64nNk16 for N 64 or 128
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
@@ -459,6 +580,25 @@ int encode_row_tiles(CUtensorMap* map, const void* base, int B, int S, int Hx, i
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / e), 1u, static_cast<cuuint32_t>(rows), 1u};
   const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
   const CUresult r = fn(map, tma_dtype<T>(), 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of a row-major [rows, cols] matrix (`row_bytes` apart, a multiple
+// of 16; base 16-byte aligned) of `type` read in boxes of `box_rows` rows x
+// `box_cols` columns of 128 bytes (the 128-byte swizzle, as row tiles lie);
+// coordinates (column, row), and elements past either edge read as 0.
+// Returns a cudaError_t.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows, int cols,
+                     long long row_bytes, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1u, 1u};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -5,7 +5,17 @@
   picks JAX's leaves and never a shared or tied weight.
 - Kernel 20's plain version (``int8_weight_matmul`` on CPU tensors) against
   the JAX XLA composition and the Pallas kernel in interpret mode: fp32 at
-  1e-5 relative, bf16 within one bf16 ulp of the output's largest magnitude.
+  1e-5 relative, bf16 and fp16 within one ulp of the type at the output's
+  largest magnitude; also at the shapes and dtype the card takes on its
+  CUDA-core instance (fp32, K % 8 and N % 16 non-zero, a vocab of 32003).
+- Kernel 20's wgmma instance, which the CPU cannot run: ``emulate_wo`` (its
+  tiles, k steps, fp32 partials, one scale multiply and one rounding)
+  against the interpret kernel and the plain version at M 1, 8, 77 and 512
+  and a tile-ragged N and K; numpy mirrors of its int8 widening (every
+  int8 value exact in bf16 and fp16) and of its A fragments (the swizzled W
+  box through ldmatrix.trans to the permuted weight columns); ``wo_route``
+  (every main-path shape takes wgmma in bf16) and ``wo_plan`` (every output
+  tile covered once; the serving shapes' plans).
 - The four cache writes with scale planes (chunk append, decode append,
   prefill, copy-on-write fork): payload and scales bit for bit, masked
   slots and rows past ``q_lens`` included.
@@ -142,15 +152,16 @@ def _pair(a: np.ndarray, dtype: str):
 
 
 def _close(got: torch.Tensor, want, dtype: str, fp32_tol: float = 1e-5) -> None:
-    """fp32: ``fp32_tol`` relative and absolute; bf16: within one bf16 ulp of
-    the largest output magnitude (the same fp32 products summed in another
-    order, then rounded to bf16)."""
+    """fp32: ``fp32_tol`` relative and absolute; bf16 and fp16: within one ulp
+    of the type at the largest output magnitude (the same fp32 products
+    summed in another order, then rounded to the type)."""
     want = np.asarray(jnp.asarray(want, jnp.float32))
     got = got.float().numpy()
     if dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=fp32_tol, atol=fp32_tol)
     else:
-        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        mantissa = {"bfloat16": 7, "float16": 10}[dtype]
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - mantissa)
         np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
 
 
@@ -243,6 +254,225 @@ def test_int8_weight_matmul_plain_matches_jax(shape, dtype):
         _close(got, jax_quant.int8_weight_matmul(jx, w8, scale, interpret=True), dtype)
     # the public functional and a quantized layer take the same path
     _close(F.weight_only_linear(tx, tw8, ts), xla, dtype)
+
+
+@pytest.mark.parametrize("dtype,shape", [("float32", (3, 5, 36, 50)), ("bfloat16", (77, 4100, 32003))],
+                         ids=["fp32-ragged-k-n", "bf16-vocab-32003"])
+def test_int8_weight_matmul_fp32_and_ragged_match_jax_composition(dtype, shape):
+    """The shapes and the dtype the card takes on its CUDA-core instance
+    (K % 8 and N % 16 non-zero; fp32 activations) against JAX's XLA
+    composition, which takes any of them."""
+    rng = np.random.default_rng(5)
+    *lead, k, n = shape
+    m = int(np.prod(lead))
+    x = rng.normal(size=(*lead, k)).astype(np.float32)
+    w8 = rng.integers(-127, 128, size=(k, n), dtype=np.int8)  # the quantizer's range
+    scale = rng.uniform(1e-4, 1e-3, size=n).astype(np.float32)
+    tx, jx = _pair(x, dtype)
+    assert kquant.wo_route(tx.dtype, m, k, n) == "cuda_cores"
+    got = kquant.int8_weight_matmul(tx, torch.from_numpy(w8), torch.from_numpy(scale))
+    assert got.dtype == tx.dtype and got.shape == (*lead, n)
+    _close(got, jax_quant.int8_weight_matmul(jx, jnp.asarray(w8), jnp.asarray(scale)), dtype)
+
+
+# -- kernel 20's wgmma instance: its arithmetic, its fragments, its routes ----------------
+
+WO_BK, WO_BN = 64, 128  # csrc/wo_matmul.cu kBK, kBN: k a ring stage, weight columns a tile
+
+
+def emulate_wo(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bk: int, bm_x: int, bn_w: int) -> torch.Tensor:
+    """Kernel 20's wgmma instance in PyTorch: output tiles of ``bm_x`` x rows
+    by ``bn_w`` weight columns, walked k step by k step (``bk``; the last
+    step zero-filled past K, as TMA fills it), the int8 values widened to x's
+    type (exact), each step's fp32 partial added to the tile's fp32
+    accumulator in order, the scale row multiplied once, one rounding to x's
+    type."""
+    m, k = x.shape
+    n = w8.shape[1]
+    xf, wf = x.float(), w8.to(x.dtype).float()
+    out = torch.empty((m, n), dtype=x.dtype)
+    for m0 in range(0, m, bm_x):
+        for n0 in range(0, n, bn_w):
+            acc = torch.zeros((min(bm_x, m - m0), min(bn_w, n - n0)))
+            for k0 in range(0, k, bk):
+                acc += xf[m0:m0 + bm_x, k0:k0 + bk] @ wf[k0:k0 + bk, n0:n0 + bn_w]
+            out[m0:m0 + bm_x, n0:n0 + bn_w] = (acc * scale[n0:n0 + bn_w].float()).to(x.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m", [1, 8, 77, 512])
+def test_wo_emulation_matches_jax_interpret_and_plain(m, dtype):
+    rng = np.random.default_rng(11)
+    k, n = 200, 208  # three full k steps and a ragged one; a full and a ragged 128-column tile
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w8, scale = jax_quant.quantize_weight_int8(jnp.asarray(0.02 * rng.normal(size=(k, n)), jnp.float32))
+    tx, jx = _pair(x, dtype)
+    tw8, ts = torch.from_numpy(np.array(w8)), torch.from_numpy(np.array(scale))
+    assert kquant.wo_route(tx.dtype, m, k, n) == "wgmma"
+    got = emulate_wo(tx, tw8, ts, WO_BK, kquant.wo_plan(m, n, 132)["bm"], WO_BN)
+    _close(got, jax_quant.int8_weight_matmul(jx, w8, scale, interpret=True), dtype)
+    _close(got, kquant.int8_weight_matmul_plain(tx, tw8, ts).float().numpy(), dtype)
+
+
+def _byte_perm(x: np.ndarray, y, sel: int) -> np.ndarray:
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays: byte i of the
+    result is byte ``(sel >> 4 i) & 7`` of the eight bytes y:x."""
+    both = (np.asarray(y, np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(x.shape, np.uint64)
+    for i in range(4):
+        src = np.uint64(8 * ((sel >> (4 * i)) & 7))
+        out |= ((both >> src) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _halves(r: np.ndarray, dtype: str) -> np.ndarray:
+    """The two 16-bit halves of each uint32 (low first) as float32 values."""
+    h = r.view(np.uint16).reshape(-1, 2)
+    if dtype == "float16":
+        return h.view(np.float16).astype(np.float32)
+    return (h.astype(np.uint32) << 16).view(np.float32)
+
+
+def _widen_pairs(t: np.ndarray, dtype: str):
+    """``widen_pairs`` (csrc/wo_matmul.cu) in numpy, op for op: the A
+    registers of columns c0 and c1 from ``t`` = [c0@k, c1@k, c0@k+1,
+    c1@k+1], each as its (k, k+1) values."""
+    if dtype == "float16":
+        t = t ^ np.uint32(0x80808080)
+        bias = np.float32(np.float16(1152.0))
+        return [(_halves(_byte_perm(t, 0x64646464, sel), dtype) - bias).astype(np.float16).astype(np.float32)
+                for sel in (0x4240, 0x4341)]
+    regs = []
+    for sel in (0x4240, 0x4341):
+        y = _byte_perm(t, 0x43434343, sel)
+        diff = _halves(y & np.uint32(0xFF7FFF7F), dtype) - _halves(y & np.uint32(0xFF80FF80), dtype)
+        regs.append(diff)  # sub.rn.bf16x2 of two bf16 values whose difference is an integer of at most 128
+    return regs
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_widening_bit_tricks_map_every_int8_exactly(dtype):
+    v = np.arange(-128, 128)
+    b = [(v + 32 * j) % 256 - 128 for j in range(4)]  # every value in every byte
+    t = sum(((b[j] & 0xFF).astype(np.uint64) << np.uint64(8 * j)) for j in range(4)).astype(np.uint32)
+    r0, r1 = _widen_pairs(t, dtype)
+    np.testing.assert_array_equal(r0, np.stack([b[0], b[2]], 1).astype(np.float32))
+    np.testing.assert_array_equal(r1, np.stack([b[1], b[3]], 1).astype(np.float32))
+    # the widened values are exact in the type: the kernel's registers hold float(v)
+    exact = r0.astype(np.float16) if dtype == "float16" else torch.from_numpy(r0).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(np.asarray(exact, np.float32), r0)
+
+
+def _ldsm_x4_trans(smem: np.ndarray, rows) -> np.ndarray:
+    """``ldmatrix.m8n8.x4.trans.b16`` in numpy: ``rows[8 i + r]`` is the byte
+    address of row r of matrix i (16 bytes); lane (gid, tig) gets, for
+    matrix i, 16-bit column gid of rows 2 tig (low half) and 2 tig + 1."""
+    out = np.zeros((32, 4), np.uint32)
+    for lane in range(32):
+        gid, tig = lane // 4, lane % 4
+        for i in range(4):
+            lo = smem[rows[8 * i + 2 * tig] + 2 * gid:][:2].astype(np.uint32)
+            hi = smem[rows[8 * i + 2 * tig + 1] + 2 * gid:][:2].astype(np.uint32)
+            out[lane, i] = lo[0] | lo[1] << 8 | hi[0] << 16 | hi[1] << 24
+    return out
+
+
+def test_wgmma_a_fragments_hold_the_permuted_weight_columns():
+    """The wgmma instance's A fragments, from a W box as TMA leaves it in
+    shared memory (128-byte swizzle: 16-byte chunk c of row k at c ^ (k % 8)),
+    through ``load_slab``'s ldmatrix addresses and ``widen_step``'s word
+    order: register j of k16 step kk holds, in the m16n8k16 A layout,
+    fragment row gid (+ 8 for j odd) at k = 16 kk + 2 tig (+ 8 for j >= 2),
+    k + 1; fragment row i < 8 of a warp is weight column 2 i of its 16, row
+    i + 8 column 2 i + 1 (the epilogue's n_lo, n_lo + 1)."""
+    rng = np.random.default_rng(3)
+    box = rng.integers(-128, 128, size=(64, 128)).astype(np.int8)  # [64 k][128 weight columns]
+    smem = np.zeros(64 * 128, np.uint8)
+    for kr in range(64):
+        for c in range(8):
+            dst = kr * 128 + ((c ^ (kr % 8)) << 4)
+            smem[dst:dst + 16] = box[kr, 16 * c:16 * c + 16].view(np.uint8)
+    for dtype in ("bfloat16", "float16"):
+        for wg in range(2):
+            for wl in range(4):
+                chunk = 4 * wg + wl
+                off = [lane * 128 + ((chunk ^ (lane & 7)) << 4) for lane in range(32)]
+                words = [_ldsm_x4_trans(smem, [o + 32 * 128 * p for o in off]) for p in range(2)]
+                for lane in range(32):
+                    gid, tig = lane // 4, lane % 4
+                    cols = (64 * wg + 16 * wl + 2 * gid, 64 * wg + 16 * wl + 2 * gid + 1)
+                    for kk in range(4):
+                        w = words[kk >> 1][lane]
+                        a = [*_widen_pairs(w[2 * (kk & 1)][None], dtype), *_widen_pairs(w[2 * (kk & 1) + 1][None], dtype)]
+                        for j in range(4):
+                            k0 = 16 * kk + 2 * tig + 8 * (j >> 1)
+                            want = box[k0:k0 + 2, cols[j & 1]].astype(np.float32)
+                            np.testing.assert_array_equal(a[j][0], want)
+
+
+MAIN_PATH_WO = {  # Llama-2-7B's weight-only projections, [K, N]
+    "gate_up": (4096, 11008), "down": (11008, 4096), "lm_head": (4096, 32000),
+}
+
+
+@pytest.mark.parametrize("m", [1, 8, 512, 4096], ids=["decode-1", "decode-8", "serve-step", "eval-rows"])
+@pytest.mark.parametrize("proj", sorted(MAIN_PATH_WO))
+def test_wo_main_path_shapes_take_wgmma_in_bf16_and_fp16(proj, m):
+    k, n = MAIN_PATH_WO[proj]
+    assert kquant.wo_route(torch.bfloat16, m, k, n) == "wgmma"
+    assert kquant.wo_route(torch.float16, m, k, n) == "wgmma"
+    assert kquant.wo_route(torch.float32, m, k, n) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,k,n,route", [
+    (torch.bfloat16, 4104, 4096, "wgmma"),        # K % 8 == 0 is enough for x's rows
+    (torch.bfloat16, 4100, 4096, "cuda_cores"),   # K % 8 != 0
+    (torch.float16, 4096, 32008, "cuda_cores"),   # N % 16 != 0
+    (torch.bfloat16, 4100, 32003, "cuda_cores"),  # both: a Llama vocab of 32003
+    (torch.float32, 4096, 4096, "cuda_cores"),
+    (torch.bfloat16, 0, 16, "cuda_cores"),        # an empty contraction
+], ids=["k-mult-8", "k-ragged", "n-ragged", "vocab-32003", "fp32", "k-0"])
+def test_wo_route_by_dtype_and_alignment(dtype, k, n, route):
+    assert kquant.wo_route(dtype, 77, k, n) == route
+
+
+def _plan_items(plan: dict, m: int):
+    """``item_at`` (csrc/wo_matmul.cu) over a plan: (first row, rows, first column) of every item."""
+    bm, blocks, nt, big = plan["bm"], plan["blocks"], plan["nt"], plan["big"]
+    items, split = [], 2 * (blocks * nt - big)
+    for i in range(plan["items"]):
+        if i < big:
+            items.append(((i % blocks) * bm, bm, (i // blocks) * WO_BN))
+        elif i - big < split:
+            s = i - big
+            q = big + s // 2
+            items.append(((q % blocks) * bm + (s & 1) * (bm // 2), bm // 2, (q // blocks) * WO_BN))
+        else:
+            items.append((blocks * bm, bm // 2, (i - big - split) * WO_BN))
+    return items
+
+
+@pytest.mark.parametrize("m,n", [(512, 11008), (512, 4096), (512, 32000), (8, 11008), (4096, 11008), (77, 208),
+                                 (300, 400), (777, 1040)])
+def test_wo_plan_covers_every_output_tile_once(m, n):
+    plan = kquant.wo_plan(m, n, 132)
+    covered = np.zeros((-(-m // 8) * 8 + 256, n + WO_BN), np.int32)
+    for r0, rows, c0 in _plan_items(plan, m):
+        assert r0 < m and c0 < n
+        covered[r0:r0 + rows, c0:c0 + WO_BN] += 1
+    assert (covered[:m, :n] == 1).all()
+    assert plan["grid"] == min(plan["items"], 132)
+
+
+def test_wo_plan_at_the_serving_shapes():
+    """gate/up: one round of 256-row tiles, then the rest as 128-row tiles
+    (13 units of work for the longest CTA against 16 whole); down: every
+    tile 128 rows, one a CTA on 128 SMs; the lm head: 500 256-row tiles."""
+    assert kquant.wo_plan(512, 11008, 132) == dict(bm=256, blocks=2, nt=86, big=132, items=212, grid=132)
+    assert kquant.wo_plan(512, 4096, 132) == dict(bm=128, blocks=4, nt=32, big=128, items=128, grid=128)
+    assert kquant.wo_plan(512, 32000, 132) == dict(bm=256, blocks=2, nt=250, big=500, items=500, grid=132)
+    assert kquant.wo_plan(8, 11008, 132)["bm"] == 8 and kquant.wo_plan(64, 11008, 132)["bm"] == 64
 
 
 # -- the cache writes with scale planes ----------------------------------------------------
