@@ -38,9 +38,14 @@ name and power limit):
    4096]``, bf16, and all three at ragged rows in fp16 and fp32; the fused
    linear cross entropy forward, D recompute, dX and dW (kernels 17-19) at
    the train shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a
-   ragged vocab, in the vocab-major layout, in fp16 and at GPT-3 13B's tied
-   head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk), with
-   the loss head's peak memory fused and unfused; time kernel, plain
+   ragged vocab, in the vocab-major layout, in fp16, at GPT-3 13B's tied
+   head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk) and in
+   fp32, each case printing its route (``flx_route``: the wgmma mainloop,
+   mma.sync where TMA cannot address W's rows, the CUDA cores in fp32) and
+   holding two ``flxent_bwd`` calls to the same bits, with the loss head's
+   peak memory fused and unfused (fused must be lower) and 18 and 19 each
+   gated at 1.25x the library's whole backward at the train shape, then
+   ``F.fused_linear_cross_entropy`` forward and backward in fp32; time kernel, plain
    version and, where one PyTorch call
    computes the same function, that call (device time per call from CUDA
    events with the L2 flushed before each call; back-to-back wall time per
@@ -1465,11 +1470,11 @@ def check_residual_repair(dev, gen, card: dict) -> dict:
 
 # -- kernels 17-19: fused linear cross entropy forward, dX, dW ------------------
 
-FLXENT_SOURCES = {
+FLXENT_SOURCES = {  # the train shape's instances (bf16, W [H, V]: the wgmma route)
     "flxent_fwd": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
-    "flxent_dchunk": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
-    "flxent_dx": "paddle_tpu_torch/kernels/csrc/flxent_dx.cu",
-    "flxent_dw": "paddle_tpu_torch/kernels/csrc/flxent_dw.cu",
+    "flxent_dchunk": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
+    "flxent_dx": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
+    "flxent_dw": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
 }
 # lse, tl: fp32 sums of H products in another order; at |logit| ~ 1 and H
 # 4096 a reordering moves them by ~sqrt(H) * 2^-24 ~ 4e-6, held at 1e-4 of
@@ -1483,21 +1488,41 @@ FLXENT_SOURCES = {
 # ulp * (|x|^T |D|) + sub * sum_n |x| for dW (the plain version run on
 # absolute values), plus the rounding of each side's fp32 sum to the I/O
 # type, ulp * max(|got|, |ref|) + sub; and over the whole tensor a
-# relative L2 error of at most half an ulp.
-FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)", "D": "per element ulp * max(|got|, |ref|) + sub",
+# relative L2 error of at most half an ulp. fp32 (the CUDA-core instance
+# against the plain version with TF32 off): nothing is rounded to a narrower
+# type, and both sides sum the same H fp32 products in other orders (the
+# kernel in k tiles of 16). The rounding errors of such a sum add like a
+# random walk, about 2^-24 sqrt(H) q (q = sqrt(x^2 (W_c^2)^T), the l2 norm
+# of a logit's products); D = p g - onehot g moves by |D| times its logit's
+# error. The gate allows 16 times that, 2^-16 (sqrt(H) / 16) q, so: the
+# same gates with ulp 2^-16, |D| scaled by 1 + sqrt(H) / 16 q wherever it
+# appears (fp32_logit_scale), and sub 0. TF32 rounds the operands to 10 bits
+# and moves a logit by about 2^-11 q: every fp32 case reads the plain D with
+# TF32 on under the same gate, and fails unless the gate rejects it.
+FLXENT_ULP = {"bfloat16": BF16_REL, "float16": 2.0 ** -10, "float32": 2.0 ** -16}
+FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)",
+              "D": "per element ulp * max(|got|, |ref|) + sub (fp32: times 1 + sqrt(H) / 16 * "
+                   "sqrt(x^2 (W_c^2)^T), and the plain D with TF32 on must fail this gate)",
               "dx, dw": "per element ulp * (|D| |W|^T resp. |x|^T |D|) + sub * (sum_v |W| resp. sum_n |x|) "
                         "+ ulp * max(|got|, |ref|) + sub; rel L2 <= ulp/2 "
-                        "(ulp 2^-7 bf16, 2^-10 fp16; sub = tiny * ulp, the subnormal spacing)"}
+                        "(ulp 2^-7 bf16, 2^-10 fp16, 2^-16 fp32; sub = tiny * ulp, the subnormal spacing, "
+                        "0 in fp32; in fp32 |D| times 1 + sqrt(H) / 16 * sqrt(x^2 (W_c^2)^T))",
+              "repeat": "two flxent_bwd calls give the same bits",
+              "route": "each case states the route flx_route_of must take for its tensors"}
+FLX_GATE = 1.25  # kernels 18 and 19 each at most this times the library's whole backward at the train shape
 
 
-def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool):
+def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, w_offset: int = 0):
     """x ~ N(0, 1) (a normed hidden), W ~ N(0, 0.02) (the model's init) in
-    the given layout, labels in [0, V) with every tenth row ignored (-100)
-    and two rows past V, and the gcoef of a mean over the valid rows."""
+    the given layout (contiguous, ``w_offset`` elements into its storage),
+    labels in [0, V) with every tenth row ignored (-100) and two rows past
+    V, and the gcoef of a mean over the valid rows."""
     import torch
 
     x = torch.randn((n, h), generator=gen, device=dev).to(dtype)
     w = (0.02 * torch.randn((v, h) if vocab_major else (h, v), generator=gen, device=dev)).to(dtype)
+    if w_offset:
+        w = torch.cat([torch.zeros(w_offset, dtype=dtype, device=dev), w.reshape(-1)])[w_offset:].view(w.shape)
     lab = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
     lab[::10] = -100
     lab[1], lab[n // 2 + 1] = v, v + 12345
@@ -1509,9 +1534,10 @@ def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool):
 def flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major: bool, ulp: float, sub: float):
     """The most that D's rounding can move dX and dW, in fp32 (the second
     in ``W``'s layout): the backward's products run on absolute values,
-    with ``|D|`` from the plain version, times ``ulp``, plus the subnormal
-    spacing ``sub`` times the sums of ``|W|`` over the vocab and of ``|x|``
-    over the rows."""
+    with ``|D|`` from the plain version (in fp32 times
+    :func:`fp32_logit_scale`), times ``ulp``, plus the subnormal spacing
+    ``sub`` times the sums of ``|W|`` over the vocab and of ``|x|`` over the
+    rows."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
 
@@ -1524,6 +1550,8 @@ def flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major: bool, ulp: float, sub:
         c1 = min(c0 + kl.CHUNK, v)
         da = kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, c0, c1, vocab_major).float().abs()
         wa = (w[c0:c1] if vocab_major else w[:, c0:c1].t()).float().abs()  # [c1 - c0, H]
+        if x.dtype == torch.float32:
+            da *= fp32_logit_scale(x, wa)
         sx += da @ wa
         swc = da.t() @ xa  # [c1 - c0, H]
         if vocab_major:
@@ -1536,6 +1564,18 @@ def flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major: bool, ulp: float, sub:
     sx = ulp * sx + sub * w_sum[None, :]
     sw = ulp * sw + sub * (x_sum[None, :] if vocab_major else x_sum[:, None])
     return sx, sw
+
+
+def fp32_logit_scale(x, wc):
+    """fp32 only: ``1 + sqrt(H) / 16 * sqrt(x^2 (W_c^2)^T)``, ``[N, Vc]`` for
+    ``x [N, H]`` and the chunk's ``wc [Vc, H]``: in units of 2^-16, how far
+    two fp32 sums of a logit's H products in other orders may move it
+    (16 times the random walk of their rounding errors, 2^-24 sqrt(H) times
+    the products' l2 norm), plus 1 for D's own rounding."""
+    import torch
+
+    x2 = x.float().square()
+    return 1 + (x.shape[1] ** 0.5 / 16) * (x2 @ wc.float().square().t()).sqrt()
 
 
 def gate_reading(got, ref, limit) -> dict:
@@ -1554,20 +1594,29 @@ def gate_reading(got, ref, limit) -> dict:
             "median_limit": float(limit.reshape(-1)[idx].median())}
 
 
-def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, timed: bool = False) -> dict:
+def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, route_want: str,
+                timed: bool = False, w_offset: int = 0) -> dict:
     """Kernels 17-19 and the D recompute (first and last vocab chunk)
-    against their plain versions on the same inputs; with ``timed`` their
-    times, the plain versions', the unfused composition's
-    (cuBLAS ``x @ W`` + ``F.cross_entropy``: two calls, forward and
-    backward) and the loss head's peak memory fused and unfused."""
+    against their plain versions on the same inputs, on the backward's
+    route (``flx_route_of``, printed), which must be ``route_want``; two
+    ``flxent_bwd`` calls must give the same bits. ``w_offset`` places W that
+    many elements into its storage. In fp32 (run with TF32 off by the
+    caller) the plain D with TF32 on must fail D's gate. With ``timed``
+    their times, the plain versions', the unfused composition's (cuBLAS
+    ``x @ W`` + ``F.cross_entropy``: two calls, forward and backward) and
+    the loss head's peak memory fused and unfused."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
 
-    ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
-    sub = torch.finfo(dtype).tiny * ulp  # the spacing of the type's subnormals
-    x, w, lab, gcoef = flxent_inputs(dev, gen, n, h, v, dtype, vocab_major)
+    ulp = FLXENT_ULP[str(dtype).split(".")[-1]]
+    sub = 0.0 if dtype == torch.float32 else torch.finfo(dtype).tiny * ulp  # the spacing of the type's subnormals
+    x, w, lab, gcoef = flxent_inputs(dev, gen, n, h, v, dtype, vocab_major, w_offset)
+    route = kl.flx_route_of(x, w, vocab_major)
+    if route != route_want:
+        fail(f"kernels 17-19 ({label}): the backward takes the route {route}, not {route_want}")
     lse, tl = kl.flxent_fwd(x, w, lab, vocab_major)
     dx, dw = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
+    dx2, dw2 = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
     dx_only, _ = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dw=False)
     _, dw_only = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dx=False)
     lse_p, tl_p = kl.flxent_fwd_plain(x, w, lab, vocab_major)
@@ -1585,10 +1634,25 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, t
         c1 = min(c0 + kl.CHUNK, v)
         got = kl.flxent_dchunk(x, w, lab, lse, gcoef, c0, c1, vocab_major).float()
         want = kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, c0, c1, vocab_major).float()
-        readings[f"d[:, {c0}:{c1}]"] = r = gate_reading(got, want, ulp * torch.maximum(got.abs(), want.abs()) + sub)
+        scale = 1.0
+        if dtype == torch.float32:
+            scale = fp32_logit_scale(x, w[c0:c1] if vocab_major else w[:, c0:c1].t())
+        limit = ulp * torch.maximum(got.abs(), want.abs()) * scale + sub
+        readings[f"d[:, {c0}:{c1}]"] = r = gate_reading(got, want, limit)
         checks[f"d[:, {c0}:{c1}]"] = r.pop("ok")
         err["d"] = max(err["d"], float((got - want).abs().max()))
-        del got, want
+        if dtype == torch.float32:  # the control: D from TF32 logits, under the same gate
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ctl = kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, c0, c1, vocab_major).float()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            r = gate_reading(ctl, want, ulp * torch.maximum(ctl.abs(), want.abs()) * scale + sub)
+            readings[f"tf32 control d[:, {c0}:{c1}]"] = r
+            checks[f"the D gate rejects TF32 logits d[:, {c0}:{c1}]"] = not r.pop("ok")
+            del ctl
+        del got, want, scale, limit
     sx, sw = flxent_abs_scales(x, w, lab, lse, gcoef, vocab_major, ulp, sub)
     for name, got, want, scale in (("dx", dx, dx_p, sx), ("dw", dw, dw_p, sw)):
         g, r = got.float(), want.float()
@@ -1598,15 +1662,17 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, t
         checks[name] = readings[name].pop("ok") and err[name + "_rel_l2"] <= ulp / 2
         del g, r
     checks["one product alone is the same bits"] = bool(torch.equal(dx, dx_only)) and bool(torch.equal(dw, dw_only))
+    checks["two calls are the same bits"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
     line = {"phase": "kernel_check", "kernel": "flxent_fwd/flxent_dchunk/flxent_dx/flxent_dw", "case": label,
-            "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major}, "dtype": str(dtype).split(".")[-1],
-            "max_err": err, "checks": checks, "gate_readings": readings, "tolerance": FLXENT_TOL}
-    del dx_p, dw_p, dx_only, dw_only, sx, sw
+            "route": route, "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major},
+            "dtype": str(dtype).split(".")[-1], "max_err": err, "checks": checks, "gate_readings": readings,
+            "tolerance": FLXENT_TOL}
+    del dx_p, dw_p, dx_only, dw_only, dx2, dw2, sx, sw
     if not all(checks.values()):
         emit({**line, "card": card})
         fail(f"kernels 17-19 disagree with their plain versions ({label}): {checks} {err} {readings}")
-    res = {"max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
-                           "flxent_dx": err["dx"], "flxent_dw": err["dw"]}}
+    res = {"route": route, "max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
+                                           "flxent_dx": err["dx"], "flxent_dw": err["dw"]}}
     if timed:
         res.update(flxent_times(x, w, lab, lse, gcoef, vocab_major))
         line["times"] = res["times"]
@@ -1617,6 +1683,11 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, t
 
 
 def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
+    """The times of kernels 17-19 and the D recompute (and of the backward
+    with all three products, ``bwd_shared_d``), the plain versions' and the
+    library's, each beside its bound at the peak rate of x's type (fp32: 67
+    TFLOP/s outside the tensor cores), and the loss head's peak memory fused
+    and unfused."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
     from paddle_tpu_torch.nn.functional import cross_entropy
@@ -1624,6 +1695,7 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
     n, h = x.shape
     v = w.shape[0] if vocab_major else w.shape[1]
     esz = x.element_size()
+    rate = FP32_FLOP_PER_S if x.dtype == torch.float32 else BF16_FLOP_PER_S
     xw = (n * h + v * h) * esz  # x and W, each read once
     rows = 3 * n * 4  # labels, and lse / tl or lse / gcoef
     flop = 2.0 * n * h * v  # one product over the vocab
@@ -1638,19 +1710,19 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
         "flxent_fwd": (lambda: kl.flxent_fwd(x, w, lab, vocab_major),
                        lambda: kl.flxent_fwd_plain(x, w, lab, vocab_major),
                        lambda: cross_entropy(x @ wt, lab64, ignore_index=-100),
-                       bound(xw + rows, flop)),
+                       bound(xw + rows, flop, rate)),
         "flxent_dchunk": (lambda: kl.flxent_dchunk(x, w, lab, lse, gcoef, 0, vc, vocab_major),
                           lambda: kl.flxent_dchunk_plain(x, w, lab, lse, gcoef, 0, vc, vocab_major),
                           None,
-                          bound((n * h + vc * h + n * vc) * esz + rows, flop * vc / v)),
+                          bound((n * h + vc * h + n * vc) * esz + rows, flop * vc / v, rate)),
         "flxent_dx": (lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dw=False),
                       lambda: kl.flxent_bwd_plain(x, w, lab, lse, gcoef, vocab_major, need_dw=False),
                       lambda: torch.autograd.grad(lib_loss, (xr, wr), retain_graph=True),
-                      bound(xw + rows + n * h * esz, 2 * flop)),
+                      bound(xw + rows + n * h * esz, 2 * flop, rate)),
         "flxent_dw": (lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dx=False),
                       lambda: kl.flxent_bwd_plain(x, w, lab, lse, gcoef, vocab_major, need_dx=False),
                       lambda: torch.autograd.grad(lib_loss, (xr, wr), retain_graph=True),
-                      bound(xw + rows + v * h * esz, 2 * flop)),
+                      bound(xw + rows + v * h * esz, 2 * flop, rate)),
     }
     times = {}
     for name, (run, run_plain, run_lib, bnd) in runs.items():
@@ -1659,7 +1731,12 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
                            library_ms=None if run_lib is None else device_ms(run_lib, iters=5), **bnd)
         torch.cuda.empty_cache()
     times["bwd_shared_d"] = dict(ms=device_ms(lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major), iters=10),
-                                 **bound(xw + rows + (n + v) * h * esz, 3 * flop))
+                                 library_ms=times["flxent_dx"]["library_ms"],
+                                 **bound(xw + rows + (n + v) * h * esz, 3 * flop, rate))
+    for t in times.values():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        if t.get("library_ms"):
+            t["vs_library"] = t["ms"] / t["library_ms"]
     del lib_loss, xr, wr
     torch.cuda.empty_cache()
 
@@ -1687,32 +1764,143 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
 
 def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     """Kernels 17-19 and the D recompute at the train shape (x ``[8192,
-    4096]``, W ``[4096, 32000]`` bf16; timed), at a ragged vocab and row
-    count (V 32003, whose
-    ``[H, V]`` rows are not 16-byte aligned: the element-wise staging
-    path), in the vocab-major layout, in fp16, and at GPT-3 13B's tied
-    head (x ``[8192, 5120]``, W ``[50304, 5120]`` vocab-major)."""
+    4096]``, W ``[4096, 32000]`` bf16; timed, and 18 and 19 each gated at
+    :data:`FLX_GATE` times the library's whole backward in the same call), at
+    a ragged vocab and row count (V 32003, whose ``[H, V]`` rows are not
+    16-byte aligned: the mma.sync route), in the vocab-major layout, in
+    fp16 (ragged V 3001 on the mma.sync route; V 3000 in both layouts on
+    the wgmma route), at ragged rows and a last chunk of 904 columns on
+    the wgmma route, at H 520 (a partial k box on the wgmma route), with W
+    2 bytes off 16-byte alignment (the mma.sync route), at GPT-3 13B's
+    tied head (x ``[8192, 5120]``, W ``[50304, 5120]`` vocab-major, a
+    1152-column tail chunk; timed), and in fp32 on the CUDA-core instance
+    (a ragged case, and x ``[2048, 4096]``, W ``[4096, 32000]`` timed
+    beside the fp32 library head with TF32 off); then the public
+    ``F.fused_linear_cross_entropy`` on fp32 tensors. First the host's copy
+    of the wgmma instance's tile plan is held against the kernels' own."""
     import torch
 
-    bf = torch.bfloat16
-    train = flxent_case(dev, gen, 8192, 4096, 32000, bf, False, "train shape", card, timed=True)
-    flxent_case(dev, gen, 1000, 1024, 32003, bf, False, "ragged rows and vocab (V % 8 != 0)", card)
-    flxent_case(dev, gen, 2048, 1024, 5000, bf, True, "vocab-major W [V, H]", card)
-    flxent_case(dev, gen, 520, 512, 3001, torch.float16, False, "fp16, ragged", card)
-    flxent_case(dev, gen, 8192, 5120, 50304, bf, True, "GPT-3 13B tied head: W [50304, 5120], a 1152-column "
-                "tail chunk", card)
+    bf, f16 = torch.bfloat16, torch.float16
+    check_flx_plan(card)
+    train = flxent_case(dev, gen, 8192, 4096, 32000, bf, False, "train shape", card, "wgmma", timed=True)
+    flxent_case(dev, gen, 1000, 1024, 32003, bf, False, "ragged rows and vocab (V % 8 != 0)", card, "mma_sync")
+    flxent_case(dev, gen, 2048, 1024, 5000, bf, True, "vocab-major W [V, H]", card, "wgmma")
+    flxent_case(dev, gen, 1000, 1024, 5000, bf, False, "ragged rows, a 904-column last chunk", card, "wgmma")
+    flxent_case(dev, gen, 520, 512, 3001, f16, False, "fp16, ragged", card, "mma_sync")
+    flxent_case(dev, gen, 520, 512, 3000, f16, False, "fp16, ragged rows and chunk", card, "wgmma")
+    flxent_case(dev, gen, 520, 512, 3000, f16, True, "fp16, ragged rows and chunk, vocab-major", card, "wgmma")
+    flxent_case(dev, gen, 300, 520, 1000, bf, True, "H 520 (a partial k box), ragged rows, vocab-major", card,
+                "wgmma")
+    flxent_case(dev, gen, 1000, 1024, 5000, bf, False, "W 2 bytes off 16-byte alignment", card, "mma_sync",
+                w_offset=1)
+    gpt = flxent_case(dev, gen, 8192, 5120, 50304, bf, True, "GPT-3 13B tied head: W [50304, 5120], a 1152-column "
+                      "tail chunk", card, "wgmma", timed=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        flxent_case(dev, gen, 300, 256, 1000, torch.float32, True, "fp32, ragged, vocab-major", card, "cuda_cores")
+        fp32 = flxent_case(dev, gen, 2048, 4096, 32000, torch.float32, False, "fp32, 2048 rows", card, "cuda_cores",
+                           timed=True)
+        check_fused_loss_fp32_entry(dev, gen, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     for name, src in FLXENT_SOURCES.items():
         t = train["times"][name]
         records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
     records["flxent_dx"]["bwd_shared_d"] = train["times"]["bwd_shared_d"]
     emit({"phase": "flxent_times", "train_shape": {"x": [8192, 4096], "w": [4096, 32000]},
+          "routes": {"train": train["route"], "gpt": gpt["route"], "fp32": fp32["route"]},
           "library": "two calls: cuBLAS x @ W + F.cross_entropy on fp32 logits; its backward (dlogits, dX, dW) "
-                     "stands beside both 18 and 19; none for the D recompute",
+                     "stands beside 18, 19 and bwd_shared_d; none for the D recompute",
           "note": "flxent_dchunk's ms is one launch (the first 4096 columns); flxent_dx's and flxent_dw's are "
-                  "the whole backward with one product, their D recomputes included",
+                  "the whole backward with one product, their D recomputes included; bwd_shared_d is the main "
+                  "path's backward (D, dX and dW per chunk)",
           "records": {n: records[n] for n in FLXENT_SOURCES}, "bwd_shared_d": train["times"]["bwd_shared_d"],
+          "gpt_head": gpt["times"], "gpt_peak_memory": gpt["peak_memory"],
+          "fp32_2048_rows": fp32["times"], "fp32_library": "the same two calls in fp32, TF32 off",
           "loss_head_peak_memory": train["peak_memory"], "card": card})
+    ratios = {name: train["times"][name]["vs_library"] for name in ("flxent_dx", "flxent_dw")}
+    emit({"phase": "flxent_gate", "ms_over_library_bwd": ratios, "limit": FLX_GATE,
+          "share_of_bound": {name: train["times"][name]["share_of_bound"] for name in train["times"]},
+          "card": card})
+    slow = {name: r for name, r in ratios.items() if r > FLX_GATE}
+    if slow:
+        fail(f"kernels 18/19 are slower than {FLX_GATE}x the library's whole backward at the train shape: {slow}")
+    if not train["peak_memory"]["fused_gib"] < train["peak_memory"]["unfused_gib"]:
+        fail(f"the fused loss head's peak memory is not below the unfused head's: {train['peak_memory']}")
     torch.cuda.empty_cache()
+
+
+def check_flx_plan(card: dict) -> None:
+    """The host's copy of the wgmma instance's tile plan
+    (``fused_loss.flx_plan`` and ``flx_items``) against the plan the
+    kernels launch on (``ptt_flxent_plan``), on this card's SM count: the
+    outputs of D and dX at the train shapes (Llama's 4096- and
+    3328-column chunks, GPT's H 5120 and 1152-column tail), dW in both
+    layouts, and ragged shapes."""
+    import ctypes
+
+    import torch
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fn = build.kernel_fn("ptt_flxent_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+    shapes = [(8192, 4096), (8192, 3328), (4096, 4096), (4096, 3328), (8192, 5120), (5120, 4096), (8192, 1152),
+              (1152, 5120), (1000, 5000), (1000, 904), (520, 3000), (3000, 512), (300, 1000), (160, 8)]
+    wrong = []
+    for m, n in shapes:
+        py = kl.flx_plan(m, n, sms)
+        plan = (ctypes.c_int * 5)()
+        cap = 2 * py["tiles_m"] * py["tiles_n"]
+        items = (ctypes.c_int * (3 * cap))()
+        build.check(fn(m, n, sms, ctypes.addressof(plan), ctypes.addressof(items), cap), "ptt_flxent_plan")
+        cc = dict(zip(("tiles_m", "tiles_n", "big", "items", "grid"), plan))
+        cc_items = [tuple(items[3 * i:3 * i + 3]) for i in range(min(cc["items"], cap))]
+        if cc != py or cc_items != kl.flx_items(py):
+            wrong.append({"shape": [m, n], "kernels": cc, "host": py})
+    emit({"phase": "flx_plan_check", "sms": sms, "shapes": shapes, "ok": not wrong, "card": card})
+    if wrong:
+        fail(f"flx_plan / flx_items disagree with the kernels' tile plan: {wrong}")
+
+
+def check_fused_loss_fp32_entry(dev, gen, card: dict) -> None:
+    """``F.fused_linear_cross_entropy`` forward and backward on fp32 tensors
+    on the card (H 1024, a multiple of 128: the kernels' gate, the flag at its
+    default): 17 twice and D / 18 / 19 once per 4096-column chunk on the
+    CUDA-core instance, against the same entry on the plain versions; loss
+    within 1e-5 relative, each gradient within a relative L2 of 1e-5 (the
+    same fp32 products summed in other orders)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.nn import functional as F
+
+    b, s, h, v = 2, 300, 1024, 5000
+    x0 = torch.randn((b, s, h), generator=gen, device=dev)
+    w0 = 0.02 * torch.randn((h, v), generator=gen, device=dev)
+    lab = torch.randint(0, v, (b, s), generator=gen, device=dev)
+    lab[:, ::7] = -100
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss = F.fused_linear_cross_entropy(x, w, lab)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in launch_counts().items() if c}
+    xp, wp = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    loss_p = kl.linear_cross_entropy(xp, wp, lab, use_kernels=False)
+    loss_p.backward()
+    chunks = -(-v // kl.CHUNK)
+    want = {"flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    err = {"loss": abs(float(loss.detach()) - float(loss_p.detach())) / abs(float(loss_p.detach())),
+           "dx_rel_l2": rel_l2(x.grad, xp.grad), "dw_rel_l2": rel_l2(w.grad, wp.grad)}
+    ok = counts == want and all(e <= 1e-5 for e in err.values()) and loss.dtype == torch.float32
+    emit({"phase": "fused_loss_fp32_entry", "shape": {"x": [b, s, h], "w": [h, v]}, "route": kl.flx_route(
+        torch.float32, h, v, False), "launches": counts, "errors": err,
+          "tolerance": "loss 1e-5 relative; dx, dw rel L2 <= 1e-5", "card": card})
+    if not ok:
+        fail(f"F.fused_linear_cross_entropy in fp32 on the card: launches {counts} (want {want}), errors {err}")
 
 
 # -- serving -------------------------------------------------------------------
@@ -2378,9 +2566,10 @@ def check_wo_matmul(dev, gen, card: dict) -> dict:
     cuBLAS's bf16 ``x @ W`` and gated at :data:`WO_GATE` times it; eight
     rows at gate/up (a decode batch: the weight's bytes bound it), and fp32
     at gate/up beside ``torch.matmul`` in fp32 with TF32 off, both timed;
-    checked only: fp16 ragged rows, one row, ``[77, 4100] x [4100, 32003]``
-    in bf16 (the CUDA-core route: K % 8 and N % 16 both non-zero) and the
-    eval loss's 4096 rows. Returns the timed cases."""
+    ``[77, 4100] x [4100, 32003]`` in bf16 (the CUDA-core route: K % 8 and
+    N % 16 both non-zero), timed beside cuBLAS's bf16 product; checked only:
+    fp16 ragged rows, one row and the eval loss's 4096 rows. Returns the
+    timed cases."""
     import torch
 
     shapes = {label: wo_case(dev, gen, m, k, n, torch.bfloat16, label, card, timed=True)
@@ -2394,7 +2583,8 @@ def check_wo_matmul(dev, gen, card: dict) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
     wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
-    wo_case(dev, gen, 77, 4100, 32003, torch.bfloat16, "ragged K and N (CUDA-core route)", card)
+    shapes["cuda_core_route"] = wo_case(dev, gen, 77, 4100, 32003, torch.bfloat16, "ragged K and N (CUDA-core route)",
+                                        card, timed=True)
     wo_case(dev, gen, 4096, 4096, 11008, torch.bfloat16, "eval rows (M 4096)", card)
     ratios = {label: shapes[label]["vs_library"] for label in WO_SHAPES}
     emit({"phase": "wo_matmul_gate", "ms_over_cublas_bf16": ratios, "limit": WO_GATE,
@@ -2711,8 +2901,10 @@ TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("rms_bwd", "rmsnorm bwd (kernel 8)"), ("rope_fwd_kernel", "rope fwd (kernel 9)"),
     ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("column_sum", "norm backward column sums (kernels 8, 11, 13)"),
     ("ln_residual_bwd", "LN-residual bwd (kernel 13)"), ("ln_residual_kernel", "LN-residual fwd (kernel 12)"),
-    ("flxent_logits", "fused loss logits / D (kernels 17-19)"),
-    ("flxent_merge", "fused loss logits / D (kernels 17-19)"), ("flxent_gemm", "fused loss dX / dW (kernels 18/19)"),
+    ("flxent_logits", "fused loss logits (kernel 17)"),
+    ("flxent_merge", "fused loss logits (kernel 17)"),
+    ("flxent_wgmma", "fused loss D / dX / dW (kernels 18/19, wgmma)"),
+    ("flxent_gemm", "fused loss dX / dW (kernels 18/19, mma.sync)"), ("flxent_f32", "fused loss fp32 (17-19)"),
     ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
     ("Memcpy", "memcpy"), ("Memset", "memcpy"),
@@ -3334,7 +3526,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     info = build.build_info()
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln)]
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln)) or "spill stores" in ln]
     emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"], "ptxas": ptxas})
 
     records, flash_cold = check_kernels(dev, card)

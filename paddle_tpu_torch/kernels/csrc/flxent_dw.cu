@@ -1,6 +1,9 @@
 // Fused linear cross entropy, dW (kernel 19): dW[:, chunk] = x^T D for one
 // chunk of Vc vocab columns per launch, D = (softmax - onehot) * gcoef
-// rounded to the input type (recomputed per chunk by flxent_fwd.cu).
+// rounded to the input type (recomputed per chunk). The C entry point takes
+// the route: this file's mma.sync instance serves bf16 / fp16 W [H, V] with
+// V % 8 != 0 (D from flxent_fwd.cu); every other bf16 / fp16 W runs
+// flxent_wgmma.cu, fp32 flxent_fp32.cu.
 //
 // Replaces: paddle_tpu/kernels/fused_loss.py `_flxent_dw_kernel` (launched
 // by `_make_pallas_core`), the lm-head weight gradient of the training
@@ -47,12 +50,20 @@ int dw_chunk(int vocab_major, const void* x, const void* d, long long ldd, void*
 
 }  // namespace
 
-// io: ptt::kBF16 or ptt::kF16. x: [N, H]; d: [N, ldd] (the chunk's D, vc
-// columns); dw: [H, V] or, with vocab_major, [V, H], in W's type: the
-// chunk's columns (rows) are written.
-extern "C" int ptt_flxent_dw(int io, int vocab_major, const void* x, const void* d, long long ldd,
+// io: ptt::kBF16, ptt::kF16 or ptt::kF32; route: ptt::flx::Route (as
+// ptt_flxent_dchunk's). x: [N, H]; d: [N, ldd] (the chunk's D, vc columns);
+// dw: [H, V] or, with vocab_major, [V, H], in W's type: the chunk's columns
+// (rows) are written.
+extern "C" int ptt_flxent_dw(int io, int route, int vocab_major, const void* x, const void* d, long long ldd,
                              void* dw, int N, int H, int V, int c0, int vc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == fx::kWgmma) return fx::wgmma_dw(io, vocab_major, x, d, ldd, dw, N, H, V, c0, vc, s);
+  if (route == fx::kCudaCores) {
+    if (io != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::f32_dw(vocab_major, static_cast<const float*>(x), static_cast<const float*>(d), ldd,
+                      static_cast<float*>(dw), N, H, V, c0, vc, s);
+  }
+  if (route != fx::kMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   switch (io) {
     case ptt::kBF16: return dw_chunk<bf16>(vocab_major, x, d, ldd, dw, N, H, V, c0, vc, s);
     case ptt::kF16: return dw_chunk<f16>(vocab_major, x, d, ldd, dw, N, H, V, c0, vc, s);

@@ -1,6 +1,9 @@
 // Fused linear cross entropy, dX (kernel 18): dX = D W^T over the vocab,
 // one chunk of Vc columns per launch, with D = (softmax - onehot) * gcoef
-// rounded to the input type (recomputed per chunk by flxent_fwd.cu).
+// rounded to the input type (recomputed per chunk). The C entry point takes
+// the route: this file's mma.sync instance serves bf16 / fp16 W [H, V] with
+// V % 8 != 0 (D from flxent_fwd.cu); every other bf16 / fp16 W runs
+// flxent_wgmma.cu, fp32 flxent_fp32.cu.
 //
 // Replaces: paddle_tpu/kernels/fused_loss.py `_flxent_dx_kernel` (launched
 // by `_make_pallas_core`), the x gradient of the training step's loss head.
@@ -52,13 +55,22 @@ int dx_chunk(int vocab_major, const void* d, long long ldd, const void* w, void*
 
 }  // namespace
 
-// io: ptt::kBF16 or ptt::kF16. d: [N, ldd] (the chunk's D, vc columns);
-// w: [H, V] or [V, H]; acc: fp32 [N, H] partial (unused when first and
-// last); dx: [N, H] in x's type, written by the launch with last = 1.
-extern "C" int ptt_flxent_dx(int io, int vocab_major, const void* d, long long ldd, const void* w,
+// io: ptt::kBF16, ptt::kF16 or ptt::kF32; route: ptt::flx::Route (as
+// ptt_flxent_dchunk's). d: [N, ldd] (the chunk's D, vc columns); w: [H, V]
+// or [V, H]; acc: fp32 [N, H] partial (unused when first and last; fp32
+// accumulates in dx itself); dx: [N, H] in x's type, complete after the
+// launch with last = 1.
+extern "C" int ptt_flxent_dx(int io, int route, int vocab_major, const void* d, long long ldd, const void* w,
                              void* acc, void* dx, int N, int H, int V, int c0, int vc, int first,
                              int last, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == fx::kWgmma) return fx::wgmma_dx(io, vocab_major, d, ldd, w, acc, dx, N, H, V, c0, vc, first, last, s);
+  if (route == fx::kCudaCores) {
+    if (io != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::f32_dx(vocab_major, static_cast<const float*>(d), ldd, static_cast<const float*>(w),
+                      static_cast<float*>(dx), N, H, V, c0, vc, first, s);
+  }
+  if (route != fx::kMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   switch (io) {
     case ptt::kBF16: return dx_chunk<bf16>(vocab_major, d, ldd, w, acc, dx, N, H, V, c0, vc, first, last, s);
     case ptt::kF16: return dx_chunk<f16>(vocab_major, d, ldd, w, acc, dx, N, H, V, c0, vc, first, last, s);

@@ -25,8 +25,10 @@
 // order (no atomics: the bits repeat): lse = m + log(sum_t l_t exp(m_t - m)),
 // tl = sum_t tl_t.
 //
-// D recompute (backward, one vocab chunk of Vc columns per launch): the
-// same logits tile, with an epilogue that writes
+// D recompute (backward, one vocab chunk of Vc columns per launch; this
+// mma.sync instance serves bf16 / fp16 W [H, V] with V % 8 != 0, whose rows
+// TMA cannot address: every other W takes flxent_wgmma.cu, fp32 takes
+// flxent_fp32.cu): the same logits tile, with an epilogue that writes
 // D = ((exp(logit - lse) - onehot) * gcoef) rounded to the input type into
 // a [N, Vc] buffer (the Pallas `_flxent_block_d`, rounding included), 0 at
 // columns >= V. Computing D once per chunk and feeding both products is
@@ -34,8 +36,9 @@
 // the logits in each of its two backward kernels.
 //
 // Bound on H100: operations. 2 N H V flops (2.15e12 at N 8192, H 4096,
-// V 32000: 2.17 ms at 989 TFLOP/s) against ~330 MB of operands. This first
-// version runs mma.sync, not wgmma/TMA, so it reaches a fraction of that.
+// V 32000: 2.17 ms at 989 TFLOP/s) against ~330 MB of operands. This
+// version runs mma.sync, not wgmma/TMA, so it reaches a fraction of that
+// (the forward's redesign is ROADMAP Queue 2's next item).
 //
 // The int8 site (`ptt_flxent_fwd_int8`; replaces the quantized call of the
 // same Pallas body, `_make_pallas_quant_fwd`, the weight-only int8 lm head's
@@ -263,15 +266,19 @@ int dchunk(int vocab_major, const void* x, const void* w, const void* labels, co
 
 }  // namespace
 
-// The forward's partials. io: ptt::kBF16 or ptt::kF16 (x and w alike).
-// x: [N, H], H % 8 == 0, 16-byte aligned; w: [H, V] or, with vocab_major,
-// [V, H]; labels: [N] int32; part: fp32 [3, ceil(V / 128), N].
+// The forward's partials. io: ptt::kBF16 or ptt::kF16 (this file's
+// mma.sync mainloop) or ptt::kF32 (the CUDA cores, flxent_fp32.cu); x and w
+// alike. x: [N, H], H % 8 == 0, 16-byte aligned; w: [H, V] or, with
+// vocab_major, [V, H]; labels: [N] int32; part: fp32 [3, ceil(V / 128), N].
 extern "C" int ptt_flxent_fwd(int io, int vocab_major, const void* x, const void* w,
                               const void* labels, void* part, int N, int H, int V, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (io) {
     case ptt::kBF16: return fwd<bf16>(vocab_major, x, w, labels, part, N, H, V, s);
     case ptt::kF16: return fwd<f16>(vocab_major, x, w, labels, part, N, H, V, s);
+    case ptt::kF32:
+      return fx::f32_fwd(vocab_major, static_cast<const float*>(x), static_cast<const float*>(w),
+                         static_cast<const int*>(labels), static_cast<float*>(part), N, H, V, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -295,12 +302,22 @@ extern "C" int ptt_flxent_merge(const void* part, int tiles_n, int N, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D of the vocab columns [c0, c0 + vc): d [N, ldd] in x's type (ldd even,
-// >= vc), from the forward's lse and the per-row gcoef (fp32 [N]).
-extern "C" int ptt_flxent_dchunk(int io, int vocab_major, const void* x, const void* w,
+// D of the vocab columns [c0, c0 + vc): d [N, ldd] in x's type (ldd a
+// multiple of 8, >= vc), from the forward's lse and the per-row gcoef (fp32
+// [N]), on the instance `route` names (ptt::flx::Route: kWgmma for bf16 /
+// fp16 that TMA can map, kMmaSync for bf16 / fp16, kCudaCores for fp32).
+extern "C" int ptt_flxent_dchunk(int io, int route, int vocab_major, const void* x, const void* w,
                                  const void* labels, const void* lse, const void* gcoef, void* d,
                                  long long ldd, int N, int H, int V, int c0, int vc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == fx::kWgmma) return fx::wgmma_dchunk(io, vocab_major, x, w, labels, lse, gcoef, d, ldd, N, H, V, c0, vc, s);
+  if (route == fx::kCudaCores) {
+    if (io != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::f32_dchunk(vocab_major, static_cast<const float*>(x), static_cast<const float*>(w),
+                          static_cast<const int*>(labels), static_cast<const float*>(lse),
+                          static_cast<const float*>(gcoef), static_cast<float*>(d), ldd, N, H, V, c0, vc, s);
+  }
+  if (route != fx::kMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   switch (io) {
     case ptt::kBF16: return dchunk<bf16>(vocab_major, x, w, labels, lse, gcoef, d, ldd, N, H, V, c0, vc, s);
     case ptt::kF16: return dchunk<f16>(vocab_major, x, w, labels, lse, gcoef, d, ldd, N, H, V, c0, vc, s);

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of kernels 14, 15, 16 (flash attention) and 20
-// (the weight-only int8 matmul): warpgroup matrix products (wgmma), their
-// shared-memory matrix descriptors, mbarriers, TMA tiled loads and the
-// host-side encoding of a tensor map. Each helper notes the PTX it emits;
-// 17-19 may reuse it.
+// Hopper (sm_90a) building blocks of kernels 14, 15, 16 (flash attention), 20
+// (the weight-only int8 matmul) and the loss head's backward (18, 19 and the
+// D recompute they share): warpgroup matrix products (wgmma), their
+// shared-memory matrix descriptors, mbarriers, TMA tiled loads and stores and
+// the host-side encoding of a tensor map. Each helper notes the PTX it emits.
 //
 // Layout conventions (the ones the TMA maps in this file produce):
 // a "row tile" of R rows and D columns of a 2-byte type is stored as D / 64
@@ -152,6 +152,26 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
                : "memory");
+}
+
+// cp.async.bulk.tensor.2d.global.shared::cta.bulk_group: one box of shared
+// memory (laid out as tma_load_2d leaves it) to a 2-d tensor map at
+// coordinates (c0 innermost, c1); elements past the tensor's edges are dropped
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// cp.async.bulk.commit_group: this thread's bulk stores issued so far form one group
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// cp.async.bulk.wait_group.read N: at most N of this thread's bulk store
+// groups still read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // cp.async.bulk.commit_group + cp.async.bulk.wait_group.read 0: this
@@ -490,6 +510,82 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
+// SS with either operand's layout, for the loss head's products (kernels
+// 17-19), whose operands lie K-major or MN-major in device memory: TA / TB
+// 0 for a K-major operand ([rows][64] boxes), 1 for an MN-major one ([k][64]
+// boxes read with imm-trans-a / imm-trans-b, which bf16 and fp16 allow).
+// An MN-major operand's descriptor takes the leading offset to the next 64
+// columns (the next box) and the stride offset 1024 (the next 8 k); its k16
+// step is 2048 bytes, a K-major operand's 32.
+#define PTT_WGMMA_SS_T_N128(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+               "%64, %65, p, 1, 1, %67, %68;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define PTT_WGMMA_SS_T_N256(TY)  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"  \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+               "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+               "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
+               "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+               "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "  \
+               "%128, %129, p, 1, 1, %131, %132;\n}\n"  \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
+                 "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+                 "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),  \
+                 "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),  \
+                 "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),  \
+                 "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),  \
+                 "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),  \
+                 "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+                 "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.{bf16,f16} (SS), N 128 or 256,
+// A MN-major if TA, B MN-major if TB: d[0, N / 2) (+)= A B (an n128
+// product takes the first half of an n256 tile's accumulators)
+template <typename T, int N, int TA, int TB, int R>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[R], uint64_t da, uint64_t db, int scale_d) {
+  static_assert((N == 128 || N == 256) && R >= N / 2, "the loss head's tiles are n128 or n256");
+  if constexpr (std::is_same<T, f16>::value) {
+    if constexpr (N == 256) {
+      PTT_WGMMA_SS_T_N256("f16");
+    } else {
+      PTT_WGMMA_SS_T_N128("f16");
+    }
+  } else {
+    if constexpr (N == 256) {
+      PTT_WGMMA_SS_T_N256("bf16");
+    } else {
+      PTT_WGMMA_SS_T_N128("bf16");
+    }
+  }
+}
+
 // (lo, hi) rounded to T (bf16 or fp16) in one 32-bit register, lo in the low half
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -520,6 +616,21 @@ int check_reg_split(Kernel kernel, int threads, int split_regs) {
   const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   return fa.numRegs * threads >= split_regs ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// A persistent grid's longest CTA: the cost of its items when items [0, big)
+// cost c_big and the rest c_small, CTA b taking items b, b + grid, ... (the
+// tile plans of kernel 20 and of the loss head's backward weigh splitting
+// their last partial round by it).
+inline long long plan_makespan(int big, int items, int grid, int c_big, int c_small) {
+  long long worst = 0;
+  for (int b = 0; b < grid && b < items; ++b) {
+    const long long nb = b < big ? (big - 1 - b) / grid + 1 : 0;
+    const long long all = (items - 1 - b) / grid + 1;
+    const long long c = nb * c_big + (all - nb) * c_small;
+    worst = c > worst ? c : worst;
+  }
+  return worst;
 }
 
 // The current device's SM count (a persistent grid's size), cached per

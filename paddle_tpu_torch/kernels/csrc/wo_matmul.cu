@@ -65,12 +65,10 @@
 //   128-row tiles (0.97 of a round); lm head N 32000: 500 256-row tiles (3.8
 //   rounds); eight rows: 86 8-row tiles, one round.
 // - CUDA cores (fp32 x, and any K or N the TMA maps cannot address, in any
-//   of the three types): 128 x 128 output tiles of 256 threads, 8 x 8 fp32
-//   FMAs a thread from register-double-buffered k tiles of 16 in shared
-//   memory (x widened to fp32, w8 to fp32 as it is staged), each k tile's
-//   products summed apart and then added to the running sum (the error
-//   grows with 16 + K / 16 additions, not K). No TF32: it would round x. Any
-//   M, K and N.
+//   of the three types): simt_gemm.cuh's fp32 mainloop (128 x 128 output
+//   tiles of 256 threads, k tiles of 16 summed apart; shared with the loss
+//   head's fp32 products, flxent_fp32.cu), x and w8 widened to fp32 as they
+//   are staged. No TF32: it would round x. Any M, K and N.
 //
 // Bound on H100: at the serving shapes (M 512 rows of the [8, 64] step) 2 M
 // = 1024 flops per weight byte, above the card's ~295 flop/byte ridge:
@@ -83,6 +81,7 @@
 // (128 tiles of 128 rows, one round) would take 256-row tiles split in K
 // over a cluster; the CUDA-core instance is a plain SIMT tile.
 #include "hopper.cuh"
+#include "simt_gemm.cuh"
 
 using ptt::bf16;
 using ptt::f16;
@@ -154,18 +153,6 @@ __device__ __forceinline__ Item item_at(const Plan& p, int i) {
 // widened weight value feeds half the products).
 constexpr int kCost256 = 8, kCost128 = 5;
 
-// The longest CTA's cost when items [0, big) cost c_big and the rest c_small.
-inline long long makespan(int big, int items, int grid, int c_big, int c_small) {
-  long long worst = 0;
-  for (int b = 0; b < grid && b < items; ++b) {
-    const long long nb = b < big ? (big - 1 - b) / grid + 1 : 0;
-    const long long all = (items - 1 - b) / grid + 1;
-    const long long c = nb * c_big + (all - nb) * c_small;
-    worst = c > worst ? c : worst;
-  }
-  return worst;
-}
-
 // The plan of an [M, K] x [K, N] call on `sms` SMs with BM-row tiles,
 // every tile of BM rows.
 inline Plan uniform_plan(int M, int N, int bm, int sms) {
@@ -199,8 +186,8 @@ inline Plan make_plan(int M, int N, int sms) {
   const int keep = whole - whole % sms;
   const int items_split = keep + 2 * (whole - keep) + odd;
   const int grid_split = items_split < sms ? items_split : sms;
-  if (keep < whole && makespan(keep, items_split, grid_split, kCost256, kCost128) <
-                          makespan(whole, whole + odd, grid_all, kCost256, kCost128)) {
+  if (keep < whole && hp::plan_makespan(keep, items_split, grid_split, kCost256, kCost128) <
+                          hp::plan_makespan(whole, whole + odd, grid_all, kCost256, kCost128)) {
     p.big = keep, p.items = items_split, p.grid = grid_split;
   } else {
     p.big = whole, p.items = whole + odd, p.grid = grid_all;
@@ -464,87 +451,26 @@ int dispatch_wgmma(const void* x, const void* w8, const void* scale, void* out, 
 
 // -- the CUDA-core instance ---------------------------------------------------
 
-constexpr int kSBM = 128, kSBN = 128, kSBK = 16, kSThreads = 256;
-
 template <typename T>
-__global__ void __launch_bounds__(kSThreads)
+__global__ void __launch_bounds__(ptt::simt::kThreads)
 wo_matmul_cuda_core_kernel(const T* __restrict__ x, const int8_t* __restrict__ w8, const float* __restrict__ scale,
                            T* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float xs[2][kSBK][kSBM];  // [k][x row]
-  __shared__ __align__(16) float ws[2][kSBK][kSBN];   // [k][weight column]
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kSBM, n0 = blockIdx.x * kSBN;
-  // staging: x row m0 + xr, k xk..xk+7 (consecutive lanes, consecutive rows:
-  // the transposed stores hit 32 banks); w row wk, columns wn..wn+7
-  const int xr = tid & (kSBM - 1), xk = (tid >> 7) * 8, wk = tid >> 4, wn = (tid & 15) * 8;
-  const int xm = m0 + xr;
-  float xv[8], wv[8];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = k0 + xk + i;
-      xv[i] = (xm < M && k < K) ? ptt::to_f(x[static_cast<size_t>(xm) * K + k]) : 0.f;
-    }
-    const int k = k0 + wk;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int n = n0 + wn + i;
-      wv[i] = (k < K && n < N) ? static_cast<float>(w8[static_cast<size_t>(k) * N + n]) : 0.f;
-    }
-  };
-  auto put = [&](int b) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) xs[b][xk + i][xr] = xv[i];
-    *reinterpret_cast<float4*>(&ws[b][wk][wn]) = make_float4(wv[0], wv[1], wv[2], wv[3]);
-    *reinterpret_cast<float4*>(&ws[b][wk][wn + 4]) = make_float4(wv[4], wv[5], wv[6], wv[7]);
-  };
-  // this thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j
-  const int ty = tid >> 4, tx = tid & 15;
+  using ptt::simt::sub;
+  const int m0 = blockIdx.y * ptt::simt::kBM, n0 = blockIdx.x * ptt::simt::kBN;
+  // A = x [M, K] (K-major), B = w8 [K, N] read as (n, k) (MN-major)
+  const auto load_x = [&](int m, int k) { return ptt::to_f(x[static_cast<size_t>(m) * K + k]); };
+  const auto load_w = [&](int n, int k) { return static_cast<float>(w8[static_cast<size_t>(k) * N + n]); };
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int nk = (K + kSBK - 1) / kSBK;
-  if (nk > 0) {
-    fetch(0);
-    put(0);
-  }
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int b = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * kSBK);  // in flight while this tile's FMAs run
-    // the k tile's 16 products summed apart, then added to the running sum:
-    // the rounding error grows with 16 + K / 16 additions, not K
-    float part[8][8];
-#pragma unroll
-    for (int kk = 0; kk < kSBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[b][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&xs[b][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[b][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&ws[b][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) part[i][j] = kk ? fmaf(av[i], bv[j], part[i][j]) : av[i] * bv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += part[i][j];
-    if (kt + 1 < nk) put(b ^ 1);  // buffer b ^ 1 was last read before the previous barrier
-    __syncthreads();
-  }
+  ptt::simt::tile_product<true, false>(acc, load_x, m0, M, load_w, n0, N, K);
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+    const int n = n0 + sub(tx, j);
     if (n >= N) continue;
     const float s = scale[n];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+      const int m = m0 + sub(ty, i);
       if (m < M) out[static_cast<size_t>(m) * N + n] = ptt::from_f<T>(acc[i][j] * s);
     }
   }
@@ -553,10 +479,11 @@ wo_matmul_cuda_core_kernel(const T* __restrict__ x, const int8_t* __restrict__ w
 template <typename T>
 int launch_cuda_cores(const void* x, const void* w8, const void* scale, void* out, int M, int K, int N,
                       cudaStream_t stream) {
-  const dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
+  const dim3 grid((N + ptt::simt::kBN - 1) / ptt::simt::kBN, (M + ptt::simt::kBM - 1) / ptt::simt::kBM);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  wo_matmul_cuda_core_kernel<T><<<grid, kSThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const int8_t*>(w8),
-                                                        static_cast<const float*>(scale), static_cast<T*>(out), M, K, N);
+  wo_matmul_cuda_core_kernel<T><<<grid, ptt::simt::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w8), static_cast<const float*>(scale), static_cast<T*>(out),
+      M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,24 +35,35 @@ backward; a label equal to ``ignore_index`` or outside ``[0, V)`` matches
 no column (its ``tl`` is 0). The plain versions walk the vocab in the JAX
 scan reference's chunks (``_REF_BLOCK``), in fp32 from the inputs' values.
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
-launches ``csrc/flxent_fwd.cu``, ``csrc/flxent_dx.cu`` and
-``csrc/flxent_dw.cu`` (bf16 or fp16; fp32 is refused) or raises.
+launches a kernel or raises. Kernel 17 runs ``csrc/flxent_fwd.cu``'s
+mma.sync mainloop in bf16 and fp16 and ``csrc/flxent_fp32.cu`` (the CUDA
+cores) in fp32. The backward's products take the instance
+:func:`flx_route` names from the dtype, W's shape and W's alignment
+before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop fed by
+TMA, tiles planned by :func:`flx_plan` and walked as :func:`flx_items`
+says), the mma.sync mainloop (``csrc/flxent_fwd.cu``, ``flxent_dx.cu``,
+``flxent_dw.cu``) where TMA cannot address W, or the CUDA cores in fp32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.quant import plan_makespan
 from paddle_tpu_torch.kernels.select import count_launch
 
 __all__ = [
     "CHUNK",
     "FusedLinearCrossEntropyFunction",
     "Int8HeadLossFunction",
+    "flx_items",
+    "flx_plan",
+    "flx_route",
+    "flx_route_of",
     "flxent_bwd",
     "flxent_bwd_plain",
     "flxent_dchunk",
@@ -67,9 +78,77 @@ __all__ = [
 NEG_INF = -1e30  # the Pallas kernels' masked logit
 REF_BLOCK = 512  # the JAX scan reference's vocab chunk, which the plain versions follow
 CHUNK = 4096  # vocab columns per backward chunk on the card: D is [N, CHUNK]
-TILE = 128  # the CUDA kernels' output tile (rows and columns)
+TILE = 128  # kernel 17's vocab tile: its partials are [3, ceil(V / TILE), N]
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_KERNEL_DTYPES = {torch.bfloat16: 1, torch.float16: 2}  # ptt::IoType
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # ptt::IoType
+_ROUTES = {"wgmma": 0, "mma_sync": 1, "cuda_cores": 2}  # ptt::flx::Route
+
+
+def flx_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
+    """Which instance of the backward's products (the D recompute, kernels
+    18 and 19) takes ``x [N, h]`` against ``W`` (``[h, v]``, or ``[v, h]``
+    with ``vocab_major``) of ``dtype``: ``"wgmma"`` (the wgmma mainloop fed
+    by TMA) for bf16 and fp16 when TMA can address every operand's rows
+    (``2 h`` and, for ``[h, v]``, ``2 v`` bytes, multiples of 16:
+    ``h % 8 == 0`` and ``v % 8 == 0``) and W's first element
+    (``w_aligned``: its address a multiple of 16); ``"mma_sync"`` (the
+    mma.sync mainloop, which stages any row) for the other bf16 and fp16
+    shapes; ``"cuda_cores"`` for fp32. Any other dtype raises."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"the loss head's CUDA kernels take bf16, fp16 or fp32, not {dtype}")
+    return "wgmma" if w_aligned and h % 8 == 0 and (vocab_major or v % 8 == 0) else "mma_sync"
+
+
+def flx_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
+    """:func:`flx_route` of the contiguous ``x [N, H]`` and ``W`` that the
+    backward launches on."""
+    return flx_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
+
+
+FLX_BM, FLX_BN = 128, 256  # the wgmma instance's output tile; a half tile is 128 x 128
+FLX_GROUP = 16  # row tiles per sweep of the column tiles (L2 reuse)
+
+
+def flx_plan(m: int, n: int, sms: int) -> Dict[str, int]:
+    """The work items of one launch of the wgmma instance over an ``[m, n]``
+    output on ``sms`` SMs (``make_plan`` in ``csrc/flxent_wgmma.cu``):
+    ``tiles_m`` x ``tiles_n`` tiles of 128 x 256, walked :data:`FLX_GROUP`
+    row tiles at a time across the column tiles; the tiles past the last
+    full round over the SMs are split into two 128 x 128 halves where that
+    shortens the longest CTA's work (:func:`plan_makespan`, kernel 20's cost
+    model: a half costs ~5/8 of a whole tile).
+    Items ``[0, big)`` are whole tiles, the rest halves; ``grid`` persistent
+    CTAs take items ``b, b + grid, ...``."""
+    tiles_m, tiles_n = -(-m // FLX_BM), -(-n // FLX_BN)
+    whole = tiles_m * tiles_n
+    keep = whole - whole % sms
+    items_split = keep + 2 * (whole - keep)
+    if keep < whole and plan_makespan(keep, items_split, min(items_split, sms)) < plan_makespan(
+            whole, whole, min(whole, sms)):
+        big, items = keep, items_split
+    else:
+        big, items = whole, whole
+    return dict(tiles_m=tiles_m, tiles_n=tiles_n, big=big, items=items, grid=min(items, sms))
+
+
+def flx_items(plan: Dict[str, int]) -> List[Tuple[int, int, int]]:
+    """``item_at`` (csrc/flxent_wgmma.cu) over a :func:`flx_plan`: (first
+    row, first column, columns) of every item, in launch order; a half
+    whose first column lies past the output is empty (the kernel skips
+    it)."""
+    big, per_group = plan["big"], FLX_GROUP * plan["tiles_n"]
+    items = []
+    for i in range(plan["items"]):
+        half = i >= big
+        t = big + (i - big) // 2 if half else i
+        first = (t // per_group) * FLX_GROUP
+        size = min(plan["tiles_m"] - first, FLX_GROUP)
+        within = t % per_group
+        n0 = (within // size) * FLX_BN + (((i - big) & 1) * FLX_BN // 2 if half else 0)
+        items.append(((first + within % size) * FLX_BM, n0, FLX_BN // 2 if half else FLX_BN))
+    return items
 
 
 def _vocab(w: torch.Tensor, vocab_major: bool) -> int:
@@ -159,11 +238,12 @@ def flxent_bwd_plain(
 
 
 def _io_dtype(what: str, x: torch.Tensor, w: torch.Tensor, w_dtype: Optional[torch.dtype] = None) -> int:
-    """x's kernel type code; W must be of x's dtype (or ``w_dtype``)."""
+    """x's kernel type code (bf16, fp16 or fp32); W must be of x's dtype (or
+    ``w_dtype``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{what}: the CUDA kernels take bf16 or fp16, not {x.dtype}")
+        raise TypeError(f"{what}: the CUDA kernels take bf16, fp16 or fp32, not {x.dtype}")
     want = x.dtype if w_dtype is None else w_dtype
     if w.dtype != want:
         raise TypeError(f"{what}: x is {x.dtype} and the weight {w.dtype}; the kernel takes a {want} weight")
@@ -232,6 +312,8 @@ def flxent_fwd_int8(
     if x.device.type == "cpu":
         return flxent_fwd_int8_plain(x, w8, scale, labels, vocab_major)
     what = "flxent_fwd_int8"
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{what}: the int8 head's kernel takes bf16 or fp16 activations, not {x.dtype}")
     io, x, w8, lab, n, h, v = _operands(what, x, w8, labels, vocab_major, w_dtype=torch.int8)
     if scale.shape != (v,) or scale.dtype != torch.float32 or scale.device != x.device:
         raise ValueError(f"{what}: the scale must be fp32 [{v}] on {x.device}, got {scale.dtype} "
@@ -254,17 +336,19 @@ def flxent_fwd_int8(
 
 
 def _backward_operands(what, x, w, labels, lse, gcoef, vocab_major):
+    """:func:`_operands` with the fp32 ``lse`` and ``gcoef``, and the route
+    of the backward's products (:func:`flx_route`)."""
     io, x, w, lab, n, h, v = _operands(what, x, w, labels, vocab_major)
     for name, t in (("lse", lse), ("gcoef", gcoef)):
         if t.shape != (n,) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"{what}: {name} must be fp32 [{n}] on {x.device}")
-    return io, x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
+    return io, _ROUTES[flx_route_of(x, w, vocab_major)], x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
 
 
-def _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc) -> None:
+def _launch_dchunk(io, route, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc) -> None:
     """One launch: ``D`` of the vocab columns ``[c0, c0 + vc)`` into ``d [N, ldd]``."""
-    fn = build.kernel_fn("ptt_flxent_dchunk", [_I, _I] + [_P] * 6 + [_L] + [_I] * 5 + [_P])
-    build.check(fn(io, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+    fn = build.kernel_fn("ptt_flxent_dchunk", [_I, _I, _I] + [_P] * 6 + [_L] + [_I] * 5 + [_P])
+    build.check(fn(io, route, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
                    gcoef.data_ptr(), d.data_ptr(), ldd, n, h, v, c0, vc, _stream()), "flxent_dchunk")
     count_launch("flxent_dchunk")
 
@@ -278,14 +362,15 @@ def flxent_dchunk(
     and 19 share)."""
     if x.device.type == "cpu":
         return flxent_dchunk_plain(x, w, labels, lse, gcoef, c0, c1, vocab_major)
-    io, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_dchunk", x, w, labels, lse, gcoef, vocab_major)
+    io, route, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_dchunk", x, w, labels, lse, gcoef,
+                                                                   vocab_major)
     if not 0 <= c0 < c1 <= v:
         raise ValueError(f"flxent_dchunk: columns {c0}:{c1} are not a range of [0, {v})")
     ldd = -(-(c1 - c0) // 8) * 8
     d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
     if n:
         with torch.cuda.device(x.device):
-            _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, c1 - c0)
+            _launch_dchunk(io, route, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, c1 - c0)
     return d[:, :c1 - c0]
 
 
@@ -295,13 +380,16 @@ def flxent_bwd(
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(dx, dw)`` of the loss given the forward's ``lse`` and the per-row
     ``gcoef`` (fp32 ``[N]``); a gradient not asked for is None. Per vocab
-    chunk of :data:`CHUNK` columns, three launches, each counted: the
-    chunk's ``D`` (``[N, CHUNK]`` in x's dtype), then kernel 18 adds ``D
-    W_c^T`` into an fp32 ``[N, H]`` partial (the last chunk writes ``dx``)
-    and kernel 19 writes ``dW_c = x^T D``."""
+    chunk of :data:`CHUNK` columns, three launches on the instance
+    :func:`flx_route` names, each counted: the chunk's ``D`` (``[N, CHUNK]``
+    in x's dtype), then kernel 18 adds ``D W_c^T`` into an fp32 ``[N, H]``
+    partial (the last chunk writes ``dx``; in fp32 the partial is ``dx``
+    itself) and kernel 19 writes ``dW_c = x^T D``. The chunks run in order:
+    two calls give the same bits."""
     if x.device.type == "cpu":
         return flxent_bwd_plain(x, w, labels, lse, gcoef, vocab_major, need_dx, need_dw)
-    io, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_bwd", x, w, labels, lse, gcoef, vocab_major)
+    io, route, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_bwd", x, w, labels, lse, gcoef,
+                                                                   vocab_major)
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     if not (need_dx or need_dw):
@@ -311,20 +399,22 @@ def flxent_bwd(
     chunks = list(range(0, v, CHUNK))
     ldd = -(-min(CHUNK, v) // 8) * 8
     d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
-    acc = torch.empty((n, h), dtype=torch.float32, device=x.device) if need_dx and len(chunks) > 1 else None
-    fn_dx = build.kernel_fn("ptt_flxent_dx", [_I, _I, _P, _L, _P, _P, _P] + [_I] * 7 + [_P])
-    fn_dw = build.kernel_fn("ptt_flxent_dw", [_I, _I, _P, _P, _L, _P] + [_I] * 5 + [_P])
+    acc = None  # fp32 accumulates in dx itself
+    if need_dx and len(chunks) > 1 and x.dtype != torch.float32:
+        acc = torch.empty((n, h), dtype=torch.float32, device=x.device)
+    fn_dx = build.kernel_fn("ptt_flxent_dx", [_I, _I, _I, _P, _L, _P, _P, _P] + [_I] * 7 + [_P])
+    fn_dw = build.kernel_fn("ptt_flxent_dw", [_I, _I, _I, _P, _P, _L, _P] + [_I] * 5 + [_P])
     with torch.cuda.device(x.device):
         for i, c0 in enumerate(chunks):
             vc = min(CHUNK, v - c0)
-            _launch_dchunk(io, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc)
+            _launch_dchunk(io, route, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc)
             if need_dx:
-                build.check(fn_dx(io, int(vocab_major), d.data_ptr(), ldd, w.data_ptr(),
+                build.check(fn_dx(io, route, int(vocab_major), d.data_ptr(), ldd, w.data_ptr(),
                                   0 if acc is None else acc.data_ptr(), dx.data_ptr(), n, h, v, c0, vc,
                                   int(i == 0), int(i == len(chunks) - 1), _stream()), "flxent_dx")
                 count_launch("flxent_dx")
             if need_dw:
-                build.check(fn_dw(io, int(vocab_major), x.data_ptr(), d.data_ptr(), ldd, dw.data_ptr(),
+                build.check(fn_dw(io, route, int(vocab_major), x.data_ptr(), d.data_ptr(), ldd, dw.data_ptr(),
                                   n, h, v, c0, vc, _stream()), "flxent_dw")
                 count_launch("flxent_dw")
     return dx, dw

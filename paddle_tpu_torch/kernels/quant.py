@@ -32,6 +32,7 @@ __all__ = [
     "WEIGHT_ONLY_LEAVES",
     "int8_weight_matmul",
     "int8_weight_matmul_plain",
+    "plan_makespan",
     "quantize_module_weights",
     "quantize_weight_int8",
     "wo_plan",
@@ -130,7 +131,11 @@ def wo_route(dtype: torch.dtype, m: int, k: int, n: int) -> str:
 _COST_256, _COST_128 = 8, 5  # a 128-row tile takes ~0.63 of a 256-row one on the card
 
 
-def _makespan(big: int, items: int, grid: int) -> int:
+def plan_makespan(big: int, items: int, grid: int) -> int:
+    """The longest persistent CTA's cost when items ``[0, big)`` cost a
+    256-row tile's and the rest a 128-row (or half) tile's, CTA ``b`` taking
+    items ``b, b + grid, ...`` (``hp::plan_makespan``: the tile plans of
+    kernel 20 and of the loss head's backward weigh a split by it)."""
     worst = 0
     for b in range(min(grid, items)):
         nb = (big - 1 - b) // grid + 1 if b < big else 0
@@ -165,7 +170,8 @@ def wo_plan(m: int, n: int, sms: int) -> Dict[str, int]:
     keep = whole - whole % sms
     items_split = keep + 2 * (whole - keep) + odd
     grid_split = min(items_split, sms)
-    if keep < whole and _makespan(keep, items_split, grid_split) < _makespan(whole, whole + odd, grid_all):
+    if keep < whole and plan_makespan(keep, items_split, grid_split) < plan_makespan(whole, whole + odd,
+                                                                                     grid_all):
         plan = dict(bm=256, blocks=blocks, nt=nt, big=keep, items=items_split, grid=grid_split)
     else:
         plan = dict(bm=256, blocks=blocks, nt=nt, big=whole, items=whole + odd, grid=grid_all)

@@ -28,6 +28,24 @@ forward, dX, dW) and the train step that runs them, against the JAX package.
   whole forward and backward reorder fp32 sums), with and without the
   document mask, each loss head running once per step.
 
+- The backward's wgmma instance, which the CPU cannot run: ``flx_route``
+  (every main-path shape, Llama's ``[H, V]`` and GPT's ``[V, H]``, takes
+  ``"wgmma"`` in bf16 and fp16 and ``"cuda_cores"`` in fp32; a ``[H, V]``
+  W whose rows TMA cannot address, or a W that is not 16-byte aligned,
+  takes ``"mma_sync"``), ``flx_plan`` and ``flx_items`` (every output tile
+  of every launch, the ragged last chunk's included, covered exactly once;
+  the train shapes' plans; ``chip_smoke.py`` holds both against the
+  kernels' own plan on the card), and ``emulate_flx_bwd``,
+  a PyTorch walk of its chunks, tiles, k steps and three epilogues (the V
+  mask on padded columns, the one-hot, gcoef, the rounding of D, the
+  fixed-order fp32 dX partials and dW's block writes) against
+  ``flxent_bwd_plain`` and the Pallas kernels in interpret mode, both
+  layouts, at the bf16 gate above (the walk forms the same fp32 logits in
+  another order, so D may round to the other neighbour).
+- The public entry in fp32 (the kernels' gate, the flag at its default;
+  the card runs the CUDA-core instance): loss and gradients against JAX's
+  fp32 path at 1e-5 relative, the wrappers called once each.
+
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
@@ -274,6 +292,225 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         kloss.flxent_fwd(x.to(**meta), w.to(**meta), lab.to(**meta))
     with pytest.raises(ValueError, match="unsupported device"):
         kloss.flxent_bwd(x.to(**meta), w.to(**meta), lab.to(**meta), torch.zeros(N, **meta), torch.zeros(N, **meta))
+
+
+# -- the backward's wgmma instance: route, tile plan, and its walk in PyTorch ----
+
+@pytest.mark.parametrize("h,v,vocab_major", [(4096, 32000, False), (5120, 50304, True), (1024, 5000, True),
+                                             (256, 200, False)],
+                         ids=["llama [H,V]", "gpt [V,H]", "vocab-major 5000", "small [H,V]"])
+def test_flx_route_takes_wgmma_on_the_main_paths(h, v, vocab_major):
+    assert kloss.flx_route(torch.bfloat16, h, v, vocab_major) == "wgmma"
+    assert kloss.flx_route(torch.float16, h, v, vocab_major) == "wgmma"
+    assert kloss.flx_route(torch.float32, h, v, vocab_major) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,h,v,vocab_major,route", [
+    (torch.bfloat16, 1024, 32003, False, "mma_sync"),  # W [H, V] rows of 64,006 bytes: TMA needs multiples of 16
+    (torch.float16, 512, 3001, False, "mma_sync"),
+    (torch.bfloat16, 1024, 32003, True, "wgmma"),  # vocab-major rows are H long
+    (torch.bfloat16, 1004, 5000, True, "mma_sync"),  # H % 8 != 0
+    (torch.float32, 1024, 32003, False, "cuda_cores"),
+])
+def test_flx_route_by_dtype_alignment_and_layout(dtype, h, v, vocab_major, route):
+    assert kloss.flx_route(dtype, h, v, vocab_major) == route
+
+
+@pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma_sync"), (4, "mma_sync"), (8, "wgmma")])
+@pytest.mark.parametrize("vocab_major", [False, True])
+def test_flx_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route, vocab_major):
+    """W at ``offset`` bf16 elements into its storage: TMA maps need a
+    16-byte aligned base, so W 2 or 8 bytes off takes the mma.sync route
+    (chosen before the launch; the forward's mma.sync kernel takes the same
+    W) and W 16 bytes off the wgmma route; fp32 takes the CUDA cores at any
+    offset."""
+    h, v = 64, 256
+    for dtype, want in ((torch.bfloat16, route), (torch.float16, route), (torch.float32, "cuda_cores")):
+        buf = torch.zeros(offset + h * v, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0
+        w = buf[offset:].view((v, h) if vocab_major else (h, v))
+        assert w.is_contiguous()
+        assert kloss.flx_route_of(torch.zeros((4, h), dtype=dtype), w, vocab_major) == want
+        assert kloss.flx_route(dtype, h, v, vocab_major, w_aligned=offset * buf.element_size() % 16 == 0) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_flx_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        kloss.flx_route(dtype, 4096, 32000, False)
+
+
+# (rows, columns) of each launch's output: D and dX at the train shape ([8192, 4096] chunks; Llama's last
+# chunk of 3328 columns), dW in both layouts, GPT's H 5120 and 1152-column tail, and ragged shapes
+FLX_LAUNCHES = [(8192, 4096), (8192, 3328), (4096, 4096), (4096, 3328), (8192, 5120), (4096, 5120), (8192, 1152),
+                (1152, 5120), (1000, 5000), (300, 400), (160, 8)]
+
+
+@pytest.mark.parametrize("m,n", FLX_LAUNCHES)
+def test_flx_plan_covers_every_output_tile_once(m, n):
+    plan = kloss.flx_plan(m, n, 132)
+    covered = np.zeros((-(-m // 128) * 128, -(-n // 256) * 256 + 256), np.int32)
+    for r0, c0, cols in kloss.flx_items(plan):
+        assert r0 < m
+        if c0 >= n:  # the empty half of a ragged last column tile: the kernel skips it
+            assert cols == kloss.FLX_BN // 2
+            continue
+        covered[r0:r0 + kloss.FLX_BM, c0:c0 + cols] += 1
+    assert (covered[:m, :n] == 1).all()
+    assert plan["grid"] == min(plan["items"], 132)
+    assert plan["tiles_m"] * plan["tiles_n"] == plan["big"] + (plan["items"] - plan["big"]) // 2
+
+
+def test_flx_plan_at_the_train_shapes():
+    """D and dX at the train shape: 1024 whole tiles (7.8 rounds: splitting
+    the last would not shorten the longest CTA); the last chunk's D (832
+    tiles) and Llama's dW (512; its last chunk 416) split what lies past
+    the last full round, so no SM idles for most of a tile; GPT's dW tail
+    (9 x 20 tiles) too."""
+    assert kloss.flx_plan(8192, 4096, 132) == dict(tiles_m=64, tiles_n=16, big=1024, items=1024, grid=132)
+    assert kloss.flx_plan(8192, 3328, 132) == dict(tiles_m=64, tiles_n=13, big=792, items=872, grid=132)
+    assert kloss.flx_plan(4096, 4096, 132) == dict(tiles_m=32, tiles_n=16, big=512, items=512, grid=132)
+    assert kloss.flx_plan(4096, 3328, 132) == dict(tiles_m=32, tiles_n=13, big=396, items=436, grid=132)
+    assert kloss.flx_plan(1152, 5120, 132) == dict(tiles_m=9, tiles_n=20, big=132, items=228, grid=132)
+
+
+def emulate_flx_bwd(x, w, labels, lse, gcoef, vocab_major, chunk, sms=132, bk=64):
+    """The wgmma route of ``flxent_bwd`` in PyTorch: per vocab chunk of
+    ``chunk`` columns (in order), three launches over the tiles of
+    ``flx_plan``, each tile's fp32 product summed k step by k step (``bk``;
+    the last step zero-filled past K, as TMA fills it), then its epilogue:
+    D = (exp(logit - lse) - onehot) * gcoef rounded to x's dtype, 0 past
+    the chunk; dX adds the fp32 partial of the chunks before and rounds on
+    the last chunk; dW's block rounded to W's dtype and written in place."""
+    n, h = x.shape
+    v = w.shape[0] if vocab_major else w.shape[1]
+    xf = x.float()
+    dx_acc = torch.zeros((n, h))
+    dx = torch.empty_like(x)
+    dw = torch.full_like(w, float("nan"))
+    chunks = list(range(0, v, chunk))
+
+    def walk(a, b, m_out, n_out, epilogue):
+        """a [M, K], b [K, N] (fp32): every tile of the plan, k step by k step."""
+        k = a.shape[1]
+        for r0, c0, cols in kloss.flx_items(kloss.flx_plan(m_out, n_out, sms)):
+            if c0 >= n_out:
+                continue
+            acc = torch.zeros((min(kloss.FLX_BM, m_out - r0), min(cols, n_out - c0)))
+            for k0 in range(0, k, bk):
+                acc += a[r0:r0 + kloss.FLX_BM, k0:k0 + bk] @ b[k0:k0 + bk, c0:c0 + cols]
+            epilogue(r0, c0, acc)
+
+    for i, c0 in enumerate(chunks):
+        vc = min(chunk, v - c0)
+        wc = (w[c0:c0 + vc].t() if vocab_major else w[:, c0:c0 + vc]).float()  # [H, Vc]
+        d = torch.empty((n, vc), dtype=x.dtype)
+
+        def d_epi(r0, n0, acc, c0=c0, vc=vc, d=d):
+            rows = slice(r0, r0 + acc.shape[0])
+            cols = torch.arange(n0, n0 + acc.shape[1])
+            inside = cols[None, :] < vc  # the V mask: columns past the chunk are 0
+            p = torch.where(inside, torch.exp(acc - lse[rows, None]), 0.0)
+            onehot = ((c0 + cols)[None, :] == labels[rows].long()[:, None]) & inside
+            d[rows, n0:n0 + acc.shape[1]] = ((p - onehot.float()) * gcoef[rows, None]).to(x.dtype)
+
+        walk(xf, wc, n, vc, d_epi)
+        df = d.float()
+
+        def dx_epi(r0, n0, acc, first=i == 0, last=i == len(chunks) - 1):
+            blk = (slice(r0, r0 + acc.shape[0]), slice(n0, n0 + acc.shape[1]))
+            total = acc if first else acc + dx_acc[blk]
+            dx_acc[blk] = total
+            if last:
+                dx[blk] = total.to(x.dtype)
+
+        walk(df, wc.t(), n, h, dx_epi)
+
+        def dw_epi(r0, n0, acc, c0=c0):
+            block = acc.to(w.dtype)
+            if vocab_major:  # dW[c0 + v][h] = sum_r D[r][v] x[r][h]
+                dw[c0 + r0:c0 + r0 + acc.shape[0], n0:n0 + acc.shape[1]] = block
+            else:            # dW[h][c0 + v] = sum_r x[r][h] D[r][v]
+                dw[r0:r0 + acc.shape[0], c0 + n0:c0 + n0 + acc.shape[1]] = block
+
+        if vocab_major:
+            walk(df.t(), xf, vc, h, dw_epi)
+        else:
+            walk(xf.t(), df, h, vc, dw_epi)
+    return dx, dw
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("vocab_major", [False, True], ids=["[H,V]", "[V,H]"])
+def test_wgmma_walk_emulation_matches_plain_and_pallas(vocab_major, dtype):
+    """Rows ragged against the 128-row tiles (160), H 256, V 520 in chunks
+    of 256 (the last 8 columns: a tile mostly past the chunk), labels ignored,
+    past V and on every chunk; six CTAs, so the plans split tiles into
+    halves. Gate: the bf16 / fp16 gate of ``test_plain_versions_match_jax``
+    (one ulp of the type on the sum of |D| |W| resp. |x| |D|, plus one ulp of
+    the result)."""
+    n, h, v, chunk = 160, 256, 520, 256
+    rng = np.random.default_rng(12)
+    jdt = getattr(jnp, dtype)
+    x = np.array(jnp.asarray(rng.normal(size=(n, h)), jdt).astype(jnp.float32))
+    w = np.array(jnp.asarray(rng.normal(size=(h, v)) * 0.05, jdt).astype(jnp.float32))
+    lab = rng.integers(0, v, (n,)).astype(np.int32)
+    lab[::9] = IGN
+    lab[4] = v + 3
+    lab[5], lab[6], lab[7] = 255, 256, 519  # a chunk's last column, the next one's first, V - 1
+    tdt = getattr(torch, dtype)
+    wl = np.ascontiguousarray(w.T) if vocab_major else w
+    tx, tw, tl = torch.from_numpy(x).to(tdt), torch.from_numpy(wl).to(tdt), torch.from_numpy(lab)
+    lse, _ = kloss.flxent_fwd_plain(tx, tw, tl, vocab_major)
+    valid = tl != IGN
+    gcoef = torch.where(valid, 1.0 / valid.sum().float(), 0.0)
+    assert kloss.flx_route(tdt, h, v, vocab_major) == "wgmma"
+    dx, dw = emulate_flx_bwd(tx, tw, tl, lse, gcoef, vocab_major, chunk, sms=6)
+    plan = kloss.flx_plan(n, h, 6)  # dX's launches: both tiles split into halves
+    assert plan["big"] == 0 and plan["items"] == 4
+    dx_p, dw_p = kloss.flxent_bwd_plain(tx, tw, tl, lse, gcoef, vocab_major)
+
+    # |D| for the gate (the mean's gcoef, fp64)
+    logits = x.astype(np.float64) @ w.astype(np.float64)
+    prob = np.exp(logits - logits.max(-1, keepdims=True))
+    prob /= prob.sum(-1, keepdims=True)
+    onehot = (np.arange(v)[None, :] == lab[:, None]).astype(np.float64)
+    d_abs = np.abs((prob - onehot) * np.where(lab != IGN, 1.0 / (lab != IGN).sum(), 0.0)[:, None])
+    ulp = BF16_ULP if dtype == "bfloat16" else 2.0 ** -10
+    _, jdx, jdw = _jax_loss_and_grads(x, w, lab, jdt, "mean", vocab_major, "pallas interpret", 1.0)
+    dw_scale = np.abs(x.T) @ d_abs  # [H, V]; dW is compared in W's layout
+    dw_scale = dw_scale.T if vocab_major else dw_scale
+    for want_dx, want_dw in ((dx_p.float().numpy(), dw_p.float().numpy()), (jdx, jdw)):
+        for a, b, scale in ((dx.float().numpy(), want_dx, d_abs @ np.abs(w.T)),
+                            (dw.float().numpy(), want_dw, dw_scale)):
+            assert a.shape == b.shape and np.isfinite(a).all()
+            limit = ulp * scale + ulp * np.abs(b)
+            assert (np.abs(a - b) <= limit).all(), float((np.abs(a - b) / np.maximum(limit, 1e-30)).max())
+
+
+@pytest.mark.parametrize("vocab_major", [False, True], ids=["[H,V]", "[V,H]"])
+def test_public_entry_in_fp32_matches_jax(fused_loss_on, vocab_major, monkeypatch):
+    """``F.fused_linear_cross_entropy`` on fp32 ``[2, 12, H]`` inputs with
+    H % 128 == 0 and the flag on (the default): the kernel wrappers, which
+    take fp32 (on the card the CUDA-core instance), once forward and once
+    backward; loss and gradients against JAX's fp32 path (its scan
+    reference) at 1e-5 relative, as ``test_plain_versions_match_jax``."""
+    x, w, lab = _data(seed=13)
+    calls = []
+    for name in ("flxent_fwd", "flxent_bwd"):
+        real = getattr(kloss, name)
+        monkeypatch.setattr(kloss, name, lambda *a, _n=name, _r=real, **k: calls.append(_n) or _r(*a, **k))
+    wl = np.ascontiguousarray(w.T) if vocab_major else w
+    tx = torch.from_numpy(x).reshape(2, 12, H).requires_grad_()
+    tw = torch.from_numpy(wl).requires_grad_()
+    loss = F.fused_linear_cross_entropy(tx, tw, torch.from_numpy(lab).reshape(2, 12), ignore_index=IGN,
+                                        weight_vocab_major=vocab_major)
+    loss.backward()
+    assert calls == ["flxent_fwd", "flxent_bwd"] and loss.dtype == torch.float32
+    want = _jax_loss_and_grads(x, w, lab, jnp.float32, "mean", vocab_major, "scan reference", 1.0)
+    np.testing.assert_allclose(loss.item(), float(want[0]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tx.grad.reshape(N, H).numpy(), want[1], rtol=1e-5, atol=1e-5 * np.abs(want[1]).max())
+    np.testing.assert_allclose(tw.grad.numpy(), want[2], rtol=1e-5, atol=1e-5 * np.abs(want[2]).max())
 
 
 # -- the model at kernel widths ------------------------------------------------
