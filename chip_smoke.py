@@ -42,10 +42,14 @@ name and power limit):
    head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk) and in
    fp32, each case printing its route (``flx_route``: the wgmma mainloop,
    mma.sync where TMA cannot address W's rows, the CUDA cores in fp32) and
-   holding two ``flxent_bwd`` calls to the same bits, with the loss head's
-   peak memory fused and unfused (fused must be lower) and 18 and 19 each
-   gated at 1.25x the library's whole backward at the train shape, then
-   ``F.fused_linear_cross_entropy`` forward and backward in fp32; time kernel, plain
+   holding two ``flxent_fwd`` and two ``flxent_bwd`` calls to the same bits,
+   with the loss head's peak memory fused and unfused (fused must be lower),
+   17 gated at 1.0x the library's forward and 18 and 19 each at 1.25x the
+   library's whole backward at the train shape, then
+   ``F.fused_linear_cross_entropy`` forward and backward in fp32; kernels 5
+   and 6 at head dims 192 and 256 (``check_decode_wide``); kernel 17's int8
+   site on each of its routes (``flx_int8_route``), gated at 1.25x its
+   library at the train shape; time kernel, plain
    version and, where one PyTorch call
    computes the same function, that call (device time per call from CUDA
    events with the L2 flushed before each call; back-to-back wall time per
@@ -93,9 +97,11 @@ name and power limit):
    (each at most 1.25x cuBLAS's bf16 ``x @ W`` in the same call), at eight
    rows, in fp32, at fp16 ragged rows, one row, 4096 rows and
    ``[77, 4100] x [4100, 32003]`` (its CUDA-core route), A/4/5/6 over int8
-   pools with q in bf16, fp16 and fp32, 17's int8 site at the loss head's
-   shape, vocab-major and in fp16, and the int8 appends under the sync
-   check;
+   pools with q in bf16, fp16 and fp32, 17's int8 site on each route
+   ``flx_int8_route`` names (kernel 20's wgmma mainloop at the loss head's
+   shape, gated at 1.25x its library, and at 8-, 64-, 128- and 256-row
+   tiles; mma.sync at V 32003, vocab-major and fp16 V 3001; the CUDA cores
+   in fp32), and the int8 appends under the sync check;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
    ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
    document-packed tokens with the FlashMask document mask, 1 warm-up and
@@ -118,7 +124,9 @@ name and power limit):
    against the fp16 plain path's distance from fp32); then 2-layer fp16 and
    fp32 models served through the engine with ``weight_only_int8=True``
    (kernel 20 7x a step on its wgmma and CUDA-core instances; logits
-   against the plain path's distance from an fp32 / fp64 reference);
+   against the plain path's distance from an fp32 / fp64 reference) and
+   their evaluation loss (17's int8 site twice, on its wgmma and CUDA-core
+   instances, within 1e-4 of the plain int8 head's);
 7. train_gpt — after the Llama model is freed, GPT-3 13B widths cut to 8
    layers (hidden 5120, 40 heads of dim 128, vocab 50304, biases, the lm
    head tied to the word embedding; bf16, every JAX default:
@@ -554,6 +562,67 @@ def check_paged_dtypes(dev, gen, card: dict) -> None:
               "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
 
 
+DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 192 / 256 cases: MHA (Gemma-7B's 16 x 256) and GQA
+
+
+def check_decode_wide(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 5 and 6 at head dims 192 and 256 (16-lane row groups) against
+    their plain versions over :func:`decode_batch`, MHA 16/16 and GQA 32/8:
+    bf16, fp16 and fp32 storage, and bf16 q over the int8 pool (both sides
+    dequantize to the same fp32 values); tolerance the bf16 pools' by q's
+    dtype (:data:`PAGED_TOL`). Timed in bf16 at D 256, MHA 16/16 (device ms,
+    the bound of this run's lengths, SDPA over the gathered K/V)."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    for d in (192, 256):
+        for hq, hkv in DECODE_WIDE:
+            for dtype, int8 in ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False),
+                                (torch.bfloat16, True)):
+                name = str(dtype).split(".")[-1]
+                atol, rel = PAGED_TOL[name]
+                dargs, _ = decode_batch(dev, gen, hq, hkv, d=d, dtype=dtype)
+                if int8:
+                    dargs = int8_pool(dargs)
+                pargs = {k: v for k, v in dargs.items() if k not in ("cos", "sin")}
+                pairs = {"paged_decode": (lambda: kp.paged_flash_decode(**pargs),
+                                          lambda: kp.paged_flash_decode_plain(**pargs)),
+                         "paged_decode_fused": (lambda: kp.paged_flash_decode_fused(**dargs),
+                                                lambda: kp.paged_flash_decode_fused_plain(**dargs))}
+                errs = {}
+                for k, (run, run_plain) in pairs.items():
+                    g, w = run(), run_plain()
+                    torch.cuda.synchronize()
+                    errs[k], ok = within(g, w, atol=atol, rel=rel)
+                    zero = bool((g[6] == 0).all())
+                    if not ok or not zero or g.dtype != dtype:
+                        fail(f"{k} at D {d} in {name}{' over the int8 pool' * int8} at HQ={hq} HKV={hkv} disagrees "
+                             f"with its plain version (max abs err {errs[k]}, idle slot zero {zero}, dtype {g.dtype})")
+                line = {"phase": "kernel_check", "kernel": "paged 5/6 wide", "d": d, "hq": hq, "hkv": hkv,
+                        "dtype": name, "kv": "int8" if int8 else name, "max_abs_err": errs,
+                        "tolerance": f"{atol} + {rel}*|x|"}
+                if d == 256 and hq == hkv and dtype == torch.bfloat16 and not int8:
+                    kd, vd, L = gathered_kv(dargs, [int(n) for n in dargs["seq_lens"]])
+                    mask = (torch.arange(L, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
+                    qd = dargs["q"][:, :, None]
+                    qdr = kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"])[:, :, None]
+                    libs = {"paged_decode": (qd, False), "paged_decode_fused": (qdr, True)}
+                    for k, (qq, rope) in libs.items():
+                        run, run_plain = pairs[k]
+                        nbytes, flops = decode_cost(dargs, rope=rope)
+                        records[f"{k}_d256"] = r = dict(
+                            source="paddle_tpu_torch/kernels/csrc/paged_decode.cu", max_abs_err=errs[k],
+                            ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
+                            library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)),
+                            bytes=nbytes, flops=flops, **bound(nbytes, flops))
+                        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+                        line[k] = r
+                    line["library"] = "SDPA over the gathered K/V (q roped for 6)"
+                    del kd, vd
+                emit({**line, "card": card})
+
+
 def check_paged_fused(dev, gen, card: dict, records: dict) -> None:
     """Kernel A (rope-fused paged chunk attention) against its plain version
     over :func:`paged_batch`'s mixed batch at the 7B MHA geometry and GQA
@@ -644,6 +713,7 @@ def check_kernels(dev, card: dict) -> tuple:
           **records["rms_residual"], "card": card})
     check_paged_new(dev, gen, card, records)
     check_paged_dtypes(dev, gen, card)
+    check_decode_wide(dev, gen, card, records)
     check_paged_split(dev, gen, card)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
@@ -1471,7 +1541,7 @@ def check_residual_repair(dev, gen, card: dict) -> dict:
 # -- kernels 17-19: fused linear cross entropy forward, dX, dW ------------------
 
 FLXENT_SOURCES = {  # the train shape's instances (bf16, W [H, V]: the wgmma route)
-    "flxent_fwd": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+    "flxent_fwd": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
     "flxent_dchunk": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
     "flxent_dx": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
     "flxent_dw": "paddle_tpu_torch/kernels/csrc/flxent_wgmma.cu",
@@ -1507,9 +1577,11 @@ FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)",
                         "+ ulp * max(|got|, |ref|) + sub; rel L2 <= ulp/2 "
                         "(ulp 2^-7 bf16, 2^-10 fp16, 2^-16 fp32; sub = tiny * ulp, the subnormal spacing, "
                         "0 in fp32; in fp32 |D| times 1 + sqrt(H) / 16 * sqrt(x^2 (W_c^2)^T))",
-              "repeat": "two flxent_bwd calls give the same bits",
+              "repeat": "two flxent_fwd and two flxent_bwd calls give the same bits",
               "route": "each case states the route flx_route_of must take for its tensors"}
 FLX_GATE = 1.25  # kernels 18 and 19 each at most this times the library's whole backward at the train shape
+FLX_FWD_GATE = 1.0  # kernel 17 at most this times the library's forward (x @ W + F.cross_entropy) at the train shape
+FLX_INT8_GATE = 1.25  # kernel 17's int8 site at most this times its library at the train shape
 
 
 def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, w_offset: int = 0):
@@ -1597,9 +1669,10 @@ def gate_reading(got, ref, limit) -> dict:
 def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, route_want: str,
                 timed: bool = False, w_offset: int = 0) -> dict:
     """Kernels 17-19 and the D recompute (first and last vocab chunk)
-    against their plain versions on the same inputs, on the backward's
-    route (``flx_route_of``, printed), which must be ``route_want``; two
-    ``flxent_bwd`` calls must give the same bits. ``w_offset`` places W that
+    against their plain versions on the same inputs, on the route
+    (``flx_route_of``, printed) that all four take, which must be
+    ``route_want``; two ``flxent_fwd`` and two ``flxent_bwd`` calls must
+    give the same bits. ``w_offset`` places W that
     many elements into its storage. In fp32 (run with TF32 off by the
     caller) the plain D with TF32 on must fail D's gate. With ``timed``
     their times, the plain versions', the unfused composition's (cuBLAS
@@ -1615,6 +1688,7 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     if route != route_want:
         fail(f"kernels 17-19 ({label}): the backward takes the route {route}, not {route_want}")
     lse, tl = kl.flxent_fwd(x, w, lab, vocab_major)
+    lse2, tl2 = kl.flxent_fwd(x, w, lab, vocab_major)
     dx, dw = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
     dx2, dw2 = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
     dx_only, _ = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major, need_dw=False)
@@ -1663,6 +1737,7 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
         del g, r
     checks["one product alone is the same bits"] = bool(torch.equal(dx, dx_only)) and bool(torch.equal(dw, dw_only))
     checks["two calls are the same bits"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
+    checks["two forward calls are the same bits"] = bool(torch.equal(lse, lse2)) and bool(torch.equal(tl, tl2))
     line = {"phase": "kernel_check", "kernel": "flxent_fwd/flxent_dchunk/flxent_dx/flxent_dw", "case": label,
             "route": route, "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major},
             "dtype": str(dtype).split(".")[-1], "max_err": err, "checks": checks, "gate_readings": readings,
@@ -1764,7 +1839,8 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
 
 def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     """Kernels 17-19 and the D recompute at the train shape (x ``[8192,
-    4096]``, W ``[4096, 32000]`` bf16; timed, and 18 and 19 each gated at
+    4096]``, W ``[4096, 32000]`` bf16; timed, 17 gated at
+    :data:`FLX_FWD_GATE` times the library's forward and 18 and 19 each at
     :data:`FLX_GATE` times the library's whole backward in the same call), at
     a ragged vocab and row count (V 32003, whose ``[H, V]`` rows are not
     16-byte aligned: the mma.sync route), in the vocab-major layout, in
@@ -1820,12 +1896,18 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
           "fp32_2048_rows": fp32["times"], "fp32_library": "the same two calls in fp32, TF32 off",
           "loss_head_peak_memory": train["peak_memory"], "card": card})
     ratios = {name: train["times"][name]["vs_library"] for name in ("flxent_dx", "flxent_dw")}
+    fwd_ratio = train["times"]["flxent_fwd"]["vs_library"]
     emit({"phase": "flxent_gate", "ms_over_library_bwd": ratios, "limit": FLX_GATE,
+          "fwd_ms_over_library_fwd": fwd_ratio, "fwd_limit": FLX_FWD_GATE,
+          "gpt_fwd_ms_over_library_fwd": gpt["times"]["flxent_fwd"]["vs_library"],
           "share_of_bound": {name: train["times"][name]["share_of_bound"] for name in train["times"]},
+          "gpt_share_of_bound": {name: gpt["times"][name]["share_of_bound"] for name in gpt["times"]},
           "card": card})
     slow = {name: r for name, r in ratios.items() if r > FLX_GATE}
     if slow:
         fail(f"kernels 18/19 are slower than {FLX_GATE}x the library's whole backward at the train shape: {slow}")
+    if fwd_ratio > FLX_FWD_GATE:
+        fail(f"kernel 17 is slower than {FLX_FWD_GATE}x the library's forward at the train shape: {fwd_ratio}")
     if not train["peak_memory"]["fused_gib"] < train["peak_memory"]["unfused_gib"]:
         fail(f"the fused loss head's peak memory is not below the unfused head's: {train['peak_memory']}")
     torch.cuda.empty_cache()
@@ -2498,7 +2580,7 @@ INT8_SOURCES = {
     "paged_chunk_int8": "paddle_tpu_torch/kernels/csrc/paged_chunk_fused.cu",
     "paged_decode_int8": "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
     "paged_decode_fused_int8": "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
-    "flxent_fwd_int8": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+    "flxent_fwd_int8": "paddle_tpu_torch/kernels/csrc/flxent_int8.cu",  # the train shape's wgmma route
 }
 # the serving step's projections at 8 slots x 64 rows: gate/up, down, lm head
 WO_SHAPES = {"gate_up": (512, 4096, 11008), "down": (512, 11008, 4096), "lm_head": (512, 4096, 32000)}
@@ -2693,12 +2775,15 @@ def check_int8_paged(dev, gen, card: dict, records: dict) -> None:
 
 
 def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, label: str, card: dict,
-                     timed: bool = False) -> dict:
-    """Kernel 17's int8 site against its plain version: lse and tl within
-    1e-4 of max(1, |v|) (fp32 sums in another order, as for kernel 17). W
-    is quantized from N(0, 0.02) per vocab column. With ``timed`` its time,
-    the plain version's and the bf16 head's two library calls (cuBLAS ``x @
-    W`` with the dequantized weight in x's type, then ``F.cross_entropy``)."""
+                     route_want: str, timed: bool = False) -> dict:
+    """Kernel 17's int8 site against its plain version on the route
+    ``flx_int8_route_of`` names (printed; it must be ``route_want``): lse
+    and tl within 1e-4 of max(1, |v|) (fp32 sums in another order, as for
+    kernel 17), and two calls the same bits. W is quantized from N(0, 0.02)
+    per vocab column. With ``timed`` its time, the plain version's and the
+    head's two library calls (cuBLAS ``x @ W`` with the dequantized weight
+    in x's dtype, then ``F.cross_entropy``; in fp32 with TF32 off, as the
+    caller sets it), beside its bound at the rate of x's type."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
     from paddle_tpu_torch.kernels.quant import quantize_weight_int8
@@ -2709,7 +2794,11 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
     w8, scale = quantize_weight_int8(w.t() if vocab_major else w)  # per vocab column of [H, V]
     w8 = w8.t().contiguous() if vocab_major else w8
     del w
+    route = kl.flx_int8_route_of(x, w8, vocab_major)
+    if route != route_want:
+        fail(f"flxent_fwd_int8 ({label}): the route is {route}, not {route_want}")
     lse, tl = kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)
+    lse2, tl2 = kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)
     lse_p, tl_p = kl.flxent_fwd_int8_plain(x, w8, scale, lab, vocab_major)
     torch.cuda.synchronize()
     err, ok = {}, True
@@ -2717,23 +2806,29 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
         d = (got - want).abs()
         err[name] = float(d.max())
         ok = ok and bool((d <= 1e-4 * want.abs().clamp(min=1.0)).all())
-    line = {"phase": "kernel_check", "kernel": "flxent_fwd_int8", "case": label,
+    same = bool(torch.equal(lse, lse2)) and bool(torch.equal(tl, tl2))
+    line = {"phase": "kernel_check", "kernel": "flxent_fwd_int8", "case": label, "route": route,
             "shape": {"x": [n, h], "w8": list(w8.shape), "vocab_major": vocab_major},
-            "dtype": str(dtype).split(".")[-1], "max_err": err, "tolerance": "1e-4 * max(1, |v|)"}
-    if not ok:
+            "dtype": str(dtype).split(".")[-1], "max_err": err, "two_calls_same_bits": same,
+            "tolerance": "1e-4 * max(1, |v|); two calls the same bits"}
+    if not (ok and same):
         emit({**line, "card": card})
-        fail(f"flxent_fwd_int8 disagrees with its plain version ({label}): {err}")
-    res = {"max_abs_err": max(err.values())}
+        fail(f"flxent_fwd_int8 disagrees with its plain version or itself ({label}): {err}, same bits {same}")
+    res = {"max_abs_err": max(err.values()), "route": route}
     if timed:
         wd = ((w8.t() if vocab_major else w8).float() * scale[None, :]).to(dtype)  # [H, V], dequantized
         lab64 = lab.long().where(lab < v, torch.full_like(lab.long(), -100))
         run = lambda: kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)  # noqa: E731
+        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
         res.update(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
                    plain_ms=device_ms(lambda: kl.flxent_fwd_int8_plain(x, w8, scale, lab, vocab_major), iters=2,
                                       warmup=1),
                    library_ms=device_ms(lambda: cross_entropy(x @ wd, lab64, ignore_index=-100), iters=5),
-                   **bound(n * h * x.element_size() + v * h + 4 * v + 3 * n * 4, 2.0 * n * h * v))
-        line.update({kk: res[kk] for kk in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                   **bound(n * h * x.element_size() + v * h + 4 * v + 3 * n * 4, 2.0 * n * h * v, rate))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        res["vs_library"] = res["ms"] / res["library_ms"]
+        line.update({kk: res[kk] for kk in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                            "share_of_bound", "vs_library")})
         line["library"] = "two calls: cuBLAS x @ W (the dequantized head in x's dtype) + F.cross_entropy"
         del wd
     emit({**line, "card": card})
@@ -2743,23 +2838,47 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
 
 def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
     """The int8 serving path's kernels against their plain versions: kernel
-    20 by :func:`check_wo_matmul`; A, 4, 5, 6 over int8 pools; kernel 17's int8 site at
-    the loss head's shape (x ``[8192, 4096]`` bf16, W int8 ``[4096,
-    32000]``; timed), vocab-major and in fp16 at ragged shapes; the int8
-    appends under the sync check."""
+    20 by :func:`check_wo_matmul`; A, 4, 5, 6 over int8 pools; kernel 17's
+    int8 site at the loss head's shape (x ``[8192, 4096]`` bf16, W int8
+    ``[4096, 32000]``: the wgmma route, timed and gated at
+    :data:`FLX_INT8_GATE` times its library), on the wgmma route at ragged
+    rows (1000: 256- and 128-row tiles; 40: the 64-row tiles; 5: the 8-row
+    tiles) in bf16 and fp16, on the mma.sync route at V 32003, vocab-major
+    and fp16 V 3001, and on the CUDA cores in fp32 (vocab-major ragged, and
+    x ``[2048, 4096]`` timed beside the fp32 library head, TF32 off); the
+    int8 appends under the sync check."""
     import torch
 
+    bf, f16 = torch.bfloat16, torch.float16
     shapes = check_wo_matmul(dev, gen, card)
     records["wo_matmul"] = dict(source=INT8_SOURCES["wo_matmul"], shapes=shapes,
                                 max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
                                 **{k: shapes["gate_up"][k] for k in ("ms", "plain_ms", "library_ms", "call_ms",
                                                                      "bound_ms", "bound_by")})
     check_int8_paged(dev, gen, card, records)
-    head = flxent_int8_case(dev, gen, 8192, 4096, 32000, torch.bfloat16, False, "loss head shape", card, timed=True)
-    flxent_int8_case(dev, gen, 1000, 1024, 32003, torch.bfloat16, False, "ragged rows and vocab (V % 16 != 0)", card)
-    flxent_int8_case(dev, gen, 2048, 1024, 5000, torch.bfloat16, True, "vocab-major W [V, H]", card)
-    flxent_int8_case(dev, gen, 520, 512, 3001, torch.float16, False, "fp16, ragged", card)
+    head = flxent_int8_case(dev, gen, 8192, 4096, 32000, bf, False, "loss head shape", card, "wgmma", timed=True)
+    flxent_int8_case(dev, gen, 1000, 1024, 5008, bf, False, "ragged rows, V 5008", card, "wgmma")
+    flxent_int8_case(dev, gen, 40, 1024, 5008, f16, False, "fp16, 40 rows (64-row tiles)", card, "wgmma")
+    flxent_int8_case(dev, gen, 5, 512, 3008, bf, False, "5 rows (8-row tiles), H 512", card, "wgmma")
+    flxent_int8_case(dev, gen, 1000, 1024, 32003, bf, False, "ragged rows and vocab (V % 16 != 0)", card, "mma_sync")
+    flxent_int8_case(dev, gen, 2048, 1024, 5000, bf, True, "vocab-major W [V, H]", card, "mma_sync")
+    flxent_int8_case(dev, gen, 520, 512, 3001, f16, False, "fp16, ragged", card, "mma_sync")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        flxent_int8_case(dev, gen, 300, 256, 1000, torch.float32, True, "fp32, ragged, vocab-major", card,
+                         "cuda_cores")
+        fp32 = flxent_int8_case(dev, gen, 2048, 4096, 32000, torch.float32, False, "fp32, 2048 rows", card,
+                                "cuda_cores", timed=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     records["flxent_fwd_int8"] = dict(source=INT8_SOURCES["flxent_fwd_int8"], **head)
+    records["flxent_fwd_int8"]["fp32_2048_rows"] = fp32
+    emit({"phase": "flxent_int8_gate", "ms_over_library": head["vs_library"], "limit": FLX_INT8_GATE,
+          "share_of_bound": head["share_of_bound"], "fp32_2048_rows": fp32, "card": card})
+    if head["vs_library"] > FLX_INT8_GATE:
+        fail(f"kernel 17's int8 site is slower than {FLX_INT8_GATE}x its library at the train shape: "
+             f"{head['vs_library']}")
     check_append_sync(dev, gen, card, int8=True)
 
 
@@ -2771,10 +2890,12 @@ def eval_loss(model, dev, card: dict, label: str) -> tuple:
     ``2 x 2048`` batch of next-token pairs (the last position ignored), the
     launch counters reset just before and read just after; returns the loss
     and the launch counts.
-    On a weight-only int8 model (``eval_loss_int8``) the loss head is kernel
-    17's int8 site, launched twice (partials, merge), and the MLP kernel 20,
-    96 times; the loss must match the plain int8 head's on the same final
-    hidden states within 1e-4 of max(1, |loss|)."""
+    On a weight-only int8 model (``eval_loss_int8``, and the fp16 / fp32
+    weight-only models) the loss head is kernel 17's int8 site, launched
+    twice (partials, merge) on the route ``flx_int8_route_of`` names
+    (printed), and the MLP kernel 20, 3 a layer; the loss must match the
+    plain int8 head's on the same final hidden states within 1e-4 of
+    max(1, |loss|)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
@@ -2798,6 +2919,8 @@ def eval_loss(model, dev, card: dict, label: str) -> tuple:
     line = {"phase": label, "batch": [b, s], "loss": loss_v, "ms": ms, "logits_returned": logits is not None,
             "launches": {n: c for n, c in counts.items() if c}, "card": card}
     if quant:
+        line["loss_head_route"] = kl.flx_int8_route_of(torch.empty((1, cfg.hidden_size), dtype=model.dtype, device=dev),
+                                                       model.lm_head.weight, False)
         layers = cfg.num_hidden_layers
         want = {"flxent_fwd_int8": 2, "wo_matmul": 3 * layers, "flash_fwd": layers, "rope_fwd": 2 * layers,
                 "rms_norm_fwd": 2 * layers + 1}
@@ -2901,7 +3024,7 @@ TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("rms_bwd", "rmsnorm bwd (kernel 8)"), ("rope_fwd_kernel", "rope fwd (kernel 9)"),
     ("rope_bwd_kernel", "rope adjoint (kernel 10)"), ("column_sum", "norm backward column sums (kernels 8, 11, 13)"),
     ("ln_residual_bwd", "LN-residual bwd (kernel 13)"), ("ln_residual_kernel", "LN-residual fwd (kernel 12)"),
-    ("flxent_logits", "fused loss logits (kernel 17)"),
+    ("flxent_logits", "fused loss logits (kernel 17)"), ("flxent_fwd", "fused loss logits (kernel 17)"),
     ("flxent_merge", "fused loss logits (kernel 17)"),
     ("flxent_wgmma", "fused loss D / dX / dW (kernels 18/19, wgmma)"),
     ("flxent_gemm", "fused loss dX / dW (kernels 18/19, mma.sync)"), ("flxent_f32", "fused loss fp32 (17-19)"),
@@ -3291,7 +3414,10 @@ def serve_weight_only(dev, card: dict, dtype: str) -> dict:
     kernel 20 7x (three projections a layer and the head: fp16 on the wgmma
     instance, fp32 on the CUDA-core one) and nothing else, the pool drains;
     then one mixed step's logits through :func:`check_logits` (the int8
-    plain path in ``dtype`` and a higher-precision run of it). Returns the
+    plain path in ``dtype`` and a higher-precision run of it); then
+    :func:`eval_loss` on the quantized model: kernel 17's int8 site twice
+    (fp16 on kernel 20's wgmma mainloop, fp32 on the CUDA cores), its loss
+    within 1e-4 of max(1, |loss|) of the plain int8 head's. Returns the
     launch counts."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -3316,6 +3442,7 @@ def serve_weight_only(dev, card: dict, dtype: str) -> dict:
                             "wo_matmul": 3 * layers + 1}, label)
     del eng
     check_logits(model, dev, card, label=f"logits_weight_only_{dtype}")
+    eval_loss(model, dev, card, f"eval_loss_weight_only_{dtype}")
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,8 +1,9 @@
 // Shared pieces of the fused linear cross-entropy kernels (flxent_fwd.cu,
 // flxent_dx.cu, flxent_dw.cu): an mma.sync tensor-core GEMM mainloop that
-// serves kernel 17 (bf16 / fp16) and, where TMA cannot address W (W [H, V]
-// with V % 8 != 0, or W not 16-byte aligned), the backward's products; its form with an
-// int8 B operand (gemm_tile_i8: the int8 lm head of kernel 17's int8 site);
+// serves, where TMA cannot address W (W [H, V] with V % 8 != 0, or W not
+// 16-byte aligned), kernel 17 (bf16 / fp16) and the backward's products;
+// its form with an int8 B operand (gemm_tile_i8: kernel 17's int8 site for
+// a vocab-major or ragged int8 lm head);
 // the output-tile order; and the declarations of the backward's other
 // instances (flxent_wgmma.cu, flxent_fp32.cu).
 //
@@ -403,15 +404,20 @@ cudaError_t allow_smem(Kernel* kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
 }
 
-// The backward's instances (kernels/fused_loss.py `flx_route` names one
-// before each launch): the wgmma mainloop (flxent_wgmma.cu: bf16 / fp16
-// whose rows TMA can address), this file's mma.sync mainloop (bf16 / fp16,
-// any V), and fp32 on the CUDA cores (flxent_fp32.cu).
+// The instances of each product (kernels/fused_loss.py `flx_route` and, for
+// the int8 head, `flx_int8_route` name one before each launch): the wgmma
+// mainloop (flxent_wgmma.cu: bf16 / fp16 whose rows TMA can address; the
+// int8 head's on kernel 20's mainloop, flxent_int8.cu), this file's mma.sync
+// mainloop (bf16 / fp16, any V), and fp32 on the CUDA cores
+// (flxent_fp32.cu).
 enum Route : int { kWgmma = 0, kMmaSync = 1, kCudaCores = 2 };
 
-// flxent_wgmma.cu: D of the vocab columns [c0, c0 + vc) into d [N, ldd]; dX's
+// flxent_wgmma.cu: the forward's partials [3, ceil(V / 128), N] (as
+// ptt_flxent_fwd's); D of the vocab columns [c0, c0 + vc) into d [N, ldd]; dX's
 // chunk (fp32 partial acc, dx on the last); dW's chunk. io is kBF16 or kF16;
 // each returns a cudaError_t (cudaErrorInvalidValue for what TMA cannot map).
+int wgmma_fwd(int io, int vocab_major, const void* x, const void* w, const void* labels, void* part, int N, int H,
+              int V, cudaStream_t s);
 int wgmma_dchunk(int io, int vocab_major, const void* x, const void* w, const void* labels, const void* lse,
                  const void* gcoef, void* d, long long ldd, int N, int H, int V, int c0, int vc, cudaStream_t s);
 int wgmma_dx(int io, int vocab_major, const void* d, long long ldd, const void* w, void* acc, void* dx, int N, int H,
@@ -419,11 +425,18 @@ int wgmma_dx(int io, int vocab_major, const void* d, long long ldd, const void* 
 int wgmma_dw(int io, int vocab_major, const void* x, const void* d, long long ldd, void* dw, int N, int H, int V,
              int c0, int vc, cudaStream_t s);
 
+// flxent_int8.cu: the int8 head's partials for bf16 / fp16 x [N, H] and
+// w8 [H, V] (H % 8 == 0, V % 16 == 0, 16-byte aligned) with fp32 wscale [V].
+int wgmma_fwd_int8(int io, const void* x, const void* w8, const void* wscale, const void* labels, void* part, int N,
+                   int H, int V, cudaStream_t s);
+
 // flxent_fp32.cu: the same four products in fp32 on the CUDA cores: the
 // forward's partials (as ptt_flxent_fwd's), D, dX (accumulated in place in
-// dx: first overwrites it) and dW.
+// dx: first overwrites it) and dW; and the int8 head's partials for fp32 x.
 int f32_fwd(int vocab_major, const float* x, const float* w, const int* labels, float* part, int N, int H, int V,
             cudaStream_t s);
+int f32_fwd_int8(int vocab_major, const float* x, const int8_t* w8, const float* wscale, const int* labels,
+                 float* part, int N, int H, int V, cudaStream_t s);
 int f32_dchunk(int vocab_major, const float* x, const float* w, const int* labels, const float* lse,
                const float* gcoef, float* d, long long ldd, int N, int H, int V, int c0, int vc, cudaStream_t s);
 int f32_dx(int vocab_major, const float* d, long long ldd, const float* w, float* dx, int N, int H, int V, int c0,

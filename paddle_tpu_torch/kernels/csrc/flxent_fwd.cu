@@ -1,10 +1,15 @@
 // Fused linear cross entropy, forward (kernel 17), and the per-chunk
-// recompute of D that the backward products (kernels 18, 19) share.
+// recompute of D that the backward products (kernels 18, 19) share, on the
+// mma.sync mainloop; and the forward's C entry points for every route.
 //
 // Replaces: paddle_tpu/kernels/fused_loss.py `_flxent_fwd_kernel` (launched
 // by `_make_pallas_core`, entry `fused_linear_cross_entropy`), the training
 // step's loss head, and `_flxent_block_d`, the recompute of
-// D = (softmax - onehot) * gcoef inside its dX and dW kernels.
+// D = (softmax - onehot) * gcoef inside its dX and dW kernels. This file's
+// instances serve the bf16 / fp16 shapes whose W rows TMA cannot address
+// (kernels/fused_loss.py `flx_route` "mma_sync": W [H, V] with V % 8 != 0,
+// or W not 16-byte aligned); every other bf16 / fp16 W takes the wgmma
+// mainloop (flxent_wgmma.cu), fp32 the CUDA cores (flxent_fp32.cu).
 //
 // Forward: for x [N, H] and W ([H, V], or [V, H] vocab-major), per row the
 // logsumexp of the logits x W and the target logit, both fp32, without the
@@ -15,40 +20,40 @@
 //
 // Design. The Pallas forward walks the vocab sequentially per row block,
 // carrying (m, l, tl) in VMEM across grid steps. Blocks here run in
-// parallel and in no order, and 64 row tiles would fill half the card, so
-// every (row tile, vocab tile) of 128 x 128 is its own block: the shared
-// mainloop (flxent_common.cuh) computes the logits tile in registers, and
-// the epilogue reduces it to per-row partials (tile max, sum of exp over
-// the tile max, target logit) through shared memory, written to an fp32
-// [3, tiles_v, N] scratch (24.6 MB at the train shape). A second kernel,
-// launched by its own entry point, merges each row's partials in a fixed
-// order (no atomics: the bits repeat): lse = m + log(sum_t l_t exp(m_t - m)),
+// parallel and in no order, so every (row tile, vocab tile) of 128 x 128
+// yields per-row partials (tile max, sum of exp over the tile max, target
+// logit) in an fp32 [3, tiles_v, N] scratch (24.6 MB at the train shape),
+// whatever the route. Here each tile is its own block: the shared mainloop
+// (flxent_common.cuh) computes the logits tile in registers and the
+// epilogue reduces it through shared memory. A second kernel, launched by
+// its own entry point, merges each row's partials in a fixed order (no
+// atomics: the bits repeat): lse = m + log(sum_t l_t exp(m_t - m)),
 // tl = sum_t tl_t.
 //
-// D recompute (backward, one vocab chunk of Vc columns per launch; this
-// mma.sync instance serves bf16 / fp16 W [H, V] with V % 8 != 0, whose rows
-// TMA cannot address: every other W takes flxent_wgmma.cu, fp32 takes
-// flxent_fp32.cu): the same logits tile, with an epilogue that writes
-// D = ((exp(logit - lse) - onehot) * gcoef) rounded to the input type into
-// a [N, Vc] buffer (the Pallas `_flxent_block_d`, rounding included), 0 at
-// columns >= V. Computing D once per chunk and feeding both products is
-// what the split of this port adds over the Pallas one, which recomputes
-// the logits in each of its two backward kernels.
+// D recompute (backward, one vocab chunk of Vc columns per launch): the same
+// logits tile, with an epilogue that writes D = ((exp(logit - lse) - onehot)
+// * gcoef) rounded to the input type into a [N, Vc] buffer (the Pallas
+// `_flxent_block_d`, rounding included), 0 at columns >= V. Computing D
+// once per chunk and feeding both products is what the split of this port
+// adds over the Pallas one, which recomputes the logits in each of its two
+// backward kernels.
 //
 // Bound on H100: operations. 2 N H V flops (2.15e12 at N 8192, H 4096,
 // V 32000: 2.17 ms at 989 TFLOP/s) against ~330 MB of operands. This
-// version runs mma.sync, not wgmma/TMA, so it reaches a fraction of that
-// (the forward's redesign is ROADMAP Queue 2's next item).
+// instance runs mma.sync, not wgmma/TMA: it reaches a fraction of that.
 //
 // The int8 site (`ptt_flxent_fwd_int8`; replaces the quantized call of the
 // same Pallas body, `_make_pallas_quant_fwd`, the weight-only int8 lm head's
-// forward-only loss): W is int8 with one fp32 scale per vocab column. Its
-// slabs are staged as int8 and upcast to x's type in shared memory before
-// ldmatrix (gemm_tile_i8, for the H-major and the vocab-major layout: exact,
-// so the logits tile is x times the int8 values in fp32), and each logit is
-// multiplied by its column's scale before the cols < V mask and the
-// max / sum / target-logit partials, in the Pallas kernel's order. The
-// partials and their merge are the bf16 forward's.
+// forward-only loss): W is int8 with one fp32 scale per vocab column. This
+// file's instance serves a vocab-major or ragged int8 W (`flx_int8_route`
+// "mma_sync"; W [H, V] with V % 16 == 0 takes kernel 20's mainloop,
+// flxent_int8.cu, fp32 x the CUDA cores). Its slabs are staged as int8 and
+// upcast to x's type in shared memory before ldmatrix (gemm_tile_i8, for
+// the H-major and the vocab-major layout: exact, so the logits tile is x
+// times the int8 values in fp32), and each logit is multiplied by its
+// column's scale before the cols < V mask and the max / sum / target-logit
+// partials, in the Pallas kernel's order. The partials and their merge are
+// the bf16 forward's.
 #include <type_traits>
 
 #include "flxent_common.cuh"
@@ -266,28 +271,48 @@ int dchunk(int vocab_major, const void* x, const void* w, const void* labels, co
 
 }  // namespace
 
-// The forward's partials. io: ptt::kBF16 or ptt::kF16 (this file's
-// mma.sync mainloop) or ptt::kF32 (the CUDA cores, flxent_fp32.cu); x and w
-// alike. x: [N, H], H % 8 == 0, 16-byte aligned; w: [H, V] or, with
-// vocab_major, [V, H]; labels: [N] int32; part: fp32 [3, ceil(V / 128), N].
-extern "C" int ptt_flxent_fwd(int io, int vocab_major, const void* x, const void* w,
+// The forward's partials on the instance `route` names (ptt::flx::Route:
+// kWgmma for bf16 / fp16 that TMA can map, kMmaSync for bf16 / fp16,
+// kCudaCores for fp32); x and w alike. x: [N, H], H % 8 == 0, 16-byte
+// aligned; w: [H, V] or, with vocab_major, [V, H]; labels: [N] int32;
+// part: fp32 [3, ceil(V / 128), N].
+extern "C" int ptt_flxent_fwd(int io, int route, int vocab_major, const void* x, const void* w,
                               const void* labels, void* part, int N, int H, int V, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == fx::kWgmma) return fx::wgmma_fwd(io, vocab_major, x, w, labels, part, N, H, V, s);
+  if (route == fx::kCudaCores) {
+    if (io != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::f32_fwd(vocab_major, static_cast<const float*>(x), static_cast<const float*>(w),
+                       static_cast<const int*>(labels), static_cast<float*>(part), N, H, V, s);
+  }
+  if (route != fx::kMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   switch (io) {
     case ptt::kBF16: return fwd<bf16>(vocab_major, x, w, labels, part, N, H, V, s);
     case ptt::kF16: return fwd<f16>(vocab_major, x, w, labels, part, N, H, V, s);
-    case ptt::kF32:
-      return fx::f32_fwd(vocab_major, static_cast<const float*>(x), static_cast<const float*>(w),
-                         static_cast<const int*>(labels), static_cast<float*>(part), N, H, V, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The int8 head's partials: as ptt_flxent_fwd with w8 int8 ([H, V] or, with
-// vocab_major, [V, H]) and wscale fp32 [V]; io is x's type (bf16 or fp16).
-extern "C" int ptt_flxent_fwd_int8(int io, int vocab_major, const void* x, const void* w8, const void* wscale,
-                                   const void* labels, void* part, int N, int H, int V, void* stream) {
+// vocab_major, [V, H]) and wscale fp32 [V]; io is x's type; `route` as
+// kernels/fused_loss.py `flx_int8_route` names it (kWgmma: bf16 / fp16,
+// W [H, V], V % 16 == 0, on kernel 20's mainloop; kMmaSync: bf16 / fp16;
+// kCudaCores: fp32).
+extern "C" int ptt_flxent_fwd_int8(int io, int route, int vocab_major, const void* x, const void* w8,
+                                   const void* wscale, const void* labels, void* part, int N, int H, int V,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == fx::kWgmma) {
+    if (vocab_major) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::wgmma_fwd_int8(io, x, w8, wscale, labels, part, N, H, V, s);
+  }
+  if (route == fx::kCudaCores) {
+    if (io != ptt::kF32) return static_cast<int>(cudaErrorInvalidValue);
+    return fx::f32_fwd_int8(vocab_major, static_cast<const float*>(x), static_cast<const int8_t*>(w8),
+                            static_cast<const float*>(wscale), static_cast<const int*>(labels),
+                            static_cast<float*>(part), N, H, V, s);
+  }
+  if (route != fx::kMmaSync) return static_cast<int>(cudaErrorInvalidValue);
   switch (io) {
     case ptt::kBF16: return fwd_int8<bf16>(vocab_major, x, w8, wscale, labels, part, N, H, V, s);
     case ptt::kF16: return fwd_int8<f16>(vocab_major, x, w8, wscale, labels, part, N, H, V, s);

@@ -1,56 +1,27 @@
-// Fused linear cross entropy, backward on Hopper's tensor cores: the D
-// recompute that kernels 18 and 19 share, dX (kernel 18) and dW (kernel 19),
-// three products on one warp-specialised, persistent wgmma mainloop fed by
-// TMA, each with its own epilogue. Per vocab chunk of Vc columns (the
-// wrapper, kernels/fused_loss.py `flxent_bwd`, walks the chunks in order):
+// Fused linear cross entropy on Hopper's tensor cores: the forward's
+// partials (kernel 17), the D recompute that kernels 18 and 19 share, dX
+// (kernel 18) and dW (kernel 19), four products on one warp-specialised,
+// persistent wgmma mainloop fed by TMA, each with its own epilogue. The
+// forward is one launch over the whole vocab; the backward, per vocab chunk
+// of Vc columns (the wrapper, kernels/fused_loss.py `flxent_bwd`, walks the
+// chunks in order):
+//   fwd = per row and 128-column vocab tile, the partials (max, sum of exp
+//         over it, target logit) of the logits x W, NEG_INF at columns >= V
+//                                                  [3, ceil(V/128), N] (K = H)
 //   D   = ((exp(x W_c - lse) - onehot) * gcoef), rounded to x's type, 0 at
 //         columns >= V                            [N, Vc]  (K = H)
 //   dX += D W_c^T, fp32 partials, x's type on the last chunk  [N, H]  (K = Vc)
 //   dW_c = x^T D, or D^T x when vocab-major, in W's type      (K = N)
 //
-// Replaces: paddle_tpu/kernels/fused_loss.py `_flxent_block_d` (:302, the
-// recompute inside its dX and dW kernels), `_flxent_dx_kernel` (:322) and
-// `_flxent_dw_kernel` (:343), launched by `_make_pallas_core`: the training
-// step's loss head backward. Its bf16 / fp16 instance for W whose rows TMA
-// can address (kernels/fused_loss.py `flx_route` "wgmma"); W [H, V] with
-// V % 8 != 0, or W not 16-byte aligned, runs flxent_common.cuh's mma.sync
-// mainloop, fp32 the CUDA-core instance (flxent_fp32.cu).
+// Replaces: paddle_tpu/kernels/fused_loss.py `_flxent_fwd_kernel` (:261),
+// `_flxent_block_d` (:302, the recompute inside its dX and dW kernels),
+// `_flxent_dx_kernel` (:322) and `_flxent_dw_kernel` (:343), launched by
+// `_make_pallas_core`: the training step's loss head. Its bf16 / fp16
+// instance for W whose rows TMA can address (kernels/fused_loss.py
+// `flx_route` "wgmma"); W [H, V] with V % 8 != 0, or W not 16-byte aligned,
+// runs flxent_common.cuh's mma.sync mainloop, fp32 the CUDA-core instance
+// (flxent_fp32.cu).
 //
-// Design.
-// - One CTA an SM (a persistent grid) walks the output tiles of a plan made
-//   on the host (`make_plan`; kernels/fused_loss.py `flx_plan` mirrors it,
-//   held against it on the card through `ptt_flxent_plan`):
-//   128 x 256 tiles in groups of kGroup row tiles swept across the column
-//   tiles (the CTAs in flight share their A rows and B columns in L2), the
-//   tiles past the last full round over the SMs split into 128 x 128 halves
-//   where that shortens the longest CTA's work.
-// - 384 threads: one producer thread issues, per k step of 64, the TMA
-//   loads of the A box(es) (16 KB) and the B boxes (32 KB, 16 KB for a half
-//   tile), 128-byte swizzled and zero-filled past each operand's edges, into
-//   a 4-stage ring with full / empty mbarriers; its warpgroup hands its
-//   registers to the two consumer warpgroups (setmaxnreg 232 / 40).
-// - Each consumer warpgroup owns 64 rows of the tile (m64n256k16, 128 fp32
-//   accumulators a thread), one wgmma group a k step, one group in flight.
-//   Operands are read in place in either layout: a K-major operand as
-//   [rows][64] boxes, an MN-major one as [k][64] boxes read with wgmma's
-//   transpose bits (hopper.cuh `wgmma_ss_t`). The six layouts:
-//     D    A = x (K-major)      B = W_c: [H, V] MN-major, [V, H] K-major
-//     dX   A = D (K-major)      B = W_c^T: [H, V] K-major, [V, H] MN-major
-//     dW   A = x^T or D^T (MN-major)   B = D or x (MN-major)
-//   W is mapped whole and its chunk addressed by coordinates; D, x and dW's
-//   chunk are mapped as they lie, so TMA zero-fills D past the chunk.
-// - Epilogues from the accumulators: D keeps each row's lse, gcoef and
-//   label in registers (exp as ex2.approx of a fused multiply-add: expf's
-//   range reduction spilled registers; one-hot, the V mask, the rounding); dX adds the
-//   fp32 partial of the previous chunks (not on the first), then writes fp32
-//   partials, or x's type on the last chunk; dW rounds to W's type. A value
-//   in T is staged per warpgroup in a swizzled [64][64] box (two, used in
-//   turn) and written by a TMA store; the fp32 partials go out as float2.
-//   The chunk order and each tile's k order are fixed: the bits repeat.
-//
-// Bound on H100: operations. Each product is 2 N H Vc flops (at the train
-// shape x [8192, 4096], W [4096, 32000]: 2.15e12 a product over the vocab,
-// 2.17 ms at 989 TFLOP/s; the whole backward, D dX and dW, 6.51 ms).
 #include "flxent_common.cuh"
 #include "hopper.cuh"
 
@@ -83,7 +54,7 @@ static_assert(kSmemBytes <= 227 * 1024, "a block's shared memory");
 constexpr int kGroup = 16;                  // row tiles per sweep (L2 reuse)
 constexpr int kCostBig = 8, kCostHalf = 5;  // a half tile's cost relative to a whole one (kernel 20's)
 
-enum Product : int { kD = 0, kDx = 1, kDw = 2 };
+enum Product : int { kD = 0, kDx = 1, kDw = 2, kFwd = 3 };
 
 // The work items of one launch, in order: [0, big) whole 128 x 256 tiles,
 // t = i in the grouped order; then both 128-column halves of tiles big,
@@ -144,6 +115,8 @@ struct Params {
   // last: write x's type through the output map
   float* acc;
   int first, last;
+  // fwd: the partials [3, ceil(N / 128), M] (labels as for D, c0 = 0)
+  float* part;
   Plan plan;
 };
 
@@ -278,10 +251,83 @@ __device__ __forceinline__ void epilogue(float (&acc)[kBN / 2], const Params& p,
   }
 }
 
+// The forward's epilogue (kernel 17): per row of the tile and per 128-column
+// half, the partials of the logits (columns < N only) into p.part at the
+// half's partial column (n0 / 128 + half), from registers. acc[4 j + e] is
+// row r + 8 (e >> 1), column n0 + 8 j + 2 tig + (e & 1), as in `epilogue`.
+// One 64-column box at a time: the row's max over the box, then its exps
+// over the running max (earlier boxes' sum rescaled), behind a compiler
+// memory barrier so that no more than a box's values are live beside the
+// accumulators. The quad's four threads (tig 0-3) then merge their states.
+template <int NB>
+__device__ __forceinline__ void fwd_epilogue(float (&acc)[kBN / 2], const Params& p, int m0, int n0, int wl, int gid,
+                                             int tig) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+  const int r = m0 + 16 * wl + gid;
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lab[h] = r + 8 * h < p.M ? p.labels[r + 8 * h] : -1;
+  const size_t stride = static_cast<size_t>((p.N + 127) / 128) * p.M;
+#pragma unroll
+  for (int half = 0; half < NB / 128; ++half) {
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) {
+      const int b = 2 * half + bb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bm = kNegInf;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * b + jj, col = n0 + 8 * j + 2 * tig;
+          float& v0 = acc[4 * j + 2 * h];
+          float& v1 = acc[4 * j + 2 * h + 1];
+          if (col >= p.N) v0 = kNegInf;  // TMA read zeros past V
+          if (col + 1 >= p.N) v1 = kNegInf;
+          if (col < p.N && col == lab[h]) t[h] += v0;
+          if (col + 1 < p.N && col + 1 == lab[h]) t[h] += v1;
+          bm = fmaxf(bm, fmaxf(v0, v1));
+        }
+        const float mn = fmaxf(m[h], bm), ml = mn * kLog2e;
+        float s = l[h] * hp::exp2_approx((m[h] - mn) * kLog2e);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * b + jj;
+          s += hp::exp2_approx(fmaf(acc[4 * j + 2 * h], kLog2e, -ml)) +
+               hp::exp2_approx(fmaf(acc[4 * j + 2 * h + 1], kLog2e, -ml));
+        }
+        m[h] = mn;
+        l[h] = s;
+      }
+      asm volatile("" ::: "memory");  // the next box's values stay below this one's sums
+    }
+    const int c = n0 + 128 * half;  // the half's first column: its partial column is c / 128
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mq = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+      float lq = l[h] * hp::exp2_approx((m[h] - mq) * kLog2e);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+      float tq = t[h] + __shfl_xor_sync(0xffffffffu, t[h], 1);
+      tq += __shfl_xor_sync(0xffffffffu, tq, 2);
+      const int row = r + 8 * h;
+      if (tig == 0 && row < p.M && c < p.N) {
+        const size_t at = static_cast<size_t>(c / 128) * p.M + row;
+        p.part[at] = mq;
+        p.part[stride + at] = lq;
+        p.part[2 * stride + at] = tq;
+      }
+    }
+  }
+}
+
+// The body of both kernels below: the forward (kFwd, its own kernel name, so
+// that profiles tell kernel 17 from 18 and 19) and D, dX, dW.
 template <typename T, bool A_K, bool B_K, int PROD>
-__global__ void __launch_bounds__(kThreads, 1)
-flxent_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-                    const __grid_constant__ CUtensorMap tm_out, const Params p) {
+__device__ __forceinline__ void wgmma_body(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
+                                           const CUtensorMap* tm_out, const Params& p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + kBar);
@@ -302,8 +348,8 @@ flxent_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_const
     hp::reg_dealloc<kProducerRegs>();
     if (warp > kConsumerWarps || lane != 0) return;  // one thread issues every copy
     // ---- producer: per item, per k step, A's box(es) and B's boxes ----
-    hp::tma_prefetch(&tm_a);
-    hp::tma_prefetch(&tm_b);
+    hp::tma_prefetch(tm_a);
+    hp::tma_prefetch(tm_b);
     uint32_t s = 0, phase = 0;  // the ring position of the next slab
     for (int i = blockIdx.x; i < p.plan.items; i += gridDim.x) {
       const Item it = item_at(p.plan, i);
@@ -316,17 +362,17 @@ flxent_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_const
         unsigned char* a = sm + s * kStageBytes;
         unsigned char* b = a + kABytes;
         if (A_K) {  // [128 rows][64 k]
-          hp::tma_load_2d(a, &tm_a, &full[s], k0, it.m0);
+          hp::tma_load_2d(a, tm_a, &full[s], k0, it.m0);
         } else {    // [64 k][64 rows], twice
-          hp::tma_load_2d(a, &tm_a, &full[s], it.m0, k0);
-          hp::tma_load_2d(a + kBox, &tm_a, &full[s], it.m0 + 64, k0);
+          hp::tma_load_2d(a, tm_a, &full[s], it.m0, k0);
+          hp::tma_load_2d(a + kBox, tm_a, &full[s], it.m0 + 64, k0);
         }
         if (B_K) {  // [128 columns][64 k], once or twice
           for (int j = 0; j < nb / 128; ++j)
-            hp::tma_load_2d(b + j * (kBBytes / 2), &tm_b, &full[s], k0 + p.b_koff, it.n0 + p.b_noff + 128 * j);
+            hp::tma_load_2d(b + j * (kBBytes / 2), tm_b, &full[s], k0 + p.b_koff, it.n0 + p.b_noff + 128 * j);
         } else {    // [64 k][64 columns], two or four times
           for (int j = 0; j < nb / 64; ++j)
-            hp::tma_load_2d(b + j * kBox, &tm_b, &full[s], it.n0 + p.b_noff + 64 * j, k0 + p.b_koff);
+            hp::tma_load_2d(b + j * kBox, tm_b, &full[s], it.n0 + p.b_noff + 64 * j, k0 + p.b_koff);
         }
         if (++s == kStages) s = 0, phase ^= 1;
       }
@@ -349,13 +395,35 @@ flxent_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_const
     const int m0 = it.m0 + 64 * wg;
     if (it.half) {
       mainloop<T, A_K, B_K, kBN / 2>(acc, sm32, full, empty, pos, nk, wg, lane);
-      epilogue<T, kBN / 2, PROD>(acc, p, &tm_out, out, m0, it.n0, wl, gid, tig, issuer, 1 + wg, boxes);
+      if constexpr (PROD == kFwd) {
+        fwd_epilogue<kBN / 2>(acc, p, m0, it.n0, wl, gid, tig);
+      } else {
+        epilogue<T, kBN / 2, PROD>(acc, p, tm_out, out, m0, it.n0, wl, gid, tig, issuer, 1 + wg, boxes);
+      }
     } else {
       mainloop<T, A_K, B_K, kBN>(acc, sm32, full, empty, pos, nk, wg, lane);
-      epilogue<T, kBN, PROD>(acc, p, &tm_out, out, m0, it.n0, wl, gid, tig, issuer, 1 + wg, boxes);
+      if constexpr (PROD == kFwd) {
+        fwd_epilogue<kBN>(acc, p, m0, it.n0, wl, gid, tig);
+      } else {
+        epilogue<T, kBN, PROD>(acc, p, tm_out, out, m0, it.n0, wl, gid, tig, issuer, 1 + wg, boxes);
+      }
     }
   }
   if (issuer) hp::tma_store_wait_all();  // every store has left shared memory before the CTA exits
+}
+
+template <typename T, bool A_K, bool B_K, int PROD>
+__global__ void __launch_bounds__(kThreads, 1)
+flxent_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_out, const Params p) {
+  wgmma_body<T, A_K, B_K, PROD>(&tm_a, &tm_b, &tm_out, p);
+}
+
+template <typename T, bool B_K>
+__global__ void __launch_bounds__(kThreads, 1)
+flxent_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                        const Params p) {
+  wgmma_body<T, true, B_K, kFwd>(&tm_a, &tm_b, &tm_b, p);
 }
 
 // The map of a row-major [rows, cols] matrix of T (`ld` elements a row) in
@@ -371,11 +439,19 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tout
   int err = hp::sm_count(&sms);
   if (err) return err;
   p.plan = make_plan(p.M, p.N, sms);
-  auto kernel = flxent_wgmma_kernel<T, A_K, B_K, PROD>;
-  err = ptt::allow_smem(kernel, kSmemBytes);
-  if (!err) err = hp::check_reg_split(kernel, kThreads, kConsumers * kConsumerRegs + 128 * kProducerRegs);
-  if (err) return err;
-  kernel<<<p.plan.grid, kThreads, kSmemBytes, stream>>>(ta, tb, tout, p);
+  if constexpr (PROD == kFwd) {
+    auto kernel = flxent_fwd_wgmma_kernel<T, B_K>;
+    err = ptt::allow_smem(kernel, kSmemBytes);
+    if (!err) err = hp::check_reg_split(kernel, kThreads, kConsumers * kConsumerRegs + 128 * kProducerRegs);
+    if (err) return err;
+    kernel<<<p.plan.grid, kThreads, kSmemBytes, stream>>>(ta, tb, p);
+  } else {
+    auto kernel = flxent_wgmma_kernel<T, A_K, B_K, PROD>;
+    err = ptt::allow_smem(kernel, kSmemBytes);
+    if (!err) err = hp::check_reg_split(kernel, kThreads, kConsumers * kConsumerRegs + 128 * kProducerRegs);
+    if (err) return err;
+    kernel<<<p.plan.grid, kThreads, kSmemBytes, stream>>>(ta, tb, tout, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,6 +459,21 @@ Params params(int M, int N, int K) {
   Params p{};
   p.M = M, p.N = N, p.K = K;
   return p;
+}
+
+template <typename T>
+int fwd(int vocab_major, const void* x, const void* w, const void* labels, void* part, int N, int H, int V,
+        cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  int err = map_of<T>(&ta, x, N, H, H, kBM);  // x [N][H]: K-major A
+  if (!err) err = vocab_major ? map_of<T>(&tb, w, V, H, H, 128)  // W [V][H]: K-major B
+                              : map_of<T>(&tb, w, H, V, V, 64);  // W [H][V]: MN-major B
+  if (err) return err;
+  Params p = params(N, V, H);
+  p.labels = static_cast<const int*>(labels);
+  p.part = static_cast<float*>(part);
+  return vocab_major ? launch<T, true, true, kFwd>(ta, tb, tb, p, stream)
+                     : launch<T, true, false, kFwd>(ta, tb, tb, p, stream);
 }
 
 template <typename T>
@@ -439,15 +530,24 @@ int dw_chunk(int vocab_major, const void* x, const void* d, long long ldd, void*
   return launch<T, false, false, kDw>(tx, td, tout, params(H, vc, N), stream);
 }
 
-// the wgmma instance takes 16-bit I/O whose rows TMA can address
+// the wgmma instance takes 16-bit I/O whose rows TMA can address, and a
+// reduction over H > 0 (its accumulators start at the first k step)
 bool mappable(int io, int vocab_major, int H, int V, long long ldd) {
-  return (io == ptt::kBF16 || io == ptt::kF16) && H % 8 == 0 && (vocab_major || V % 8 == 0) && ldd % 8 == 0;
+  return (io == ptt::kBF16 || io == ptt::kF16) && H > 0 && H % 8 == 0 && (vocab_major || V % 8 == 0) &&
+         ldd % 8 == 0;
 }
 
 }  // namespace
 
 namespace ptt {
 namespace flx {
+
+int wgmma_fwd(int io, int vocab_major, const void* x, const void* w, const void* labels, void* part, int N, int H,
+              int V, cudaStream_t s) {
+  if (!mappable(io, vocab_major, H, V, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  return io == kF16 ? fwd<f16>(vocab_major, x, w, labels, part, N, H, V, s)
+                    : fwd<bf16>(vocab_major, x, w, labels, part, N, H, V, s);
+}
 
 int wgmma_dchunk(int io, int vocab_major, const void* x, const void* w, const void* labels, const void* lse,
                  const void* gcoef, void* d, long long ldd, int N, int H, int V, int c0, int vc, cudaStream_t s) {

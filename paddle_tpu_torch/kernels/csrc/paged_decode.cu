@@ -22,21 +22,24 @@
 // two fp32 scale planes [NB, HKV, BS] addressed by the same physical block
 // id; each loaded element is dequantized as float(int8) * scale (the
 // Pallas `_dequant_tile`, one fp32 multiply, the plain version's bits). A
-// lane's 16-byte load then carries 16 int8 values: with D = 128 each lane's
-// D / 8 = 16 elements are one load, with D = 64 its 8 elements one 8-byte
-// load, so the lanes of a row and their shuffle reduction stay as they are.
+// lane's slice is then 8 or 16 bytes (one load at D 64, 128 and 256) or 12
+// (three 4-byte loads at D 192), so the lanes of a row and their shuffle
+// reduction stay as they are.
 // q and out keep their own type T.
 //
 // Design (simple first, not yet fast). One CUDA block of 4 warps per (up to
 // ROWS query heads of one KV head, KV head, slot): ROWS is 1 for MHA and 4
 // otherwise, so GQA heads share each K/V row they read. The block splits the
-// slot's positions over 16 lane groups of 8 lanes: group t takes positions
-// t, t + 16, t + 32, ...; its 8 lanes each hold D / 8 elements of the K and
-// V row (16-byte loads, a group reads whole 128-byte lines), reduce the dot
-// product with 3 shuffles and keep their own online-softmax state (m, l and
-// a D / 8 slice of the accumulator per row). At the end the 16 partial
-// states are merged: across the 4 groups of a warp with shuffles, across
-// the 4 warps through shared memory.
+// slot's positions over lane groups of LANES lanes (8 at D 64 and 128, 16 at
+// D 192 and 256, so a lane holds at most 16 elements of a row whatever D):
+// group t takes positions t, t + G, t + 2 G, ... (G = 128 / LANES groups);
+// its lanes each hold D / LANES elements of the K and V row (loads of 16
+// bytes where the slice allows, else 8 or 4: at D 192 a lane's 12 elements
+// are three 8-byte loads in bf16 and fp16 and three 4-byte loads in int8),
+// reduce the dot product with shuffles and keep their own online-softmax
+// state (m, l and a D / LANES slice of the accumulator per row). At the end
+// the partial states are merged: across the groups of a warp with shuffles,
+// across the 4 warps through shared memory.
 //
 // Bound on H100: bytes. Each used K/V row is read once per block, ~1 flop
 // per byte for MHA, far under the card's ~295 flop/byte ridge. With G = 1
@@ -54,23 +57,36 @@ using ptt::f16;
 namespace {
 
 constexpr int kThreads = 128;             // 4 warps
-constexpr int kLanes = 8;                 // lanes that share one K/V row
-constexpr int kGroups = kThreads / kLanes;  // positions in flight per block (16)
 constexpr float kNegInf = -1e30f;         // the Pallas kernel's NEG_INF
 
-// the kVec elements of chunk c of a row (kVec * sizeof(T) bytes: 16, or 8
-// for an int8 row of D = 64), as fp32
+// lanes that share one K/V row: a lane's slice is D / 8 elements up to D
+// 128, D / 16 above (16 at D 256, as at D 128: the registers do not grow)
+__host__ __device__ constexpr int lanes_of(int d) { return d <= 128 ? 8 : 16; }
+
+// elements per load of a lane's slice of e elements of `size` bytes: the
+// widest of 16, 8 and 4 bytes that divides the slice
+__host__ __device__ constexpr int vec_of(int e, int size) {
+  return e * size % 16 == 0 ? 16 / size : e * size % 8 == 0 ? 8 / size : 4 / size;
+}
+
+// the kVec elements of chunk c of a row (kVec * sizeof(T) bytes: 16, 8 or
+// 4), as fp32
 template <typename T, int kVec>
 __device__ __forceinline__ void load_chunk(const T* row, int c, float* dst) {
   constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
-  static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte loads");
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4, "16-, 8- or 4-byte loads");
   if constexpr (kBytes == 16) {
     const uint4 raw = ptt::load16<T>(row, c);
     const T* e = ptt::elems_of<T>(raw);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
-  } else {
+  } else if constexpr (kBytes == 8) {
     const uint2 raw = reinterpret_cast<const uint2*>(row)[c];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
+  } else {
+    const uint32_t raw = reinterpret_cast<const uint32_t*>(row)[c];
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) dst[i] = ptt::to_f(e[i]);
@@ -91,9 +107,11 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
                     T* __restrict__ out,             // [B, HQ, D]
                     int HQ, int HKV, int BS, int MBS, float scale) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int kLanes = lanes_of(D);     // lanes that share one K/V row
+  constexpr int kGroups = kThreads / kLanes;  // positions in flight per block (16, or 8 above D 128)
   constexpr int kE = D / kLanes;         // elements per lane of a row
-  constexpr int kVec = 16 / static_cast<int>(sizeof(KV)) < kE ? 16 / static_cast<int>(sizeof(KV)) : kE;
-  constexpr int kLoads = kE / kVec;      // loads per lane of a row (16 bytes, or 8 for int8 at D 64)
+  constexpr int kVec = vec_of(kE, static_cast<int>(sizeof(KV)));
+  constexpr int kLoads = kE / kVec;      // loads per lane of a row
   static_assert(kE % kVec == 0 && kLoads >= 1, "a lane's slice must be whole chunks");
   constexpr int kWarps = kThreads / 32;
 
@@ -127,7 +145,7 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
   }
   __syncthreads();
 
-  // this lane's slice: 16-byte chunks sub, sub + 8, ... of the row
+  // this lane's slice: chunks sub, sub + kLanes, ... of the row
   float qr[ROWS][kE];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
@@ -190,7 +208,7 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
     }
   }
 
-  // merge the 4 lane groups of each warp (lanes sub, sub + 8, sub + 16, sub + 24);
+  // merge the lane groups of each warp (lanes sub, sub + kLanes, ...);
   // a group that visited nothing holds m = -1e30, l = 0, acc = 0
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -253,6 +271,10 @@ int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void*
     PTT_LAUNCH(128);
   } else if (D == 64) {
     PTT_LAUNCH(64);
+  } else if (D == 192) {
+    PTT_LAUNCH(192);
+  } else if (D == 256) {
+    PTT_LAUNCH(256);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,7 +319,8 @@ int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const
 }  // namespace
 
 // Kernel 5. `io` is the storage type (ptt::IoType). Returns
-// cudaErrorInvalidValue for a head dim other than 64 or 128 or an unknown type.
+// cudaErrorInvalidValue for a head dim other than 64, 128, 192 or 256 or an
+// unknown type.
 extern "C" int ptt_paged_decode(int io, const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* lens, void* out, int B, int HQ,
                                 int HKV, int D, int BS, int MBS, float scale, void* stream) {

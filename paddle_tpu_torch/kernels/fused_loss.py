@@ -23,7 +23,8 @@ Port of ``paddle_tpu/kernels/fused_loss.py``:
 
 - :func:`flxent_fwd_int8` — kernel 17's int8 site (``_make_pallas_quant_fwd``):
   the forward of a weight-only int8 head, ``W`` int8 with one fp32 scale
-  per vocab column, each logit scaled before the softmax statistics. It has
+  per vocab column, each logit scaled before the softmax statistics, for
+  bf16, fp16 or fp32 activations (JAX sends any dtype there). It has
   no backward (nothing differentiates through an int8 weight, as in JAX):
   :func:`linear_cross_entropy` with ``weight_scale`` runs it forward only,
   and a gradient request raises.
@@ -35,14 +36,19 @@ backward; a label equal to ``ignore_index`` or outside ``[0, V)`` matches
 no column (its ``tl`` is 0). The plain versions walk the vocab in the JAX
 scan reference's chunks (``_REF_BLOCK``), in fp32 from the inputs' values.
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
-launches a kernel or raises. Kernel 17 runs ``csrc/flxent_fwd.cu``'s
-mma.sync mainloop in bf16 and fp16 and ``csrc/flxent_fp32.cu`` (the CUDA
-cores) in fp32. The backward's products take the instance
-:func:`flx_route` names from the dtype, W's shape and W's alignment
-before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop fed by
-TMA, tiles planned by :func:`flx_plan` and walked as :func:`flx_items`
-says), the mma.sync mainloop (``csrc/flxent_fwd.cu``, ``flxent_dx.cu``,
-``flxent_dw.cu``) where TMA cannot address W, or the CUDA cores in fp32.
+launches a kernel or raises. Kernel 17 and the backward's products take
+the instance :func:`flx_route` names from the dtype, W's shape and W's
+alignment before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop
+fed by TMA, tiles planned by :func:`flx_plan` and walked as
+:func:`flx_items` says; the forward's per-row partials reduced in
+registers, :data:`TILE` columns a partial), the mma.sync mainloop
+(``csrc/flxent_fwd.cu``, ``flxent_dx.cu``, ``flxent_dw.cu``) where TMA
+cannot address W, or the CUDA cores in fp32 (``csrc/flxent_fp32.cu``).
+Kernel 17's int8 site takes the instance :func:`flx_int8_route` names:
+kernel 20's wgmma mainloop (``csrc/wo_mainloop.cuh``, epilogue in
+``csrc/flxent_int8.cu``) for the int8 Llama head's ``[H, V]`` layout, the
+mma.sync mainloop for a vocab-major or ragged int8 W, the CUDA cores for
+fp32 activations.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ __all__ = [
     "CHUNK",
     "FusedLinearCrossEntropyFunction",
     "Int8HeadLossFunction",
+    "flx_int8_route",
+    "flx_int8_route_of",
     "flx_items",
     "flx_plan",
     "flx_route",
@@ -85,26 +93,52 @@ _ROUTES = {"wgmma": 0, "mma_sync": 1, "cuda_cores": 2}  # ptt::flx::Route
 
 
 def flx_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
-    """Which instance of the backward's products (the D recompute, kernels
-    18 and 19) takes ``x [N, h]`` against ``W`` (``[h, v]``, or ``[v, h]``
-    with ``vocab_major``) of ``dtype``: ``"wgmma"`` (the wgmma mainloop fed
-    by TMA) for bf16 and fp16 when TMA can address every operand's rows
-    (``2 h`` and, for ``[h, v]``, ``2 v`` bytes, multiples of 16:
-    ``h % 8 == 0`` and ``v % 8 == 0``) and W's first element
-    (``w_aligned``: its address a multiple of 16); ``"mma_sync"`` (the
-    mma.sync mainloop, which stages any row) for the other bf16 and fp16
-    shapes; ``"cuda_cores"`` for fp32. Any other dtype raises."""
+    """Which instance of kernel 17 and of the backward's products (the D
+    recompute, kernels 18 and 19) takes ``x [N, h]`` against ``W``
+    (``[h, v]``, or ``[v, h]`` with ``vocab_major``) of ``dtype``:
+    ``"wgmma"`` (the wgmma mainloop fed by TMA) for bf16 and fp16 when TMA
+    can address every operand's rows (``2 h`` and, for ``[h, v]``, ``2 v``
+    bytes, multiples of 16: ``h % 8 == 0`` and ``v % 8 == 0``; ``h > 0``)
+    and W's first element (``w_aligned``: its address a multiple of 16);
+    ``"mma_sync"`` (the mma.sync mainloop, which stages any row) for the
+    other bf16 and fp16 shapes; ``"cuda_cores"`` for fp32. Any other dtype
+    raises."""
     if dtype == torch.float32:
         return "cuda_cores"
     if dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"the loss head's CUDA kernels take bf16, fp16 or fp32, not {dtype}")
-    return "wgmma" if w_aligned and h % 8 == 0 and (vocab_major or v % 8 == 0) else "mma_sync"
+    return "wgmma" if w_aligned and h > 0 and h % 8 == 0 and (vocab_major or v % 8 == 0) else "mma_sync"
 
 
 def flx_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
-    """:func:`flx_route` of the contiguous ``x [N, H]`` and ``W`` that the
-    backward launches on."""
+    """:func:`flx_route` of the contiguous ``x [N, H]`` and ``W`` that kernels
+    17-19 launch on."""
     return flx_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
+
+
+def flx_int8_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
+    """Which instance of kernel 17's int8 site takes activations of
+    ``dtype`` ``[N, h]`` against the int8 ``W`` (``[h, v]``, or ``[v, h]``
+    with ``vocab_major``): ``"wgmma"`` (kernel 20's mainloop: the int8 W
+    widened in registers as wgmma's A operand, x streamed by TMA) for bf16
+    and fp16 with ``W [h, v]`` whose rows TMA can address (``h % 8 == 0``,
+    ``h > 0``, ``v % 16 == 0`` and W 16-byte aligned: kernel 20's
+    :func:`~paddle_tpu_torch.kernels.quant.wo_route` conditions);
+    ``"mma_sync"`` (the int8 slabs widened in shared memory) for the other
+    bf16 and fp16 shapes, the vocab-major layout included; ``"cuda_cores"``
+    for fp32. Any other dtype raises."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"the int8 head's CUDA kernels take bf16, fp16 or fp32 activations, not {dtype}")
+    wgmma = not vocab_major and w_aligned and h > 0 and h % 8 == 0 and v % 16 == 0
+    return "wgmma" if wgmma else "mma_sync"
+
+
+def flx_int8_route_of(x: torch.Tensor, w8: torch.Tensor, vocab_major: bool) -> str:
+    """:func:`flx_int8_route` of the contiguous ``x [N, H]`` and int8 ``W``
+    that the int8 site launches on."""
+    return flx_int8_route(x.dtype, x.shape[1], _vocab(w8, vocab_major), vocab_major, w8.data_ptr() % 16 == 0)
 
 
 FLX_BM, FLX_BN = 128, 256  # the wgmma instance's output tile; a half tile is 128 x 128
@@ -281,21 +315,22 @@ def flxent_fwd(
     x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` against ``W``. Kernel 17
-    is two launches, each counted: the logits tiles' partials, then their
-    fixed-order merge."""
+    is two launches on the instance :func:`flx_route` names, each counted:
+    the logits tiles' partials, then their fixed-order merge."""
     if x.device.type == "cpu":
         return flxent_fwd_plain(x, w, labels, vocab_major)
     io, x, w, lab, n, h, v = _operands("flxent_fwd", x, w, labels, vocab_major)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     tl = torch.empty_like(lse)
     if n and v:
+        route = flx_route_of(x, w, vocab_major)
         tiles = -(-v // TILE)
         part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
-        fn = build.kernel_fn("ptt_flxent_fwd", [_I, _I] + [_P] * 4 + [_I] * 3 + [_P])
+        fn = build.kernel_fn("ptt_flxent_fwd", [_I, _I, _I] + [_P] * 4 + [_I] * 3 + [_P])
         merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
         with torch.cuda.device(x.device):
-            build.check(fn(io, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), part.data_ptr(),
-                           n, h, v, _stream()), "flxent_fwd")
+            build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(),
+                           part.data_ptr(), n, h, v, _stream()), f"flxent_fwd ({route})")
             count_launch("flxent_fwd")
             build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), "flxent_fwd merge")
             count_launch("flxent_fwd")
@@ -305,15 +340,14 @@ def flxent_fwd(
 def flxent_fwd_int8(
     x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` (bf16 or fp16) against the
-    int8 ``W`` with per-column fp32 ``scale [V]``: kernel 17's int8 site,
-    two launches, each counted as ``flxent_fwd_int8`` (the logits tiles'
-    partials, then the bf16 forward's merge)."""
+    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` (bf16, fp16 or fp32)
+    against the int8 ``W`` with per-column fp32 ``scale [V]``: kernel 17's
+    int8 site on the instance :func:`flx_int8_route` names, two launches,
+    each counted as ``flxent_fwd_int8`` (the logits tiles' partials, then
+    the bf16 forward's merge)."""
     if x.device.type == "cpu":
         return flxent_fwd_int8_plain(x, w8, scale, labels, vocab_major)
     what = "flxent_fwd_int8"
-    if x.dtype not in (torch.bfloat16, torch.float16):
-        raise TypeError(f"{what}: the int8 head's kernel takes bf16 or fp16 activations, not {x.dtype}")
     io, x, w8, lab, n, h, v = _operands(what, x, w8, labels, vocab_major, w_dtype=torch.int8)
     if scale.shape != (v,) or scale.dtype != torch.float32 or scale.device != x.device:
         raise ValueError(f"{what}: the scale must be fp32 [{v}] on {x.device}, got {scale.dtype} "
@@ -324,11 +358,12 @@ def flxent_fwd_int8(
     if n and v:
         tiles = -(-v // TILE)
         part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
-        fn = build.kernel_fn("ptt_flxent_fwd_int8", [_I, _I] + [_P] * 5 + [_I] * 3 + [_P])
+        route = flx_int8_route_of(x, w8, vocab_major)
+        fn = build.kernel_fn("ptt_flxent_fwd_int8", [_I, _I, _I] + [_P] * 5 + [_I] * 3 + [_P])
         merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
         with torch.cuda.device(x.device):
-            build.check(fn(io, int(vocab_major), x.data_ptr(), w8.data_ptr(), scale.data_ptr(), lab.data_ptr(),
-                           part.data_ptr(), n, h, v, _stream()), what)
+            build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+                           lab.data_ptr(), part.data_ptr(), n, h, v, _stream()), f"{what} ({route})")
             count_launch(what)
             build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), f"{what} merge")
             count_launch(what)

@@ -22,8 +22,8 @@ block tables; keys are stored roped. Four kernels:
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
 ``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
-kernels take bf16, fp16 or fp32 storage; A and 4 take head dims 64, 128,
-192 and 256, 5 and 6 head dims 64 and 128. The rope rows reach A and 6 in
+kernels take bf16, fp16 or fp32 storage and head dims 64, 128, 192 and
+256 (the JAX package's ``D % 64`` gate). The rope rows reach A and 6 in
 fp32, as the engine gathers them; the kernels round them to q's dtype.
 
 The int8 pool: with ``k_scale``/``v_scale`` (fp32 ``[NB, HKV, BS]``, one
@@ -65,7 +65,7 @@ NEG_INF = -1e30  # the Pallas kernel's masked score
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # head dims each CUDA kernel takes: the chunk kernels A and 4, the decode kernels 5 and 6
 CHUNK_HEAD_DIMS = (64, 128, 192, 256)
-DECODE_HEAD_DIMS = (64, 128)
+DECODE_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -311,6 +311,7 @@ def test_flx_route_takes_wgmma_on_the_main_paths(h, v, vocab_major):
     (torch.bfloat16, 1024, 32003, True, "wgmma"),  # vocab-major rows are H long
     (torch.bfloat16, 1004, 5000, True, "mma_sync"),  # H % 8 != 0
     (torch.float32, 1024, 32003, False, "cuda_cores"),
+    (torch.bfloat16, 0, 5000, False, "mma_sync"),  # an empty contraction: the wgmma accumulators start at k step 0
 ])
 def test_flx_route_by_dtype_alignment_and_layout(dtype, h, v, vocab_major, route):
     assert kloss.flx_route(dtype, h, v, vocab_major) == route
@@ -486,6 +487,113 @@ def test_wgmma_walk_emulation_matches_plain_and_pallas(vocab_major, dtype):
             assert a.shape == b.shape and np.isfinite(a).all()
             limit = ulp * scale + ulp * np.abs(b)
             assert (np.abs(a - b) <= limit).all(), float((np.abs(a - b) / np.maximum(limit, 1e-30)).max())
+
+
+LOG2E = 1.4426950408889634
+
+
+def merge_partials(part):
+    """``ptt_flxent_merge``: per row, the vocab tiles' partials in tile
+    order: ``lse = m + log(sum_t l_t exp(m_t - m))``, ``tl = sum_t tl_t``."""
+    m = part[0].amax(dim=0)
+    l = torch.zeros_like(m)
+    tl = torch.zeros_like(m)
+    for t in range(part.shape[1]):
+        l = l + part[1, t] * torch.exp(part[0, t] - m)
+        tl = tl + part[2, t]
+    return m + torch.log(l), tl
+
+
+def emulate_flx_fwd(x, w, labels, vocab_major, sms=132, bk=64):
+    """The wgmma route of ``flxent_fwd`` (kernel 17) in PyTorch: one launch
+    over the items of ``flx_plan(N, V)``, each tile's fp32 logits summed k
+    step by k step (``bk``; zero past K and past V, as TMA fills them), then
+    the epilogue from registers: columns >= V become NEG_INF; per row, each
+    of the quad's four threads (columns 8 j + 2 tig and + 1 of the half)
+    walks the half's two 64-column boxes, the box max first, then its exps
+    as 2^(v log2 e - m log2 e) added to the earlier boxes' sum rescaled onto
+    the running max; the four states merged across the quad (xor 1, then
+    2); one partial column per 128-column half (none for a half past V);
+    then the merge in tile order."""
+    n, h = x.shape
+    v = w.shape[0] if vocab_major else w.shape[1]
+    xf = x.float()
+    wt = (w.t() if vocab_major else w).float()  # [H, V]
+    part = torch.full((3, -(-v // kloss.TILE), n), float("nan"))
+    for r0, c0, cols in kloss.flx_items(kloss.flx_plan(n, v, sms)):
+        if c0 >= v:  # the empty half of the last column tile: the kernel skips it
+            continue
+        rows = min(kloss.FLX_BM, n - r0)
+        wb = torch.zeros((h, cols))
+        wb[:, :min(cols, v - c0)] = wt[:, c0:c0 + cols]
+        acc = torch.zeros((rows, cols))
+        for k0 in range(0, h, bk):
+            acc += xf[r0:r0 + rows, k0:k0 + bk] @ wb[k0:k0 + bk]
+        acc = torch.where(torch.arange(c0, c0 + cols)[None, :] < v, acc, kloss.NEG_INF)
+        lab = labels[r0:r0 + rows].long()
+        for half in range(cols // 128):
+            hc0 = c0 + 128 * half
+            if hc0 >= v:  # no partial column past V
+                continue
+            # [rows, box, jj, tig, e]: thread tig of the quad holds columns 64 box + 8 jj + 2 tig + e
+            seg = acc[:, 128 * half:128 * half + 128].reshape(rows, 2, 8, 4, 2)
+            col = (hc0 + torch.arange(128)).reshape(2, 8, 4, 2)
+            hit = (col[None] == lab[:, None, None, None, None]) & (col[None] < v)
+            m = torch.full((rows, 4), kloss.NEG_INF)
+            l = torch.zeros((rows, 4))
+            for b in range(2):
+                vals = seg[:, b].permute(0, 2, 1, 3).reshape(rows, 4, 16)  # [rows, tig, 16]
+                mn = torch.maximum(m, vals.amax(dim=-1))
+                ml = mn * LOG2E
+                l = l * torch.exp2((m - mn) * LOG2E) + torch.exp2(vals * LOG2E - ml[..., None]).sum(dim=-1)
+                m = mn
+            t = torch.where(hit, seg, 0.0).sum(dim=(1, 2, 4))  # [rows, tig]
+            mq = m.amax(dim=1, keepdim=True)
+            lq = l * torch.exp2((m - mq) * LOG2E)
+            part[0, hc0 // 128, r0:r0 + rows] = mq[:, 0]
+            part[1, hc0 // 128, r0:r0 + rows] = (lq[:, 0] + lq[:, 1]) + (lq[:, 2] + lq[:, 3])
+            part[2, hc0 // 128, r0:r0 + rows] = (t[:, 0] + t[:, 1]) + (t[:, 2] + t[:, 3])
+    assert not part.isnan().any()  # every partial column written once
+    return merge_partials(part)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("vocab_major", [False, True], ids=["[H,V]", "[V,H]"])
+def test_wgmma_forward_emulation_matches_plain_and_pallas(vocab_major, dtype):
+    """Kernel 17's wgmma route: rows ragged against the 128-row tiles (160),
+    H 200 (a partial k box), V 520 (the last 256-column tile holds 8 real
+    columns, its second half none); four CTAs, so the plan splits the last
+    tiles into halves, one of them past V. Labels ignored, past V, and on
+    tile and half edges. Gate: lse and tl within 1e-5 of max(1, |v|) of the
+    plain version (the same fp32 logits, summed and exponentiated (2^x) in
+    another order), and the per-row loss against the Pallas kernels in
+    interpret mode at 1e-5."""
+    n, h, v = 160, 200, 520
+    rng = np.random.default_rng(14)
+    jdt = getattr(jnp, dtype)
+    x = np.array(jnp.asarray(rng.normal(size=(n, h)), jdt).astype(jnp.float32))
+    w = np.array(jnp.asarray(rng.normal(size=(h, v)) * 0.2, jdt).astype(jnp.float32))
+    lab = rng.integers(0, v, (n,)).astype(np.int32)
+    lab[::9] = IGN
+    lab[4], lab[13], lab[14] = v, v + 3, 1 << 20
+    lab[5], lab[6], lab[7], lab[8], lab[10] = 127, 128, 255, 256, 519
+    tdt = getattr(torch, dtype)
+    wl = np.ascontiguousarray(w.T) if vocab_major else w
+    tx, tw, tl = torch.from_numpy(x).to(tdt), torch.from_numpy(wl).to(tdt), torch.from_numpy(lab)
+    assert kloss.flx_route_of(tx, tw, vocab_major) == "wgmma"
+    items = kloss.flx_items(kloss.flx_plan(n, v, 4))
+    assert any(cols == 128 and c0 >= v for _, c0, cols in items)  # a half past V
+    assert any(cols == 128 and c0 < v for _, c0, cols in items)  # and a real one
+    lse, tlg = emulate_flx_fwd(tx, tw, tl, vocab_major, sms=4)
+    lse_p, tl_p = kloss.flxent_fwd_plain(tx, tw, tl, vocab_major)
+    for got, want in ((lse, lse_p), (tlg, tl_p)):
+        assert ((got - want).abs() <= 1e-5 * want.abs().clamp(min=1.0)).all(), float((got - want).abs().max())
+    assert not tlg[lab == IGN].any() and tlg[4] == 0 and tlg[13] == 0 and tlg[14] == 0
+    loss = torch.where(tl != IGN, lse - tlg, 0.0).numpy()
+    want, _, _ = _jax_loss_and_grads(x, w, lab, jdt, "none", vocab_major, "pallas interpret", np.ones(n, np.float32))
+    # the Pallas path pads V to whole 128-column blocks, where a label in [V, 640) meets a NEG_INF column
+    padded = (lab >= v) & (lab < 640)
+    np.testing.assert_allclose(loss[~padded], want[~padded], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("vocab_major", [False, True], ids=["[H,V]", "[V,H]"])

@@ -20,11 +20,18 @@
   prefill, copy-on-write fork): payload and scales bit for bit, masked
   slots and rows past ``q_lens`` included.
 - The plain versions of kernels A, 4, 5 and 6 over int8 pools against the
-  Pallas kernels in interpret mode, MHA and GQA, head dim 64 and 128, at the
-  paged tests' tolerances (fp32 1e-5, kernel 6 2e-5; bf16 one ulp).
+  Pallas kernels in interpret mode, MHA and GQA, head dim 64 and 128 (and
+  192 and 256 in bf16), at the paged tests' tolerances (fp32 1e-5, kernel 6
+  2e-5; bf16 one ulp).
 - The weight-only int8 loss (kernel 17's int8 site): the public entry,
   H-major and vocab-major, every reduction, against ``_reference_quant_path``
-  and the interpret ``_pallas_quant_path`` at 1e-5.
+  and the interpret ``_pallas_quant_path`` at 1e-5; its routes
+  (``flx_int8_route``: kernel 20's wgmma mainloop for bf16 / fp16 ``W [H,
+  V]`` with V % 16 == 0, mma.sync otherwise, the CUDA cores for fp32);
+  ``emulate_flx_int8_fwd`` (the wgmma route's tiles and transposed
+  epilogue: scale before the mask, the reduction over vocab rows) and the
+  CUDA-core instance's emulation in fp32 against the plain version and
+  the Pallas kernel in interpret mode.
 - End to end on a tiny fp32 Llama carried across: both engines with
   ``kv_cache_dtype="int8", weight_only_int8=True``, fused and unfused, give
   the same greedy streams and ``bytes_per_token``; one step's logits
@@ -561,8 +568,12 @@ def _quant_cache(rng, d, hkv, nb=16, bs=8):
     return [np.asarray(a) for a in (k8, v8, ks, vs)]
 
 
-PAGED_CASES = [(g, "float32") for g in GEOMETRIES] + [(GEOMETRIES[1], "bfloat16"), (GEOMETRIES[3], "bfloat16")]
-PAGED_IDS = [f"{i}-fp32" for i in GEOMETRY_IDS] + [f"{GEOMETRY_IDS[1]}-bf16", f"{GEOMETRY_IDS[3]}-bf16"]
+# head dims 192 and 256 too: the JAX package's D % 64 gate sends them to every paged kernel, and so
+# does the port (kernels 5 and 6's 16-lane row groups)
+PAGED_CASES = [(g, "float32") for g in GEOMETRIES] + [(GEOMETRIES[1], "bfloat16"), (GEOMETRIES[3], "bfloat16"),
+                                                      ((192, 4, 4), "bfloat16"), ((256, 8, 2), "bfloat16")]
+PAGED_IDS = [f"{i}-fp32" for i in GEOMETRY_IDS] + [f"{GEOMETRY_IDS[1]}-bf16", f"{GEOMETRY_IDS[3]}-bf16",
+                                                   "d192-mha-bf16", "d256-gqa-bf16"]
 
 
 @pytest.mark.parametrize("geometry,dtype", PAGED_CASES, ids=PAGED_IDS)
@@ -657,6 +668,200 @@ def test_int8_loss_matches_jax_reference_and_interpret_kernel(h, vocab_major, re
     assert got.dtype == torch.float32 and got.shape == ((n,) if reduction == "none" else ())
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(interp), rtol=1e-5, atol=1e-5)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _merge_partials(part):
+    """``ptt_flxent_merge``: per row, the vocab tiles' partials in tile
+    order: ``lse = m + log(sum_t l_t exp(m_t - m))``, ``tl = sum_t tl_t``."""
+    m = part[0].amax(dim=0)
+    l, tl = torch.zeros_like(m), torch.zeros_like(m)
+    for t in range(part.shape[1]):
+        l = l + part[1, t] * torch.exp(part[0, t] - m)
+        tl = tl + part[2, t]
+    return m + torch.log(l), tl
+
+
+def emulate_flx_int8_fwd(x, w8, scale, labels, sms=132, bk=WO_BK):
+    """Kernel 17's int8 site on its wgmma route in PyTorch: kernel 20's
+    tiles (``wo_plan``: 128 vocab columns by 8, 64, 128 or 256 tokens), each
+    the transposed product ``W^T x^T`` of the int8 values widened exactly,
+    summed k step by k step (zero past K and past V, as TMA fills them);
+    then the transposed epilogue: each value times its column's scale, then
+    NEG_INF past V; per token the max over the 128 columns (a warp's 16 —
+    two a thread, then a tree across its 8 lane groups — then the 8 warps);
+    the sums of 2^(v log2 e - m log2 e) the same way, the warps added in
+    order; the target logit from its column; one partial column a tile;
+    then the merge in tile order."""
+    n, h = x.shape
+    v = w8.shape[1]
+    xf, wf = x.float(), w8.to(x.dtype).float()
+    part = torch.full((3, -(-v // WO_BN), n), float("nan"))
+    for r0, rows, c0 in _plan_items(kquant.wo_plan(n, v, sms), n):
+        rows = min(rows, n - r0)
+        real = min(WO_BN, v - c0)
+        wb = torch.zeros((h, WO_BN))
+        wb[:, :real] = wf[:, c0:c0 + real]
+        acc = torch.zeros((WO_BN, rows))  # [vocab column, token]
+        for k0 in range(0, h, bk):
+            acc += wb[k0:k0 + bk].t() @ xf[r0:r0 + rows, k0:k0 + bk].t()
+        sc = torch.zeros(WO_BN)
+        sc[:real] = scale[c0:c0 + real]
+        cols = torch.arange(c0, c0 + WO_BN)
+        acc = torch.where(cols[:, None] < v, acc * sc[:, None], kloss.NEG_INF)
+        a = acc.reshape(8, 8, 2, rows)  # [warp, lane group gid, the thread's two columns, token]
+        m = a.amax(dim=(1, 2)).amax(dim=0)  # [token]
+        e = torch.exp2(a * LOG2E - (m * LOG2E)[None, None, None, :])
+        lanes = e[:, :, 0] + e[:, :, 1]  # [warp, gid, token]
+        while lanes.shape[1] > 1:  # shfl_xor 4, 8, 16: gid bits 0, 1, 2
+            lanes = lanes[:, 0::2] + lanes[:, 1::2]
+        l = torch.zeros(rows)
+        for w in range(8):
+            l = l + lanes[w, 0]
+        lab = labels[r0:r0 + rows].long()
+        hit = (cols[:, None] == lab[None, :]) & (cols[:, None] < v)
+        t = c0 // WO_BN
+        part[0, t, r0:r0 + rows] = m
+        part[1, t, r0:r0 + rows] = l
+        part[2, t, r0:r0 + rows] = torch.where(hit, acc, 0.0).sum(dim=0)
+    assert not part.isnan().any()  # every partial column written once
+    return _merge_partials(part)
+
+
+def _int8_head(rng, n, h, v, vocab_major=False):
+    """x [n, h] fp32, the JAX quantizer's int8 head (W [h, v] or [v, h]) and
+    scales, and labels: ignored rows, past V, on tile edges and V - 1."""
+    x = rng.normal(size=(n, h)).astype(np.float32)
+    w8, scale = jax_quant.quantize_weight_int8(jnp.asarray(rng.normal(size=(h, v)) * 0.05, jnp.float32))
+    w8 = np.asarray(w8).T.copy() if vocab_major else np.asarray(w8)
+    lab = rng.integers(0, v, (n,)).astype(np.int32)
+    lab[::7] = -100
+    special = [v + 3, 1 << 20, 127, 128, v - 1]
+    lab[1:1 + len(special)] = special[:n - 1]
+    return x, w8, np.asarray(scale), lab
+
+
+@pytest.mark.parametrize("n", [300, 40, 5], ids=["256-and-128-row-tiles", "64-row-tiles", "8-row-tiles"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_int8_site_wgmma_emulation_matches_plain_and_pallas(dtype, n):
+    """The int8 site's wgmma route (the int8 Llama head's ``W [H, V]``): H
+    200 (a partial k box), V 400 (the last 128-column tile holds 16 real
+    columns); 300 rows take a 256-row tile and an odd 128-row block's, 40 the
+    64-row tiles, 5 the 8-row ones. Gate: lse and tl within 1e-5 of max(1,
+    |v|) of the plain version (the same fp32 logits, scaled, summed and
+    exponentiated (2^x) in another order), and the per-row loss against the
+    Pallas ``_pallas_quant_path`` in interpret mode at 1e-5 (rows whose
+    label falls in the Pallas path's padding of V to 512 aside: a padded
+    NEG_INF column matches them there)."""
+    h, v = 200, 400
+    rng = np.random.default_rng(17)
+    x, w8, scale, lab = _int8_head(rng, n, h, v)
+    tx, jx = _pair(x, dtype)
+    tw8, ts, tl = (torch.from_numpy(a.copy()) for a in (w8, scale, lab))
+    assert kloss.flx_int8_route_of(tx, tw8, False) == "wgmma"
+    lse, tlg = emulate_flx_int8_fwd(tx, tw8, ts, tl)
+    lse_p, tl_p = kloss.flxent_fwd_int8_plain(tx, tw8, ts, tl)
+    for got, want in ((lse, lse_p), (tlg, tl_p)):
+        assert ((got - want).abs() <= 1e-5 * want.abs().clamp(min=1.0)).all(), float((got - want).abs().max())
+    assert not tlg[tl == -100].any() and not tlg[tl >= v].any()
+    loss = torch.where(tl != -100, lse - tlg, 0.0).numpy()
+    want = np.asarray(jax_loss._pallas_quant_path(jx, jnp.asarray(w8), jnp.asarray(scale), jnp.asarray(lab), v=v,
+                                                  h=h, ignore_index=-100, reduction="none", vocab_major=False,
+                                                  interpret=True, block=(16, 128)))
+    keep = ~((lab >= v) & (lab < 512))
+    np.testing.assert_allclose(loss[keep], want[keep], rtol=1e-5, atol=1e-5)
+
+
+def emulate_flx_int8_fwd_f32(x, w8, scale, labels, vocab_major):
+    """The int8 site's CUDA-core instance in PyTorch (fp32 x): 128 x 128
+    tiles of the fp32 product of x and the int8 values, each k tile of 16
+    summed apart and then added; per row and tile the partials of the
+    logits times their columns' scales, NEG_INF past V; then the merge."""
+    n, h = x.shape
+    wt = (w8.t() if vocab_major else w8).float()  # [H, V]
+    v = wt.shape[1]
+    part = torch.empty((3, -(-v // 128), n))
+    for c0 in range(0, v, 128):
+        cols = torch.arange(c0, c0 + 128)
+        wb = torch.zeros((h, 128))
+        wb[:, :min(128, v - c0)] = wt[:, c0:c0 + 128]
+        acc = torch.zeros((n, 128))
+        for k0 in range(0, h, 16):
+            acc += x[:, k0:k0 + 16] @ wb[k0:k0 + 16]
+        sc = torch.ones(128)
+        sc[:min(128, v - c0)] = scale[c0:c0 + 128]
+        logit = torch.where(cols[None, :] < v, acc * sc[None, :], kloss.NEG_INF)
+        mx = logit.amax(dim=1)
+        hit = (cols[None, :] == labels.long()[:, None]) & (cols[None, :] < v)
+        part[:, c0 // 128] = torch.stack([mx, torch.exp(logit - mx[:, None]).sum(dim=1),
+                                          torch.where(hit, logit, 0.0).sum(dim=1)])
+    return _merge_partials(part)
+
+
+@pytest.mark.parametrize("vocab_major", [False, True], ids=["h-major", "vocab-major"])
+def test_int8_site_in_fp32_takes_the_cuda_cores_and_matches_jax(vocab_major):
+    """fp32 activations at the int8 site (JAX's ``_pallas_quant_path`` takes
+    any dtype and upcasts x in its body): ``flx_int8_route`` sends them to
+    the CUDA-core instance; its emulation (:func:`emulate_flx_int8_fwd_f32`)
+    and the plain version against JAX's public ``fused_linear_cross_entropy``
+    with ``weight_scale`` in interpret mode, per row, at 1e-5 (the same fp32
+    sums in other orders); labels in the Pallas padding of V aside."""
+    n, h, v = 70, 128, 300
+    rng = np.random.default_rng(19)
+    x, w8, scale, lab = _int8_head(rng, n, h, v, vocab_major)
+    tx, tw8, ts, tl = (torch.from_numpy(a.copy()) for a in (x, w8, scale, lab))
+    assert kloss.flx_int8_route_of(tx, tw8, vocab_major) == "cuda_cores"
+    want = np.asarray(jax_loss.fused_linear_cross_entropy(
+        jnp.asarray(x), jnp.asarray(w8), jnp.asarray(lab), ignore_index=-100, reduction="none",
+        vocab_major=vocab_major, weight_scale=jnp.asarray(scale), interpret=True, block=(16, 128)))
+    keep = ~((lab >= v) & (lab < 384))
+    for lse, tlg in (emulate_flx_int8_fwd_f32(tx, tw8, ts, tl, vocab_major),
+                     kloss.flxent_fwd_int8_plain(tx, tw8, ts, tl, vocab_major)):
+        loss = torch.where(tl != -100, lse - tlg, 0.0).numpy()
+        np.testing.assert_allclose(loss[keep], want[keep], rtol=1e-5, atol=1e-5)
+        assert not tlg[tl >= v].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_int8_site_main_path_takes_wgmma(dtype):
+    """The int8 Llama head (``W [4096, 32000]``, lm_head's ``[in, out]``
+    layout) takes kernel 20's wgmma mainloop in bf16 and fp16; fp32 takes the
+    CUDA cores."""
+    assert kloss.flx_int8_route(dtype, 4096, 32000, False) == "wgmma"
+    assert kloss.flx_int8_route(torch.float32, 4096, 32000, False) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,h,v,vocab_major,route", [
+    (torch.bfloat16, 1024, 32003, False, "mma_sync"),   # V % 16 != 0: W's rows of V bytes TMA cannot address
+    (torch.float16, 1024, 5000, False, "mma_sync"),     # 5000 % 16 == 8
+    (torch.bfloat16, 1024, 5008, False, "wgmma"),
+    (torch.bfloat16, 1020, 5008, False, "mma_sync"),    # H % 8 != 0
+    (torch.bfloat16, 1024, 5008, True, "mma_sync"),     # vocab-major: not kernel 20's layout
+    (torch.float32, 1024, 5008, True, "cuda_cores"),
+    (torch.bfloat16, 0, 5008, False, "mma_sync"),       # an empty contraction
+], ids=["v-32003", "v-5000", "v-5008", "h-ragged", "vocab-major", "fp32", "h-0"])
+def test_flx_int8_route_by_dtype_layout_and_alignment(dtype, h, v, vocab_major, route):
+    assert kloss.flx_int8_route(dtype, h, v, vocab_major) == route
+
+
+@pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma_sync"), (8, "mma_sync"), (16, "wgmma")])
+def test_flx_int8_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route):
+    """The int8 W ``offset`` bytes into its storage: TMA needs a 16-byte
+    aligned base."""
+    h, v = 64, 256
+    buf = torch.zeros(offset + h * v, dtype=torch.int8)
+    assert buf.data_ptr() % 16 == 0
+    w8 = buf[offset:].view(h, v)
+    assert kloss.flx_int8_route_of(torch.zeros((4, h), dtype=torch.bfloat16), w8, False) == route
+    assert kloss.flx_int8_route_of(torch.zeros((4, h)), w8, False) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_flx_int8_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        kloss.flx_int8_route(dtype, 4096, 32000, False)
 
 
 # -- end to end on a tiny Llama ----------------------------------------------------------------

@@ -3,7 +3,7 @@
 - Kernels 4, 5 and 6 (``paged_flash_chunk``, ``paged_flash_decode``,
   ``paged_flash_decode_fused``): their plain PyTorch versions (what the
   wrappers run for CPU tensors) against the Pallas kernels in interpret
-  mode on the same numpy inputs — head dim 64 and 128, MHA and GQA, ragged
+  mode on the same numpy inputs — head dim 64, 128, 192 and 256, MHA and GQA, ragged
   lengths including 0 and exact multiples of the block size (a decode
   length counts the current token, a chunk length does not: an off-by-one
   there reads a garbage table entry), garbage table tails. fp32 at 1e-5
@@ -140,8 +140,12 @@ def _cache_inputs(seed, d, hq, hkv, b=4, bs=8, mbs=4, nb=16):
 
 # -- kernels 4, 5, 6: plain versions against the Pallas kernels -----------------------
 
-DTYPE_CASES = [(g, "float32") for g in GEOMETRIES] + [(GEOMETRIES[0], "bfloat16"), (GEOMETRIES[3], "bfloat16")]
-DTYPE_IDS = [f"{i}-fp32" for i in GEOMETRY_IDS] + [f"{GEOMETRY_IDS[0]}-bf16", f"{GEOMETRY_IDS[3]}-bf16"]
+# head dims 192 and 256 too (the JAX package's D % 64 gate; kernels 5 and 6 take them with 16-lane row groups)
+DTYPE_CASES = [(g, "float32") for g in GEOMETRIES] + [(GEOMETRIES[0], "bfloat16"), (GEOMETRIES[3], "bfloat16"),
+                                                      ((192, 4, 4), "bfloat16"), ((256, 8, 2), "bfloat16"),
+                                                      ((256, 4, 4), "float32")]
+DTYPE_IDS = [f"{i}-fp32" for i in GEOMETRY_IDS] + [f"{GEOMETRY_IDS[0]}-bf16", f"{GEOMETRY_IDS[3]}-bf16",
+                                                   "d192-mha-bf16", "d256-gqa-bf16", "d256-mha-fp32"]
 
 
 @pytest.mark.parametrize("geometry,dtype", DTYPE_CASES, ids=DTYPE_IDS)
