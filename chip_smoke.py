@@ -17,20 +17,28 @@ name and power limit):
    HQ=32/HKV=8, over a mixed batch of decode rows, prompt-chunk rows and
    q_lens=0 rows; kernels A and 4 also at head dims 192 and 256, over rows
    that end in every rank of their cluster split, and timed over a
-   decode-heavy batch and the GQA mixed batch: ``check_paged_split``) and the flash-attention kernels (forward, dq, dk/dv) at
+   decode-heavy batch and the GQA mixed batch: ``check_paged_split``; at
+   head dims 320, 384, 448 and 512, O's columns split over two CTAs, in bf16, fp16,
+   fp32 and over the int8 pool, with the launch plan each took:
+   ``check_paged_wide``) and the flash-attention kernels (forward, dq, dk/dv) at
    the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
    document mask (each timed beside its bound, with its share of the
    bound and of the FlashMask tiles it visits, and beside SDPA: causal, or
    given the dense document mask), at GQA 32/8 with C=2 and C=4 FlashMask
    bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
    192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
-   given the dense band mask); kernel 16 (dk/dv) gated at most SDPA's whole
+   given the dense band mask), and at head dims 320, 384, 448 and 512 (the CUDA-core
+   instances) in bf16, fp16 and fp32, causal and under a document mask (the
+   bf16 D 512 cases timed beside SDPA, its backend named:
+   ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
    backward causal, at most half its own causal time under the document
    mask, and bitwise equal over two runs; each flash kernel's cold-L2 time
    per call under the Llama step's document mask and at the GPT step's
    causal ``[4, 2048, 40, 128]``; the RMSNorm forward and backward and the rope forward and
    adjoint (kernels 7-10) at the train shapes (``[2, 4096, 4096]`` and
-   ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes;
+   ``[2, 4096, 32, 128]`` bf16) and at ragged bf16, fp32 and fp16 shapes
+   (kernel 7's register and loop routes both), kernel 7 gated at most 1.0x
+   ``F.rms_norm`` at the train shape and timed at 8 and 512 rows;
    kernels B and C in fp16 and fp32; the KV append under
    ``torch.cuda.set_sync_debug_mode("error")``; the residual LayerNorm and
    its adjoint (kernels 12 and 13) at GPT-3 13B's train shape ``[4, 2048,
@@ -47,7 +55,7 @@ name and power limit):
    17 gated at 1.0x the library's forward and 18 and 19 each at 1.25x the
    library's whole backward at the train shape, then
    ``F.fused_linear_cross_entropy`` forward and backward in fp32; kernels 5
-   and 6 at head dims 192 and 256 (``check_decode_wide``); kernel 17's int8
+   and 6 at head dims 192 to 512 (``check_decode_wide``); kernel 17's int8
    site on each of its routes (``flx_int8_route``), gated at 1.25x its
    library at the train shape; time kernel, plain
    version and, where one PyTorch call
@@ -145,7 +153,13 @@ name and power limit):
    that need gradients: its outputs carry ``ResidualNormFunction``'s node,
    kernel C and kernel 11 each launch once between a reset and a read of
    the counters, and the x, residual and weight gradients match the plain
-   versions'.
+   versions';
+9. wide_heads — head dims above 256 on the main paths: 2-layer
+   Llama-2-7B-width models with 8 heads of 512 and of 320 (GQA 8/2)
+   through the engine fused and unfused over bf16 and int8 KV pools,
+   ``generate_paged`` and one document-masked train step, each with the
+   serve, decode and train phases' gates (launch counts, logits against the
+   plain path, grad coverage).
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -157,6 +171,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -471,6 +486,74 @@ def check_paged_split(dev, gen, card: dict) -> None:
         emit({**line, "card": card})
 
 
+def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
+    """Kernels A and 4 at head dims 320, 384, 448 and 512 (O's columns split
+    over two CTAs: ``csrc/paged_chunk_wide.cu``) against their plain versions over :func:`paged_batch`'s mixed
+    batch at GQA 8/2, in bf16, fp16 and fp32 storage and with bf16 q over
+    the int8 pool (``PAGED_TOL`` by q's dtype; rows past q_lens exact 0),
+    each with the launch plan it took (``chunk_plan`` on the CTAs the card
+    holds at once: the column split, tile rows, cluster size). Timed at 320
+    and 512 with bf16 q over the bf16 and the int8 pool (device ms, the bound of this
+    run's lengths, the plain version, SDPA over the gathered K/V, dequantized
+    for the int8 pool, and the backend it takes)."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    for d in WIDE_HEAD_DIMS:
+        for dtype, int8 in ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False),
+                            (torch.bfloat16, True)):
+            name = str(dtype).split(".")[-1]
+            atol, rel = PAGED_TOL[name]
+            args, _ = paged_batch(dev, gen, 8, 2, d=d, dtype=dtype)
+            if int8:
+                args = int8_pool(args)
+            cargs = {k: v for k, v in args.items() if k not in ("cos", "sin")}
+            runs = {"paged_chunk_fused": (lambda: kp.paged_flash_chunk_fused(**args),
+                                          lambda: kp.paged_flash_chunk_fused_plain(**args), True),
+                    "paged_chunk": (lambda: kp.paged_flash_chunk(**cargs),
+                                    lambda: kp.paged_flash_chunk_plain(**cargs), False)}
+            _, c, hq, _ = args["q"].shape
+            plan = kp._chunk_launch_plan(args["q"], args["key_cache"], args["block_tables"])
+            past = torch.arange(c, device=dev)[None, :] >= args["q_lens"][:, None]
+            line = {"phase": "kernel_check", "kernel": "paged A/4 wide", "d": d, "dtype": name,
+                    "kv": "int8" if int8 else name, "hq": hq, "hkv": 2, "plan": plan,
+                    "tolerance": f"{atol} + {rel}*|x|"}
+            for kname, (run, run_plain, rope) in runs.items():
+                got, want = run(), run_plain()
+                torch.cuda.synchronize()
+                err, ok = within(got, want, atol=atol, rel=rel)
+                zero = bool((got[past] == 0).all())
+                if not ok or not zero or got.dtype != dtype:
+                    fail(f"{kname} at D {d} in {name}{' over the int8 pool' * int8} disagrees with its plain "
+                         f"version (max abs err {err}, rows past q_lens zero: {zero}, dtype {got.dtype})")
+                line[kname] = {"max_abs_err": err}
+                if dtype == torch.bfloat16 and d in WIDE_TIMED:
+                    nbytes, flops = paged_cost(args, rope=rope)
+                    ends = [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])]
+                    if int8:  # the scale planes, and the library on the pool dequantized to bf16
+                        nbytes += 2 * 2 * 4 * sum(e for e, m in zip(ends, args["q_lens"].tolist()) if m)
+                        kd, vd, n_pos = dequant_gathered(args, ends)
+                    else:
+                        kd, vd, n_pos = gathered_kv(args, ends)
+                    pos = torch.arange(n_pos, device=dev)
+                    cmask = (pos[None, None, :] < (args["seq_lens"][:, None]
+                                                   + torch.arange(c, device=dev)[None] + 1)[:, :, None])[:, None]
+                    qq = (kp.rope_rows(args["q"], args["cos"][:, :, None], args["sin"][:, :, None]) if rope
+                          else args["q"]).transpose(1, 2)
+                    records[f"{kname}{'_int8' * int8}_d{d}"] = r = dict(
+                        source="paddle_tpu_torch/kernels/csrc/paged_chunk_wide.cu", max_abs_err=err,
+                        ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5),
+                        library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=cmask,
+                                                                                     enable_gqa=True)),
+                        sdpa_backend=sdpa_backend(qq, kd, vd, cmask),
+                        bytes=nbytes, flops=flops, **bound(nbytes, flops))
+                    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+                    line[kname] = r
+                    del kd, vd, qq, cmask
+            emit({**line, "card": card})
+
+
 def check_paged_new(dev, gen, card: dict, records: dict) -> None:
     """Kernels 4, 5 and 6 against their plain versions at the 7B serving
     geometry (HQ = HKV = 32, D = 128, BS = 16) and GQA 32/8: kernel 4 over
@@ -562,21 +645,23 @@ def check_paged_dtypes(dev, gen, card: dict) -> None:
               "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
 
 
-DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 192 / 256 cases: MHA (Gemma-7B's 16 x 256) and GQA
+DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 192-512 cases: MHA (Gemma-7B's 16 x 256) and GQA
 
 
 def check_decode_wide(dev, gen, card: dict, records: dict) -> None:
-    """Kernels 5 and 6 at head dims 192 and 256 (16-lane row groups) against
-    their plain versions over :func:`decode_batch`, MHA 16/16 and GQA 32/8:
-    bf16, fp16 and fp32 storage, and bf16 q over the int8 pool (both sides
-    dequantize to the same fp32 values); tolerance the bf16 pools' by q's
-    dtype (:data:`PAGED_TOL`). Timed in bf16 at D 256, MHA 16/16 (device ms,
-    the bound of this run's lengths, SDPA over the gathered K/V)."""
+    """Kernels 5 and 6 at head dims 192 and 256 (16-lane row groups), 320
+    and 448 (16 lanes, 2 GQA rows a block), 384 and 512 (32 lanes) against their plain
+    versions over :func:`decode_batch`, MHA 16/16 and GQA 32/8: bf16, fp16
+    and fp32 storage, and bf16 q over the int8 pool (both sides dequantize
+    to the same fp32 values); tolerance the bf16 pools' by q's dtype
+    (:data:`PAGED_TOL`). Timed in bf16 at D 256, 320 and 512, MHA 16/16
+    (device ms, the bound of this run's lengths, SDPA over the gathered K/V
+    and the backend it takes)."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.kernels import paged_attention as kp
 
-    for d in (192, 256):
+    for d in (192, 256, *WIDE_HEAD_DIMS):
         for hq, hkv in DECODE_WIDE:
             for dtype, int8 in ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False),
                                 (torch.bfloat16, True)):
@@ -602,7 +687,7 @@ def check_decode_wide(dev, gen, card: dict, records: dict) -> None:
                 line = {"phase": "kernel_check", "kernel": "paged 5/6 wide", "d": d, "hq": hq, "hkv": hkv,
                         "dtype": name, "kv": "int8" if int8 else name, "max_abs_err": errs,
                         "tolerance": f"{atol} + {rel}*|x|"}
-                if d == 256 and hq == hkv and dtype == torch.bfloat16 and not int8:
+                if d in (256, *WIDE_TIMED) and hq == hkv and dtype == torch.bfloat16 and not int8:
                     kd, vd, L = gathered_kv(dargs, [int(n) for n in dargs["seq_lens"]])
                     mask = (torch.arange(L, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
                     qd = dargs["q"][:, :, None]
@@ -611,10 +696,11 @@ def check_decode_wide(dev, gen, card: dict, records: dict) -> None:
                     for k, (qq, rope) in libs.items():
                         run, run_plain = pairs[k]
                         nbytes, flops = decode_cost(dargs, rope=rope)
-                        records[f"{k}_d256"] = r = dict(
+                        records[f"{k}_d{d}"] = r = dict(
                             source="paddle_tpu_torch/kernels/csrc/paged_decode.cu", max_abs_err=errs[k],
                             ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
                             library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)),
+                            sdpa_backend=sdpa_backend(qq, kd, vd, mask),
                             bytes=nbytes, flops=flops, **bound(nbytes, flops))
                         r["share_of_bound"] = r["bound_ms"] / r["ms"]
                         line[k] = r
@@ -715,6 +801,7 @@ def check_kernels(dev, card: dict) -> tuple:
     check_paged_dtypes(dev, gen, card)
     check_decode_wide(dev, gen, card, records)
     check_paged_split(dev, gen, card)
+    check_paged_wide(dev, gen, card, records)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
     flash_cold = check_flash(dev, gen, card, records)
@@ -1089,6 +1176,69 @@ def sdpa_ms(q, k, v, g, mask=None) -> dict:
     return {"fwd": fwd, "bwd_dq_dk_dv": bwd}
 
 
+def sdpa_backend(qh, kh, vh, attn_mask=None, is_causal: bool = False) -> str:
+    """The backend PyTorch's dispatcher picks for SDPA on these ``[B, H, S,
+    D]`` operands (``torch._fused_sdp_choice``; K/V repeated to the query
+    heads under GQA, as the yardsticks give them), or "not known" where
+    this PyTorch has no such query."""
+    import torch
+
+    if kh.shape[1] != qh.shape[1]:
+        kh, vh = (t.repeat_interleave(qh.shape[1] // kh.shape[1], dim=1) for t in (kh, vh))
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(qh, kh, vh, attn_mask, 0.0, is_causal)).name
+    except Exception as e:  # noqa: BLE001 - a yardstick's label only
+        return f"not known ({type(e).__name__})"
+
+
+# head dims above the wgmma kernels' 256 (ROADMAP Queue 3 fault 2, repaired up to 512): every one is held
+# against the plain versions; 320 and 512, the two the wide_heads phase runs, are timed
+WIDE_HEAD_DIMS = (320, 384, 448, 512)
+WIDE_TIMED = (320, 512)
+
+
+def check_flash_wide(dev, gen, card: dict) -> dict:
+    """Kernels 14-16 at head dims 320, 384, 448 and 512 (the CUDA-core
+    instances of ``csrc/flash_fp32.cu``: bf16 and fp16 widened to fp32 as
+    they are staged) at GQA 8/2, S 1024, causal and under a document mask,
+    in bf16, fp16 and fp32, against their plain versions (``FLASH_GATES``);
+    the bf16 cases at 320 and 512 timed beside SDPA (its backend named);
+    and at 320 and 512 at the ``wide_heads`` train step's S 4096 under a
+    document mask, bf16.
+    Returns the times."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.flash_attention import flash_masked
+
+    ends = torch.from_numpy(doc_bounds(np.random.default_rng(2), 2, 1024, 64, 512)[:, None, :, None].copy()).to(dev)
+    wide = {}
+    for d in WIDE_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for bnd, mask in ((None, "causal"), (ends, "document mask")):
+                timed = dtype == torch.bfloat16 and d in WIDE_TIMED
+                res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
+                                 card, timed=timed, dtype=dtype, d=d)
+                if timed:
+                    dense = None if bnd is None else flash_masked(1024, 1024, True, bnd, dev)
+                    qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
+                    wide[f"d{d} {mask}"] = {
+                        "times": res["times"], "sdpa_ms": sdpa_ms(*res["tensors"], mask=dense),
+                        "sdpa_backend": sdpa_backend(qh, kh, vh, None if dense is None else ~dense, dense is None)}
+                del res
+                torch.cuda.empty_cache()
+    # the wide_heads train step's attention: S 4096 under a document mask, at the head dims it runs
+    long_ends = torch.from_numpy(doc_bounds(np.random.default_rng(3), 2, 4096)[:, None, :, None].copy()).to(dev)
+    for d in WIDE_TIMED:
+        flash_case(dev, gen, 2, 4096, 8, 2, True, long_ends, f"gqa 8/2, D {d}, S 4096, document mask", card,
+                   dtype=torch.bfloat16, d=d)
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_wide_times", "shape": [2, 1024, 8, 2], "dtype": "bfloat16", "cases": wide,
+          "source": FLASH_FP32_SOURCE, "card": card})
+    return wide
+
+
 def flash_cold_ms(dev, gen, b: int, s: int, h: int, causal: bool) -> dict:
     """Each flash kernel's device time per call with a cold L2 (``device_ms``)
     at ``[b, s, h, 128]`` bf16, no FlashMask: the GPT train step's attention,
@@ -1170,6 +1320,7 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
             extra_lib["d256"] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
     del res
     torch.cuda.empty_cache()
+    wide = check_flash_wide(dev, gen, card)
     for name in FLASH_SOURCES:
         t = plain["times"][name]
         records[name] = dict(
@@ -1178,6 +1329,7 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
             library_ms=lib["fwd"] if name == "flash_fwd" else lib["bwd_dq_dk_dv"],
             doc_mask_ms=masked["times"][name]["ms"], doc_mask_bound_ms=masked["times"][name]["bound_ms"],
             doc_mask_library_ms=lib_doc["fwd"] if name == "flash_fwd" else lib_doc["bwd_dq_dk_dv"],
+            wide_ms={m: c["times"][name]["ms"] for m, c in wide.items()},
         )
     dkv = records["flash_bwd_dkv"]
     cold = {"llama, document mask [2, 4096, 32, 128]": {n: records[n]["doc_mask_ms"] for n in FLASH_SOURCES},
@@ -1277,14 +1429,16 @@ def norm_rope_case(dev, gen, lead, h: int, heads: int, d: int, dtype, label: str
     err["rope"], checks["rope"] = within(yq, yq_p, atol=0.0, rel=rel)
     err["rope_adjoint"], checks["rope_adjoint"] = within(dq, dq_p, atol=0.0, rel=rel)
     bitwise = {"rope": bool(torch.equal(yq, yq_p)), "rope_adjoint": bool(torch.equal(dq, dq_p))}
+    plan = kf.rms_fwd_plan(h, dtype)
     line = {"phase": "kernel_check", "kernel": "rms_norm_fwd/rms_norm_bwd/rope_fwd/rope_bwd", "case": label,
             "norm_shape": [*lead, h], "rope_shape": [b, s, heads, d], "dtype": str(dtype).split(".")[-1],
-            "max_err": err, "checks": checks, "rope_bitwise": bitwise, "tolerance": NORM_ROPE_TOL}
+            "rms_fwd_plan": plan, "max_err": err, "checks": checks, "rope_bitwise": bitwise,
+            "tolerance": NORM_ROPE_TOL}
     if not all(checks.values()):
         emit({**line, "card": card})
         fail(f"kernels 7-10 disagree with their plain versions ({label}): {checks} {err}")
     res = {"max_abs_err": {"rms_norm_fwd": err["y"], "rms_norm_bwd": err["dx"], "rope_fwd": err["rope"],
-                           "rope_bwd": err["rope_adjoint"]}, "dw_max_abs_err": err["dw"]}
+                           "rope_bwd": err["rope_adjoint"]}, "dw_max_abs_err": err["dw"], "route": plan["route"]}
     if timed:
         rows, esz = x.numel() // h, x.element_size()
         qn = q.numel()
@@ -1320,22 +1474,104 @@ def norm_rope_case(dev, gen, lead, h: int, heads: int, d: int, dtype, label: str
     return res
 
 
+RMS_FWD_GATE = 1.0  # kernel 7 at most this times F.rms_norm at the train shape [8192, 4096] bf16, in the same call
+
+
+def rms_fwd_rows_times(dev, gen, card: dict) -> dict:
+    """Kernel 7 at the unfused serve step's row counts (8 decode rows, 512
+    rows of a mixed step) x 4096, bf16: device ms beside its bound, the
+    plain version and ``F.rms_norm``, with the plan each took; and at the
+    train shape ``[8192, 4096]`` with each split of the register route (1,
+    2 and 4 warps a row: 16, 8 and 4 vectors a lane; the plan takes 4).
+    Every run's y and rstd are held against the plain version first (y
+    within ``BF16_REL`` x |y|, rstd within 1e-5 relative)."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels import fused as kf
+
+    def agree(y, rstd, y_p, rstd_p, what: str) -> dict:
+        torch.cuda.synchronize()
+        err, ok = within(y, y_p, 0.0, BF16_REL)
+        rstd_err = float(((rstd - rstd_p).abs() / rstd_p.abs()).max())
+        if not ok or rstd_err > 1e-5:
+            fail(f"rms_norm_fwd disagrees with its plain version {what} (y max abs err {err}, "
+                 f"rstd max rel err {rstd_err})")
+        return {"max_abs_err": err, "rstd_max_rel_err": rstd_err}
+
+    x = torch.randn((8192, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((4096,), generator=gen, device=dev)).to(torch.bfloat16)
+    y, rstd = torch.empty_like(x), torch.empty(8192, device=dev)
+    y_p, rstd_p = kf.rms_norm_fwd_plain(x, w, 1e-5)
+    fn = build.kernel_fn("ptt_rms_norm_fwd", [kf._I, kf._P, kf._P, kf._P, kf._P] + [kf._I] * 4 + [kf._F, kf._P])
+
+    def split(vecs: int, warps: int) -> None:
+        build.check(fn(1, x.data_ptr(), w.data_ptr(), y.data_ptr(), rstd.data_ptr(), 8192, 4096, vecs, warps, 1e-5,
+                       torch.cuda.current_stream().cuda_stream), "rms_norm_fwd")
+
+    out = {"train_shape_ms_by_warps_per_row": {}, "train_shape_err_by_warps_per_row": {}}
+    for warps, vecs in ((1, 16), (2, 8), (4, 4)):  # each split held against the plain version, then timed
+        y.fill_(float("nan"))
+        rstd.fill_(float("nan"))
+        split(vecs, warps)
+        out["train_shape_err_by_warps_per_row"][warps] = agree(y, rstd, y_p, rstd_p,
+                                                               f"at [8192, 4096], {warps} warps a row")
+        out["train_shape_ms_by_warps_per_row"][warps] = device_ms(lambda v=vecs, wr=warps: split(v, wr))
+    del x, w, y, rstd, y_p, rstd_p
+    for rows in (8, 512):
+        x = torch.randn((rows, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn((4096,), generator=gen, device=dev)).to(torch.bfloat16)
+        checked = agree(*kf.rms_norm_fwd(x, w, 1e-5), *kf.rms_norm_fwd_plain(x, w, 1e-5), f"at {rows} rows")
+        out[f"rows_{rows}"] = dict(
+            plan=kf.rms_fwd_plan(4096, torch.bfloat16), **checked,
+            ms=device_ms(lambda: kf.rms_norm_fwd(x, w, 1e-5)), plain_ms=device_ms(lambda: kf.rms_norm_fwd_plain(x, w, 1e-5)),
+            library_ms=device_ms(lambda: tF.rms_norm(x, (4096,), w, 1e-5)),
+            **bound(2 * rows * 4096 * 2 + 4096 * 2 + rows * 4, 4 * rows * 4096, FP32_FLOP_PER_S))
+    emit({"phase": "rms_norm_fwd_rows", "h": 4096, "dtype": "bfloat16", **out, "card": card})
+    return out
+
+
 def check_norm_rope(dev, gen, card: dict, records: dict) -> None:
     """Kernels 7-10 at the train shapes (norm ``[2, 4096, 4096]``, rope
     ``[2, 4096, 32, 128]``, bf16; timed), at a ragged bf16 shape (a 3-row
-    batch of 1001 positions, H 5120, 8 heads) and at ragged fp32 and fp16
-    ones."""
+    batch of 1001 positions, H 5120, 8 heads), at ragged fp32 and fp16
+    ones (H 384: fp16's takes kernel 7's loop route, fp32's the register
+    route; both routes must have run) and at the ``wide_heads`` phase's
+    train shapes (norm ``[2, 4096, 2560]``, 2 warps a row, with rope
+    ``[2, 4096, 8, 320]``; norm ``[2, 4096, 4096]`` with rope ``[2, 4096,
+    8, 512]``). Kernel 7 is gated at
+    :data:`RMS_FWD_GATE` x ``F.rms_norm`` at the train shape and timed at
+    the unfused serve's row counts (:func:`rms_fwd_rows_times`)."""
     import torch
+    from paddle_tpu_torch.kernels import fused as kf
 
     bf = torch.bfloat16
     train = norm_rope_case(dev, gen, (2, 4096), 4096, 32, 128, bf, "train shapes", card, timed=True)
-    norm_rope_case(dev, gen, (3, 1001), 5120, 8, 128, bf, "ragged rows, H 5120, 8 heads", card)
-    norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float32, "fp32, ragged rows, D 256", card)
-    norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float16, "fp16, ragged rows, D 256", card)
+    routes = {train["route"]}
+    routes.add(norm_rope_case(dev, gen, (3, 1001), 5120, 8, 128, bf, "ragged rows, H 5120, 8 heads", card)["route"])
+    routes.add(norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float32, "fp32, ragged rows, D 256", card)["route"])
+    routes.add(norm_rope_case(dev, gen, (3, 77), 384, 5, 256, torch.float16, "fp16, ragged rows, D 256", card)["route"])
+    # the wide_heads phase's shapes: H 2560 is the register route at 2 warps a row (5 vectors a lane), and the
+    # rope at its head dims 320 and 512
+    if kf.rms_fwd_plan(2560, bf)["warps_per_row"] != 2:
+        fail(f"kernel 7's plan at H 2560 bf16 is {kf.rms_fwd_plan(2560, bf)}, not 2 warps a row")
+    norm_rope_case(dev, gen, (2, 4096), 2560, 8, 320, bf, "wide_heads d320: H 2560, 8 heads of 320", card)
+    norm_rope_case(dev, gen, (2, 4096), 4096, 8, 512, bf, "wide_heads d512: H 4096, 8 heads of 512", card)
+    if routes != {"regs", "loop"}:
+        fail(f"kernel 7's checks ran the routes {sorted(routes)}, not both of regs and loop")
     for name, src in NORM_ROPE_SOURCES.items():
         t = train["times"][name]
         records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
     records["rms_norm_bwd"]["dw_max_abs_err"] = train["dw_max_abs_err"]
+    fwd = records["rms_norm_fwd"]
+    fwd.update(rms_fwd_rows_times(dev, gen, card))
+    ratio = fwd["ms"] / fwd["library_ms"]
+    emit({"phase": "rms_norm_fwd_gate", "shape": [8192, 4096], "dtype": "bfloat16", "ms": fwd["ms"],
+          "library_ms": fwd["library_ms"], "ratio": ratio, "share_of_bound": fwd["bound_ms"] / fwd["ms"],
+          "gate": f"ms <= {RMS_FWD_GATE} x F.rms_norm", "card": card})
+    if ratio > RMS_FWD_GATE:
+        fail(f"rms_norm_fwd takes {fwd['ms']:.5f} ms at [8192, 4096] bf16, {ratio:.3f}x F.rms_norm's "
+             f"{fwd['library_ms']:.5f} (gate {RMS_FWD_GATE}x)")
     torch.cuda.empty_cache()
 
 
@@ -3257,9 +3493,10 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     chunks = -(-cfg.vocab_size // CHUNK)
     want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            "rope_fwd": 4 * layers, "rope_bwd": 2 * layers,
             # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
             "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    if (cfg.hidden_size // cfg.num_attention_heads) % 128 == 0:  # kernels 9, 10: the JAX package's D % 128 gate
+        want.update(rope_fwd=4 * layers, rope_bwd=2 * layers)
     losses, step_ms, counts, total = [], [], None, {}
     for i in range(steps):
         reset_launch_counts()
@@ -3278,7 +3515,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     tokens = TRAIN_BATCH * seq
     step_s = sum(step_ms or [dt]) / len(step_ms or [dt]) / 1e3
     emit({
-        "phase": label, "model": f"llama2_7b widths, {layers} of 32 layers (seeded random {cfg.dtype} weights)",
+        "phase": label, "model": f"llama2_7b widths, {layers} of 32 layers, {cfg.num_attention_heads} heads of "
+                                 f"{cfg.hidden_size // cfg.num_attention_heads} (seeded random {cfg.dtype} weights)",
         "params": n_params, "batch": [TRAIN_BATCH, seq], "documents": docs,
         "recompute": True, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
         "losses": losses, "step_ms": step_ms or [dt], "step_ms_p50": float(np.median(step_ms or [dt])),
@@ -3631,6 +3869,110 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
     return total
 
 
+# -- head dims above 256 end to end (ROADMAP Queue 3 fault 2, repaired up to 512) ------
+
+# (label, hidden, intermediate) at 8 heads, GQA 8/2: Llama-2-7B's widths with heads of 512, and the
+# same at heads of 320 (hidden 2560). No model the JAX package configures reaches a head dim above 256
+# by default; these make the port's wide instances (14-16, A, 4, 5, 6 at D 512 and 320) the path's.
+WIDE_HEADS = (("d512", 4096, 11008), ("d320", 2560, 6912))
+WIDE_LAYERS = 2  # cut from 32 layers: the path, not the model's depth, is what the phase drives
+WIDE_GEN = (2, 512, 8)  # prompts, prompt tokens, new tokens
+
+
+def wide_heads(dev, card: dict) -> dict:
+    """The repair of head dims above 256, end to end on the port's main
+    paths: for each of :data:`WIDE_HEADS` (2 layers, 8 heads, GQA 8/2,
+    vocab 32000, seeded random bf16 weights),
+
+    - 4 of the serve phase's requests through ``ContinuousBatchingEngine``
+      fused (each step kernel A 2x, B 1x, C 4x) and unfused (kernel 4 2x,
+      7 5x), each again over the int8 KV pool (``kv_cache_dtype="int8"``:
+      A's / 4's int8 instances): every request finishes with 32 tokens,
+      those launches a step and nothing else, the pool drains, and one
+      mixed step's logits pass :func:`check_logits`' gate (at most 1.25x
+      the bf16 plain path's distance from fp32);
+    - ``generate_paged`` on 2 x 512 prompts, 8 new tokens: the prefill
+      flash_fwd 2x, rms_norm_fwd 5x (and rope_fwd 4x at D 512: the rope
+      kernel takes D % 128, the JAX package's gate), each decode step
+      kernel 5 2x and rms_norm_fwd 5x, and the prefill's logits through
+      the same gate;
+    - one train step (recompute on) on 2 x 4096 document-packed tokens
+      under the FlashMask document mask through :func:`train`: kernels
+      14-16 4/2/2 and the rest of the step's launches (rope 8/4 at D 512
+      only), every parameter a finite non-zero gradient.
+
+    Returns the launch counts of each run."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    out = {}
+    layers = WIDE_LAYERS
+    for label, hidden, inter in WIDE_HEADS:
+        kw = dict(hidden_size=hidden, intermediate_size=inter, num_attention_heads=8, num_key_value_heads=2,
+                  num_hidden_layers=layers)
+        cfg = LlamaConfig(**kw)
+        model = LlamaForCausalLM(cfg, device=dev, seed=9)
+        desc = (f"llama2_7b widths with 8 heads of {hidden // 8} (hidden {hidden}, intermediate {inter}, GQA 8/2), "
+                f"{layers} layers (seeded random bf16 weights)")
+        for kv in ("bf16", "int8"):
+            for fused in (True, False):
+                name = f"wide_heads_{label}_{'fused' if fused else 'unfused'}_{kv}"
+                paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": fused})
+                try:
+                    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE, **({"kv_cache_dtype": "int8"} if kv == "int8" else {}))
+                    run = drive_engine(eng, serve_prompts(cfg.vocab_size)[:4])
+                    sfx = "_int8" * (kv == "int8")
+                    want = ({"paged_chunk_fused" + sfx: layers, "embed_rms": 1, "rms_residual": 2 * layers} if fused
+                            else {"paged_chunk" + sfx: layers, "rms_norm_fwd": 2 * layers + 1})
+                    emit({"phase": name, "model": desc, "kv_cache_dtype": kv, **run["stats"],
+                          "launches": run["counts"], "card": card})
+                    check_served(run, eng, want, name)
+                    del eng
+                    check_logits(model, dev, card, label=f"logits_{name}", kv_int8=kv == "int8")
+                finally:
+                    paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
+                out[name] = run["counts"]
+        b, prompt, new = WIDE_GEN
+        ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, prompt)).astype(np.int32)).to(dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        gen_out = model.generate_paged(ids, max_new_tokens=new, block_size=16)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = {"flash_fwd": layers, "paged_decode": (new - 1) * layers, "rms_norm_fwd": new * (2 * layers + 1)}
+        if (hidden // 8) % 128 == 0:  # the rope kernel takes D % 128 (the JAX package's gate); D 320 composes
+            want["rope_fwd"] = 2 * layers
+        emit({"phase": f"wide_heads_{label}_generate_paged", "model": desc, "batch": b, "prompt_tokens": prompt,
+              "new_tokens": new, "launches": counts, "card": card})
+        if tuple(gen_out.shape) != (b, prompt + new) or not torch.equal(gen_out[:, :prompt], ids):
+            fail(f"wide_heads {label}: generate_paged returned {tuple(gen_out.shape)}, want [{b}, {prompt + new}] "
+                 "after the prompts")
+        if counts != want:
+            fail(f"wide_heads {label}: generate_paged launched {counts}, want {want} and nothing else")
+        out[f"wide_heads_{label}_generate_paged"] = counts
+        with torch.inference_mode():
+            got, _ = model(ids.long(), use_cache=True)  # the dense prefill: kernel 14 at the wide head dim
+            got = got.float().reshape(-1, cfg.vocab_size)
+            params = dict(model.named_parameters())
+            plain = (plain_llama_hidden(model, params, ids.long(), None) @ params["lm_head.weight"]).float()
+            f32 = {n: p.float() for n, p in params.items()}
+            ref = plain_llama_hidden(model, f32, ids.long(), None) @ f32["lm_head.weight"]
+        logits_gate(got, plain.reshape(-1, cfg.vocab_size), ref.reshape(-1, cfg.vocab_size),
+                    f"logits_wide_heads_{label}_prefill", card)
+        del model, got, plain, ref, params, f32
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"wide_heads_{label}_train"] = train(dev, card, cfg=LlamaConfig(**kw, recompute=True), steps=1,
+                                                 full=False, label=f"wide_heads_{label}_train")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3655,7 +3997,9 @@ def main() -> int:
     info = build.build_info()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln)) or "spill stores" in ln]
-    emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"], "ptxas": ptxas})
+    done_by = {m[0]: float(m[1]) for m in re.findall(r"== nvcc (\S+) \(rc \d+, done by ([\d.]+) s\)", info["log"])}
+    emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"], "sources_done_by_seconds": done_by,
+          "ptxas": ptxas})
 
     records, flash_cold = check_kernels(dev, card)
     model, counts, streams = serve(dev, card)  # the engine and its pool are released here
@@ -3689,6 +4033,9 @@ def main() -> int:
                    if k in ("ln_residual", "ln_residual_bwd")})
     counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),
                                                        card)["rms_residual_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_heads(dev, card)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],

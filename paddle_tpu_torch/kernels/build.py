@@ -92,7 +92,8 @@ def _build() -> Path:
         logs, failed = [], []
         for src, proc in zip(_sources(), procs):
             out, _ = proc.communicate()
-            logs.append(f"== nvcc {src.name} (rc {proc.returncode})\n{out}")
+            # the seconds since the build began by which this source was done (waited on in turn)
+            logs.append(f"== nvcc {src.name} (rc {proc.returncode}, done by {time.perf_counter() - t0:.1f} s)\n{out}")
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:

@@ -1,16 +1,23 @@
-// The fp32 instances of the flash-attention kernels 14 (forward), 15 (dq)
-// and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu and
-// flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
-// kernels) on fp32 q, k, v, g, computed with fp32 FMAs on the CUDA cores.
-// No TF32: its 10-bit significand could not meet an fp32 gate.
+// The CUDA-core instances of the flash-attention kernels 14 (forward), 15
+// (dq) and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu
+// and flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
+// kernels), computed with fp32 FMAs on the CUDA cores. Two uses:
+// - fp32 q, k, v, g at every head dim (64 to 512): no TF32, whose 10-bit
+//   significand could not meet an fp32 gate;
+// - bf16 and fp16 at head dims 320, 384, 448 and 512, where the wgmma
+//   kernels' O accumulator (n256 at most, and the register budget) ends:
+//   the stored type T is widened to fp32 as it is staged, the math is
+//   fp32 (p is never rounded to T), and each output is rounded to T once.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
-// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs.
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs and for head dims
+// above 256.
 //
 // Design (simple first). The same tile walks and FlashMask tile classes as
 // the bf16/fp16 kernels (flash_common.cuh `warp_tile_class`, computed by
 // every warp alike, so the block agrees): SKIP tiles are neither staged nor
-// computed, FULL tiles run without the mask. Blocks of 4 warps.
+// computed, FULL tiles run without the mask. Blocks of 4 warps; every tile
+// is staged in fp32 shared memory whatever T is.
 // - Forward and dq: a block owns 16 query rows (4 per warp) and walks
 //   32-key tiles staged in shared memory; lane j computes the logits of
 //   column j for the warp's 4 rows (q rows read as shared-memory
@@ -20,9 +27,16 @@
 // - dk/dv: a block owns 16 keys (4 per warp) and walks 32-row query tiles of
 //   each query head of the group; lane i computes row i's logits against the
 //   warp's keys, and each lane accumulates D / 32 columns of dk and dv.
+// At D 512 the staged tiles take 164 KB (forward: 16 q rows, 32 padded K
+// rows, 32 V rows), 197 KB (dq) and 197 KB (dk/dv) of a block's 227 KB, and
+// a lane holds 4 x 16 output columns (forward, dq) or 2 x 4 x 16 (dk and
+// dv): the limit of these designs, so D above 512 is refused.
 //
-// Bound on H100: operations at fp32's 67 TFLOP/s; this version issues one
-// FMA per shared-memory load and reaches a fraction of it.
+// Bound on H100: operations, at fp32's 67 TFLOP/s for fp32 inputs and at
+// the tensor cores' 989 for bf16 and fp16; this version issues one FMA per
+// shared-memory load and reaches a fraction of either.
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace fl = ptt::flash;
@@ -36,19 +50,19 @@ constexpr int kKeys = 32;                 // forward / dq: keys per tile
 constexpr int kDkvKeys = 16;              // dk/dv: keys per block (4 per warp)
 constexpr int kDkvRows = 32;              // dk/dv: query rows per tile
 
-// rows [r0, r0 + R) of a [S][stride] fp32 tensor into s[R][ld] (0 past S)
-template <int R, int D>
-__device__ __forceinline__ void stage(float* s, int ld, const float* src, size_t stride, int r0, int S) {
+// rows [r0, r0 + R) of a [S][stride] tensor of T into fp32 s[R][ld] (0 past S)
+template <int R, int D, typename T>
+__device__ __forceinline__ void stage(float* s, int ld, const T* src, size_t stride, int r0, int S) {
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    s[r * ld + c] = r0 + r < S ? src[(r0 + r) * stride + c] : 0.f;
+    s[r * ld + c] = r0 + r < S ? ptt::to_f(src[(r0 + r) * stride + c]) : 0.f;
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      const int* __restrict__ bounds, float* __restrict__ out, float* __restrict__ lse, int Sq,
+flash_fwd_kernel_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const int* __restrict__ bounds, T* __restrict__ out, float* __restrict__ lse, int Sq,
                       int Sk, int H, int HK, int Hm, int C, int causal, float scale) {
   constexpr int kLd = D + 1;  // padded: lane j reads row j
   constexpr int kDD = D / 32;
@@ -62,9 +76,9 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / HK);
   const int r0 = qt * kQRows;
   const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(HK) * D;
-  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const float* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
-  const float* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const T* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const T* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
   const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
   stage<kQRows, D>(q_s, D, qb, q_stride, r0, Sq);
 
@@ -121,18 +135,18 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     const float lt = ptt::warp_sum(l[i]);
     if (row >= Sq) continue;
     const bool seen = lt > 0.f;
-    float* orow = out + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
+    T* orow = out + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int d = 0; d < kDD; ++d) orow[lane + 32 * d] = seen ? o[i][d] / lt : 0.f;
+    for (int d = 0; d < kDD; ++d) orow[lane + 32 * d] = ptt::from_f<T>(seen ? o[i][d] / lt : 0.f);
     if (lane == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + row] = seen ? m[i] + logf(lt) : fl::kInf;
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         const int* __restrict__ bounds, const float* __restrict__ g, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk, int H, int HK,
+flash_bwd_dq_kernel_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const int* __restrict__ bounds, const T* __restrict__ g, const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H, int HK,
                          int Hm, int C, int causal, float scale) {
   constexpr int kLd = D + 1;
   constexpr int kDD = D / 32;
@@ -147,10 +161,10 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / HK);
   const int r0 = qt * kQRows;
   const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(HK) * D;
-  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const float* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const float* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
-  const float* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const T* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const T* kb = k + (static_cast<size_t>(b) * Sk * HK + hk) * D;
+  const T* vb = v + (static_cast<size_t>(b) * Sk * HK + hk) * D;
   const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
   stage<kQRows, D>(q_s, D, qb, q_stride, r0, Sq);
   stage<kQRows, D>(g_s, D, gb, q_stride, r0, Sq);
@@ -203,17 +217,17 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int row = r0 + warp * kRowsPerWarp + i;
     if (row >= Sq) continue;
-    float* drow = dq + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
+    T* drow = dq + (static_cast<size_t>(b) * Sq + row) * q_stride + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int d = 0; d < kDD; ++d) drow[lane + 32 * d] = acc[i][d];
+    for (int d = 0; d < kDD; ++d) drow[lane + 32 * d] = ptt::from_f<T>(acc[i][d]);
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                          const int* __restrict__ bounds, const float* __restrict__ g, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+flash_bwd_dkv_kernel_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                          const int* __restrict__ bounds, const T* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq,
                           int Sk, int H, int HK, int Hm, int C, int causal, float scale) {
   constexpr int kLd = D + 1;
   constexpr int kDD = D / 32;
@@ -246,8 +260,8 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   fl::TileBounds<kDkvKeys> tb;
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
-    const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-    const float* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
+    const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+    const T* gb = g + (static_cast<size_t>(b) * Sq * H + h) * D;
     const int* bb = C ? bounds + (static_cast<size_t>(b) * Hm + (Hm == 1 ? 0 : h)) * Sk * C : nullptr;
     int kbnd[kKPW][4];  // the warp's keys' bounds (0 past Sk: masked anyway)
 #pragma unroll
@@ -301,105 +315,134 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
     const size_t at = (static_cast<size_t>(b) * Sk + key) * kv_stride + static_cast<size_t>(hk) * D;
 #pragma unroll
     for (int d = 0; d < kDD; ++d) {
-      dk[at + lane + 32 * d] = dka[j][d];
-      dv[at + lane + 32 * d] = dva[j][d];
+      dk[at + lane + 32 * d] = ptt::from_f<T>(dka[j][d]);
+      dv[at + lane + 32 * d] = ptt::from_f<T>(dva[j][d]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq,
                int Sk, int H, int HK, int Hm, int C, int causal, float scale, cudaStream_t stream) {
   const size_t bytes = (kQRows * D + kKeys * (D + 1) + kKeys * D) * sizeof(float);
-  auto kernel = flash_fwd_fp32_kernel<D>;
+  auto kernel = flash_fwd_kernel_simt<T, D>;
   const int err = ptt::allow_smem(kernel, bytes);
   if (err) return err;
   const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                            static_cast<const float*>(v), static_cast<const int*>(bounds),
-                                            static_cast<float*>(out), static_cast<float*>(lse), Sq, Sk, H, HK, Hm, C,
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                            static_cast<const T*>(v), static_cast<const int*>(bounds),
+                                            static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H, HK, Hm, C,
                                             causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
               const void* delta, void* dq, int B, int Sq, int Sk, int H, int HK, int Hm, int C, int causal,
               float scale, cudaStream_t stream) {
   const size_t bytes = (2 * kQRows * D + 2 * kKeys * (D + 1)) * sizeof(float);
-  auto kernel = flash_bwd_dq_fp32_kernel<D>;
+  auto kernel = flash_bwd_dq_kernel_simt<T, D>;
   const int err = ptt::allow_smem(kernel, bytes);
   if (err) return err;
   const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(bounds), static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Sk, H, HK, Hm, C, causal, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(bounds), static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, HK, Hm, C, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
                const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int HK, int Hm, int C,
                int causal, float scale, cudaStream_t stream) {
   const size_t bytes = (2 * kDkvKeys * D + 2 * kDkvRows * (D + 1) + 2 * kDkvRows) * sizeof(float);
-  auto kernel = flash_bwd_dkv_fp32_kernel<D>;
+  auto kernel = flash_bwd_dkv_kernel_simt<T, D>;
   const int err = ptt::allow_smem(kernel, bytes);
   if (err) return err;
   const dim3 grid((Sk + kDkvKeys - 1) / kDkvKeys, HK, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(bounds), static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, HK, Hm, C,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(bounds), static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, HK, Hm, C,
       causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instance of head dim D (64 to 512 for fp32; WIDE: 320 to 512 only,
+// the bf16 and fp16 head dims above the wgmma kernels'), as LAUNCH(D)
+#define PTT_FLASH_SIMT_DIMS(WIDE, LAUNCH)                                       \
+  switch (D) {                                                                 \
+    case 64: if constexpr (!(WIDE)) return LAUNCH(64); break;                            \
+    case 128: if constexpr (!(WIDE)) return LAUNCH(128); break;                          \
+    case 192: if constexpr (!(WIDE)) return LAUNCH(192); break;                          \
+    case 256: if constexpr (!(WIDE)) return LAUNCH(256); break;                          \
+    case 320: return LAUNCH(320);                                              \
+    case 384: return LAUNCH(384);                                              \
+    case 448: return LAUNCH(448);                                              \
+    case 512: return LAUNCH(512);                                              \
+    default: break;                                                            \
+  }                                                                            \
+  return static_cast<int>(cudaErrorInvalidValue)
+
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq, int Sk,
+        int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
+#define PTT_FWD(DIM) \
+  launch_fwd<T, DIM>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_FWD);
+#undef PTT_FWD
+}
+
+template <typename T>
+int dq(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
+       const void* delta, void* dq_, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
+       float scale, void* stream) {
+#define PTT_DQ(DIM)                                                                                       \
+  launch_dq<T, DIM>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
+                    static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_DQ);
+#undef PTT_DQ
+}
+
+template <typename T>
+int dkv(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
+        const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C,
+        int causal, float scale, void* stream) {
+#define PTT_DKV(DIM)                                                                                         \
+  launch_dkv<T, DIM>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
+                     static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_DKV);
+#undef PTT_DKV
+}
+
 }  // namespace
 
-// The three entries take the bf16/fp16 entries' arguments (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu) with every q/k/v/g/out tensor fp32;
-// the blocks here take fixed tiles, so the scheduler counter goes unused.
-extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
-                                  void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
-                                  float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_fwd<64>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 128: return launch_fwd<128>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 192: return launch_fwd<192>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 256: return launch_fwd<256>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// The entries take the bf16/fp16 wgmma entries' arguments (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): `_fp32` with every q/k/v/g/out
+// tensor fp32 (head dims 64 to 512), `_wide_bf16` / `_wide_fp16` with them
+// bf16 / fp16 (head dims 320 to 512). The blocks here take fixed tiles, so
+// the scheduler counter goes unused. Another head dim returns
+// cudaErrorInvalidValue.
+#define PTT_FLASH_SIMT_ENTRIES(SUFFIX, T)                                                                          \
+  extern "C" int ptt_flash_fwd_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds, void* out, \
+                                        void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK,  \
+                                        int D, int Hm, int C, int causal, float scale, void* stream) {             \
+    return fwd<T>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);                 \
+  }                                                                                                                \
+  extern "C" int ptt_flash_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,        \
+                                           const void* g, const void* lse, const void* delta, void* dq_,           \
+                                           void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,   \
+                                           int Hm, int C, int causal, float scale, void* stream) {                 \
+    return dq<T>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);         \
+  }                                                                                                                \
+  extern "C" int ptt_flash_bwd_dkv_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,       \
+                                            const void* g, const void* lse, const void* delta, void* dk, void* dv, \
+                                            void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,  \
+                                            int Hm, int C, int causal, float scale, void* stream) {                \
+    return dkv<T>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);     \
   }
-}
 
-extern "C" int ptt_flash_bwd_dq_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
-                                     const void* lse, const void* delta, void* dq, void* /*sched: unused*/, int B, int Sq, int Sk, int H,
-                                     int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_dq<64>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 128: return launch_dq<128>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 192: return launch_dq<192>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 256: return launch_dq<256>(q, k, v, bounds, g, lse, delta, dq, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-extern "C" int ptt_flash_bwd_dkv_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
-                                      const void* lse, const void* delta, void* dk, void* dv, void* /*sched: unused*/,
-                                      int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
-                                      float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_dkv<64>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 128:
-      return launch_dkv<128>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 192:
-      return launch_dkv<192>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    case 256:
-      return launch_dkv<256>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+PTT_FLASH_SIMT_ENTRIES(fp32, float)
+PTT_FLASH_SIMT_ENTRIES(wide_bf16, ptt::bf16)
+PTT_FLASH_SIMT_ENTRIES(wide_fp16, ptt::f16)

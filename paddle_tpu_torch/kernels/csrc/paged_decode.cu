@@ -22,20 +22,24 @@
 // two fp32 scale planes [NB, HKV, BS] addressed by the same physical block
 // id; each loaded element is dequantized as float(int8) * scale (the
 // Pallas `_dequant_tile`, one fp32 multiply, the plain version's bits). A
-// lane's slice is then 8 or 16 bytes (one load at D 64, 128 and 256) or 12
-// (three 4-byte loads at D 192), so the lanes of a row and their shuffle
+// lane's slice is then 8 or 16 bytes (one load at D 64, 128, 256 and 512),
+// 12 (three 4-byte loads at D 192 and 384), 20 or 28 (five or seven 4-byte
+// loads at D 320 and 448), so the lanes of a row and their shuffle
 // reduction stay as they are.
 // q and out keep their own type T.
 //
 // Design (simple first, not yet fast). One CUDA block of 4 warps per (up to
 // ROWS query heads of one KV head, KV head, slot): ROWS is 1 for MHA and 4
-// otherwise, so GQA heads share each K/V row they read. The block splits the
+// otherwise (2 where a lane holds more than 16 elements of a row: D 320 and
+// 448), so GQA heads share each K/V row they read. The block splits the
 // slot's positions over lane groups of LANES lanes (8 at D 64 and 128, 16 at
-// D 192 and 256, so a lane holds at most 16 elements of a row whatever D):
-// group t takes positions t, t + G, t + 2 G, ... (G = 128 / LANES groups);
-// its lanes each hold D / LANES elements of the K and V row (loads of 16
-// bytes where the slice allows, else 8 or 4: at D 192 a lane's 12 elements
-// are three 8-byte loads in bf16 and fp16 and three 4-byte loads in int8),
+// D 192, 256, 320 and 448, 32 at D 384 and 512: the widest group whose
+// slice of an int8 row is still whole 4-byte loads, so a lane holds 8 to 28
+// elements of a row): group t takes positions t, t + G, t + 2 G, ... (G =
+// 128 / LANES groups); its lanes each hold D / LANES elements of the K and
+// V row (loads of 16 bytes where the slice allows, else 8 or 4: at D 192 a
+// lane's 12 elements are three 8-byte loads in bf16 and fp16 and three
+// 4-byte loads in int8),
 // reduce the dot product with shuffles and keep their own online-softmax
 // state (m, l and a D / LANES slice of the accumulator per row). At the end
 // the partial states are merged: across the groups of a warp with shuffles,
@@ -60,8 +64,14 @@ constexpr int kThreads = 128;             // 4 warps
 constexpr float kNegInf = -1e30f;         // the Pallas kernel's NEG_INF
 
 // lanes that share one K/V row: a lane's slice is D / 8 elements up to D
-// 128, D / 16 above (16 at D 256, as at D 128: the registers do not grow)
-__host__ __device__ constexpr int lanes_of(int d) { return d <= 128 ? 8 : 16; }
+// 128, D / 16 up to 256 (16 at D 256, as at D 128: the registers do not
+// grow); above, D / 32 where that slice of an int8 row is a whole number of
+// 4-byte loads (D 384 and 512: 12 and 16 elements), else D / 16 (D 320 and
+// 448: 20 and 28 elements, held by 2 query rows a block instead of 4)
+__host__ __device__ constexpr int lanes_of(int d) { return d <= 128 ? 8 : d <= 256 || (d / 32) % 4 ? 16 : 32; }
+
+// query heads a block takes under GQA: 4, or 2 where a lane's slice passes 16
+__host__ __device__ constexpr int gqa_rows_of(int d) { return d / lanes_of(d) > 16 ? 2 : 4; }
 
 // elements per load of a lane's slice of e elements of `size` bytes: the
 // widest of 16, 8 and 4 bytes that divides the slice
@@ -256,29 +266,16 @@ paged_decode_kernel(const T* __restrict__ q,      // [B, HQ, D], pre-rope when R
   }
 }
 
-template <typename T, typename KV, int ROWS, bool ROPE>
+template <typename T, typename KV, int D, int ROWS, bool ROPE>
 int launch_rows(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
                 const void* ks, const void* vs, const void* tables, const void* lens, void* out, int B,
-                int HQ, int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
+                int HQ, int HKV, int BS, int MBS, float scale, cudaStream_t st) {
   const dim3 grid((HQ / HKV + ROWS - 1) / ROWS, HKV, B);
-#define PTT_LAUNCH(DIM)                                                                           \
-  paged_decode_kernel<T, KV, DIM, ROWS, ROPE><<<grid, kThreads, 0, st>>>(                         \
-      static_cast<const T*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), \
-      static_cast<const KV*>(kc), static_cast<const KV*>(vc), static_cast<const float*>(ks),      \
-      static_cast<const float*>(vs), static_cast<const int*>(tables),                             \
-      static_cast<const int*>(lens), static_cast<T*>(out), HQ, HKV, BS, MBS, scale)
-  if (D == 128) {
-    PTT_LAUNCH(128);
-  } else if (D == 64) {
-    PTT_LAUNCH(64);
-  } else if (D == 192) {
-    PTT_LAUNCH(192);
-  } else if (D == 256) {
-    PTT_LAUNCH(256);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PTT_LAUNCH
+  paged_decode_kernel<T, KV, D, ROWS, ROPE><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<const KV*>(kc), static_cast<const KV*>(vc), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<T*>(out), HQ, HKV, BS, MBS, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -286,11 +283,23 @@ template <typename T, typename KV, bool ROPE>
 int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
            const void* ks, const void* vs, const void* tables, const void* lens, void* out, int B, int HQ,
            int HKV, int D, int BS, int MBS, float scale, cudaStream_t st) {
-  if (HQ == HKV)
-    return launch_rows<T, KV, 1, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D, BS,
-                                       MBS, scale, st);
-  return launch_rows<T, KV, 4, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, HKV, D, BS,
-                                     MBS, scale, st);
+#define PTT_LAUNCH(DIM)                                                                                     \
+  (HQ == HKV ? launch_rows<T, KV, DIM, 1, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, out, B, HQ, \
+                                                HKV, BS, MBS, scale, st)                                   \
+             : launch_rows<T, KV, DIM, gqa_rows_of(DIM), ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables,    \
+                                                               lens, out, B, HQ, HKV, BS, MBS, scale, st))
+  switch (D) {
+    case 64: return PTT_LAUNCH(64);
+    case 128: return PTT_LAUNCH(128);
+    case 192: return PTT_LAUNCH(192);
+    case 256: return PTT_LAUNCH(256);
+    case 320: return PTT_LAUNCH(320);
+    case 384: return PTT_LAUNCH(384);
+    case 448: return PTT_LAUNCH(448);
+    case 512: return PTT_LAUNCH(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PTT_LAUNCH
 }
 
 // QUANT: the cache is int8 with scale planes; else it is of q's type
@@ -319,8 +328,8 @@ int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const
 }  // namespace
 
 // Kernel 5. `io` is the storage type (ptt::IoType). Returns
-// cudaErrorInvalidValue for a head dim other than 64, 128, 192 or 256 or an
-// unknown type.
+// cudaErrorInvalidValue for a head dim that is not a multiple of 64 up to
+// 512 or an unknown type.
 extern "C" int ptt_paged_decode(int io, const void* q, const void* kc, const void* vc,
                                 const void* tables, const void* lens, void* out, int B, int HQ,
                                 int HKV, int D, int BS, int MBS, float scale, void* stream) {

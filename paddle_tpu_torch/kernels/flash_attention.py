@@ -27,10 +27,12 @@ its block size (the XLA path a uniform average over all columns).
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
-``csrc/flash_bwd_dkv.cu`` (bf16 and fp16; ``csrc/flash_fp32.cu`` for fp32)
-or raises — it never falls back. On the card the kernels take q, k, v (and
-g) of one dtype, bf16, fp16 or fp32, and a head dim in
-:data:`KERNEL_HEAD_DIMS` (64, 128, 192, 256); a larger head dim raises.
+``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256;
+``csrc/flash_fp32.cu``, the CUDA-core instances, for fp32 and for bf16 and
+fp16 above 256) or raises — it never falls back. On the card the kernels
+take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and a head dim in
+:data:`KERNEL_HEAD_DIMS` (the multiples of 64 up to 512); a larger head dim
+raises (ROADMAP Queue 3 fault 2).
 
 Kernels 14 and 15 walk the key tiles of a query tile, kernel 16 the query
 tiles of a key tile (and the fp32 instances of all three likewise), under
@@ -66,7 +68,8 @@ __all__ = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 take the CUDA-core instances of csrc/flash_fp32.cu
 _MASK_C = (1, 2, 4)
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
@@ -74,16 +77,23 @@ _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: 
 SKIP, PARTIAL, FULL = 0, 1, 2
 
 
+def _simt(d: int, dtype: torch.dtype) -> bool:
+    """Whether head dim ``d`` in ``dtype`` runs on the CUDA-core instances
+    (``csrc/flash_fp32.cu``): fp32 at every head dim, bf16 and fp16 above
+    :data:`WGMMA_HEAD_DIM_MAX`."""
+    return dtype == torch.float32 or d > WGMMA_HEAD_DIM_MAX
+
+
 def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """``(BM, BN)`` of the tile walk that ``kernel`` (``"flash_fwd"``,
     ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
-    the query rows and keys of one (query tile, key tile) pair. bf16/fp16:
-    the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128 x 64, dk/dv
-    64 query rows x 64 keys; fp32: forward and dq 16 x 32, dk/dv 32 query
-    rows x 16 keys."""
+    the query rows and keys of one (query tile, key tile) pair. bf16/fp16
+    up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
+    x 64, dk/dv 64 query rows x 64 keys; the CUDA-core instances (fp32, and
+    D above 256): forward and dq 16 x 32, dk/dv 32 query rows x 16 keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
-    if dtype == torch.float32:
+    if _simt(d, dtype):
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
     if kernel == "flash_fwd":
         return (128, 128) if d <= 128 else (128, 64)
@@ -294,10 +304,13 @@ def flash_bwd_dkv_plain(
 def _cuda_inputs(what: str, tensors, bounds, d: int):
     """Contiguous, 16-byte-aligned views of ``tensors`` (one dtype of
     bf16, fp16 and fp32) and int32 bounds on one card, with the C entry's
-    dtype suffix; or an exception naming what the kernels do not take."""
+    suffix (``fp32``; ``bf16`` / ``fp16`` for the wgmma kernels up to D
+    256, ``wide_bf16`` / ``wide_fp16`` for the CUDA-core instances above);
+    or an exception naming what the kernels do not take."""
     if d > KERNEL_HEAD_DIMS[-1]:
         raise ValueError(f"{what}: head dim {d} is above the kernels' {KERNEL_HEAD_DIMS[-1]} "
-                         "(ROADMAP Queue 3 fault 2: D above 256 is not ported yet)")
+                         "(ROADMAP Queue 3 fault 2: above 512 a staged K tile and a row's O accumulator "
+                         "outgrow a block's shared memory and registers)")
     dtype = tensors[0][1].dtype
     for name, t in tensors:
         if t.dtype not in _KERNEL_DTYPES or t.dtype != dtype:
@@ -319,7 +332,8 @@ def _cuda_inputs(what: str, tensors, bounds, d: int):
         if bounds.device != dev or bounds.dtype != torch.int32:
             raise ValueError(f"{what}: bounds must be an int32 tensor on {dev}")
         bnd = bounds.contiguous()
-    return dev, out, bnd, _KERNEL_DTYPES[dtype]
+    suffix = _KERNEL_DTYPES[dtype]
+    return dev, out, bnd, suffix if suffix == "fp32" or d <= WGMMA_HEAD_DIM_MAX else f"wide_{suffix}"
 
 
 def _stats(what: str, t: torch.Tensor, shape, dev) -> torch.Tensor:
@@ -334,9 +348,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
     """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
-    15 and 16 (one int32, zero before each launch); the fp32 kernels take
-    none."""
-    return None if suffix == "fp32" else torch.zeros(1, dtype=torch.int32, device=dev)
+    15 and 16 (one int32, zero before each launch); the CUDA-core instances
+    take none."""
+    return None if suffix == "fp32" or suffix.startswith("wide") else torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 def flash_fwd(

@@ -61,6 +61,7 @@ __all__ = [
     "rms_norm_bwd_plain",
     "rms_norm_fwd",
     "rms_norm_fwd_plain",
+    "rms_fwd_plan",
     "rms_residual_adjoint",
     "rms_residual_bwd",
     "rms_residual_bwd_plain",
@@ -79,6 +80,9 @@ _SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can use
 _SMEM_PER_SM = 233472  # bytes of shared memory an SM shares among its blocks
 _SMEM_RESERVED = 1024 + 256  # per block: the runtime's reserve and the static reduction buffers
 _BWD_BLOCKS_PER_SM = 4  # norm backward row blocks: at most 4 of 256 threads per SM
+# kernel 7's register route (csrc/rms_norm.cu `rms_fwd_kernel_regs`)
+RMS_FWD_BLOCK_WARPS = 4  # warps per block: a row takes 1, 2 or 4 of them
+RMS_FWD_MAX_VECS = 16  # 16-byte vectors of x a lane holds, at most (and as many of w): 128 registers
 
 
 def _rms_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -355,6 +359,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def rms_fwd_plan(h: int, dtype: torch.dtype) -> dict:
+    """Kernel 7's launch plan for rows of width ``h`` in ``dtype`` (a host
+    function: no card needed).
+
+    ``route`` is ``"regs"`` when a row is a whole number ``vecs * W * 32``
+    of 16-byte vectors with ``vecs`` at most :data:`RMS_FWD_MAX_VECS` for
+    some W of 4, 2, 1 (the most that divides the row): a group of
+    ``warps_per_row`` (W) warps holds a row in registers, ``vecs`` vectors
+    a lane, :data:`RMS_FWD_BLOCK_WARPS` / W rows a block. The widest split
+    is the fastest on an H100 (more warps keep more loads in flight:
+    ``chip_smoke.py``'s ``rms_norm_fwd_rows`` times 1, 2 and 4 warps a
+    row), so the plan depends on no row count or card. Otherwise
+    ``"loop"``: one warp a row, 8 rows a block, over a runtime width
+    (``vecs`` 0)."""
+    n = 16 // dtype.itemsize
+    lane_vecs = h // n // 32 if h % (n * 32) == 0 else 0
+    for w in (4, 2, 1):
+        if lane_vecs and lane_vecs % w == 0 and lane_vecs // w <= RMS_FWD_MAX_VECS:
+            return {"route": "regs", "vecs": lane_vecs // w, "warps_per_row": w}
+    return {"route": "loop", "vecs": 0, "warps_per_row": 1}
+
+
 def rms_norm_fwd(
     x: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -370,10 +396,11 @@ def rms_norm_fwd(
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     rows = x.numel() // h if h else 0
     if rows:
-        fn = build.kernel_fn("ptt_rms_norm_fwd", [_I, _P, _P, _P, _P, _I, _I, _F, _P])
+        plan = rms_fwd_plan(h, x.dtype)
+        fn = build.kernel_fn("ptt_rms_norm_fwd", [_I, _P, _P, _P, _P] + [_I] * 4 + [_F, _P])
         with torch.cuda.device(x.device):
-            err = fn(io, x.data_ptr(), weight.data_ptr(), y.data_ptr(), rstd.data_ptr(),
-                     rows, h, float(epsilon), torch.cuda.current_stream().cuda_stream)
+            err = fn(io, x.data_ptr(), weight.data_ptr(), y.data_ptr(), rstd.data_ptr(), rows, h, plan["vecs"],
+                     plan["warps_per_row"], float(epsilon), torch.cuda.current_stream().cuda_stream)
         build.check(err, "rms_norm_fwd")
         count_launch("rms_norm_fwd")
     return y, rstd

@@ -22,8 +22,11 @@ block tables; keys are stored roped. Four kernels:
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
 ``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
-kernels take bf16, fp16 or fp32 storage and head dims 64, 128, 192 and
-256 (the JAX package's ``D % 64`` gate). The rope rows reach A and 6 in
+kernels take bf16, fp16 or fp32 storage and the head dims that are
+multiples of 64 up to 512 (the JAX package's ``D % 64`` gate sends every
+multiple of 64 to its kernels; above 512 the wrappers raise, ROADMAP Queue
+3 fault 2). Above 256, A and 4 split O's columns over two CTAs
+(:func:`chunk_plan`). The rope rows reach A and 6 in
 fp32, as the engine gathers them; the kernels round them to q's dtype.
 
 The int8 pool: with ``k_scale``/``v_scale`` (fp32 ``[NB, HKV, BS]``, one
@@ -38,6 +41,7 @@ attention; q and the output keep their dtype. Each kernel then launches its
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -48,6 +52,7 @@ from paddle_tpu_torch.kernels.select import count_launch
 
 __all__ = [
     "chunk_cluster_size",
+    "chunk_plan",
     "paged_flash_chunk",
     "paged_flash_chunk_fused",
     "paged_flash_chunk_fused_plain",
@@ -64,8 +69,12 @@ __all__ = [
 NEG_INF = -1e30  # the Pallas kernel's masked score
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # head dims each CUDA kernel takes: the chunk kernels A and 4, the decode kernels 5 and 6
-CHUNK_HEAD_DIMS = (64, 128, 192, 256)
-DECODE_HEAD_DIMS = (64, 128, 192, 256)
+CHUNK_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+DECODE_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+# kernels A and 4 (csrc/paged_chunk.cuh): the most ranks a cluster, and
+# the largest accumulator (O's columns) one CTA holds
+CHUNK_MAX_RANKS = 8
+CHUNK_MAX_COLUMNS = 256
 
 
 def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -196,10 +205,14 @@ def _launch_operands(what: str, head_dims: tuple, q: torch.Tensor, key_cache: to
     ready for the launch: ``pools`` is ``[kc, vc]``, and ``[kc, vc,
     k_scale, v_scale]`` for the int8 pool (``lens``: the ``[B]`` length
     vectors)."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    if d > head_dims[-1]:
+        raise ValueError(f"{what}: head dim {d} is above the kernel's {head_dims[-1]} (ROADMAP Queue 3 fault 2: "
+                         "above 512 a staged K tile and a row's O accumulator outgrow a block's shared memory "
+                         "and registers)")
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     io = _io_dtype(what, q)
-    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     nb, hkv, bs, d_c = key_cache.shape
     if d_c != d or hq % hkv or value_cache.shape != key_cache.shape:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not fit the cache "
@@ -234,19 +247,59 @@ def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Ten
                  for name, t in (("cos", cos), ("sin", sin)))
 
 
+def chunk_plan(b: int, c: int, hq: int, hkv: int, d: int, dtype: torch.dtype, mbs: int, cap: int) -> dict:
+    """Kernels A and 4's launch plan, the one they launch with (a host
+    function of the shapes and ``cap``, the CTAs of the instance the card
+    holds at once: ``csrc/paged_chunk_fused.cu`` ``ptt_paged_chunk_cap``):
+    ``split`` CTAs over O's columns (2 above head dim 256, each owning
+    ``columns`` = D / 2), tiles of ``rows`` packed query rows (32 for fp32
+    above 256, else 64), ``tiles`` of them per (KV head, slot), the cluster
+    size ``ranks`` (the most of 8, 4, 2, 1 whose ``tiles * split * hkv * b``
+    clusters fit ``cap``, at most ``mbs``: long histories get the most CTAs
+    that still run as one wave; never a length) and the ``grid``."""
+    split = 2 if d > CHUNK_MAX_COLUMNS else 1
+    rows = 32 if dtype == torch.float32 and d > CHUNK_MAX_COLUMNS else 64
+    tiles = -(-c * (hq // hkv) // rows)
+    work = tiles * split * hkv * b
+    ranks = CHUNK_MAX_RANKS
+    while ranks > 1 and work * ranks > cap:
+        ranks //= 2
+    ranks = max(1, min(ranks, mbs))
+    return {"split": split, "columns": d // split, "rows": rows, "tiles": tiles, "ranks": ranks,
+            "grid": (tiles * split * ranks, hkv, b)}
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_cap(device: torch.device, io: int, quant: bool, rope: bool, d: int, mbs: int) -> int:
+    """The CTAs of kernel A's (``rope``) or 4's instance the card ``device``
+    holds at once with ``mbs`` table entries staged (its occupancy times the
+    SMs, ``ptt_paged_chunk_cap``); asked once per instance and ``mbs``."""
+    cap = ctypes.c_int(0)
+    fn = build.kernel_fn("ptt_paged_chunk_cap", [_I] * 5 + [_P])
+    with torch.cuda.device(device):
+        err = fn(io, int(quant), int(rope), d, mbs, ctypes.addressof(cap))
+    build.check(err, "paged_chunk_cap")
+    return cap.value
+
+
+def _chunk_launch_plan(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor,
+                       rope: bool = True) -> dict:
+    """:func:`chunk_plan` of kernel A's (``rope``) or 4's launch for these
+    shapes on this card, with the ``cap`` it was chosen under; nothing
+    runs."""
+    b, c, hq, d = q.shape
+    mbs = block_tables.shape[1]
+    cap = _chunk_cap(q.device, _io_dtype("paged_chunk", q), key_cache.dtype == torch.int8, rope, d, mbs)
+    return {**chunk_plan(b, c, hq, key_cache.shape[1], d, q.dtype, mbs, cap), "cap": cap}
+
+
 def chunk_cluster_size(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor) -> int:
     """The CTAs of one cluster over which kernel A splits each history for
     these shapes on this card (``q`` ``[B, C, HQ, D]`` on the card; an int8
-    ``key_cache`` asks for A's int8 instance): a launch plan from the shapes
-    and the kernel's occupancy only; nothing runs."""
-    b, c, hq, d = q.shape
-    fn = build.kernel_fn("ptt_paged_chunk_ranks", [_I] * 9)
-    with torch.cuda.device(q.device):
-        ranks = fn(_io_dtype("chunk_cluster_size", q), int(key_cache.dtype == torch.int8), 1, b, c, hq,
-                   key_cache.shape[1], d, block_tables.shape[1])
-    if ranks < 0:
-        build.check(-ranks, "chunk_cluster_size")
-    return ranks
+    ``key_cache`` asks for A's int8 instance): :func:`chunk_plan`'s
+    ``ranks``, from the shapes and the kernel's occupancy only; nothing
+    runs."""
+    return _chunk_launch_plan(q, key_cache, block_tables)["ranks"]
 
 
 def _launch(name: str, io: int, ptrs: list, dims: tuple, scale: float, device: torch.device) -> None:
@@ -290,9 +343,11 @@ def paged_flash_chunk_fused(
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
+        ranks = _chunk_launch_plan(q, kc, tables32, rope=True)["ranks"]
         _launch("paged_chunk_fused" + "_int8" * quant, io,
                 [t.data_ptr() for t in (q, cos32, sin32, *pools, tables32, lens32, qlens32, out)],
-                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], ranks), _scale_or_default(scale, d),
+                q.device)
     return out
 
 
@@ -321,9 +376,11 @@ def paged_flash_chunk(
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
+        ranks = _chunk_launch_plan(q, kc, tables32, rope=False)["ranks"]
         _launch("paged_chunk" + "_int8" * quant, io,
                 [t.data_ptr() for t in (q, *pools, tables32, lens32, qlens32, out)],
-                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], ranks), _scale_or_default(scale, d),
+                q.device)
     return out
 
 

@@ -642,8 +642,9 @@ def test_plain_versions_match_pallas_at_new_dtypes_and_head_dims(dtype, d, c, ca
 def test_cuda_inputs_rules_on_meta_tensors():
     """fp16 and fp32 (and bf16) q, k, v, g pass the wrappers' checks up to
     the device check, at every head dim in KERNEL_HEAD_DIMS; a head dim
-    above 256 raises naming D and the open fault; mixed dtypes raise."""
-    assert kfa.KERNEL_HEAD_DIMS == (64, 128, 192, 256)
+    above 512 raises naming D, the limit and the open fault; mixed dtypes
+    raise."""
+    assert kfa.KERNEL_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
 
     def meta(d, dtype, kdtype=None):
         q = torch.empty((1, 8, 4, d), dtype=dtype, device="meta")
@@ -660,8 +661,8 @@ def test_cuda_inputs_rules_on_meta_tensors():
                 kfa.flash_bwd_dq(q, k, v, None, q, lse, lse, True)
             with pytest.raises(ValueError, match="unsupported device meta"):
                 kfa.flash_bwd_dkv(q, k, v, None, q, lse, lse, True)
-    q, k, v = meta(320, torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head dim 320.*Queue 3 fault 2"):
+    q, k, v = meta(576, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head dim 576 is above the kernels' 512.*Queue 3 fault 2"):
         kfa.flash_fwd(q, k, v, None, True)
     q, k, v = meta(128, torch.float16, torch.bfloat16)
     with pytest.raises(ValueError, match="share one of bf16, fp16 and fp32"):

@@ -21,7 +21,9 @@ reading one raises), GQA 4 and head dims 64, 128 and 256, in bf16 and fp16
 with a pool of q's dtype and an int8 pool, and in fp32.
 
 The plain versions at head dim 256 are also held against the interpret
-kernels directly (the head dims of the redesign: 64 to 256).
+kernels directly (the head dims of the redesign: 64 to 256). Above 256 the
+kernels split O's columns over two CTAs and fp32 tiles hold 32 rows
+(``chunk_plan``); the emulation repeats that at head dims 320 and 512.
 """
 
 import numpy as np
@@ -63,24 +65,32 @@ def _one_torch_thread():
 
 
 def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale, k_scale=None, v_scale=None,
-                  ranks=MAX_RANKS):
+                  ranks=MAX_RANKS, rows=ROWS, split=1):
     """Kernel 4's arithmetic on the card (kernel A's after q's rope): ``q``
     ``[B, C, HQ, D]`` in its dtype T, the pool in T or int8 with fp32 scale
     planes, ``ranks`` CTAs a cluster (at most MBS; the card picks 8, 4, 2
-    or 1 from its occupancy). Returns ``[B, C, HQ, D]`` in T."""
+    or 1 from its occupancy), tiles of ``rows`` packed rows, and O's
+    columns over ``split`` CTAs (``kpaged.chunk_plan``'s: 2 above head dim
+    256, each computing the scores over all of D and PV over its own
+    columns of V). Returns ``[B, C, HQ, D]`` in T."""
+    if split > 1:
+        dv = value_cache.shape[-1] // split
+        return torch.cat([emulate_chunk(q, key_cache, value_cache[..., i * dv:(i + 1) * dv], block_tables, seq_lens,
+                                        q_lens, scale, k_scale, v_scale, ranks, rows) for i in range(split)], -1)
     dt = q.dtype
     b, c, hq, d = q.shape
     nb, hkv, bs, _ = key_cache.shape
+    dv = value_cache.shape[-1]
     g = hq // hkv
     ranks = max(1, min(ranks, block_tables.shape[1]))
     packed = q.reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(b, hkv, c * g, d).float()
-    out = torch.zeros(b, hkv, c * g, d)
+    out = torch.zeros(b, hkv, c * g, dv)
     for bi in range(b):
         ln, ql = int(seq_lens[bi]), int(q_lens[bi])
-        for row0 in range(0, c * g, ROWS):
+        for row0 in range(0, c * g, rows):
             if row0 // g >= ql:
                 continue  # every row past q_lens: exact 0, nothing read
-            nr = min(ROWS, c * g - row0)
+            nr = min(rows, c * g - row0)
             j = (row0 + torch.arange(nr)) // g
             n_pos = ln + min((row0 + nr - 1) // g, ql - 1) + 1
             per = -(-(-(-n_pos // bs)) // ranks)
@@ -88,7 +98,7 @@ def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, sca
             parts = []  # in rank order
             for r in range(ranks):
                 beg, end = r * per * bs, min((r + 1) * per * bs, n_pos)
-                m, l, acc = torch.full((hkv, nr), NEG_INF), torch.zeros(hkv, nr), torch.zeros(hkv, nr, d)
+                m, l, acc = torch.full((hkv, nr), NEG_INF), torch.zeros(hkv, nr), torch.zeros(hkv, nr, dv)
                 for p0 in range(beg, end, STEP):
                     pos = torch.arange(p0, min(p0 + STEP, end))  # positions past the range are zero-filled
                     blk = block_tables[bi, pos // bs].long()  # no entry at or past ceil(end / BS)
@@ -111,13 +121,13 @@ def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, sca
                     acc = acc * alpha[..., None] + (hi @ v + lo @ v)
                 parts.append((m, l, acc))
             top = torch.stack([pm for pm, _, _ in parts]).max(0).values
-            den, num = torch.zeros(hkv, nr), torch.zeros(hkv, nr, d)
+            den, num = torch.zeros(hkv, nr), torch.zeros(hkv, nr, dv)
             for pm, pl, pa in parts:  # rank order; a rank with no valid position adds nothing
                 w = torch.where(pm > NEG_INF, torch.exp(pm - top), torch.zeros_like(pm))
                 den, num = den + w * pl, num + w[..., None] * pa
             res = num / torch.clamp(den, min=1e-30)[..., None]
             out[bi, :, row0:row0 + nr] = torch.where((j < ql)[None, :, None], res, torch.zeros_like(res))
-    return out.reshape(b, hkv, c, g, d).permute(0, 2, 1, 3, 4).reshape(b, c, hq, d).to(dt)
+    return out.reshape(b, hkv, c, g, dv).permute(0, 2, 1, 3, 4).reshape(b, c, hq, dv).to(dt)
 
 
 def _inputs(rng, d, hq, hkv, dtype, int8):
@@ -204,6 +214,45 @@ def test_split_decomposition_matches_interpret_kernel_and_plain(kernel, geometry
     assert not got[past].any() and not plain[past].any()  # rows past q_lens: exact 0
 
 
+WIDE_CASES = [(d, dt, int8) for d in (320, 512) for dt, int8 in (("bfloat16", False), ("bfloat16", True),
+                                                                  ("float32", False))]
+
+
+@pytest.mark.parametrize("kernel", ["chunk_fused", "chunk"])
+@pytest.mark.parametrize("d,dtype,int8", WIDE_CASES,
+                         ids=[f"d{d}-{'bf16' if dt == 'bfloat16' else 'fp32'}{'-int8' * i}" for d, dt, i in WIDE_CASES])
+def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dtype, int8):
+    """Head dims 320 and 512: the kernels' column split (two CTAs, each the
+    scores over all of D and PV, the merge and the writes over half of O's
+    columns) and their tile rows (``chunk_plan``: 64, or 32 for fp32), at 8
+    and 2 ranks, against the plain version at the card's gate and the
+    interpret kernel as in the narrower cases."""
+    rng = np.random.default_rng(d)
+    q, rope, pools, ints, scales = _inputs(rng, d, 8, 2, dtype, int8)
+    fused = kernel == "chunk_fused"
+    args = [q] + (rope if fused else []) + pools + ints
+    planes = dict(k_scale=scales[0][0], v_scale=scales[1][0])
+    want = getattr(jax_paged, f"paged_flash_{kernel}")(*(j for _, j in args), interpret=True,
+                                                      k_scale=scales[0][1], v_scale=scales[1][1])
+    plain = getattr(kpaged, f"paged_flash_{kernel}_plain")(*(t for t, _ in args), **planes)
+    q_in = kpaged.rope_rows(q[0], rope[0][0][:, :, None], rope[1][0][:, :, None]) if fused else q[0]
+    tiles = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=1)["tiles"]
+    for ranks in (8, 2):  # a card holding ranks clusters of the grid's (tile, column half, KV head, slot) items
+        cap = ranks * tiles * 2 * 2 * len(LENS)
+        plan = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=cap)
+        assert plan["split"] == 2 and plan["columns"] == d // 2 and plan["ranks"] == ranks
+        got = emulate_chunk(q_in, pools[0][0], pools[1][0], *(t for t, _ in ints), 1.0 / d ** 0.5, **planes,
+                            ranks=plan["ranks"], rows=plan["rows"], split=plan["split"])
+        assert got.dtype == getattr(torch, dtype) and got.shape == q_in.shape
+        _within(got, plain, dtype)
+        if fused and dtype != "float32":
+            _within_ulp_of_max(got, want)
+        else:
+            _within(got, want, dtype)
+        past = torch.arange(C)[None, :] >= torch.from_numpy(Q_LENS)[:, None].long()
+        assert not got[past].any()  # rows past q_lens: exact 0
+
+
 def test_one_rounding_of_p_misses_the_bf16_gate():
     """Why the kernel splits p: with p rounded once to bf16 before the PV
     product, a long row of the emulated walk leaves the plain version's
@@ -258,7 +307,7 @@ def test_rope_rows_reach_the_kernel_in_fp32_without_a_cast():
 
 
 def test_head_dims_of_each_kernel():
-    """A, 4, 5 and 6 take every multiple of 64 up to 256 on the card, as the
+    """A, 4, 5 and 6 take every multiple of 64 up to 512 on the card, as the
     JAX package's ``D % 64`` gate sends them to its kernels."""
-    assert kpaged.CHUNK_HEAD_DIMS == (64, 128, 192, 256)
-    assert kpaged.DECODE_HEAD_DIMS == (64, 128, 192, 256)
+    assert kpaged.CHUNK_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
+    assert kpaged.DECODE_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
