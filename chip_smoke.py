@@ -18,7 +18,8 @@ name and power limit):
    q_lens=0 rows; kernels A and 4 also at head dims 192 and 256, over rows
    that end in every rank of their cluster split, and timed over a
    decode-heavy batch and the GQA mixed batch: ``check_paged_split``; at
-   head dims 320, 384, 448 and 512, O's columns split over two CTAs, in bf16, fp16,
+   head dims 320, 384, 448 and 512, O's columns split over two CTAs, and at
+   576 and 1024 (the runtime-D instance, ceil(D / 256) CTAs), in bf16, fp16,
    fp32 and over the int8 pool, with the launch plan each took:
    ``check_paged_wide``) and the flash-attention kernels (forward, dq, dk/dv) at
    the train shape ``[2, 4096, 32, 128]`` causal, unmasked and with a
@@ -28,8 +29,9 @@ name and power limit):
    bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
    192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
    given the dense band mask), and at head dims 320, 384, 448 and 512 (the CUDA-core
-   instances) in bf16, fp16 and fp32, causal and under a document mask (the
-   bf16 D 512 cases timed beside SDPA, its backend named:
+   instances) and 576 and 1024 (the runtime-D kernels) in bf16, fp16 and
+   fp32, causal and under a document mask (the bf16 D 320, 512, 576 and
+   1024 cases timed beside SDPA, its backend named:
    ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
    backward causal, at most half its own causal time under the document
    mask, and bitwise equal over two runs; each flash kernel's cold-L2 time
@@ -55,7 +57,12 @@ name and power limit):
    17 gated at 1.0x the library's forward and 18 and 19 each at 1.25x the
    library's whole backward at the train shape, then
    ``F.fused_linear_cross_entropy`` forward and backward in fp32; kernels 5
-   and 6 at head dims 192 to 512 (``check_decode_wide``); kernel 17's int8
+   and 6 at head dims 64 and 192 to 1024 (``check_decode_wide``), over
+   batches whose lengths end on every rank boundary of their cluster split
+   (``check_decode_split``), two calls bitwise equal, and timed beside SDPA
+   at D 128 to 1024 in bf16 and over the int8 pool: at most 1.0x SDPA up to
+   D 512 and kernel 5 at D 128 at least 35% of its bound (``decode_gate``);
+   kernel 17's int8
    site on each of its routes (``flx_int8_route``), gated at 1.25x its
    library at the train shape; time kernel, plain
    version and, where one PyTorch call
@@ -488,21 +495,23 @@ def check_paged_split(dev, gen, card: dict) -> None:
 
 def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
     """Kernels A and 4 at head dims 320, 384, 448 and 512 (O's columns split
-    over two CTAs: ``csrc/paged_chunk_wide.cu``) against their plain versions over :func:`paged_batch`'s mixed
-    batch at GQA 8/2, in bf16, fp16 and fp32 storage and with bf16 q over
-    the int8 pool (``PAGED_TOL`` by q's dtype; rows past q_lens exact 0),
+    over two CTAs: ``csrc/paged_chunk_wide.cu``) and 576 and 1024 (the
+    runtime-D instance, ``csrc/paged_chunk_deep.cu``: ceil(D / 256) CTAs)
+    against their plain versions over :func:`paged_batch`'s mixed batch at
+    GQA 8/2, in the storage :func:`wide_dtypes` names (bf16, fp16, fp32 and
+    bf16 q over the int8 pool; at 1024 bf16 and the int8 pool)
+    (``PAGED_TOL`` by q's dtype; rows past q_lens exact 0),
     each with the launch plan it took (``chunk_plan`` on the CTAs the card
-    holds at once: the column split, tile rows, cluster size). Timed at 320
-    and 512 with bf16 q over the bf16 and the int8 pool (device ms, the bound of this
-    run's lengths, the plain version, SDPA over the gathered K/V, dequantized
-    for the int8 pool, and the backend it takes)."""
+    holds at once: the column split, tile rows, cluster size). Timed at 320,
+    512, 576 and 1024 with bf16 q over the bf16 and the int8 pool (device
+    ms, the bound of this run's lengths, the plain version, SDPA over the
+    gathered K/V, dequantized for the int8 pool, and the backend it takes)."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.kernels import paged_attention as kp
 
-    for d in WIDE_HEAD_DIMS:
-        for dtype, int8 in ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False),
-                            (torch.bfloat16, True)):
+    for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
+        for dtype, int8 in wide_dtypes(d):
             name = str(dtype).split(".")[-1]
             atol, rel = PAGED_TOL[name]
             args, _ = paged_batch(dev, gen, 8, 2, d=d, dtype=dtype)
@@ -528,7 +537,7 @@ def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
                     fail(f"{kname} at D {d} in {name}{' over the int8 pool' * int8} disagrees with its plain "
                          f"version (max abs err {err}, rows past q_lens zero: {zero}, dtype {got.dtype})")
                 line[kname] = {"max_abs_err": err}
-                if dtype == torch.bfloat16 and d in WIDE_TIMED:
+                if dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS):
                     nbytes, flops = paged_cost(args, rope=rope)
                     ends = [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])]
                     if int8:  # the scale planes, and the library on the pool dequantized to bf16
@@ -541,8 +550,9 @@ def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
                                                    + torch.arange(c, device=dev)[None] + 1)[:, :, None])[:, None]
                     qq = (kp.rope_rows(args["q"], args["cos"][:, :, None], args["sin"][:, :, None]) if rope
                           else args["q"]).transpose(1, 2)
+                    source = "paged_chunk_deep.cu" if d in DEEP_HEAD_DIMS else "paged_chunk_wide.cu"
                     records[f"{kname}{'_int8' * int8}_d{d}"] = r = dict(
-                        source="paddle_tpu_torch/kernels/csrc/paged_chunk_wide.cu", max_abs_err=err,
+                        source=f"paddle_tpu_torch/kernels/csrc/{source}", max_abs_err=err,
                         ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5),
                         library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=cmask,
                                                                                      enable_gqa=True)),
@@ -645,68 +655,257 @@ def check_paged_dtypes(dev, gen, card: dict) -> None:
               "max_abs_err": errs, "tolerance": f"{atol} + {rel}*|x|", "card": card})
 
 
-DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 192-512 cases: MHA (Gemma-7B's 16 x 256) and GQA
+DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 64, 192-1024 cases: MHA (Gemma-7B's 16 x 256) and GQA
 
 
-def check_decode_wide(dev, gen, card: dict, records: dict) -> None:
-    """Kernels 5 and 6 at head dims 192 and 256 (16-lane row groups), 320
-    and 448 (16 lanes, 2 GQA rows a block), 384 and 512 (32 lanes) against their plain
-    versions over :func:`decode_batch`, MHA 16/16 and GQA 32/8: bf16, fp16
-    and fp32 storage, and bf16 q over the int8 pool (both sides dequantize
-    to the same fp32 values); tolerance the bf16 pools' by q's dtype
-    (:data:`PAGED_TOL`). Timed in bf16 at D 256, 320 and 512, MHA 16/16
-    (device ms, the bound of this run's lengths, SDPA over the gathered K/V
-    and the backend it takes)."""
+def wide_dtypes(d: int) -> tuple:
+    """The (q dtype, int8 pool) cases a wide check runs at head dim ``d``:
+    bf16, fp16 and fp32 storage and bf16 q over the int8 pool, and at the
+    largest head dim (1024) bf16 and the int8 pool only."""
+    import torch
+
+    if d == DEEP_HEAD_DIMS[-1]:
+        return ((torch.bfloat16, False), (torch.bfloat16, True))
+    return ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False), (torch.bfloat16, True))
+
+
+def decode_pairs(dargs: dict) -> dict:
+    """Kernels 5 and 6 and their plain versions on one batch, as thunks."""
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    pargs = {k: v for k, v in dargs.items() if k not in ("cos", "sin")}
+    return {"paged_decode": (lambda: kp.paged_flash_decode(**pargs), lambda: kp.paged_flash_decode_plain(**pargs)),
+            "paged_decode_fused": (lambda: kp.paged_flash_decode_fused(**dargs),
+                                   lambda: kp.paged_flash_decode_fused_plain(**dargs))}
+
+
+def decode_agree(dargs: dict, what: str, idle: list) -> dict:
+    """Kernels 5 and 6 on ``dargs`` against their plain versions
+    (``PAGED_TOL`` by q's dtype), the slots in ``idle`` (length 0) exactly 0,
+    and two calls bitwise equal; fails on a miss. Returns the max abs
+    errors."""
+    import torch
+
+    dtype = dargs["q"].dtype
+    atol, rel = PAGED_TOL[str(dtype).split(".")[-1]]
+    errs = {}
+    for k, (run, run_plain) in decode_pairs(dargs).items():
+        g, g2, w = run(), run(), run_plain()
+        torch.cuda.synchronize()
+        errs[k], ok = within(g, w, atol=atol, rel=rel)
+        zero = all(bool((g[i] == 0).all()) for i in idle)
+        same = bool(torch.equal(g, g2))
+        if not ok or not zero or not same or g.dtype != dtype:
+            fail(f"{k} {what} disagrees with its plain version (max abs err {errs[k]}, idle slots zero {zero}, "
+                 f"two calls bitwise equal {same}, dtype {g.dtype})")
+    return errs
+
+
+def check_decode_wide(dev, gen, card: dict) -> None:
+    """Kernels 5 and 6 at head dims 64, 192 to 512 and 576 / 1024 (above
+    the template instances of the other kernels: the same runtime-D
+    kernel, O's columns over ceil(D / 512) CTAs) against their plain
+    versions over :func:`decode_batch`, MHA 16/16 and GQA 32/8, in the
+    storage :func:`wide_dtypes` names (both sides of the int8 pool
+    dequantize to the same fp32 values); tolerance the bf16 pools' by q's
+    dtype (:data:`PAGED_TOL`); the idle slot exactly 0, two calls bitwise
+    equal. Each line names the launch plan (``decode_plan``)."""
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    for d in (64, 192, 256, *WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
+        for hq, hkv in DECODE_WIDE:
+            for dtype, int8 in wide_dtypes(d):
+                name = str(dtype).split(".")[-1]
+                dargs, _ = decode_batch(dev, gen, hq, hkv, d=d, dtype=dtype)
+                if int8:
+                    dargs = int8_pool(dargs)
+                errs = decode_agree(dargs, f"at D {d} in {name}{' over the int8 pool' * int8} at HQ={hq} HKV={hkv}",
+                                    [6])
+                plan = kp._decode_launch_plan(dargs["q"], dargs["key_cache"], dargs["block_tables"], False)
+                emit({"phase": "kernel_check", "kernel": "paged 5/6 wide", "d": d, "hq": hq, "hkv": hkv,
+                      "dtype": name, "kv": "int8" if int8 else name, "max_abs_err": errs, "plan": plan,
+                      "tolerance": "{} + {}*|x|".format(*PAGED_TOL[name]), "card": card})
+
+
+def decode_split_batch(dev, gen, hq: int, hkv: int, d: int, dtype, int8: bool = False, bs: int = 16,
+                       mbs: int = 128) -> tuple:
+    """A decode batch whose lengths end on every rank's boundary of kernels
+    5 / 6's cluster split at these shapes on this card (the plan's ``ranks``
+    R for this pool, from the shapes only: 14 slots whatever the lengths,
+    the pool quantized with ``int8``): slot 0 idle
+    (length 0, must be exact 0), slot 1 of length 1, slot 2 of R - 1 blocks
+    less 5 positions (fewer blocks than ranks: the last ranks walk nothing),
+    slots 3 .. 3 + R - 1 of r + 1 whole blocks (one block a rank: each ends
+    on rank r's last position), a slot of 3 R blocks (3 a rank, ending on
+    the last rank's) and one of 3 R blocks less 7 positions (ragged); table
+    entries past each slot's used blocks hold out-of-range garbage. Returns
+    the arguments and R."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as kp
+    from paddle_tpu_torch.models.llama import LlamaRotaryEmbedding
+
+    b = 14
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    probe = torch.empty((1, hkv, bs, d), dtype=torch.int8 if int8 else dtype, device=dev)
+    ranks = kp._decode_launch_plan(q, probe, torch.empty((b, mbs), dtype=torch.int32, device=dev), False)["ranks"]
+    lens = [0, 1, max(1, (ranks - 1) * bs - 5)] + [(r + 1) * bs for r in range(ranks)] + [3 * ranks * bs,
+                                                                                          3 * ranks * bs - 7]
+    lens = (lens + [bs + 3] * b)[:b]
+    used = [-(-n // bs) for n in lens]
+    nb = sum(used) + 8
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(4)).tolist()
+    tables = torch.full((b, mbs), 1 << 30, dtype=torch.int32)
+    at = 0
+    for i in range(b):
+        tables[i, : used[i]] = torch.tensor(perm[at: at + used[i]], dtype=torch.int32)
+        at += used[i]
+    kc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    rope = LlamaRotaryEmbedding(d, 4096, 10000.0, dev)
+    cos, sin = (t.reshape(b, 1, d) for t in rope(1, (lens_t - 1).clamp(min=0).to(dev)))
+    args = dict(q=q, cos=cos, sin=sin, key_cache=kc, value_cache=vc, block_tables=tables.to(dev),
+                seq_lens=lens_t.to(dev))
+    return (int8_pool(args) if int8 else args), ranks
+
+
+def check_decode_split(dev, gen, card: dict) -> None:
+    """Kernels 5 and 6 against their plain versions over
+    :func:`decode_split_batch` (lengths on every rank boundary, 1, fewer
+    blocks than ranks, an idle slot that must be exact 0, garbage table
+    tails) at head dims 64 to 1024, MHA 8/8 and GQA 32/8, bf16 and bf16 q
+    over the int8 pool, and fp16 / fp32 at 128 and 576; two calls bitwise
+    equal. Each line carries the cluster size the kernels ran with."""
+    import torch
+
+    for d in (64, 128, 256, 320, 512, *DEEP_HEAD_DIMS):
+        for hq, hkv in ((8, 8), (32, 8)):
+            cases = [(torch.bfloat16, False), (torch.bfloat16, True)]
+            if d in (128, DEEP_HEAD_DIMS[0]):
+                cases += [(torch.float16, False), (torch.float32, False)]
+            for dtype, int8 in cases:
+                name = str(dtype).split(".")[-1]
+                dargs, ranks = decode_split_batch(dev, gen, hq, hkv, d, dtype, int8)
+                errs = decode_agree(dargs, f"over the split batch at D {d} in {name}{' over the int8 pool' * int8} "
+                                           f"at HQ={hq} HKV={hkv} (ranks {ranks})", [0])
+                emit({"phase": "kernel_check", "kernel": "paged 5/6 split", "d": d, "hq": hq, "hkv": hkv,
+                      "dtype": name, "kv": "int8" if int8 else name, "cluster_size": ranks,
+                      "lens": dargs["seq_lens"].tolist(), "max_abs_err": errs,
+                      "tolerance": "{} + {}*|x|".format(*PAGED_TOL[name]), "card": card})
+
+
+DECODE_GATE = 1.0  # kernels 5 and 6 at most this times SDPA over the gathered K/V, decode batch, D 128-512
+DECODE_SHARE_GATE = 0.35  # kernel 5 at D 128 bf16 (MHA 32/32) at least this share of its bound
+DECODE_TIMED = ((128, 32, 32), (256, 16, 16), (320, 16, 16), (512, 16, 16), (576, 16, 16), (1024, 16, 16))
+STEP_LENS = (544,) * 8  # the generate_paged phase's decode step: 8 prompts of 512 tokens, 32 new (its middle)
+
+
+def step_batch(dev, gen, bs: int = 16, mbs: int = 128) -> dict:
+    """:func:`decode_batch` at the 7B geometry with every slot at the
+    ``generate_paged`` step's length (:data:`STEP_LENS`: uniform, where the
+    decode batch is skewed), each slot's blocks distinct; table entries
+    past them hold out-of-range garbage."""
+    import torch
+
+    args, _ = decode_batch(dev, gen, 32, 32)
+    b, used = len(STEP_LENS), [-(-n // bs) for n in STEP_LENS]
+    nb = sum(used)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(5)).tolist()
+    tables = torch.full((b, mbs), 1 << 30, dtype=torch.int32)
+    at = 0
+    for i in range(b):
+        tables[i, : used[i]] = torch.tensor(perm[at: at + used[i]], dtype=torch.int32)
+        at += used[i]
+    return {**args, "key_cache": torch.randn((nb, 32, bs, 128), generator=gen, device=dev).to(torch.bfloat16),
+            "value_cache": torch.randn((nb, 32, bs, 128), generator=gen, device=dev).to(torch.bfloat16),
+            "block_tables": tables.to(dev), "seq_lens": torch.tensor(STEP_LENS, dtype=torch.int32, device=dev)}
+
+
+def decode_ranks_ms(dargs: dict) -> dict:
+    """Kernel 5 on ``dargs`` at every cluster size, 1 to 8, in place of its
+    plan's (device ms, cold L2), each result within ``PAGED_TOL`` of the
+    plain version; fails on a miss."""
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    pargs = {k: v for k, v in dargs.items() if k not in ("cos", "sin")}
+    atol, rel = PAGED_TOL[str(dargs["q"].dtype).split(".")[-1]]
+    want = kp.paged_flash_decode_plain(**pargs)
+    times = {}
+    for ranks in range(1, 9):
+        def run(ranks=ranks):
+            return kp._decode_launch("paged_flash_decode", pargs["q"], None, None, pargs["key_cache"],
+                                     pargs["value_cache"], pargs["block_tables"], pargs["seq_lens"], None, None,
+                                     None, ranks=ranks)
+        err, ok = within(run(), want, atol=atol, rel=rel)
+        if not ok:
+            fail(f"paged_decode at {ranks} ranks disagrees with its plain version (max abs err {err})")
+        times[ranks] = device_ms(run)
+    return times
+
+
+def check_decode_gate(dev, gen, card: dict, records: dict) -> None:
+    """Kernels 5 and 6 timed over :func:`decode_batch` (device ms, cold L2)
+    at the 7B decode step's geometry (D 128, MHA 32/32) and at D 256, 320,
+    512, 576 and 1024 (MHA 16/16), with bf16 pools and bf16 q over the
+    int8 pool, and over :func:`step_batch` (the ``generate_paged`` step's
+    uniform lengths, bf16): each beside the bound of this run's lengths
+    (the int8 pool's scale rows counted), its share of it, the plain
+    version and SDPA over the gathered K/V (dequantized to bf16 for the
+    int8 pool; q roped for 6) with the ratio; beside 5 at D 128 bf16,
+    ``read_floor_ms``: ``torch.sum`` over as many bf16 bytes, timed alike
+    (the L2 flush leaves dirty lines that every read must write back
+    first). Kernel 5 in bf16 at D 128 on both batches is also timed at
+    every cluster size the plan can take (``ranks_ms``: 1 to 8 ranks, each
+    result held to the plain version), beside the plan's own. One
+    ``decode_gate`` line (each row with the plan's ``cluster_size`` and
+    ``clusters_at_once``, the card's cap at 1 to 8 ranks); gated: every
+    decode-batch instance up to D 512 at most ``DECODE_GATE`` x SDPA, and
+    kernel 5 at D 128 bf16 at least ``DECODE_SHARE_GATE`` of its bound."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.kernels import paged_attention as kp
 
-    for d in (192, 256, *WIDE_HEAD_DIMS):
-        for hq, hkv in DECODE_WIDE:
-            for dtype, int8 in ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False),
-                                (torch.bfloat16, True)):
-                name = str(dtype).split(".")[-1]
-                atol, rel = PAGED_TOL[name]
-                dargs, _ = decode_batch(dev, gen, hq, hkv, d=d, dtype=dtype)
-                if int8:
-                    dargs = int8_pool(dargs)
-                pargs = {k: v for k, v in dargs.items() if k not in ("cos", "sin")}
-                pairs = {"paged_decode": (lambda: kp.paged_flash_decode(**pargs),
-                                          lambda: kp.paged_flash_decode_plain(**pargs)),
-                         "paged_decode_fused": (lambda: kp.paged_flash_decode_fused(**dargs),
-                                                lambda: kp.paged_flash_decode_fused_plain(**dargs))}
-                errs = {}
-                for k, (run, run_plain) in pairs.items():
-                    g, w = run(), run_plain()
-                    torch.cuda.synchronize()
-                    errs[k], ok = within(g, w, atol=atol, rel=rel)
-                    zero = bool((g[6] == 0).all())
-                    if not ok or not zero or g.dtype != dtype:
-                        fail(f"{k} at D {d} in {name}{' over the int8 pool' * int8} at HQ={hq} HKV={hkv} disagrees "
-                             f"with its plain version (max abs err {errs[k]}, idle slot zero {zero}, dtype {g.dtype})")
-                line = {"phase": "kernel_check", "kernel": "paged 5/6 wide", "d": d, "hq": hq, "hkv": hkv,
-                        "dtype": name, "kv": "int8" if int8 else name, "max_abs_err": errs,
-                        "tolerance": f"{atol} + {rel}*|x|"}
-                if d in (256, *WIDE_TIMED) and hq == hkv and dtype == torch.bfloat16 and not int8:
-                    kd, vd, L = gathered_kv(dargs, [int(n) for n in dargs["seq_lens"]])
-                    mask = (torch.arange(L, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
-                    qd = dargs["q"][:, :, None]
-                    qdr = kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"])[:, :, None]
-                    libs = {"paged_decode": (qd, False), "paged_decode_fused": (qdr, True)}
-                    for k, (qq, rope) in libs.items():
-                        run, run_plain = pairs[k]
-                        nbytes, flops = decode_cost(dargs, rope=rope)
-                        records[f"{k}_d{d}"] = r = dict(
-                            source="paddle_tpu_torch/kernels/csrc/paged_decode.cu", max_abs_err=errs[k],
-                            ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
-                            library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)),
-                            sdpa_backend=sdpa_backend(qq, kd, vd, mask),
-                            bytes=nbytes, flops=flops, **bound(nbytes, flops))
-                        r["share_of_bound"] = r["bound_ms"] / r["ms"]
-                        line[k] = r
-                    line["library"] = "SDPA over the gathered K/V (q roped for 6)"
-                    del kd, vd
-                emit({**line, "card": card})
+    rows, misses = {}, []
+    cases = [(f"_d{d}", d, hkv, int8, lambda d=d, hq=hq, hkv=hkv: decode_batch(dev, gen, hq, hkv, d=d)[0])
+             for d, hq, hkv in DECODE_TIMED for int8 in (False, True)]
+    for tag, d, hkv, int8, make in cases + [("_step", 128, 32, False, lambda: step_batch(dev, gen))]:
+        dargs = int8_pool(make()) if int8 else make()
+        decode_agree(dargs, f"at D {d}{' over the int8 pool' * int8} (timed{tag})", [] if tag == "_step" else [6])
+        lens = [int(n) for n in dargs["seq_lens"]]
+        kd, vd, n_pos = (dequant_gathered if int8 else gathered_kv)(dargs, lens)
+        mask = (torch.arange(n_pos, device=dev)[None, :] < dargs["seq_lens"][:, None])[:, None, None]
+        plan = kp._decode_launch_plan(dargs["q"], dargs["key_cache"], dargs["block_tables"], False)
+        for k, (run, run_plain) in decode_pairs(dargs).items():
+            rope = k == "paged_decode_fused"
+            qq = (kp.rope_rows(dargs["q"], dargs["cos"], dargs["sin"]) if rope else dargs["q"])[:, :, None]
+            nbytes, flops = decode_cost(dargs, rope=rope)
+            nbytes += 2 * hkv * 4 * sum(lens) * int8  # the scale rows
+            ms = device_ms(run)
+            lib = device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask))
+            name = k + "_int8" * int8 + tag
+            r = dict(source="paddle_tpu_torch/kernels/csrc/paged_decode.cu", d=d, hq=dargs["q"].shape[1], hkv=hkv,
+                     ms=ms, plain_ms=device_ms(run_plain, iters=5), library_ms=lib, ratio_to_library=ms / lib,
+                     sdpa_backend=sdpa_backend(qq, kd, vd, mask), bytes=nbytes, flops=flops, **bound(nbytes, flops),
+                     cluster_size=plan["ranks"], clusters_at_once=plan["cap"])
+            r["share_of_bound"] = r["bound_ms"] / ms
+            if name == "paged_decode_d128":  # the floor of this timing: one bf16 read of as many bytes
+                flat = torch.ones(nbytes // 2, dtype=torch.bfloat16, device=dev)
+                r["read_floor_ms"] = device_ms(lambda: flat.sum())
+                del flat
+            if name in ("paged_decode_d128", "paged_decode_step"):
+                r["ranks_ms"] = decode_ranks_ms(dargs)
+            rows[name] = records[name] = r
+            if tag != "_step" and d <= WIDE_HEAD_DIMS[-1] and r["ratio_to_library"] > DECODE_GATE:
+                misses.append(f"{name}: {ms:.4f} ms, {r['ratio_to_library']:.2f}x SDPA")
+            if name == "paged_decode_d128" and r["share_of_bound"] < DECODE_SHARE_GATE:
+                misses.append(f"paged_decode at D 128: {r['share_of_bound']:.3f} of its bound")
+        del kd, vd
+    emit({"phase": "decode_gate", "gate": {"ratio_to_sdpa_at_most": DECODE_GATE, "d": [128, 256, 320, 512],
+                                           "paged_decode_d128_share_at_least": DECODE_SHARE_GATE},
+          "library": "SDPA over the gathered K/V (dequantized for the int8 pool; q roped for 6)",
+          "instances": rows, "misses": misses, "card": card})
+    if misses:
+        fail(f"decode_gate: {'; '.join(misses)}")
 
 
 def check_paged_fused(dev, gen, card: dict, records: dict) -> None:
@@ -799,7 +998,9 @@ def check_kernels(dev, card: dict) -> tuple:
           **records["rms_residual"], "card": card})
     check_paged_new(dev, gen, card, records)
     check_paged_dtypes(dev, gen, card)
-    check_decode_wide(dev, gen, card, records)
+    check_decode_wide(dev, gen, card)
+    check_decode_split(dev, gen, card)
+    check_decode_gate(dev, gen, card, records)
     check_paged_split(dev, gen, card)
     check_paged_wide(dev, gen, card, records)
     check_b_c_dtypes(dev, gen, card)
@@ -1193,20 +1394,24 @@ def sdpa_backend(qh, kh, vh, attn_mask=None, is_causal: bool = False) -> str:
         return f"not known ({type(e).__name__})"
 
 
-# head dims above the wgmma kernels' 256 (ROADMAP Queue 3 fault 2, repaired up to 512): every one is held
-# against the plain versions; 320 and 512, the two the wide_heads phase runs, are timed
+# head dims above the wgmma kernels' 256, up to the template instances' 512: every one is held against the
+# plain versions; 320 and 512, the two the wide_heads phase runs, are timed
 WIDE_HEAD_DIMS = (320, 384, 448, 512)
 WIDE_TIMED = (320, 512)
+# head dims above 512 (the runtime-D kernels: csrc/flash_deep.cu, paged_chunk_deep.cu and 5 / 6): checked
+# and timed
+DEEP_HEAD_DIMS = (576, 1024)
 
 
 def check_flash_wide(dev, gen, card: dict) -> dict:
     """Kernels 14-16 at head dims 320, 384, 448 and 512 (the CUDA-core
     instances of ``csrc/flash_fp32.cu``: bf16 and fp16 widened to fp32 as
-    they are staged) at GQA 8/2, S 1024, causal and under a document mask,
-    in bf16, fp16 and fp32, against their plain versions (``FLASH_GATES``);
-    the bf16 cases at 320 and 512 timed beside SDPA (its backend named);
-    and at 320 and 512 at the ``wide_heads`` train step's S 4096 under a
-    document mask, bf16.
+    they are staged) and 576 and 1024 (``csrc/flash_deep.cu``, D a runtime
+    value) at GQA 8/2, S 1024, causal and under a document mask, in bf16,
+    fp16 and fp32 (at 1024 bf16), against their plain versions
+    (``FLASH_GATES``); the bf16 cases at 320, 512, 576 and 1024 timed beside
+    SDPA (its backend named); and at 320 and 512 at the ``wide_heads``
+    train step's S 4096 under a document mask, bf16.
     Returns the times."""
     import numpy as np
     import torch
@@ -1214,10 +1419,10 @@ def check_flash_wide(dev, gen, card: dict) -> dict:
 
     ends = torch.from_numpy(doc_bounds(np.random.default_rng(2), 2, 1024, 64, 512)[:, None, :, None].copy()).to(dev)
     wide = {}
-    for d in WIDE_HEAD_DIMS:
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+    for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
+        for dtype in {dt for dt, _ in wide_dtypes(d)}:
             for bnd, mask in ((None, "causal"), (ends, "document mask")):
-                timed = dtype == torch.bfloat16 and d in WIDE_TIMED
+                timed = dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)
                 res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
                                  card, timed=timed, dtype=dtype, d=d)
                 if timed:
@@ -1235,7 +1440,8 @@ def check_flash_wide(dev, gen, card: dict) -> dict:
                    dtype=torch.bfloat16, d=d)
         torch.cuda.empty_cache()
     emit({"phase": "flash_wide_times", "shape": [2, 1024, 8, 2], "dtype": "bfloat16", "cases": wide,
-          "source": FLASH_FP32_SOURCE, "card": card})
+          "source": {"320-512": FLASH_FP32_SOURCE, "576, 1024": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
+          "card": card})
     return wide
 
 
@@ -3869,7 +4075,7 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
     return total
 
 
-# -- head dims above 256 end to end (ROADMAP Queue 3 fault 2, repaired up to 512) ------
+# -- head dims above 256 end to end (ROADMAP Queue 3 fault 2, closed) ----------------------
 
 # (label, hidden, intermediate) at 8 heads, GQA 8/2: Llama-2-7B's widths with heads of 512, and the
 # same at heads of 320 (hidden 2560). No model the JAX package configures reaches a head dim above 256

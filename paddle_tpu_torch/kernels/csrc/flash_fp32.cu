@@ -30,7 +30,7 @@
 // At D 512 the staged tiles take 164 KB (forward: 16 q rows, 32 padded K
 // rows, 32 V rows), 197 KB (dq) and 197 KB (dk/dv) of a block's 227 KB, and
 // a lane holds 4 x 16 output columns (forward, dq) or 2 x 4 x 16 (dk and
-// dv): the limit of these designs, so D above 512 is refused.
+// dv): the limit of these designs; above 512 flash_deep.cu takes over.
 //
 // Bound on H100: operations, at fp32's 67 TFLOP/s for fp32 inputs and at
 // the tensor cores' 989 for bf16 and fp16; this version issues one FMA per

@@ -1,8 +1,9 @@
 // Kernels A and 4's device code and launch (see paged_chunk_fused.cu
-// for what they compute, the semantics kept and the design). Two
+// for what they compute, the semantics kept and the design). Three
 // translation units instantiate it, so that nvcc builds them in parallel:
 // paged_chunk_fused.cu the head dims 64 to 256 and the C entries,
-// paged_chunk_wide.cu the head dims 320 to 512 (`launch_wide`).
+// paged_chunk_wide.cu the head dims 320 to 512 (`launch_wide`),
+// paged_chunk_deep.cu every head dim above 512 (`launch_deep`).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -277,6 +278,70 @@ __device__ __forceinline__ void upcast_tile(T* dst, int ldt, const int8_t* src, 
   }
 }
 
+// The merge, after cluster.sync(): rank `rank` takes rows rank, rank +
+// ranks, ... of the tile; each row's partials (part_m, part_l and the pacc
+// rows of stride ldp, `cols` columns, in each rank's shared memory) merged in
+// rank order, every rank's load issued before any is used, and written
+// through out_row(r) (row r of the output at the CTA's first column); rows at
+// or past q_lens are written as 0. w_s and den_s: shared scratch.
+template <typename T, typename OutRow>
+__device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster, int rank, int ranks, int rows_here, int row0,
+                                            int G, int ql, float* part_m, float* part_l, float* pacc, int ldp,
+                                            int cols, float (*w_s)[kMaxRanks], float* den_s, OutRow out_row) {
+  const int tid = threadIdx.x;
+  const int n_mine = rank < rows_here ? (rows_here - rank + ranks - 1) / ranks : 0;
+  for (int i = tid; i < n_mine; i += kThreads) {
+    const int r = rank + i * ranks;
+    if ((row0 + r) / G >= ql) continue;  // written as 0 below
+    float mk[kMaxRanks], lk[kMaxRanks];
+#pragma unroll
+    for (int k = 0; k < kMaxRanks; ++k) {
+      mk[k] = k < ranks ? *cluster.map_shared_rank(&part_m[r], k) : kNegInf;
+      lk[k] = k < ranks ? *cluster.map_shared_rank(&part_l[r], k) : 0.f;
+    }
+    float M = kNegInf;
+#pragma unroll
+    for (int k = 0; k < kMaxRanks; ++k) M = fmaxf(M, mk[k]);
+    float L = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxRanks; ++k) {
+      // a rank without a valid position for this row adds exactly nothing
+      const float w = mk[k] > kNegInf ? expf(mk[k] - M) : 0.f;
+      w_s[i][k] = w;
+      if (w != 0.f) L += w * lk[k];
+    }
+    den_s[i] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  const int c4 = cols / 4;
+  for (int idx = tid; idx < n_mine * c4; idx += kThreads) {
+    const int i = idx / c4, c = (idx % c4) * 4, r = rank + i * ranks;
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    if ((row0 + r) / G < ql) {
+      float4 a[kMaxRanks];
+#pragma unroll
+      for (int k = 0; k < kMaxRanks; ++k)
+        if (k < ranks && w_s[i][k] != 0.f)
+          a[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(pacc, k) + r * ldp + c);
+#pragma unroll
+      for (int k = 0; k < kMaxRanks; ++k) {
+        if (k >= ranks) break;
+        const float w = w_s[i][k];
+        if (w == 0.f) continue;
+        o[0] += w * a[k].x;
+        o[1] += w * a[k].y;
+        o[2] += w * a[k].z;
+        o[3] += w * a[k].w;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] /= den_s[i];
+    }
+    T* dst = out_row(r) + c;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dst[k] = ptt::from_f<T>(o[k]);
+  }
+}
+
 template <typename T, typename KV, int D, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope when ROPE
@@ -505,72 +570,23 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
   }
   cluster.sync();  // every rank's partials are written
 
-  // The merge: rank r takes rows r, r + ranks, ...; each row's partials in
-  // rank order, every rank's load issued before any is used.
-  const int n_mine = rank < rows_here ? (rows_here - rank + ranks - 1) / ranks : 0;
-  for (int i = tid; i < n_mine; i += kThreads) {
-    const int r = rank + i * ranks;
-    if ((row0 + r) / G >= ql) continue;  // written as 0 below
-    float mk[kMaxRanks], lk[kMaxRanks];
-#pragma unroll
-    for (int k = 0; k < kMaxRanks; ++k) {
-      mk[k] = k < ranks ? *cluster.map_shared_rank(&part_m[r], k) : kNegInf;
-      lk[k] = k < ranks ? *cluster.map_shared_rank(&part_l[r], k) : 0.f;
-    }
-    float M = kNegInf;
-#pragma unroll
-    for (int k = 0; k < kMaxRanks; ++k) M = fmaxf(M, mk[k]);
-    float L = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxRanks; ++k) {
-      // a rank without a valid position for this row adds exactly nothing
-      const float w = mk[k] > kNegInf ? expf(mk[k] - M) : 0.f;
-      w_s[i][k] = w;
-      if (w != 0.f) L += w * lk[k];
-    }
-    den_s[i] = fmaxf(L, 1e-30f);
-  }
-  __syncthreads();
-  constexpr int kC4 = kDO / 4;
-  for (int idx = tid; idx < n_mine * kC4; idx += kThreads) {
-    const int i = idx / kC4, c = (idx % kC4) * 4, r = rank + i * ranks;
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-    if ((row0 + r) / G < ql) {
-      float4 a[kMaxRanks];
-#pragma unroll
-      for (int k = 0; k < kMaxRanks; ++k)
-        if (k < ranks && w_s[i][k] != 0.f)
-          a[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(pacc, k) + r * kLdP + c);
-#pragma unroll
-      for (int k = 0; k < kMaxRanks; ++k) {
-        if (k >= ranks) break;
-        const float w = w_s[i][k];
-        if (w == 0.f) continue;
-        o[0] += w * a[k].x;
-        o[1] += w * a[k].y;
-        o[2] += w * a[k].z;
-        o[3] += w * a[k].w;
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] /= den_s[i];
-    }
-    T* dst = out_row(r) + col0 + c;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dst[k] = ptt::from_f<T>(o[k]);
-  }
+  merge_ranks<T>(cluster, rank, ranks, rows_here, row0, G, ql, part_m, part_l, pacc, kLdP, kDO, w_s, den_s,
+                 [&](int r) { return out_row(r) + col0; });
   cluster.sync();  // no rank leaves while another still reads its shared memory
 }
 
 // One launch of kernel A (ROPE) or 4 as a cluster of `ranks` CTAs per
 // (tile, column half, KV head, slot). The plan, `ranks` included, is
-// paged_attention.py `chunk_plan`'s, from the shapes and the cap this
+// paged_attention.py `chunk_plan`'s (its `split` and `cols` must be the
+// instance's own), from the shapes and the cap this
 // answers when q is null: the CTAs of this instance the card holds at once
 // (its occupancy with up to MBS table entries staged, times the SMs),
 // written to the host int `out` with nothing launched.
 template <typename T, typename KV, int D, bool ROPE>
 int launch_d(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
              const void* ks, const void* vs, const void* tables, const void* lens, const void* qlens,
-             void* out, int B, int C, int HQ, int HKV, int BS, int MBS, int ranks, float scale, cudaStream_t st) {
+             void* out, int B, int C, int HQ, int HKV, int BS, int MBS, int split, int cols, int ranks, float scale,
+             cudaStream_t st) {
   using G_ = Geo<T, KV, D>;
   auto kernel = paged_chunk_kernel<T, KV, D, ROPE>;
   const size_t smem = G_::kSmem + sizeof(int) * MBS;  // the layout and the rank's table entries
@@ -585,7 +601,8 @@ int launch_d(const void* q, const void* cos_t, const void* sin_t, const void* kc
     *static_cast<int*>(out) = max(1, per_sm * sms);
     return 0;
   }
-  if (ranks < 1 || ranks > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  if (ranks < 1 || ranks > kMaxRanks || split != G_::kSplit || cols != G_::kDO)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (C * (HQ / HKV) + G_::kRows - 1) / G_::kRows;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * G_::kSplit * ranks, HKV, B);
@@ -619,6 +636,15 @@ namespace ptt::chunk {
 template <typename T, typename KV, bool ROPE>
 int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
                 const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-                int HQ, int HKV, int D, int BS, int MBS, int ranks, float scale, cudaStream_t st);
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                cudaStream_t st);
+
+// Kernels A and 4 at any head dim above 512 (a runtime multiple of 64), as
+// `launch_wide` takes them; defined in paged_chunk_deep.cu.
+template <typename T, typename KV, bool ROPE>
+int launch_deep(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
+                const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                cudaStream_t st);
 
 }  // namespace ptt::chunk

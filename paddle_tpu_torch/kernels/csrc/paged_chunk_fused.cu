@@ -19,7 +19,8 @@
 // are written as exact 0; block-table entries at or past
 // ceil((lens + q_lens) / BS) are never read, and neither are their blocks.
 // Storage is bf16, fp16 or fp32 (the template type T); head dims 64, 128,
-// 192, 256, 320, 384, 448 and 512.
+// 192, 256, 320, 384, 448 and 512 as template instances, and every
+// multiple of 64 above 512 as one runtime instance (paged_chunk_deep.cu).
 //
 // The int8 pool (KV = int8_t, the `_int8` entry points): the cache holds
 // int8 K/V rows and two fp32 scale planes [NB, HKV, BS], one scale per
@@ -98,10 +99,11 @@ namespace {
 template <typename T, typename KV, bool ROPE>
 int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
            const void* ks, const void* vs, const void* tables, const void* lens, const void* qlens,
-           void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS, int ranks, float scale,
-           cudaStream_t st) {
-#define PTT_LAUNCH(DIM) \
-  launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS, ranks, scale, st)
+           void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks,
+           float scale, cudaStream_t st) {
+#define PTT_LAUNCH(DIM)                                                                                         \
+  launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS, \
+                             split, cols, ranks, scale, st)
   switch (D) {
     case 64:
       return PTT_LAUNCH(64);
@@ -116,9 +118,10 @@ int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, 
     case 448:
     case 512:  // instantiated in paged_chunk_wide.cu
       return ptt::chunk::launch_wide<T, KV, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
-                                                  HQ, HKV, D, BS, MBS, ranks, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+                                                  HQ, HKV, D, BS, MBS, split, cols, ranks, scale, st);
+    default:  // above 512: one instance, D a runtime multiple of 64 (paged_chunk_deep.cu)
+      return ptt::chunk::launch_deep<T, KV, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
+                                                  HQ, HKV, D, BS, MBS, split, cols, ranks, scale, st);
   }
 #undef PTT_LAUNCH
 }
@@ -128,12 +131,12 @@ template <bool ROPE, bool QUANT>
 int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
               const void* vc, const void* ks, const void* vs, const void* tables, const void* lens,
               const void* qlens, void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS,
-              int ranks, float scale, void* stream) {
+              int split, int cols, int ranks, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_IO(TYPE)                                                                             \
   launch<TYPE, std::conditional_t<QUANT, int8_t, TYPE>, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs,   \
                                                               tables, lens, qlens, out, B, C, HQ, \
-                                                              HKV, D, BS, MBS, ranks, scale, st)
+                                                              HKV, D, BS, MBS, split, cols, ranks, scale, st)
   switch (io) {
     case ptt::kBF16:
       return PTT_IO(bf16);
@@ -150,26 +153,27 @@ int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const
 }  // namespace
 
 // Kernel A. `io` is the storage type (ptt::IoType) of q and out; cos/sin are
-// fp32 [B, C, D]; `ranks` is the cluster size (paged_attention.py
-// `chunk_plan`, 1 to 8). Returns cudaErrorInvalidValue for a head dim that
-// is not a multiple of 64 up to 512, an unknown type or a cluster size out
-// of range.
+// fp32 [B, C, D]; `split` (CTAs over O's columns), `cols` (O's columns a
+// CTA) and `ranks` (the cluster size, 1 to 8) are paged_attention.py
+// `chunk_plan`'s. Returns cudaErrorInvalidValue for a head dim that is not
+// a multiple of 64, an unknown type, a cluster size out of range or a
+// column split the instance does not hold.
 extern "C" int ptt_paged_chunk_fused(int io, const void* q, const void* cos_t, const void* sin_t,
                                      const void* kc, const void* vc, const void* tables,
                                      const void* lens, const void* qlens, void* out, int B, int C,
-                                     int HQ, int HKV, int D, int BS, int MBS, int ranks, float scale,
-                                     void* stream) {
+                                     int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks,
+                                     float scale, void* stream) {
   return launch_io<true, false>(io, q, cos_t, sin_t, kc, vc, nullptr, nullptr, tables, lens, qlens, out,
-                                B, C, HQ, HKV, D, BS, MBS, ranks, scale, stream);
+                                B, C, HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
 }
 
 // Kernel 4: the same walk with q taken as given.
 extern "C" int ptt_paged_chunk(int io, const void* q, const void* kc, const void* vc,
                                const void* tables, const void* lens, const void* qlens, void* out,
-                               int B, int C, int HQ, int HKV, int D, int BS, int MBS, int ranks, float scale,
-                               void* stream) {
+                               int B, int C, int HQ, int HKV, int D, int BS, int MBS, int split, int cols,
+                               int ranks, float scale, void* stream) {
   return launch_io<false, false>(io, q, nullptr, nullptr, kc, vc, nullptr, nullptr, tables, lens, qlens,
-                                 out, B, C, HQ, HKV, D, BS, MBS, ranks, scale, stream);
+                                 out, B, C, HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
 }
 
 // Kernel A over the int8 pool: kc/vc int8 [NB, HKV, BS, D], ks/vs fp32
@@ -178,18 +182,18 @@ extern "C" int ptt_paged_chunk_fused_int8(int io, const void* q, const void* cos
                                           const void* kc, const void* vc, const void* ks, const void* vs,
                                           const void* tables, const void* lens, const void* qlens,
                                           void* out, int B, int C, int HQ, int HKV, int D, int BS,
-                                          int MBS, int ranks, float scale, void* stream) {
+                                          int MBS, int split, int cols, int ranks, float scale, void* stream) {
   return launch_io<true, true>(io, q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ,
-                               HKV, D, BS, MBS, ranks, scale, stream);
+                               HKV, D, BS, MBS, split, cols, ranks, scale, stream);
 }
 
 // Kernel 4 over the int8 pool.
 extern "C" int ptt_paged_chunk_int8(int io, const void* q, const void* kc, const void* vc, const void* ks,
                                     const void* vs, const void* tables, const void* lens,
                                     const void* qlens, void* out, int B, int C, int HQ, int HKV, int D,
-                                    int BS, int MBS, int ranks, float scale, void* stream) {
+                                    int BS, int MBS, int split, int cols, int ranks, float scale, void* stream) {
   return launch_io<false, true>(io, q, nullptr, nullptr, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
-                                HQ, HKV, D, BS, MBS, ranks, scale, stream);
+                                HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
 }
 
 // The CTAs of kernel A's (rope 1) or 4's (rope 0) instance for this type,
@@ -200,7 +204,7 @@ extern "C" int ptt_paged_chunk_cap(int io, int quant, int rope, int D, int MBS, 
   // launch_io with a null q writes the cap into `out`
 #define PTT_CAP(ROPE, QUANT)                                                                                      \
   launch_io<ROPE, QUANT>(io, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, \
-                         nullptr, cap, 1, 1, 1, 1, D, 1, MBS, 1, 1.f, nullptr)
+                         nullptr, cap, 1, 1, 1, 1, D, 1, MBS, 1, D, 1, 1.f, nullptr)
   return rope ? (quant ? PTT_CAP(true, true) : PTT_CAP(true, false))
               : (quant ? PTT_CAP(false, true) : PTT_CAP(false, false));
 #undef PTT_CAP

@@ -9,9 +9,11 @@ namespace ptt::chunk {
 template <typename T, typename KV, bool ROPE>
 int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
                 const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-                int HQ, int HKV, int D, int BS, int MBS, int ranks, float scale, cudaStream_t st) {
-#define PTT_LAUNCH(DIM) \
-  launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS, ranks, scale, st)
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                cudaStream_t st) {
+#define PTT_LAUNCH(DIM)                                                                                              \
+  launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS,      \
+                             split, cols, ranks, scale, st)
   switch (D) {
     case 320:
       return PTT_LAUNCH(320);
@@ -27,13 +29,15 @@ int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void*
 #undef PTT_LAUNCH
 }
 
-#define PTT_WIDE(T, KV)                                                                                          \
-  template int launch_wide<T, KV, true>(const void*, const void*, const void*, const void*, const void*,       \
-                                        const void*, const void*, const void*, const void*, const void*, void*, \
-                                        int, int, int, int, int, int, int, int, float, cudaStream_t);               \
-  template int launch_wide<T, KV, false>(const void*, const void*, const void*, const void*, const void*,      \
-                                         const void*, const void*, const void*, const void*, const void*,      \
-                                         void*, int, int, int, int, int, int, int, int, float, cudaStream_t);
+#define PTT_WIDE(T, KV)                                                                                              \
+  template int launch_wide<T, KV, true>(const void*, const void*, const void*, const void*, const void*,             \
+                                        const void*, const void*, const void*, const void*, const void*, void*,      \
+                                        int, int, int, int, int, int, int, int, int, int, float,                     \
+                                        cudaStream_t);                                                               \
+  template int launch_wide<T, KV, false>(const void*, const void*, const void*, const void*, const void*,            \
+                                         const void*, const void*, const void*, const void*, const void*,            \
+                                         void*, int, int, int, int, int, int, int, int, int, int, float,             \
+                                         cudaStream_t);
 PTT_WIDE(ptt::bf16, ptt::bf16)
 PTT_WIDE(ptt::f16, ptt::f16)
 PTT_WIDE(float, float)

@@ -28,11 +28,11 @@ its block size (the XLA path a uniform average over all columns).
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
 ``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256;
-``csrc/flash_fp32.cu``, the CUDA-core instances, for fp32 and for bf16 and
-fp16 above 256) or raises — it never falls back. On the card the kernels
-take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and a head dim in
-:data:`KERNEL_HEAD_DIMS` (the multiples of 64 up to 512); a larger head dim
-raises (ROADMAP Queue 3 fault 2).
+``csrc/flash_fp32.cu``, the CUDA-core instances, for fp32 up to 512 and for
+bf16 and fp16 from 320 to 512; ``csrc/flash_deep.cu`` above 512, its head
+dim a runtime value) or raises — it never falls back. On the card the
+kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
+head dim that is a multiple of 64, as the JAX package's gate sends them.
 
 Kernels 14 and 15 walk the key tiles of a query tile, kernel 16 the query
 tiles of a key tile (and the fp32 instances of all three likewise), under
@@ -68,6 +68,7 @@ __all__ = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the head dims of the template instances; every multiple of 64 above them runs csrc/flash_deep.cu
 KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 take the CUDA-core instances of csrc/flash_fp32.cu
 _MASK_C = (1, 2, 4)
@@ -90,7 +91,8 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     the query rows and keys of one (query tile, key tile) pair. bf16/fp16
     up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
     x 64, dk/dv 64 query rows x 64 keys; the CUDA-core instances (fp32, and
-    D above 256): forward and dq 16 x 32, dk/dv 32 query rows x 16 keys."""
+    D above 256, ``csrc/flash_deep.cu``'s too): forward and dq 16 x 32,
+    dk/dv 32 query rows x 16 keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
     if _simt(d, dtype):
@@ -305,12 +307,9 @@ def _cuda_inputs(what: str, tensors, bounds, d: int):
     """Contiguous, 16-byte-aligned views of ``tensors`` (one dtype of
     bf16, fp16 and fp32) and int32 bounds on one card, with the C entry's
     suffix (``fp32``; ``bf16`` / ``fp16`` for the wgmma kernels up to D
-    256, ``wide_bf16`` / ``wide_fp16`` for the CUDA-core instances above);
-    or an exception naming what the kernels do not take."""
-    if d > KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"{what}: head dim {d} is above the kernels' {KERNEL_HEAD_DIMS[-1]} "
-                         "(ROADMAP Queue 3 fault 2: above 512 a staged K tile and a row's O accumulator "
-                         "outgrow a block's shared memory and registers)")
+    256, ``wide_bf16`` / ``wide_fp16`` for the CUDA-core instances to 512;
+    ``deep_bf16`` / ``deep_fp16`` / ``deep_fp32`` above 512); or an
+    exception naming what the kernels do not take."""
     dtype = tensors[0][1].dtype
     for name, t in tensors:
         if t.dtype not in _KERNEL_DTYPES or t.dtype != dtype:
@@ -319,8 +318,8 @@ def _cuda_inputs(what: str, tensors, bounds, d: int):
     dev = tensors[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, not {d}")
+    if d <= 0 or d % 64:
+        raise ValueError(f"{what}: the CUDA kernels take head dims that are multiples of 64, not {d}")
     out = []
     for name, t in tensors:
         if t.device != dev:
@@ -333,6 +332,8 @@ def _cuda_inputs(what: str, tensors, bounds, d: int):
             raise ValueError(f"{what}: bounds must be an int32 tensor on {dev}")
         bnd = bounds.contiguous()
     suffix = _KERNEL_DTYPES[dtype]
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return dev, out, bnd, f"deep_{suffix}"
     return dev, out, bnd, suffix if suffix == "fp32" or d <= WGMMA_HEAD_DIM_MAX else f"wide_{suffix}"
 
 
@@ -350,7 +351,9 @@ def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
     """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
     15 and 16 (one int32, zero before each launch); the CUDA-core instances
     take none."""
-    return None if suffix == "fp32" or suffix.startswith("wide") else torch.zeros(1, dtype=torch.int32, device=dev)
+    if suffix == "fp32" or suffix.startswith(("wide", "deep")):
+        return None
+    return torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 def flash_fwd(

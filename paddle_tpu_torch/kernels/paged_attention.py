@@ -22,11 +22,13 @@ block tables; keys are stored roped. Four kernels:
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/paged_chunk_fused.cu`` for A and 4,
 ``csrc/paged_decode.cu`` for 5 and 6) for CUDA tensors, or raises. The
-kernels take bf16, fp16 or fp32 storage and the head dims that are
-multiples of 64 up to 512 (the JAX package's ``D % 64`` gate sends every
-multiple of 64 to its kernels; above 512 the wrappers raise, ROADMAP Queue
-3 fault 2). Above 256, A and 4 split O's columns over two CTAs
-(:func:`chunk_plan`). The rope rows reach A and 6 in
+kernels take bf16, fp16 or fp32 storage and every head dim that is a
+multiple of 64, as the JAX package's ``D % 64`` gate sends every one to its
+kernels. Above 256, A and 4 split O's columns over CTAs
+(:func:`chunk_plan`: two up to 512, ``ceil(D / 256)`` above, where
+``csrc/paged_chunk_deep.cu`` stages q and K in 64-column chunks); 5 and 6
+split each history over a cluster and O's columns over ``ceil(D / 512)``
+CTAs (:func:`decode_plan`). The rope rows reach A and 6 in
 fp32, as the engine gathers them; the kernels round them to q's dtype.
 
 The int8 pool: with ``k_scale``/``v_scale`` (fp32 ``[NB, HKV, BS]``, one
@@ -53,6 +55,7 @@ from paddle_tpu_torch.kernels.select import count_launch
 __all__ = [
     "chunk_cluster_size",
     "chunk_plan",
+    "decode_plan",
     "paged_flash_chunk",
     "paged_flash_chunk_fused",
     "paged_flash_chunk_fused_plain",
@@ -68,13 +71,21 @@ __all__ = [
 
 NEG_INF = -1e30  # the Pallas kernel's masked score
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# head dims each CUDA kernel takes: the chunk kernels A and 4, the decode kernels 5 and 6
+# the head dims of the template instances of A and 4 (csrc/paged_chunk.cuh);
+# every other multiple of 64 (above 512) runs csrc/paged_chunk_deep.cu, whose
+# head dim is a runtime value. Kernels 5 and 6 take D at run time.
 CHUNK_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-DECODE_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 # kernels A and 4 (csrc/paged_chunk.cuh): the most ranks a cluster, and
 # the largest accumulator (O's columns) one CTA holds
 CHUNK_MAX_RANKS = 8
 CHUNK_MAX_COLUMNS = 256
+# kernels 5 and 6 (csrc/paged_decode.cu): the most ranks a cluster, O's
+# columns a CTA, positions a stage, and the bytes a stage and a ring aim at
+DECODE_MAX_RANKS = 8
+DECODE_MAX_COLUMNS = 512
+DECODE_STAGE_ROWS = 16
+DECODE_STAGE_BYTES = 16384
+DECODE_RING_BYTES = 24576
 
 
 def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -197,19 +208,14 @@ def paged_flash_decode_fused_plain(q, cos, sin, key_cache, value_cache, block_ta
 
 # -- the kernels -----------------------------------------------------------------
 
-def _launch_operands(what: str, head_dims: tuple, q: torch.Tensor, key_cache: torch.Tensor,
-                     value_cache: torch.Tensor, block_tables: torch.Tensor, *lens: torch.Tensor, k_scale=None,
-                     v_scale=None):
-    """Check what every paged kernel takes (``head_dims``: those its CUDA
-    kernel is built for); returns ``(io, q, pools, tables32, *lens32)``
+def _launch_operands(what: str, q: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor,
+                     block_tables: torch.Tensor, *lens: torch.Tensor, k_scale=None, v_scale=None):
+    """Check what every paged kernel takes (a head dim that is a multiple
+    of 64, any of them); returns ``(io, q, pools, tables32, *lens32)``
     ready for the launch: ``pools`` is ``[kc, vc]``, and ``[kc, vc,
     k_scale, v_scale]`` for the int8 pool (``lens``: the ``[B]`` length
     vectors)."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
-    if d > head_dims[-1]:
-        raise ValueError(f"{what}: head dim {d} is above the kernel's {head_dims[-1]} (ROADMAP Queue 3 fault 2: "
-                         "above 512 a staged K tile and a row's O accumulator outgrow a block's shared memory "
-                         "and registers)")
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     io = _io_dtype(what, q)
@@ -217,8 +223,8 @@ def _launch_operands(what: str, head_dims: tuple, q: torch.Tensor, key_cache: to
     if d_c != d or hq % hkv or value_cache.shape != key_cache.shape:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not fit the cache "
                          f"{tuple(key_cache.shape)} / {tuple(value_cache.shape)}")
-    if d not in head_dims:
-        raise ValueError(f"{what}: the CUDA kernel takes head dim {', '.join(map(str, head_dims))}, not {d} "
+    if d <= 0 or d % 64:
+        raise ValueError(f"{what}: the CUDA kernel takes head dims that are multiples of 64, not {d} "
                          "(a head dim that is not a multiple of 64 takes the composition)")
     if block_tables.dim() != 2 or block_tables.shape[0] != b or any(t.shape != (b,) for t in lens):
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / lengths "
@@ -247,25 +253,40 @@ def _rope_operands(what: str, q: torch.Tensor, cos: torch.Tensor, sin: torch.Ten
                  for name, t in (("cos", cos), ("sin", sin)))
 
 
+def _chunk_columns(d: int) -> tuple:
+    """``(split, columns)``: the CTAs over O's columns of A and 4 and the
+    columns each owns (the last one the rest): 1 up to head dim 256, 2 up
+    to 512 (D / 2 each), above that ``ceil(D / 256)`` CTAs of whole
+    64-column units, as even as whole units allow."""
+    if d <= CHUNK_MAX_COLUMNS:
+        return 1, d
+    if d <= CHUNK_HEAD_DIMS[-1]:
+        return 2, d // 2
+    units = d // 64
+    split = -(-d // CHUNK_MAX_COLUMNS)
+    return split, 64 * -(-units // split)
+
+
 def chunk_plan(b: int, c: int, hq: int, hkv: int, d: int, dtype: torch.dtype, mbs: int, cap: int) -> dict:
     """Kernels A and 4's launch plan, the one they launch with (a host
     function of the shapes and ``cap``, the CTAs of the instance the card
     holds at once: ``csrc/paged_chunk_fused.cu`` ``ptt_paged_chunk_cap``):
     ``split`` CTAs over O's columns (2 above head dim 256, each owning
-    ``columns`` = D / 2), tiles of ``rows`` packed query rows (32 for fp32
-    above 256, else 64), ``tiles`` of them per (KV head, slot), the cluster
+    ``columns`` = D / 2; ``ceil(D / 256)`` above 512: :func:`_chunk_columns`),
+    tiles of ``rows`` packed query rows (32 for fp32 at head dims 320 to
+    512, else 64), ``tiles`` of them per (KV head, slot), the cluster
     size ``ranks`` (the most of 8, 4, 2, 1 whose ``tiles * split * hkv * b``
     clusters fit ``cap``, at most ``mbs``: long histories get the most CTAs
     that still run as one wave; never a length) and the ``grid``."""
-    split = 2 if d > CHUNK_MAX_COLUMNS else 1
-    rows = 32 if dtype == torch.float32 and d > CHUNK_MAX_COLUMNS else 64
+    split, columns = _chunk_columns(d)
+    rows = 32 if dtype == torch.float32 and CHUNK_MAX_COLUMNS < d <= CHUNK_HEAD_DIMS[-1] else 64
     tiles = -(-c * (hq // hkv) // rows)
     work = tiles * split * hkv * b
     ranks = CHUNK_MAX_RANKS
     while ranks > 1 and work * ranks > cap:
         ranks //= 2
     ranks = max(1, min(ranks, mbs))
-    return {"split": split, "columns": d // split, "rows": rows, "tiles": tiles, "ranks": ranks,
+    return {"split": split, "columns": columns, "rows": rows, "tiles": tiles, "ranks": ranks,
             "grid": (tiles * split * ranks, hkv, b)}
 
 
@@ -302,6 +323,82 @@ def chunk_cluster_size(q: torch.Tensor, key_cache: torch.Tensor, block_tables: t
     return _chunk_launch_plan(q, key_cache, block_tables)["ranks"]
 
 
+def decode_plan(b: int, hq: int, hkv: int, d: int, bs: int, mbs: int, kv_bytes: int, cap) -> dict:
+    """Kernels 5 and 6's launch plan, the one they launch with (a host
+    function of the shapes, the pool's element size ``kv_bytes`` (1: the
+    int8 pool, whose scale rows ride each stage) and ``cap``: ``cap[r -
+    1]`` the clusters of ``r`` CTAs of the instance the card holds at once,
+    for ``r`` = 1 to 8 (``csrc/paged_decode.cu`` ``ptt_paged_decode_cap``,
+    asked with this plan's geometry); ``cap`` None gives the geometry alone,
+    with ``ranks`` 1):
+
+    - ``split`` CTAs over O's columns (1 up to head dim 512, else
+      ``ceil(D / 512)``), each owning ``columns`` (whole 64-column units,
+      the last CTA the rest);
+    - ``rows`` query heads of a KV head a CTA (1 for MHA, else at most 4,
+      or 2 where a CTA holds more than 256 columns), ``groups`` of them;
+    - ``stage_rows`` positions a ring stage (at most 16, and at most
+      :data:`DECODE_STAGE_BYTES` of K and V; a stage may span pages) and
+      ``stages`` of them (about :data:`DECODE_RING_BYTES`, 2 to 8);
+    - the cluster size ``ranks``: the most, 1 to 8 and at most ``mbs``,
+      whose ``groups * split * hkv * b`` clusters the card holds at once
+      (one wave, as :func:`chunk_plan` chooses; never a length: each rank
+      walks ``ceil(blocks / ranks)`` table entries of its slot, whatever
+      the slot holds), and the ``grid``."""
+    g = hq // hkv
+    units = d // 64
+    split = -(-d // DECODE_MAX_COLUMNS)
+    columns = 64 * -(-units // split)
+    rows = 1 if g == 1 else min(g, 4 if columns <= 256 else 2)
+    groups = -(-g // rows)
+    row_bytes = (d + columns) * kv_bytes + (8 if kv_bytes == 1 else 0)
+    stage_rows = max(1, min(DECODE_STAGE_ROWS, DECODE_STAGE_BYTES // row_bytes))
+    stages = max(2, min(8, DECODE_RING_BYTES // (stage_rows * row_bytes)))
+    work = groups * split * hkv * b
+    ranks = min(DECODE_MAX_RANKS, mbs) if cap is not None else 1
+    while ranks > 1 and work > cap[ranks - 1]:
+        ranks -= 1
+    return {"split": split, "columns": columns, "rows": rows, "groups": groups, "stage_rows": stage_rows,
+            "stages": stages, "ranks": ranks, "grid": (groups * split * ranks, hkv, b)}
+
+
+def _decode_cap(device: torch.device, io: int, quant: bool, rope: bool, d: int, rows: int, columns: int,
+                stage_rows: int, stages: int) -> tuple:
+    """The clusters of 1 to 8 CTAs of kernel 6's (``rope``) or 5's instance
+    that the card ``device`` holds at once with this stage geometry
+    (``ptt_paged_decode_cap``)."""
+    cap = (ctypes.c_int * DECODE_MAX_RANKS)()
+    fn = build.kernel_fn("ptt_paged_decode_cap", [_I] * 8 + [_P])
+    with torch.cuda.device(device):
+        err = fn(io, int(quant), int(rope), d, rows, columns, stage_rows, stages, ctypes.addressof(cap))
+    build.check(err, "paged_decode_cap")
+    return tuple(cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan_on(device: torch.device, io: int, rope: bool, b: int, hq: int, hkv: int, d: int, bs: int,
+                    mbs: int, kv_bytes: int) -> dict:
+    """:func:`decode_plan` of kernel 6's (``rope``) or 5's launch on the
+    card ``device`` (``kv_bytes`` 1: the int8 pool), with the ``cap`` it was
+    chosen under; made once per instance and shapes, so a decode step's
+    launches pay one cache lookup for it. Callers must not change it."""
+    geo = decode_plan(b, hq, hkv, d, bs, mbs, kv_bytes, None)
+    cap = _decode_cap(device, io, kv_bytes == 1, rope, d, geo["rows"], geo["columns"], geo["stage_rows"],
+                      geo["stages"])
+    return {**decode_plan(b, hq, hkv, d, bs, mbs, kv_bytes, cap), "cap": cap}
+
+
+def _decode_launch_plan(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor,
+                        rope: bool) -> dict:
+    """:func:`decode_plan` of kernel 6's (``rope``) or 5's launch for these
+    shapes on this card, with the ``cap`` it was chosen under; nothing
+    runs."""
+    b, hq, d = q.shape
+    _, hkv, bs, _ = key_cache.shape
+    return dict(_decode_plan_on(q.device, _io_dtype("paged_decode", q), rope, b, hq, hkv, d, bs,
+                                block_tables.shape[1], key_cache.element_size()))
+
+
 def _launch(name: str, io: int, ptrs: list, dims: tuple, scale: float, device: torch.device) -> None:
     """One launch of the C entry ``ptt_<name>`` (the pointers, then the int
     dims, the softmax scale and the stream), checked and counted under
@@ -336,18 +433,17 @@ def paged_flash_chunk_fused(
                                              q_lens, scale, k_scale, v_scale)
     what = "paged_flash_chunk_fused"
     io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        what, CHUNK_HEAD_DIMS, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale,
-        v_scale=v_scale)
+        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
     cos32, sin32 = _rope_operands(what, q, cos, sin, (b, c, d))
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
-        ranks = _chunk_launch_plan(q, kc, tables32, rope=True)["ranks"]
+        plan = _chunk_launch_plan(q, kc, tables32, rope=True)
         _launch("paged_chunk_fused" + "_int8" * quant, io,
                 [t.data_ptr() for t in (q, cos32, sin32, *pools, tables32, lens32, qlens32, out)],
-                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], ranks), _scale_or_default(scale, d),
-                q.device)
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], plan["split"], plan["columns"],
+                 plan["ranks"]), _scale_or_default(scale, d), q.device)
     return out
 
 
@@ -370,17 +466,17 @@ def paged_flash_chunk(
         return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale,
                                        k_scale, v_scale)
     io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        "paged_flash_chunk", CHUNK_HEAD_DIMS, q, key_cache, value_cache, block_tables, seq_lens, q_lens,
-        k_scale=k_scale, v_scale=v_scale)
+        "paged_flash_chunk", q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale,
+        v_scale=v_scale)
     b, c, hq, d = q.shape
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
-        ranks = _chunk_launch_plan(q, kc, tables32, rope=False)["ranks"]
+        plan = _chunk_launch_plan(q, kc, tables32, rope=False)
         _launch("paged_chunk" + "_int8" * quant, io,
                 [t.data_ptr() for t in (q, *pools, tables32, lens32, qlens32, out)],
-                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], ranks), _scale_or_default(scale, d),
-                q.device)
+                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], plan["split"], plan["columns"],
+                 plan["ranks"]), _scale_or_default(scale, d), q.device)
     return out
 
 
@@ -426,9 +522,12 @@ def paged_flash_decode_fused(
 
 
 def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, scale, k_scale,
-                   v_scale) -> torch.Tensor:
-    io, q, pools, tables32, lens32 = _launch_operands(what, DECODE_HEAD_DIMS, q, key_cache, value_cache,
-                                                      block_tables, seq_lens, k_scale=k_scale, v_scale=v_scale)
+                   v_scale, ranks: Optional[int] = None) -> torch.Tensor:
+    """One launch of kernel 6 (``cos`` given) or 5 with :func:`decode_plan`'s
+    plan; ``ranks`` sets another cluster size (1 to 8) than the plan's, to
+    time the rank rule against the others (the wrappers pass none)."""
+    io, q, pools, tables32, lens32 = _launch_operands(what, q, key_cache, value_cache, block_tables, seq_lens,
+                                                      k_scale=k_scale, v_scale=v_scale)
     b, hq, d = q.shape
     out = torch.empty_like(q)
     if not b:
@@ -438,6 +537,10 @@ def _decode_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_
         rope = _rope_operands(what, q, cos, sin, (b, 1, d))
     name = ("paged_decode_fused" if cos is not None else "paged_decode") + "_int8" * (k_scale is not None)
     kc = pools[0]
+    _, hkv, bs, _ = kc.shape
+    mbs = tables32.shape[1]
+    plan = _decode_plan_on(q.device, io, cos is not None, b, hq, hkv, d, bs, mbs, kc.element_size())
     _launch(name, io, [t.data_ptr() for t in (q, *rope, *pools, tables32, lens32, out)],
-            (b, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1]), _scale_or_default(scale, d), q.device)
+            (b, hq, hkv, d, bs, mbs, plan["rows"], plan["split"], plan["columns"], ranks or plan["ranks"],
+             plan["stage_rows"], plan["stages"]), _scale_or_default(scale, d), q.device)
     return out

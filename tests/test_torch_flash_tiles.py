@@ -641,9 +641,9 @@ def test_plain_versions_match_pallas_at_new_dtypes_and_head_dims(dtype, d, c, ca
 
 def test_cuda_inputs_rules_on_meta_tensors():
     """fp16 and fp32 (and bf16) q, k, v, g pass the wrappers' checks up to
-    the device check, at every head dim in KERNEL_HEAD_DIMS; a head dim
-    above 512 raises naming D, the limit and the open fault; mixed dtypes
-    raise."""
+    the device check, at every head dim in KERNEL_HEAD_DIMS (the template
+    instances) and at 576 and 1024 above them (``csrc/flash_deep.cu``: no
+    head dim that is a multiple of 64 is refused); mixed dtypes raise."""
     assert kfa.KERNEL_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
 
     def meta(d, dtype, kdtype=None):
@@ -661,9 +661,16 @@ def test_cuda_inputs_rules_on_meta_tensors():
                 kfa.flash_bwd_dq(q, k, v, None, q, lse, lse, True)
             with pytest.raises(ValueError, match="unsupported device meta"):
                 kfa.flash_bwd_dkv(q, k, v, None, q, lse, lse, True)
-    q, k, v = meta(576, torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head dim 576 is above the kernels' 512.*Queue 3 fault 2"):
-        kfa.flash_fwd(q, k, v, None, True)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (576, 1024):
+            q, k, v = meta(d, dtype)
+            lse = torch.empty((1, 4, 8), device="meta")
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                kfa.flash_fwd(q, k, v, None, True)
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                kfa.flash_bwd_dq(q, k, v, None, q, lse, lse, True)
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                kfa.flash_bwd_dkv(q, k, v, None, q, lse, lse, True)
     q, k, v = meta(128, torch.float16, torch.bfloat16)
     with pytest.raises(ValueError, match="share one of bf16, fp16 and fp32"):
         kfa.flash_fwd(q, k, v, None, True)

@@ -65,18 +65,22 @@ def _one_torch_thread():
 
 
 def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale, k_scale=None, v_scale=None,
-                  ranks=MAX_RANKS, rows=ROWS, split=1):
+                  ranks=MAX_RANKS, rows=ROWS, split=1, columns=None, round_p=True):
     """Kernel 4's arithmetic on the card (kernel A's after q's rope): ``q``
     ``[B, C, HQ, D]`` in its dtype T, the pool in T or int8 with fp32 scale
     planes, ``ranks`` CTAs a cluster (at most MBS; the card picks 8, 4, 2
     or 1 from its occupancy), tiles of ``rows`` packed rows, and O's
-    columns over ``split`` CTAs (``kpaged.chunk_plan``'s: 2 above head dim
-    256, each computing the scores over all of D and PV over its own
-    columns of V). Returns ``[B, C, HQ, D]`` in T."""
+    columns over ``split`` CTAs of ``columns`` each (``kpaged.chunk_plan``'s:
+    2 above head dim 256, ``ceil(D / 256)`` above 512, each computing the
+    scores over all of D and PV over its own columns of V). ``round_p``:
+    p split into two halves rounded to T before PV (the tensor-core
+    instances up to 512); off, p stays fp32 (the CUDA-core walks: fp32, and
+    every type above 512). Returns ``[B, C, HQ, D]`` in T."""
     if split > 1:
-        dv = value_cache.shape[-1] // split
+        dv = columns or value_cache.shape[-1] // split
         return torch.cat([emulate_chunk(q, key_cache, value_cache[..., i * dv:(i + 1) * dv], block_tables, seq_lens,
-                                        q_lens, scale, k_scale, v_scale, ranks, rows) for i in range(split)], -1)
+                                        q_lens, scale, k_scale, v_scale, ranks, rows, round_p=round_p)
+                          for i in range(split)], -1)
     dt = q.dtype
     b, c, hq, d = q.shape
     nb, hkv, bs, _ = key_cache.shape
@@ -116,9 +120,12 @@ def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, sca
                     l, m = l * alpha + p.sum(-1), m_new
                     if v_scale is not None:
                         p = p * v_scale[blk, :, pos % bs].T[:, None, :]
-                    hi = p.to(dt).float()  # p = hi + lo, each rounded to T
-                    lo = (p - hi).to(dt).float()
-                    acc = acc * alpha[..., None] + (hi @ v + lo @ v)
+                    if round_p:
+                        hi = p.to(dt).float()  # p = hi + lo, each rounded to T
+                        lo = (p - hi).to(dt).float()
+                        acc = acc * alpha[..., None] + (hi @ v + lo @ v)
+                    else:
+                        acc = acc * alpha[..., None] + p @ v
                 parts.append((m, l, acc))
             top = torch.stack([pm for pm, _, _ in parts]).max(0).values
             den, num = torch.zeros(hkv, nr), torch.zeros(hkv, nr, dv)
@@ -214,8 +221,8 @@ def test_split_decomposition_matches_interpret_kernel_and_plain(kernel, geometry
     assert not got[past].any() and not plain[past].any()  # rows past q_lens: exact 0
 
 
-WIDE_CASES = [(d, dt, int8) for d in (320, 512) for dt, int8 in (("bfloat16", False), ("bfloat16", True),
-                                                                  ("float32", False))]
+WIDE_CASES = [(d, dt, int8) for d in (320, 512, 576) for dt, int8 in (("bfloat16", False), ("bfloat16", True),
+                                                                       ("float32", False))]
 
 
 @pytest.mark.parametrize("kernel", ["chunk_fused", "chunk"])
@@ -226,7 +233,9 @@ def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dt
     scores over all of D and PV, the merge and the writes over half of O's
     columns) and their tile rows (``chunk_plan``: 64, or 32 for fp32), at 8
     and 2 ranks, against the plain version at the card's gate and the
-    interpret kernel as in the narrower cases."""
+    interpret kernel as in the narrower cases. Head dim 576: the runtime
+    instance (``csrc/paged_chunk_deep.cu``): three CTAs of 192 columns,
+    64-row tiles, p in fp32."""
     rng = np.random.default_rng(d)
     q, rope, pools, ints, scales = _inputs(rng, d, 8, 2, dtype, int8)
     fused = kernel == "chunk_fused"
@@ -236,13 +245,15 @@ def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dt
                                                       k_scale=scales[0][1], v_scale=scales[1][1])
     plain = getattr(kpaged, f"paged_flash_{kernel}_plain")(*(t for t, _ in args), **planes)
     q_in = kpaged.rope_rows(q[0], rope[0][0][:, :, None], rope[1][0][:, :, None]) if fused else q[0]
-    tiles = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=1)["tiles"]
-    for ranks in (8, 2):  # a card holding ranks clusters of the grid's (tile, column half, KV head, slot) items
-        cap = ranks * tiles * 2 * 2 * len(LENS)
+    base = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=1)
+    for ranks in (8, 2):  # a card holding ranks clusters of the grid's (tile, column slice, KV head, slot) items
+        cap = ranks * base["tiles"] * base["split"] * 2 * len(LENS)
         plan = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=cap)
-        assert plan["split"] == 2 and plan["columns"] == d // 2 and plan["ranks"] == ranks
+        deep = d > kpaged.CHUNK_HEAD_DIMS[-1]
+        assert (plan["split"], plan["columns"]) == ((3, 192) if deep else (2, d // 2)) and plan["ranks"] == ranks
         got = emulate_chunk(q_in, pools[0][0], pools[1][0], *(t for t, _ in ints), 1.0 / d ** 0.5, **planes,
-                            ranks=plan["ranks"], rows=plan["rows"], split=plan["split"])
+                            ranks=plan["ranks"], rows=plan["rows"], split=plan["split"], columns=plan["columns"],
+                            round_p=not deep and dtype != "float32")
         assert got.dtype == getattr(torch, dtype) and got.shape == q_in.shape
         _within(got, plain, dtype)
         if fused and dtype != "float32":
@@ -307,7 +318,17 @@ def test_rope_rows_reach_the_kernel_in_fp32_without_a_cast():
 
 
 def test_head_dims_of_each_kernel():
-    """A, 4, 5 and 6 take every multiple of 64 up to 512 on the card, as the
-    JAX package's ``D % 64`` gate sends them to its kernels."""
+    """A, 4, 5 and 6 take every multiple of 64 on the card, as the JAX
+    package's ``D % 64`` gate sends them to its kernels: A and 4 as template
+    instances up to 512 and one runtime instance above (whose column split
+    ``_chunk_columns`` gives), 5 and 6 with D a runtime value whose column
+    split ``decode_plan`` gives."""
     assert kpaged.CHUNK_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
-    assert kpaged.DECODE_HEAD_DIMS == (64, 128, 192, 256, 320, 384, 448, 512)
+    assert not hasattr(kpaged, "DECODE_HEAD_DIMS")
+    for d in range(64, 4097, 64):
+        split, cols = kpaged._chunk_columns(d)
+        assert cols % 64 == 0 or d <= kpaged.CHUNK_HEAD_DIMS[-1]
+        assert (split - 1) * cols < d <= split * cols and cols <= kpaged.CHUNK_MAX_COLUMNS
+        plan = kpaged.decode_plan(8, 32, 8, d, 16, 128, 2, (1000,) * 8)
+        assert (plan["split"] - 1) * plan["columns"] < d <= plan["split"] * plan["columns"]
+        assert plan["columns"] % 64 == 0 and plan["columns"] <= kpaged.DECODE_MAX_COLUMNS

@@ -1,12 +1,13 @@
-"""Head dims 320 to 512 in the port against the JAX package, and the launch
+"""Head dims 320 to 512, and 576 above them, in the port against the JAX
+package, and the launch
 plans of kernels A/4 and 7.
 
 The JAX package's ``D % 64`` gate sends every multiple of 64 to its Pallas
-kernels; the port's CUDA kernels take them up to 512 (flash 14-16 on the
-CUDA-core instances of ``csrc/flash_fp32.cu``, A/4 with O's columns split
-over two CTAs, 5/6 with 16- or 32-lane row groups) and refuse larger ones
-before launch (ROADMAP Queue 3 fault 2). On the CPU the wrappers run their
-plain versions, so these tests hold the plain versions at D 320 and 512
+kernels; so do the port's CUDA kernels (flash 14-16 on the CUDA-core
+instances of ``csrc/flash_fp32.cu`` up to 512 and ``csrc/flash_deep.cu``
+above, A/4 with O's columns split over CTAs, 5/6 at any head dim). On the
+CPU the wrappers run their
+plain versions, so these tests hold the plain versions at D 320, 512 and 576
 against the Pallas kernels in interpret mode on the same numpy inputs:
 
 - flash forward, dq and dk/dv (causal, and FlashMask C=1 and C=2), and the
@@ -58,7 +59,7 @@ from paddle_tpu_torch.nn import functional as F
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BLK = 16
-WIDE = (320, 512)
+WIDE = (320, 512, 576)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -165,7 +166,7 @@ def test_flash_wide_head_dims_take_the_cuda_core_walk():
     """Above D 256 bf16 and fp16 take the CUDA-core instances' tiles, as
     fp32 does at every head dim; up to 256 the wgmma tiles stay."""
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        for d in (320, 384, 448, 512):
+        for d in (320, 384, 448, 512, 576, 1024):
             assert kfa.flash_tile_shape("flash_fwd", d, dtype) == (16, 32)
             assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == (16, 32)
             assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (32, 16)
@@ -241,10 +242,10 @@ def test_paged_plain_versions_match_pallas_at_wide_head_dims(kernel, d, int8):
 @pytest.mark.parametrize("entry", ["paged_flash_chunk_fused", "paged_flash_chunk", "paged_flash_decode",
                                    "paged_flash_decode_fused"])
 def test_paged_wrappers_refuse_head_dims_above_512(entry):
-    """D 576 (a multiple of 64, which the JAX package's gate sends to its
-    kernels) raises before launch, naming the limit and the open fault;
-    D 512 passes the head-dim check and stops at the device check."""
-    for d, why in ((576, r"head dim 576 is above the kernel's 512.*Queue 3 fault 2"),
+    """No longer refused: D 576 and 1024 (multiples of 64, which the JAX
+    package's gate sends to its kernels) pass the head-dim check and stop
+    at the device check, as D 512 does."""
+    for d, why in ((576, "unsupported device meta"), (1024, "unsupported device meta"),
                    (512, "unsupported device meta")):
         if entry.startswith("paged_flash_chunk"):
             q = torch.empty((2, 4, 4, d), dtype=torch.bfloat16, device="meta")
@@ -318,9 +319,10 @@ def test_chunk_plan_splits_columns_above_256(dtype, rows):
 @pytest.mark.parametrize("fused", [True, False], ids=["A", "4"])
 @pytest.mark.parametrize("d,int8", [(256, False), (512, False), (512, True)])
 def test_chunk_wrappers_launch_with_chunk_plan(monkeypatch, fused, d, int8):
-    """Kernels A and 4 get their cluster size from ``chunk_plan`` on the
-    card's cap (asked of the instance of q's type, the pool and the rope):
-    the launch's last int dim is ``chunk_plan``'s ``ranks``. Meta tensors
+    """Kernels A and 4 get their column split and cluster size from
+    ``chunk_plan`` on the card's cap (asked of the instance of q's type, the
+    pool and the rope): the launch's last int dims are ``chunk_plan``'s
+    ``split``, ``columns`` and ``ranks``. Meta tensors
     stand in for the card's; the launch itself is recorded, not run."""
     b, c, hq, hkv, mbs = 8, 64, 8, 2, 128
     cap = 132 * 2
@@ -346,7 +348,7 @@ def test_chunk_wrappers_launch_with_chunk_plan(monkeypatch, fused, d, int8):
     plan = kpaged.chunk_plan(b, c, hq, hkv, d, torch.bfloat16, mbs, cap)
     assert asked == [(meta, 1, int8, fused, d, mbs)]
     name = ("paged_chunk_fused" if fused else "paged_chunk") + "_int8" * int8
-    assert launched == [(name, (b, c, hq, hkv, d, 16, mbs, plan["ranks"]))]
+    assert launched == [(name, (b, c, hq, hkv, d, 16, mbs, plan["split"], plan["columns"], plan["ranks"]))]
     assert plan["ranks"] == (4 if d == 256 else 2)
 
 
