@@ -28,11 +28,14 @@ name and power limit):
    given the dense document mask), at GQA 32/8 with C=2 and C=4 FlashMask
    bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
    192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
-   given the dense band mask), and at head dims 320, 384, 448 and 512 (the CUDA-core
-   instances) and 576 and 1024 (the runtime-D kernels) in bf16, fp16 and
-   fp32, causal and under a document mask (the bf16 D 320, 512, 576 and
-   1024 cases timed beside SDPA, its backend named:
-   ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
+   given the dense band mask), and at head dims 320, 384, 448 and 512 and
+   576 and 1024 (the bf16 / fp16 forward on the tensor cores,
+   ``csrc/flash_fwd_wide.cu``, its launch plan held to its Python mirror;
+   dq, dk/dv and fp32 on the CUDA-core instances and the runtime-D
+   kernels) in bf16, fp16 and fp32, causal and under a document mask (the
+   bf16 D 320, 512, 576 and 1024 cases timed beside SDPA, its backend
+   named, the forward at most 1.0x SDPA's at 320 and 512; the forward
+   with Q streamed beside K at D 1280: ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
    backward causal, at most half its own causal time under the document
    mask, and bitwise equal over two runs; each flash kernel's cold-L2 time
    per call under the Llama step's document mask and at the GPT step's
@@ -45,7 +48,10 @@ name and power limit):
    ``torch.cuda.set_sync_debug_mode("error")``; the residual LayerNorm and
    its adjoint (kernels 12 and 13) at GPT-3 13B's train shape ``[4, 2048,
    5120]`` and the residual RMSNorm's adjoint (kernel 11) at ``[2, 4096,
-   4096]``, bf16, and all three at ragged rows in fp16 and fp32; the fused
+   4096]``, bf16, and all three at ragged rows in fp16 and fp32 (12 and 13
+   also on each register shape of 13's plan), kernel 13 gated at least 50%
+   of its bound and at most 1.0x the autograd ``F.layer_norm`` backward,
+   its loop route timed beside it; the fused
    linear cross entropy forward, D recompute, dX and dW (kernels 17-19) at
    the train shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a
    ragged vocab, in the vocab-major layout, in fp16, at GPT-3 13B's tied
@@ -167,6 +173,10 @@ name and power limit):
    ``generate_paged`` and one document-masked train step, each with the
    serve, decode and train phases' gates (launch counts, logits against the
    plain path, grad coverage).
+
+Each profile line (the serve, train and GPT train steps') carries the norm
+kernels' (B, C, 7-10, 12, 13) in-step ms per launch beside their cold-L2 ms
+per call, and one ``norm_in_step_vs_cold`` line gathers them.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. The script exits non-zero at the first
@@ -1161,6 +1171,15 @@ FLASH_SOURCES = {
     "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
 }
 FLASH_FP32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fp32.cu"
+# the bf16 / fp16 forward above head dim 256 (tensor cores; its own launch counter)
+FLASH_WIDE_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fwd_wide.cu"
+FLASH_WIDE_GATE = 1.0  # the wide forward at most this times SDPA's forward at D 320 and 512, GQA 8/2 [2, 1024] causal
+
+
+def fwd_counter(d: int, dtype: str) -> str:
+    """The launch counter of the flash forward at head dim ``d`` in ``dtype``
+    (``"bfloat16"``...): ``flash_fwd_wide`` for bf16 / fp16 above 256."""
+    return "flash_fwd_wide" if d > 256 and dtype in ("bfloat16", "float16") else "flash_fwd"
 # out: the kernel rounds P to bf16 for the P V product (as flash attention
 # does) while l sums the fp32 p, so each p moves by at most 2^-8 of itself and
 # an output element out[i, e] by at most 2^-8 * (sum_j p_ij |v_je|) / l_i —
@@ -1398,33 +1417,66 @@ def sdpa_backend(qh, kh, vh, attn_mask=None, is_causal: bool = False) -> str:
 # plain versions; 320 and 512, the two the wide_heads phase runs, are timed
 WIDE_HEAD_DIMS = (320, 384, 448, 512)
 WIDE_TIMED = (320, 512)
-# head dims above 512 (the runtime-D kernels: csrc/flash_deep.cu, paged_chunk_deep.cu and 5 / 6): checked
-# and timed
+# head dims above 512 (the runtime-D kernels: csrc/flash_deep.cu, paged_chunk_deep.cu and 5 / 6, and the wide
+# forward): checked and timed
 DEEP_HEAD_DIMS = (576, 1024)
+# the wide forward with Q streamed beside K (above D 1152: csrc/flash_fwd_wide.cu `stream_q`), checked only
+STREAM_Q_HEAD_DIM = 1280
 
 
-def check_flash_wide(dev, gen, card: dict) -> dict:
-    """Kernels 14-16 at head dims 320, 384, 448 and 512 (the CUDA-core
-    instances of ``csrc/flash_fp32.cu``: bf16 and fp16 widened to fp32 as
-    they are staged) and 576 and 1024 (``csrc/flash_deep.cu``, D a runtime
-    value) at GQA 8/2, S 1024, causal and under a document mask, in bf16,
-    fp16 and fp32 (at 1024 bf16), against their plain versions
-    (``FLASH_GATES``); the bf16 cases at 320, 512, 576 and 1024 timed beside
-    SDPA (its backend named); and at 320 and 512 at the ``wide_heads``
-    train step's S 4096 under a document mask, bf16.
-    Returns the times."""
+def check_wide_plan(card: dict) -> None:
+    """``csrc/flash_fwd_wide.cu``'s launch plan (``ptt_flash_fwd_wide_plan``:
+    boxes, boxes a warpgroup, CTAs a query tile, stream_q, ring stages,
+    shared-memory bytes) equals its Python mirror ``flash_fwd_wide_plan`` at
+    every multiple of 64 from 320 to 2048."""
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_wide_plan
+
+    fn = build.kernel_fn("ptt_flash_fwd_wide_plan", [ctypes.c_int, ctypes.c_void_p])
+    wrong = {}
+    for d in range(320, 2049, 64):
+        buf = (ctypes.c_int * 6)()
+        build.check(fn(d, buf), "ptt_flash_fwd_wide_plan")
+        py = flash_fwd_wide_plan(d)
+        want = [py["boxes"], py["nw"], py["split"], int(py["stream_q"]), py["stages"], py["smem"]]
+        if list(buf) != want:
+            wrong[d] = {"kernel": list(buf), "python": want}
+    emit({"phase": "flash_wide_plan_check", "d": [320, 2048], "ok": not wrong, "wrong": wrong,
+          "d512": flash_fwd_wide_plan(512), "d1024": flash_fwd_wide_plan(1024), "card": card})
+    if wrong:
+        fail(f"flash_fwd_wide_plan disagrees with the kernel's plan: {wrong}")
+
+
+def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
+    """Kernels 14-16 at head dims 320, 384, 448 and 512 and 576 and 1024 at
+    GQA 8/2, S 1024, causal and under a document mask, against their plain
+    versions (``FLASH_GATES``): the bf16 / fp16 forward on the tensor cores
+    (``csrc/flash_fwd_wide.cu``), dq and dk/dv and fp32 on the CUDA cores
+    (``csrc/flash_fp32.cu`` to 512, ``csrc/flash_deep.cu`` above), in bf16,
+    fp16 and fp32 (at 1024 bf16 and fp16); the bf16 cases at 320, 512, 576
+    and 1024 timed beside SDPA (its backend named), the forward gated at
+    :data:`FLASH_WIDE_GATE` x SDPA's forward causal at 320 and 512; the
+    forward alone at D 1280 (Q streamed beside K) in bf16 and fp16; and 320
+    and 512 at the ``wide_heads`` train step's S 4096 under a document mask,
+    bf16. Records the wide forward's D 512 causal reading as
+    ``flash_fwd_wide``. Returns the times."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels.flash_attention import flash_masked
 
+    check_wide_plan(card)
     ends = torch.from_numpy(doc_bounds(np.random.default_rng(2), 2, 1024, 64, 512)[:, None, :, None].copy()).to(dev)
-    wide = {}
+    wide, fwd_err = {}, {}
     for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
-        for dtype in {dt for dt, _ in wide_dtypes(d)}:
+        for dtype in {dt for dt, _ in wide_dtypes(d)} | {torch.float16}:
             for bnd, mask in ((None, "causal"), (ends, "document mask")):
                 timed = dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)
                 res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
                                  card, timed=timed, dtype=dtype, d=d)
+                if dtype != torch.float32:
+                    fwd_err[d] = max(fwd_err.get(d, 0.0), res["max_abs_err"]["flash_fwd"])
                 if timed:
                     dense = None if bnd is None else flash_masked(1024, 1024, True, bnd, dev)
                     qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
@@ -1433,15 +1485,49 @@ def check_flash_wide(dev, gen, card: dict) -> dict:
                         "sdpa_backend": sdpa_backend(qh, kh, vh, None if dense is None else ~dense, dense is None)}
                 del res
                 torch.cuda.empty_cache()
+    # Q streamed beside K: the forward against its plain version (no backward: its instances are flash_deep.cu's)
+    d = STREAM_Q_HEAD_DIM
+    stream = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        p_ulp, out_ulp, lse_rel, _ = FLASH_GATES[str(dtype)[6:]]
+        q = torch.randn((1, 512, 4, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((1, 512, 2, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        out, lse = kfa.flash_fwd(q, k, v, None, True)
+        f32 = [t.float() for t in (q, k, v)]
+        ref, ref_lse = kfa.flash_fwd_plain(*f32, None, True)
+        limit = p_ulp * kfa.flash_fwd_plain(f32[0], f32[1], f32[2].abs(), None, True)[0] + out_ulp * ref.abs()
+        lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
+        ratio = float(((out.float() - ref).abs() / limit.clamp(min=1e-30)).max())
+        stream[str(dtype)[6:]] = {"worst_err_over_limit": ratio, "lse_rel_err": lse_err,
+                                  "max_abs_err": float((out.float() - ref).abs().max())}
+        if ratio > 1.0 or lse_err > lse_rel:
+            emit({"phase": "flash_wide_stream_q", "d": d, "cases": stream, "card": card})
+            fail(f"the wide forward with Q streamed (D {d}, {dtype}) disagrees with its plain version: {stream}")
+        del q, k, v, out, lse, ref, ref_lse, limit, f32
+        torch.cuda.empty_cache()
     # the wide_heads train step's attention: S 4096 under a document mask, at the head dims it runs
     long_ends = torch.from_numpy(doc_bounds(np.random.default_rng(3), 2, 4096)[:, None, :, None].copy()).to(dev)
     for d in WIDE_TIMED:
         flash_case(dev, gen, 2, 4096, 8, 2, True, long_ends, f"gqa 8/2, D {d}, S 4096, document mask", card,
                    dtype=torch.bfloat16, d=d)
         torch.cuda.empty_cache()
+    ratios = {d: wide[f"d{d} causal"]["times"]["flash_fwd"]["ms"] / wide[f"d{d} causal"]["sdpa_ms"]["fwd"]
+              for d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)}
     emit({"phase": "flash_wide_times", "shape": [2, 1024, 8, 2], "dtype": "bfloat16", "cases": wide,
-          "source": {"320-512": FLASH_FP32_SOURCE, "576, 1024": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
+          "stream_q": {"d": STREAM_Q_HEAD_DIM, "shape": [1, 512, 4, 2], "cases": stream},
+          "source": {"forward (bf16, fp16)": FLASH_WIDE_SOURCE, "dq, dk/dv 320-512": FLASH_FP32_SOURCE,
+                     "dq, dk/dv 576, 1024": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
+          "fwd_over_sdpa_causal": ratios, "gate": {"fwd_over_sdpa_at_most": FLASH_WIDE_GATE, "d": list(WIDE_TIMED)},
           "card": card})
+    t = wide["d512 causal"]["times"]["flash_fwd"]
+    records["flash_fwd_wide"] = dict(
+        source=FLASH_WIDE_SOURCE, max_abs_err=max(fwd_err.values()), ms=t["ms"], plain_ms=t["plain_ms"],
+        call_ms=t["call_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=wide["d512 causal"]["sdpa_ms"]["fwd"],
+        ms_by_case={m: c["times"]["flash_fwd"]["ms"] for m, c in wide.items()})
+    slow = {d: r for d, r in ratios.items() if d in WIDE_TIMED and r > FLASH_WIDE_GATE}
+    if slow:
+        fail(f"the wide forward is above {FLASH_WIDE_GATE}x SDPA's forward (causal, GQA 8/2 [2, 1024]): {slow}")
     return wide
 
 
@@ -1526,7 +1612,7 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
             extra_lib["d256"] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
     del res
     torch.cuda.empty_cache()
-    wide = check_flash_wide(dev, gen, card)
+    wide = check_flash_wide(dev, gen, card, records)
     for name in FLASH_SOURCES:
         t = plain["times"][name]
         records[name] = dict(
@@ -1793,6 +1879,8 @@ RESIDUAL_NORM_SOURCES = {
 # mean(g w) - x^ mean(g w x^)) cancel to near 0 where the terms do not, and
 # both versions' fp32 statistics are sums in other orders. dw and db add
 # 1e-5 of each column's sum of |g x^| resp. |g| (a reordered fp32 sum).
+LN_BWD_SHARE_GATE = 0.5  # kernel 13 at [8192, 5120] bf16: at least this share of its bound, cold L2
+LN_BWD_LIBRARY_GATE = 1.0  # and at most this times the autograd backward of F.layer_norm, in the same call
 RESIDUAL_NORM_TOL = {
     "ln_residual": "r bitwise; y: rel*max(|got|, |ref|) + 1e-5*max|y|",
     "ln_residual_bwd": "dx: rel*|x| + 1e-5*max|dx|; dw, db: rel*|x| + 1e-5*sum_rows|g*x^| resp. |g| per column; "
@@ -1900,6 +1988,18 @@ def residual_norm_case(dev, gen, lead, h: int, dtype, label: str, card: dict, ti
             times[name] = dict(ms=device_ms(run), call_ms=call_ms(run), plain_ms=device_ms(run_plain, iters=5),
                                plain_call_ms=call_ms(run_plain, iters=5),
                                library_ms=None if run_lib is None else device_ms(run_lib), **bnd)
+        if "ln_residual_bwd" in times:
+            # kernel 13's loop route (the shared-memory design it had before its register route) on the same
+            # inputs in the same call, beside the plan's route
+            plan = kf.ln_bwd_plan(h, dtype)
+            real = kf.ln_bwd_plan
+            kf.ln_bwd_plan = lambda *_: {"route": "loop", "vecs": 0, "warps_per_row": 8}
+            try:
+                loop_ms = device_ms(runs["ln_residual_bwd"][0])
+            finally:
+                kf.ln_bwd_plan = real
+            times["ln_residual_bwd"].update(plan=plan, loop_route_ms=loop_ms,
+                                            share_of_bound=times["ln_residual_bwd"]["bound_ms"] / times["ln_residual_bwd"]["ms"])
         res_out["times"] = line["times"] = times
         line["library"] = ("ln_residual: none (no single PyTorch call adds and normalises); ln_residual_bwd: "
                            "autograd backward of torch.nn.functional.layer_norm (dx, dw, db); rms_residual_bwd: "
@@ -1913,8 +2013,13 @@ def residual_norm_case(dev, gen, lead, h: int, dtype, label: str, card: dict, ti
 def check_residual_norms(dev, gen, card: dict, records: dict) -> None:
     """Kernels 12 and 13 at the GPT-3 13B train shape ``[4, 2048, 5120]``
     and kernel 11 at the Llama-2-7B one ``[2, 4096, 4096]``, bf16 and
-    timed; all three at ragged rows in fp16 and fp32."""
+    timed, kernel 13 gated at :data:`LN_BWD_SHARE_GATE` of its bound and
+    :data:`LN_BWD_LIBRARY_GATE` x the library (its loop route timed beside
+    it); all three at ragged rows in fp16 and fp32, and kernels 12 and 13
+    at ragged rows on each shape of kernel 13's register route that the
+    widths of GPT-3 13B, 2.7B and 175B take (``ln_bwd_plan``)."""
     import torch
+    from paddle_tpu_torch.kernels import fused as kf
 
     bf = torch.bfloat16
     ln = residual_norm_case(dev, gen, (4, 2048), 5120, bf, "GPT-3 13B train shape", card, timed=True, which=("ln",))
@@ -1922,6 +2027,21 @@ def check_residual_norms(dev, gen, card: dict, records: dict) -> None:
                              which=("rms",))
     for dtype in (torch.float16, torch.float32):
         residual_norm_case(dev, gen, (3, 77), 384, dtype, f"{str(dtype).split('.')[-1]}, ragged rows", card)
+    for h, dtype in ((5120, bf), (2560, torch.float16), (5120, torch.float32), (12288, bf)):
+        plan = kf.ln_bwd_plan(h, dtype)
+        residual_norm_case(dev, gen, (3, 77), h, dtype, f"{str(dtype).split('.')[-1]}, ragged rows, H {h}: "
+                           f"{plan['route']} {plan['warps_per_row']} warps x {plan['vecs']} vectors", card,
+                           which=("ln",))
+    t = ln["times"]["ln_residual_bwd"]
+    ratio = t["ms"] / t["library_ms"]
+    emit({"phase": "ln_residual_bwd_gate", "shape": [8192, 5120], "dtype": "bfloat16", "plan": t["plan"],
+          "ms": t["ms"], "loop_route_ms": t["loop_route_ms"], "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+          "share_of_bound": t["share_of_bound"], "ms_over_library": ratio,
+          "gate": {"share_of_bound_at_least": LN_BWD_SHARE_GATE, "ms_over_library_at_most": LN_BWD_LIBRARY_GATE},
+          "card": card})
+    if t["share_of_bound"] < LN_BWD_SHARE_GATE or ratio > LN_BWD_LIBRARY_GATE:
+        fail(f"ln_residual_bwd at [8192, 5120] bf16: {t['share_of_bound']:.3f} of its bound, {ratio:.3f}x the "
+             f"library; the gates are {LN_BWD_SHARE_GATE} and {LN_BWD_LIBRARY_GATE}x")
     for name, src in RESIDUAL_NORM_SOURCES.items():
         rec = ln if name.startswith("ln") else rms
         records[name] = dict(source=src, max_abs_err=rec["max_abs_err"][name], **rec["times"][name])
@@ -2804,6 +2924,51 @@ KERNEL_CATEGORIES = (  # device kernel name substring -> category
 )
 
 
+COLUMN_SUMS = "norm backward column sums (kernels 8, 11, 13)"  # TRAIN_CATEGORIES' category of ptt::column_sum_kernel
+# the norm kernels whose in-step time per launch stands beside their cold time per call: kernel -> (launch
+# counter, profile categories, the profile whose step runs the kernel phase's shape: its reading is the one
+# compared); a norm backward's column sum joins it where it is the profile's only user
+NORM_IN_STEP = {
+    "B": ("embed_rms", ("embed_rms (kernel B)",), "profile"),
+    "C": ("rms_residual", ("rms_residual (kernel C)",), "profile"),
+    "7": ("rms_norm_fwd", ("rmsnorm (kernel 7)", "rmsnorm fwd (kernel 7)"), "train_profile"),
+    "8": ("rms_norm_bwd", ("rmsnorm bwd (kernel 8)", COLUMN_SUMS), "train_profile"),
+    "9": ("rope_fwd", ("rope fwd (kernel 9)",), "train_profile"),
+    "10": ("rope_bwd", ("rope adjoint (kernel 10)",), "train_profile"),
+    "12": ("ln_residual", ("LN-residual fwd (kernel 12)",), "train_gpt_profile"),
+    "13": ("ln_residual_bwd", ("LN-residual bwd (kernel 13)", COLUMN_SUMS), "train_gpt_profile"),
+}
+KERNEL_RECORDS: dict = {}  # the kernel phase's records (each kernel's cold ms per call), set by main
+IN_STEP_READINGS: dict = {}  # kernel -> the in-step readings of every profile that launched it
+
+
+def norm_in_step(by_cat_ms: dict, launches: dict, label: str) -> dict:
+    """Each :data:`NORM_IN_STEP` kernel that the profiled window launched:
+    its device ms per launch in the window (its categories' ms over its own
+    launch counter). In the profile whose step runs the kernel phase's
+    shape, beside its cold-L2 ms per call from the kernel phase and its
+    bound (both from ``KERNEL_RECORDS``), and kept in ``IN_STEP_READINGS``
+    for the run's ``norm_in_step_vs_cold`` line."""
+    out = {}
+    col_users = [n for n in ("rms_norm_bwd", "ln_residual_bwd", "rms_residual_bwd") if launches.get(n)]
+    for kernel, (counter, cats, ref) in NORM_IN_STEP.items():
+        n = launches.get(counter, 0)
+        if not n:
+            continue
+        ms = sum(by_cat_ms.get(c, 0.0) for c in cats if c != COLUMN_SUMS)
+        col = by_cat_ms.get(COLUMN_SUMS, 0.0) if COLUMN_SUMS in cats and col_users == [counter] else 0.0
+        r = {"profile": label, "launches": n, "in_step_ms_per_launch": (ms + col) / n,
+             "column_sum_ms_per_launch": col / n}
+        rec = KERNEL_RECORDS.get(counter, {})
+        if label == ref and rec.get("bound_ms"):
+            r.update(cold_ms_per_call=rec["ms"], bound_ms=rec["bound_ms"],
+                     in_step_share_of_bound=rec["bound_ms"] / r["in_step_ms_per_launch"],
+                     cold_share_of_bound=rec["bound_ms"] / rec["ms"])
+            IN_STEP_READINGS[kernel] = r
+        out[kernel] = r
+    return out
+
+
 def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3, label: str = "profile") -> None:
     """Where a serving step's time goes: :func:`profile_window` over
     ``steps`` engine steps (after ``warm`` unprofiled ones) on a fresh set
@@ -2819,18 +2984,22 @@ def profile_steps(eng, prompts, card: dict, warm: int = 3, steps: int = 3, label
 def profile_window(step, steps: int, label: str, card: dict) -> None:
     """``torch.profiler`` over ``steps`` calls of ``step()``: device time by
     kernel category, the device-busy time (the union of kernel intervals),
-    the device's idle share of the wall time, and the host's kernel
-    launches and syncs a step."""
+    the device's idle share of the wall time, the host's kernel launches
+    and syncs a step, and the norm kernels' in-step ms per launch
+    (:func:`norm_in_step`, the launch counters reset just before)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = launch_counts()
     spans, by_cat, by_name = [], {}, {}
     for e in cuda_events(prof):
         start, dur = e.time_range.start, e.time_range.elapsed_us()
@@ -2854,6 +3023,7 @@ def profile_window(step, steps: int, label: str, card: dict) -> None:
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_per_step_by_category": {k: v / steps / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
           "top_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in top},
+          "norm_in_step_vs_cold": norm_in_step({k: v / 1e3 for k, v in by_cat.items()}, launches, label),
           "cuda_events": len(spans), "kernels_per_step": len(spans) / steps, "card": card})
 
 
@@ -3560,8 +3730,8 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     counters of the same step (so the profile's flash ms a step are those
     launches' time). Each flash kernel's in-step ms per launch (its events'
     ms over its launches) stands beside ``flash_cold``, its cold-L2 ms per
-    call from ``check_flash`` under the step's mask. Returns the device ms
-    by category."""
+    call from ``check_flash`` under the step's mask, and each norm kernel's
+    likewise (:func:`norm_in_step`). Returns the device ms by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
@@ -3600,7 +3770,7 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_by_category": by_cat_ms, "flash_events": flash_events, "flash_launches": flash_launches,
-          "flash_in_step_vs_cold": in_step,
+          "flash_in_step_vs_cold": in_step, "norm_in_step_vs_cold": norm_in_step(by_cat_ms, launches, label),
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
     if flash_events != flash_launches:
         fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches}")
@@ -3697,7 +3867,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
 
     layers = cfg.num_hidden_layers
     chunks = -(-cfg.vocab_size // CHUNK)
-    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+    want = {fwd_counter(cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): 2 * layers,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
             # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
             "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
@@ -4149,7 +4320,8 @@ def wide_heads(dev, card: dict) -> dict:
         gen_out = model.generate_paged(ids, max_new_tokens=new, block_size=16)
         torch.cuda.synchronize()
         counts = {k: v for k, v in launch_counts().items() if v}
-        want = {"flash_fwd": layers, "paged_decode": (new - 1) * layers, "rms_norm_fwd": new * (2 * layers + 1)}
+        want = {fwd_counter(hidden // 8, str(cfg.dtype)): layers, "paged_decode": (new - 1) * layers,
+                "rms_norm_fwd": new * (2 * layers + 1)}
         if (hidden // 8) % 128 == 0:  # the rope kernel takes D % 128 (the JAX package's gate); D 320 composes
             want["rope_fwd"] = 2 * layers
         emit({"phase": f"wide_heads_{label}_generate_paged", "model": desc, "batch": b, "prompt_tokens": prompt,
@@ -4208,6 +4380,7 @@ def main() -> int:
           "ptxas": ptxas})
 
     records, flash_cold = check_kernels(dev, card)
+    KERNEL_RECORDS.update(records)
     model, counts, streams = serve(dev, card)  # the engine and its pool are released here
     check_logits(model, dev, card)
     counts["paged_chunk"] = serve_unfused(model, dev, card, streams)["paged_chunk"]
@@ -4241,7 +4414,12 @@ def main() -> int:
                                                        card)["rms_residual_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
-    wide_heads(dev, card)
+    wide = wide_heads(dev, card)
+    counts["flash_fwd_wide"] = sum(wide[f"wide_heads_{label}_train"].get("flash_fwd_wide", 0) for label, *_ in WIDE_HEADS)
+    emit({"phase": "norm_in_step_vs_cold", "kernels": IN_STEP_READINGS,
+          "note": "in-step: the profile's device ms of the kernel's categories over its own launch counter in the "
+                  "window (8 and 13 with their column sums); cold: device ms per call with the L2 flushed, at the "
+                  "kernel phase's shapes", "card": card})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],

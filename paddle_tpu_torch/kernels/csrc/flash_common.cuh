@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_fp32.cu): the FlashMask test, the
-// FlashMask tile classes, the producer/consumer rings of the wgmma kernels
-// 14-16 and their walks.
+// flash_fwd_wide.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_fp32.cu,
+// flash_deep.cu): the FlashMask test, the FlashMask tile classes, the
+// producer/consumer rings of the wgmma kernels 14-16 and their walks.
 //
 // wgmma keeps mma.sync m16n8k16's fragment layouts per warp (hopper.cuh).
 // With lane = 4 * gid + tig:
@@ -284,19 +284,18 @@ __device__ __forceinline__ int staged_class(const int* stg, int i, int C, int r0
 // The info word's flag on the walk's last tile (after its class).
 constexpr int kLastTile = 4;
 
-// The producer warp's walk of one item: key tiles [0, hi). The bounds of a
-// run of tiles are staged in shared memory (`stg`, kStageInts) with one
-// round of copies; each tile is then classed from them (32 at a time, one a
-// lane) BEFORE any copy of its K and V. SKIP tiles take no slot; every other
-// tile's K and V go into the next slot by TMA, and a PARTIAL tile's row
-// masks are written while they fly. The walk's last tile carries kLastTile;
-// only a walk whose final pass holds no tile sends a slot of its own (tile
-// -1) to end the item.
-template <int BN, int BM, int D, int S>
-__device__ __forceinline__ void produce_walk(KvRing<BN, D, S>& ring, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-                                             int* stg, const int* bb, int C, int r0, int hi, int Sq, int Sk,
-                                             int causal, int hk, int b, int lane) {
-  const int per = C ? kStageInts / (BN * C) : hi;  // tiles a staging round holds
+// The producer warp's walk over key tiles [0, hi) of a query tile of BM
+// rows from r0: the bounds of a run of tiles are staged in shared memory
+// (`stg`, kStg ints) with one round of copies; each tile is then classed
+// from them (32 at a time, one a lane) and `emit(t, cls, i, last)` runs,
+// in the whole warp, for every tile that is not SKIP, in order: t the
+// tile, i its index in the staged run (its bounds at stg + i BN C), `last`
+// on the walk's last tile. Returns whether a tile carried `last` (false:
+// the final pass held no tile, and the caller ends the item itself).
+template <int BN, int kStg, typename Emit>
+__device__ __forceinline__ bool walk_live_tiles(int* stg, const int* bb, int C, int r0, int BM, int hi, int Sq,
+                                                int Sk, int causal, int lane, Emit&& emit) {
+  const int per = C ? kStg / (BN * C) : hi;  // tiles a staging round holds
   bool ended = false;
   for (int t0 = 0; t0 < hi; t0 += per) {
     const int n = min(per, hi - t0);
@@ -308,9 +307,29 @@ __device__ __forceinline__ void produce_walk(KvRing<BN, D, S>& ring, const CUten
       while (live) {
         const int j = __ffs(live) - 1;
         live &= live - 1;
-        const int i = i0 + j, t = t0 + i, c0 = t * BN;
         const int cls = __shfl_sync(0xffffffffu, mine, j);
         const bool last = final_pass && live == 0;
+        emit(t0 + i0 + j, cls, i0 + j, last);
+        ended = last;
+      }
+    }
+  }
+  return ended;
+}
+
+// The producer warp's walk of one item: key tiles [0, hi), classed by
+// walk_live_tiles BEFORE any copy of their K and V. SKIP tiles take no
+// slot; every other tile's K and V go into the next slot by TMA, and a
+// PARTIAL tile's row masks are written while they fly. The walk's last tile
+// carries kLastTile; only a walk whose final pass holds no tile sends a slot
+// of its own (tile -1) to end the item.
+template <int BN, int BM, int D, int S>
+__device__ __forceinline__ void produce_walk(KvRing<BN, D, S>& ring, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                             int* stg, const int* bb, int C, int r0, int hi, int Sq, int Sk,
+                                             int causal, int hk, int b, int lane) {
+  const bool ended = walk_live_tiles<BN, kStageInts>(
+      stg, bb, C, r0, BM, hi, Sq, Sk, causal, lane, [&](int t, int cls, int i, bool last) {
+        const int c0 = t * BN;
         hopper::mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);  // the slot's last tile is consumed
         uint64_t* bar = &ring.full[ring.stage];
         if (lane == 0) {  // the copies first: the row masks are computed while they fly
@@ -325,10 +344,7 @@ __device__ __forceinline__ void produce_walk(KvRing<BN, D, S>& ring, const CUten
         if (cls == kPartial) warp_tile_mask<BN, BM>(ring.masks(), stg + i * BN * C, C, r0, c0, Sq, Sk, causal, lane);
         hopper::mbar_arrive(bar);  // every lane: its masks and (lane 0) the info word are written
         ring.advance();
-        ended = last;
-      }
-    }
-  }
+      });
   if (!ended) {  // nothing to flag: a slot of its own ends the item
     hopper::mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
     if (lane == 0) ring.info[ring.stage] = make_int2(-1, 0);

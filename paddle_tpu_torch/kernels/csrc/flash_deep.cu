@@ -1,12 +1,15 @@
-// The flash-attention kernels 14 (forward), 15 (dq) and 16 (dk/dv) at head
-// dims above 512, in bf16, fp16 and fp32: one instance per type whose head
-// dim D is a runtime multiple of 64. They compute what flash_fwd.cu,
-// flash_bwd_dq.cu and flash_bwd_dkv.cu compute (see there for the semantics
-// kept from the Pallas kernels); the instances up to 512 are flash_fwd.cu's
-// and friends' (wgmma, to 256) and flash_fp32.cu's (CUDA cores), unchanged.
+// The flash-attention kernels 15 (dq) and 16 (dk/dv) at head dims above
+// 512, in bf16, fp16 and fp32, and kernel 14 (forward) there in fp32: one
+// instance per type whose head dim D is a runtime multiple of 64. They
+// compute what flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu compute
+// (see there for the semantics kept from the Pallas kernels); the bf16 and
+// fp16 forward above 256 is flash_fwd_wide.cu's (tensor cores), the
+// instances up to 512 flash_fp32.cu's (CUDA cores) and flash_fwd.cu's and
+// friends' (wgmma, to 256).
 //
-// Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
-// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for head dims above 512.
+// Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` for head dims above 512, and `_fwd_kernel` there for
+// fp32 inputs.
 //
 // Design (simple first; speed above 512 is not worked on). flash_fp32.cu's
 // CUDA-core walks (the same tiles, tile classes and lane roles: forward and
@@ -361,9 +364,10 @@ constexpr size_t kDkvSmem =
 
 bool deep_dim(int D) { return D > 512 && D % 64 == 0; }
 
-template <typename T>
+// the forward: fp32 only (bf16 and fp16 above 256 run flash_fwd_wide.cu)
 int fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq, int Sk,
         int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
+  using T = float;
   if (!deep_dim(D)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_fwd_kernel_deep<T>;
   const int err = ptt::allow_smem(kernel, kFwdSmem);
@@ -416,16 +420,11 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 }  // namespace
 
 // The entries take the other flash entries' arguments (flash_fp32.cu's
-// `_fp32` / `_wide_*`): `_deep_bf16`, `_deep_fp16` and `_deep_fp32`, with
-// every q/k/v/g/out tensor of that type, at head dims above 512 (the
-// scheduler counter goes unused). Another head dim returns
-// cudaErrorInvalidValue.
-#define PTT_FLASH_DEEP_ENTRIES(SUFFIX, T)                                                                          \
-  extern "C" int ptt_flash_fwd_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds, void* out, \
-                                        void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK,  \
-                                        int D, int Hm, int C, int causal, float scale, void* stream) {             \
-    return fwd<T>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);                 \
-  }                                                                                                                \
+// `_fp32` / `_wide_*`): `_deep_bf16`, `_deep_fp16` and `_deep_fp32` for dq
+// and dk/dv, and the forward's `_deep_fp32`, with every q/k/v/g/out tensor
+// of that type, at head dims above 512 (the scheduler counter goes unused).
+// Another head dim returns cudaErrorInvalidValue.
+#define PTT_FLASH_DEEP_BWD_ENTRIES(SUFFIX, T)                                                                      \
   extern "C" int ptt_flash_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,        \
                                            const void* g, const void* lse, const void* delta, void* dq_,           \
                                            void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,   \
@@ -439,6 +438,12 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
     return dkv<T>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);     \
   }
 
-PTT_FLASH_DEEP_ENTRIES(deep_fp32, float)
-PTT_FLASH_DEEP_ENTRIES(deep_bf16, ptt::bf16)
-PTT_FLASH_DEEP_ENTRIES(deep_fp16, ptt::f16)
+extern "C" int ptt_flash_fwd_deep_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
+                                       void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK,
+                                       int D, int Hm, int C, int causal, float scale, void* stream) {
+  return fwd(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}
+
+PTT_FLASH_DEEP_BWD_ENTRIES(deep_fp32, float)
+PTT_FLASH_DEEP_BWD_ENTRIES(deep_bf16, ptt::bf16)
+PTT_FLASH_DEEP_BWD_ENTRIES(deep_fp16, ptt::f16)

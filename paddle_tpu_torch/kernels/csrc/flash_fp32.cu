@@ -370,7 +370,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
 }
 
 // the instance of head dim D (64 to 512 for fp32; WIDE: 320 to 512 only,
-// the bf16 and fp16 head dims above the wgmma kernels'), as LAUNCH(D)
+// the bf16 and fp16 backward's head dims above the wgmma kernels'), as LAUNCH(D)
 #define PTT_FLASH_SIMT_DIMS(WIDE, LAUNCH)                                       \
   switch (D) {                                                                 \
     case 64: if constexpr (!(WIDE)) return LAUNCH(64); break;                            \
@@ -385,12 +385,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
   }                                                                            \
   return static_cast<int>(cudaErrorInvalidValue)
 
-template <typename T>
+// the forward: fp32 only (bf16 and fp16 above 256 run flash_fwd_wide.cu)
 int fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq, int Sk,
         int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
 #define PTT_FWD(DIM) \
-  launch_fwd<T, DIM>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_FWD);
+  launch_fwd<float, DIM>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
+                         static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS(false, PTT_FWD);
 #undef PTT_FWD
 }
 
@@ -420,16 +421,11 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 
 // The entries take the bf16/fp16 wgmma entries' arguments (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): `_fp32` with every q/k/v/g/out
-// tensor fp32 (head dims 64 to 512), `_wide_bf16` / `_wide_fp16` with them
-// bf16 / fp16 (head dims 320 to 512). The blocks here take fixed tiles, so
-// the scheduler counter goes unused. Another head dim returns
-// cudaErrorInvalidValue.
-#define PTT_FLASH_SIMT_ENTRIES(SUFFIX, T)                                                                          \
-  extern "C" int ptt_flash_fwd_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds, void* out, \
-                                        void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK,  \
-                                        int D, int Hm, int C, int causal, float scale, void* stream) {             \
-    return fwd<T>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);                 \
-  }                                                                                                                \
+// tensor fp32 (head dims 64 to 512), and dq's and dk/dv's `_wide_bf16` /
+// `_wide_fp16` with them bf16 / fp16 (head dims 320 to 512). The blocks
+// here take fixed tiles, so the scheduler counter goes unused. Another head
+// dim returns cudaErrorInvalidValue.
+#define PTT_FLASH_SIMT_BWD_ENTRIES(SUFFIX, T)                                                                      \
   extern "C" int ptt_flash_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,        \
                                            const void* g, const void* lse, const void* delta, void* dq_,           \
                                            void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,   \
@@ -443,6 +439,12 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
     return dkv<T>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);     \
   }
 
-PTT_FLASH_SIMT_ENTRIES(fp32, float)
-PTT_FLASH_SIMT_ENTRIES(wide_bf16, ptt::bf16)
-PTT_FLASH_SIMT_ENTRIES(wide_fp16, ptt::f16)
+extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
+                                  void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,
+                                  int Hm, int C, int causal, float scale, void* stream) {
+  return fwd(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}
+
+PTT_FLASH_SIMT_BWD_ENTRIES(fp32, float)
+PTT_FLASH_SIMT_BWD_ENTRIES(wide_bf16, ptt::bf16)
+PTT_FLASH_SIMT_BWD_ENTRIES(wide_fp16, ptt::f16)

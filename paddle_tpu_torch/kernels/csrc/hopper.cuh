@@ -85,6 +85,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait as one asm loop (the same 20 s trap on %globaltimer): a
+// consumer that waits for its next stage while its wgmmas are in flight
+// must not branch at the C++ level there, or ptxas serialises the wgmmas
+// (C7520: a compiler-inserted warpgroup.arrive in a divergent path)
+__device__ __forceinline__ void mbar_wait_loop(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT_LOOP:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra WAIT_DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 20000000000;\n"
+      "@p trap;\n"
+      "bra WAIT_LOOP;\n"
+      "WAIT_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on `bar` from the threads whose `pred` is non-zero, as a
+// predicated instruction (no branch: see mbar_wait_loop)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(pred)
+               : "memory");
+}
+
 // setmaxnreg.inc.sync.aligned.u32 N: this warpgroup's registers a thread
 // rise to N (taken from what another warpgroup released)
 template <int N>
@@ -121,6 +151,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes: `bytes`
+// (a multiple of 16; both addresses 16-byte aligned) from global to shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // cp.async.cg.shared.global (16 bytes; p and dst 16-byte aligned) and

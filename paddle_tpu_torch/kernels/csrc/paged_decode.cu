@@ -126,16 +126,6 @@ __host__ __device__ inline Layout layout_of(int D, int cols, int rows, int sp, i
   return L;
 }
 
-// cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes: `bytes`
-// (a multiple of 16; both addresses 16-byte aligned) from global to shared
-// memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   hp::smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(hp::smem_u32(bar))
-               : "memory");
-}
-
 // two consecutive elements of KV (4-, 2-, 8- or 2-byte aligned) as fp32
 template <typename KV>
 __device__ __forceinline__ float2 load2(const KV* p);
@@ -260,12 +250,12 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, HQ, D], pre-rope wh
         const size_t row = (static_cast<size_t>(blk) * HKV + h) * BS + off;  // the segment's first pool row
         const int t = pos - p0;                                               // and its row in the stage
         if (lane == 0) {
-          bulk_load(kdst + static_cast<size_t>(t) * D, kc + row * D, seg * D * sizeof(KV), &full[st]);
+          hp::bulk_load(kdst + static_cast<size_t>(t) * D, kc + row * D, seg * D * sizeof(KV), &full[st]);
           if (cols_here == D) {
-            bulk_load(vdst + static_cast<size_t>(t) * D, vc + row * D, seg * D * sizeof(KV), &full[st]);
+            hp::bulk_load(vdst + static_cast<size_t>(t) * D, vc + row * D, seg * D * sizeof(KV), &full[st]);
           } else {  // the CTA's columns of each row
             for (int i = 0; i < seg; ++i)
-              bulk_load(vdst + static_cast<size_t>(t + i) * cols_here, vc + (row + i) * D + col0,
+              hp::bulk_load(vdst + static_cast<size_t>(t + i) * cols_here, vc + (row + i) * D + col0,
                         cols_here * sizeof(KV), &full[st]);
           }
         }

@@ -27,11 +27,14 @@ its block size (the XLA path a uniform average over all columns).
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
-``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256;
-``csrc/flash_fp32.cu``, the CUDA-core instances, for fp32 up to 512 and for
-bf16 and fp16 from 320 to 512; ``csrc/flash_deep.cu`` above 512, its head
-dim a runtime value) or raises — it never falls back. On the card the
-kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
+``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256), the forward
+``csrc/flash_fwd_wide.cu`` above 256 in bf16 and fp16 (tensor cores, O's
+columns over warpgroups: :func:`flash_fwd_wide_plan`), dq and dk/dv
+``csrc/flash_fp32.cu``'s CUDA-core instances in bf16 and fp16 from 320 to
+512, every kernel ``csrc/flash_fp32.cu`` in fp32 up to 512, and
+``csrc/flash_deep.cu`` above 512 (its head dim a runtime value: dq and
+dk/dv, and the fp32 forward) — or raises; it never falls back. On the card
+the kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
 head dim that is a multiple of 64, as the JAX package's gate sends them.
 
 Kernels 14 and 15 walk the key tiles of a query tile, kernel 16 the query
@@ -62,15 +65,25 @@ __all__ = [
     "flash_bwd_dq_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "flash_fwd_wide_plan",
     "flash_masked",
     "flash_tile_classes",
     "flash_tile_shape",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the head dims of the template instances; every multiple of 64 above them runs csrc/flash_deep.cu
+# the head dims of the template instances; every multiple of 64 above them runs csrc/flash_deep.cu (dq,
+# dk/dv and the fp32 forward; the bf16 / fp16 forward above 256 runs csrc/flash_fwd_wide.cu at any head dim)
 KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 take the CUDA-core instances of csrc/flash_fp32.cu
+WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 dq, dk/dv take the CUDA-core instances of csrc/flash_fp32.cu
+# csrc/flash_fwd_wide.cu's shared-memory plan (WidePlan there)
+_WIDE_BOX = 64 * 128  # a [64 rows][64 columns] box of a 2-byte type
+_WIDE_WG_BOXES = 4  # a consumer warpgroup's O: at most 4 boxes (256 columns) (kMaxWgBoxes there)
+_WIDE_MIN_STAGES, _WIDE_MAX_STAGES = 4, 8
+_WIDE_STG_INTS = 2048
+_WIDE_SMEM = 227 * 1024
+_WIDE_SLOT_SIDE = 64 * 2 * 4 + 8  # a slot's row masks and info word
+_WIDE_FIXED = _WIDE_STG_INTS * 4 + (2 + 2 * _WIDE_MAX_STAGES) * 8 + 16 + 1024
 _MASK_C = (1, 2, 4)
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
@@ -78,11 +91,13 @@ _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: 
 SKIP, PARTIAL, FULL = 0, 1, 2
 
 
-def _simt(d: int, dtype: torch.dtype) -> bool:
-    """Whether head dim ``d`` in ``dtype`` runs on the CUDA-core instances
-    (``csrc/flash_fp32.cu``): fp32 at every head dim, bf16 and fp16 above
-    :data:`WGMMA_HEAD_DIM_MAX`."""
-    return dtype == torch.float32 or d > WGMMA_HEAD_DIM_MAX
+def _simt(kernel: str, d: int, dtype: torch.dtype) -> bool:
+    """Whether ``kernel`` at head dim ``d`` in ``dtype`` runs on the
+    CUDA-core instances (``csrc/flash_fp32.cu``, ``csrc/flash_deep.cu``):
+    fp32 at every head dim; bf16 and fp16 dq and dk/dv above
+    :data:`WGMMA_HEAD_DIM_MAX` (the forward there runs
+    ``csrc/flash_fwd_wide.cu`` on the tensor cores)."""
+    return dtype == torch.float32 or (d > WGMMA_HEAD_DIM_MAX and kernel != "flash_fwd")
 
 
 def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
@@ -90,18 +105,64 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
     the query rows and keys of one (query tile, key tile) pair. bf16/fp16
     up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
-    x 64, dk/dv 64 query rows x 64 keys; the CUDA-core instances (fp32, and
-    D above 256, ``csrc/flash_deep.cu``'s too): forward and dq 16 x 32,
-    dk/dv 32 query rows x 16 keys."""
+    x 64, dk/dv 64 query rows x 64 keys; the bf16/fp16 forward above 256
+    (``csrc/flash_fwd_wide.cu``) 64 x 64; the CUDA-core instances (fp32,
+    and bf16/fp16 dq and dk/dv above 256): forward and dq 16 x 32, dk/dv 32
+    query rows x 16 keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
-    if _simt(d, dtype):
+    if _simt(kernel, d, dtype):
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
     if kernel == "flash_fwd":
+        if d > WGMMA_HEAD_DIM_MAX:
+            return (64, 64)
         return (128, 128) if d <= 128 else (128, 64)
     if kernel == "flash_bwd_dq":
         return (128, 64)
     return (64, 64)
+
+
+def flash_fwd_wide_plan(d: int) -> dict:
+    """The launch plan of ``csrc/flash_fwd_wide.cu`` (the bf16 / fp16
+    forward above head dim 256) at head dim ``d``, a mirror of its
+    ``wide_plan`` (``chip_smoke.py`` holds the two equal on the card): a
+    CTA owns 64 query rows, and its two consumer warpgroups each own a
+    share of O's D / 64 column boxes (``boxes``), each computing the scores
+    over all of D. ``split`` CTAs a query tile and ``nw`` boxes each
+    warpgroup computes (the kernel's instance): of 1 to ceil(boxes / 2)
+    CTAs the one whose products cost least, 2 split (boxes + nw), nw at most
+    4; ``wg_boxes`` the (first box, count) each of the 2 split warpgroups
+    stores, as even as floors allow (one with count nw - 1 recomputes its
+    neighbour's first box); ``stream_q`` True where Q (64 rows x D) cannot
+    stay resident beside 4 ring slots and rides in the K slots instead;
+    ``stages`` the ring's slots; ``smem`` the CTA's dynamic shared-memory
+    bytes."""
+    if d <= WGMMA_HEAD_DIM_MAX or d % 64:
+        raise ValueError(f"the wide forward takes head dims above {WGMMA_HEAD_DIM_MAX} that are multiples of 64, "
+                         f"not {d}")
+    boxes = d // 64
+    best = None
+    for sp in range(-(-boxes // (2 * _WIDE_WG_BOXES)), (boxes + 1) // 2 + 1):
+        w = -(-boxes // (2 * sp))
+        cost = 2 * sp * (boxes + w)
+        if best is None or cost < best[0]:
+            best = (cost, sp, w)
+    _, split, nw = best
+    q = boxes * _WIDE_BOX
+    stream_q = _WIDE_SMEM - _WIDE_FIXED - q < _WIDE_MIN_STAGES * (2 * _WIDE_BOX + _WIDE_SLOT_SIDE)
+    if stream_q:
+        q = 0
+    slot = (4 if stream_q else 2) * _WIDE_BOX
+    stages = min(_WIDE_MAX_STAGES, (_WIDE_SMEM - _WIDE_FIXED - q) // (slot + _WIDE_SLOT_SIDE))
+    mask = q + stages * slot
+    info = mask + stages * 64 * 2 * 4
+    stg = info + (stages * 8 + 15) // 16 * 16
+    bar = stg + _WIDE_STG_INTS * 4
+    item = bar + (2 + 2 * stages) * 8
+    n = 2 * split
+    wg = [(g * boxes // n, (g + 1) * boxes // n - g * boxes // n) for g in range(n)]
+    return {"boxes": boxes, "nw": nw, "split": split, "wg_boxes": wg, "stream_q": stream_q, "stages": stages,
+            "smem": item + 16 + 1024}
 
 
 # -- the mask ----------------------------------------------------------------
@@ -303,13 +364,29 @@ def flash_bwd_dkv_plain(
 
 # -- CUDA wrappers -------------------------------------------------------------
 
+def _entry_suffix(what: str, dtype: torch.dtype, d: int) -> str:
+    """The C entry's suffix of kernel ``what`` at head dim ``d`` in
+    ``dtype``: ``bf16`` / ``fp16`` for the wgmma kernels up to D 256; above
+    it the forward's ``wgmma_wide_bf16`` / ``wgmma_wide_fp16``
+    (``csrc/flash_fwd_wide.cu``), dq's and dk/dv's ``wide_bf16`` /
+    ``wide_fp16`` (the CUDA-core instances) to 512; ``fp32`` to 512; and
+    ``deep_bf16`` / ``deep_fp16`` / ``deep_fp32`` above 512 (dq, dk/dv;
+    the forward in fp32)."""
+    suffix = _KERNEL_DTYPES[dtype]
+    if d <= WGMMA_HEAD_DIM_MAX:
+        return suffix
+    if what == "flash_fwd" and suffix != "fp32":
+        return f"wgmma_wide_{suffix}"
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return f"deep_{suffix}"
+    return suffix if suffix == "fp32" else f"wide_{suffix}"
+
+
 def _cuda_inputs(what: str, tensors, bounds, d: int):
     """Contiguous, 16-byte-aligned views of ``tensors`` (one dtype of
     bf16, fp16 and fp32) and int32 bounds on one card, with the C entry's
-    suffix (``fp32``; ``bf16`` / ``fp16`` for the wgmma kernels up to D
-    256, ``wide_bf16`` / ``wide_fp16`` for the CUDA-core instances to 512;
-    ``deep_bf16`` / ``deep_fp16`` / ``deep_fp32`` above 512); or an
-    exception naming what the kernels do not take."""
+    suffix (:func:`_entry_suffix`); or an exception naming what the
+    kernels do not take."""
     dtype = tensors[0][1].dtype
     for name, t in tensors:
         if t.dtype not in _KERNEL_DTYPES or t.dtype != dtype:
@@ -331,10 +408,7 @@ def _cuda_inputs(what: str, tensors, bounds, d: int):
         if bounds.device != dev or bounds.dtype != torch.int32:
             raise ValueError(f"{what}: bounds must be an int32 tensor on {dev}")
         bnd = bounds.contiguous()
-    suffix = _KERNEL_DTYPES[dtype]
-    if d > KERNEL_HEAD_DIMS[-1]:
-        return dev, out, bnd, f"deep_{suffix}"
-    return dev, out, bnd, suffix if suffix == "fp32" or d <= WGMMA_HEAD_DIM_MAX else f"wide_{suffix}"
+    return dev, out, bnd, _entry_suffix(what, dtype, d)
 
 
 def _stats(what: str, t: torch.Tensor, shape, dev) -> torch.Tensor:
@@ -348,9 +422,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
-    """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
-    15 and 16 (one int32, zero before each launch); the CUDA-core instances
-    take none."""
+    """The item scheduler's counter of the persistent bf16/fp16 kernels 14
+    (both forwards), 15 and 16 (one int32, zero before each launch); the
+    CUDA-core instances take none."""
     if suffix == "fp32" or suffix.startswith(("wide", "deep")):
         return None
     return torch.zeros(1, dtype=torch.int32, device=dev)
@@ -360,7 +434,10 @@ def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bounds: Optional[torch.Tensor] = None,
     causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash-attention forward; returns ``(out [B, Sq, H, D], lse [B, H, Sq])``."""
+    """Flash-attention forward; returns ``(out [B, Sq, H, D], lse [B, H, Sq])``.
+    A launch counts as ``flash_fwd``, or as ``flash_fwd_wide`` where the
+    bf16 / fp16 forward above head dim 256 (``csrc/flash_fwd_wide.cu``)
+    ran."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, bounds, causal, scale)
     b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
@@ -376,7 +453,7 @@ def flash_fwd(
                      lse.data_ptr(), _ptr(_sched(suffix, dev)), b, sq, sk, h, hk, d, hm, c, int(bool(causal)),
                      float(scale), torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_fwd")
-        count_launch("flash_fwd")
+        count_launch("flash_fwd_wide" if suffix.startswith("wgmma_wide") else "flash_fwd")
     return out, lse
 
 

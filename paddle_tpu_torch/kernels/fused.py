@@ -61,6 +61,7 @@ __all__ = [
     "rms_norm_bwd_plain",
     "rms_norm_fwd",
     "rms_norm_fwd_plain",
+    "ln_bwd_plan",
     "rms_fwd_plan",
     "rms_residual_adjoint",
     "rms_residual_bwd",
@@ -83,6 +84,9 @@ _BWD_BLOCKS_PER_SM = 4  # norm backward row blocks: at most 4 of 256 threads per
 # kernel 7's register route (csrc/rms_norm.cu `rms_fwd_kernel_regs`)
 RMS_FWD_BLOCK_WARPS = 4  # warps per block: a row takes 1, 2 or 4 of them
 RMS_FWD_MAX_VECS = 16  # 16-byte vectors of x a lane holds, at most (and as many of w): 128 registers
+# kernel 13's register route (csrc/ln_residual.cu `ln_residual_bwd_kernel_regs`)
+LN_BWD_MAX_VECS = 6  # 16-byte vectors of r (and of g, w) a lane holds, at most, beside 2 x 8 fp32 partials each
+LN_BWD_WARPS = (4, 8, 2, 1)  # warps a row, in the order the plan tries them
 
 
 def _rms_rows(x: torch.Tensor, weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -381,6 +385,40 @@ def rms_fwd_plan(h: int, dtype: torch.dtype) -> dict:
     return {"route": "loop", "vecs": 0, "warps_per_row": 1}
 
 
+def ln_bwd_plan(h: int, dtype: torch.dtype) -> dict:
+    """Kernel 13's launch plan for rows of width ``h`` in ``dtype`` (a host
+    function: no card needed).
+
+    ``route`` is ``"regs"`` when a row is a whole number ``vecs * W * 32``
+    of 16-byte vectors with ``vecs`` at most :data:`LN_BWD_MAX_VECS` for
+    some W of :data:`LN_BWD_WARPS` (4 first, then 8, 2, 1): a block of
+    ``warps_per_row`` (W) warps walks its rows with each lane's ``vecs``
+    vectors of the row, and the fp32 dw and db partials of their columns,
+    in registers (H 5120 bf16: 4 warps, 5 vectors). Otherwise ``"loop"``:
+    256 threads a row over a runtime width, the row and the partials in
+    shared memory (``vecs`` 0)."""
+    n = 16 // dtype.itemsize
+    lane_vecs = h // n // 32 if h % (n * 32) == 0 else 0
+    for w in LN_BWD_WARPS:
+        if lane_vecs and lane_vecs % w == 0 and lane_vecs // w <= LN_BWD_MAX_VECS:
+            return {"route": "regs", "vecs": lane_vecs // w, "warps_per_row": w}
+    return {"route": "loop", "vecs": 0, "warps_per_row": 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_blocks_per_sm(index: int, io: int, h: int, vecs: int, warps: int) -> int:
+    """The register route's blocks an SM holds at once on card ``index``
+    (the kernel's occupancy of registers and its ring's shared memory), at
+    most ``_BWD_BLOCKS_PER_SM``: each block writes 2H fp32 partials."""
+    per_sm = ctypes.c_int(0)
+    fn = build.kernel_fn("ptt_ln_residual_bwd_blocks", [_I] * 4 + [_P])
+    with torch.cuda.device(index):
+        build.check(fn(io, h, vecs, warps, ctypes.byref(per_sm)), "ln_residual_bwd (occupancy)")
+    if per_sm.value < 1:
+        raise RuntimeError(f"ln_residual_bwd: no block of width {h} fits an SM")
+    return min(per_sm.value, _BWD_BLOCKS_PER_SM)
+
+
 def rms_norm_fwd(
     x: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -524,25 +562,33 @@ def ln_residual_bwd(
     g: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, epsilon: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dw, db)`` of :func:`ln_residual`'s norm half from the saved
-    ``r`` (kernel 13; mean and rstd recomputed per row). ``dw`` and ``db``
-    come from per-block fp32 partials summed per column in a fixed order
-    (no atomics: two runs give the same bits); the row pass and the column
-    sum are two launches and count as one call."""
+    ``r`` (kernel 13; mean and rstd recomputed per row), on the route and
+    shape of :func:`ln_bwd_plan`. ``dw`` and ``db`` come from per-block
+    fp32 partials summed per column in a fixed order (no atomics: two runs
+    give the same bits); the row pass and the column sum are two launches
+    and count as one call."""
     if g.device.type == "cpu":
         return ln_residual_bwd_plain(g, r, weight, epsilon)
-    io, h, g, r, weight = _adjoint_operands("ln_residual_bwd", g, r, weight, 3)
+    plan = ln_bwd_plan(g.shape[-1], g.dtype)
+    io, h, g, r, weight = _adjoint_operands("ln_residual_bwd", g, r, weight, 3 if plan["route"] == "loop" else 1)
     dx = torch.empty_like(g)
     rows = g.numel() // h if h else 0
     if not rows:
         return dx, torch.zeros_like(weight), torch.zeros_like(weight)
     dwdb = torch.empty((2, h), dtype=weight.dtype, device=g.device)
-    per_block, nblk = _row_blocks(g.device, rows, 3 * h * 4)
+    if plan["route"] == "loop":
+        per_block, nblk = _row_blocks(g.device, rows, 3 * h * 4)
+    else:
+        index = g.device.index if g.device.index is not None else torch.cuda.current_device()
+        per_sm = _ln_bwd_blocks_per_sm(index, io, h, plan["vecs"], plan["warps_per_row"])
+        per_block = -(-rows // min(rows, per_sm * _sm_count(index)))
+        nblk = -(-rows // per_block)
     partials = torch.empty((nblk, 2 * h), dtype=torch.float32, device=g.device)
-    fn = build.kernel_fn("ptt_ln_residual_bwd", [_I] + [_P] * 6 + [_I] * 4 + [_F, _P])
+    fn = build.kernel_fn("ptt_ln_residual_bwd", [_I] + [_P] * 6 + [_I] * 6 + [_F, _P])
     with torch.cuda.device(g.device):
         err = fn(io, r.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr(), dwdb.data_ptr(),
-                 partials.data_ptr(), rows, h, per_block, nblk, float(epsilon),
-                 torch.cuda.current_stream().cuda_stream)
+                 partials.data_ptr(), rows, h, per_block, nblk, plan["vecs"], plan["warps_per_row"],
+                 float(epsilon), torch.cuda.current_stream().cuda_stream)
     build.check(err, "ln_residual_bwd")
     count_launch("ln_residual_bwd")
     return dx, dwdb[0], dwdb[1]

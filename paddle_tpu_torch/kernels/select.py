@@ -35,6 +35,8 @@ KERNELS: Dict[str, str] = {
     "ln_residual": "paddle_tpu/kernels/fused.py:372",
     "ln_residual_bwd": "paddle_tpu/kernels/fused.py:383",
     "flash_fwd": "paddle_tpu/kernels/flash_attention.py:87",
+    # the same body above head dim 256 in bf16 / fp16: csrc/flash_fwd_wide.cu
+    "flash_fwd_wide": "paddle_tpu/kernels/flash_attention.py:87",
     "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",
     # kernel 17: two launches per call (the logits tiles' partials, their merge)

@@ -3,9 +3,11 @@ package, and the launch
 plans of kernels A/4 and 7.
 
 The JAX package's ``D % 64`` gate sends every multiple of 64 to its Pallas
-kernels; so do the port's CUDA kernels (flash 14-16 on the CUDA-core
-instances of ``csrc/flash_fp32.cu`` up to 512 and ``csrc/flash_deep.cu``
-above, A/4 with O's columns split over CTAs, 5/6 at any head dim). On the
+kernels; so do the port's CUDA kernels (the bf16 / fp16 flash forward 14 on
+the tensor cores in ``csrc/flash_fwd_wide.cu``, 15-16 and fp32 on the
+CUDA-core instances of ``csrc/flash_fp32.cu`` up to 512 and
+``csrc/flash_deep.cu`` above, A/4 with O's columns split over CTAs, 5/6 at
+any head dim). On the
 CPU the wrappers run their
 plain versions, so these tests hold the plain versions at D 320, 512 and 576
 against the Pallas kernels in interpret mode on the same numpy inputs:
@@ -163,11 +165,14 @@ def test_flashmask_entry_grads_match_jax_grad_at_wide_head_dims(d):
 
 
 def test_flash_wide_head_dims_take_the_cuda_core_walk():
-    """Above D 256 bf16 and fp16 take the CUDA-core instances' tiles, as
-    fp32 does at every head dim; up to 256 the wgmma tiles stay."""
+    """Above D 256 bf16 and fp16 dq and dk/dv take the CUDA-core instances'
+    tiles, as fp32 does at every head dim, and the bf16 / fp16 forward the
+    tensor-core kernel's 64 x 64 tiles (``csrc/flash_fwd_wide.cu``); up to
+    256 the wgmma tiles stay."""
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for d in (320, 384, 448, 512, 576, 1024):
-            assert kfa.flash_tile_shape("flash_fwd", d, dtype) == (16, 32)
+            want_fwd = (16, 32) if dtype == torch.float32 else (64, 64)
+            assert kfa.flash_tile_shape("flash_fwd", d, dtype) == want_fwd
             assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == (16, 32)
             assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (32, 16)
     assert kfa.flash_tile_shape("flash_fwd", 256, torch.bfloat16) == (128, 64)
