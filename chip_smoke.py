@@ -29,13 +29,16 @@ name and power limit):
    bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
    192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
    given the dense band mask), and at head dims 320, 384, 448 and 512 and
-   576 and 1024 (the bf16 / fp16 forward on the tensor cores,
-   ``csrc/flash_fwd_wide.cu``, its launch plan held to its Python mirror;
-   dq, dk/dv and fp32 on the CUDA-core instances and the runtime-D
-   kernels) in bf16, fp16 and fp32, causal and under a document mask (the
-   bf16 D 320, 512, 576 and 1024 cases timed beside SDPA, its backend
-   named, the forward at most 1.0x SDPA's at 320 and 512; the forward
-   with Q streamed beside K at D 1280: ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
+   576 and 1024 (bf16 / fp16 on the tensor cores: the forward
+   ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``,
+   their launch plans held to their Python mirrors; fp32 on the CUDA-core
+   instances and the runtime-D kernels) in bf16, fp16 and fp32, causal and
+   under a document mask (the bf16 D 320, 512, 576 and 1024 cases timed
+   beside SDPA, its backend named, the forward at most 1.0x SDPA's and dq
+   + dk/dv at most 1.0x its whole backward at 320 and 512, dk/dv bitwise
+   over two calls at 512; all three at D 1280, the forward's Q streamed
+   beside K; 320 and 512 timed at S 4096 under a document mask:
+   ``check_flash_wide``); kernel 16 (dk/dv) gated at most SDPA's whole
    backward causal, at most half its own causal time under the document
    mask, and bitwise equal over two runs; each flash kernel's cold-L2 time
    per call under the Llama step's document mask and at the GPT step's
@@ -170,9 +173,12 @@ name and power limit):
 9. wide_heads — head dims above 256 on the main paths: 2-layer
    Llama-2-7B-width models with 8 heads of 512 and of 320 (GQA 8/2)
    through the engine fused and unfused over bf16 and int8 KV pools,
-   ``generate_paged`` and one document-masked train step, each with the
+   ``generate_paged`` and two document-masked train steps, each with the
    serve, decode and train phases' gates (launch counts, logits against the
-   plain path, grad coverage).
+   plain path, grad coverage, a falling loss; each train step launches
+   the wide forward, dq and dk/dv, ``flash_fwd_wide`` 4x and
+   ``flash_bwd_dq_wide`` / ``flash_bwd_dkv_wide`` 2x, and no other flash
+   kernel).
 
 Each profile line (the serve, train and GPT train steps') carries the norm
 kernels' (B, C, 7-10, 12, 13) in-step ms per launch beside their cold-L2 ms
@@ -1171,15 +1177,25 @@ FLASH_SOURCES = {
     "flash_bwd_dkv": "paddle_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
 }
 FLASH_FP32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fp32.cu"
-# the bf16 / fp16 forward above head dim 256 (tensor cores; its own launch counter)
+# the bf16 / fp16 forward, dq and dk/dv above head dim 256 (tensor cores; their own launch counters)
 FLASH_WIDE_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fwd_wide.cu"
+FLASH_BWD_WIDE_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_bwd_wide.cu"
 FLASH_WIDE_GATE = 1.0  # the wide forward at most this times SDPA's forward at D 320 and 512, GQA 8/2 [2, 1024] causal
+# the wide dq + dk/dv at most this times SDPA's whole backward (dq, dk, dv) at D 320 and 512, the same cases
+FLASH_BWD_WIDE_GATE = 1.0
 
 
 def fwd_counter(d: int, dtype: str) -> str:
     """The launch counter of the flash forward at head dim ``d`` in ``dtype``
     (``"bfloat16"``...): ``flash_fwd_wide`` for bf16 / fp16 above 256."""
     return "flash_fwd_wide" if d > 256 and dtype in ("bfloat16", "float16") else "flash_fwd"
+
+
+def bwd_counter(kernel: str, d: int, dtype: str) -> str:
+    """The launch counter of the flash backward ``kernel`` (``"flash_bwd_dq"``
+    or ``"flash_bwd_dkv"``) at head dim ``d`` in ``dtype``: with ``_wide``
+    for bf16 / fp16 above 256 (``csrc/flash_bwd_wide.cu``)."""
+    return f"{kernel}_wide" if d > 256 and dtype in ("bfloat16", "float16") else kernel
 # out: the kernel rounds P to bf16 for the P V product (as flash attention
 # does) while l sums the fp32 p, so each p moves by at most 2^-8 of itself and
 # an output element out[i, e] by at most 2^-8 * (sum_j p_ij |v_je|) / l_i —
@@ -1420,20 +1436,25 @@ WIDE_TIMED = (320, 512)
 # head dims above 512 (the runtime-D kernels: csrc/flash_deep.cu, paged_chunk_deep.cu and 5 / 6, and the wide
 # forward): checked and timed
 DEEP_HEAD_DIMS = (576, 1024)
-# the wide forward with Q streamed beside K (above D 1152: csrc/flash_fwd_wide.cu `stream_q`), checked only
+# the wide forward with Q streamed beside K (above D 1152: csrc/flash_fwd_wide.cu `stream_q`), and the wide
+# backward there (its resident pair streamed): checked against the plain versions, not timed
 STREAM_Q_HEAD_DIM = 1280
 
 
 def check_wide_plan(card: dict) -> None:
     """``csrc/flash_fwd_wide.cu``'s launch plan (``ptt_flash_fwd_wide_plan``:
     boxes, boxes a warpgroup, CTAs a query tile, stream_q, ring stages,
-    shared-memory bytes) equals its Python mirror ``flash_fwd_wide_plan`` at
-    every multiple of 64 from 320 to 2048."""
+    shared-memory bytes) equals its Python mirror ``flash_fwd_wide_plan``,
+    and ``csrc/flash_bwd_wide.cu``'s for dq and dk/dv
+    (``ptt_flash_bwd_wide_plan``: boxes, boxes an owner, CTAs a tile,
+    stream, ring stages, shared-memory bytes) its mirror
+    ``flash_bwd_wide_plan``, at every multiple of 64 from 320 to 2048."""
     import ctypes
     from paddle_tpu_torch.kernels import build
-    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_wide_plan
+    from paddle_tpu_torch.kernels.flash_attention import flash_bwd_wide_plan, flash_fwd_wide_plan
 
     fn = build.kernel_fn("ptt_flash_fwd_wide_plan", [ctypes.c_int, ctypes.c_void_p])
+    bwd = build.kernel_fn("ptt_flash_bwd_wide_plan", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     wrong = {}
     for d in range(320, 2049, 64):
         buf = (ctypes.c_int * 6)()
@@ -1441,26 +1462,39 @@ def check_wide_plan(card: dict) -> None:
         py = flash_fwd_wide_plan(d)
         want = [py["boxes"], py["nw"], py["split"], int(py["stream_q"]), py["stages"], py["smem"]]
         if list(buf) != want:
-            wrong[d] = {"kernel": list(buf), "python": want}
+            wrong[f"flash_fwd {d}"] = {"kernel": list(buf), "python": want}
+        for i, kernel in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
+            buf = (ctypes.c_int * 6)()
+            build.check(bwd(d, i, buf), "ptt_flash_bwd_wide_plan")
+            py = flash_bwd_wide_plan(d, kernel)
+            want = [py["boxes"], py["nw"], py["split"], int(py["stream"]), py["stages"], py["smem"]]
+            if list(buf) != want:
+                wrong[f"{kernel} {d}"] = {"kernel": list(buf), "python": want}
     emit({"phase": "flash_wide_plan_check", "d": [320, 2048], "ok": not wrong, "wrong": wrong,
-          "d512": flash_fwd_wide_plan(512), "d1024": flash_fwd_wide_plan(1024), "card": card})
+          "d512": flash_fwd_wide_plan(512), "d1024": flash_fwd_wide_plan(1024),
+          "bwd_d512": {k: flash_bwd_wide_plan(512, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")},
+          "bwd_d1024": {k: flash_bwd_wide_plan(1024, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}, "card": card})
     if wrong:
-        fail(f"flash_fwd_wide_plan disagrees with the kernel's plan: {wrong}")
+        fail(f"the wide flash plans disagree with the kernels' plans: {wrong}")
 
 
 def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
     """Kernels 14-16 at head dims 320, 384, 448 and 512 and 576 and 1024 at
     GQA 8/2, S 1024, causal and under a document mask, against their plain
-    versions (``FLASH_GATES``): the bf16 / fp16 forward on the tensor cores
-    (``csrc/flash_fwd_wide.cu``), dq and dk/dv and fp32 on the CUDA cores
-    (``csrc/flash_fp32.cu`` to 512, ``csrc/flash_deep.cu`` above), in bf16,
-    fp16 and fp32 (at 1024 bf16 and fp16); the bf16 cases at 320, 512, 576
-    and 1024 timed beside SDPA (its backend named), the forward gated at
-    :data:`FLASH_WIDE_GATE` x SDPA's forward causal at 320 and 512; the
-    forward alone at D 1280 (Q streamed beside K) in bf16 and fp16; and 320
-    and 512 at the ``wide_heads`` train step's S 4096 under a document mask,
-    bf16. Records the wide forward's D 512 causal reading as
-    ``flash_fwd_wide``. Returns the times."""
+    versions (``FLASH_GATES``): bf16 and fp16 on the tensor cores (the
+    forward ``csrc/flash_fwd_wide.cu``, dq and dk/dv
+    ``csrc/flash_bwd_wide.cu``; dk/dv's K and V stream through its ring
+    from D 576, dq's Q and g at 1024), fp32 on the CUDA cores
+    (``csrc/flash_fp32.cu`` to 512, ``csrc/flash_deep.cu`` above; not at
+    1024); the bf16 cases at 320, 512, 576 and 1024 timed beside SDPA (its
+    backend named), the forward gated at :data:`FLASH_WIDE_GATE` x SDPA's
+    forward and dq + dk/dv at :data:`FLASH_BWD_WIDE_GATE` x SDPA's whole
+    backward, causal at 320 and 512, dk/dv bitwise equal over two calls at
+    512; all three at D 1280 (the forward's Q streamed beside K) in bf16
+    and fp16; and 320 and 512 at the ``wide_heads`` train step's S 4096
+    under a document mask, bf16, timed. Records the D 512 causal readings
+    as ``flash_fwd_wide``, ``flash_bwd_dq_wide`` and
+    ``flash_bwd_dkv_wide``. Returns the times."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import flash_attention as kfa
@@ -1468,7 +1502,7 @@ def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
 
     check_wide_plan(card)
     ends = torch.from_numpy(doc_bounds(np.random.default_rng(2), 2, 1024, 64, 512)[:, None, :, None].copy()).to(dev)
-    wide, fwd_err = {}, {}
+    wide, wide_err, deterministic = {}, {}, {}
     for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
         for dtype in {dt for dt, _ in wide_dtypes(d)} | {torch.float16}:
             for bnd, mask in ((None, "causal"), (ends, "document mask")):
@@ -1476,58 +1510,89 @@ def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
                 res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
                                  card, timed=timed, dtype=dtype, d=d)
                 if dtype != torch.float32:
-                    fwd_err[d] = max(fwd_err.get(d, 0.0), res["max_abs_err"]["flash_fwd"])
+                    for name, err in res["max_abs_err"].items():
+                        wide_err[name] = max(wide_err.get(name, 0.0), err)
                 if timed:
                     dense = None if bnd is None else flash_masked(1024, 1024, True, bnd, dev)
                     qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
                     wide[f"d{d} {mask}"] = {
                         "times": res["times"], "sdpa_ms": sdpa_ms(*res["tensors"], mask=dense),
                         "sdpa_backend": sdpa_backend(qh, kh, vh, None if dense is None else ~dense, dense is None)}
+                    if d == 512 and bnd is None:
+                        deterministic["d512 causal"] = dkv_deterministic(res["bwd_args"])
                 del res
                 torch.cuda.empty_cache()
-    # Q streamed beside K: the forward against its plain version (no backward: its instances are flash_deep.cu's)
+    # D 1280: the forward's Q streamed beside K (the backward streams its resident pair there too), against
+    # the plain versions
     d = STREAM_Q_HEAD_DIM
     stream = {}
     for dtype in (torch.bfloat16, torch.float16):
-        p_ulp, out_ulp, lse_rel, _ = FLASH_GATES[str(dtype)[6:]]
-        q = torch.randn((1, 512, 4, d), generator=gen, device=dev).to(dtype)
+        p_ulp, out_ulp, lse_rel, grad_rel = FLASH_GATES[str(dtype)[6:]]
+        q, g = (torch.randn((1, 512, 4, d), generator=gen, device=dev).to(dtype) for _ in range(2))
         k, v = (torch.randn((1, 512, 2, d), generator=gen, device=dev).to(dtype) for _ in range(2))
         out, lse = kfa.flash_fwd(q, k, v, None, True)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = kfa.flash_bwd_dq(q, k, v, None, g, lse, delta, True)
+        dk, dv = kfa.flash_bwd_dkv(q, k, v, None, g, lse, delta, True)
         f32 = [t.float() for t in (q, k, v)]
         ref, ref_lse = kfa.flash_fwd_plain(*f32, None, True)
         limit = p_ulp * kfa.flash_fwd_plain(f32[0], f32[1], f32[2].abs(), None, True)[0] + out_ulp * ref.abs()
         lse_err = float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max())
         ratio = float(((out.float() - ref).abs() / limit.clamp(min=1e-30)).max())
+        args = (*f32, None, g.float(), lse, delta, True)
+        ref_dk, ref_dv = kfa.flash_bwd_dkv_plain(*args)
+        grads = {"dq": rel_l2(dq, kfa.flash_bwd_dq_plain(*args)), "dk": rel_l2(dk, ref_dk), "dv": rel_l2(dv, ref_dv)}
         stream[str(dtype)[6:]] = {"worst_err_over_limit": ratio, "lse_rel_err": lse_err,
-                                  "max_abs_err": float((out.float() - ref).abs().max())}
-        if ratio > 1.0 or lse_err > lse_rel:
+                                  "max_abs_err": float((out.float() - ref).abs().max()), "grads_rel_l2": grads}
+        if ratio > 1.0 or lse_err > lse_rel or max(grads.values()) > grad_rel:
             emit({"phase": "flash_wide_stream_q", "d": d, "cases": stream, "card": card})
-            fail(f"the wide forward with Q streamed (D {d}, {dtype}) disagrees with its plain version: {stream}")
-        del q, k, v, out, lse, ref, ref_lse, limit, f32
+            fail(f"the wide kernels at D {d} ({dtype}) disagree with their plain versions: {stream}")
+        del q, k, v, g, out, lse, delta, dq, dk, dv, ref, ref_lse, limit, f32, args, ref_dk, ref_dv
         torch.cuda.empty_cache()
     # the wide_heads train step's attention: S 4096 under a document mask, at the head dims it runs
     long_ends = torch.from_numpy(doc_bounds(np.random.default_rng(3), 2, 4096)[:, None, :, None].copy()).to(dev)
+    long = {}
     for d in WIDE_TIMED:
-        flash_case(dev, gen, 2, 4096, 8, 2, True, long_ends, f"gqa 8/2, D {d}, S 4096, document mask", card,
-                   dtype=torch.bfloat16, d=d)
+        res = flash_case(dev, gen, 2, 4096, 8, 2, True, long_ends, f"gqa 8/2, D {d}, S 4096, document mask", card,
+                         timed=True, dtype=torch.bfloat16, d=d)
+        long[f"d{d}"] = {n: {k: t[k] for k in ("ms", "bound_ms", "share_of_bound", "plain_ms")}
+                         for n, t in res["times"].items()}
+        del res
         torch.cuda.empty_cache()
     ratios = {d: wide[f"d{d} causal"]["times"]["flash_fwd"]["ms"] / wide[f"d{d} causal"]["sdpa_ms"]["fwd"]
               for d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)}
+    bwd_ratios = {d: (wide[f"d{d} causal"]["times"]["flash_bwd_dq"]["ms"]
+                      + wide[f"d{d} causal"]["times"]["flash_bwd_dkv"]["ms"])
+                  / wide[f"d{d} causal"]["sdpa_ms"]["bwd_dq_dk_dv"] for d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)}
     emit({"phase": "flash_wide_times", "shape": [2, 1024, 8, 2], "dtype": "bfloat16", "cases": wide,
-          "stream_q": {"d": STREAM_Q_HEAD_DIM, "shape": [1, 512, 4, 2], "cases": stream},
-          "source": {"forward (bf16, fp16)": FLASH_WIDE_SOURCE, "dq, dk/dv 320-512": FLASH_FP32_SOURCE,
-                     "dq, dk/dv 576, 1024": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
-          "fwd_over_sdpa_causal": ratios, "gate": {"fwd_over_sdpa_at_most": FLASH_WIDE_GATE, "d": list(WIDE_TIMED)},
+          "stream": {"d": STREAM_Q_HEAD_DIM, "shape": [1, 512, 4, 2], "cases": stream},
+          "s4096_document_mask": long,
+          "source": {"forward (bf16, fp16)": FLASH_WIDE_SOURCE, "dq, dk/dv (bf16, fp16)": FLASH_BWD_WIDE_SOURCE,
+                     "fp32 320-512": FLASH_FP32_SOURCE, "fp32 above 512": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
+          "fwd_over_sdpa_causal": ratios, "dq_plus_dkv_over_sdpa_bwd_causal": bwd_ratios,
+          "dkv_bitwise_deterministic": deterministic,
+          "gate": {"fwd_over_sdpa_at_most": FLASH_WIDE_GATE, "dq_plus_dkv_over_sdpa_bwd_at_most": FLASH_BWD_WIDE_GATE,
+                   "d": list(WIDE_TIMED)},
           "card": card})
-    t = wide["d512 causal"]["times"]["flash_fwd"]
-    records["flash_fwd_wide"] = dict(
-        source=FLASH_WIDE_SOURCE, max_abs_err=max(fwd_err.values()), ms=t["ms"], plain_ms=t["plain_ms"],
-        call_ms=t["call_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=wide["d512 causal"]["sdpa_ms"]["fwd"],
-        ms_by_case={m: c["times"]["flash_fwd"]["ms"] for m, c in wide.items()})
+    case = wide["d512 causal"]
+    for name, kernel, source in (("flash_fwd_wide", "flash_fwd", FLASH_WIDE_SOURCE),
+                                 ("flash_bwd_dq_wide", "flash_bwd_dq", FLASH_BWD_WIDE_SOURCE),
+                                 ("flash_bwd_dkv_wide", "flash_bwd_dkv", FLASH_BWD_WIDE_SOURCE)):
+        t = case["times"][kernel]
+        records[name] = dict(
+            source=source, max_abs_err=wide_err[kernel], ms=t["ms"], plain_ms=t["plain_ms"], call_ms=t["call_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=case["sdpa_ms"]["fwd" if kernel == "flash_fwd" else "bwd_dq_dk_dv"],
+            ms_by_case={m: c["times"][kernel]["ms"] for m, c in wide.items()})
     slow = {d: r for d, r in ratios.items() if d in WIDE_TIMED and r > FLASH_WIDE_GATE}
     if slow:
         fail(f"the wide forward is above {FLASH_WIDE_GATE}x SDPA's forward (causal, GQA 8/2 [2, 1024]): {slow}")
+    slow = {d: r for d, r in bwd_ratios.items() if d in WIDE_TIMED and r > FLASH_BWD_WIDE_GATE}
+    if slow:
+        fail(f"the wide dq + dk/dv are above {FLASH_BWD_WIDE_GATE}x SDPA's whole backward (causal, GQA 8/2 "
+             f"[2, 1024]): {slow}")
+    if not all(deterministic.values()):
+        fail(f"flash_bwd_dkv_wide: two runs on the same inputs differ ({deterministic})")
     return wide
 
 
@@ -3868,13 +3933,14 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     layers = cfg.num_hidden_layers
     chunks = -(-cfg.vocab_size // CHUNK)
     want = {fwd_counter(cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): 2 * layers,
-            "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            **{bwd_counter(k, cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): layers
+               for k in ("flash_bwd_dq", "flash_bwd_dkv")},
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
             # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
             "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
     if (cfg.hidden_size // cfg.num_attention_heads) % 128 == 0:  # kernels 9, 10: the JAX package's D % 128 gate
         want.update(rope_fwd=4 * layers, rope_bwd=2 * layers)
-    losses, step_ms, counts, total = [], [], None, {}
+    losses, step_ms, counts, total, first_ms = [], [], None, {}, None
     for i in range(steps):
         reset_launch_counts()
         torch.cuda.synchronize()
@@ -3889,6 +3955,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
             total[k] = total.get(k, 0) + v
         if i:
             step_ms.append(dt)
+        else:
+            first_ms = dt
     tokens = TRAIN_BATCH * seq
     step_s = sum(step_ms or [dt]) / len(step_ms or [dt]) / 1e3
     emit({
@@ -3896,7 +3964,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
                                  f"{cfg.hidden_size // cfg.num_attention_heads} (seeded random {cfg.dtype} weights)",
         "params": n_params, "batch": [TRAIN_BATCH, seq], "documents": docs,
         "recompute": True, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
-        "losses": losses, "step_ms": step_ms or [dt], "step_ms_p50": float(np.median(step_ms or [dt])),
+        "losses": losses, "first_step_ms": first_ms, "step_ms": step_ms or [dt],
+        "step_ms_p50": float(np.median(step_ms or [dt])),
         "tokens_per_s": tokens / step_s,
         "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / step_s / BF16_FLOP_PER_S,
         "mfu_note": "6 N T / step time / 989e12; N leaves out the embedding table (a gather); attention flops left out",
@@ -4273,10 +4342,13 @@ def wide_heads(dev, card: dict) -> dict:
       kernel takes D % 128, the JAX package's gate), each decode step
       kernel 5 2x and rms_norm_fwd 5x, and the prefill's logits through
       the same gate;
-    - one train step (recompute on) on 2 x 4096 document-packed tokens
-      under the FlashMask document mask through :func:`train`: kernels
-      14-16 4/2/2 and the rest of the step's launches (rope 8/4 at D 512
-      only), every parameter a finite non-zero gradient.
+    - two train steps (recompute on) on 2 x 4096 document-packed tokens
+      under the FlashMask document mask through :func:`train` (the
+      second's time is the step's reading, the first's is printed beside
+      it), each launching kernels 14-16 4/2/2 on their wide instances (``flash_fwd_wide``,
+      ``flash_bwd_dq_wide``, ``flash_bwd_dkv_wide``) and the rest of the
+      step's launches (rope 8/4 at D 512 only), every parameter a finite
+      non-zero gradient.
 
     Returns the launch counts of each run."""
     import numpy as np
@@ -4344,7 +4416,7 @@ def wide_heads(dev, card: dict) -> dict:
         del model, got, plain, ref, params, f32
         gc.collect()
         torch.cuda.empty_cache()
-        out[f"wide_heads_{label}_train"] = train(dev, card, cfg=LlamaConfig(**kw, recompute=True), steps=1,
+        out[f"wide_heads_{label}_train"] = train(dev, card, cfg=LlamaConfig(**kw, recompute=True), steps=2,
                                                  full=False, label=f"wide_heads_{label}_train")
         gc.collect()
         torch.cuda.empty_cache()
@@ -4415,7 +4487,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wide = wide_heads(dev, card)
-    counts["flash_fwd_wide"] = sum(wide[f"wide_heads_{label}_train"].get("flash_fwd_wide", 0) for label, *_ in WIDE_HEADS)
+    for k in ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide"):
+        counts[k] = sum(wide[f"wide_heads_{label}_train"].get(k, 0) for label, *_ in WIDE_HEADS)
     emit({"phase": "norm_in_step_vs_cold", "kernels": IN_STEP_READINGS,
           "note": "in-step: the profile's device ms of the kernel's categories over its own launch counter in the "
                   "window (8 and 13 with their column sums); cold: device ms per call with the L2 flushed, at the "

@@ -1,6 +1,6 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_fwd_wide.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_fp32.cu,
-// flash_deep.cu): the FlashMask test, the FlashMask tile classes, the
+// flash_fwd_wide.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_bwd_wide.cu,
+// flash_fp32.cu, flash_deep.cu): the FlashMask test, the FlashMask tile classes, the
 // producer/consumer rings of the wgmma kernels 14-16 and their walks.
 //
 // wgmma keeps mma.sync m16n8k16's fragment layouts per warp (hopper.cuh).

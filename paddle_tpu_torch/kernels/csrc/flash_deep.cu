@@ -1,15 +1,14 @@
-// The flash-attention kernels 15 (dq) and 16 (dk/dv) at head dims above
-// 512, in bf16, fp16 and fp32, and kernel 14 (forward) there in fp32: one
-// instance per type whose head dim D is a runtime multiple of 64. They
-// compute what flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu compute
-// (see there for the semantics kept from the Pallas kernels); the bf16 and
-// fp16 forward above 256 is flash_fwd_wide.cu's (tensor cores), the
-// instances up to 512 flash_fp32.cu's (CUDA cores) and flash_fwd.cu's and
-// friends' (wgmma, to 256).
+// The flash-attention kernels 14 (forward), 15 (dq) and 16 (dk/dv) at head
+// dims above 512 in fp32: one instance each whose head dim D is a runtime
+// multiple of 64. They compute what flash_fwd.cu, flash_bwd_dq.cu and
+// flash_bwd_dkv.cu compute (see there for the semantics kept from the
+// Pallas kernels); fp32 up to 512 runs flash_fp32.cu's instances, and bf16
+// and fp16 run on the tensor cores at every head dim (flash_fwd.cu and
+// friends to 256, flash_fwd_wide.cu and flash_bwd_wide.cu above).
 //
-// Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
-// `_bwd_dkv_kernel` for head dims above 512, and `_fwd_kernel` there for
-// fp32 inputs.
+// Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs at head dims above
+// 512.
 //
 // Design (simple first; speed above 512 is not worked on). flash_fp32.cu's
 // CUDA-core walks (the same tiles, tile classes and lane roles: forward and
@@ -22,13 +21,12 @@
 // - each block sums the scores (and dP) over all of D, staging q, k (and g,
 //   v) 64 columns at a time, then stages the rows of its own columns that
 //   the product with p (or dS) needs.
-// Every tile is widened to fp32 as it is staged; the math is fp32 and each
-// output is rounded to its type once. The forward's first column block
-// writes lse.
+// The kernels are written for a stored type T widened to fp32 as it is
+// staged (fp32 is the one instantiated); the math is fp32. The forward's
+// first column block writes lse.
 //
-// Bound on H100: operations, at the tensor cores' 989 TFLOP/s for bf16 and
-// fp16 and 67 for fp32; these walks issue one FMA per shared-memory load and
-// redo the scores in every column block.
+// Bound on H100: operations, at fp32's 67 TFLOP/s; these walks do one
+// FMA per shared-memory load and redo the scores in every column block.
 #include "flash_common.cuh"
 
 namespace fl = ptt::flash;
@@ -364,7 +362,6 @@ constexpr size_t kDkvSmem =
 
 bool deep_dim(int D) { return D > 512 && D % 64 == 0; }
 
-// the forward: fp32 only (bf16 and fp16 above 256 run flash_fwd_wide.cu)
 int fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq, int Sk,
         int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
   using T = float;
@@ -381,10 +378,10 @@ int fwd(const void* q, const void* k, const void* v, const void* bounds, void* o
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dq(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
        const void* delta, void* dq_, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
        float scale, void* stream) {
+  using T = float;
   if (!deep_dim(D)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_bwd_dq_kernel_deep<T>;
   const int err = ptt::allow_smem(kernel, kDqSmem);
@@ -399,10 +396,10 @@ int dq(const void* q, const void* k, const void* v, const void* bounds, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dkv(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
         const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C,
         int causal, float scale, void* stream) {
+  using T = float;
   if (!deep_dim(D)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_bwd_dkv_kernel_deep<T>;
   const int err = ptt::allow_smem(kernel, kDkvSmem);
@@ -420,30 +417,25 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 }  // namespace
 
 // The entries take the other flash entries' arguments (flash_fp32.cu's
-// `_fp32` / `_wide_*`): `_deep_bf16`, `_deep_fp16` and `_deep_fp32` for dq
-// and dk/dv, and the forward's `_deep_fp32`, with every q/k/v/g/out tensor
-// of that type, at head dims above 512 (the scheduler counter goes unused).
-// Another head dim returns cudaErrorInvalidValue.
-#define PTT_FLASH_DEEP_BWD_ENTRIES(SUFFIX, T)                                                                      \
-  extern "C" int ptt_flash_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,        \
-                                           const void* g, const void* lse, const void* delta, void* dq_,           \
-                                           void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,   \
-                                           int Hm, int C, int causal, float scale, void* stream) {                 \
-    return dq<T>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);         \
-  }                                                                                                                \
-  extern "C" int ptt_flash_bwd_dkv_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,       \
-                                            const void* g, const void* lse, const void* delta, void* dk, void* dv, \
-                                            void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,  \
-                                            int Hm, int C, int causal, float scale, void* stream) {                \
-    return dkv<T>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);     \
-  }
-
+// `_fp32`), with every q/k/v/g/out tensor fp32, at head dims above 512 (the
+// scheduler counter goes unused). Another head dim returns
+// cudaErrorInvalidValue.
 extern "C" int ptt_flash_fwd_deep_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
                                        void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK,
                                        int D, int Hm, int C, int causal, float scale, void* stream) {
   return fwd(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
 }
 
-PTT_FLASH_DEEP_BWD_ENTRIES(deep_fp32, float)
-PTT_FLASH_DEEP_BWD_ENTRIES(deep_bf16, ptt::bf16)
-PTT_FLASH_DEEP_BWD_ENTRIES(deep_fp16, ptt::f16)
+extern "C" int ptt_flash_bwd_dq_deep_fp32(const void* q, const void* k, const void* v, const void* bounds,
+                                          const void* g, const void* lse, const void* delta, void* dq_,
+                                          void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,
+                                          int Hm, int C, int causal, float scale, void* stream) {
+  return dq(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}
+
+extern "C" int ptt_flash_bwd_dkv_deep_fp32(const void* q, const void* k, const void* v, const void* bounds,
+                                           const void* g, const void* lse, const void* delta, void* dk, void* dv,
+                                           void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,
+                                           int Hm, int C, int causal, float scale, void* stream) {
+  return dkv(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}

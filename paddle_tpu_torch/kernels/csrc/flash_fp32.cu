@@ -1,23 +1,22 @@
 // The CUDA-core instances of the flash-attention kernels 14 (forward), 15
 // (dq) and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu
 // and flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
-// kernels), computed with fp32 FMAs on the CUDA cores. Two uses:
-// - fp32 q, k, v, g at every head dim (64 to 512): no TF32, whose 10-bit
-//   significand could not meet an fp32 gate;
-// - bf16 and fp16 at head dims 320, 384, 448 and 512, where the wgmma
-//   kernels' O accumulator (n256 at most, and the register budget) ends:
-//   the stored type T is widened to fp32 as it is staged, the math is
-//   fp32 (p is never rounded to T), and each output is rounded to T once.
+// kernels), computed with fp32 FMAs on the CUDA cores, for fp32 q, k, v, g
+// at head dims 64 to 512: no TF32, whose 10-bit significand could not meet
+// an fp32 gate. bf16 and fp16 run on the tensor cores at every head dim
+// (flash_fwd.cu and friends to 256, flash_fwd_wide.cu and flash_bwd_wide.cu
+// above); fp32 above 512 runs flash_deep.cu.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
-// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs and for head dims
-// above 256.
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs up to head dim
+// 512.
 //
 // Design (simple first). The same tile walks and FlashMask tile classes as
 // the bf16/fp16 kernels (flash_common.cuh `warp_tile_class`, computed by
 // every warp alike, so the block agrees): SKIP tiles are neither staged nor
 // computed, FULL tiles run without the mask. Blocks of 4 warps; every tile
-// is staged in fp32 shared memory whatever T is.
+// is staged in fp32 shared memory (the kernels are written for a stored
+// type T widened as it is staged; fp32 is the one instantiated).
 // - Forward and dq: a block owns 16 query rows (4 per warp) and walks
 //   32-key tiles staged in shared memory; lane j computes the logits of
 //   column j for the warp's 4 rows (q rows read as shared-memory
@@ -32,11 +31,8 @@
 // a lane holds 4 x 16 output columns (forward, dq) or 2 x 4 x 16 (dk and
 // dv): the limit of these designs; above 512 flash_deep.cu takes over.
 //
-// Bound on H100: operations, at fp32's 67 TFLOP/s for fp32 inputs and at
-// the tensor cores' 989 for bf16 and fp16; this version issues one FMA per
-// shared-memory load and reaches a fraction of either.
-#include <type_traits>
-
+// Bound on H100: operations, at fp32's 67 TFLOP/s; this version does one
+// FMA per shared-memory load and reaches a fraction of it.
 #include "flash_common.cuh"
 
 namespace fl = ptt::flash;
@@ -369,14 +365,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance of head dim D (64 to 512 for fp32; WIDE: 320 to 512 only,
-// the bf16 and fp16 backward's head dims above the wgmma kernels'), as LAUNCH(D)
-#define PTT_FLASH_SIMT_DIMS(WIDE, LAUNCH)                                       \
+// the instance of head dim D (64 to 512), as LAUNCH(D)
+#define PTT_FLASH_SIMT_DIMS(LAUNCH)                                            \
   switch (D) {                                                                 \
-    case 64: if constexpr (!(WIDE)) return LAUNCH(64); break;                            \
-    case 128: if constexpr (!(WIDE)) return LAUNCH(128); break;                          \
-    case 192: if constexpr (!(WIDE)) return LAUNCH(192); break;                          \
-    case 256: if constexpr (!(WIDE)) return LAUNCH(256); break;                          \
+    case 64: return LAUNCH(64);                                                \
+    case 128: return LAUNCH(128);                                              \
+    case 192: return LAUNCH(192);                                              \
+    case 256: return LAUNCH(256);                                              \
     case 320: return LAUNCH(320);                                              \
     case 384: return LAUNCH(384);                                              \
     case 448: return LAUNCH(448);                                              \
@@ -385,66 +380,57 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
   }                                                                            \
   return static_cast<int>(cudaErrorInvalidValue)
 
-// the forward: fp32 only (bf16 and fp16 above 256 run flash_fwd_wide.cu)
 int fwd(const void* q, const void* k, const void* v, const void* bounds, void* out, void* lse, int B, int Sq, int Sk,
         int H, int HK, int D, int Hm, int C, int causal, float scale, void* stream) {
 #define PTT_FWD(DIM) \
   launch_fwd<float, DIM>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
                          static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS(false, PTT_FWD);
+  PTT_FLASH_SIMT_DIMS(PTT_FWD);
 #undef PTT_FWD
 }
 
-template <typename T>
 int dq(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
        const void* delta, void* dq_, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
        float scale, void* stream) {
-#define PTT_DQ(DIM)                                                                                       \
-  launch_dq<T, DIM>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
-                    static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_DQ);
+#define PTT_DQ(DIM)                                                                                           \
+  launch_dq<float, DIM>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
+                        static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS(PTT_DQ);
 #undef PTT_DQ
 }
 
-template <typename T>
 int dkv(const void* q, const void* k, const void* v, const void* bounds, const void* g, const void* lse,
         const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C,
         int causal, float scale, void* stream) {
-#define PTT_DKV(DIM)                                                                                         \
-  launch_dkv<T, DIM>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
-                     static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS((!std::is_same<T, float>::value), PTT_DKV);
+#define PTT_DKV(DIM)                                                                                             \
+  launch_dkv<float, DIM>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
+                         static_cast<cudaStream_t>(stream))
+  PTT_FLASH_SIMT_DIMS(PTT_DKV);
 #undef PTT_DKV
 }
 
 }  // namespace
 
 // The entries take the bf16/fp16 wgmma entries' arguments (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): `_fp32` with every q/k/v/g/out
-// tensor fp32 (head dims 64 to 512), and dq's and dk/dv's `_wide_bf16` /
-// `_wide_fp16` with them bf16 / fp16 (head dims 320 to 512). The blocks
-// here take fixed tiles, so the scheduler counter goes unused. Another head
-// dim returns cudaErrorInvalidValue.
-#define PTT_FLASH_SIMT_BWD_ENTRIES(SUFFIX, T)                                                                      \
-  extern "C" int ptt_flash_bwd_dq_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,        \
-                                           const void* g, const void* lse, const void* delta, void* dq_,           \
-                                           void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,   \
-                                           int Hm, int C, int causal, float scale, void* stream) {                 \
-    return dq<T>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);         \
-  }                                                                                                                \
-  extern "C" int ptt_flash_bwd_dkv_##SUFFIX(const void* q, const void* k, const void* v, const void* bounds,       \
-                                            const void* g, const void* lse, const void* delta, void* dk, void* dv, \
-                                            void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,  \
-                                            int Hm, int C, int causal, float scale, void* stream) {                \
-    return dkv<T>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);     \
-  }
-
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) with every q/k/v/g/out tensor fp32, at
+// head dims 64 to 512. The blocks here take fixed tiles, so the scheduler
+// counter goes unused. Another head dim returns cudaErrorInvalidValue.
 extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
                                   void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,
                                   int Hm, int C, int causal, float scale, void* stream) {
   return fwd(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
 }
 
-PTT_FLASH_SIMT_BWD_ENTRIES(fp32, float)
-PTT_FLASH_SIMT_BWD_ENTRIES(wide_bf16, ptt::bf16)
-PTT_FLASH_SIMT_BWD_ENTRIES(wide_fp16, ptt::f16)
+extern "C" int ptt_flash_bwd_dq_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
+                                     const void* lse, const void* delta, void* dq_, void* /*sched: unused*/, int B,
+                                     int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal, float scale,
+                                     void* stream) {
+  return dq(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}
+
+extern "C" int ptt_flash_bwd_dkv_fp32(const void* q, const void* k, const void* v, const void* bounds, const void* g,
+                                      const void* lse, const void* delta, void* dk, void* dv, void* /*sched: unused*/,
+                                      int B, int Sq, int Sk, int H, int HK, int D, int Hm, int C, int causal,
+                                      float scale, void* stream) {
+  return dkv(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, D, Hm, C, causal, scale, stream);
+}

@@ -27,13 +27,13 @@ its block size (the XLA path a uniform average over all columns).
 
 Each wrapper runs its plain PyTorch version for CPU tensors; for CUDA
 tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
-``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256), the forward
-``csrc/flash_fwd_wide.cu`` above 256 in bf16 and fp16 (tensor cores, O's
-columns over warpgroups: :func:`flash_fwd_wide_plan`), dq and dk/dv
-``csrc/flash_fp32.cu``'s CUDA-core instances in bf16 and fp16 from 320 to
-512, every kernel ``csrc/flash_fp32.cu`` in fp32 up to 512, and
-``csrc/flash_deep.cu`` above 512 (its head dim a runtime value: dq and
-dk/dv, and the fp32 forward) — or raises; it never falls back. On the card
+``csrc/flash_bwd_dkv.cu`` (bf16 and fp16 up to head dim 256); above 256 in
+bf16 and fp16 the forward ``csrc/flash_fwd_wide.cu`` and dq and dk/dv
+``csrc/flash_bwd_wide.cu`` (tensor cores, the outputs' columns over
+warpgroups and CTAs: :func:`flash_fwd_wide_plan`,
+:func:`flash_bwd_wide_plan`); in fp32 every kernel ``csrc/flash_fp32.cu``
+up to 512 and ``csrc/flash_deep.cu`` above (CUDA cores, its head dim a
+runtime value) — or raises; it never falls back. On the card
 the kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
 head dim that is a multiple of 64, as the JAX package's gate sends them.
 
@@ -63,6 +63,7 @@ __all__ = [
     "flash_bwd_dkv_plain",
     "flash_bwd_dq",
     "flash_bwd_dq_plain",
+    "flash_bwd_wide_plan",
     "flash_fwd",
     "flash_fwd_plain",
     "flash_fwd_wide_plan",
@@ -72,10 +73,11 @@ __all__ = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the head dims of the template instances; every multiple of 64 above them runs csrc/flash_deep.cu (dq,
-# dk/dv and the fp32 forward; the bf16 / fp16 forward above 256 runs csrc/flash_fwd_wide.cu at any head dim)
+# the head dims of the template instances (the wgmma kernels to 256, csrc/flash_fp32.cu's fp32 ones to 512);
+# every multiple of 64 above them runs a runtime-D kernel: csrc/flash_fwd_wide.cu and csrc/flash_bwd_wide.cu
+# in bf16 / fp16 above 256, csrc/flash_deep.cu in fp32 above 512
 KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 dq, dk/dv take the CUDA-core instances of csrc/flash_fp32.cu
+WGMMA_HEAD_DIM_MAX = 256  # above it bf16 and fp16 take the wide kernels (csrc/flash_fwd_wide.cu, flash_bwd_wide.cu)
 # csrc/flash_fwd_wide.cu's shared-memory plan (WidePlan there)
 _WIDE_BOX = 64 * 128  # a [64 rows][64 columns] box of a 2-byte type
 _WIDE_WG_BOXES = 4  # a consumer warpgroup's O: at most 4 boxes (256 columns) (kMaxWgBoxes there)
@@ -84,6 +86,10 @@ _WIDE_STG_INTS = 2048
 _WIDE_SMEM = 227 * 1024
 _WIDE_SLOT_SIDE = 64 * 2 * 4 + 8  # a slot's row masks and info word
 _WIDE_FIXED = _WIDE_STG_INTS * 4 + (2 + 2 * _WIDE_MAX_STAGES) * 8 + 16 + 1024
+# csrc/flash_bwd_wide.cu's plan (BwdPlan there): the same boxes, staging and limits, a slot's side also
+# carries the rows' lse / delta, and dk/dv hands an fp32 64 x 64 P^T tile between its warpgroups
+_BWD_SLOT_SIDE = 64 * 8 + 2 * 64 * 4 + 8
+_BWD_XBYTES = 64 * 64 * 4
 _MASK_C = (1, 2, 4)
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
@@ -91,13 +97,12 @@ _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: 
 SKIP, PARTIAL, FULL = 0, 1, 2
 
 
-def _simt(kernel: str, d: int, dtype: torch.dtype) -> bool:
-    """Whether ``kernel`` at head dim ``d`` in ``dtype`` runs on the
-    CUDA-core instances (``csrc/flash_fp32.cu``, ``csrc/flash_deep.cu``):
-    fp32 at every head dim; bf16 and fp16 dq and dk/dv above
-    :data:`WGMMA_HEAD_DIM_MAX` (the forward there runs
-    ``csrc/flash_fwd_wide.cu`` on the tensor cores)."""
-    return dtype == torch.float32 or (d > WGMMA_HEAD_DIM_MAX and kernel != "flash_fwd")
+def _simt(dtype: torch.dtype) -> bool:
+    """Whether the flash kernels in ``dtype`` run on the CUDA-core
+    instances (``csrc/flash_fp32.cu``, ``csrc/flash_deep.cu``): fp32, at
+    every head dim; bf16 and fp16 run on the tensor cores at every head
+    dim."""
+    return dtype == torch.float32
 
 
 def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
@@ -105,17 +110,17 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
     the query rows and keys of one (query tile, key tile) pair. bf16/fp16
     up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
-    x 64, dk/dv 64 query rows x 64 keys; the bf16/fp16 forward above 256
-    (``csrc/flash_fwd_wide.cu``) 64 x 64; the CUDA-core instances (fp32,
-    and bf16/fp16 dq and dk/dv above 256): forward and dq 16 x 32, dk/dv 32
-    query rows x 16 keys."""
+    x 64, dk/dv 64 query rows x 64 keys; bf16/fp16 above 256 (the wide
+    kernels, ``csrc/flash_fwd_wide.cu`` and ``csrc/flash_bwd_wide.cu``) 64
+    x 64 for all three; the CUDA-core instances (fp32): forward and dq 16 x
+    32, dk/dv 32 query rows x 16 keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
-    if _simt(kernel, d, dtype):
+    if _simt(dtype):
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
+    if d > WGMMA_HEAD_DIM_MAX:
+        return (64, 64)
     if kernel == "flash_fwd":
-        if d > WGMMA_HEAD_DIM_MAX:
-            return (64, 64)
         return (128, 128) if d <= 128 else (128, 64)
     if kernel == "flash_bwd_dq":
         return (128, 64)
@@ -163,6 +168,51 @@ def flash_fwd_wide_plan(d: int) -> dict:
     wg = [(g * boxes // n, (g + 1) * boxes // n - g * boxes // n) for g in range(n)]
     return {"boxes": boxes, "nw": nw, "split": split, "wg_boxes": wg, "stream_q": stream_q, "stages": stages,
             "smem": item + 16 + 1024}
+
+
+def flash_bwd_wide_plan(d: int, kernel: str) -> dict:
+    """The launch plan of ``csrc/flash_bwd_wide.cu`` (the bf16 / fp16 dq,
+    ``kernel`` ``"flash_bwd_dq"``, and dk/dv, ``"flash_bwd_dkv"``, above
+    head dim 256) at head dim ``d``, a mirror of its ``bwd_plan``
+    (``chip_smoke.py`` holds the two equal on the card). A tile of 64 rows
+    (dq: query rows; dk/dv: keys) is split over ``split`` CTAs, and the
+    output's D / 64 column boxes (``boxes``) over ``groups`` owners, each at
+    most 4 boxes: dq's owners are the 2 split consumer warpgroups (split =
+    ceil(boxes / 8)), each computing S and dP over all of D; dk/dv's are the
+    split CTAs (split = ceil(boxes / 4)), whose warpgroup 0 computes S^T
+    and dV and warpgroup 1 dP^T and dK on the CTA's block. ``nw`` the boxes
+    each owner computes (the kernel's instance, 3 or 4); ``owner_boxes`` the
+    (first box, count) each owner stores, as even as floors allow (one with
+    count nw - 1 recomputes its neighbour's first box); ``stream`` True
+    where the resident pair (dq: Q and g; dk/dv: K and V, 64 rows x D each)
+    cannot stay beside 4 ring slots (and dk/dv's 16 KB P^T buffer) and
+    rides in the ring instead; ``stages`` the ring's slots; ``smem`` the
+    CTA's dynamic shared-memory bytes."""
+    if kernel not in ("flash_bwd_dq", "flash_bwd_dkv"):
+        raise ValueError(f"{kernel} is not a flash backward kernel")
+    if d <= WGMMA_HEAD_DIM_MAX or d % 64:
+        raise ValueError(f"the wide backward takes head dims above {WGMMA_HEAD_DIM_MAX} that are multiples of 64, "
+                         f"not {d}")
+    dkv = kernel == "flash_bwd_dkv"
+    boxes = d // 64
+    split = -(-boxes // _WIDE_WG_BOXES) if dkv else -(-boxes // (2 * _WIDE_WG_BOXES))
+    groups = split if dkv else 2 * split
+    nw = -(-boxes // groups)
+    xbytes = _BWD_XBYTES if dkv else 0
+    res = 2 * boxes * _WIDE_BOX
+    stream = _WIDE_SMEM - _WIDE_FIXED - xbytes - res < _WIDE_MIN_STAGES * (2 * _WIDE_BOX + _BWD_SLOT_SIDE)
+    if stream:
+        res = 0
+    slot = (4 if stream else 2) * _WIDE_BOX
+    stages = min(_WIDE_MAX_STAGES, (_WIDE_SMEM - _WIDE_FIXED - xbytes - res) // (slot + _BWD_SLOT_SIDE))
+    mask = res + stages * slot + xbytes
+    info = mask + stages * 64 * 8 + stages * 2 * 64 * 4
+    stg = info + (stages * 8 + 15) // 16 * 16
+    bar = stg + _WIDE_STG_INTS * 4
+    item = bar + (2 + 2 * stages) * 8
+    owners = [(g * boxes // groups, (g + 1) * boxes // groups - g * boxes // groups) for g in range(groups)]
+    return {"boxes": boxes, "nw": nw, "split": split, "groups": groups, "owner_boxes": owners, "stream": stream,
+            "stages": stages, "smem": item + 16 + 1024}
 
 
 # -- the mask ----------------------------------------------------------------
@@ -367,19 +417,15 @@ def flash_bwd_dkv_plain(
 def _entry_suffix(what: str, dtype: torch.dtype, d: int) -> str:
     """The C entry's suffix of kernel ``what`` at head dim ``d`` in
     ``dtype``: ``bf16`` / ``fp16`` for the wgmma kernels up to D 256; above
-    it the forward's ``wgmma_wide_bf16`` / ``wgmma_wide_fp16``
-    (``csrc/flash_fwd_wide.cu``), dq's and dk/dv's ``wide_bf16`` /
-    ``wide_fp16`` (the CUDA-core instances) to 512; ``fp32`` to 512; and
-    ``deep_bf16`` / ``deep_fp16`` / ``deep_fp32`` above 512 (dq, dk/dv;
-    the forward in fp32)."""
+    it ``wgmma_wide_bf16`` / ``wgmma_wide_fp16`` for all three (the forward
+    ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``);
+    ``fp32`` to 512 and ``deep_fp32`` above (the CUDA-core instances)."""
     suffix = _KERNEL_DTYPES[dtype]
     if d <= WGMMA_HEAD_DIM_MAX:
         return suffix
-    if what == "flash_fwd" and suffix != "fp32":
+    if suffix != "fp32":
         return f"wgmma_wide_{suffix}"
-    if d > KERNEL_HEAD_DIMS[-1]:
-        return f"deep_{suffix}"
-    return suffix if suffix == "fp32" else f"wide_{suffix}"
+    return "deep_fp32" if d > KERNEL_HEAD_DIMS[-1] else "fp32"
 
 
 def _cuda_inputs(what: str, tensors, bounds, d: int):
@@ -422,10 +468,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
-    """The item scheduler's counter of the persistent bf16/fp16 kernels 14
-    (both forwards), 15 and 16 (one int32, zero before each launch); the
-    CUDA-core instances take none."""
-    if suffix == "fp32" or suffix.startswith(("wide", "deep")):
+    """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
+    15 and 16 (their wide instances too; one int32, zero before each
+    launch); the CUDA-core instances take none."""
+    if suffix.endswith("fp32"):
         return None
     return torch.zeros(1, dtype=torch.int32, device=dev)
 
@@ -463,7 +509,9 @@ def flash_bwd_dq(
     causal: bool = False, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """``dq [B, Sq, H, D]`` of flash attention, given the forward's ``lse``
-    and ``delta = sum(g * out, -1)`` as ``[B, H, Sq]``."""
+    and ``delta = sum(g * out, -1)`` as ``[B, H, Sq]``. A launch counts as
+    ``flash_bwd_dq``, or as ``flash_bwd_dq_wide`` where the bf16 / fp16
+    kernel above head dim 256 (``csrc/flash_bwd_wide.cu``) ran."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, bounds, g, lse, delta, causal, scale)
     b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
@@ -482,7 +530,7 @@ def flash_bwd_dq(
                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(_sched(suffix, dev)), b, sq, sk, h,
                      hk, d, hm, c, int(bool(causal)), float(scale), torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_bwd_dq")
-        count_launch("flash_bwd_dq")
+        count_launch("flash_bwd_dq_wide" if suffix.startswith("wgmma_wide") else "flash_bwd_dq")
     return dq
 
 
@@ -491,7 +539,10 @@ def flash_bwd_dkv(
     g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
     causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv) [B, Sk, HK, D]`` of flash attention (GQA groups summed)."""
+    """``(dk, dv) [B, Sk, HK, D]`` of flash attention (GQA groups summed).
+    A launch counts as ``flash_bwd_dkv``, or as ``flash_bwd_dkv_wide``
+    where the bf16 / fp16 kernel above head dim 256
+    (``csrc/flash_bwd_wide.cu``) ran."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, bounds, g, lse, delta, causal, scale)
     b, sq, sk, h, hk, d, hm, c = _check_geometry(q, k, v, bounds)
@@ -512,7 +563,7 @@ def flash_bwd_dkv(
                      b, sq, sk, h, hk, d, hm, c, int(bool(causal)), float(scale),
                      torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash_bwd_dkv")
-        count_launch("flash_bwd_dkv")
+        count_launch("flash_bwd_dkv_wide" if suffix.startswith("wgmma_wide") else "flash_bwd_dkv")
     return dk, dv
 
 

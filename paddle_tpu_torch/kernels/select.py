@@ -39,6 +39,9 @@ KERNELS: Dict[str, str] = {
     "flash_fwd_wide": "paddle_tpu/kernels/flash_attention.py:87",
     "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:201",
     "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:244",
+    # the same bodies above head dim 256 in bf16 / fp16: csrc/flash_bwd_wide.cu
+    "flash_bwd_dq_wide": "paddle_tpu/kernels/flash_attention.py:201",
+    "flash_bwd_dkv_wide": "paddle_tpu/kernels/flash_attention.py:244",
     # kernel 17: two launches per call (the logits tiles' partials, their merge)
     "flxent_fwd": "paddle_tpu/kernels/fused_loss.py:261",
     # the recompute of D that kernels 18 and 19 share, one launch per vocab chunk

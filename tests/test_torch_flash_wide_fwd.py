@@ -3,7 +3,8 @@ cores, ``csrc/flash_fwd_wide.cu``), checked on the CPU.
 
 The CUDA kernel cannot run here. What its launch adds to the function is a
 route (``kernels.flash_attention._entry_suffix``: the forward above 256
-leaves the CUDA-core instances, dq and dk/dv stay), a tile walk (64 query
+takes the tensor cores, as dq and dk/dv do, ``csrc/flash_bwd_wide.cu``,
+checked in ``tests/test_torch_flash_wide_bwd.py``), a tile walk (64 query
 rows x 64 keys under the FlashMask tile classes) and a plan of O's columns
 (``flash_fwd_wide_plan``: CTAs of two warpgroups over a query tile's D / 64
 column boxes, 2 to 4 boxes a warpgroup, the split of least work, each
@@ -51,8 +52,9 @@ def _one_torch_thread():
 
 def test_entry_suffix_routes_the_wide_forward():
     """Above 256 the bf16 / fp16 forward takes the tensor-core entry at
-    every head dim; dq and dk/dv keep the CUDA-core instances (to 512) and
-    the runtime-D ones (above); fp32 and D <= 256 are unchanged."""
+    every head dim, and so do dq and dk/dv (``csrc/flash_bwd_wide.cu``, the
+    same suffix); fp32 keeps the CUDA-core instances (to 512) and the
+    runtime-D ones (above); D <= 256 is unchanged."""
     for d in range(64, 1025, 64):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"), (torch.float32, "fp32")):
             fwd, dq, dkv = (kfa._entry_suffix(k, dtype, d) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
@@ -62,20 +64,20 @@ def test_entry_suffix_routes_the_wide_forward():
             elif dtype == torch.float32:
                 assert fwd == dq == ("fp32" if d <= 512 else "deep_fp32")
             else:
-                assert fwd == f"wgmma_wide_{name}"
-                assert dq == (f"wide_{name}" if d <= 512 else f"deep_{name}")
+                assert fwd == dq == f"wgmma_wide_{name}"
             # the persistent kernels take the scheduler's counter, the CUDA-core instances none
-            assert (kfa._sched(fwd, torch.device("cpu")) is None) == (fwd.startswith(("wide", "deep")) or fwd == "fp32")
+            for suffix in (fwd, dq):
+                assert (kfa._sched(suffix, torch.device("cpu")) is None) == suffix.endswith("fp32")
 
 
 def test_wide_forward_tile_shape():
-    """The wide forward's walk classes 64 x 64 tiles; dq and dk/dv above 256
-    keep the CUDA-core tiles; up to 256 nothing changes."""
+    """The wide forward's walk classes 64 x 64 tiles, as the wide dq and
+    dk/dv walks do above 256; up to 256 nothing changes."""
     for dtype in (torch.bfloat16, torch.float16):
         for d in (320, 512, 576, 1024, 2048):
             assert kfa.flash_tile_shape("flash_fwd", d, dtype) == (BM, BN)
-            assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == (16, 32)
-            assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (32, 16)
+            assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == (BM, BN)
+            assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (BM, BN)
         assert kfa.flash_tile_shape("flash_fwd", 256, dtype) == (128, 64)
     assert kfa.flash_tile_shape("flash_fwd", 512, torch.float32) == (16, 32)
     with pytest.raises(ValueError, match="above 256"):

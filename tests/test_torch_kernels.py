@@ -220,6 +220,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     assert launch_counts() == {"paged_chunk_fused": 0, "paged_chunk": 0, "paged_decode": 0,
                                "paged_decode_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_fwd_wide": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                               "flash_bwd_dq_wide": 0, "flash_bwd_dkv_wide": 0,
                                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
                                "rms_residual_bwd": 0, "ln_residual": 0, "ln_residual_bwd": 0,
                                "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0,

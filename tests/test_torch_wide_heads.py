@@ -165,16 +165,16 @@ def test_flashmask_entry_grads_match_jax_grad_at_wide_head_dims(d):
 
 
 def test_flash_wide_head_dims_take_the_cuda_core_walk():
-    """Above D 256 bf16 and fp16 dq and dk/dv take the CUDA-core instances'
-    tiles, as fp32 does at every head dim, and the bf16 / fp16 forward the
-    tensor-core kernel's 64 x 64 tiles (``csrc/flash_fwd_wide.cu``); up to
-    256 the wgmma tiles stay."""
+    """Above D 256 fp32 takes the CUDA-core instances' tiles, as it does at
+    every head dim, and bf16 and fp16 the tensor-core kernels' 64 x 64 tiles
+    in all three kernels (``csrc/flash_fwd_wide.cu``,
+    ``csrc/flash_bwd_wide.cu``); up to 256 the wgmma tiles stay."""
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for d in (320, 384, 448, 512, 576, 1024):
-            want_fwd = (16, 32) if dtype == torch.float32 else (64, 64)
-            assert kfa.flash_tile_shape("flash_fwd", d, dtype) == want_fwd
-            assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == (16, 32)
-            assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == (32, 16)
+            simt = dtype == torch.float32
+            assert kfa.flash_tile_shape("flash_fwd", d, dtype) == ((16, 32) if simt else (64, 64))
+            assert kfa.flash_tile_shape("flash_bwd_dq", d, dtype) == ((16, 32) if simt else (64, 64))
+            assert kfa.flash_tile_shape("flash_bwd_dkv", d, dtype) == ((32, 16) if simt else (64, 64))
     assert kfa.flash_tile_shape("flash_fwd", 256, torch.bfloat16) == (128, 64)
     assert kfa.flash_tile_shape("flash_bwd_dkv", 256, torch.float16) == (64, 64)
 
