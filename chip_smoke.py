@@ -511,22 +511,27 @@ def check_paged_split(dev, gen, card: dict) -> None:
 
 def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
     """Kernels A and 4 at head dims 320, 384, 448 and 512 (O's columns split
-    over two CTAs: ``csrc/paged_chunk_wide.cu``) and 576 and 1024 (the
-    runtime-D instance, ``csrc/paged_chunk_deep.cu``: ceil(D / 256) CTAs)
-    against their plain versions over :func:`paged_batch`'s mixed batch at
-    GQA 8/2, in the storage :func:`wide_dtypes` names (bf16, fp16, fp32 and
-    bf16 q over the int8 pool; at 1024 bf16 and the int8 pool)
-    (``PAGED_TOL`` by q's dtype; rows past q_lens exact 0),
-    each with the launch plan it took (``chunk_plan`` on the CTAs the card
-    holds at once: the column split, tile rows, cluster size). Timed at 320,
-    512, 576 and 1024 with bf16 q over the bf16 and the int8 pool (device
-    ms, the bound of this run's lengths, the plain version, SDPA over the
-    gathered K/V, dequantized for the int8 pool, and the backend it takes)."""
+    over two CTAs: ``csrc/paged_chunk_wide.cu``) and 576, 1024 and 2048 (the
+    runtime-D instance, ``csrc/paged_chunk_deep.cu``: ceil(D / 256) CTAs, q
+    resident, tiles of 64 rows at 576, 32 at 1024, 16 at 2048) against their plain
+    versions over :func:`paged_batch`'s mixed batch at GQA 8/2, in the
+    storage :func:`wide_dtypes` names (bf16, fp16, fp32 and bf16 q over the
+    int8 pool; at 1024 and 2048 bf16 and the int8 pool) (``PAGED_TOL`` by
+    q's dtype; rows past q_lens exact 0), each with the launch plan it took
+    (``chunk_plan`` on the CTAs the card holds at once: the column split,
+    tile rows, ring slots, cluster size). Timed at 320, 512, 576 and 1024
+    with bf16 q over the bf16 and the int8 pool (device ms, the bound of this
+    run's lengths, the plain version, SDPA over the gathered K/V,
+    dequantized for the int8 pool, and the backend it takes), and at 576 in
+    fp16 and fp32 too; then the ``paged_deep_gate`` line
+    (:func:`deep_gate`). D 2432 in fp32 runs the chunked walk (no 16 rows of
+    fp32 q fit resident)."""
     import torch
     import torch.nn.functional as tF
     from paddle_tpu_torch.kernels import paged_attention as kp
 
-    for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
+    rows_ms = {}
+    for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS, *DEEP_CHECKED):
         for dtype, int8 in wide_dtypes(d):
             name = str(dtype).split(".")[-1]
             atol, rel = PAGED_TOL[name]
@@ -553,7 +558,7 @@ def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
                     fail(f"{kname} at D {d} in {name}{' over the int8 pool' * int8} disagrees with its plain "
                          f"version (max abs err {err}, rows past q_lens zero: {zero}, dtype {got.dtype})")
                 line[kname] = {"max_abs_err": err}
-                if dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS):
+                if d in DEEP_HEAD_DIMS or (dtype == torch.bfloat16 and d in WIDE_TIMED):
                     nbytes, flops = paged_cost(args, rope=rope)
                     ends = [int(n) + int(m) for n, m in zip(args["seq_lens"], args["q_lens"])]
                     if int8:  # the scale planes, and the library on the pool dequantized to bf16
@@ -567,17 +572,114 @@ def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
                     qq = (kp.rope_rows(args["q"], args["cos"][:, :, None], args["sin"][:, :, None]) if rope
                           else args["q"]).transpose(1, 2)
                     source = "paged_chunk_deep.cu" if d in DEEP_HEAD_DIMS else "paged_chunk_wide.cu"
-                    records[f"{kname}{'_int8' * int8}_d{d}"] = r = dict(
+                    other = "" if dtype == torch.bfloat16 else f"_{name}"  # fp16 / fp32 q and pool (deep only)
+                    rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S  # fp32: CUDA cores
+                    records[f"{kname}{'_int8' * int8}{other}_d{d}"] = r = dict(
                         source=f"paddle_tpu_torch/kernels/csrc/{source}", max_abs_err=err,
                         ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5),
                         library_ms=device_ms(lambda: tF.scaled_dot_product_attention(qq, kd, vd, attn_mask=cmask,
                                                                                      enable_gqa=True)),
                         sdpa_backend=sdpa_backend(qq, kd, vd, cmask),
-                        bytes=nbytes, flops=flops, **bound(nbytes, flops))
+                        bytes=nbytes, flops=flops, **bound(nbytes, flops, rate))
                     r["share_of_bound"] = r["bound_ms"] / r["ms"]
                     line[kname] = r
                     del kd, vd, qq, cmask
+                    if d == DEEP_HEAD_DIMS[-1] and dtype == torch.bfloat16:
+                        rows_ms[f"{kname}{'_int8' * int8}_d{d}"] = deep_rows_ms(args, rope, atol, rel)
             emit({**line, "card": card})
+    deep_gate(records, rows_ms, card)
+
+
+PAGED_DEEP_GATE = 1.0  # A and 4 above head dim 512 at most this times SDPA over the gathered K/V, in the same call
+DEEP_ROWS = (64, 32)  # the tile rows timed against each other at D 1024 (32: the plan's, two CTAs an SM)
+
+
+def deep_rows_ms(args: dict, rope: bool, atol: float, rel: float) -> dict:
+    """Kernel A (``rope``) or 4 at :data:`DEEP_ROWS` tile rows on one batch,
+    in turns (64, 32, 32, 64: device ms, the two readings of each averaged),
+    each held to the plain version first; returns the ms by rows and the
+    rows the plan takes."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    call = {k: v for k, v in args.items() if rope or k not in ("cos", "sin")}
+    cos, sin = (call.pop("cos"), call.pop("sin")) if rope else (None, None)
+    what = "paged_flash_chunk_fused" if rope else "paged_flash_chunk"
+    planes = (call.pop("k_scale", None), call.pop("v_scale", None))
+    want = kp.paged_flash_chunk_fused_plain(**args) if rope else kp.paged_flash_chunk_plain(**call, k_scale=planes[0],
+                                                                                          v_scale=planes[1])
+    runs = {}
+    for rows in DEEP_ROWS:
+        def run(rows=rows):
+            return kp._chunk_launch(what, call["q"], cos, sin, call["key_cache"], call["value_cache"],
+                                    call["block_tables"], call["seq_lens"], call["q_lens"], None, *planes, rows=rows)
+        got = run()
+        torch.cuda.synchronize()
+        err, ok = within(got, want, atol=atol, rel=rel)
+        if not ok:
+            fail(f"{what} at {rows} tile rows disagrees with its plain version (max abs err {err})")
+        runs[rows] = run
+    times = {rows: [] for rows in DEEP_ROWS}
+    for rows in (*DEEP_ROWS, *reversed(DEEP_ROWS)):
+        times[rows].append(device_ms(runs[rows]))
+    plan = kp._chunk_launch_plan(call["q"], call["key_cache"], call["block_tables"], rope=rope)
+    return {"ms_by_rows": {r: sum(t) / len(t) for r, t in times.items()}, "plan_rows": plan["rows"]}
+
+
+def deep_gate(records: dict, rows_ms: dict, card: dict) -> None:
+    """The ``paged_deep_gate`` line: A and 4 at :data:`DEEP_HEAD_DIMS` with
+    bf16 q over the bf16 and the int8 pool, each at most
+    :data:`PAGED_DEEP_GATE` times SDPA over the gathered K/V in the same
+    call (device ms, bound, share of the bound, plain ms, SDPA's backend),
+    the fp16 and fp32 readings at 576 beside them (not gated), and the tile
+    rows timed against each other at D 1024."""
+    cases, over = {}, []
+    ungated = {k: {f: r[f] for f in ("ms", "bound_ms", "share_of_bound", "plain_ms", "library_ms", "sdpa_backend")}
+               for k, r in records.items() if k.endswith(f"_d{DEEP_HEAD_DIMS[0]}") and "float" in k}
+    for d in DEEP_HEAD_DIMS:
+        for kname in ("paged_chunk_fused", "paged_chunk"):
+            for sfx in ("", "_int8"):
+                key = f"{kname}{sfx}_d{d}"
+                r = records[key]
+                cases[key] = {k: r[k] for k in ("ms", "bound_ms", "share_of_bound", "plain_ms", "library_ms",
+                                                "sdpa_backend")}
+                cases[key]["vs_sdpa"] = r["ms"] / r["library_ms"]
+                if cases[key]["vs_sdpa"] > PAGED_DEEP_GATE:
+                    over.append(key)
+    emit({"phase": "paged_deep_gate", "gate": f"ms <= {PAGED_DEEP_GATE} x SDPA", "cases": cases,
+          "not_gated": ungated, "rows_ms_d1024": rows_ms, "card": card})
+    if over:
+        fail(f"kernels A / 4 above head dim 512 slower than {PAGED_DEEP_GATE}x SDPA: {over}")
+
+
+def check_chunk_plan(card: dict) -> None:
+    """Kernels A and 4's launch geometry (``ptt_paged_chunk_plan``: split,
+    columns, tile rows, ring slots, shared-memory bytes, walk) equals its
+    Python mirror ``chunk_geometry`` for q in bf16, fp16 and fp32 over a
+    pool of q's type and the int8 pool, at every multiple of 64 from 64 to
+    2048 and at head dims past the resident walk's reach (2432-5376: 16
+    rows, the chunked walk)."""
+    import ctypes
+    import torch
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels import paged_attention as kp
+
+    fn = build.kernel_fn("ptt_paged_chunk_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    wrong = {}
+    for io, dtype in ((1, torch.bfloat16), (2, torch.float16), (0, torch.float32)):
+        for quant in (0, 1):
+            for d in (*range(64, 2049, 64), 2432, 2624, 2688, 5312, 5376):
+                buf = (ctypes.c_int * 6)()
+                build.check(fn(io, quant, d, buf), "ptt_paged_chunk_plan")
+                g = kp.chunk_geometry(d, dtype, bool(quant))
+                want = [g["split"], g["columns"], g["rows"], g["slots"], g["smem"], int(g["walk"] == "resident")]
+                if list(buf) != want:
+                    wrong[f"{dtype} quant {quant} D {d}"] = {"kernel": list(buf), "python": want}
+    emit({"phase": "paged_chunk_plan_check", "d": [64, 5376], "ok": not wrong, "wrong": wrong,
+          **{f"d{d}": {str(t).split(".")[-1]: kp.chunk_geometry(d, t) for t in (torch.bfloat16, torch.float32)}
+             for d in (576, 1024, 2048)}, "card": card})
+    if wrong:
+        fail(f"kernels A / 4's plans disagree with the kernel's geometry: {wrong}")
 
 
 def check_paged_new(dev, gen, card: dict, records: dict) -> None:
@@ -676,11 +778,13 @@ DECODE_WIDE = ((16, 16), (32, 8))  # (HQ, HKV) of the D 64, 192-1024 cases: MHA 
 
 def wide_dtypes(d: int) -> tuple:
     """The (q dtype, int8 pool) cases a wide check runs at head dim ``d``:
-    bf16, fp16 and fp32 storage and bf16 q over the int8 pool, and at the
-    largest head dim (1024) bf16 and the int8 pool only."""
+    bf16, fp16 and fp32 storage and bf16 q over the int8 pool, at 1024 and
+    2048 bf16 and the int8 pool only, and at 2432 fp32 only."""
     import torch
 
-    if d == DEEP_HEAD_DIMS[-1]:
+    if d == DEEP_CHECKED[-1]:
+        return ((torch.float32, False),)
+    if d in (DEEP_HEAD_DIMS[-1], *DEEP_CHECKED):
         return ((torch.bfloat16, False), (torch.bfloat16, True))
     return ((torch.bfloat16, False), (torch.float16, False), (torch.float32, False), (torch.bfloat16, True))
 
@@ -1018,6 +1122,7 @@ def check_kernels(dev, card: dict) -> tuple:
     check_decode_split(dev, gen, card)
     check_decode_gate(dev, gen, card, records)
     check_paged_split(dev, gen, card)
+    check_chunk_plan(card)
     check_paged_wide(dev, gen, card, records)
     check_b_c_dtypes(dev, gen, card)
     check_append_sync(dev, gen, card)
@@ -1436,6 +1541,8 @@ WIDE_TIMED = (320, 512)
 # head dims above 512 (the runtime-D kernels: csrc/flash_deep.cu, paged_chunk_deep.cu and 5 / 6, and the wide
 # forward): checked and timed
 DEEP_HEAD_DIMS = (576, 1024)
+# kernels A and 4 also checked (not timed) at 2048 (16 resident tile rows) and, in fp32, at 2432 (the chunked walk)
+DEEP_CHECKED = (2048, 2432)
 # the wide forward with Q streamed beside K (above D 1152: csrc/flash_fwd_wide.cu `stream_q`), and the wide
 # backward there (its resident pair streamed): checked against the plain versions, not timed
 STREAM_Q_HEAD_DIM = 1280
@@ -4317,10 +4424,11 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
 
 # -- head dims above 256 end to end (ROADMAP Queue 3 fault 2, closed) ----------------------
 
-# (label, hidden, intermediate) at 8 heads, GQA 8/2: Llama-2-7B's widths with heads of 512, and the
-# same at heads of 320 (hidden 2560). No model the JAX package configures reaches a head dim above 256
-# by default; these make the port's wide instances (14-16, A, 4, 5, 6 at D 512 and 320) the path's.
-WIDE_HEADS = (("d512", 4096, 11008), ("d320", 2560, 6912))
+# (label, hidden, intermediate, engine runs only) at 8 heads, GQA 8/2: Llama-2-7B's widths with heads of
+# 512, the same at heads of 320 (hidden 2560), and heads of 576 (hidden 4608) through the engine only. No
+# model the JAX package configures reaches a head dim above 256 by default; these make the port's wide
+# instances (14-16, A, 4, 5, 6 at D 512 and 320; A and 4's deep instance at 576) the path's.
+WIDE_HEADS = (("d512", 4096, 11008, False), ("d320", 2560, 6912, False), ("d576", 4608, 11008, True))
 WIDE_LAYERS = 2  # cut from 32 layers: the path, not the model's depth, is what the phase drives
 WIDE_GEN = (2, 512, 8)  # prompts, prompt tokens, new tokens
 
@@ -4336,7 +4444,8 @@ def wide_heads(dev, card: dict) -> dict:
       A's / 4's int8 instances): every request finishes with 32 tokens,
       those launches a step and nothing else, the pool drains, and one
       mixed step's logits pass :func:`check_logits`' gate (at most 1.25x
-      the bf16 plain path's distance from fp32);
+      the bf16 plain path's distance from fp32) (d576: these runs alone,
+      A's and 4's deep instance);
     - ``generate_paged`` on 2 x 512 prompts, 8 new tokens: the prefill
       flash_fwd 2x, rms_norm_fwd 5x (and rope_fwd 4x at D 512: the rope
       kernel takes D % 128, the JAX package's gate), each decode step
@@ -4360,7 +4469,7 @@ def wide_heads(dev, card: dict) -> dict:
 
     out = {}
     layers = WIDE_LAYERS
-    for label, hidden, inter in WIDE_HEADS:
+    for label, hidden, inter, engine_only in WIDE_HEADS:
         kw = dict(hidden_size=hidden, intermediate_size=inter, num_attention_heads=8, num_key_value_heads=2,
                   num_hidden_layers=layers)
         cfg = LlamaConfig(**kw)
@@ -4385,6 +4494,11 @@ def wide_heads(dev, card: dict) -> dict:
                 finally:
                     paddle_tpu_torch.set_flags({"FLAGS_use_fused_decode_layer": True})
                 out[name] = run["counts"]
+        if engine_only:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         b, prompt, new = WIDE_GEN
         ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, prompt)).astype(np.int32)).to(dev)
         torch.cuda.synchronize()
@@ -4488,7 +4602,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide = wide_heads(dev, card)
     for k in ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide"):
-        counts[k] = sum(wide[f"wide_heads_{label}_train"].get(k, 0) for label, *_ in WIDE_HEADS)
+        counts[k] = sum(wide[f"wide_heads_{label}_train"].get(k, 0) for label, *_, engine_only in WIDE_HEADS
+                        if not engine_only)
     emit({"phase": "norm_in_step_vs_cold", "kernels": IN_STEP_READINGS,
           "note": "in-step: the profile's device ms of the kernel's categories over its own launch counter in the "
                   "window (8 and 13 with their column sums); cold: device ms per call with the L2 flushed, at the "

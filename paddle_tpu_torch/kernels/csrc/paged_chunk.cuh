@@ -577,22 +577,23 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
 
 // One launch of kernel A (ROPE) or 4 as a cluster of `ranks` CTAs per
 // (tile, column half, KV head, slot). The plan, `ranks` included, is
-// paged_attention.py `chunk_plan`'s (its `split` and `cols` must be the
-// instance's own), from the shapes and the cap this
+// paged_attention.py `chunk_plan`'s (its `split`, `cols` and `rows` must be
+// the instance's own), from the shapes and the cap this
 // answers when q is null: the CTAs of this instance the card holds at once
 // (its occupancy with up to MBS table entries staged, times the SMs),
-// written to the host int `out` with nothing launched.
+// written to the host int `out` with nothing launched (`rows` 0 or its own).
 template <typename T, typename KV, int D, bool ROPE>
 int launch_d(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
              const void* ks, const void* vs, const void* tables, const void* lens, const void* qlens,
-             void* out, int B, int C, int HQ, int HKV, int BS, int MBS, int split, int cols, int ranks, float scale,
-             cudaStream_t st) {
+             void* out, int B, int C, int HQ, int HKV, int BS, int MBS, int split, int cols, int rows, int ranks,
+             float scale, cudaStream_t st) {
   using G_ = Geo<T, KV, D>;
   auto kernel = paged_chunk_kernel<T, KV, D, ROPE>;
   const size_t smem = G_::kSmem + sizeof(int) * MBS;  // the layout and the rank's table entries
   const int err = ptt::allow_smem(kernel, smem);
   if (err) return err;
   if (q == nullptr) {
+    if (rows != 0 && rows != G_::kRows) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -601,7 +602,7 @@ int launch_d(const void* q, const void* cos_t, const void* sin_t, const void* kc
     *static_cast<int*>(out) = max(1, per_sm * sms);
     return 0;
   }
-  if (ranks < 1 || ranks > kMaxRanks || split != G_::kSplit || cols != G_::kDO)
+  if (ranks < 1 || ranks > kMaxRanks || split != G_::kSplit || cols != G_::kDO || rows != G_::kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (C * (HQ / HKV) + G_::kRows - 1) / G_::kRows;
   cudaLaunchConfig_t cfg = {};
@@ -636,15 +637,23 @@ namespace ptt::chunk {
 template <typename T, typename KV, bool ROPE>
 int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
                 const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int rows, int ranks, float scale,
                 cudaStream_t st);
 
 // Kernels A and 4 at any head dim above 512 (a runtime multiple of 64), as
-// `launch_wide` takes them; defined in paged_chunk_deep.cu.
+// `launch_wide` takes them (q == nullptr: the cap of the instance at `rows`
+// tile rows, 0 for its own); defined in paged_chunk_deep.cu.
 template <typename T, typename KV, bool ROPE>
 int launch_deep(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
                 const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int rows, int ranks, float scale,
                 cudaStream_t st);
+
+// The deep instance's own geometry at head dim D > 512 for q of type T over
+// a pool of KV, written to out[6]: split, cols, rows, ring slots,
+// shared-memory bytes (without the table entries) and the walk (1: q
+// resident, 0: the chunked walk); defined in paged_chunk_deep.cu.
+template <typename T, typename KV>
+int deep_plan(int D, int* out);
 
 }  // namespace ptt::chunk

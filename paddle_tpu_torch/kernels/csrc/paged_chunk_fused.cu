@@ -99,11 +99,11 @@ namespace {
 template <typename T, typename KV, bool ROPE>
 int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc,
            const void* ks, const void* vs, const void* tables, const void* lens, const void* qlens,
-           void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks,
-           float scale, cudaStream_t st) {
+           void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int rows,
+           int ranks, float scale, cudaStream_t st) {
 #define PTT_LAUNCH(DIM)                                                                                         \
   launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS, \
-                             split, cols, ranks, scale, st)
+                             split, cols, rows, ranks, scale, st)
   switch (D) {
     case 64:
       return PTT_LAUNCH(64);
@@ -118,10 +118,10 @@ int launch(const void* q, const void* cos_t, const void* sin_t, const void* kc, 
     case 448:
     case 512:  // instantiated in paged_chunk_wide.cu
       return ptt::chunk::launch_wide<T, KV, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
-                                                  HQ, HKV, D, BS, MBS, split, cols, ranks, scale, st);
+                                                  HQ, HKV, D, BS, MBS, split, cols, rows, ranks, scale, st);
     default:  // above 512: one instance, D a runtime multiple of 64 (paged_chunk_deep.cu)
       return ptt::chunk::launch_deep<T, KV, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
-                                                  HQ, HKV, D, BS, MBS, split, cols, ranks, scale, st);
+                                                  HQ, HKV, D, BS, MBS, split, cols, rows, ranks, scale, st);
   }
 #undef PTT_LAUNCH
 }
@@ -131,12 +131,12 @@ template <bool ROPE, bool QUANT>
 int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const void* kc,
               const void* vc, const void* ks, const void* vs, const void* tables, const void* lens,
               const void* qlens, void* out, int B, int C, int HQ, int HKV, int D, int BS, int MBS,
-              int split, int cols, int ranks, float scale, void* stream) {
+              int split, int cols, int rows, int ranks, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_IO(TYPE)                                                                             \
   launch<TYPE, std::conditional_t<QUANT, int8_t, TYPE>, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs,   \
                                                               tables, lens, qlens, out, B, C, HQ, \
-                                                              HKV, D, BS, MBS, split, cols, ranks, scale, st)
+                                                              HKV, D, BS, MBS, split, cols, rows, ranks, scale, st)
   switch (io) {
     case ptt::kBF16:
       return PTT_IO(bf16);
@@ -154,26 +154,27 @@ int launch_io(int io, const void* q, const void* cos_t, const void* sin_t, const
 
 // Kernel A. `io` is the storage type (ptt::IoType) of q and out; cos/sin are
 // fp32 [B, C, D]; `split` (CTAs over O's columns), `cols` (O's columns a
-// CTA) and `ranks` (the cluster size, 1 to 8) are paged_attention.py
-// `chunk_plan`'s. Returns cudaErrorInvalidValue for a head dim that is not
-// a multiple of 64, an unknown type, a cluster size out of range or a
-// column split the instance does not hold.
+// CTA), `rows` (packed query rows a tile) and `ranks` (the cluster size, 1
+// to 8) are paged_attention.py `chunk_plan`'s. Returns
+// cudaErrorInvalidValue for a head dim that is not a multiple of 64, an
+// unknown type, a cluster size out of range, or a column split or tile rows
+// the instance does not hold.
 extern "C" int ptt_paged_chunk_fused(int io, const void* q, const void* cos_t, const void* sin_t,
                                      const void* kc, const void* vc, const void* tables,
                                      const void* lens, const void* qlens, void* out, int B, int C,
-                                     int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks,
-                                     float scale, void* stream) {
+                                     int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int rows,
+                                     int ranks, float scale, void* stream) {
   return launch_io<true, false>(io, q, cos_t, sin_t, kc, vc, nullptr, nullptr, tables, lens, qlens, out,
-                                B, C, HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
+                                B, C, HQ, HKV, D, BS, MBS, split, cols, rows, ranks, scale, stream);
 }
 
 // Kernel 4: the same walk with q taken as given.
 extern "C" int ptt_paged_chunk(int io, const void* q, const void* kc, const void* vc,
                                const void* tables, const void* lens, const void* qlens, void* out,
                                int B, int C, int HQ, int HKV, int D, int BS, int MBS, int split, int cols,
-                               int ranks, float scale, void* stream) {
+                               int rows, int ranks, float scale, void* stream) {
   return launch_io<false, false>(io, q, nullptr, nullptr, kc, vc, nullptr, nullptr, tables, lens, qlens,
-                                 out, B, C, HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
+                                 out, B, C, HQ, HKV, D, BS, MBS, split, cols, rows, ranks, scale, stream);
 }
 
 // Kernel A over the int8 pool: kc/vc int8 [NB, HKV, BS, D], ks/vs fp32
@@ -182,30 +183,96 @@ extern "C" int ptt_paged_chunk_fused_int8(int io, const void* q, const void* cos
                                           const void* kc, const void* vc, const void* ks, const void* vs,
                                           const void* tables, const void* lens, const void* qlens,
                                           void* out, int B, int C, int HQ, int HKV, int D, int BS,
-                                          int MBS, int split, int cols, int ranks, float scale, void* stream) {
+                                          int MBS, int split, int cols, int rows, int ranks, float scale,
+                                          void* stream) {
   return launch_io<true, true>(io, q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ,
-                               HKV, D, BS, MBS, split, cols, ranks, scale, stream);
+                               HKV, D, BS, MBS, split, cols, rows, ranks, scale, stream);
 }
 
 // Kernel 4 over the int8 pool.
 extern "C" int ptt_paged_chunk_int8(int io, const void* q, const void* kc, const void* vc, const void* ks,
                                     const void* vs, const void* tables, const void* lens,
                                     const void* qlens, void* out, int B, int C, int HQ, int HKV, int D,
-                                    int BS, int MBS, int split, int cols, int ranks, float scale, void* stream) {
+                                    int BS, int MBS, int split, int cols, int rows, int ranks, float scale,
+                                    void* stream) {
   return launch_io<false, true>(io, q, nullptr, nullptr, kc, vc, ks, vs, tables, lens, qlens, out, B, C,
-                                HQ, HKV, D, BS, MBS, split, cols, ranks, scale, stream);
+                                HQ, HKV, D, BS, MBS, split, cols, rows, ranks, scale, stream);
 }
 
 // The CTAs of kernel A's (rope 1) or 4's (rope 0) instance for this type,
 // pool (quant 1: int8) and head dim that the card holds at once with MBS
-// table entries staged, written to the host int *cap: the cap of
-// paged_attention.py `chunk_plan`. Returns a CUDA error; launches nothing.
-extern "C" int ptt_paged_chunk_cap(int io, int quant, int rope, int D, int MBS, int* cap) {
+// table entries staged, at `rows` packed query rows a tile (0: the
+// instance's own; above head dim 512 another that fits may be asked),
+// written to the host int *cap: the cap of paged_attention.py `chunk_plan`.
+// Returns a CUDA error; launches nothing.
+extern "C" int ptt_paged_chunk_cap(int io, int quant, int rope, int D, int MBS, int rows, int* cap) {
   // launch_io with a null q writes the cap into `out`
 #define PTT_CAP(ROPE, QUANT)                                                                                      \
   launch_io<ROPE, QUANT>(io, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, \
-                         nullptr, cap, 1, 1, 1, 1, D, 1, MBS, 1, D, 1, 1.f, nullptr)
+                         nullptr, cap, 1, 1, 1, 1, D, 1, MBS, 1, D, rows, 1, 1.f, nullptr)
   return rope ? (quant ? PTT_CAP(true, true) : PTT_CAP(true, false))
               : (quant ? PTT_CAP(false, true) : PTT_CAP(false, false));
 #undef PTT_CAP
+}
+
+namespace {
+
+// Geo<T, KV, D>'s launch geometry in plan_of's order
+template <typename T, typename KV, int D>
+int geo_plan(int* out) {
+  using G_ = Geo<T, KV, D>;
+  const int geo[6] = {G_::kSplit, G_::kDO, G_::kRows, G_::kStages, static_cast<int>(G_::kSmem), 1};
+  for (int i = 0; i < 6; ++i) out[i] = geo[i];
+  return 0;
+}
+
+template <typename T, typename KV>
+int plan_of(int D, int* out) {
+  switch (D) {
+    case 64:
+      return geo_plan<T, KV, 64>(out);
+    case 128:
+      return geo_plan<T, KV, 128>(out);
+    case 192:
+      return geo_plan<T, KV, 192>(out);
+    case 256:
+      return geo_plan<T, KV, 256>(out);
+    case 320:
+      return geo_plan<T, KV, 320>(out);
+    case 384:
+      return geo_plan<T, KV, 384>(out);
+    case 448:
+      return geo_plan<T, KV, 448>(out);
+    case 512:
+      return geo_plan<T, KV, 512>(out);
+    default:
+      return ptt::chunk::deep_plan<T, KV>(D, out);
+  }
+}
+
+}  // namespace
+
+// The launch geometry of kernels A and 4's instance for q of type `io` over
+// a pool of q's type (quant 0) or the int8 pool (quant 1) at head dim D,
+// written to the host int out[6]: split (CTAs over O's columns), cols (O's
+// columns a CTA), rows (packed query rows a tile), ring slots (the (K, V)
+// stages up to 512; above it the slots of 16 positions x 256 columns),
+// shared-memory bytes without the table entries, and the walk (1: q
+// resident, 0: above 512 the chunked walk). paged_attention.py
+// `chunk_geometry` mirrors it. Returns cudaErrorInvalidValue for a head dim
+// that is not a multiple of 64 or an unknown type.
+extern "C" int ptt_paged_chunk_plan(int io, int quant, int D, int* out) {
+  if (D < 64 || D % 64) return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_PLAN(TYPE) (quant ? plan_of<TYPE, int8_t>(D, out) : plan_of<TYPE, TYPE>(D, out))
+  switch (io) {
+    case ptt::kBF16:
+      return PTT_PLAN(bf16);
+    case ptt::kF16:
+      return PTT_PLAN(f16);
+    case ptt::kF32:
+      return PTT_PLAN(float);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PTT_PLAN
 }

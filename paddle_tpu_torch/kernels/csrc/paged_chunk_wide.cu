@@ -9,11 +9,11 @@ namespace ptt::chunk {
 template <typename T, typename KV, bool ROPE>
 int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void* kc, const void* vc, const void* ks,
                 const void* vs, const void* tables, const void* lens, const void* qlens, void* out, int B, int C,
-                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int ranks, float scale,
+                int HQ, int HKV, int D, int BS, int MBS, int split, int cols, int rows, int ranks, float scale,
                 cudaStream_t st) {
 #define PTT_LAUNCH(DIM)                                                                                              \
   launch_d<T, KV, DIM, ROPE>(q, cos_t, sin_t, kc, vc, ks, vs, tables, lens, qlens, out, B, C, HQ, HKV, BS, MBS,      \
-                             split, cols, ranks, scale, st)
+                             split, cols, rows, ranks, scale, st)
   switch (D) {
     case 320:
       return PTT_LAUNCH(320);
@@ -32,11 +32,11 @@ int launch_wide(const void* q, const void* cos_t, const void* sin_t, const void*
 #define PTT_WIDE(T, KV)                                                                                              \
   template int launch_wide<T, KV, true>(const void*, const void*, const void*, const void*, const void*,             \
                                         const void*, const void*, const void*, const void*, const void*, void*,      \
-                                        int, int, int, int, int, int, int, int, int, int, float,                     \
+                                        int, int, int, int, int, int, int, int, int, int, int, float,                \
                                         cudaStream_t);                                                               \
   template int launch_wide<T, KV, false>(const void*, const void*, const void*, const void*, const void*,            \
                                          const void*, const void*, const void*, const void*, const void*,            \
-                                         void*, int, int, int, int, int, int, int, int, int, int, float,             \
+                                         void*, int, int, int, int, int, int, int, int, int, int, int, float,        \
                                          cudaStream_t);
 PTT_WIDE(ptt::bf16, ptt::bf16)
 PTT_WIDE(ptt::f16, ptt::f16)

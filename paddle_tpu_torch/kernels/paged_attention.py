@@ -26,7 +26,8 @@ kernels take bf16, fp16 or fp32 storage and every head dim that is a
 multiple of 64, as the JAX package's ``D % 64`` gate sends every one to its
 kernels. Above 256, A and 4 split O's columns over CTAs
 (:func:`chunk_plan`: two up to 512, ``ceil(D / 256)`` above, where
-``csrc/paged_chunk_deep.cu`` stages q and K in 64-column chunks); 5 and 6
+``csrc/paged_chunk_deep.cu`` keeps q resident and streams K and V through a
+ring of 256-column slots: :func:`chunk_geometry`); 5 and 6
 split each history over a cluster and O's columns over ``ceil(D / 512)``
 CTAs (:func:`decode_plan`). The rope rows reach A and 6 in
 fp32, as the engine gathers them; the kernels round them to q's dtype.
@@ -75,10 +76,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every other multiple of 64 (above 512) runs csrc/paged_chunk_deep.cu, whose
 # head dim is a runtime value. Kernels 5 and 6 take D at run time.
 CHUNK_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-# kernels A and 4 (csrc/paged_chunk.cuh): the most ranks a cluster, and
-# the largest accumulator (O's columns) one CTA holds
+# kernels A and 4 (csrc/paged_chunk.cuh): the most ranks a cluster, the
+# largest accumulator (O's columns) one CTA holds, the shared memory a CTA's
+# layout may take (kSmemBudget), positions a step; above head dim 512
+# (csrc/paged_chunk_deep.cu) the columns of K or V a ring slot holds
 CHUNK_MAX_RANKS = 8
 CHUNK_MAX_COLUMNS = 256
+CHUNK_SMEM_BUDGET = 200 * 1024
+CHUNK_SMEM_PAIR = 108 * 1024  # a layout of which an SM holds two CTAs (kSmemPair)
+CHUNK_STEP = 16
+CHUNK_SLOT_COLUMNS = 256
+# above head dim 512 the cluster size may fill this many waves of the card's
+# cap: a deep step costs 4-5 ring slots, so the longest history's walk sets
+# the time, and tiles whose rows are all past q_lens leave at once
+CHUNK_DEEP_WAVES = 4
 # kernels 5 and 6 (csrc/paged_decode.cu): the most ranks a cluster, O's
 # columns a CTA, positions a stage, and the bytes a stage and a ring aim at
 DECODE_MAX_RANKS = 8
@@ -267,51 +278,122 @@ def _chunk_columns(d: int) -> tuple:
     return split, 64 * -(-units // split)
 
 
-def chunk_plan(b: int, c: int, hq: int, hkv: int, d: int, dtype: torch.dtype, mbs: int, cap: int) -> dict:
+def chunk_geometry(d: int, dtype: torch.dtype, kv_int8: bool = False, rows: Optional[int] = None) -> Optional[dict]:
+    """Kernels A and 4's launch geometry at head dim ``d`` for q of
+    ``dtype`` over a pool of q's dtype or the int8 pool (``kv_int8``), as
+    ``csrc/paged_chunk_fused.cu`` ``ptt_paged_chunk_plan`` reports it:
+
+    - ``split`` and ``columns`` (:func:`_chunk_columns`);
+    - ``rows``, packed query rows a tile: up to 512 the instance's (64, or 32
+      for fp32 above 256); above 512 the most of 64, 32, 16 (fp32: 32, 16)
+      whose layout fits :data:`CHUNK_SMEM_BUDGET` (q resident in its own
+      type, a ring of 4 slots of 16 positions x 256 columns, else 3, and for
+      the int8 pool two slots upcast to q's type), and in bf16 / fp16 half
+      of them where that layout is over :data:`CHUNK_SMEM_PAIR` and half
+      the rows' is within it (an SM then holds two CTAs, whose walks hide
+      each other's latency);
+    - ``slots``, the ring's depth (up to 512 the (K, V) stages, 3 or 2);
+    - ``smem``, the layout's bytes (the merge's fp32 partials reuse them;
+      the table entries come on top);
+    - ``walk``: "resident" (q staged once), or above 512 "chunked" where
+      not even 16 rows of q fit (q and K staged 64 columns at a time every
+      step, 64 rows, on the CUDA cores).
+
+    ``rows`` asks the walk above 512 for that many tile rows instead (64,
+    32 or 16; None when its layout does not fit)."""
+    t = torch.empty((), dtype=dtype).element_size()
+    kv = 1 if kv_int8 else t
+    split, columns = _chunk_columns(d)
+    scales = 2 * CHUNK_STEP * 4 if kv_int8 else 0  # a slot's k and v scale rows (fp32)
+    ldq = d + 16 // t  # q's rows, padded by 16 bytes
+    if d <= CHUNK_HEAD_DIMS[-1]:
+        own = 32 if t == 4 and d > CHUNK_MAX_COLUMNS else 64
+        if rows not in (None, own):
+            return None
+        stage = CHUNK_STEP * ((d + 16 // kv) + (columns + 16 // kv)) * kv + scales
+        fixed = own * ldq * t + (CHUNK_STEP * (ldq + columns + 16 // t) * t if kv_int8 else 0)
+        slots = 3 if fixed + 3 * stage <= CHUNK_SMEM_BUDGET else 2
+        smem = max(fixed + slots * stage, own * (columns + 8) * 4)
+        return {"split": split, "columns": columns, "rows": own, "slots": slots, "smem": smem, "walk": "resident"}
+    slot = CHUNK_STEP * (CHUNK_SLOT_COLUMNS + 16 // kv) * kv + scales
+    up = 2 * CHUNK_STEP * (CHUNK_SLOT_COLUMNS + 16 // t) * t if kv_int8 else 0
+
+    def fit(r):  # the resident layout at r rows with 4 ring slots, else 3 (None: neither fits)
+        for slots in (4, 3):
+            smem = max(r * ldq * t + slots * slot + up, r * (CHUNK_MAX_COLUMNS + 8) * 4)
+            if smem <= CHUNK_SMEM_BUDGET:
+                return {"split": split, "columns": columns, "rows": r, "slots": slots, "smem": smem,
+                        "walk": "resident"}
+        return None
+
+    if rows:
+        return fit(rows) if rows in (64, 32, 16) else None
+    for r in (64, 32, 16) if t == 2 else (32, 16):
+        geo = fit(r)
+        if geo is None:
+            continue
+        half = fit(r // 2) if t == 2 and r > 16 and geo["smem"] > CHUNK_SMEM_PAIR else None
+        return half if half is not None and half["smem"] <= CHUNK_SMEM_PAIR else geo
+    # the chunked walk: q [64][68], K [16][68], V [16][260] fp32 and the scales, or the merge's partials
+    smem = max((64 * 68 + 16 * 68 + 16 * 260 + 32) * 4, 64 * (CHUNK_MAX_COLUMNS + 8) * 4)
+    return {"split": split, "columns": columns, "rows": 64, "slots": 0, "smem": smem, "walk": "chunked"}
+
+
+def chunk_plan(b: int, c: int, hq: int, hkv: int, d: int, dtype: torch.dtype, mbs: int, cap: int,
+               kv_int8: bool = False, rows: Optional[int] = None) -> dict:
     """Kernels A and 4's launch plan, the one they launch with (a host
     function of the shapes and ``cap``, the CTAs of the instance the card
     holds at once: ``csrc/paged_chunk_fused.cu`` ``ptt_paged_chunk_cap``):
-    ``split`` CTAs over O's columns (2 above head dim 256, each owning
-    ``columns`` = D / 2; ``ceil(D / 256)`` above 512: :func:`_chunk_columns`),
+    :func:`chunk_geometry`'s ``split`` CTAs over O's columns (2 above head
+    dim 256, each owning ``columns`` = D / 2; ``ceil(D / 256)`` above 512),
     tiles of ``rows`` packed query rows (32 for fp32 at head dims 320 to
-    512, else 64), ``tiles`` of them per (KV head, slot), the cluster
-    size ``ranks`` (the most of 8, 4, 2, 1 whose ``tiles * split * hkv * b``
+    512, else 64; above 512 what fits), its ring ``slots``, ``smem`` and
+    ``walk``, ``tiles`` of them per (KV head, slot), the cluster size
+    ``ranks`` (the most of 8, 4, 2, 1 whose ``tiles * split * hkv * b``
     clusters fit ``cap``, at most ``mbs``: long histories get the most CTAs
-    that still run as one wave; never a length) and the ``grid``."""
-    split, columns = _chunk_columns(d)
-    rows = 32 if dtype == torch.float32 and CHUNK_MAX_COLUMNS < d <= CHUNK_HEAD_DIMS[-1] else 64
+    that still run as one wave, above head dim 512 as
+    :data:`CHUNK_DEEP_WAVES` waves; never a length) and the ``grid``.
+    ``rows`` asks the walk above 512 for other tile rows (timing only; the
+    cap must be that layout's)."""
+    geo = chunk_geometry(d, dtype, kv_int8, rows)
+    if geo is None:
+        raise ValueError(f"kernels A / 4 at head dim {d} in {dtype} cannot hold tiles of {rows} rows")
+    split, rows = geo["split"], geo["rows"]
     tiles = -(-c * (hq // hkv) // rows)
     work = tiles * split * hkv * b
+    waves = CHUNK_DEEP_WAVES if d > CHUNK_HEAD_DIMS[-1] else 1
     ranks = CHUNK_MAX_RANKS
-    while ranks > 1 and work * ranks > cap:
+    while ranks > 1 and work * ranks > waves * cap:
         ranks //= 2
     ranks = max(1, min(ranks, mbs))
-    return {"split": split, "columns": columns, "rows": rows, "tiles": tiles, "ranks": ranks,
-            "grid": (tiles * split * ranks, hkv, b)}
+    return {**geo, "tiles": tiles, "ranks": ranks, "grid": (tiles * split * ranks, hkv, b)}
 
 
 @functools.lru_cache(maxsize=None)
-def _chunk_cap(device: torch.device, io: int, quant: bool, rope: bool, d: int, mbs: int) -> int:
+def _chunk_cap(device: torch.device, io: int, quant: bool, rope: bool, d: int, mbs: int, rows: int = 0) -> int:
     """The CTAs of kernel A's (``rope``) or 4's instance the card ``device``
     holds at once with ``mbs`` table entries staged (its occupancy times the
-    SMs, ``ptt_paged_chunk_cap``); asked once per instance and ``mbs``."""
+    SMs, ``ptt_paged_chunk_cap``), at its own tile rows (``rows`` 0) or at
+    ``rows`` above head dim 512; asked once per instance and ``mbs``."""
     cap = ctypes.c_int(0)
-    fn = build.kernel_fn("ptt_paged_chunk_cap", [_I] * 5 + [_P])
+    fn = build.kernel_fn("ptt_paged_chunk_cap", [_I] * 6 + [_P])
     with torch.cuda.device(device):
-        err = fn(io, int(quant), int(rope), d, mbs, ctypes.addressof(cap))
+        err = fn(io, int(quant), int(rope), d, mbs, rows, ctypes.addressof(cap))
     build.check(err, "paged_chunk_cap")
     return cap.value
 
 
 def _chunk_launch_plan(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor,
-                       rope: bool = True) -> dict:
+                       rope: bool = True, rows: Optional[int] = None) -> dict:
     """:func:`chunk_plan` of kernel A's (``rope``) or 4's launch for these
-    shapes on this card, with the ``cap`` it was chosen under; nothing
-    runs."""
+    shapes on this card, with the ``cap`` it was chosen under (at ``rows``
+    tile rows when given); nothing runs."""
     b, c, hq, d = q.shape
     mbs = block_tables.shape[1]
-    cap = _chunk_cap(q.device, _io_dtype("paged_chunk", q), key_cache.dtype == torch.int8, rope, d, mbs)
-    return {**chunk_plan(b, c, hq, key_cache.shape[1], d, q.dtype, mbs, cap), "cap": cap}
+    quant = key_cache.dtype == torch.int8
+    io = _io_dtype("paged_chunk", q)
+    cap = _chunk_cap(q.device, io, quant, rope, d, mbs, rows or 0)
+    return {**chunk_plan(b, c, hq, key_cache.shape[1], d, q.dtype, mbs, cap, quant, rows), "cap": cap}
 
 
 def chunk_cluster_size(q: torch.Tensor, key_cache: torch.Tensor, block_tables: torch.Tensor) -> int:
@@ -427,24 +509,12 @@ def paged_flash_chunk_fused(
     in (kernel A); the signature of the JAX package's
     ``paged_flash_chunk_fused``. ``cos``/``sin`` are the per-token rope rows
     ``[B, C, D]``."""
-    quant = _scale_planes("paged_flash_chunk_fused", k_scale, v_scale)
+    _scale_planes("paged_flash_chunk_fused", k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_chunk_fused_plain(q, cos, sin, key_cache, value_cache, block_tables, seq_lens,
                                              q_lens, scale, k_scale, v_scale)
-    what = "paged_flash_chunk_fused"
-    io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale, v_scale=v_scale)
-    b, c, hq, d = q.shape
-    cos32, sin32 = _rope_operands(what, q, cos, sin, (b, c, d))
-    out = torch.empty_like(q)
-    if b and c:
-        kc = pools[0]
-        plan = _chunk_launch_plan(q, kc, tables32, rope=True)
-        _launch("paged_chunk_fused" + "_int8" * quant, io,
-                [t.data_ptr() for t in (q, cos32, sin32, *pools, tables32, lens32, qlens32, out)],
-                (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], plan["split"], plan["columns"],
-                 plan["ranks"]), _scale_or_default(scale, d), q.device)
-    return out
+    return _chunk_launch("paged_flash_chunk_fused", q, cos, sin, key_cache, value_cache, block_tables, seq_lens,
+                         q_lens, scale, k_scale, v_scale)
 
 
 def paged_flash_chunk(
@@ -461,22 +531,34 @@ def paged_flash_chunk(
     """Attention of one mixed prefill/decode step over the paged cache
     (kernel 4); the JAX package's ``paged_flash_chunk``. Returns
     ``[B, C, HQ, D]`` with rows past ``q_lens`` exactly 0."""
-    quant = _scale_planes("paged_flash_chunk", k_scale, v_scale)
+    _scale_planes("paged_flash_chunk", k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_chunk_plain(q, key_cache, value_cache, block_tables, seq_lens, q_lens, scale,
                                        k_scale, v_scale)
+    return _chunk_launch("paged_flash_chunk", q, None, None, key_cache, value_cache, block_tables, seq_lens,
+                         q_lens, scale, k_scale, v_scale)
+
+
+def _chunk_launch(what, q, cos, sin, key_cache, value_cache, block_tables, seq_lens, q_lens, scale, k_scale,
+                  v_scale, rows: Optional[int] = None) -> torch.Tensor:
+    """One launch of kernel A (``cos`` given) or 4 with :func:`chunk_plan`'s
+    plan; ``rows`` sets other tile rows than the plan's above head dim 512,
+    to time the rows rule against the other counts (the wrappers pass
+    none)."""
     io, q, pools, tables32, lens32, qlens32 = _launch_operands(
-        "paged_flash_chunk", q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale,
-        v_scale=v_scale)
+        what, q, key_cache, value_cache, block_tables, seq_lens, q_lens, k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
+    rope = ()
+    if cos is not None:
+        rope = _rope_operands(what, q, cos, sin, (b, c, d))
     out = torch.empty_like(q)
     if b and c:
         kc = pools[0]
-        plan = _chunk_launch_plan(q, kc, tables32, rope=False)
-        _launch("paged_chunk" + "_int8" * quant, io,
-                [t.data_ptr() for t in (q, *pools, tables32, lens32, qlens32, out)],
+        plan = _chunk_launch_plan(q, kc, tables32, rope=cos is not None, rows=rows)
+        name = ("paged_chunk_fused" if cos is not None else "paged_chunk") + "_int8" * (k_scale is not None)
+        _launch(name, io, [t.data_ptr() for t in (q, *rope, *pools, tables32, lens32, qlens32, out)],
                 (b, c, hq, kc.shape[1], d, kc.shape[2], tables32.shape[1], plan["split"], plan["columns"],
-                 plan["ranks"]), _scale_or_default(scale, d), q.device)
+                 plan["rows"], plan["ranks"]), _scale_or_default(scale, d), q.device)
     return out
 
 

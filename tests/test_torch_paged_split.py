@@ -24,6 +24,10 @@ The plain versions at head dim 256 are also held against the interpret
 kernels directly (the head dims of the redesign: 64 to 256). Above 256 the
 kernels split O's columns over two CTAs and fp32 tiles hold 32 rows
 (``chunk_plan``); the emulation repeats that at head dims 320 and 512.
+Above 512 (``csrc/paged_chunk_deep.cu``) ``ceil(D / 256)`` CTAs share O's
+columns, q stays resident and the tile rows are what fits the shared-memory
+budget (``chunk_geometry``, mirrored here byte for byte at head dims 576 to
+2048); the emulation repeats that at 576 and 640.
 """
 
 import numpy as np
@@ -73,9 +77,9 @@ def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, sca
     columns over ``split`` CTAs of ``columns`` each (``kpaged.chunk_plan``'s:
     2 above head dim 256, ``ceil(D / 256)`` above 512, each computing the
     scores over all of D and PV over its own columns of V). ``round_p``:
-    p split into two halves rounded to T before PV (the tensor-core
-    instances up to 512); off, p stays fp32 (the CUDA-core walks: fp32, and
-    every type above 512). Returns ``[B, C, HQ, D]`` in T."""
+    p split into two halves rounded to T before PV (the bf16 / fp16
+    instances, tensor cores); off, p stays fp32 (the CUDA-core walks of
+    fp32). Returns ``[B, C, HQ, D]`` in T."""
     if split > 1:
         dv = columns or value_cache.shape[-1] // split
         return torch.cat([emulate_chunk(q, key_cache, value_cache[..., i * dv:(i + 1) * dv], block_tables, seq_lens,
@@ -223,19 +227,22 @@ def test_split_decomposition_matches_interpret_kernel_and_plain(kernel, geometry
 
 WIDE_CASES = [(d, dt, int8) for d in (320, 512, 576) for dt, int8 in (("bfloat16", False), ("bfloat16", True),
                                                                        ("float32", False))]
+WIDE_CASES += [(576, "float16", False), (640, "bfloat16", False)]
+DT_IDS = {"bfloat16": "bf16", "float16": "fp16", "float32": "fp32"}
 
 
 @pytest.mark.parametrize("kernel", ["chunk_fused", "chunk"])
-@pytest.mark.parametrize("d,dtype,int8", WIDE_CASES,
-                         ids=[f"d{d}-{'bf16' if dt == 'bfloat16' else 'fp32'}{'-int8' * i}" for d, dt, i in WIDE_CASES])
+@pytest.mark.parametrize("d,dtype,int8", WIDE_CASES, ids=[f"d{d}-{DT_IDS[dt]}{'-int8' * i}" for d, dt, i in WIDE_CASES])
 def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dtype, int8):
     """Head dims 320 and 512: the kernels' column split (two CTAs, each the
     scores over all of D and PV, the merge and the writes over half of O's
     columns) and their tile rows (``chunk_plan``: 64, or 32 for fp32), at 8
     and 2 ranks, against the plain version at the card's gate and the
-    interpret kernel as in the narrower cases. Head dim 576: the runtime
-    instance (``csrc/paged_chunk_deep.cu``): three CTAs of 192 columns,
-    64-row tiles, p in fp32."""
+    interpret kernel as in the narrower cases. Head dims 576 and 640: the
+    runtime instance (``csrc/paged_chunk_deep.cu``): three CTAs of 192
+    columns (640: 256, 256 and the last 128), q resident, 64-row tiles (640
+    and fp32: 32), p split into two halves of T in bf16 / fp16 as below
+    512."""
     rng = np.random.default_rng(d)
     q, rope, pools, ints, scales = _inputs(rng, d, 8, 2, dtype, int8)
     fused = kernel == "chunk_fused"
@@ -245,16 +252,19 @@ def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dt
                                                       k_scale=scales[0][1], v_scale=scales[1][1])
     plain = getattr(kpaged, f"paged_flash_{kernel}_plain")(*(t for t, _ in args), **planes)
     q_in = kpaged.rope_rows(q[0], rope[0][0][:, :, None], rope[1][0][:, :, None]) if fused else q[0]
-    base = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=1)
+    tdt = getattr(torch, dtype)
+    base = kpaged.chunk_plan(len(LENS), C, 8, 2, d, tdt, MBS, cap=1, kv_int8=int8)
+    deep = d > kpaged.CHUNK_HEAD_DIMS[-1]
     for ranks in (8, 2):  # a card holding ranks clusters of the grid's (tile, column slice, KV head, slot) items
-        cap = ranks * base["tiles"] * base["split"] * 2 * len(LENS)
-        plan = kpaged.chunk_plan(len(LENS), C, 8, 2, d, getattr(torch, dtype), MBS, cap=cap)
-        deep = d > kpaged.CHUNK_HEAD_DIMS[-1]
-        assert (plan["split"], plan["columns"]) == ((3, 192) if deep else (2, d // 2)) and plan["ranks"] == ranks
+        cap = ranks * base["tiles"] * base["split"] * 2 * len(LENS) // (kpaged.CHUNK_DEEP_WAVES if deep else 1)
+        plan = kpaged.chunk_plan(len(LENS), C, 8, 2, d, tdt, MBS, cap=cap, kv_int8=int8)
+        want_split = {576: (3, 192), 640: (3, 256)}[d] if deep else (2, d // 2)
+        want_rows = 32 if dtype == "float32" or d == 640 else 64  # 640: half of 64, two CTAs an SM
+        assert (plan["split"], plan["columns"], plan["rows"]) == (*want_split, want_rows) and plan["ranks"] == ranks
         got = emulate_chunk(q_in, pools[0][0], pools[1][0], *(t for t, _ in ints), 1.0 / d ** 0.5, **planes,
                             ranks=plan["ranks"], rows=plan["rows"], split=plan["split"], columns=plan["columns"],
-                            round_p=not deep and dtype != "float32")
-        assert got.dtype == getattr(torch, dtype) and got.shape == q_in.shape
+                            round_p=dtype != "float32")
+        assert got.dtype == tdt and got.shape == q_in.shape
         _within(got, plain, dtype)
         if fused and dtype != "float32":
             _within_ulp_of_max(got, want)
@@ -262,6 +272,70 @@ def test_column_split_above_256_matches_interpret_kernel_and_plain(kernel, d, dt
             _within(got, want, dtype)
         past = torch.arange(C)[None, :] >= torch.from_numpy(Q_LENS)[:, None].long()
         assert not got[past].any()  # rows past q_lens: exact 0
+
+
+# (head dim, split, columns, tile rows in bf16 / fp16 and over the int8 pool, tile rows in fp32)
+DEEP_PLANS = [(576, 3, 192, 64, 32), (640, 3, 256, 32, 32), (1024, 4, 256, 32, 32), (1280, 5, 256, 64, 16),
+              (1536, 6, 256, 16, 16), (2048, 8, 256, 16, 16)]
+STORAGES = [("bfloat16", False), ("float16", False), ("float32", False), ("bfloat16", True)]
+
+
+@pytest.mark.parametrize("dtype,int8", STORAGES, ids=["bf16", "fp16", "fp32", "bf16-int8"])
+@pytest.mark.parametrize("d,split,columns,rows16,rows32", DEEP_PLANS, ids=[f"d{p[0]}" for p in DEEP_PLANS])
+def test_chunk_plan_above_512_fits_the_deep_instance(d, split, columns, rows16, rows32, dtype, int8):
+    """``chunk_plan`` above head dim 512 at the wide_heads serve step (8
+    slots, chunk 64, GQA 8/2, MBS 128): ``ceil(D / 256)`` CTAs of whole
+    64-column units, and tile rows whose layout in
+    ``csrc/paged_chunk_deep.cu`` fits the 200 KB budget, counted here from
+    its pieces: q resident in its own type (rows x (D + 16 bytes)), a ring of
+    4 slots (else 3) of 16 positions x 256 columns of the pool's type (the
+    int8 pool's slots also carry 32 fp32 scales), and for the int8 pool two
+    slots upcast to q's type; the merge's fp32 partials reuse the bytes. The
+    rows are the most that fit (64, 32, 16; fp32 32, 16), or in bf16 / fp16
+    half of them where only the half's layout is one of which an SM holds
+    two CTAs (108 KB)."""
+    tdt = getattr(torch, dtype)
+    t = torch.empty((), dtype=tdt).element_size()
+    kv = 1 if int8 else t
+    plan = kpaged.chunk_plan(8, 64, 8, 2, d, tdt, 128, 132 * 2, kv_int8=int8)
+    rows = rows32 if t == 4 else rows16
+    assert (plan["split"], plan["columns"], plan["rows"], plan["walk"]) == (split, columns, rows, "resident")
+    assert (split - 1) * columns < d <= split * columns
+    assert plan["tiles"] == -(-64 * 4 // rows) and plan["grid"] == (plan["tiles"] * split * plan["ranks"], 2, 8)
+
+    budget, pair = 200 * 1024, 108 * 1024
+
+    def layout(r):  # (bytes, slots) with 4 ring slots, else 3
+        q_bytes = r * (d + 16 // t) * t
+        slot = 16 * (256 + 16 // kv) * kv + (2 * 16 * 4 if int8 else 0)
+        upcast = 2 * 16 * (256 + 16 // t) * t if int8 else 0
+        sizes = [max(q_bytes + n * slot + upcast, r * (256 + 8) * 4) for n in (4, 3)]
+        return (sizes[0], 4) if sizes[0] <= budget else (sizes[1], 3)
+
+    assert (plan["smem"], plan["slots"]) == layout(rows) and plan["smem"] <= budget
+    most = next(r for r in ((32, 16) if t == 4 else (64, 32, 16)) if layout(r)[0] <= budget)
+    halved = t == 2 and layout(most)[0] > pair >= layout(most // 2)[0]
+    assert rows == (most // 2 if halved else most)
+
+
+def test_chunk_plan_rows_asked_above_512():
+    """The walk above 512 takes other tile rows when asked (chip_smoke.py
+    times 64 against 32 at D 1024, where the plan takes 32) and refuses rows
+    whose layout does not fit; up to 512 only the instance's own rows
+    exist."""
+    plan = kpaged.chunk_plan(8, 64, 8, 2, 1024, torch.bfloat16, 128, 132, rows=64)
+    assert (plan["rows"], plan["tiles"], plan["slots"]) == (64, 4, 4) and plan["smem"] == 64 * 1032 * 2 + 4 * 8448
+    own = kpaged.chunk_plan(8, 64, 8, 2, 1024, torch.bfloat16, 128, 264)
+    assert (own["rows"], own["tiles"], own["ranks"]) == (32, 8, 2)
+    assert kpaged.chunk_geometry(4096, torch.bfloat16, rows=32) is None
+    assert kpaged.chunk_geometry(512, torch.bfloat16, rows=32) is None
+    assert kpaged.chunk_geometry(512, torch.bfloat16, rows=64)["rows"] == 64
+    with pytest.raises(ValueError, match="cannot hold tiles of 32 rows"):
+        kpaged.chunk_plan(8, 64, 8, 2, 4096, torch.bfloat16, 128, 264, rows=32)
+    # where not even 16 rows of q fit, the chunked walk (64 rows, no ring)
+    far = kpaged.chunk_geometry(2688, torch.float32)
+    assert (far["walk"], far["rows"], far["slots"]) == ("chunked", 64, 0)
+    assert kpaged.chunk_geometry(5312, torch.bfloat16)["walk"] == "resident"
 
 
 def test_one_rounding_of_p_misses_the_bf16_gate():

@@ -322,12 +322,12 @@ def test_chunk_plan_splits_columns_above_256(dtype, rows):
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["A", "4"])
-@pytest.mark.parametrize("d,int8", [(256, False), (512, False), (512, True)])
+@pytest.mark.parametrize("d,int8", [(256, False), (512, False), (512, True), (576, True), (1024, False)])
 def test_chunk_wrappers_launch_with_chunk_plan(monkeypatch, fused, d, int8):
     """Kernels A and 4 get their column split and cluster size from
     ``chunk_plan`` on the card's cap (asked of the instance of q's type, the
     pool and the rope): the launch's last int dims are ``chunk_plan``'s
-    ``split``, ``columns`` and ``ranks``. Meta tensors
+    ``split``, ``columns``, ``rows`` and ``ranks``. Meta tensors
     stand in for the card's; the launch itself is recorded, not run."""
     b, c, hq, hkv, mbs = 8, 64, 8, 2, 128
     cap = 132 * 2
@@ -350,11 +350,13 @@ def test_chunk_wrappers_launch_with_chunk_plan(monkeypatch, fused, d, int8):
         kpaged.paged_flash_chunk_fused(q, rows, rows, kc, kc, tables, lens, lens, **planes)
     else:
         kpaged.paged_flash_chunk(q, kc, kc, tables, lens, lens, **planes)
-    plan = kpaged.chunk_plan(b, c, hq, hkv, d, torch.bfloat16, mbs, cap)
-    assert asked == [(meta, 1, int8, fused, d, mbs)]
+    plan = kpaged.chunk_plan(b, c, hq, hkv, d, torch.bfloat16, mbs, cap, kv_int8=int8)
+    assert asked == [(meta, 1, int8, fused, d, mbs, 0)]  # rows 0: the instance's own
     name = ("paged_chunk_fused" if fused else "paged_chunk") + "_int8" * int8
-    assert launched == [(name, (b, c, hq, hkv, d, 16, mbs, plan["split"], plan["columns"], plan["ranks"]))]
-    assert plan["ranks"] == (4 if d == 256 else 2)
+    assert launched == [(name, (b, c, hq, hkv, d, 16, mbs, plan["split"], plan["columns"], plan["rows"],
+                                plan["ranks"]))]
+    # above 512: 3 / 4 CTAs a tile, the grid may fill CHUNK_DEEP_WAVES waves of the cap
+    assert plan["ranks"] == {256: 4, 512: 2, 576: 4, 1024: 2}[d]
 
 
 # -- a tiny Llama at head dim 320 ----------------------------------------------------------
