@@ -28,7 +28,12 @@ name and power limit):
    given the dense document mask), at GQA 32/8 with C=2 and C=4 FlashMask
    bounds and a ragged S, in fp16 and fp32 at GQA 32/8 and at head dims 64,
    192 and 256 in bf16 (the fp16, fp32 and D 256 cases timed beside SDPA
-   given the dense band mask), and at head dims 320, 384, 448 and 512 and
+   given the dense band mask), the fp32 forward (``csrc/flash_fwd_tf32.cu``,
+   3xTF32 on the tensor cores to head dim 256, its plan held to its Python
+   mirror) also unmasked causal beside SDPA's ``is_causal``, at head dims 64,
+   192 and 256 and at the ragged S, gated at most 1.0x SDPA's fp32 forward
+   under the C=2 causal band, each case's error printed beside its limit,
+   and at head dims 320, 384, 448 and 512 and
    576 and 1024 (bf16 / fp16 on the tensor cores: the forward
    ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``,
    their launch plans held to their Python mirrors; fp32 on the CUDA-core
@@ -119,8 +124,11 @@ name and power limit):
    entries over an int8 pool (kernels 5 and 6's int8 instances once each).
    The kernel phase holds kernel 20 at the step's three projection shapes
    (each at most 1.25x cuBLAS's bf16 ``x @ W`` in the same call), at eight
-   rows, in fp32, at fp16 ragged rows, one row, 4096 rows and
-   ``[77, 4100] x [4100, 32003]`` (its CUDA-core route), A/4/5/6 over int8
+   rows, in fp32 (the mma.sync instance, two TF32 passes of split x: at
+   most 1.0x ``torch.matmul`` in fp32 with TF32 off at gate/up), at fp16
+   ragged rows, one row, 4096 rows, rows aligned to 2 and 1 bytes, and
+   ``[77, 4100] x [4100, 32003]`` in bf16 (its mma.sync route, at most 1.0x
+   cuBLAS's bf16 product), fp16 and fp32, A/4/5/6 over int8
    pools with q in bf16, fp16 and fp32, 17's int8 site on each route
    ``flx_int8_route`` names (kernel 20's wgmma mainloop at the loss head's
    shape, gated at 1.25x its library, and at 8-, 64-, 128- and 256-row
@@ -147,7 +155,7 @@ name and power limit):
    (launches, and the dense prefill's logits through kernel 14 in fp16
    against the fp16 plain path's distance from fp32); then 2-layer fp16 and
    fp32 models served through the engine with ``weight_only_int8=True``
-   (kernel 20 7x a step on its wgmma and CUDA-core instances; logits
+   (kernel 20 7x a step on its wgmma and mma.sync instances; logits
    against the plain path's distance from an fp32 / fp64 reference) and
    their evaluation loss (17's int8 site twice, on its wgmma and CUDA-core
    instances, within 1e-4 of the plain int8 head's);
@@ -195,6 +203,7 @@ import gc
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -203,6 +212,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 WEIGHT_BYTES_7B = 6_738_415_616 * 2  # Llama-2-7B's parameters in bf16: one decode step reads them all
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (data sheet)
+TF32_FLOP_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core peak (data sheet): the fp32 split kernels' passes
 BF16_REL = 2.0 ** -7  # one bf16 ulp relative to the value (8-bit significand)
 
 
@@ -1276,6 +1286,9 @@ def flat_s(t):
 
 # -- kernels 14-16: flash attention forward, dq, dk/dv ------------------------------
 
+FLASH_TF32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fwd_tf32.cu"  # the fp32 forward up to head dim 256
+FLASH_FP32_GATE = 1.0  # the fp32 forward at most this times SDPA's fp32 forward, GQA 32/8 [2, 1024] C=2 causal
+
 FLASH_SOURCES = {
     "flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
     "flash_bwd_dq": "paddle_tpu_torch/kernels/csrc/flash_bwd_dq.cu",
@@ -1354,9 +1367,12 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
     over batch and query heads, the flops of each kernel (2 D flops per
     pair and product: forward 2 products, dq 3, dk/dv 4) at the peak of the
     inputs' type (fp32: the CUDA cores' 67 TFLOP/s) and the bytes each must
-    move (inputs read once, outputs written once)."""
+    move (inputs read once, outputs written once). The fp32 forward up to
+    head dim 256 (``csrc/flash_fwd_tf32.cu``) runs each product in three
+    TF32 passes: its bound is those passes at the TF32 tensor peak, with the
+    67 TFLOP/s one-pass bound beside it (``bound_ms_cuda_cores``)."""
     import torch
-    from paddle_tpu_torch.kernels.flash_attention import flash_masked
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_fp32_plan, flash_masked
 
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -1370,9 +1386,15 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
     stats = b * h * sq * 4  # one fp32 lse or delta
     mb = 0 if bounds is None else bounds.numel() * 4
     rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    fwd_bytes = 2 * qb + 2 * kb + stats + mb
+    fwd = bound(fwd_bytes, 4 * d * pairs, rate)
+    if q.dtype == torch.float32 and d <= 512 and flash_fwd_fp32_plan(d)["walk"] == "tf32x3":
+        fwd = {**bound(fwd_bytes, 3 * 4 * d * pairs, TF32_FLOP_PER_S), "bound_ms_cuda_cores": fwd["bound_ms"],
+               "bound_reckoned": "3 TF32 passes of 4 D flops a visible pair at 494.7 TFLOP/s (cuda_cores: 1 pass "
+                                 "at 67 TFLOP/s)"}
     return {
         "pairs": pairs,
-        "flash_fwd": bound(2 * qb + 2 * kb + stats + mb, 4 * d * pairs, rate),
+        "flash_fwd": fwd,
         "flash_bwd_dq": bound(3 * qb + 2 * kb + 2 * stats + mb, 6 * d * pairs, rate),
         "flash_bwd_dkv": bound(2 * qb + 4 * kb + 2 * stats + mb, 8 * d * pairs, rate),
     }
@@ -1469,7 +1491,10 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
         emit({**line, "card": card})
         fail(f"flash kernels disagree with their plain versions ({label}): {err}")
     res = {"max_abs_err": {"flash_fwd": err["out"], "flash_bwd_dq": abs_err["dq"],
-                           "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}}
+                           "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"])},
+           "gate_reading": {"out_worst_err_over_limit": out_check["worst_err_over_limit"],
+                            "lse_rel_err": err["lse"], "lse_limit": lse_rel,
+                            "grads_rel_l2": {n: err[n] for n in ("dq", "dk", "dv")}, "grads_limit": grad_rel}}
     if timed:
         cost = flash_cost(q, k, bounds, causal)
         tiles = flash_tiles(bounds, s, s, causal, d, dtype)
@@ -1583,6 +1608,33 @@ def check_wide_plan(card: dict) -> None:
           "bwd_d1024": {k: flash_bwd_wide_plan(1024, k) for k in ("flash_bwd_dq", "flash_bwd_dkv")}, "card": card})
     if wrong:
         fail(f"the wide flash plans disagree with the kernels' plans: {wrong}")
+
+
+def check_fp32_plan(card: dict) -> None:
+    """The fp32 forward's plan (``ptt_flash_fwd_fp32_plan`` in
+    ``csrc/flash_fwd_tf32.cu``: the walk, and for the 3xTF32 walk its rows,
+    keys, buffers and shared-memory bytes) equals its Python mirror
+    ``flash_fwd_fp32_plan`` at every multiple of 64 from 64 to 512: the
+    3xTF32 walk to 256, the CUDA cores (the walk alone) above."""
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_fp32_plan
+
+    fn = build.kernel_fn("ptt_flash_fwd_fp32_plan", [ctypes.c_int, ctypes.c_void_p])
+    wrong, plans = {}, {}
+    for d in range(64, 513, 64):
+        buf = (ctypes.c_int * 5)()
+        build.check(fn(d, buf), "ptt_flash_fwd_fp32_plan")
+        py = flash_fwd_fp32_plan(d)
+        want = ([0, py["rows"], py["keys"], py["stages"], py["smem"]] if py["walk"] == "tf32x3"
+                else [1, 0, 0, 0, 0])
+        plans[d] = py
+        if list(buf) != want:
+            wrong[d] = {"kernel": list(buf), "python": want}
+    emit({"phase": "flash_fp32_plan_check", "d": [64, 512], "ok": not wrong, "wrong": wrong, "plans": plans,
+          "card": card})
+    if wrong:
+        fail(f"the fp32 flash forward's plan disagrees with the kernel's: {wrong}")
 
 
 def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
@@ -1737,8 +1789,10 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
     non-causal masks for Hm 1 and H, at a ragged S of 1000 with a document
     mask, at S 4096 with C=2 and C=4 (HQ 8 / HKV 2), in fp16 and fp32 at the
     GQA geometry (C=2 causal timed, with SDPA given the dense band mask;
-    C=4 non-causal) and at head dims 64, 192 and 256 in bf16 (256 timed,
-    with SDPA). Kernel 16's gates: at most SDPA's whole backward causal at the
+    C=4 non-causal), fp32 also unmasked causal (timed), at head dims 64,
+    192 and 256 (256 timed), at the ragged S, at the eval loss's MHA
+    ``[2, 2048]`` and at S 4096 causal, and at head dims 64, 192 and 256 in
+    bf16 (256 timed, with SDPA). Kernel 16's gates: at most SDPA's whole backward causal at the
     train shape, at most half its own causal time under the document mask,
     and two runs bitwise equal (causal and document mask). Returns each
     kernel's cold-L2 ms per call under the Llama step's mask (the document
@@ -1748,6 +1802,7 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_masked
 
+    check_fp32_plan(card)
     plain = flash_case(dev, gen, 2, 4096, 32, 32, True, None, "train shape, causal", card, timed=True)
     lib = sdpa_ms(*plain["tensors"])
     ends = doc_bounds(np.random.default_rng(0), 2, 4096)
@@ -1767,15 +1822,63 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
     for c, causal in ((2, True), (4, False)):  # walks of 32 key tiles: several staging rounds of bounds
         flash_case(dev, gen, 1, 4096, 8, 2, causal, band_bounds(gen, dev, 1, 8, 4096, c),
                    f"gqa 8/2, S 4096, C={c}, Hm=H", card)
-    extra, extra_lib = {}, {}
+    extra, extra_lib, fp32_readings = {}, {}, {}
     for dtype in (torch.float16, torch.float32):
         for c, causal in ((2, True), (4, False)):
             bnd = band_bounds(gen, dev, 2, 1, 1024, c)
             res = flash_case(dev, gen, 2, 1024, 32, 8, causal, bnd, f"gqa 32/8, C={c}, {str(dtype)[6:]}", card,
                              timed=causal, dtype=dtype)
+            if dtype == torch.float32:
+                fp32_readings[f"C={c} {'causal' if causal else 'full'}"] = res["gate_reading"]
             if causal:
                 extra[str(dtype)[6:]] = res["times"]
                 extra_lib[str(dtype)[6:]] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
+    fp32_sdpa = {"C=2 causal": extra_lib["float32"]}
+    fp32_backend = {"C=2 causal": "dense band mask as attn_mask"}
+    # the fp32 forward (csrc/flash_fwd_tf32.cu to D 256): unmasked causal at the same shape beside SDPA's
+    # is_causal, every head dim of its walk, a ragged S under a document mask, the eval shape and S 4096
+    res = flash_case(dev, gen, 2, 1024, 32, 8, True, None, "gqa 32/8, causal, float32", card, timed=True,
+                     dtype=torch.float32)
+    fp32_readings["causal"] = res["gate_reading"]
+    extra["float32 causal"] = res["times"]
+    fp32_sdpa["causal"] = extra_lib["float32 causal"] = sdpa_ms(*res["tensors"])
+    qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
+    fp32_backend["causal"] = sdpa_backend(qh, kh, vh, None, True)
+    del res, qh, kh, vh
+    for d in (64, 192, 256):
+        bnd = band_bounds(gen, dev, 2, 1, 1024, 2)
+        res = flash_case(dev, gen, 2, 1024, 32, 8, True, bnd, f"gqa 32/8, C=2, D {d}, float32", card,
+                         timed=d == 256, dtype=torch.float32, d=d)
+        fp32_readings[f"C=2 causal D {d}"] = res["gate_reading"]
+        if d == 256:
+            extra["float32 d256"] = res["times"]
+            fp32_sdpa["C=2 causal D 256"] = extra_lib["float32 d256"] = sdpa_ms(
+                *res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
+        del res
+    res = flash_case(dev, gen, 2, 1000, 32, 8, True, ragged, "gqa 32/8, ragged S 1000, document mask, float32", card,
+                     dtype=torch.float32)
+    fp32_readings["ragged S 1000, document mask"] = res["gate_reading"]
+    # the shape the eval loss gives the forward (MHA 32/32, [2, 2048]) and a longer walk (S 4096): O sums over
+    # every key tile of a row's walk, so the error is read at the lengths the main path reaches and beyond
+    for b, s, label in ((2, 2048, "eval shape, causal"), (1, 4096, "mha 32/32, S 4096, causal")):
+        res = flash_case(dev, gen, b, s, 32, 32, True, None, f"{label}, float32", card, dtype=torch.float32)
+        fp32_readings[label] = res["gate_reading"]
+    fp32_ratio = {case: extra[key]["flash_fwd"]["ms"] / fp32_sdpa[case]["fwd"]
+                  for case, key in (("C=2 causal", "float32"), ("causal", "float32 causal"),
+                                    ("C=2 causal D 256", "float32 d256"))}
+    emit({"phase": "flash_fp32_tf32x3", "shape": [2, 1024, 32, 8, 128], "source": FLASH_TF32_SOURCE,
+          "arithmetic": "q k^T and P V in 3 TF32 passes of split operands (hi = tf32(x), lo = tf32(x - hi))",
+          "gate_readings": fp32_readings, "limits": {"out": "1e-5*(P|v|)/l per element + 1e-5*|x|",
+                                                     "lse": "1e-5 * max(1, |lse|)", "grads": "rel L2 <= 1e-5"},
+          "fwd": {case: {k: extra[key]["flash_fwd"].get(k) for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                                     "bound_ms_cuda_cores", "share_of_bound")}
+                  for case, key in (("C=2 causal", "float32"), ("causal", "float32 causal"),
+                                    ("C=2 causal D 256", "float32 d256"))},
+          "sdpa_ms": fp32_sdpa, "sdpa_backend": fp32_backend, "fwd_over_sdpa_fwd": fp32_ratio,
+          "gate": {"fwd_over_sdpa_fwd_at_most": FLASH_FP32_GATE, "case": "C=2 causal"}, "card": card})
+    if fp32_ratio["C=2 causal"] > FLASH_FP32_GATE:
+        fail(f"the fp32 flash forward takes {fp32_ratio['C=2 causal']:.3f}x SDPA's fp32 forward (GQA 32/8 [2, 1024], "
+             f"C=2 causal), above {FLASH_FP32_GATE}x")
     for d in (64, 192, 256):
         bnd = band_bounds(gen, dev, 2, 1, 1024, 2)
         res = flash_case(dev, gen, 2, 1024, 32, 8, True, bnd, f"gqa 32/8, C=2, D {d}", card, timed=d == 256, d=d)
@@ -1794,6 +1897,11 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
             doc_mask_ms=masked["times"][name]["ms"], doc_mask_bound_ms=masked["times"][name]["bound_ms"],
             doc_mask_library_ms=lib_doc["fwd"] if name == "flash_fwd" else lib_doc["bwd_dq_dk_dv"],
             wide_ms={m: c["times"][name]["ms"] for m, c in wide.items()},
+            sources={"bf16 / fp16 D <= 256": FLASH_SOURCES[name],
+                     "fp32 D <= 256" if name == "flash_fwd" else "fp32 D <= 512": (
+                         FLASH_TF32_SOURCE if name == "flash_fwd" else FLASH_FP32_SOURCE),
+                     **({"fp32 D 320-512": FLASH_FP32_SOURCE} if name == "flash_fwd" else {}),
+                     "fp32 D > 512": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
         )
     dkv = records["flash_bwd_dkv"]
     cold = {"llama, document mask [2, 4096, 32, 128]": {n: records[n]["doc_mask_ms"] for n in FLASH_SOURCES},
@@ -1810,7 +1918,8 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
           "dkv_share_of_bound": {"causal": dkv["bound_ms"] / dkv["ms"],
                                  "document mask": dkv["doc_mask_bound_ms"] / dkv["doc_mask_ms"]},
           "dkv_doc_over_causal": dkv["doc_mask_ms"] / dkv["ms"], "dkv_bitwise_deterministic": deterministic,
-          "gqa_1024_c2_causal": extra, "gqa_1024_c2_causal_sdpa_ms": extra_lib, "fp32_source": FLASH_FP32_SOURCE,
+          "gqa_1024_c2_causal": extra, "gqa_1024_c2_causal_sdpa_ms": extra_lib,
+          "fp32_source": {"forward to D 256": FLASH_TF32_SOURCE, "dq, dk/dv; forward 320-512": FLASH_FP32_SOURCE},
           "cold_ms_per_call": cold,
           "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
     if not all(deterministic.values()):
@@ -3375,14 +3484,20 @@ def wo_case(dev, gen, m: int, k: int, n: int, dtype, label: str, card: dict, tim
     quantized from N(0, 0.02), on the instance ``wo_route`` names. bf16 and
     fp16: the same fp32 products summed in another order, each output
     rounded once to x's type, so within one ulp of the type plus 1e-4 for
-    values near 0. fp32 (the CUDA-core instance, against the plain fp32
-    product with TF32 off): two fp32 sums of the same K products in
-    different orders, so within 2^-16 of the sum of the products'
+    values near 0. fp32 (the mma.sync instance, two TF32 passes of x split
+    into hi + lo, against the plain fp32 product with TF32 off): the
+    products miss the fp32 ones by ~2^-22 of their magnitude and the sums
+    run in other orders, so within 2^-16 of the sum of the products'
     magnitudes, ``(|x| @ |w8|) * scale`` (a dropped product costs ~2^-12 of
-    it at K 4096), plus 1e-6. With ``timed`` its time, the plain version's
-    and one PyTorch call's, ``x @ W`` with the unquantized weight in x's
-    type (cuBLAS: the projection it stands in for), and its share of the
-    bound (operations at the type's peak, or bytes)."""
+    it at K 4096; one TF32 pass misses by ~2^-11 of each product), plus
+    1e-6. Each case prints its worst error over its limit. With ``timed``
+    its time and one PyTorch call's (medians of :data:`WO_PAIRS` readings
+    taken in turns, with the median and the spread of the paired ratios),
+    the plain version's time, ``x @ W`` with the
+    unquantized weight in x's type (cuBLAS: the projection it stands in
+    for), and its share of the bound (bytes, or operations at the type's
+    peak; fp32: two TF32 passes at the TF32 tensor peak, the 67 TFLOP/s
+    one-pass bound beside it)."""
     import torch
     from paddle_tpu_torch.kernels.quant import (int8_weight_matmul, int8_weight_matmul_plain, quantize_weight_int8,
                                                 wo_route)
@@ -3396,35 +3511,57 @@ def wo_case(dev, gen, m: int, k: int, n: int, dtype, label: str, card: dict, tim
     if dtype == torch.float32:
         mag = (x.abs() @ w8.abs().float()) * scale[None, :]
         err_t = (got - want).abs()
-        err, ok = float(err_t.max()), bool((err_t <= 2.0 ** -16 * mag + 1e-6).all())
+        limit = 2.0 ** -16 * mag + 1e-6
+        err, ok = float(err_t.max()), bool((err_t <= limit).all())
+        worst = float((err_t / limit).max())
         tol = "2^-16 * (|x| @ |w8|) * scale + 1e-6"
+        del mag, err_t, limit
     else:
         ulp = {torch.bfloat16: BF16_REL, torch.float16: 2.0 ** -10}[dtype]
         err, ok = within(got, want, atol=1e-4, rel=ulp)
+        worst = float(((got.float() - want.float()).abs()
+                       / (1e-4 + ulp * torch.maximum(got.float().abs(), want.float().abs()))).max())
         tol = f"1e-4 + {ulp}*|x|"
     line = {"phase": "kernel_check", "kernel": "wo_matmul", "case": label, "route": route,
             "shape": {"x": [m, k], "w8": [k, n]}, "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "tolerance": tol}
+            "worst_err_over_limit": worst, "tolerance": tol}
     if not ok or got.dtype != dtype or not bool(torch.isfinite(got).all()):
         emit({**line, "card": card})
         fail(f"wo_matmul disagrees with its plain version ({label}): max abs err {err}")
-    res = {"max_abs_err": err, "route": route}
+    res = {"max_abs_err": err, "route": route, "worst_err_over_limit": worst}
     if timed:
         wd = w.to(dtype)
         run, run_plain = (lambda: int8_weight_matmul(x, w8, scale)), (lambda: int8_weight_matmul_plain(x, w8, scale))
-        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-        res.update(ms=device_ms(run), plain_ms=device_ms(run_plain, iters=5), call_ms=call_ms(run),
-                   library_ms=device_ms(lambda: torch.matmul(x, wd)),
-                   **bound(m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size(), 2.0 * m * k * n, rate))
-        res.update(share_of_bound=res["bound_ms"] / res["ms"], vs_library=res["ms"] / res["library_ms"])
+        nbytes = m * k * x.element_size() + k * n + 4 * n + m * n * x.element_size()
+        if dtype == torch.float32:  # two TF32 passes on the tensor cores; one pass at fp32's CUDA-core peak beside
+            cost = {**bound(nbytes, 2 * 2.0 * m * k * n, TF32_FLOP_PER_S),
+                    "bound_ms_cuda_cores": bound(nbytes, 2.0 * m * k * n, FP32_FLOP_PER_S)["bound_ms"]}
+        else:
+            cost = bound(nbytes, 2.0 * m * k * n, BF16_FLOP_PER_S)
+        # WO_PAIRS readings of the kernel and the library taken in turns: ms and library_ms are their medians,
+        # vs_library the median of the paired ratios (the gates read it), the ratios' spread beside it
+        pairs = [(device_ms(run), device_ms(lambda: torch.matmul(x, wd))) for _ in range(WO_PAIRS)]
+        ratios = sorted(a / b for a, b in pairs)
+        res.update(ms=statistics.median(a for a, _ in pairs), plain_ms=device_ms(run_plain, iters=5),
+                   call_ms=call_ms(run), library_ms=statistics.median(b for _, b in pairs), **cost)
+        res.update(share_of_bound=res["bound_ms"] / res["ms"], vs_library=statistics.median(ratios),
+                   vs_library_spread=[ratios[0], ratios[-1]])
         line.update({kk: res[kk] for kk in ("ms", "plain_ms", "call_ms", "library_ms", "bound_ms", "bound_by",
-                                            "share_of_bound", "vs_library")})
+                                            "share_of_bound", "vs_library", "vs_library_spread")})
+        if "bound_ms_cuda_cores" in res:
+            line["bound_ms_cuda_cores"] = res["bound_ms_cuda_cores"]
         line["library"] = "torch.matmul(x, W) with the unquantized weight in x's dtype (cuBLAS)"
     emit({**line, "card": card})
     return res
 
 
+WO_PAIRS = 7  # a timed case's paired readings of kernel 20 and its library product
 WO_GATE = 1.25  # kernel 20 at most this times cuBLAS's bf16 x @ W at each serving shape, in the same call
+# kernel 20's mma.sync instance at most this times the library's product in x's type, in the same call (the
+# median of WO_PAIRS paired ratios): fp32 gate/up against torch.matmul in fp32 with TF32 off, the ragged bf16
+# head against cuBLAS's bf16 x @ W
+WO_MMA_GATE = 1.0
+WO_RAGGED = (77, 4100, 32003)  # K % 8 and N % 16 both non-zero (an odd vocabulary): the mma.sync route in any type
 
 
 def check_wo_matmul(dev, gen, card: dict) -> dict:
@@ -3432,10 +3569,15 @@ def check_wo_matmul(dev, gen, card: dict) -> dict:
     cuBLAS's bf16 ``x @ W`` and gated at :data:`WO_GATE` times it; eight
     rows at gate/up (a decode batch: the weight's bytes bound it), and fp32
     at gate/up beside ``torch.matmul`` in fp32 with TF32 off, both timed;
-    ``[77, 4100] x [4100, 32003]`` in bf16 (the CUDA-core route: K % 8 and
-    N % 16 both non-zero), timed beside cuBLAS's bf16 product; checked only:
-    fp16 ragged rows, one row and the eval loss's 4096 rows. Returns the
-    timed cases."""
+    ``[77, 4100] x [4100, 32003]`` (:data:`WO_RAGGED`: K % 8 and N % 16
+    both non-zero) in bf16 beside cuBLAS's bf16 product and in fp32 beside
+    ``torch.matmul`` in fp32 with TF32 off, timed; the mma.sync instance
+    (every fp32 case and the ragged ones) gated at :data:`WO_MMA_GATE` x its
+    library at fp32 gate/up and the ragged bf16 head; checked only: fp16
+    ragged rows (wgmma) and the ragged head in fp16, one row in bf16 and in
+    fp32, eight fp32 rows, x rows 2-byte aligned (K 4099) and W rows
+    1-byte aligned (N 1001), and the eval loss's 4096 rows. Each case's
+    worst error over its limit is printed. Returns the timed cases."""
     import torch
 
     shapes = {label: wo_case(dev, gen, m, k, n, torch.bfloat16, label, card, timed=True)
@@ -3445,20 +3587,40 @@ def check_wo_matmul(dev, gen, card: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         shapes["fp32_gate_up"] = wo_case(dev, gen, 512, 4096, 11008, torch.float32, "fp32, gate/up", card, timed=True)
+        shapes["fp32_ragged"] = wo_case(dev, gen, *WO_RAGGED, torch.float32, "fp32, ragged K and N", card, timed=True)
+        checked = {"fp32 one row": wo_case(dev, gen, 1, 4096, 11008, torch.float32, "fp32, one row", card),
+                   "fp32 eight rows": wo_case(dev, gen, 8, 4096, 11008, torch.float32, "fp32, eight rows", card),
+                   "fp32 N 1001": wo_case(dev, gen, 130, 1024, 1001, torch.float32, "fp32, W rows 1-byte aligned",
+                                          card)}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
-    wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
-    shapes["cuda_core_route"] = wo_case(dev, gen, 77, 4100, 32003, torch.bfloat16, "ragged K and N (CUDA-core route)",
-                                        card, timed=True)
-    wo_case(dev, gen, 4096, 4096, 11008, torch.bfloat16, "eval rows (M 4096)", card)
+    checked["fp16 ragged rows"] = wo_case(dev, gen, 77, 320, 208, torch.float16, "fp16, ragged rows", card)
+    checked["one row"] = wo_case(dev, gen, 1, 4096, 11008, torch.bfloat16, "one row", card)
+    shapes["ragged_bf16"] = wo_case(dev, gen, *WO_RAGGED, torch.bfloat16, "ragged K and N (mma_sync route)", card,
+                                    timed=True)
+    checked["fp16 ragged K and N"] = wo_case(dev, gen, *WO_RAGGED, torch.float16, "fp16, ragged K and N", card)
+    checked["bf16 K 4099"] = wo_case(dev, gen, 5, 4099, 1024, torch.bfloat16, "bf16, x rows 2-byte aligned", card)
+    checked["eval rows"] = wo_case(dev, gen, 4096, 4096, 11008, torch.bfloat16, "eval rows (M 4096)", card)
     ratios = {label: shapes[label]["vs_library"] for label in WO_SHAPES}
+    mma_ratios = {label: shapes[label]["vs_library"] for label in ("fp32_gate_up", "ragged_bf16", "fp32_ragged")}
     emit({"phase": "wo_matmul_gate", "ms_over_cublas_bf16": ratios, "limit": WO_GATE,
+          "mma_sync_over_library": mma_ratios, "mma_sync_limit": WO_MMA_GATE, "paired_readings": WO_PAIRS,
+          "spread_over_library": {label: r["vs_library_spread"] for label, r in shapes.items()},
+          "mma_sync_gated": ["fp32_gate_up", "ragged_bf16"],
+          "library": {"fp32_gate_up": "torch.matmul fp32, TF32 off", "fp32_ragged": "torch.matmul fp32, TF32 off",
+                      "ragged_bf16": "cuBLAS bf16 x @ W"},
           "share_of_bound": {label: r["share_of_bound"] for label, r in shapes.items()},
-          "routes": {label: r["route"] for label, r in shapes.items()}, "card": card})
+          "bound_ms_cuda_cores": {label: r["bound_ms_cuda_cores"] for label, r in shapes.items()
+                                  if "bound_ms_cuda_cores" in r},
+          "worst_err_over_limit": {**{label: r["worst_err_over_limit"] for label, r in shapes.items()},
+                                   **{label: r["worst_err_over_limit"] for label, r in checked.items()}},
+          "routes": {label: r["route"] for label, r in {**shapes, **checked}.items()}, "card": card})
     slow = {label: r for label, r in ratios.items() if r > WO_GATE}
     if slow:
         fail(f"wo_matmul is slower than {WO_GATE}x cuBLAS's bf16 x @ W at {slow}")
+    slow = {label: mma_ratios[label] for label in ("fp32_gate_up", "ragged_bf16") if mma_ratios[label] > WO_MMA_GATE}
+    if slow:
+        fail(f"wo_matmul's mma.sync instance is slower than {WO_MMA_GATE}x its library product at {slow}")
     return shapes
 
 
@@ -3636,6 +3798,9 @@ def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
     bf, f16 = torch.bfloat16, torch.float16
     shapes = check_wo_matmul(dev, gen, card)
     records["wo_matmul"] = dict(source=INT8_SOURCES["wo_matmul"], shapes=shapes,
+                                sources={"wgmma (bf16 / fp16, K % 8 == 0, N % 16 == 0)":
+                                         "paddle_tpu_torch/kernels/csrc/wo_matmul.cu on csrc/wo_mainloop.cuh",
+                                         "mma_sync (fp32; ragged K or N)": INT8_SOURCES["wo_matmul"]},
                                 max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
                                 **{k: shapes["gate_up"][k] for k in ("ms", "plain_ms", "library_ms", "call_ms",
                                                                      "bound_ms", "bound_by")})
@@ -4203,7 +4368,7 @@ def serve_weight_only(dev, card: dict, dtype: str) -> dict:
     launch counters reset just before and read just after: every request
     finishes with 32 tokens, each step launches kernel A 2x, B 1x, C 4x and
     kernel 20 7x (three projections a layer and the head: fp16 on the wgmma
-    instance, fp32 on the CUDA-core one) and nothing else, the pool drains;
+    instance, fp32 on the mma.sync one) and nothing else, the pool drains;
     then one mixed step's logits through :func:`check_logits` (the int8
     plain path in ``dtype`` and a higher-precision run of it); then
     :func:`eval_loss` on the quantized model: kernel 17's int8 site twice
@@ -4612,7 +4777,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": records[k]["source"], "replaces": KERNELS[k],
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],
          "plain_ms": records[k]["plain_ms"], "bound_ms": records[k]["bound_ms"],
-         "bound_by": records[k]["bound_by"], "library_ms": records[k]["library_ms"]}
+         "bound_by": records[k]["bound_by"], "library_ms": records[k]["library_ms"],
+         "sources": records[k].get("sources", {"all": records[k]["source"]})}
         for k in KERNELS
     ]})
     print(smi, flush=True)

@@ -1,15 +1,16 @@
 // The CUDA-core instances of the flash-attention kernels 14 (forward), 15
 // (dq) and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu
 // and flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
-// kernels), computed with fp32 FMAs on the CUDA cores, for fp32 q, k, v, g
-// at head dims 64 to 512: no TF32, whose 10-bit significand could not meet
-// an fp32 gate. bf16 and fp16 run on the tensor cores at every head dim
-// (flash_fwd.cu and friends to 256, flash_fwd_wide.cu and flash_bwd_wide.cu
-// above); fp32 above 512 runs flash_deep.cu.
+// kernels), computed with fp32 FMAs on the CUDA cores, for fp32 q, k, v, g:
+// dq and dk/dv at head dims 64 to 512, the forward at 320 to 512 (up to 256
+// the fp32 forward runs flash_fwd_tf32.cu, on the tensor cores in three
+// TF32 passes of split operands). bf16 and fp16 run on the tensor cores at
+// every head dim (flash_fwd.cu and friends to 256, flash_fwd_wide.cu and
+// flash_bwd_wide.cu above); fp32 above 512 runs flash_deep.cu.
 //
-// Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
-// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs up to head dim
-// 512.
+// Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` for fp32 inputs up to head dim 512, and `_fwd_kernel`
+// for fp32 inputs at head dims 320 to 512.
 //
 // Design (simple first). The same tile walks and FlashMask tile classes as
 // the bf16/fp16 kernels (flash_common.cuh `warp_tile_class`, computed by
@@ -365,7 +366,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance of head dim D (64 to 512), as LAUNCH(D)
+// the instance of head dim D (64 to 512; the forward's from 320), as LAUNCH(D)
+#define PTT_FLASH_SIMT_WIDE_DIMS(LAUNCH)                                       \
+  switch (D) {                                                                 \
+    case 320: return LAUNCH(320);                                              \
+    case 384: return LAUNCH(384);                                              \
+    case 448: return LAUNCH(448);                                              \
+    case 512: return LAUNCH(512);                                              \
+    default: break;                                                            \
+  }                                                                            \
+  return static_cast<int>(cudaErrorInvalidValue)
 #define PTT_FLASH_SIMT_DIMS(LAUNCH)                                            \
   switch (D) {                                                                 \
     case 64: return LAUNCH(64);                                                \
@@ -385,7 +395,7 @@ int fwd(const void* q, const void* k, const void* v, const void* bounds, void* o
 #define PTT_FWD(DIM) \
   launch_fwd<float, DIM>(q, k, v, bounds, out, lse, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
                          static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS(PTT_FWD);
+  PTT_FLASH_SIMT_WIDE_DIMS(PTT_FWD);
 #undef PTT_FWD
 }
 
@@ -413,8 +423,9 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 
 // The entries take the bf16/fp16 wgmma entries' arguments (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu) with every q/k/v/g/out tensor fp32, at
-// head dims 64 to 512. The blocks here take fixed tiles, so the scheduler
-// counter goes unused. Another head dim returns cudaErrorInvalidValue.
+// head dims 64 to 512 (the forward 320 to 512). The blocks here take fixed
+// tiles, so the scheduler counter goes unused. Another head dim returns
+// cudaErrorInvalidValue.
 extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,
                                   void* lse, void* /*sched: unused*/, int B, int Sq, int Sk, int H, int HK, int D,
                                   int Hm, int C, int causal, float scale, void* stream) {

@@ -1,5 +1,6 @@
-// The fp32 GEMM mainloop on the CUDA cores that flxent_fp32.cu (the loss
-// head's fp32 products) and wo_matmul.cu's CUDA-core instance share: one
+// The fp32 GEMM mainloop on the CUDA cores of flxent_fp32.cu (the loss
+// head's fp32 products; kernel 20's fp32 products run wo_matmul.cu's
+// mma.sync instance since it replaced its CUDA-core one): one
 // 128 x 128 output tile of C = A B per block of 256 threads, 8 x 8 fp32 FMAs
 // a thread from register-double-buffered k tiles of 16 in shared memory.
 // Each k tile's 16 products are summed apart and then added to the running

@@ -31,9 +31,12 @@ tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
 bf16 and fp16 the forward ``csrc/flash_fwd_wide.cu`` and dq and dk/dv
 ``csrc/flash_bwd_wide.cu`` (tensor cores, the outputs' columns over
 warpgroups and CTAs: :func:`flash_fwd_wide_plan`,
-:func:`flash_bwd_wide_plan`); in fp32 every kernel ``csrc/flash_fp32.cu``
-up to 512 and ``csrc/flash_deep.cu`` above (CUDA cores, its head dim a
-runtime value) — or raises; it never falls back. On the card
+:func:`flash_bwd_wide_plan`); in fp32 the forward up to head dim 256
+``csrc/flash_fwd_tf32.cu`` (tensor cores, each product in three TF32
+passes of split operands: :func:`flash_fwd_fp32_plan`), dq and dk/dv up to
+512 and the forward at 320 to 512 ``csrc/flash_fp32.cu``, every kernel
+above 512 ``csrc/flash_deep.cu`` (CUDA cores, its head dim a runtime
+value) — or raises; it never falls back. On the card
 the kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
 head dim that is a multiple of 64, as the JAX package's gate sends them.
 
@@ -65,6 +68,7 @@ __all__ = [
     "flash_bwd_dq_plain",
     "flash_bwd_wide_plan",
     "flash_fwd",
+    "flash_fwd_fp32_plan",
     "flash_fwd_plain",
     "flash_fwd_wide_plan",
     "flash_masked",
@@ -90,6 +94,10 @@ _WIDE_FIXED = _WIDE_STG_INTS * 4 + (2 + 2 * _WIDE_MAX_STAGES) * 8 + 16 + 1024
 # carries the rows' lse / delta, and dk/dv hands an fp32 64 x 64 P^T tile between its warpgroups
 _BWD_SLOT_SIDE = 64 * 8 + 2 * 64 * 4 + 8
 _BWD_XBYTES = 64 * 64 * 4
+TF32_HEAD_DIM_MAX = 256  # fp32 forward: csrc/flash_fwd_tf32.cu to here, csrc/flash_fp32.cu's CUDA cores above
+# csrc/flash_fwd_tf32.cu's shared-memory rule (tf32_smem / tf32_keys there)
+_TF32_ROWS = 64
+_SMEM_PER_SM, _SMEM_RESERVED = 228 * 1024, 1024
 _MASK_C = (1, 2, 4)
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
@@ -98,11 +106,36 @@ SKIP, PARTIAL, FULL = 0, 1, 2
 
 
 def _simt(dtype: torch.dtype) -> bool:
-    """Whether the flash kernels in ``dtype`` run on the CUDA-core
-    instances (``csrc/flash_fp32.cu``, ``csrc/flash_deep.cu``): fp32, at
-    every head dim; bf16 and fp16 run on the tensor cores at every head
-    dim."""
+    """Whether the flash kernels in ``dtype`` run on the fp32 instances
+    (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_fp32.cu``,
+    ``csrc/flash_deep.cu``): fp32, at every head dim; bf16 and fp16 run on
+    the wgmma kernels at every head dim."""
     return dtype == torch.float32
+
+
+def _tf32_smem(d: int, keys: int) -> int:
+    return 4 * (_TF32_ROWS * (d + 8) + 2 * keys * (d + 8) + 2 * keys * (d + 4))
+
+
+def flash_fwd_fp32_plan(d: int) -> dict:
+    """Which walk the fp32 forward takes at head dim ``d`` (64 to 512), a
+    mirror of ``ptt_flash_fwd_fp32_plan`` in ``csrc/flash_fwd_tf32.cu``
+    (``chip_smoke.py`` holds the two equal on the card). Up to 256
+    ``"tf32x3"`` (``csrc/flash_fwd_tf32.cu``) with its geometry: a CTA of 4
+    warps owns 64 query rows, K / V tiles of 64 keys where two CTAs fit an
+    SM's 228 KB, else 32, two buffers of each, q, K and V in fp32 shared
+    memory with rows padded by 8, 8 and 4 floats (``smem`` bytes). From 320
+    to 512 ``"cuda_cores"`` alone (``csrc/flash_fp32.cu``'s forward, whose
+    geometry is its own): the 3xTF32 walk would hold D / 2 fp32
+    accumulators a thread and 64 rows of q beside two K / V buffers, past
+    the 255 registers and the 227 KB a CTA has. Above 512 the forward runs
+    ``csrc/flash_deep.cu``, which this plan does not cover."""
+    if d <= 0 or d % 64 or d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"the fp32 forward plan covers the multiples of 64 up to {KERNEL_HEAD_DIMS[-1]}, not {d}")
+    if d <= TF32_HEAD_DIM_MAX:
+        keys = 64 if 2 * (_tf32_smem(d, 64) + _SMEM_RESERVED) <= _SMEM_PER_SM else 32
+        return {"walk": "tf32x3", "rows": _TF32_ROWS, "keys": keys, "stages": 2, "smem": _tf32_smem(d, keys)}
+    return {"walk": "cuda_cores"}
 
 
 def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
@@ -112,11 +145,16 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
     x 64, dk/dv 64 query rows x 64 keys; bf16/fp16 above 256 (the wide
     kernels, ``csrc/flash_fwd_wide.cu`` and ``csrc/flash_bwd_wide.cu``) 64
-    x 64 for all three; the CUDA-core instances (fp32): forward and dq 16 x
-    32, dk/dv 32 query rows x 16 keys."""
+    x 64 for all three; fp32: the forward up to 256 (``csrc/flash_fwd_tf32.cu``)
+    64 x :func:`flash_fwd_fp32_plan`'s keys (64 at D 64, else 32), the
+    CUDA-core instances forward and dq 16 x 32, dk/dv 32 query rows x 16
+    keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
     if _simt(dtype):
+        if kernel == "flash_fwd" and d <= TF32_HEAD_DIM_MAX:
+            plan = flash_fwd_fp32_plan(d)
+            return (plan["rows"], plan["keys"])
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
     if d > WGMMA_HEAD_DIM_MAX:
         return (64, 64)
@@ -419,13 +457,14 @@ def _entry_suffix(what: str, dtype: torch.dtype, d: int) -> str:
     ``dtype``: ``bf16`` / ``fp16`` for the wgmma kernels up to D 256; above
     it ``wgmma_wide_bf16`` / ``wgmma_wide_fp16`` for all three (the forward
     ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``);
-    ``fp32`` to 512 and ``deep_fp32`` above (the CUDA-core instances)."""
+    in fp32 ``tf32x3`` for the forward up to 256 (``csrc/flash_fwd_tf32.cu``),
+    else ``fp32`` to 512 and ``deep_fp32`` above (the CUDA-core instances)."""
     suffix = _KERNEL_DTYPES[dtype]
-    if d <= WGMMA_HEAD_DIM_MAX:
-        return suffix
-    if suffix != "fp32":
-        return f"wgmma_wide_{suffix}"
-    return "deep_fp32" if d > KERNEL_HEAD_DIMS[-1] else "fp32"
+    if suffix == "fp32":
+        if what == "flash_fwd" and d <= TF32_HEAD_DIM_MAX:
+            return "tf32x3"
+        return "deep_fp32" if d > KERNEL_HEAD_DIMS[-1] else "fp32"
+    return suffix if d <= WGMMA_HEAD_DIM_MAX else f"wgmma_wide_{suffix}"
 
 
 def _cuda_inputs(what: str, tensors, bounds, d: int):
@@ -470,8 +509,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _sched(suffix: str, dev: torch.device) -> Optional[torch.Tensor]:
     """The item scheduler's counter of the persistent bf16/fp16 kernels 14,
     15 and 16 (their wide instances too; one int32, zero before each
-    launch); the CUDA-core instances take none."""
-    if suffix.endswith("fp32"):
+    launch); the fp32 instances take none."""
+    if suffix.endswith("fp32") or suffix == "tf32x3":
         return None
     return torch.zeros(1, dtype=torch.int32, device=dev)
 

@@ -13,7 +13,8 @@ tensors and launches ``csrc/wo_matmul.cu`` (kernel 20, ``_wo_matmul_kernel``)
 for CUDA tensors: bf16, fp16 or fp32 activations, any K and N. Which of the
 kernel's two instances runs is fixed by the dtype and the shape before the
 launch (:func:`wo_route`): the wgmma instance for bf16 and fp16 with
-``K % 8 == 0`` and ``N % 16 == 0``, the CUDA-core instance otherwise.
+``K % 8 == 0`` and ``N % 16 == 0``, the mma.sync instance otherwise (fp32
+activations in two TF32 passes of split x, any shape and row alignment).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ WEIGHT_ONLY_LEAVES = ("gate_proj", "up_proj", "down_proj", "fc1", "fc2", "lm_hea
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # ptt::IoType
-_ROUTES = {"wgmma": 0, "cuda_cores": 1}  # ptt_wo_matmul's route argument
+_ROUTES = {"wgmma": 0, "mma_sync": 1}  # ptt_wo_matmul's route argument
 
 
 def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -119,13 +120,15 @@ def wo_route(dtype: torch.dtype, m: int, k: int, n: int) -> str:
     activations of ``dtype``: ``"wgmma"`` (tensor cores, the int8 weight
     widened in registers) for bf16 and fp16 when the TMA maps can address
     the operands (x's rows ``2 k`` bytes and W's ``n`` bytes, multiples of 16:
-    ``k % 8 == 0`` and ``n % 16 == 0``; ``k > 0``), else ``"cuda_cores"``
-    (fp32 FMAs; any shape, fp32 activations too). ``m`` does not change the
-    route, only the wgmma instance's tiles (:func:`wo_plan`)."""
+    ``k % 8 == 0`` and ``n % 16 == 0``; ``k > 0``), else ``"mma_sync"``
+    (tensor cores through registers, any shape and row alignment: bf16 /
+    fp16 on m16n8k16 with the weight widened to x's type, fp32 on TF32
+    m16n8k8 in two passes of x split into hi + lo). ``m`` does not change
+    the route, only the instances' tiles (:func:`wo_plan` for wgmma)."""
     del m
     if dtype in (torch.bfloat16, torch.float16) and k > 0 and k % 8 == 0 and n % 16 == 0:
         return "wgmma"
-    return "cuda_cores"
+    return "mma_sync"
 
 
 _COST_256, _COST_128 = 8, 5  # a 128-row tile takes ~0.63 of a 256-row one on the card

@@ -84,7 +84,9 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False  # True is not ported yet
-    use_flash_attention: bool = True  # False is not ported: attention is always the flash kernels
+    # kept for the reference's configs, which declare it and read it nowhere: attention is the flash
+    # kernels whatever its value, as FLAGS_use_pallas_attention alone chooses it there
+    use_flash_attention: bool = True
     recompute: bool = False  # per-decoder-layer activation checkpointing (train mode)
     dtype: str = "bfloat16"
 
@@ -400,8 +402,6 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         super().__init__()
         if config.tie_word_embeddings:
             raise NotImplementedError("tie_word_embeddings is not ported yet")
-        if not config.use_flash_attention:
-            raise NotImplementedError("attention other than the flash-attention kernels is not ported")
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, config.dtype)
         self.config = config

@@ -54,20 +54,24 @@ def test_entry_suffix_routes_the_wide_forward():
     """Above 256 the bf16 / fp16 forward takes the tensor-core entry at
     every head dim, and so do dq and dk/dv (``csrc/flash_bwd_wide.cu``, the
     same suffix); fp32 keeps the CUDA-core instances (to 512) and the
-    runtime-D ones (above); D <= 256 is unchanged."""
+    runtime-D ones (above), except the forward up to 256, which takes the
+    3xTF32 tensor-core entry (``csrc/flash_fwd_tf32.cu``); bf16 / fp16 at
+    D <= 256 are unchanged."""
     for d in range(64, 1025, 64):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"), (torch.float32, "fp32")):
             fwd, dq, dkv = (kfa._entry_suffix(k, dtype, d) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
             assert dq == dkv
-            if d <= 256:
+            if d <= 256 and dtype == torch.float32:
+                assert (fwd, dq) == ("tf32x3", "fp32")
+            elif d <= 256:
                 assert fwd == dq == name
             elif dtype == torch.float32:
                 assert fwd == dq == ("fp32" if d <= 512 else "deep_fp32")
             else:
                 assert fwd == dq == f"wgmma_wide_{name}"
-            # the persistent kernels take the scheduler's counter, the CUDA-core instances none
+            # the persistent kernels take the scheduler's counter, the fp32 instances none
             for suffix in (fwd, dq):
-                assert (kfa._sched(suffix, torch.device("cpu")) is None) == suffix.endswith("fp32")
+                assert (kfa._sched(suffix, torch.device("cpu")) is None) == (dtype == torch.float32)
 
 
 def test_wide_forward_tile_shape():

@@ -7,7 +7,7 @@
   the JAX XLA composition and the Pallas kernel in interpret mode: fp32 at
   1e-5 relative, bf16 and fp16 within one ulp of the type at the output's
   largest magnitude; also at the shapes and dtype the card takes on its
-  CUDA-core instance (fp32, K % 8 and N % 16 non-zero, a vocab of 32003).
+  mma.sync instance (fp32, K % 8 and N % 16 non-zero, a vocab of 32003).
 - Kernel 20's wgmma instance, which the CPU cannot run: ``emulate_wo`` (its
   tiles, k steps, fp32 partials, one scale multiply and one rounding)
   against the interpret kernel and the plain version at M 1, 8, 77 and 512
@@ -266,7 +266,7 @@ def test_int8_weight_matmul_plain_matches_jax(shape, dtype):
 @pytest.mark.parametrize("dtype,shape", [("float32", (3, 5, 36, 50)), ("bfloat16", (77, 4100, 32003))],
                          ids=["fp32-ragged-k-n", "bf16-vocab-32003"])
 def test_int8_weight_matmul_fp32_and_ragged_match_jax_composition(dtype, shape):
-    """The shapes and the dtype the card takes on its CUDA-core instance
+    """The shapes and the dtype the card takes on its mma.sync instance
     (K % 8 and N % 16 non-zero; fp32 activations) against JAX's XLA
     composition, which takes any of them."""
     rng = np.random.default_rng(5)
@@ -276,7 +276,7 @@ def test_int8_weight_matmul_fp32_and_ragged_match_jax_composition(dtype, shape):
     w8 = rng.integers(-127, 128, size=(k, n), dtype=np.int8)  # the quantizer's range
     scale = rng.uniform(1e-4, 1e-3, size=n).astype(np.float32)
     tx, jx = _pair(x, dtype)
-    assert kquant.wo_route(tx.dtype, m, k, n) == "cuda_cores"
+    assert kquant.wo_route(tx.dtype, m, k, n) == "mma_sync"
     got = kquant.int8_weight_matmul(tx, torch.from_numpy(w8), torch.from_numpy(scale))
     assert got.dtype == tx.dtype and got.shape == (*lead, n)
     _close(got, jax_quant.int8_weight_matmul(jx, jnp.asarray(w8), jnp.asarray(scale)), dtype)
@@ -429,16 +429,16 @@ def test_wo_main_path_shapes_take_wgmma_in_bf16_and_fp16(proj, m):
     k, n = MAIN_PATH_WO[proj]
     assert kquant.wo_route(torch.bfloat16, m, k, n) == "wgmma"
     assert kquant.wo_route(torch.float16, m, k, n) == "wgmma"
-    assert kquant.wo_route(torch.float32, m, k, n) == "cuda_cores"
+    assert kquant.wo_route(torch.float32, m, k, n) == "mma_sync"
 
 
 @pytest.mark.parametrize("dtype,k,n,route", [
     (torch.bfloat16, 4104, 4096, "wgmma"),        # K % 8 == 0 is enough for x's rows
-    (torch.bfloat16, 4100, 4096, "cuda_cores"),   # K % 8 != 0
-    (torch.float16, 4096, 32008, "cuda_cores"),   # N % 16 != 0
-    (torch.bfloat16, 4100, 32003, "cuda_cores"),  # both: a Llama vocab of 32003
-    (torch.float32, 4096, 4096, "cuda_cores"),
-    (torch.bfloat16, 0, 16, "cuda_cores"),        # an empty contraction
+    (torch.bfloat16, 4100, 4096, "mma_sync"),   # K % 8 != 0
+    (torch.float16, 4096, 32008, "mma_sync"),   # N % 16 != 0
+    (torch.bfloat16, 4100, 32003, "mma_sync"),  # both: a Llama vocab of 32003
+    (torch.float32, 4096, 4096, "mma_sync"),
+    (torch.bfloat16, 0, 16, "mma_sync"),        # an empty contraction
 ], ids=["k-mult-8", "k-ragged", "n-ragged", "vocab-32003", "fp32", "k-0"])
 def test_wo_route_by_dtype_and_alignment(dtype, k, n, route):
     assert kquant.wo_route(dtype, 77, k, n) == route

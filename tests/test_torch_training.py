@@ -143,6 +143,26 @@ def test_train_step_loss_logits_and_grads_match_jax(jax_model, jax_unfused_loss,
     assert all(torch.equal(grads[False][n], grads[True][n]) for n in grads[False])
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "doc-mask"])
+def test_use_flash_attention_false_converts_and_matches_jax(jax_model, jax_unfused_loss, masked):
+    """The reference declares ``use_flash_attention`` and reads it nowhere, so
+    a JAX model built with it False attends as with True; the port accepts
+    the field and takes the same flash path."""
+    jcfg = dataclasses.replace(jax_model.config, use_flash_attention=False)
+    jmodel = JaxLlama(jcfg)
+    jmodel.set_state_dict(jax_model.state_dict())
+    jmodel.train()
+    ids, labels, bounds = _batch(6)
+    bounds = bounds if masked else None
+    jloss, jlogits, _ = _jax_step(jmodel, ids, labels, bounds)
+    cfg = _port_config(jcfg, use_flash_attention=jcfg.use_flash_attention)
+    assert cfg.use_flash_attention is False
+    model = from_paddle_tpu_state(_state(jmodel), cfg, device="cpu")
+    loss, logits, _ = _port_step(model, ids, labels, bounds)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits._data), rtol=1e-4, atol=1e-4)
+
+
 def test_rope_matches_jax_and_eval_mode_gives_the_train_mode_loss(jax_model):
     rng = np.random.default_rng(8)
     q = rng.normal(size=(2, 6, 4, 16)).astype(np.float32)
@@ -223,10 +243,8 @@ def test_adamw_multi_precision_matches_jax_on_bf16_params(jax_model):
 
 
 def test_train_entry_points_refuse_what_the_port_lacks(jax_model):
-    for field in ("tie_word_embeddings", "use_flash_attention"):
-        cfg = dataclasses.replace(LlamaConfig.tiny(), **{field: not getattr(LlamaConfig.tiny(), field)})
-        with pytest.raises(NotImplementedError):
-            LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(), tie_word_embeddings=True), device="cpu")
     model = from_paddle_tpu_state(_state(jax_model), _port_config(jax_model.config), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     # the dense prefill (use_cache without a past) is ported; static-cache decode is not
