@@ -33,6 +33,10 @@ name and power limit):
    mirror) also unmasked causal beside SDPA's ``is_causal``, at head dims 64,
    192 and 256 and at the ragged S, gated at most 1.0x SDPA's fp32 forward
    under the C=2 causal band, each case's error printed beside its limit,
+   fp32 dq and dk/dv likewise (``csrc/flash_bwd_tf32.cu``, the same split,
+   its plan held to its mirror: gated together at most 1.0x SDPA's fp32
+   backward under the C=2 band, timed beside it causal and at D 256, two
+   runs bitwise equal causal and under a document mask),
    and at head dims 320, 384, 448 and 512 and
    576 and 1024 (bf16 / fp16 on the tensor cores: the forward
    ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``,
@@ -153,7 +157,13 @@ name and power limit):
    ``dtype="float16"`` trains one step (the same gates, flash 4/2/2) and a
    fresh one runs ``generate_paged`` on 2 x 512 prompts, 8 new tokens
    (launches, and the dense prefill's logits through kernel 14 in fp16
-   against the fp16 plain path's distance from fp32); then 2-layer fp16 and
+   against the fp16 plain path's distance from fp32); then train_fp32 — a
+   2-layer Llama-2-7B-width model with ``dtype="float32"`` trains 3 steps
+   (the same gates, flash 4/2/2 a step on the fp32 tensor-core kernels,
+   step 1's loss and every gradient held to the plain fp32 path's, which
+   the plain path in one TF32 pass must miss) and a profile of one more
+   step (each flash kernel's in-step ms per launch);
+   then 2-layer fp16 and
    fp32 models served through the engine with ``weight_only_int8=True``
    (kernel 20 7x a step on its wgmma and mma.sync instances; logits
    against the plain path's distance from an fp32 / fp64 reference) and
@@ -261,7 +271,30 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def cuda_events(prof):
     import torch
 
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels and copies: not the device-side mirror of the schedule's ProfilerStep annotation (a user annotation)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
+def traced(run) -> tuple:
+    """``torch.profiler`` (CPU and CUDA activities) over ``run()`` alone:
+    ``(prof, wall_us)``. The profiler first traces a warm-up stage, a short
+    device spin and a sync, and discards it; only then does ``run()``
+    start under the recording stage."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    return prof, wall_us
 
 
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
@@ -1287,7 +1320,9 @@ def flat_s(t):
 # -- kernels 14-16: flash attention forward, dq, dk/dv ------------------------------
 
 FLASH_TF32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_fwd_tf32.cu"  # the fp32 forward up to head dim 256
+FLASH_BWD_TF32_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_bwd_tf32.cu"  # fp32 dq and dk/dv up to head dim 256
 FLASH_FP32_GATE = 1.0  # the fp32 forward at most this times SDPA's fp32 forward, GQA 32/8 [2, 1024] C=2 causal
+FLASH_FP32_BWD_GATE = 1.0  # fp32 dq + dk/dv at most this times SDPA's fp32 backward, the same case
 
 FLASH_SOURCES = {
     "flash_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -1367,10 +1402,11 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
     over batch and query heads, the flops of each kernel (2 D flops per
     pair and product: forward 2 products, dq 3, dk/dv 4) at the peak of the
     inputs' type (fp32: the CUDA cores' 67 TFLOP/s) and the bytes each must
-    move (inputs read once, outputs written once). The fp32 forward up to
-    head dim 256 (``csrc/flash_fwd_tf32.cu``) runs each product in three
-    TF32 passes: its bound is those passes at the TF32 tensor peak, with the
-    67 TFLOP/s one-pass bound beside it (``bound_ms_cuda_cores``)."""
+    move (inputs read once, outputs written once). The fp32 kernels up to
+    head dim 256 (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``)
+    run each product in three TF32 passes: their bound is those passes at
+    the TF32 tensor peak, with the 67 TFLOP/s one-pass bound beside it
+    (``bound_ms_cuda_cores``)."""
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_fwd_fp32_plan, flash_masked
 
@@ -1386,18 +1422,18 @@ def flash_cost(q, k, bounds, causal: bool) -> dict:
     stats = b * h * sq * 4  # one fp32 lse or delta
     mb = 0 if bounds is None else bounds.numel() * 4
     rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
-    fwd_bytes = 2 * qb + 2 * kb + stats + mb
-    fwd = bound(fwd_bytes, 4 * d * pairs, rate)
-    if q.dtype == torch.float32 and d <= 512 and flash_fwd_fp32_plan(d)["walk"] == "tf32x3":
-        fwd = {**bound(fwd_bytes, 3 * 4 * d * pairs, TF32_FLOP_PER_S), "bound_ms_cuda_cores": fwd["bound_ms"],
-               "bound_reckoned": "3 TF32 passes of 4 D flops a visible pair at 494.7 TFLOP/s (cuda_cores: 1 pass "
-                                 "at 67 TFLOP/s)"}
-    return {
-        "pairs": pairs,
-        "flash_fwd": fwd,
-        "flash_bwd_dq": bound(3 * qb + 2 * kb + 2 * stats + mb, 6 * d * pairs, rate),
-        "flash_bwd_dkv": bound(2 * qb + 4 * kb + 2 * stats + mb, 8 * d * pairs, rate),
-    }
+    tf32 = q.dtype == torch.float32 and d <= 512 and flash_fwd_fp32_plan(d)["walk"] == "tf32x3"
+    out = {"pairs": pairs}
+    # kernel: (bytes, products of 2 D flops a visible pair)
+    for name, nbytes, products in (("flash_fwd", 2 * qb + 2 * kb + stats + mb, 2),
+                                   ("flash_bwd_dq", 3 * qb + 2 * kb + 2 * stats + mb, 3),
+                                   ("flash_bwd_dkv", 2 * qb + 4 * kb + 2 * stats + mb, 4)):
+        one = bound(nbytes, 2 * products * d * pairs, rate)
+        out[name] = one if not tf32 else {
+            **bound(nbytes, 3 * 2 * products * d * pairs, TF32_FLOP_PER_S), "bound_ms_cuda_cores": one["bound_ms"],
+            "bound_reckoned": f"3 TF32 passes of {2 * products} D flops a visible pair at 494.7 TFLOP/s "
+                              "(cuda_cores: 1 pass at 67 TFLOP/s)"}
+    return out
 
 
 def flash_tiles(bounds, sq: int, sk: int, causal: bool, d: int, dtype) -> dict:
@@ -1494,7 +1530,8 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
                            "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"])},
            "gate_reading": {"out_worst_err_over_limit": out_check["worst_err_over_limit"],
                             "lse_rel_err": err["lse"], "lse_limit": lse_rel,
-                            "grads_rel_l2": {n: err[n] for n in ("dq", "dk", "dv")}, "grads_limit": grad_rel}}
+                            "grads_rel_l2": {n: err[n] for n in ("dq", "dk", "dv")}, "grads_limit": grad_rel},
+           "bwd_args": (q, k, v, bounds, g, lse, delta, causal)}
     if timed:
         cost = flash_cost(q, k, bounds, causal)
         tiles = flash_tiles(bounds, s, s, causal, d, dtype)
@@ -1513,8 +1550,7 @@ def flash_case(dev, gen, b, s, h, hk, causal, bounds, label: str, card: dict, ti
                                plain_ms=device_ms(run_plain, iters=2, warmup=1), **cost[name],
                                share_of_bound=cost[name]["bound_ms"] / ms, tiles=tiles.get(name))
             torch.cuda.empty_cache()
-        res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g),
-                   bwd_args=(q, k, v, bounds, g, lse, delta, causal))
+        res.update(times=times, pairs=cost["pairs"], tensors=(q, k, v, g))
         line["times"] = times
         line["visible_pairs"] = cost["pairs"]
     emit({**line, "card": card})
@@ -1614,13 +1650,17 @@ def check_fp32_plan(card: dict) -> None:
     """The fp32 forward's plan (``ptt_flash_fwd_fp32_plan`` in
     ``csrc/flash_fwd_tf32.cu``: the walk, and for the 3xTF32 walk its rows,
     keys, buffers and shared-memory bytes) equals its Python mirror
-    ``flash_fwd_fp32_plan`` at every multiple of 64 from 64 to 512: the
-    3xTF32 walk to 256, the CUDA cores (the walk alone) above."""
+    ``flash_fwd_fp32_plan``, and the fp32 dq's and dk/dv's
+    (``ptt_flash_bwd_fp32_plan`` in ``csrc/flash_bwd_tf32.cu``: the same
+    and the CTA's warps) theirs, ``flash_bwd_fp32_plan``, at every multiple
+    of 64 from 64 to 512: the 3xTF32 walks to 256, the CUDA cores (the walk
+    alone) above."""
     import ctypes
     from paddle_tpu_torch.kernels import build
-    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_fp32_plan
+    from paddle_tpu_torch.kernels.flash_attention import flash_bwd_fp32_plan, flash_fwd_fp32_plan
 
     fn = build.kernel_fn("ptt_flash_fwd_fp32_plan", [ctypes.c_int, ctypes.c_void_p])
+    bwd = build.kernel_fn("ptt_flash_bwd_fp32_plan", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     wrong, plans = {}, {}
     for d in range(64, 513, 64):
         buf = (ctypes.c_int * 5)()
@@ -1628,13 +1668,22 @@ def check_fp32_plan(card: dict) -> None:
         py = flash_fwd_fp32_plan(d)
         want = ([0, py["rows"], py["keys"], py["stages"], py["smem"]] if py["walk"] == "tf32x3"
                 else [1, 0, 0, 0, 0])
-        plans[d] = py
+        plans[f"flash_fwd {d}"] = py
         if list(buf) != want:
-            wrong[d] = {"kernel": list(buf), "python": want}
+            wrong[f"flash_fwd {d}"] = {"kernel": list(buf), "python": want}
+        for i, kernel in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
+            buf = (ctypes.c_int * 6)()
+            build.check(bwd(d, i, buf), "ptt_flash_bwd_fp32_plan")
+            py = flash_bwd_fp32_plan(d, kernel)
+            want = ([0, py["rows"], py["keys"], py["stages"], py["smem"], py["warps"]] if py["walk"] == "tf32x3"
+                    else [1, 0, 0, 0, 0, 0])
+            plans[f"{kernel} {d}"] = py
+            if list(buf) != want:
+                wrong[f"{kernel} {d}"] = {"kernel": list(buf), "python": want}
     emit({"phase": "flash_fp32_plan_check", "d": [64, 512], "ok": not wrong, "wrong": wrong, "plans": plans,
           "card": card})
     if wrong:
-        fail(f"the fp32 flash forward's plan disagrees with the kernel's: {wrong}")
+        fail(f"the fp32 flash plans disagree with the kernels': {wrong}")
 
 
 def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
@@ -1770,15 +1819,17 @@ def flash_cold_ms(dev, gen, b: int, s: int, h: int, causal: bool) -> dict:
             "flash_bwd_dkv": device_ms(lambda: kfa.flash_bwd_dkv(q, k, v, None, g, lse, delta, causal), iters=10)}
 
 
-def dkv_deterministic(args) -> bool:
+def dkv_deterministic(args, dq: bool = False) -> bool:
     """Kernel 16 twice on the same inputs: dk and dv bitwise equal (no
-    atomics, a fixed order per work item whatever CTA takes it)."""
+    atomics, a fixed order per work item whatever CTA takes it); with
+    ``dq`` kernel 15's dq too."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as kfa
 
     dk0, dv0 = kfa.flash_bwd_dkv(*args)
     dk1, dv1 = kfa.flash_bwd_dkv(*args)
-    return bool(torch.equal(dk0, dk1)) and bool(torch.equal(dv0, dv1))
+    same = bool(torch.equal(dk0, dk1)) and bool(torch.equal(dv0, dv1))
+    return same and (not dq or bool(torch.equal(kfa.flash_bwd_dq(*args), kfa.flash_bwd_dq(*args))))
 
 
 def check_flash(dev, gen, card: dict, records: dict) -> dict:
@@ -1790,14 +1841,18 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
     mask, at S 4096 with C=2 and C=4 (HQ 8 / HKV 2), in fp16 and fp32 at the
     GQA geometry (C=2 causal timed, with SDPA given the dense band mask;
     C=4 non-causal), fp32 also unmasked causal (timed), at head dims 64,
-    192 and 256 (256 timed), at the ragged S, at the eval loss's MHA
-    ``[2, 2048]`` and at S 4096 causal, and at head dims 64, 192 and 256 in
+    192 and 256 (256 timed), at the ragged S, at the fp32 train step's own
+    shape and document mask (timed), at the eval loss's MHA ``[2, 2048]``
+    and at S 4096 causal, and at head dims 64, 192 and 256 in
     bf16 (256 timed, with SDPA). Kernel 16's gates: at most SDPA's whole backward causal at the
     train shape, at most half its own causal time under the document mask,
-    and two runs bitwise equal (causal and document mask). Returns each
-    kernel's cold-L2 ms per call under the Llama step's mask (the document
-    mask) and at the GPT step's causal ``[4, 2048, 40, 128]``, for the
-    train profiles' in-step readings."""
+    and two runs bitwise equal (causal and document mask). The fp32 gates
+    (C=2 causal): the forward at most SDPA's fp32 forward, dq + dk/dv at
+    most its fp32 backward, and dq and dk/dv bitwise over two runs (S 4096
+    causal, the ragged and the train shape's document masks). Returns each
+    kernel's cold-L2 ms per call under the Llama steps' mask (the document
+    mask; bf16 and fp32) and at the GPT step's causal ``[4, 2048, 40, 128]``,
+    for the train profiles' in-step readings."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels.flash_attention import flash_masked
@@ -1835,8 +1890,9 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
                 extra_lib[str(dtype)[6:]] = sdpa_ms(*res["tensors"], mask=flash_masked(1024, 1024, True, bnd, dev))
     fp32_sdpa = {"C=2 causal": extra_lib["float32"]}
     fp32_backend = {"C=2 causal": "dense band mask as attn_mask"}
-    # the fp32 forward (csrc/flash_fwd_tf32.cu to D 256): unmasked causal at the same shape beside SDPA's
-    # is_causal, every head dim of its walk, a ragged S under a document mask, the eval shape and S 4096
+    # the fp32 kernels (csrc/flash_fwd_tf32.cu, csrc/flash_bwd_tf32.cu to D 256): unmasked causal at the same shape
+    # beside SDPA's is_causal, every head dim of their walks, a ragged S under a document mask, the eval shape and
+    # S 4096
     res = flash_case(dev, gen, 2, 1024, 32, 8, True, None, "gqa 32/8, causal, float32", card, timed=True,
                      dtype=torch.float32)
     fp32_readings["causal"] = res["gate_reading"]
@@ -1858,27 +1914,51 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
     res = flash_case(dev, gen, 2, 1000, 32, 8, True, ragged, "gqa 32/8, ragged S 1000, document mask, float32", card,
                      dtype=torch.float32)
     fp32_readings["ragged S 1000, document mask"] = res["gate_reading"]
+    # dq and dk/dv (csrc/flash_bwd_tf32.cu) twice on the same inputs: the same bits, causal and document mask
+    fp32_det = {"document mask": dkv_deterministic(res["bwd_args"], dq=True)}
+    del res
+    # the fp32 train step's own attention (train_fp32): MHA 32/32 [2, 4096] under the same document mask, timed
+    # cold for that phase's in-step readings
+    res = flash_case(dev, gen, 2, 4096, 32, 32, True, doc, "train shape, document mask, float32", card, timed=True,
+                     dtype=torch.float32)
+    fp32_readings["train shape, document mask"] = res["gate_reading"]
+    fp32_det["train shape, document mask"] = dkv_deterministic(res["bwd_args"], dq=True)
+    fp32_cold = {n: res["times"][n]["ms"] for n in FLASH_SOURCES}
+    del res
+    torch.cuda.empty_cache()
     # the shape the eval loss gives the forward (MHA 32/32, [2, 2048]) and a longer walk (S 4096): O sums over
     # every key tile of a row's walk, so the error is read at the lengths the main path reaches and beyond
     for b, s, label in ((2, 2048, "eval shape, causal"), (1, 4096, "mha 32/32, S 4096, causal")):
         res = flash_case(dev, gen, b, s, 32, 32, True, None, f"{label}, float32", card, dtype=torch.float32)
         fp32_readings[label] = res["gate_reading"]
-    fp32_ratio = {case: extra[key]["flash_fwd"]["ms"] / fp32_sdpa[case]["fwd"]
-                  for case, key in (("C=2 causal", "float32"), ("causal", "float32 causal"),
-                                    ("C=2 causal D 256", "float32 d256"))}
-    emit({"phase": "flash_fp32_tf32x3", "shape": [2, 1024, 32, 8, 128], "source": FLASH_TF32_SOURCE,
-          "arithmetic": "q k^T and P V in 3 TF32 passes of split operands (hi = tf32(x), lo = tf32(x - hi))",
+        if b == 1:
+            fp32_det["causal"] = dkv_deterministic(res["bwd_args"], dq=True)
+        del res
+    timed_cases = (("C=2 causal", "float32"), ("causal", "float32 causal"), ("C=2 causal D 256", "float32 d256"))
+    fp32_ratio = {case: extra[key]["flash_fwd"]["ms"] / fp32_sdpa[case]["fwd"] for case, key in timed_cases}
+    fp32_bwd_ratio = {case: (extra[key]["flash_bwd_dq"]["ms"] + extra[key]["flash_bwd_dkv"]["ms"])
+                      / fp32_sdpa[case]["bwd_dq_dk_dv"] for case, key in timed_cases}
+    readings = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_ms_cuda_cores", "share_of_bound")
+    emit({"phase": "flash_fp32_tf32x3", "shape": [2, 1024, 32, 8, 128],
+          "source": {"flash_fwd": FLASH_TF32_SOURCE, "flash_bwd_dq, flash_bwd_dkv": FLASH_BWD_TF32_SOURCE},
+          "arithmetic": "q k^T and P V (forward); S, dP, dq = dS K, dV = P^T g, dK = dS^T q (backward) in 3 TF32 "
+                        "passes of split operands (hi = tf32(x), lo = tf32(x - hi))",
           "gate_readings": fp32_readings, "limits": {"out": "1e-5*(P|v|)/l per element + 1e-5*|x|",
                                                      "lse": "1e-5 * max(1, |lse|)", "grads": "rel L2 <= 1e-5"},
-          "fwd": {case: {k: extra[key]["flash_fwd"].get(k) for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                                                     "bound_ms_cuda_cores", "share_of_bound")}
-                  for case, key in (("C=2 causal", "float32"), ("causal", "float32 causal"),
-                                    ("C=2 causal D 256", "float32 d256"))},
+          **{name[6:]: {case: {k: extra[key][name].get(k) for k in readings} for case, key in timed_cases}
+             for name in FLASH_SOURCES},
           "sdpa_ms": fp32_sdpa, "sdpa_backend": fp32_backend, "fwd_over_sdpa_fwd": fp32_ratio,
-          "gate": {"fwd_over_sdpa_fwd_at_most": FLASH_FP32_GATE, "case": "C=2 causal"}, "card": card})
+          "dq_plus_dkv_over_sdpa_bwd": fp32_bwd_ratio, "bwd_bitwise_deterministic": fp32_det,
+          "gate": {"fwd_over_sdpa_fwd_at_most": FLASH_FP32_GATE, "dq_plus_dkv_over_sdpa_bwd_at_most":
+                   FLASH_FP32_BWD_GATE, "case": "C=2 causal"}, "card": card})
     if fp32_ratio["C=2 causal"] > FLASH_FP32_GATE:
         fail(f"the fp32 flash forward takes {fp32_ratio['C=2 causal']:.3f}x SDPA's fp32 forward (GQA 32/8 [2, 1024], "
              f"C=2 causal), above {FLASH_FP32_GATE}x")
+    if fp32_bwd_ratio["C=2 causal"] > FLASH_FP32_BWD_GATE:
+        fail(f"the fp32 flash dq + dk/dv take {fp32_bwd_ratio['C=2 causal']:.3f}x SDPA's fp32 backward (GQA 32/8 "
+             f"[2, 1024], C=2 causal), above {FLASH_FP32_BWD_GATE}x")
+    if not all(fp32_det.values()):
+        fail(f"the fp32 flash dq / dk/dv: two runs on the same inputs differ ({fp32_det})")
     for d in (64, 192, 256):
         bnd = band_bounds(gen, dev, 2, 1, 1024, 2)
         res = flash_case(dev, gen, 2, 1024, 32, 8, True, bnd, f"gqa 32/8, C=2, D {d}", card, timed=d == 256, d=d)
@@ -1898,13 +1978,13 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
             doc_mask_library_ms=lib_doc["fwd"] if name == "flash_fwd" else lib_doc["bwd_dq_dk_dv"],
             wide_ms={m: c["times"][name]["ms"] for m, c in wide.items()},
             sources={"bf16 / fp16 D <= 256": FLASH_SOURCES[name],
-                     "fp32 D <= 256" if name == "flash_fwd" else "fp32 D <= 512": (
-                         FLASH_TF32_SOURCE if name == "flash_fwd" else FLASH_FP32_SOURCE),
-                     **({"fp32 D 320-512": FLASH_FP32_SOURCE} if name == "flash_fwd" else {}),
+                     "fp32 D <= 256": FLASH_TF32_SOURCE if name == "flash_fwd" else FLASH_BWD_TF32_SOURCE,
+                     "fp32 D 320-512": FLASH_FP32_SOURCE,
                      "fp32 D > 512": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
         )
     dkv = records["flash_bwd_dkv"]
     cold = {"llama, document mask [2, 4096, 32, 128]": {n: records[n]["doc_mask_ms"] for n in FLASH_SOURCES},
+            "llama fp32, document mask [2, 4096, 32, 128]": fp32_cold,
             "gpt, causal [4, 2048, 40, 128]": flash_cold_ms(dev, gen, 4, 2048, 40, True)}
     emit({"phase": "flash_times", "train_shape": [2, 4096, 32, 128],
           "library": "torch scaled_dot_product_attention: is_causal=True unmasked; the dense boolean document "
@@ -1919,7 +1999,8 @@ def check_flash(dev, gen, card: dict, records: dict) -> dict:
                                  "document mask": dkv["doc_mask_bound_ms"] / dkv["doc_mask_ms"]},
           "dkv_doc_over_causal": dkv["doc_mask_ms"] / dkv["ms"], "dkv_bitwise_deterministic": deterministic,
           "gqa_1024_c2_causal": extra, "gqa_1024_c2_causal_sdpa_ms": extra_lib,
-          "fp32_source": {"forward to D 256": FLASH_TF32_SOURCE, "dq, dk/dv; forward 320-512": FLASH_FP32_SOURCE},
+          "fp32_source": {"forward to D 256": FLASH_TF32_SOURCE, "dq, dk/dv to D 256": FLASH_BWD_TF32_SOURCE,
+                          "all three at 320-512": FLASH_FP32_SOURCE},
           "cold_ms_per_call": cold,
           "doc_mask_visible_pairs": masked["pairs"], "causal_visible_pairs": plain["pairs"], "card": card})
     if not all(deterministic.values()):
@@ -3268,18 +3349,14 @@ def profile_window(step, steps: int, label: str, card: dict) -> None:
     the device's idle share of the wall time, the host's kernel launches
     and syncs a step, and the norm kernels' in-step ms per launch
     (:func:`norm_in_step`, the launch counters reset just before)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def window():
+        reset_launch_counts()
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+
+    prof, wall_us = traced(window)
     launches = launch_counts()
     spans, by_cat, by_name = [], {}, {}
     for e in cuda_events(prof):
@@ -4069,17 +4146,13 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     ms over its launches) stands beside ``flash_cold``, its cold-L2 ms per
     call from ``check_flash`` under the step's mask, and each norm kernel's
     likewise (:func:`norm_in_step`). Returns the device ms by category."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def counted_step():
+        reset_launch_counts()
         step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+
+    prof, wall_us = traced(counted_step)
     launches = launch_counts()
     spans, by_cat, by_name = [], {}, {}
     flash_events = {n: 0 for n in FLASH_EVENTS}
@@ -4110,7 +4183,9 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
           "flash_in_step_vs_cold": in_step, "norm_in_step_vs_cold": norm_in_step(by_cat_ms, launches, label),
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
     if flash_events != flash_launches:
-        fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches}")
+        first = [e.name[:40] for e in sorted(cuda_events(prof), key=lambda e: e.time_range.start)[:12]]
+        fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches} "
+             f"({len(spans)} device events, the first {first})")
     return by_cat_ms
 
 
@@ -4155,8 +4230,41 @@ def compare_loss_heads(step, dev, want: dict, tokens: int, n_mfu: int, card: dic
           **out, "card": card})
 
 
+# fp32 step 1 against the plain fp32 path, limits set from readings on the card (NVIDIA H100 80GB HBM3, 700 W):
+# the kernel path's worst gradient 8.7e-6 rel L2 and its loss the same bits; the plain path in one TF32 pass
+# 3.8e-3 (gradient) and 1.8e-6 (loss)
+FP32_TRAIN_GRAD_GATE = 1e-4  # every gradient within this rel L2 of the plain fp32 path's
+FP32_TRAIN_LOSS_GATE = 1e-6  # the loss within this relative error of the plain fp32 path's
+
+
+def plain_fp32_reference(model, ids, labels, bounds) -> dict:
+    """The fp32 train step's first-step reference: :func:`plain_train_loss`
+    in fp32 with TF32 off (the loss and every gradient), and beside it the
+    same plain path with its matmuls in one TF32 pass
+    (``torch.backends.cuda.matmul.allow_tf32``), the precision the 3xTF32
+    kernels exist to beat, read against the reference."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        loss, grads = plain_train_loss(model, ids, labels, bounds, torch.float32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        loss_tf32, grads_tf32 = plain_train_loss(model, ids, labels, bounds, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    loss = float(loss)
+    tf32 = {n: rel_l2(grads_tf32[n], grads[n]) for n in grads}
+    del grads_tf32
+    worst = max(tf32, key=tf32.get)
+    return {"loss": loss, "grads": grads,
+            "one_tf32_pass": {"loss_rel_err": abs(float(loss_tf32) - loss) / abs(loss),
+                              "grad_rel_l2_worst": [worst, tf32[worst]]}}
+
+
 def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024,
-          steps: int = 5, full: bool = True, label: str = "train", flash_cold=None) -> dict:
+          steps: int = 5, full: bool = True, label: str = "train", flash_cold=None, plain_first: bool = False,
+          profile: bool = False) -> dict:
     """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
     ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
     batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
@@ -4169,7 +4277,12 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     nothing else; the last loss is below the first;
     then the 2-layer accuracy copy. Returns the launch counts of the 5 steps.
     With ``full`` False it runs ``steps`` steps under the same gates (the
-    loss's fall only over more than one step) and nothing after them."""
+    loss's fall only over more than one step) and nothing after them but,
+    with ``profile``, :func:`profile_train_step`. With ``plain_first`` (an
+    fp32 model) the first step's loss and every gradient are held to
+    :func:`plain_fp32_reference` on the same weights, within
+    ``FP32_TRAIN_LOSS_GATE`` relative and ``FP32_TRAIN_GRAD_GATE`` rel L2;
+    the plain path in one TF32 pass must miss the gradient gate."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels.fused_loss import CHUNK
@@ -4189,6 +4302,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     n_mfu = n_params - model.llama.embed_tokens.weight.numel()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    first_ref = plain_fp32_reference(model, ids, labels, bounds) if plain_first else None
+    grad_err = {}  # the first step's gradients against first_ref's, rel L2
 
     def step(check_grads: bool = False) -> float:
         loss, _ = model(ids, labels=labels, startend_row_indices=bounds)
@@ -4198,6 +4313,10 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
                    if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
             if bad:
                 fail(f"parameters without a finite non-zero gradient: {bad}")
+            if first_ref is not None:
+                ref = first_ref.pop("grads")
+                grad_err.update({n: rel_l2(p.grad, ref[n]) for n, p in model.named_parameters()})
+                del ref
         opt.step()
         opt.clear_grad()
         return float(loss.detach())
@@ -4231,6 +4350,14 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
             first_ms = dt
     tokens = TRAIN_BATCH * seq
     step_s = sum(step_ms or [dt]) / len(step_ms or [dt]) / 1e3
+    # the matmuls' peak: the tensor cores' in bf16 / fp16; in fp32 (TF32 off) the CUDA cores'
+    peak = FP32_FLOP_PER_S if cfg.dtype == "float32" else BF16_FLOP_PER_S
+    if first_ref is not None:
+        worst = max(grad_err, key=grad_err.get)
+        vs_plain = {"loss_plain_fp32": first_ref["loss"], "loss_rel_err": abs(losses[0] - first_ref["loss"])
+                    / abs(first_ref["loss"]), "grad_rel_l2_worst": [worst, grad_err[worst]],
+                    "grad_rel_l2": grad_err, "one_tf32_pass": first_ref["one_tf32_pass"],
+                    "limits": {"loss_rel_err": FP32_TRAIN_LOSS_GATE, "grad_rel_l2": FP32_TRAIN_GRAD_GATE}}
     emit({
         "phase": label, "model": f"llama2_7b widths, {layers} of 32 layers, {cfg.num_attention_heads} heads of "
                                  f"{cfg.hidden_size // cfg.num_attention_heads} (seeded random {cfg.dtype} weights)",
@@ -4239,14 +4366,25 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         "losses": losses, "first_step_ms": first_ms, "step_ms": step_ms or [dt],
         "step_ms_p50": float(np.median(step_ms or [dt])),
         "tokens_per_s": tokens / step_s,
-        "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / step_s / BF16_FLOP_PER_S,
-        "mfu_note": "6 N T / step time / 989e12; N leaves out the embedding table (a gather); attention flops left out",
+        "params_in_mfu": n_mfu, "mfu": 6 * n_mfu * tokens / step_s / peak,
+        "mfu_note": f"6 N T / step time / {peak:g}; N leaves out the embedding table (a gather); attention flops "
+                    f"left out",
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches_per_step": counts, "launches_5_steps": total, "card": card,
+        **({} if first_ref is None else {"first_step_vs_plain_fp32": vs_plain}),
     })
     if not all(np.isfinite(losses)) or (steps > 1 and not losses[-1] < losses[0]):
         fail(f"the loss did not decrease over the steps: {losses}")
+    if first_ref is not None:
+        if vs_plain["loss_rel_err"] > FP32_TRAIN_LOSS_GATE or grad_err[worst] > FP32_TRAIN_GRAD_GATE:
+            fail(f"{label}: step 1 is further from the plain fp32 path than the limits {vs_plain['limits']}: "
+                 f"loss {vs_plain['loss_rel_err']}, {worst}'s gradient {grad_err[worst]}")
+        if first_ref["one_tf32_pass"]["grad_rel_l2_worst"][1] <= FP32_TRAIN_GRAD_GATE:
+            fail(f"{label}: the plain path in one TF32 pass meets the gradient limit {FP32_TRAIN_GRAD_GATE} "
+                 f"({first_ref['one_tf32_pass']}): the limit cannot tell it from three")
     if not full:
+        if profile:
+            profile_train_step(step, card, label=f"{label}_profile", flash_cold=flash_cold)
         return total
     profile_train_step(step, card, flash_cold=flash_cold)
     compare_loss_heads(step, dev, want, tokens, n_mfu, card)
@@ -4355,6 +4493,33 @@ def fp16_phase(dev, card: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"train": counts, "generate": gen_counts}
+
+
+FP32_TRAIN_LAYERS, FP32_TRAIN_STEPS = 2, 3
+
+
+def train_fp32(dev, card: dict, flash_cold=None) -> dict:
+    """Kernels 15 and 16 in fp32 on a main path: a 2-layer Llama-2-7B-width
+    model with ``dtype="float32"`` and recompute on trains 3 steps through
+    :func:`train` (the seeded document-packed 2 x 4096 batch,
+    ``AdamW(multi_precision=True)``: every parameter a finite non-zero
+    gradient, each step's launches, flash 4 / 2 / 2 on the fp32 kernels
+    (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``) beside the
+    RMSNorm, rope and fp32 loss-head kernels, and nothing else, a falling
+    loss), its first step's loss and gradients held to the plain versions'
+    fp32 path on the same weights (:func:`plain_fp32_reference`), and a
+    profile of one more step (each flash kernel's in-step ms per launch
+    beside ``flash_cold``, its cold-L2 ms per call at the step's shape and
+    mask from ``check_flash``). Returns the launches of the 3 steps."""
+    import torch
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(num_hidden_layers=FP32_TRAIN_LAYERS, recompute=True, dtype="float32")
+    counts = train(dev, card, cfg=cfg, steps=FP32_TRAIN_STEPS, full=False, label="train_fp32", plain_first=True,
+                   profile=True, flash_cold=flash_cold)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 WO_SERVE_LAYERS = 2  # the fp16 / fp32 weight-only serve phases: Llama-2-7B widths cut to 2 of 32 layers
@@ -4757,6 +4922,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fp16_phase(dev, card)
+    train_fp32(dev, card, flash_cold["llama fp32, document mask [2, 4096, 32, 128]"])
     for dtype in ("float16", "float32"):  # kernel 20 on the serving path in every dtype it takes
         serve_weight_only(dev, card, dtype)
     counts.update({k: v for k, v in train_gpt(dev, card, flash_cold=flash_cold["gpt, causal [4, 2048, 40, 128]"]).items()

@@ -1,6 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
 // flash_fwd_wide.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_bwd_wide.cu,
-// flash_fp32.cu, flash_deep.cu): the FlashMask test, the FlashMask tile classes, the
+// flash_fwd_tf32.cu, flash_bwd_tf32.cu, flash_fp32.cu, flash_deep.cu): the
+// FlashMask test, the FlashMask tile classes, the fp32 walks' staging, the
 // producer/consumer rings of the wgmma kernels 14-16 and their walks.
 //
 // wgmma keeps mma.sync m16n8k16's fragment layouts per warp (hopper.cuh).
@@ -171,6 +172,21 @@ __device__ __forceinline__ void warp_tile_mask(uint32_t* words, const int* v, in
     w.z = static_cast<uint32_t>(m[1]);
     w.w = static_cast<uint32_t>(m[1] >> 32);
     *reinterpret_cast<uint4*>(words + cl * 4) = w;
+  }
+}
+
+// Rows [r0, r0 + R) of a head's [S][stride] fp32 rows (D of them used)
+// into s[R][LD] by cp.async, 16 bytes a copy, zeros past S: the staging of
+// the fp32 tensor-core walks (flash_fwd_tf32.cu, flash_bwd_tf32.cu), whose
+// THREADS threads all take part.
+template <int R, int D, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* s, const float* src, size_t stride, int r0, int S) {
+  constexpr int kChunks = R * D / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kChunks; i += THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const bool in = r0 + r < S;
+    hopper::cp_async16_zfill(s + r * LD + c, in ? src + static_cast<size_t>(r0 + r) * stride + c : src, in);
   }
 }
 

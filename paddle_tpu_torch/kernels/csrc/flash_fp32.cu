@@ -1,16 +1,16 @@
 // The CUDA-core instances of the flash-attention kernels 14 (forward), 15
 // (dq) and 16 (dk/dv): the same functions as flash_fwd.cu, flash_bwd_dq.cu
 // and flash_bwd_dkv.cu (see there for the semantics kept from the Pallas
-// kernels), computed with fp32 FMAs on the CUDA cores, for fp32 q, k, v, g:
-// dq and dk/dv at head dims 64 to 512, the forward at 320 to 512 (up to 256
-// the fp32 forward runs flash_fwd_tf32.cu, on the tensor cores in three
-// TF32 passes of split operands). bf16 and fp16 run on the tensor cores at
-// every head dim (flash_fwd.cu and friends to 256, flash_fwd_wide.cu and
+// kernels), computed with fp32 FMAs on the CUDA cores, for fp32 q, k, v, g
+// at head dims 320 to 512 (up to 256 the fp32 forward runs flash_fwd_tf32.cu
+// and dq and dk/dv flash_bwd_tf32.cu, on the tensor cores in three TF32
+// passes of split operands). bf16 and fp16 run on the tensor cores at every
+// head dim (flash_fwd.cu and friends to 256, flash_fwd_wide.cu and
 // flash_bwd_wide.cu above); fp32 above 512 runs flash_deep.cu.
 //
-// Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
-// `_bwd_dkv_kernel` for fp32 inputs up to head dim 512, and `_fwd_kernel`
-// for fp32 inputs at head dims 320 to 512.
+// Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel`,
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` for fp32 inputs at head dims 320
+// to 512.
 //
 // Design (simple first). The same tile walks and FlashMask tile classes as
 // the bf16/fp16 kernels (flash_common.cuh `warp_tile_class`, computed by
@@ -366,22 +366,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bounds, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance of head dim D (64 to 512; the forward's from 320), as LAUNCH(D)
+// the instance of head dim D (320 to 512), as LAUNCH(D)
 #define PTT_FLASH_SIMT_WIDE_DIMS(LAUNCH)                                       \
   switch (D) {                                                                 \
-    case 320: return LAUNCH(320);                                              \
-    case 384: return LAUNCH(384);                                              \
-    case 448: return LAUNCH(448);                                              \
-    case 512: return LAUNCH(512);                                              \
-    default: break;                                                            \
-  }                                                                            \
-  return static_cast<int>(cudaErrorInvalidValue)
-#define PTT_FLASH_SIMT_DIMS(LAUNCH)                                            \
-  switch (D) {                                                                 \
-    case 64: return LAUNCH(64);                                                \
-    case 128: return LAUNCH(128);                                              \
-    case 192: return LAUNCH(192);                                              \
-    case 256: return LAUNCH(256);                                              \
     case 320: return LAUNCH(320);                                              \
     case 384: return LAUNCH(384);                                              \
     case 448: return LAUNCH(448);                                              \
@@ -405,7 +392,7 @@ int dq(const void* q, const void* k, const void* v, const void* bounds, const vo
 #define PTT_DQ(DIM)                                                                                           \
   launch_dq<float, DIM>(q, k, v, bounds, g, lse, delta, dq_, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
                         static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS(PTT_DQ);
+  PTT_FLASH_SIMT_WIDE_DIMS(PTT_DQ);
 #undef PTT_DQ
 }
 
@@ -415,7 +402,7 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 #define PTT_DKV(DIM)                                                                                             \
   launch_dkv<float, DIM>(q, k, v, bounds, g, lse, delta, dk, dv, B, Sq, Sk, H, HK, Hm, C, causal, scale, \
                          static_cast<cudaStream_t>(stream))
-  PTT_FLASH_SIMT_DIMS(PTT_DKV);
+  PTT_FLASH_SIMT_WIDE_DIMS(PTT_DKV);
 #undef PTT_DKV
 }
 
@@ -423,7 +410,7 @@ int dkv(const void* q, const void* k, const void* v, const void* bounds, const v
 
 // The entries take the bf16/fp16 wgmma entries' arguments (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu) with every q/k/v/g/out tensor fp32, at
-// head dims 64 to 512 (the forward 320 to 512). The blocks here take fixed
+// head dims 320 to 512. The blocks here take fixed
 // tiles, so the scheduler counter goes unused. Another head dim returns
 // cudaErrorInvalidValue.
 extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k, const void* v, const void* bounds, void* out,

@@ -63,7 +63,9 @@
 #include "tf32.cuh"
 
 namespace fl = ptt::flash;
+using ptt::tf32::mma_3x;
 using ptt::tf32::split;
+namespace hp = ptt::hopper;
 
 namespace {
 
@@ -80,34 +82,6 @@ __host__ __device__ constexpr int tf32_smem(int D, int BN) {
 // keys a tile: 64 where two CTAs of it fit an SM, else 32
 __host__ __device__ constexpr int tf32_keys(int D) {
   return 2 * (tf32_smem(D, 64) + kReserved) <= kSmemPerSm ? 64 : 32;
-}
-
-// d += a b in three TF32 passes: the cross terms first, then hi hi
-__device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0,
-                                       uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  ptt::tf32::mma(d, al, bh0, bh1);
-  ptt::tf32::mma(d, ah, bl0, bl1);
-  ptt::tf32::mma(d, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(ptt::hopper::smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// rows [c0, c0 + R) of a head's [S][stride] fp32 rows into s[R][LD] (0 past S)
-template <int R, int D, int LD>
-__device__ __forceinline__ void stage(float* s, const float* src, size_t stride, int c0, int S) {
-  constexpr int kChunks = R * D / 4;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kChunks; i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool in = c0 + r < S;
-    cp_async16(s + r * LD + c, in ? src + static_cast<size_t>(c0 + r) * stride + c : src, in);
-  }
 }
 
 template <int D>
@@ -163,20 +137,20 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k, 
     return hi_t;
   };
   const auto issue = [&](int t, int buf) {
-    stage<BN, D, LK>(k_s + buf * BN * LK, kb, kv_stride, t * BN, Sk);
-    stage<BN, D, LV>(v_s + buf * BN * LV, vb, kv_stride, t * BN, Sk);
+    fl::stage_rows<BN, D, LK, kThreads>(k_s + buf * BN * LK, kb, kv_stride, t * BN, Sk);
+    fl::stage_rows<BN, D, LV, kThreads>(v_s + buf * BN * LV, vb, kv_stride, t * BN, Sk);
   };
   int cls = fl::kSkip;
   int t = next(0, cls);
   if (t < hi_t) issue(t, 0);
-  cp_async_commit();
+  hp::cp_async_commit();
   int buf = 0;
   while (t < hi_t) {
     int cls_n = fl::kSkip;
     const int tn = next(t + 1, cls_n);
     if (tn < hi_t) issue(tn, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait1();  // tile t's copies have landed (tile tn's may fly)
+    hp::cp_async_commit();
+    hp::cp_async_wait_group<1>();  // tile t's copies have landed (tile tn's may fly)
     __syncthreads();   // ...for every thread, and q is staged
     const float* ks = k_s + buf * BN * LK;
     const float* vs = v_s + buf * BN * LV;

@@ -31,12 +31,13 @@ tensors it launches ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
 bf16 and fp16 the forward ``csrc/flash_fwd_wide.cu`` and dq and dk/dv
 ``csrc/flash_bwd_wide.cu`` (tensor cores, the outputs' columns over
 warpgroups and CTAs: :func:`flash_fwd_wide_plan`,
-:func:`flash_bwd_wide_plan`); in fp32 the forward up to head dim 256
-``csrc/flash_fwd_tf32.cu`` (tensor cores, each product in three TF32
-passes of split operands: :func:`flash_fwd_fp32_plan`), dq and dk/dv up to
-512 and the forward at 320 to 512 ``csrc/flash_fp32.cu``, every kernel
-above 512 ``csrc/flash_deep.cu`` (CUDA cores, its head dim a runtime
-value) — or raises; it never falls back. On the card
+:func:`flash_bwd_wide_plan`); in fp32 up to head dim 256 the forward
+``csrc/flash_fwd_tf32.cu`` and dq and dk/dv ``csrc/flash_bwd_tf32.cu``
+(tensor cores, each product in three TF32 passes of split operands:
+:func:`flash_fwd_fp32_plan`, :func:`flash_bwd_fp32_plan`), all three at
+320 to 512 ``csrc/flash_fp32.cu``, every kernel above 512
+``csrc/flash_deep.cu`` (CUDA cores, its head dim a runtime value) — or
+raises; it never falls back. On the card
 the kernels take q, k, v (and g) of one dtype, bf16, fp16 or fp32, and every
 head dim that is a multiple of 64, as the JAX package's gate sends them.
 
@@ -66,6 +67,7 @@ __all__ = [
     "flash_bwd_dkv_plain",
     "flash_bwd_dq",
     "flash_bwd_dq_plain",
+    "flash_bwd_fp32_plan",
     "flash_bwd_wide_plan",
     "flash_fwd",
     "flash_fwd_fp32_plan",
@@ -94,10 +96,14 @@ _WIDE_FIXED = _WIDE_STG_INTS * 4 + (2 + 2 * _WIDE_MAX_STAGES) * 8 + 16 + 1024
 # carries the rows' lse / delta, and dk/dv hands an fp32 64 x 64 P^T tile between its warpgroups
 _BWD_SLOT_SIDE = 64 * 8 + 2 * 64 * 4 + 8
 _BWD_XBYTES = 64 * 64 * 4
-TF32_HEAD_DIM_MAX = 256  # fp32 forward: csrc/flash_fwd_tf32.cu to here, csrc/flash_fp32.cu's CUDA cores above
+# fp32 flash kernels: csrc/flash_fwd_tf32.cu and csrc/flash_bwd_tf32.cu to here, csrc/flash_fp32.cu's CUDA cores above
+TF32_HEAD_DIM_MAX = 256
 # csrc/flash_fwd_tf32.cu's shared-memory rule (tf32_smem / tf32_keys there)
 _TF32_ROWS = 64
-_SMEM_PER_SM, _SMEM_RESERVED = 228 * 1024, 1024
+_SMEM_PER_SM, _SMEM_RESERVED, _SMEM_PER_BLOCK = 228 * 1024, 1024, 227 * 1024
+# csrc/flash_bwd_tf32.cu's plan: dq's (warps, keys) candidates in order; dk/dv's CTA of 8 warps over 64 keys
+_DQ_SHAPES = ((8, 32), (4, 32), (4, 16))
+_DKV_KEYS, _DKV_WARPS = 64, 8
 _MASK_C = (1, 2, 4)
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
@@ -107,9 +113,9 @@ SKIP, PARTIAL, FULL = 0, 1, 2
 
 def _simt(dtype: torch.dtype) -> bool:
     """Whether the flash kernels in ``dtype`` run on the fp32 instances
-    (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_fp32.cu``,
-    ``csrc/flash_deep.cu``): fp32, at every head dim; bf16 and fp16 run on
-    the wgmma kernels at every head dim."""
+    (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``,
+    ``csrc/flash_fp32.cu``, ``csrc/flash_deep.cu``): fp32, at every head
+    dim; bf16 and fp16 run on the wgmma kernels at every head dim."""
     return dtype == torch.float32
 
 
@@ -138,6 +144,48 @@ def flash_fwd_fp32_plan(d: int) -> dict:
     return {"walk": "cuda_cores"}
 
 
+def _dq_smem(d: int, warps: int, keys: int) -> int:
+    return 4 * (2 * 16 * warps + 4 * keys) * (d + 4)
+
+
+def _dkv_smem(d: int, rows: int) -> int:
+    return 4 * (2 * _DKV_KEYS * (d + 4) + 4 * rows * (d + 4) + _DKV_KEYS * rows + 4 * rows)
+
+
+def flash_bwd_fp32_plan(d: int, kernel: str) -> dict:
+    """Which walk the fp32 dq (``kernel`` ``"flash_bwd_dq"``) or dk/dv
+    (``"flash_bwd_dkv"``) takes at head dim ``d`` (64 to 512), a mirror of
+    ``ptt_flash_bwd_fp32_plan`` in ``csrc/flash_bwd_tf32.cu``
+    (``chip_smoke.py`` holds the two equal on the card). Up to 256
+    ``"tf32x3"`` (``csrc/flash_bwd_tf32.cu``) with its geometry, every fp32
+    row staged with 4 floats of padding. dq: a CTA of ``warps`` warps owns
+    ``rows`` = 16 x warps query rows with q and g resident and walks K / V
+    tiles of ``keys`` keys in two buffers; (warps, keys) the first of (8,
+    32), (4, 32), (4, 16) whose CTA fits 227 KB. dk/dv: a CTA of 8 warps (two
+    warpgroups: P^T handed from the first to the second) owns ``keys`` = 64
+    keys with K and V resident and walks q / g tiles of ``rows`` query rows
+    in two buffers; rows the first of 64, 32, 16 whose CTA fits 227 KB.
+    ``stages`` the buffers, ``smem`` the CTA's dynamic shared-memory bytes.
+    From 320 to 512 ``"cuda_cores"`` alone (``csrc/flash_fp32.cu``, whose
+    geometry is its own): the 3xTF32 walks would hold D / 2 fp32
+    accumulators a thread beside their products, past the 255 registers a
+    thread has. Above 512 dq and dk/dv run ``csrc/flash_deep.cu``, which
+    this plan does not cover."""
+    if kernel not in ("flash_bwd_dq", "flash_bwd_dkv"):
+        raise ValueError(f"{kernel} is not a flash backward kernel")
+    if d <= 0 or d % 64 or d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"the fp32 backward plan covers the multiples of 64 up to {KERNEL_HEAD_DIMS[-1]}, not {d}")
+    if d > TF32_HEAD_DIM_MAX:
+        return {"walk": "cuda_cores"}
+    if kernel == "flash_bwd_dq":
+        warps, keys = next((w, n) for w, n in _DQ_SHAPES if _dq_smem(d, w, n) <= _SMEM_PER_BLOCK)
+        return {"walk": "tf32x3", "rows": 16 * warps, "keys": keys, "stages": 2, "smem": _dq_smem(d, warps, keys),
+                "warps": warps}
+    rows = next(r for r in (64, 32, 16) if _dkv_smem(d, r) <= _SMEM_PER_BLOCK)
+    return {"walk": "tf32x3", "rows": rows, "keys": _DKV_KEYS, "stages": 2, "smem": _dkv_smem(d, rows),
+            "warps": _DKV_WARPS}
+
+
 def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """``(BM, BN)`` of the tile walk that ``kernel`` (``"flash_fwd"``,
     ``"flash_bwd_dq"`` or ``"flash_bwd_dkv"``) classes at head dim ``d``:
@@ -145,15 +193,16 @@ def flash_tile_shape(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -
     up to D 256: the forward 128 x 128 (128 x 64 at D 192 and 256), dq 128
     x 64, dk/dv 64 query rows x 64 keys; bf16/fp16 above 256 (the wide
     kernels, ``csrc/flash_fwd_wide.cu`` and ``csrc/flash_bwd_wide.cu``) 64
-    x 64 for all three; fp32: the forward up to 256 (``csrc/flash_fwd_tf32.cu``)
-    64 x :func:`flash_fwd_fp32_plan`'s keys (64 at D 64, else 32), the
-    CUDA-core instances forward and dq 16 x 32, dk/dv 32 query rows x 16
-    keys."""
+    x 64 for all three; fp32 up to 256: the forward (``csrc/flash_fwd_tf32.cu``)
+    64 x :func:`flash_fwd_fp32_plan`'s keys (64 at D 64, else 32), dq and
+    dk/dv (``csrc/flash_bwd_tf32.cu``) :func:`flash_bwd_fp32_plan`'s rows x
+    keys; above 256 the CUDA-core instances forward and dq 16 x 32, dk/dv 32
+    query rows x 16 keys."""
     if kernel not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         raise ValueError(f"{kernel} is not a flash kernel")
     if _simt(dtype):
-        if kernel == "flash_fwd" and d <= TF32_HEAD_DIM_MAX:
-            plan = flash_fwd_fp32_plan(d)
+        if d <= TF32_HEAD_DIM_MAX:
+            plan = flash_fwd_fp32_plan(d) if kernel == "flash_fwd" else flash_bwd_fp32_plan(d, kernel)
             return (plan["rows"], plan["keys"])
         return (32, 16) if kernel == "flash_bwd_dkv" else (16, 32)
     if d > WGMMA_HEAD_DIM_MAX:
@@ -457,11 +506,12 @@ def _entry_suffix(what: str, dtype: torch.dtype, d: int) -> str:
     ``dtype``: ``bf16`` / ``fp16`` for the wgmma kernels up to D 256; above
     it ``wgmma_wide_bf16`` / ``wgmma_wide_fp16`` for all three (the forward
     ``csrc/flash_fwd_wide.cu``, dq and dk/dv ``csrc/flash_bwd_wide.cu``);
-    in fp32 ``tf32x3`` for the forward up to 256 (``csrc/flash_fwd_tf32.cu``),
-    else ``fp32`` to 512 and ``deep_fp32`` above (the CUDA-core instances)."""
+    in fp32 ``tf32x3`` for all three up to 256 (``csrc/flash_fwd_tf32.cu``,
+    ``csrc/flash_bwd_tf32.cu``), else ``fp32`` to 512 and ``deep_fp32``
+    above (the CUDA-core instances)."""
     suffix = _KERNEL_DTYPES[dtype]
     if suffix == "fp32":
-        if what == "flash_fwd" and d <= TF32_HEAD_DIM_MAX:
+        if d <= TF32_HEAD_DIM_MAX:
             return "tf32x3"
         return "deep_fp32" if d > KERNEL_HEAD_DIMS[-1] else "fp32"
     return suffix if d <= WGMMA_HEAD_DIM_MAX else f"wgmma_wide_{suffix}"

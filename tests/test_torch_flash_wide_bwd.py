@@ -58,21 +58,20 @@ def _one_torch_thread():
 def test_route_of_every_head_dim(dtype):
     """Above 256 bf16 / fp16 dq and dk/dv take the tensor-core entries (the
     forward's suffix, ``wgmma_wide_*``) at every head dim, with the
-    scheduler's counter and 64 x 64 tiles; fp32 dq and dk/dv keep the
-    CUDA-core instances (``fp32`` to 512, ``deep_fp32`` above), and the fp32
-    forward to 256 takes the 3xTF32 entry (``tf32x3``); bf16 / fp16 up to
-    256 are unchanged."""
+    scheduler's counter and 64 x 64 tiles; fp32 dq and dk/dv, like the fp32
+    forward, take the 3xTF32 entries (``tf32x3``) to 256 and keep the
+    CUDA-core instances above (``fp32`` to 512, ``deep_fp32`` above); bf16 /
+    fp16 up to 256 are unchanged."""
     name = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
     for d in range(64, 1025, 64):
         fwd, dq, dkv = (kfa._entry_suffix(k, dtype, d) for k in ("flash_fwd", *KERNELS))
         if d <= 256:
-            want = name
+            want = "tf32x3" if dtype == torch.float32 else name
         elif dtype == torch.float32:
             want = "fp32" if d <= 512 else "deep_fp32"
         else:
             want = f"wgmma_wide_{name}"
-        assert dq == dkv == want
-        assert fwd == ("tf32x3" if dtype == torch.float32 and d <= 256 else want)
+        assert fwd == dq == dkv == want
         assert (kfa._sched(dq, torch.device("cpu")) is None) == (dtype == torch.float32)
         if d > 256:
             tile = (16, 32) if dtype == torch.float32 else (BM, BN)

@@ -54,15 +54,15 @@ def test_entry_suffix_routes_the_wide_forward():
     """Above 256 the bf16 / fp16 forward takes the tensor-core entry at
     every head dim, and so do dq and dk/dv (``csrc/flash_bwd_wide.cu``, the
     same suffix); fp32 keeps the CUDA-core instances (to 512) and the
-    runtime-D ones (above), except the forward up to 256, which takes the
-    3xTF32 tensor-core entry (``csrc/flash_fwd_tf32.cu``); bf16 / fp16 at
-    D <= 256 are unchanged."""
+    runtime-D ones (above), except up to 256, where all three take the
+    3xTF32 tensor-core entries (``csrc/flash_fwd_tf32.cu``,
+    ``csrc/flash_bwd_tf32.cu``); bf16 / fp16 at D <= 256 are unchanged."""
     for d in range(64, 1025, 64):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"), (torch.float32, "fp32")):
             fwd, dq, dkv = (kfa._entry_suffix(k, dtype, d) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
             assert dq == dkv
             if d <= 256 and dtype == torch.float32:
-                assert (fwd, dq) == ("tf32x3", "fp32")
+                assert fwd == dq == "tf32x3"
             elif d <= 256:
                 assert fwd == dq == name
             elif dtype == torch.float32:

@@ -1,12 +1,14 @@
 """The fp32 kernels that run on the tensor cores, checked on the CPU: kernel
-14's fp32 forward (``csrc/flash_fwd_tf32.cu``, 3xTF32) and kernel 20's
+14's fp32 forward (``csrc/flash_fwd_tf32.cu``, 3xTF32), kernels 15 and 16's
+fp32 dq and dk/dv (``csrc/flash_bwd_tf32.cu``, 3xTF32) and kernel 20's
 mma.sync instance (``csrc/wo_matmul.cu``, fp32 activations in 2xTF32).
 
 The CUDA kernels cannot run here. What they add to the functions is a route
 (``kernels.flash_attention._entry_suffix``, ``kernels.quant.wo_route``), a
-geometry (``flash_fwd_fp32_plan``: which walk the fp32 forward takes at each
-head dim, and the 3xTF32 walk's tile and shared memory; ``chip_smoke.py``
-holds it equal to the kernel's ``ptt_flash_fwd_fp32_plan`` on the card) and
+geometry (``flash_fwd_fp32_plan`` and ``flash_bwd_fp32_plan``: which walk
+the fp32 forward, dq and dk/dv take at each head dim, and the 3xTF32 walks'
+tiles and shared memory; ``chip_smoke.py`` holds them equal to the kernels'
+``ptt_flash_fwd_fp32_plan`` and ``ptt_flash_bwd_fp32_plan`` on the card) and
 an arithmetic, which this file mirrors in PyTorch (``csrc/tf32.cuh``): each
 fp32 operand split as ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (the kernels'
 round-to-nearest, ties away, on the bits; kernel 20 passes ``x - hi`` whole
@@ -16,7 +18,7 @@ with rounding toward zero, the tensor cores' fp32 accumulation. So:
 
 - the TF32 rounding is checked on the bits (13 low bits zero, to nearest,
   ties away) and the split to within 2^-22 of x;
-- the plan and the tiles ``flash_tile_shape`` reports at every head dim
+- the plans and the tiles ``flash_tile_shape`` reports at every head dim
   64-512, and the routes of every dtype x (K % 8, N % 16) case;
 - emulations of the kernels' arithmetic (the forward's 64-row walk under
   the FlashMask tile classes, q k^T and P V in three passes, each 32
@@ -27,8 +29,16 @@ with rounding toward zero, the tensor cores' fp32 accumulation. So:
   at the chip gates' own tolerances (``chip_smoke.FLASH_GATES["float32"]``:
   1e-5; kernel 20's 2^-16 of ``(|x| @ |w8|) * scale`` plus 1e-6), and the
   same emulations with one TF32 pass (hi only) are shown to fail them;
+- the backward's arithmetic likewise (``emulate_bwd_tf32``: every operand
+  split with lo = x - hi left whole, as kernel 20's x is; S, dP and their
+  transposes over D with the cross terms and hi hi apart, exp, the mask and
+  dS in fp32, dq, dk and dv summed a tile at a time in zeroed partials
+  added to the accumulators), held to the JAX package's backward (the
+  Pallas dq and dk/dv in interpret mode) and to the plain versions at the
+  fp32 gate (rel L2 1e-5), and one pass shown to miss it;
 - the truncating accumulation is shown to need the partials: chained
-  through one accumulator over a 4096-key walk it misses the fp32 gate.
+  through one accumulator over a 4096-key walk (or 4096 query rows of dk/dv)
+  it misses the fp32 gate.
 """
 
 from typing import Tuple
@@ -40,13 +50,14 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import quant as jax_quant
-from paddle_tpu.kernels.flash_attention import _pad_to, _run_fwd
+from paddle_tpu.kernels.flash_attention import _pad_to, _run_bwd, _run_fwd
 
 from paddle_tpu_torch.kernels import flash_attention as kfa
 from paddle_tpu_torch.kernels import quant as kquant
 
 # chip_smoke.FLASH_GATES["float32"]: P's error over (P|v|)/l, out's over |out|, lse relative
 P_REL, OUT_REL, LSE_REL = 1e-5, 1e-5, 1e-5
+GRAD_REL_L2 = 1e-5  # chip_smoke.FLASH_GATES["float32"]: dq, dk, dv rel L2
 WO_REL, WO_ABS = 2.0 ** -16, 1e-6  # chip_smoke.wo_case's fp32 gate
 WO_BLOCK = 16  # csrc/wo_matmul.cu: each k16 block's fp32 products go into a partial added to the sum
 MMA_K = 8  # the k of one m16n8k8 TF32 mma
@@ -87,11 +98,11 @@ def rz(x: torch.Tensor) -> torch.Tensor:
 
 
 def mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``acc + a @ b`` as TF32 ``mma`` steps over k (``a`` [M, k], ``b`` [k,
-    N], exact TF32 values): each step's products summed exactly, the
-    result rounded toward zero to fp32."""
-    for k0 in range(0, a.shape[1], MMA_K):
-        acc = rz(acc.double() + a[:, k0:k0 + MMA_K].double() @ b[k0:k0 + MMA_K].double())
+    """``acc + a @ b`` as TF32 ``mma`` steps over k (``a`` [..., M, k], ``b``
+    [..., k, N], exact TF32 values): each step's products summed exactly,
+    the result rounded toward zero to fp32."""
+    for k0 in range(0, a.shape[-1], MMA_K):
+        acc = rz(acc.double() + a[..., k0:k0 + MMA_K].double() @ b[..., k0:k0 + MMA_K, :].double())
     return acc
 
 
@@ -157,10 +168,9 @@ def test_fp32_forward_plan_and_tiles(d):
         assert 4 * (64 * (d + 8) + 2 * 32 * (d + 8) + 2 * 32 * (d + 4)) > 227 * 1024
         assert kfa.flash_tile_shape("flash_fwd", d, torch.float32) == (16, 32)
         assert kfa._entry_suffix("flash_fwd", torch.float32, d) == "fp32"
-    # dq and dk/dv keep the CUDA-core walks; nothing takes the scheduler's counter
-    assert kfa.flash_tile_shape("flash_bwd_dq", d, torch.float32) == (16, 32)
-    assert kfa.flash_tile_shape("flash_bwd_dkv", d, torch.float32) == (32, 16)
-    assert kfa._entry_suffix("flash_bwd_dq", torch.float32, d) == "fp32"
+    # dq and dk/dv take the forward's route (test_fp32_backward_plan_and_tiles); nothing takes the scheduler's counter
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert kfa._entry_suffix(kernel, torch.float32, d) == kfa._entry_suffix("flash_fwd", torch.float32, d)
     assert kfa._sched(kfa._entry_suffix("flash_fwd", torch.float32, d), torch.device("cpu")) is None
 
 
@@ -168,6 +178,58 @@ def test_fp32_forward_plan_and_tiles(d):
 def test_fp32_forward_plan_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         kfa.flash_fwd_fp32_plan(d)
+
+
+# -- kernels 15 and 16 in fp32: plan, tiles, route -------------------------------------
+
+# (kernel, D) -> (rows, keys, smem bytes, warps): dq's CTA rows and K/V tile keys; dk/dv's q/g tile rows and CTA keys
+BWD_PLAN = {
+    ("flash_bwd_dq", 64): (128, 32, 104448, 8), ("flash_bwd_dq", 128): (128, 32, 202752, 8),
+    ("flash_bwd_dq", 192): (64, 32, 200704, 4), ("flash_bwd_dq", 256): (64, 16, 199680, 4),
+    ("flash_bwd_dkv", 64): (64, 64, 121856, 8), ("flash_bwd_dkv", 128): (64, 64, 220160, 8),
+    ("flash_bwd_dkv", 192): (32, 64, 209408, 8), ("flash_bwd_dkv", 256): (16, 64, 204032, 8),
+}
+BWD_PLAN_CASES = [(kernel, d) for kernel in ("flash_bwd_dq", "flash_bwd_dkv") for d in range(64, 513, 64)]
+
+
+@pytest.mark.parametrize("kernel,d", BWD_PLAN_CASES, ids=[f"{k[10:]}-d{d}" for k, d in BWD_PLAN_CASES])
+def test_fp32_backward_plan_and_tiles(kernel, d):
+    """Up to 256 fp32 dq and dk/dv take ``csrc/flash_bwd_tf32.cu`` (suffix
+    ``tf32x3``, no scheduler counter) on the plan's tiles; from 320 to 512
+    the CUDA-core walks of ``csrc/flash_fp32.cu`` and their tiles."""
+    p = kfa.flash_bwd_fp32_plan(d, kernel)
+    suffix = kfa._entry_suffix(kernel, torch.float32, d)
+    assert kfa._sched(suffix, torch.device("cpu")) is None
+    if d > 256:
+        assert p == {"walk": "cuda_cores"} and suffix == "fp32"
+        assert kfa.flash_tile_shape(kernel, d, torch.float32) == ((32, 16) if kernel == "flash_bwd_dkv" else (16, 32))
+        return
+    assert p["walk"] == "tf32x3" and p["stages"] == 2 and suffix == "tf32x3"
+    assert (p["rows"], p["keys"], p["smem"], p["warps"]) == BWD_PLAN[(kernel, d)]
+    assert kfa.flash_tile_shape(kernel, d, torch.float32) == (p["rows"], p["keys"])
+    assert p["smem"] <= 227 * 1024
+    # tiles of whole m16n8k8 steps: a warp's 16 rows (dq) or keys (dk/dv), k steps of 8 over the tile
+    assert p["rows"] % 8 == 0 and p["keys"] % 8 == 0
+    if kernel == "flash_bwd_dq":
+        assert p["rows"] == 16 * p["warps"]
+        # q and g resident, two K and two V tiles, rows padded by 4 floats; the first shape that fits
+        assert p["smem"] == 4 * (2 * p["rows"] + 4 * p["keys"]) * (d + 4)
+        shapes = [(8, 32), (4, 32), (4, 16)]
+        earlier = shapes[:shapes.index((p["warps"], p["keys"]))]
+        assert all(4 * (32 * w + 4 * n) * (d + 4) > 227 * 1024 for w, n in earlier)
+    else:
+        assert p["keys"] == 64 == 16 * (p["warps"] // 2)  # two warpgroups over the same 64 keys
+        rows = p["rows"]
+        # K and V resident, two q and two g tiles, P^T, two lse and two delta rows; the most rows that fit
+        assert p["smem"] == 4 * (2 * 64 * (d + 4) + 4 * rows * (d + 4) + 64 * rows + 4 * rows)
+        assert rows == 64 or 4 * (2 * 64 * (d + 4) + 8 * rows * (d + 4) + 128 * rows + 8 * rows) > 227 * 1024
+
+
+@pytest.mark.parametrize("kernel,d", [("flash_bwd_dq", 0), ("flash_bwd_dkv", 96), ("flash_bwd_dq", 576),
+                                      ("flash_fwd", 128)])
+def test_fp32_backward_plan_refuses_what_the_kernels_do_not_take(kernel, d):
+    with pytest.raises(ValueError):
+        kfa.flash_bwd_fp32_plan(d, kernel)
 
 
 # -- kernel 14 in fp32: the arithmetic ----------------------------------------------------
@@ -194,19 +256,23 @@ def _qk(qs: torch.Tensor, kt: torch.Tensor, passes: int) -> torch.Tensor:
     return c + h if passes == 3 else h
 
 
-def _pv_add(acc: torch.Tensor, p: torch.Tensor, v: torch.Tensor, passes: int) -> torch.Tensor:
-    """``acc`` plus one key tile's P V as the kernel sums it: each 32 keys
-    into a zeroed partial (each k step's lo hi, hi lo, then hi hi with 3
-    passes; hi hi with 1) added to ``acc`` in fp32 to nearest."""
-    ph, pl = tf32_split(p)
-    vh, vl = tf32_split(v)
-    for c0 in range(0, p.shape[1], PV_KEYS):
+def _pv_add(acc: torch.Tensor, p: torch.Tensor, v: torch.Tensor, passes: int, block: int = PV_KEYS,
+            split=tf32_split) -> torch.Tensor:
+    """``acc`` plus one key tile's P V as the kernel sums it: each ``block``
+    keys into a zeroed partial (each k step's lo hi, hi lo, then hi hi with
+    3 passes; hi hi with 1) added to ``acc`` in fp32 to nearest. ``p`` [...,
+    M, keys], ``v`` [..., keys, N]; the backward's dq += dS K, dV += P^T g
+    and dK += dS^T q are the same sum over a tile of keys or query rows,
+    with both operands split by ``split_hi``."""
+    ph, pl = split(p)
+    vh, vl = split(v)
+    for c0 in range(0, p.shape[-1], block):
         part = torch.zeros_like(acc)
-        for k0 in range(c0, min(c0 + PV_KEYS, p.shape[1]), MMA_K):
+        for k0 in range(c0, min(c0 + block, p.shape[-1]), MMA_K):
             ks = slice(k0, k0 + MMA_K)
             if passes == 3:
-                part = mma(mma(part, pl[:, ks], vh[ks]), ph[:, ks], vl[ks])
-            part = mma(part, ph[:, ks], vh[ks])
+                part = mma(mma(part, pl[..., ks], vh[..., ks, :]), ph[..., ks], vl[..., ks, :])
+            part = mma(part, ph[..., ks], vh[..., ks, :])
         acc = acc + part
     return acc
 
@@ -287,6 +353,17 @@ def _band_bounds(rng, s, c):
     return torch.from_numpy(np.stack(cols, -1)[None, None].astype(np.int32).copy())
 
 
+def _doc_bounds(rng, s):
+    """C=1 causal document bounds [1, 1, s, 1]: each column's document end."""
+    ends = np.zeros((1, 1, s, 1), np.int32)
+    pos = 0
+    while pos < s:
+        end = min(s, pos + int(rng.integers(10, 40)))
+        ends[0, 0, pos:end, 0] = end
+        pos = end
+    return torch.from_numpy(ends)
+
+
 def _gate_ratio(out, lse, ref_out, ref_lse, spread):
     """The worst error over its limit of out (chip_smoke.flash_case's fp32
     gate) and of lse."""
@@ -318,16 +395,7 @@ def test_three_pass_forward_meets_the_fp32_gate_and_one_pass_does_not(d, mask, c
     h, hk = heads
     q = torch.from_numpy(rng.normal(size=(1, s, h, d)).astype(np.float32))
     k, v = (torch.from_numpy(rng.normal(size=(1, s, hk, d)).astype(np.float32)) for _ in range(2))
-    if mask == "doc":
-        ends = np.zeros((1, 1, s, 1), np.int32)
-        pos = 0
-        while pos < s:
-            end = min(s, pos + int(rng.integers(10, 40)))
-            ends[0, 0, pos:end, 0] = end
-            pos = end
-        bounds = torch.from_numpy(ends)
-    else:
-        bounds = None if mask is None else _band_bounds(rng, s, int(mask[1]))
+    bounds = _doc_bounds(rng, s) if mask == "doc" else None if mask is None else _band_bounds(rng, s, int(mask[1]))
     out, lse = emulate_fwd_tf32(q, k, v, bounds, causal, 1.0 / d**0.5)
     ref_out, ref_lse = kfa.flash_fwd_plain(q, k, v, bounds, causal)
     spread = kfa.flash_fwd_plain(q, k, v.abs(), bounds, causal)[0]
@@ -420,5 +488,147 @@ def test_truncating_accumulation_needs_the_partials():
     tiled = _pv_add(torch.zeros((16, 64)), p, v, 3)
     miss = {name: float(((got.double() - exact).abs() / spread).max()) for name, got in
             (("chained", chained), ("tiled", tiled))}
+    assert miss["chained"] > P_REL, miss
+    assert miss["tiled"] < P_REL / 10, miss
+
+
+# -- kernels 15 and 16 in fp32: the arithmetic ---------------------------------------------
+
+def _over_d(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``a @ b^T`` (``a`` [..., M, D], ``b`` [..., N, D]) as the backward
+    kernels take S = q K^T, dP = g V^T and their transposes K q^T, V g^T:
+    both operands split by ``split_hi`` (lo = x - hi, read to its top 19
+    bits), k steps of 8 in D's order; with 3 passes each step's lo hi then
+    hi lo into one accumulator and hi hi into another, summed at the end
+    (cross terms first); with 1 pass hi hi alone."""
+    ah, al = tf32_split_hi(a)
+    bh, bl = (x.transpose(-1, -2) for x in tf32_split_hi(b))
+    cross = hh = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+    for k0 in range(0, a.shape[-1], MMA_K):
+        ks = slice(k0, k0 + MMA_K)
+        if passes == 3:
+            cross = mma(mma(cross, al[..., ks], bh[..., ks, :]), ah[..., ks], bl[..., ks, :])
+        hh = mma(hh, ah[..., ks], bh[..., ks, :])
+    return cross + hh if passes == 3 else hh
+
+
+def emulate_bwd_tf32(q, k, v, bounds, g, lse, delta, causal, scale, passes=3):
+    """The fp32 dq and dk/dv kernels' arithmetic (``csrc/flash_bwd_tf32.cu``),
+    ``(dq [B, Sq, H, D], dk, dv [B, Sk, HK, D])``, every operand split by
+    ``split_hi``. dq: per key tile of the
+    plan's keys, S = q K^T and dP = g V^T (:func:`_over_d`), P = exp(scale S
+    - lse) and dS = P (dP - delta) scale in fp32, 0 where masked, then dq
+    += dS K summed over the tile in a zeroed partial added to dq. dk/dv: per
+    query head of each group in order and per query tile of the plan's
+    rows, S^T = K q^T, P^T (0 where masked), dV += P^T g, dP^T = V g^T, dS^T
+    = P^T (dP^T - delta) scale, dK += dS^T q, each sum over the tile in a
+    zeroed partial. A tile the kernels skip (SKIP, or past the causal walk)
+    is all masked here and adds exact zeros, and a row or key a tile holds
+    is computed the same whichever query or key tile the kernel put it in:
+    so every row (dq) and every key (dk/dv) is taken at once, and every
+    tile is run with the dense mask."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    grp = h // hk
+    masked = kfa.flash_masked(sq, sk, causal, bounds, q.device).expand(b, h, sq, sk)
+    qh, gh = q.transpose(1, 2), g.transpose(1, 2)  # [B, H, Sq, D]
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)  # [B, HK, Sk, D]
+    kq, vq = kh.repeat_interleave(grp, 1), vh.repeat_interleave(grp, 1)  # [B, H, Sk, D]
+    lse_r, dl_r = lse[..., None], delta[..., None]
+    bn = kfa.flash_bwd_fp32_plan(d, "flash_bwd_dq")["keys"]
+    dq = torch.zeros(qh.shape)
+    for c0 in range(0, sk, bn):
+        cs = slice(c0, c0 + bn)
+        p = torch.exp(scale * _over_d(qh, kq[:, :, cs], passes) - lse_r)
+        ds = (p * (_over_d(gh, vq[:, :, cs], passes) - dl_r) * scale).masked_fill(masked[..., cs], 0.0)
+        dq = _pv_add(dq, ds, kq[:, :, cs], passes, block=bn, split=tf32_split_hi)
+    bm = kfa.flash_bwd_fp32_plan(d, "flash_bwd_dkv")["rows"]
+    dk, dv = torch.zeros(kh.shape), torch.zeros(vh.shape)
+    for gi in range(grp):
+        heads = slice(gi, h, grp)  # query head gi of every group: [B, HK, ...]
+        for r0 in range(0, sq, bm):
+            rs = slice(r0, r0 + bm)
+            qt, gt = qh[:, heads, rs], gh[:, heads, rs]
+            pt = torch.exp(scale * _over_d(kh, qt, passes) - lse[:, heads, None, rs])
+            pt = pt.masked_fill(masked[:, heads, rs].transpose(-1, -2), 0.0)
+            dv = _pv_add(dv, pt, gt, passes, block=bm, split=tf32_split_hi)
+            dst = pt * (_over_d(vh, gt, passes) - delta[:, heads, None, rs]) * scale
+            dk = _pv_add(dk, dst, qt, passes, block=bm, split=tf32_split_hi)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _pallas_bwd(q, k, v, g, bounds, causal, blk=64):
+    """The JAX package's forward and backward (``_run_fwd``, ``_run_bwd``:
+    the Pallas kernels in interpret mode, GQA groups summed by XLA) on the
+    same inputs: out, lse, dq, dk, dv, as torch tensors in the port's
+    layouts."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    qh, kh, vh, gh = (_pad_to(jnp.moveaxis(jnp.asarray(x.numpy()), 2, 1), 2, blk) for x in (q, k, v, g))
+    idx = None if bounds is None else _pad_to(jnp.asarray(bounds.numpy()), 2, blk)
+    kw = dict(sq=sq, sk=sk, scale=1.0 / d**0.5, causal=causal, blk_q=blk, blk_k=blk, interpret=True)
+    out, lse = _run_fwd(qh, kh, vh, idx, **kw)
+    dq, dk, dv = _run_bwd(qh, kh, vh, idx, gh, out, lse, **kw)
+
+    def back(x, s):
+        return torch.from_numpy(np.array(jnp.moveaxis(x[:, :, :s], 1, 2)))
+
+    return back(out, sq), torch.from_numpy(np.array(lse[:, :, :sq, 0])), back(dq, sq), back(dk, sk), back(dv, sk)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+# (D, mask, causal, S, H/HK): every head dim of the walks, the row's case's C=2 causal band under GQA, a document
+# mask, C=4 without causal, ragged S
+BWD_CASES = [
+    (64, "c2", True, 150, (4, 2)),
+    (128, "doc", True, 140, (4, 1)),
+    (128, "c4", False, 100, (2, 2)),
+    (192, "c2", True, 90, (2, 1)),
+    (256, None, True, 70, (2, 1)),
+]
+
+
+@pytest.mark.parametrize("d,mask,causal,s,heads", BWD_CASES,
+                         ids=[f"d{d}-{m}-{'causal' if c else 'full'}-s{s}-gqa{h[0]}_{h[1]}"
+                              for d, m, c, s, h in BWD_CASES])
+def test_three_pass_backward_meets_the_fp32_gate_and_one_pass_does_not(d, mask, causal, s, heads):
+    rng = np.random.default_rng(3 * d + s)
+    h, hk = heads
+    q, g = (torch.from_numpy(rng.normal(size=(1, s, h, d)).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(1, s, hk, d)).astype(np.float32)) for _ in range(2))
+    bounds = _doc_bounds(rng, s) if mask == "doc" else None if mask is None else _band_bounds(rng, s, int(mask[1]))
+    out_j, lse_j, dq_j, dk_j, dv_j = _pallas_bwd(q, k, v, g, bounds, causal)
+    # the backward on the JAX forward's lse and delta, as _run_bwd computes them
+    delta = (g * out_j).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, bounds, g, lse_j, delta, causal)
+    got = emulate_bwd_tf32(*args, 1.0 / d**0.5)
+    plain = (kfa.flash_bwd_dq_plain(*args), *kfa.flash_bwd_dkv_plain(*args))
+    for name, x, want_j, want_p in zip(("dq", "dk", "dv"), got, (dq_j, dk_j, dv_j), plain):
+        assert _rel_l2(x, want_j) <= GRAD_REL_L2, (name, _rel_l2(x, want_j))
+        assert _rel_l2(x, want_p) <= GRAD_REL_L2, (name, _rel_l2(x, want_p))
+    # one TF32 pass misses the gate: the split is what meets it
+    one = emulate_bwd_tf32(*args, 1.0 / d**0.5, passes=1)
+    assert max(_rel_l2(x, want) for x, want in zip(one, plain)) > GRAD_REL_L2
+
+
+def test_backward_sums_need_the_partials():
+    """dV = P^T g over a key's 4096 query rows (GQA 32/8 at [2, 1024]: the
+    group's 4 heads x 1024 rows), with the tensor cores' truncating
+    accumulation: chained through one accumulator it misses the fp32 gate;
+    each 64-row tile (the plan's dk/dv tile at D 128) in a zeroed partial
+    added to dV to nearest, as ``csrc/flash_bwd_tf32.cu`` sums it, stays far
+    inside. dq's sum over keys (32-key partials) is the same sum."""
+    rng = np.random.default_rng(11)
+    rows = 4096
+    pt = torch.from_numpy(rng.uniform(0.0, 1.0, (16, rows)).astype(np.float32))  # a warp's 16 keys' P^T
+    g = torch.from_numpy(rng.normal(1.0, 1.0, (rows, 64)).astype(np.float32))
+    exact = pt.double() @ g.double()
+    spread = pt.double() @ g.double().abs()
+    bm = kfa.flash_bwd_fp32_plan(128, "flash_bwd_dkv")["rows"]
+    miss = {name: float(((got.double() - exact).abs() / spread).max()) for name, got in
+            (("chained", _pv_add(torch.zeros((16, 64)), pt, g, 3, block=rows, split=tf32_split_hi)),
+             ("tiled", _pv_add(torch.zeros((16, 64)), pt, g, 3, block=bm, split=tf32_split_hi)))}
     assert miss["chained"] > P_REL, miss
     assert miss["tiled"] < P_REL / 10, miss
