@@ -68,12 +68,17 @@ name and power limit):
    the train shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a
    ragged vocab, in the vocab-major layout, in fp16, at GPT-3 13B's tied
    head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk) and in
-   fp32, each case printing its route (``flx_route``: the wgmma mainloop,
-   mma.sync where TMA cannot address W's rows, the CUDA cores in fp32) and
-   holding two ``flxent_fwd`` and two ``flxent_bwd`` calls to the same bits,
-   with the loss head's peak memory fused and unfused (fused must be lower),
-   17 gated at 1.0x the library's forward and 18 and 19 each at 1.25x the
-   library's whole backward at the train shape, then
+   fp32, each case printing its forward's and its backward's routes
+   (``flx_route`` and ``flx_bwd_route``: the wgmma mainloop, mma.sync where
+   TMA cannot address W's rows, in fp32 the CUDA cores for kernel 17 and
+   the backward's 3xTF32 wgmma mainloop, ``csrc/flxent_tf32.cu``, where its
+   split pass can read W in 16-byte vectors) and holding two
+   ``flxent_fwd`` and two ``flxent_bwd`` calls to the same bits, with the
+   loss head's peak memory fused and unfused (fused must be lower, in bf16
+   and in fp32), 17 gated at 1.0x the library's forward and 18 and 19 each
+   at 1.25x the library's whole backward at the train shape, and 18 and 19
+   fp32 at 1.0x the library's fp32 backward at x ``[2048, 4096]`` (timed
+   also at the fp32 train step's 8192 rows), then
    ``F.fused_linear_cross_entropy`` forward and backward in fp32; kernels 5
    and 6 at head dims 64 and 192 to 1024 (``check_decode_wide``), over
    batches whose lengths end on every rank boundary of their cluster split
@@ -160,9 +165,12 @@ name and power limit):
    against the fp16 plain path's distance from fp32); then train_fp32 — a
    2-layer Llama-2-7B-width model with ``dtype="float32"`` trains 3 steps
    (the same gates, flash 4/2/2 a step on the fp32 tensor-core kernels,
-   step 1's loss and every gradient held to the plain fp32 path's, which
-   the plain path in one TF32 pass must miss) and a profile of one more
-   step (each flash kernel's in-step ms per launch);
+   the loss head's backward on its 3xTF32 instance: flxent_split 17x and
+   flxent_dchunk / dx / dw 16x, one per 2048-column sub-chunk, step 1's
+   loss and every gradient held to the plain fp32 path's, which the plain
+   path in one TF32 pass must miss) and a profile of one more step (each
+   flash kernel's in-step ms per launch, and the 3xTF32 loss-head kernels'
+   events equal to their launches, with their in-step ms per launch);
    then 2-layer fp16 and
    fp32 models served through the engine with ``weight_only_int8=True``
    (kernel 20 7x a step on its wgmma and mma.sync instances; logits
@@ -1604,6 +1612,7 @@ WIDE_TIMED = (320, 512)
 DEEP_HEAD_DIMS = (576, 1024)
 # kernels A and 4 also checked (not timed) at 2048 (16 resident tile rows) and, in fp32, at 2432 (the chunked walk)
 DEEP_CHECKED = (2048, 2432)
+FP32_WIDE_TIMED = (320, 512, 576, 1024)  # fp32 flash at these head dims timed beside SDPA's fp32, causal
 # the wide forward with Q streamed beside K (above D 1152: csrc/flash_fwd_wide.cu `stream_q`), and the wide
 # backward there (its resident pair streamed): checked against the plain versions, not timed
 STREAM_Q_HEAD_DIM = 1280
@@ -1693,8 +1702,10 @@ def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
     forward ``csrc/flash_fwd_wide.cu``, dq and dk/dv
     ``csrc/flash_bwd_wide.cu``; dk/dv's K and V stream through its ring
     from D 576, dq's Q and g at 1024), fp32 on the CUDA cores
-    (``csrc/flash_fp32.cu`` to 512, ``csrc/flash_deep.cu`` above; not at
-    1024); the bf16 cases at 320, 512, 576 and 1024 timed beside SDPA (its
+    (``csrc/flash_fp32.cu`` to 512, ``csrc/flash_deep.cu`` above; at 1024
+    causal only), causal at 320, 512, 576 and 1024 timed beside SDPA's fp32
+    forward and backward with no gate; the bf16 cases at 320, 512, 576 and
+    1024 timed beside SDPA (its
     backend named), the forward gated at :data:`FLASH_WIDE_GATE` x SDPA's
     forward and dq + dk/dv at :data:`FLASH_BWD_WIDE_GATE` x SDPA's whole
     backward, causal at 320 and 512, dk/dv bitwise equal over two calls at
@@ -1710,26 +1721,36 @@ def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
 
     check_wide_plan(card)
     ends = torch.from_numpy(doc_bounds(np.random.default_rng(2), 2, 1024, 64, 512)[:, None, :, None].copy()).to(dev)
-    wide, wide_err, deterministic = {}, {}, {}
-    for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS):
-        for dtype in {dt for dt, _ in wide_dtypes(d)} | {torch.float16}:
-            for bnd, mask in ((None, "causal"), (ends, "document mask")):
-                timed = dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)
-                res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
-                                 card, timed=timed, dtype=dtype, d=d)
-                if dtype != torch.float32:
-                    for name, err in res["max_abs_err"].items():
-                        wide_err[name] = max(wide_err.get(name, 0.0), err)
-                if timed:
-                    dense = None if bnd is None else flash_masked(1024, 1024, True, bnd, dev)
-                    qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
-                    wide[f"d{d} {mask}"] = {
-                        "times": res["times"], "sdpa_ms": sdpa_ms(*res["tensors"], mask=dense),
-                        "sdpa_backend": sdpa_backend(qh, kh, vh, None if dense is None else ~dense, dense is None)}
-                    if d == 512 and bnd is None:
-                        deterministic["d512 causal"] = dkv_deterministic(res["bwd_args"])
-                del res
-                torch.cuda.empty_cache()
+    wide, wide_err, deterministic, fp32_wide = {}, {}, {}, {}
+    cases = [(d, dtype) for d in (*WIDE_HEAD_DIMS, *DEEP_HEAD_DIMS)
+             for dtype in {dt for dt, _ in wide_dtypes(d)} | {torch.float16}]
+    for d, dtype in cases + [(DEEP_HEAD_DIMS[-1], torch.float32)]:
+        for bnd, mask in ((None, "causal"), (ends, "document mask")):
+            if dtype == torch.float32 and d == DEEP_HEAD_DIMS[-1] and bnd is not None:
+                continue  # fp32 at 1024: the timed causal case only
+            timed = dtype == torch.bfloat16 and d in (*WIDE_TIMED, *DEEP_HEAD_DIMS)
+            timed_fp32 = dtype == torch.float32 and bnd is None and d in FP32_WIDE_TIMED
+            res = flash_case(dev, gen, 2, 1024, 8, 2, True, bnd, f"gqa 8/2, D {d}, {mask}, {str(dtype)[6:]}",
+                             card, timed=timed or timed_fp32, dtype=dtype, d=d)
+            if timed_fp32:  # the CUDA-core fp32 kernels beside SDPA in fp32 (TF32 off), no gate
+                fp32_wide[f"d{d} causal"] = {
+                    "times": {n: {k: t[k] for k in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms")}
+                              for n, t in res["times"].items()},
+                    "sdpa_ms": sdpa_ms(*res["tensors"]),
+                    "source": FLASH_FP32_SOURCE if d <= 512 else "paddle_tpu_torch/kernels/csrc/flash_deep.cu"}
+            if dtype != torch.float32:
+                for name, err in res["max_abs_err"].items():
+                    wide_err[name] = max(wide_err.get(name, 0.0), err)
+            if timed:
+                dense = None if bnd is None else flash_masked(1024, 1024, True, bnd, dev)
+                qh, kh, vh = (t.transpose(1, 2) for t in res["tensors"][:3])
+                wide[f"d{d} {mask}"] = {
+                    "times": res["times"], "sdpa_ms": sdpa_ms(*res["tensors"], mask=dense),
+                    "sdpa_backend": sdpa_backend(qh, kh, vh, None if dense is None else ~dense, dense is None)}
+                if d == 512 and bnd is None:
+                    deterministic["d512 causal"] = dkv_deterministic(res["bwd_args"])
+            del res
+            torch.cuda.empty_cache()
     # D 1280: the forward's Q streamed beside K (the backward streams its resident pair there too), against
     # the plain versions
     d = STREAM_Q_HEAD_DIM
@@ -1775,6 +1796,8 @@ def check_flash_wide(dev, gen, card: dict, records: dict) -> dict:
     emit({"phase": "flash_wide_times", "shape": [2, 1024, 8, 2], "dtype": "bfloat16", "cases": wide,
           "stream": {"d": STREAM_Q_HEAD_DIM, "shape": [1, 512, 4, 2], "cases": stream},
           "s4096_document_mask": long,
+          "fp32_causal": fp32_wide, "fp32_note": "fp32 on the CUDA cores (TF32 off), bound at 67 TFLOP/s; SDPA in "
+                                                  "fp32 with is_causal, forward and backward; no gate",
           "source": {"forward (bf16, fp16)": FLASH_WIDE_SOURCE, "dq, dk/dv (bf16, fp16)": FLASH_BWD_WIDE_SOURCE,
                      "fp32 320-512": FLASH_FP32_SOURCE, "fp32 above 512": "paddle_tpu_torch/kernels/csrc/flash_deep.cu"},
           "fwd_over_sdpa_causal": ratios, "dq_plus_dkv_over_sdpa_bwd_causal": bwd_ratios,
@@ -2502,8 +2525,11 @@ FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)",
                         "(ulp 2^-7 bf16, 2^-10 fp16, 2^-16 fp32; sub = tiny * ulp, the subnormal spacing, "
                         "0 in fp32; in fp32 |D| times 1 + sqrt(H) / 16 * sqrt(x^2 (W_c^2)^T))",
               "repeat": "two flxent_fwd and two flxent_bwd calls give the same bits",
-              "route": "each case states the route flx_route_of must take for its tensors"}
+              "route": "each case states the route flx_bwd_route_of must take for its tensors and prints "
+                       "flx_route_of's (kernel 17)"}
+FLXENT_TF32_SOURCE = "paddle_tpu_torch/kernels/csrc/flxent_tf32.cu"  # the fp32 backward's 3xTF32 instance
 FLX_GATE = 1.25  # kernels 18 and 19 each at most this times the library's whole backward at the train shape
+FLX_FP32_GATE = 1.0  # 18 and 19 fp32 (3xTF32) each at most this times the library's fp32 backward, x [2048, 4096]
 FLX_FWD_GATE = 1.0  # kernel 17 at most this times the library's forward (x @ W + F.cross_entropy) at the train shape
 FLX_INT8_GATE = 1.25  # kernel 17's int8 site at most this times its library at the train shape
 
@@ -2593,9 +2619,10 @@ def gate_reading(got, ref, limit) -> dict:
 def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, route_want: str,
                 timed: bool = False, w_offset: int = 0) -> dict:
     """Kernels 17-19 and the D recompute (first and last vocab chunk)
-    against their plain versions on the same inputs, on the route
-    (``flx_route_of``, printed) that all four take, which must be
-    ``route_want``; two ``flxent_fwd`` and two ``flxent_bwd`` calls must
+    against their plain versions on the same inputs, on the backward's
+    route (``flx_bwd_route_of``: the D recompute, 18 and 19), which must be
+    ``route_want``, and the forward's (``flx_route_of``: kernel 17), both
+    printed; two ``flxent_fwd`` and two ``flxent_bwd`` calls must
     give the same bits. ``w_offset`` places W that
     many elements into its storage. In fp32 (run with TF32 off by the
     caller) the plain D with TF32 on must fail D's gate. With ``timed``
@@ -2608,7 +2635,7 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     ulp = FLXENT_ULP[str(dtype).split(".")[-1]]
     sub = 0.0 if dtype == torch.float32 else torch.finfo(dtype).tiny * ulp  # the spacing of the type's subnormals
     x, w, lab, gcoef = flxent_inputs(dev, gen, n, h, v, dtype, vocab_major, w_offset)
-    route = kl.flx_route_of(x, w, vocab_major)
+    route, fwd_route = kl.flx_bwd_route_of(x, w, vocab_major), kl.flx_route_of(x, w, vocab_major)
     if route != route_want:
         fail(f"kernels 17-19 ({label}): the backward takes the route {route}, not {route_want}")
     lse, tl = kl.flxent_fwd(x, w, lab, vocab_major)
@@ -2659,19 +2686,31 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
         readings[name] = gate_reading(g, r, scale + ulp * torch.maximum(g.abs(), r.abs()) + sub)
         checks[name] = readings[name].pop("ok") and err[name + "_rel_l2"] <= ulp / 2
         del g, r
+    if route == "tf32x3":  # the split pass against its plain version, bitwise: x both ways, W's first chunk
+        wc = w[:min(kl.CHUNK, v)] if vocab_major else w[:, :min(kl.CHUNK, v)].contiguous()
+        err["split"] = 0.0
+        for what, t in (("x", x), ("w chunk", wc)):
+            got, want = kl.tf32_planes(t, True, True), kl.tf32_planes_plain(t, True, True)
+            checks[f"split pass ({what}) is its plain version's bits"] = all(
+                bool(torch.equal(a, b)) for a, b in zip(got, want))
+            err["split"] = max(err["split"], *(float((a - b).abs().max()) for a, b in zip(got, want)))
+            del got, want
+        del wc
     checks["one product alone is the same bits"] = bool(torch.equal(dx, dx_only)) and bool(torch.equal(dw, dw_only))
     checks["two calls are the same bits"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
     checks["two forward calls are the same bits"] = bool(torch.equal(lse, lse2)) and bool(torch.equal(tl, tl2))
     line = {"phase": "kernel_check", "kernel": "flxent_fwd/flxent_dchunk/flxent_dx/flxent_dw", "case": label,
-            "route": route, "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major},
+            "route": route, "routes": {"forward": fwd_route, "backward": route},
+            "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major},
             "dtype": str(dtype).split(".")[-1], "max_err": err, "checks": checks, "gate_readings": readings,
             "tolerance": FLXENT_TOL}
     del dx_p, dw_p, dx_only, dw_only, dx2, dw2, sx, sw
     if not all(checks.values()):
         emit({**line, "card": card})
         fail(f"kernels 17-19 disagree with their plain versions ({label}): {checks} {err} {readings}")
-    res = {"route": route, "max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
-                                           "flxent_dx": err["dx"], "flxent_dw": err["dw"]}}
+    res = {"route": route, "fwd_route": fwd_route,
+           "max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
+                           "flxent_dx": err["dx"], "flxent_dw": err["dw"], "flxent_split": err.get("split")}}
     if timed:
         res.update(flxent_times(x, w, lab, lse, gcoef, vocab_major))
         line["times"] = res["times"]
@@ -2732,6 +2771,21 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
     times["bwd_shared_d"] = dict(ms=device_ms(lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major), iters=10),
                                  library_ms=times["flxent_dx"]["library_ms"],
                                  **bound(xw + rows + (n + v) * h * esz, 3 * flop, rate))
+    if kl.flx_bwd_route_of(x, w, vocab_major) == "tf32x3":
+        # three TF32 passes a product at the TF32 tensor peak (the bound above: one pass at 67 TFLOP/s)
+        work = {"flxent_dchunk": ((n * h + vc * h + n * vc) * esz + rows, vc / v),
+                "flxent_dx": (xw + rows + n * h * esz, 2), "flxent_dw": (xw + rows + v * h * esz, 2),
+                "bwd_shared_d": (xw + rows + (n + v) * h * esz, 3)}
+        for name, (nbytes, products) in work.items():
+            t = times[name]
+            t["bound_ms_67_tflops"] = t["bound_ms"]
+            t.update(bound(nbytes, 3 * products * flop, TF32_FLOP_PER_S))
+            t["bound_note"] = "3 TF32 passes at 494.7 TFLOP/s; bound_ms_67_tflops: one pass at 67 TFLOP/s"
+        sp = lambda: kl.tf32_planes(x, True, True)  # noqa: E731: the backward's x split (both orientations)
+        times["flxent_split"] = dict(ms=device_ms(sp, iters=10), call_ms=call_ms(sp, iters=10),
+                                     plain_ms=device_ms(lambda: kl.tf32_planes_plain(x, True, True), iters=3),
+                                     library_ms=None, what="x [N, H] into x's and x^T's planes",
+                                     **bound(n * h * 4 * 5, 0.0))  # read x once, write four planes
     for t in times.values():
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         if t.get("library_ms"):
@@ -2773,9 +2827,15 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     the wgmma route, at H 520 (a partial k box on the wgmma route), with W
     2 bytes off 16-byte alignment (the mma.sync route), at GPT-3 13B's
     tied head (x ``[8192, 5120]``, W ``[50304, 5120]`` vocab-major, a
-    1152-column tail chunk; timed), and in fp32 on the CUDA-core instance
-    (a ragged case, and x ``[2048, 4096]``, W ``[4096, 32000]`` timed
-    beside the fp32 library head with TF32 off); then the public
+    1152-column tail chunk; timed), and in fp32 (kernel 17 on the CUDA
+    cores; the backward on the 3xTF32 instance, ``csrc/flxent_tf32.cu``, in
+    a ragged vocab-major case, vocab-major cases at x ``[2048, 4096]`` and
+    ``[8192, 4096]``, and x ``[2048, 4096]`` and ``[8192, 4096]`` against W
+    ``[4096, 32000]`` timed beside the fp32 library head with TF32 off, 18
+    and 19 gated at
+    :data:`FLX_FP32_GATE` times its backward at 2048 rows and the fused
+    head's peak memory below the unfused head's; on the CUDA cores where W
+    ``[H, V]`` has V % 4 != 0); then the public
     ``F.fused_linear_cross_entropy`` on fp32 tensors. First the host's copy
     of the wgmma instance's tile plan is held against the kernels' own."""
     import torch
@@ -2798,9 +2858,17 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        flxent_case(dev, gen, 300, 256, 1000, torch.float32, True, "fp32, ragged, vocab-major", card, "cuda_cores")
-        fp32 = flxent_case(dev, gen, 2048, 4096, 32000, torch.float32, False, "fp32, 2048 rows", card, "cuda_cores",
+        flxent_case(dev, gen, 300, 256, 1000, torch.float32, True, "fp32, ragged, vocab-major", card, "tf32x3")
+        flxent_case(dev, gen, 520, 512, 3001, torch.float32, False, "fp32, W [H, V] with V % 4 != 0", card,
+                    "cuda_cores")
+        flxent_case(dev, gen, 2048, 4096, 32000, torch.float32, True, "fp32, 2048 rows, vocab-major", card,
+                    "tf32x3")
+        fp32 = flxent_case(dev, gen, 2048, 4096, 32000, torch.float32, False, "fp32, 2048 rows", card, "tf32x3",
                            timed=True)
+        flxent_case(dev, gen, 8192, 4096, 32000, torch.float32, True, "fp32, 8192 rows, vocab-major", card,
+                    "tf32x3")
+        fp32_step = flxent_case(dev, gen, 8192, 4096, 32000, torch.float32, False,
+                                "fp32, 8192 rows (the fp32 train step's head)", card, "tf32x3", timed=True)
         check_fused_loss_fp32_entry(dev, gen, card)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2808,6 +2876,9 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
         t = train["times"][name]
         records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
     records["flxent_dx"]["bwd_shared_d"] = train["times"]["bwd_shared_d"]
+    # the split pass runs on the fp32 route only: its record at the fp32 train step's x [8192, 4096]
+    records["flxent_split"] = dict(source=FLXENT_TF32_SOURCE, max_abs_err=fp32_step["max_abs_err"]["flxent_split"],
+                                   **fp32_step["times"]["flxent_split"])
     emit({"phase": "flxent_times", "train_shape": {"x": [8192, 4096], "w": [4096, 32000]},
           "routes": {"train": train["route"], "gpt": gpt["route"], "fp32": fp32["route"]},
           "library": "two calls: cuBLAS x @ W + F.cross_entropy on fp32 logits; its backward (dlogits, dX, dW) "
@@ -2817,7 +2888,10 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
                   "path's backward (D, dX and dW per chunk)",
           "records": {n: records[n] for n in FLXENT_SOURCES}, "bwd_shared_d": train["times"]["bwd_shared_d"],
           "gpt_head": gpt["times"], "gpt_peak_memory": gpt["peak_memory"],
-          "fp32_2048_rows": fp32["times"], "fp32_library": "the same two calls in fp32, TF32 off",
+          "fp32_2048_rows": fp32["times"], "fp32_8192_rows": fp32_step["times"],
+          "fp32_routes": {"forward": fp32["fwd_route"], "backward": fp32["route"]},
+          "fp32_peak_memory": {"2048_rows": fp32["peak_memory"], "8192_rows": fp32_step["peak_memory"]},
+          "fp32_library": "the same two calls in fp32, TF32 off",
           "loss_head_peak_memory": train["peak_memory"], "card": card})
     ratios = {name: train["times"][name]["vs_library"] for name in ("flxent_dx", "flxent_dw")}
     fwd_ratio = train["times"]["flxent_fwd"]["vs_library"]
@@ -2832,8 +2906,22 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
         fail(f"kernels 18/19 are slower than {FLX_GATE}x the library's whole backward at the train shape: {slow}")
     if fwd_ratio > FLX_FWD_GATE:
         fail(f"kernel 17 is slower than {FLX_FWD_GATE}x the library's forward at the train shape: {fwd_ratio}")
-    if not train["peak_memory"]["fused_gib"] < train["peak_memory"]["unfused_gib"]:
-        fail(f"the fused loss head's peak memory is not below the unfused head's: {train['peak_memory']}")
+    fp32_ratios = {name: fp32["times"][name]["vs_library"] for name in ("flxent_dx", "flxent_dw")}
+    shared = fp32["times"]["bwd_shared_d"]
+    emit({"phase": "flxent_fp32_gate", "x": [2048, 4096], "w": [4096, 32000],
+          "ms_over_library_bwd": fp32_ratios, "limit": FLX_FP32_GATE,
+          "bwd_shared_d": {"ms": shared["ms"], "vs_library": shared["vs_library"],
+                           "share_of_3_pass_bound": shared["share_of_bound"], "bound_ms": shared["bound_ms"]},
+          "at_8192_rows": {name: fp32_step["times"][name].get("vs_library") for name in fp32_step["times"]},
+          "fwd_ms_8192_rows": fp32_step["times"]["flxent_fwd"]["ms"],
+          "library": "cuBLAS x @ W + F.cross_entropy in fp32 with TF32 off, and its backward", "card": card})
+    slow = {name: r for name, r in fp32_ratios.items() if r > FLX_FP32_GATE}
+    if slow:
+        fail(f"kernels 18/19 in fp32 are slower than {FLX_FP32_GATE}x the library's fp32 backward: {slow}")
+    for label, case in (("bf16 train shape", train), ("fp32, 2048 rows", fp32), ("fp32, 8192 rows", fp32_step)):
+        if not case["peak_memory"]["fused_gib"] < case["peak_memory"]["unfused_gib"]:
+            fail(f"the fused loss head's peak memory is not below the unfused head's ({label}): "
+                 f"{case['peak_memory']}")
     torch.cuda.empty_cache()
 
 
@@ -2873,10 +2961,11 @@ def check_flx_plan(card: dict) -> None:
 def check_fused_loss_fp32_entry(dev, gen, card: dict) -> None:
     """``F.fused_linear_cross_entropy`` forward and backward on fp32 tensors
     on the card (H 1024, a multiple of 128: the kernels' gate, the flag at its
-    default): 17 twice and D / 18 / 19 once per 4096-column chunk on the
-    CUDA-core instance, against the same entry on the plain versions; loss
-    within 1e-5 relative, each gradient within a relative L2 of 1e-5 (the
-    same fp32 products summed in other orders)."""
+    default): 17 twice on the CUDA cores, and on the 3xTF32 instance one
+    split launch for x and, per sub-chunk of ``flx_tf32_sub`` columns, one
+    split of W's columns, D, 18 and 19, against the same entry on the plain
+    versions; loss within 1e-5 relative, each gradient within a relative L2
+    of 1e-5 (the same fp32 products summed in other orders)."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
@@ -2897,13 +2986,14 @@ def check_fused_loss_fp32_entry(dev, gen, card: dict) -> None:
     xp, wp = x0.clone().requires_grad_(), w0.clone().requires_grad_()
     loss_p = kl.linear_cross_entropy(xp, wp, lab, use_kernels=False)
     loss_p.backward()
-    chunks = -(-v // kl.CHUNK)
-    want = {"flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    subs = -(-v // kl.flx_tf32_sub(b * s, h, v))
+    want = {"flxent_fwd": 2, "flxent_split": 1 + subs, "flxent_dchunk": subs, "flxent_dx": subs, "flxent_dw": subs}
     err = {"loss": abs(float(loss.detach()) - float(loss_p.detach())) / abs(float(loss_p.detach())),
            "dx_rel_l2": rel_l2(x.grad, xp.grad), "dw_rel_l2": rel_l2(w.grad, wp.grad)}
     ok = counts == want and all(e <= 1e-5 for e in err.values()) and loss.dtype == torch.float32
-    emit({"phase": "fused_loss_fp32_entry", "shape": {"x": [b, s, h], "w": [h, v]}, "route": kl.flx_route(
-        torch.float32, h, v, False), "launches": counts, "errors": err,
+    emit({"phase": "fused_loss_fp32_entry", "shape": {"x": [b, s, h], "w": [h, v]},
+          "routes": {"forward": kl.flx_route(torch.float32, h, v, False),
+                     "backward": kl.flx_bwd_route(torch.float32, h, v, False)}, "launches": counts, "errors": err,
           "tolerance": "loss 1e-5 relative; dx, dw rel L2 <= 1e-5", "card": card})
     if not ok:
         fail(f"F.fused_linear_cross_entropy in fp32 on the card: launches {counts} (want {want}), errors {err}")
@@ -4053,7 +4143,9 @@ TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("flxent_logits", "fused loss logits (kernel 17)"), ("flxent_fwd", "fused loss logits (kernel 17)"),
     ("flxent_merge", "fused loss logits (kernel 17)"),
     ("flxent_wgmma", "fused loss D / dX / dW (kernels 18/19, wgmma)"),
-    ("flxent_gemm", "fused loss dX / dW (kernels 18/19, mma.sync)"), ("flxent_f32", "fused loss fp32 (17-19)"),
+    ("flxent_gemm", "fused loss dX / dW (kernels 18/19, mma.sync)"),
+    ("flxent_tf32", "fused loss fp32 D / dX / dW (kernels 18/19, 3xTF32 wgmma)"),
+    ("flxent_split", "fused loss fp32 operand split (3xTF32 planes)"), ("flxent_f32", "fused loss fp32 (17-19)"),
     ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
     ("Memcpy", "memcpy"), ("Memset", "memcpy"),
@@ -4135,6 +4227,9 @@ def check_train_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
 
 FLASH_EVENTS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}  # launch counter -> device kernel name substring
+# the fp32 loss head's backward on the 3xTF32 instance: launch counters -> device kernel name substring
+TF32_LOSS_EVENTS = {("flxent_dchunk", "flxent_dx", "flxent_dw"): "flxent_tf32_kernel",
+                    ("flxent_split",): "flxent_split_kernel"}
 
 
 def profile_train_step(step, card: dict, label: str = "train_profile", flash_cold=None) -> dict:
@@ -4177,15 +4272,26 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     flash_launches = {n: launches[n] for n in FLASH_EVENTS}
     in_step = {n: {"in_step_ms_per_launch": flash_us[n] / 1e3 / max(1, flash_launches[n]),
                    "cold_ms_per_call": (flash_cold or {}).get(n)} for n in FLASH_EVENTS}
+    loss_tf32 = {}  # the 3xTF32 loss head's events and launches, where the step ran it (its split pass launched)
+    for counters, key in TF32_LOSS_EVENTS.items():
+        n_launch = sum(launches[c] for c in counters)
+        if launches["flxent_split"]:
+            evs = [e.time_range.elapsed_us() for e in cuda_events(prof) if key in e.name]
+            loss_tf32["/".join(counters)] = {"events": len(evs), "launches": n_launch,
+                                             "in_step_ms_per_launch": sum(evs) / 1e3 / n_launch}
     emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1 - busy / wall_us) if spans else None,
           "device_ms_by_category": by_cat_ms, "flash_events": flash_events, "flash_launches": flash_launches,
           "flash_in_step_vs_cold": in_step, "norm_in_step_vs_cold": norm_in_step(by_cat_ms, launches, label),
+          **({"loss_head_tf32x3": loss_tf32} if loss_tf32 else {}),
           "top_kernels_ms": {k: v / 1e3 for k, v in top}, "cuda_events": len(spans), "card": card})
     if flash_events != flash_launches:
         first = [e.name[:40] for e in sorted(cuda_events(prof), key=lambda e: e.time_range.start)[:12]]
         fail(f"{label}: the profile holds flash kernel events {flash_events}, the launch counters {flash_launches} "
              f"({len(spans)} device events, the first {first})")
+    uneven = {k: r for k, r in loss_tf32.items() if r["events"] != r["launches"]}
+    if uneven:
+        fail(f"{label}: the profile's 3xTF32 loss-head events are not its launches: {uneven}")
     return by_cat_ms
 
 
@@ -4285,7 +4391,7 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     the plain path in one TF32 pass must miss the gradient gate."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.kernels.fused_loss import CHUNK
+    from paddle_tpu_torch.kernels.fused_loss import CHUNK, flx_bwd_route, flx_tf32_sub
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -4329,6 +4435,11 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
             # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
             "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    if flx_bwd_route(getattr(torch, cfg.dtype), cfg.hidden_size, cfg.vocab_size, False) == "tf32x3":
+        # the fp32 head's backward on the 3xTF32 instance: per sub-chunk one split of W's columns, one D,
+        # one dX, one dW, and one split of x before them
+        subs = -(-cfg.vocab_size // flx_tf32_sub(TRAIN_BATCH * seq, cfg.hidden_size, cfg.vocab_size))
+        want.update(flxent_split=1 + subs, flxent_dchunk=subs, flxent_dx=subs, flxent_dw=subs)
     if (cfg.hidden_size // cfg.num_attention_heads) % 128 == 0:  # kernels 9, 10: the JAX package's D % 128 gate
         want.update(rope_fwd=4 * layers, rope_bwd=2 * layers)
     losses, step_ms, counts, total, first_ms = [], [], None, {}, None
@@ -4505,12 +4616,14 @@ def train_fp32(dev, card: dict, flash_cold=None) -> dict:
     ``AdamW(multi_precision=True)``: every parameter a finite non-zero
     gradient, each step's launches, flash 4 / 2 / 2 on the fp32 kernels
     (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``) beside the
-    RMSNorm, rope and fp32 loss-head kernels, and nothing else, a falling
-    loss), its first step's loss and gradients held to the plain versions'
-    fp32 path on the same weights (:func:`plain_fp32_reference`), and a
-    profile of one more step (each flash kernel's in-step ms per launch
-    beside ``flash_cold``, its cold-L2 ms per call at the step's shape and
-    mask from ``check_flash``). Returns the launches of the 3 steps."""
+    RMSNorm, rope and fp32 loss-head kernels (17 on the CUDA cores, D / 18 /
+    19 and their split pass on ``csrc/flxent_tf32.cu``), and nothing else, a
+    falling loss), its first step's loss and gradients held to the plain
+    versions' fp32 path on the same weights (:func:`plain_fp32_reference`),
+    and a profile of one more step (each flash kernel's in-step ms per
+    launch beside ``flash_cold``, its cold-L2 ms per call at the step's
+    shape and mask from ``check_flash``; the 3xTF32 loss-head kernels'
+    in-step ms per launch). Returns the launches of the 3 steps."""
     import torch
     from paddle_tpu_torch.models import LlamaConfig
 
@@ -4922,7 +5035,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fp16_phase(dev, card)
-    train_fp32(dev, card, flash_cold["llama fp32, document mask [2, 4096, 32, 128]"])
+    counts["flxent_split"] = train_fp32(dev, card, flash_cold["llama fp32, document mask [2, 4096, 32, 128]"])[
+        "flxent_split"]
     for dtype in ("float16", "float32"):  # kernel 20 on the serving path in every dtype it takes
         serve_weight_only(dev, card, dtype)
     counts.update({k: v for k, v in train_gpt(dev, card, flash_cold=flash_cold["gpt, causal [4, 2048, 40, 128]"]).items()

@@ -37,13 +37,18 @@ no column (its ``tl`` is 0). The plain versions walk the vocab in the JAX
 scan reference's chunks (``_REF_BLOCK``), in fp32 from the inputs' values.
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
 launches a kernel or raises. Kernel 17 and the backward's products take
-the instance :func:`flx_route` names from the dtype, W's shape and W's
-alignment before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop
-fed by TMA, tiles planned by :func:`flx_plan` and walked as
-:func:`flx_items` says; the forward's per-row partials reduced in
-registers, :data:`TILE` columns a partial), the mma.sync mainloop
-(``csrc/flxent_fwd.cu``, ``flxent_dx.cu``, ``flxent_dw.cu``) where TMA
-cannot address W, or the CUDA cores in fp32 (``csrc/flxent_fp32.cu``).
+the instance :func:`flx_route` (kernel 17) and :func:`flx_bwd_route` (the
+D recompute, 18 and 19) name from the dtype, W's shape and W's alignment
+before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop fed by
+TMA, tiles planned by :func:`flx_plan` and walked as :func:`flx_items`
+says; the forward's per-row partials reduced in registers, :data:`TILE`
+columns a partial), the mma.sync mainloop (``csrc/flxent_fwd.cu``,
+``flxent_dx.cu``, ``flxent_dw.cu``) where TMA cannot address W, the fp32
+backward's 3xTF32 wgmma mainloop (``csrc/flxent_tf32.cu``: every operand
+split once into hi and lo TF32 planes laid out K-major, launches counted as
+``flxent_split``, then three TF32 passes a product) where the split pass
+can read W in 16-byte vectors, or the CUDA cores in fp32
+(``csrc/flxent_fp32.cu``: kernel 17, and the fp32 backward of other W).
 Kernel 17's int8 site takes the instance :func:`flx_int8_route` names:
 kernel 20's wgmma mainloop (``csrc/wo_mainloop.cuh``, epilogue in
 ``csrc/flxent_int8.cu``) for the int8 Llama head's ``[H, V]`` layout, the
@@ -66,12 +71,15 @@ __all__ = [
     "CHUNK",
     "FusedLinearCrossEntropyFunction",
     "Int8HeadLossFunction",
+    "flx_bwd_route",
+    "flx_bwd_route_of",
     "flx_int8_route",
     "flx_int8_route_of",
     "flx_items",
     "flx_plan",
     "flx_route",
     "flx_route_of",
+    "flx_tf32_sub",
     "flxent_bwd",
     "flxent_bwd_plain",
     "flxent_dchunk",
@@ -81,6 +89,10 @@ __all__ = [
     "flxent_fwd_int8_plain",
     "flxent_fwd_plain",
     "linear_cross_entropy",
+    "tf32_planes",
+    "tf32_planes_bytes",
+    "tf32_planes_plain",
+    "tf32_split_plain",
 ]
 
 NEG_INF = -1e30  # the Pallas kernels' masked logit
@@ -93,8 +105,8 @@ _ROUTES = {"wgmma": 0, "mma_sync": 1, "cuda_cores": 2}  # ptt::flx::Route
 
 
 def flx_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
-    """Which instance of kernel 17 and of the backward's products (the D
-    recompute, kernels 18 and 19) takes ``x [N, h]`` against ``W``
+    """Which instance of kernel 17 (and, in bf16 and fp16, of the backward's
+    products: :func:`flx_bwd_route`) takes ``x [N, h]`` against ``W``
     (``[h, v]``, or ``[v, h]`` with ``vocab_major``) of ``dtype``:
     ``"wgmma"`` (the wgmma mainloop fed by TMA) for bf16 and fp16 when TMA
     can address every operand's rows (``2 h`` and, for ``[h, v]``, ``2 v``
@@ -111,9 +123,30 @@ def flx_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: 
 
 
 def flx_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
-    """:func:`flx_route` of the contiguous ``x [N, H]`` and ``W`` that kernels
-    17-19 launch on."""
+    """:func:`flx_route` of the contiguous ``x [N, H]`` and ``W`` that kernel
+    17 launches on."""
     return flx_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
+
+
+def flx_bwd_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
+    """Which instance of the backward's products (the D recompute, kernels
+    18 and 19) takes ``x [N, h]`` against ``W`` of ``dtype``: in fp32
+    ``"tf32x3"`` (``csrc/flxent_tf32.cu``: three TF32 passes on a wgmma
+    mainloop, its operands split first by a pass that reads W in 16-byte
+    vectors) when W's first element is 16-byte aligned (``w_aligned``) and
+    its rows are a multiple of 4 floats (``h % 4 == 0``, ``h > 0`` and, for
+    ``[h, v]``, ``v % 4 == 0``), else ``"cuda_cores"``; in bf16 and fp16
+    :func:`flx_route`'s instance. Any other dtype raises."""
+    if dtype != torch.float32:
+        return flx_route(dtype, h, v, vocab_major, w_aligned)
+    tf32 = w_aligned and h > 0 and h % 4 == 0 and (vocab_major or v % 4 == 0)
+    return "tf32x3" if tf32 else "cuda_cores"
+
+
+def flx_bwd_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
+    """:func:`flx_bwd_route` of the contiguous ``x [N, H]`` and ``W`` that the
+    D recompute and kernels 18 and 19 launch on."""
+    return flx_bwd_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
 
 
 def flx_int8_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
@@ -372,18 +405,186 @@ def flxent_fwd_int8(
 
 def _backward_operands(what, x, w, labels, lse, gcoef, vocab_major):
     """:func:`_operands` with the fp32 ``lse`` and ``gcoef``, and the route
-    of the backward's products (:func:`flx_route`)."""
+    of the backward's products (:func:`flx_bwd_route`)."""
     io, x, w, lab, n, h, v = _operands(what, x, w, labels, vocab_major)
     for name, t in (("lse", lse), ("gcoef", gcoef)):
         if t.shape != (n,) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"{what}: {name} must be fp32 [{n}] on {x.device}")
-    return io, _ROUTES[flx_route_of(x, w, vocab_major)], x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
+    return io, flx_bwd_route_of(x, w, vocab_major), x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _planes(rows: int, ld: int, dev) -> torch.Tensor:
+    """Scratch for one operand's hi and lo TF32 planes, ``[2, rows, ld]``."""
+    return torch.empty((2, rows, ld), dtype=torch.float32, device=dev)
+
+
+def _pl(t: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+    """A plane pair as the 3xTF32 entry points take it: (pointer, floats a
+    row, floats from the hi plane to the lo plane); (0, 0, 0) for none."""
+    return (0, 0, 0) if t is None else (t.data_ptr(), t.shape[2], t.shape[1] * t.shape[2])
+
+
+def tf32_split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of fp32 ``x`` as the split pass makes them
+    (``csrc/tf32.cuh`` ``split``): ``hi`` is ``x`` rounded to TF32 on the
+    bits (to nearest, ties away: add half of the 13 dropped bits' unit, clear
+    them), ``lo`` the same rounding of ``x - hi``; infinities pass as they
+    are."""
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        r = ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(t), r, t)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def tf32_planes_plain(x: torch.Tensor, same: bool = True, trans: bool = False):
+    """The plain version of :func:`tf32_planes`."""
+    hi, lo = tf32_split_plain(x.float())
+    out_same = torch.stack([hi, lo]) if same else None
+    out_trans = None
+    if trans:
+        rows = x.shape[0]
+        out_trans = torch.zeros((2, x.shape[1], _up4(rows)), dtype=torch.float32, device=x.device)
+        out_trans[0, :, :rows], out_trans[1, :, :rows] = hi.t(), lo.t()
+    return out_same, out_trans
+
+
+def tf32_planes(x: torch.Tensor, same: bool = True, trans: bool = False):
+    """The 3xTF32 backward's split pass over fp32 ``x [R, C]`` (``C % 4 ==
+    0``): ``(same, trans)``, the hi and lo planes of ``x`` (``[2, R, C]``)
+    and of ``x^T`` (``[2, C, R]``, rows padded with zeros to a multiple of
+    4), each None when not asked for. One counted launch for a CUDA tensor
+    (``flxent_split``); the plain version for a CPU one."""
+    if x.device.type == "cpu":
+        return tf32_planes_plain(x, same, trans)
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] % 4 or not (same or trans) or not x.numel():
+        raise ValueError(f"tf32_planes: the split pass takes a non-empty fp32 [R, C] with C % 4 == 0, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    rows, cols = x.shape
+    out_same = _planes(rows, cols, x.device) if same else None
+    out_trans = _planes(cols, _up4(rows), x.device) if trans else None
+    with torch.cuda.device(x.device):
+        _launch_split(x.data_ptr(), cols, rows, cols, out_same, out_trans)
+    return out_same, out_trans
+
+
+def _launch_split(src: int, ld: int, rows: int, cols: int, same: Optional[torch.Tensor],
+                  trans: Optional[torch.Tensor]) -> None:
+    """One launch of the 3xTF32 instance's split pass: the hi and lo planes
+    of the fp32 matrix at address ``src`` viewed as ``[rows, cols]`` (``ld``
+    floats a row) into ``same [2, rows, .]`` and / or ``trans [2, cols, .]``."""
+    fn = build.kernel_fn("ptt_flxent_split", [_P, _L, _I, _I, _P, _L, _L, _P, _L, _L, _P])
+    build.check(fn(src, ld, rows, cols, *_pl(same), *_pl(trans), _stream()), "flxent_split")
+    count_launch("flxent_split")
+
+
+def _split_w(w: torch.Tensor, vocab_major: bool, h: int, v: int, c0: int, vc: int, wd: Optional[torch.Tensor],
+             wx: Optional[torch.Tensor]) -> None:
+    """The chunk's W planes: ``wd [2, vc, H]`` (D's operand, W_c^T) and / or
+    ``wx [2, H, .]`` (dX's, W_c), in one split launch."""
+    base = w.data_ptr() + w.element_size() * (c0 * h if vocab_major else c0)
+    if vocab_major:  # W[c0:c0 + vc] is [vc, H]
+        _launch_split(base, h, vc, h, wd, wx)
+    else:  # W[:, c0:c0 + vc] is [H, vc], rows V apart
+        _launch_split(base, v, h, vc, wx, wd)
+
+
+def _launch_tf32_dchunk(xp, wd, lab, lse, gcoef, d, ldd, dp, dtp, n, h, c0, vc) -> None:
+    """One launch of the 3xTF32 D: into ``d [N, ldd]``, D's planes ``dp``
+    and D^T's ``dtp`` (each may be None)."""
+    fn = build.kernel_fn("ptt_flxent_tf32_dchunk", [_P, _L, _L] * 2 + [_P] * 4 + [_L] + [_P, _L, _L] * 2
+                         + [_I] * 4 + [_P])
+    build.check(fn(*_pl(xp), *_pl(wd), lab.data_ptr(), lse.data_ptr(), gcoef.data_ptr(),
+                   0 if d is None else d.data_ptr(), ldd, *_pl(dp), *_pl(dtp), n, h, c0, vc, _stream()),
+                "flxent_dchunk (tf32x3)")
+    count_launch("flxent_dchunk")
+
+
+def _dchunk_tf32(x, w, lab, lse, gcoef, vocab_major, n, h, v, c0, c1) -> torch.Tensor:
+    """:func:`flxent_dchunk` on the 3xTF32 instance: x's planes and the
+    chunk's W_c^T planes (two split launches), then D."""
+    vc = c1 - c0
+    ldd = -(-vc // 8) * 8
+    d = torch.empty((n, ldd), dtype=torch.float32, device=x.device)
+    xp, wd = tf32_planes(x)[0], _planes(vc, h, x.device)
+    _split_w(w, vocab_major, h, v, c0, vc, wd, None)
+    _launch_tf32_dchunk(xp, wd, lab, lse, gcoef, d, ldd, None, None, n, h, c0, vc)
+    return d[:, :vc]
+
+
+def tf32_planes_bytes(n: int, h: int, v: int, sub: int) -> int:
+    """Device bytes of the 3xTF32 backward's operand planes at sub-chunks
+    of ``sub`` columns: hi and lo fp32 planes of x and x^T (``[n, h]``),
+    of W_c in both orientations (``[min(sub, v), h]``) and of D and D^T
+    (``[n, min(sub, v)]``), rows padded to 4 floats."""
+    s, n4 = min(sub, v), _up4(n)
+    return 8 * (n * h + h * n4 + s * h + h * _up4(s) + n * _up4(s) + s * n4)
+
+
+def flx_tf32_sub(n: int, h: int, v: int) -> int:
+    """The columns of one sub-chunk of the 3xTF32 backward for ``x [n, h]``
+    against a vocab of ``v``: the largest of :data:`CHUNK`, ``CHUNK / 2``,
+    ..., 512 whose operand planes (:func:`tf32_planes_bytes`) take fewer
+    bytes than the ``[n, v]`` fp32 logits the unfused head holds, so that
+    the fused head's peak memory stays below the unfused head's; 512 where
+    none does. Each chunk of :data:`CHUNK` columns runs as its sub-chunks,
+    in order."""
+    sub = CHUNK
+    while sub > 512 and tf32_planes_bytes(n, h, v, sub) >= 4 * n * v:
+        sub //= 2
+    return sub
+
+
+def _bwd_tf32(x, w, lab, lse, gcoef, vocab_major, dx, dw, n, h, v):
+    """:func:`flxent_bwd` on the 3xTF32 instance (``csrc/flxent_tf32.cu``).
+    One split launch for x (its planes, and x^T's when dW is wanted), then
+    per sub-chunk of :func:`flx_tf32_sub` columns in order: one split
+    launch for W_c (W_c^T's planes for D, W_c's for dX), D (writing D's
+    planes for dX and D^T's for dW), dX into ``dx`` (the first sub-chunk
+    overwrites, the rest add) and dW_c. Every operand plane is K-major:
+    ``[rows, K]`` with K contiguous. ``dx`` and ``dw`` are the outputs
+    (None: not wanted)."""
+    dev = x.device
+    need_dx, need_dw = dx is not None, dw is not None
+    sub = flx_tf32_sub(n, h, v)
+    vmax, ldn = min(sub, v), _up4(n)
+    ldk = _up4(vmax)
+    xp, xt = tf32_planes(x, same=True, trans=need_dw)  # D's A: x [N][H]; dW's x^T [H][N]
+    wd = _planes(vmax, h, dev)  # D's B: W_c^T [vc][H]
+    wx = _planes(h, ldk, dev) if need_dx else None  # dX's B: W_c [H][vc]
+    dp = _planes(n, ldk, dev) if need_dx else None  # dX's A: D [N][vc]
+    dt = _planes(vmax, ldn, dev) if need_dw else None  # dW's D^T [vc][N]
+    fn_dx = build.kernel_fn("ptt_flxent_tf32_dx", [_P, _L, _L] * 2 + [_P] + [_I] * 4 + [_P])
+    fn_dw = build.kernel_fn("ptt_flxent_tf32_dw", [_P, _L, _L] * 2 + [_P, _L] + [_I] * 3 + [_P])
+    with torch.cuda.device(dev):
+        for i, c0 in enumerate(range(0, v, sub)):
+            vc = min(sub, v - c0)
+            _split_w(w, vocab_major, h, v, c0, vc, wd, wx)
+            _launch_tf32_dchunk(xp, wd, lab, lse, gcoef, None, 0, dp, dt, n, h, c0, vc)
+            if need_dx:
+                build.check(fn_dx(*_pl(dp), *_pl(wx), dx.data_ptr(), n, h, vc, int(i == 0), _stream()),
+                            "flxent_dx (tf32x3)")
+                count_launch("flxent_dx")
+            if need_dw:
+                if vocab_major:  # dW[c0 + v][h] = sum_r D[r][v] x[r][h]
+                    args = (*_pl(dt), *_pl(xt), dw.data_ptr() + 4 * c0 * h, h, vc, h, n)
+                else:  # dW[h][c0 + v] = sum_r x[r][h] D[r][v]
+                    args = (*_pl(xt), *_pl(dt), dw.data_ptr() + 4 * c0, v, h, vc, n)
+                build.check(fn_dw(*args, _stream()), "flxent_dw (tf32x3)")
+                count_launch("flxent_dw")
+    return dx, dw
 
 
 def _launch_dchunk(io, route, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc) -> None:
     """One launch: ``D`` of the vocab columns ``[c0, c0 + vc)`` into ``d [N, ldd]``."""
     fn = build.kernel_fn("ptt_flxent_dchunk", [_I, _I, _I] + [_P] * 6 + [_L] + [_I] * 5 + [_P])
-    build.check(fn(io, route, int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+    build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
                    gcoef.data_ptr(), d.data_ptr(), ldd, n, h, v, c0, vc, _stream()), "flxent_dchunk")
     count_launch("flxent_dchunk")
 
@@ -394,13 +595,19 @@ def flxent_dchunk(
 ) -> torch.Tensor:
     """``D [N, c1 - c0]`` in ``x``'s dtype of the vocab columns ``c0:c1``
     (``0 <= c0 < c1 <= V``; one launch of the recompute that kernels 18
-    and 19 share)."""
+    and 19 share, on :func:`flx_bwd_route`'s instance: on ``"tf32x3"`` after
+    two split launches, x's planes and the chunk's W_c^T's)."""
     if x.device.type == "cpu":
         return flxent_dchunk_plain(x, w, labels, lse, gcoef, c0, c1, vocab_major)
     io, route, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_dchunk", x, w, labels, lse, gcoef,
                                                                    vocab_major)
     if not 0 <= c0 < c1 <= v:
         raise ValueError(f"flxent_dchunk: columns {c0}:{c1} are not a range of [0, {v})")
+    if route == "tf32x3":
+        if not n:
+            return torch.empty((0, c1 - c0), dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            return _dchunk_tf32(x, w, lab, lse, gcoef, vocab_major, n, h, v, c0, c1)
     ldd = -(-(c1 - c0) // 8) * 8
     d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
     if n:
@@ -416,11 +623,12 @@ def flxent_bwd(
     """``(dx, dw)`` of the loss given the forward's ``lse`` and the per-row
     ``gcoef`` (fp32 ``[N]``); a gradient not asked for is None. Per vocab
     chunk of :data:`CHUNK` columns, three launches on the instance
-    :func:`flx_route` names, each counted: the chunk's ``D`` (``[N, CHUNK]``
-    in x's dtype), then kernel 18 adds ``D W_c^T`` into an fp32 ``[N, H]``
-    partial (the last chunk writes ``dx``; in fp32 the partial is ``dx``
-    itself) and kernel 19 writes ``dW_c = x^T D``. The chunks run in order:
-    two calls give the same bits."""
+    :func:`flx_bwd_route` names, each counted: the chunk's ``D`` (``[N,
+    CHUNK]`` in x's dtype), then kernel 18 adds ``D W_c^T`` into an fp32
+    ``[N, H]`` partial (the last chunk writes ``dx``; in fp32 the partial is
+    ``dx`` itself) and kernel 19 writes ``dW_c = x^T D``; on ``"tf32x3"``
+    the split launches before them (:func:`_bwd_tf32`). The chunks run in
+    order: two calls give the same bits."""
     if x.device.type == "cpu":
         return flxent_bwd_plain(x, w, labels, lse, gcoef, vocab_major, need_dx, need_dw)
     io, route, x, w, lab, lse, gcoef, n, h, v = _backward_operands("flxent_bwd", x, w, labels, lse, gcoef,
@@ -431,6 +639,8 @@ def flxent_bwd(
         return dx, dw
     if not (n and v):
         return (None if dx is None else dx.zero_()), (None if dw is None else dw.zero_())
+    if route == "tf32x3":
+        return _bwd_tf32(x, w, lab, lse, gcoef, vocab_major, dx, dw, n, h, v)
     chunks = list(range(0, v, CHUNK))
     ldd = -(-min(CHUNK, v) // 8) * 8
     d = torch.empty((n, ldd), dtype=x.dtype, device=x.device)
@@ -444,12 +654,12 @@ def flxent_bwd(
             vc = min(CHUNK, v - c0)
             _launch_dchunk(io, route, vocab_major, x, w, lab, lse, gcoef, d, ldd, n, h, v, c0, vc)
             if need_dx:
-                build.check(fn_dx(io, route, int(vocab_major), d.data_ptr(), ldd, w.data_ptr(),
+                build.check(fn_dx(io, _ROUTES[route], int(vocab_major), d.data_ptr(), ldd, w.data_ptr(),
                                   0 if acc is None else acc.data_ptr(), dx.data_ptr(), n, h, v, c0, vc,
                                   int(i == 0), int(i == len(chunks) - 1), _stream()), "flxent_dx")
                 count_launch("flxent_dx")
             if need_dw:
-                build.check(fn_dw(io, route, int(vocab_major), x.data_ptr(), d.data_ptr(), ldd, dw.data_ptr(),
+                build.check(fn_dw(io, _ROUTES[route], int(vocab_major), x.data_ptr(), d.data_ptr(), ldd, dw.data_ptr(),
                                   n, h, v, c0, vc, _stream()), "flxent_dw")
                 count_launch("flxent_dw")
     return dx, dw

@@ -48,6 +48,10 @@ KERNELS: Dict[str, str] = {
     "flxent_dchunk": "paddle_tpu/kernels/fused_loss.py:302",
     "flxent_dx": "paddle_tpu/kernels/fused_loss.py:322",
     "flxent_dw": "paddle_tpu/kernels/fused_loss.py:343",
+    # the fp32 backward's 3xTF32 instance (csrc/flxent_tf32.cu) splits its
+    # operands first into K-major hi / lo planes: x once a backward, W's
+    # chunk once a chunk; the D recompute is the first product to read them
+    "flxent_split": "paddle_tpu/kernels/fused_loss.py:302",
     # the int8 serving path. Kernel 20, the weight-only int8 matmul:
     "wo_matmul": "paddle_tpu/kernels/quant.py:107",
     # kernels A, 4, 5, 6 over the int8 KV pool: each Pallas body with its

@@ -29,10 +29,13 @@ forward, dX, dW) and the train step that runs them, against the JAX package.
   document mask, each loss head running once per step.
 
 - The backward's wgmma instance, which the CPU cannot run: ``flx_route``
-  (every main-path shape, Llama's ``[H, V]`` and GPT's ``[V, H]``, takes
-  ``"wgmma"`` in bf16 and fp16 and ``"cuda_cores"`` in fp32; a ``[H, V]``
-  W whose rows TMA cannot address, or a W that is not 16-byte aligned,
-  takes ``"mma_sync"``), ``flx_plan`` and ``flx_items`` (every output tile
+  and ``flx_bwd_route`` (every main-path shape, Llama's ``[H, V]`` and
+  GPT's ``[V, H]``, takes ``"wgmma"`` in bf16 and fp16; in fp32 kernel 17
+  takes ``"cuda_cores"`` and the backward ``"tf32x3"``, the CUDA cores
+  where its split pass cannot read W in 16-byte vectors; a ``[H, V]`` W
+  whose rows TMA cannot address, or a W that is not 16-byte aligned, takes
+  ``"mma_sync"``; ``tests/test_torch_flxent_tf32.py`` holds the 3xTF32
+  instance's arithmetic), ``flx_plan`` and ``flx_items`` (every output tile
   of every launch, the ragged last chunk's included, covered exactly once;
   the train shapes' plans; ``chip_smoke.py`` holds both against the
   kernels' own plan on the card), and ``emulate_flx_bwd``,
@@ -300,21 +303,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                              (256, 200, False)],
                          ids=["llama [H,V]", "gpt [V,H]", "vocab-major 5000", "small [H,V]"])
 def test_flx_route_takes_wgmma_on_the_main_paths(h, v, vocab_major):
-    assert kloss.flx_route(torch.bfloat16, h, v, vocab_major) == "wgmma"
-    assert kloss.flx_route(torch.float16, h, v, vocab_major) == "wgmma"
+    """bf16 and fp16 take the wgmma mainloop forward and backward; fp32 runs
+    kernel 17 on the CUDA cores and the backward on the 3xTF32 instance."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert kloss.flx_route(dtype, h, v, vocab_major) == "wgmma"
+        assert kloss.flx_bwd_route(dtype, h, v, vocab_major) == "wgmma"
     assert kloss.flx_route(torch.float32, h, v, vocab_major) == "cuda_cores"
+    assert kloss.flx_bwd_route(torch.float32, h, v, vocab_major) == "tf32x3"
 
 
-@pytest.mark.parametrize("dtype,h,v,vocab_major,route", [
-    (torch.bfloat16, 1024, 32003, False, "mma_sync"),  # W [H, V] rows of 64,006 bytes: TMA needs multiples of 16
-    (torch.float16, 512, 3001, False, "mma_sync"),
-    (torch.bfloat16, 1024, 32003, True, "wgmma"),  # vocab-major rows are H long
-    (torch.bfloat16, 1004, 5000, True, "mma_sync"),  # H % 8 != 0
-    (torch.float32, 1024, 32003, False, "cuda_cores"),
-    (torch.bfloat16, 0, 5000, False, "mma_sync"),  # an empty contraction: the wgmma accumulators start at k step 0
+@pytest.mark.parametrize("dtype,h,v,vocab_major,route,bwd_route", [
+    # W [H, V] rows of 64,006 bytes: TMA needs multiples of 16
+    (torch.bfloat16, 1024, 32003, False, "mma_sync", "mma_sync"),
+    (torch.float16, 512, 3001, False, "mma_sync", "mma_sync"),
+    (torch.bfloat16, 1024, 32003, True, "wgmma", "wgmma"),  # vocab-major rows are H long
+    (torch.bfloat16, 1004, 5000, True, "mma_sync", "mma_sync"),  # H % 8 != 0
+    # fp32 rows of 128,012 bytes: the split pass reads W in 16-byte vectors
+    (torch.float32, 1024, 32003, False, "cuda_cores", "cuda_cores"),
+    (torch.float32, 1024, 32003, True, "cuda_cores", "tf32x3"),
+    (torch.bfloat16, 0, 5000, False, "mma_sync", "mma_sync"),  # an empty contraction: the wgmma accumulators start at k step 0
+    (torch.float32, 0, 5000, False, "cuda_cores", "cuda_cores"),
 ])
-def test_flx_route_by_dtype_alignment_and_layout(dtype, h, v, vocab_major, route):
+def test_flx_route_by_dtype_alignment_and_layout(dtype, h, v, vocab_major, route, bwd_route):
     assert kloss.flx_route(dtype, h, v, vocab_major) == route
+    assert kloss.flx_bwd_route(dtype, h, v, vocab_major) == bwd_route
 
 
 @pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma_sync"), (4, "mma_sync"), (8, "wgmma")])
@@ -324,15 +336,23 @@ def test_flx_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route, vocab
     16-byte aligned base, so W 2 or 8 bytes off takes the mma.sync route
     (chosen before the launch; the forward's mma.sync kernel takes the same
     W) and W 16 bytes off the wgmma route; fp32 takes the CUDA cores at any
-    offset."""
+    offset for kernel 17, and for the backward the 3xTF32 instance where
+    W's address is a multiple of 16 bytes (0, 16 or 32 bytes off), the CUDA
+    cores 4 bytes off."""
     h, v = 64, 256
-    for dtype, want in ((torch.bfloat16, route), (torch.float16, route), (torch.float32, "cuda_cores")):
+    fp32_bwd = "tf32x3" if offset != 1 else "cuda_cores"
+    for dtype, want, want_bwd in ((torch.bfloat16, route, route), (torch.float16, route, route),
+                                  (torch.float32, "cuda_cores", fp32_bwd)):
         buf = torch.zeros(offset + h * v, dtype=dtype)
         assert buf.data_ptr() % 16 == 0
         w = buf[offset:].view((v, h) if vocab_major else (h, v))
         assert w.is_contiguous()
-        assert kloss.flx_route_of(torch.zeros((4, h), dtype=dtype), w, vocab_major) == want
-        assert kloss.flx_route(dtype, h, v, vocab_major, w_aligned=offset * buf.element_size() % 16 == 0) == want
+        x = torch.zeros((4, h), dtype=dtype)
+        aligned = offset * buf.element_size() % 16 == 0
+        assert kloss.flx_route_of(x, w, vocab_major) == want
+        assert kloss.flx_route(dtype, h, v, vocab_major, w_aligned=aligned) == want
+        assert kloss.flx_bwd_route_of(x, w, vocab_major) == want_bwd
+        assert kloss.flx_bwd_route(dtype, h, v, vocab_major, w_aligned=aligned) == want_bwd
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float64])

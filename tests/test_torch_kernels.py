@@ -207,6 +207,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     lse, _ = kloss.flxent_fwd(x, w.reshape(16, 1).expand(16, 8), lab)
     kloss.flxent_bwd(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3))
     kloss.flxent_dchunk(x, w.reshape(16, 1).expand(16, 8), lab, lse, torch.ones(3), 2, 7)
+    kloss.tf32_planes(x, same=True, trans=True)  # the fp32 backward's split pass
     # the int8 serving path's wrappers
     k8, v8 = (torch.zeros(t.shape, dtype=torch.int8) for t in (kc, vc))
     ks = torch.ones(kc.shape[:3])
@@ -224,7 +225,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
                                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rope_fwd": 0, "rope_bwd": 0,
                                "rms_residual_bwd": 0, "ln_residual": 0, "ln_residual_bwd": 0,
                                "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0,
-                               "wo_matmul": 0, "paged_chunk_fused_int8": 0, "paged_chunk_int8": 0,
+                               "flxent_split": 0, "wo_matmul": 0, "paged_chunk_fused_int8": 0, "paged_chunk_int8": 0,
                                "paged_decode_int8": 0, "paged_decode_fused_int8": 0, "flxent_fwd_int8": 0}
 
 
