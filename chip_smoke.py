@@ -68,17 +68,19 @@ name and power limit):
    the train shape (x ``[8192, 4096]``, W ``[4096, 32000]`` bf16), at a
    ragged vocab, in the vocab-major layout, in fp16, at GPT-3 13B's tied
    head (W ``[50304, 5120]`` vocab-major, a 1152-column tail chunk) and in
-   fp32, each case printing its forward's and its backward's routes
-   (``flx_route`` and ``flx_bwd_route``: the wgmma mainloop, mma.sync where
-   TMA cannot address W's rows, in fp32 the CUDA cores for kernel 17 and
-   the backward's 3xTF32 wgmma mainloop, ``csrc/flxent_tf32.cu``, where its
-   split pass can read W in 16-byte vectors) and holding two
+   fp32, each case printing the route its forward and backward take
+   (``flx_route``: the wgmma mainloop, mma.sync where
+   TMA cannot address W's rows, in fp32 the 3xTF32 wgmma mainloop,
+   ``csrc/flxent_tf32.cu``, where its split pass can read W in 16-byte
+   vectors, else the CUDA cores; fp32 lse and tl held to a gate on the
+   logits' own scale that one TF32 pass must fail) and holding two
    ``flxent_fwd`` and two ``flxent_bwd`` calls to the same bits, with the
    loss head's peak memory fused and unfused (fused must be lower, in bf16
    and in fp32), 17 gated at 1.0x the library's forward and 18 and 19 each
-   at 1.25x the library's whole backward at the train shape, and 18 and 19
+   at 1.25x the library's whole backward at the train shape, 18 and 19
    fp32 at 1.0x the library's fp32 backward at x ``[2048, 4096]`` (timed
-   also at the fp32 train step's 8192 rows), then
+   also at the fp32 train step's 8192 rows) and 17 fp32 at 1.0x its
+   forward at both, then
    ``F.fused_linear_cross_entropy`` forward and backward in fp32; kernels 5
    and 6 at head dims 64 and 192 to 1024 (``check_decode_wide``), over
    batches whose lengths end on every rank boundary of their cluster split
@@ -141,8 +143,11 @@ name and power limit):
    pools with q in bf16, fp16 and fp32, 17's int8 site on each route
    ``flx_int8_route`` names (kernel 20's wgmma mainloop at the loss head's
    shape, gated at 1.25x its library, and at 8-, 64-, 128- and 256-row
-   tiles; mma.sync at V 32003, vocab-major and fp16 V 3001; the CUDA cores
-   in fp32), and the int8 appends under the sync check;
+   tiles; mma.sync at V 32003, vocab-major and fp16 V 3001; in fp32 the
+   2xTF32 wgmma mainloop, gated at 1.0x its fp32 library at x ``[2048,
+   4096]``, its widen pass bitwise and gated at 1.0x PyTorch's one call for
+   the same plane in both layouts, and the CUDA cores at V 3001), and the
+   int8 appends under the sync check;
 6. train — Llama-2-7B widths cut to 8 layers (bf16, recompute,
    ``AdamW(multi_precision=True)``, every JAX default) on 2 x 4096
    document-packed tokens with the FlashMask document mask, 1 warm-up and
@@ -165,8 +170,10 @@ name and power limit):
    against the fp16 plain path's distance from fp32); then train_fp32 — a
    2-layer Llama-2-7B-width model with ``dtype="float32"`` trains 3 steps
    (the same gates, flash 4/2/2 a step on the fp32 tensor-core kernels,
-   the loss head's backward on its 3xTF32 instance: flxent_split 17x and
-   flxent_dchunk / dx / dw 16x, one per 2048-column sub-chunk, step 1's
+   the loss head on its 3xTF32 instance: flxent_fwd 9x (a partials
+   launch per 4096-column sub-chunk, then the merge), flxent_split 26x (x
+   and each sub-chunk of W, forward and backward) and flxent_dchunk / dx /
+   dw 16x, one per 2048-column sub-chunk of the backward, step 1's
    loss and every gradient held to the plain fp32 path's, which the plain
    path in one TF32 pass must miss) and a profile of one more step (each
    flash kernel's in-step ms per launch, and the 3xTF32 loss-head kernels'
@@ -175,8 +182,10 @@ name and power limit):
    fp32 models served through the engine with ``weight_only_int8=True``
    (kernel 20 7x a step on its wgmma and mma.sync instances; logits
    against the plain path's distance from an fp32 / fp64 reference) and
-   their evaluation loss (17's int8 site twice, on its wgmma and CUDA-core
-   instances, within 1e-4 of the plain int8 head's);
+   their evaluation loss (17's int8 site on its wgmma instance twice, on
+   its 2xTF32 instance in fp32 a partials launch per sub-chunk after each
+   sub-chunk's widen launch, and the merge; within 1e-4 of the plain int8
+   head's);
 7. train_gpt — after the Llama model is freed, GPT-3 13B widths cut to 8
    layers (hidden 5120, 40 heads of dim 128, vocab 50304, biases, the lm
    head tied to the word embedding; bf16, every JAX default:
@@ -2517,7 +2526,16 @@ FLXENT_SOURCES = {  # the train shape's instances (bf16, W [H, V]: the wgmma rou
 # and moves a logit by about 2^-11 q: every fp32 case reads the plain D with
 # TF32 on under the same gate, and fails unless the gate rejects it.
 FLXENT_ULP = {"bfloat16": BF16_REL, "float16": 2.0 ** -10, "float32": 2.0 ** -16}
-FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)",
+# Kernel 17 in fp32 (lse, tl): its logits move as D's do, by up to 2^-16
+# sqrt(H) / 16 q each (the random walk of the fp32 rounding errors of two
+# sums of H products in other orders, 16 times over), and lse by the
+# probability-weighted sum of its logits' moves; plus 2^-16 of the value for
+# its own rounding. One TF32 pass moves a logit by about 2^-11 q: the plain
+# forward with TF32 on must fail this gate.
+FLX_FWD_FP32_TOL = ("per row |lse - ref| <= 2^-16 (max(|lse|, |ref|) + sqrt(H) / 16 * sum_v p_v q_v), |tl - ref| <= "
+                    "2^-16 (max(|tl|, |ref|) + sqrt(H) / 16 * q at the label); q = sqrt(x^2 (W_c^2)^T) (times |scale| "
+                    "of the column for an int8 W), p = exp(logit - lse); the plain forward with TF32 on must fail it")
+FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|) in bf16 / fp16; fp32: " + FLX_FWD_FP32_TOL,
               "D": "per element ulp * max(|got|, |ref|) + sub (fp32: times 1 + sqrt(H) / 16 * "
                    "sqrt(x^2 (W_c^2)^T), and the plain D with TF32 on must fail this gate)",
               "dx, dw": "per element ulp * (|D| |W|^T resp. |x|^T |D|) + sub * (sum_v |W| resp. sum_n |x|) "
@@ -2525,13 +2543,16 @@ FLXENT_TOL = {"lse, tl": "1e-4 * max(1, |v|)",
                         "(ulp 2^-7 bf16, 2^-10 fp16, 2^-16 fp32; sub = tiny * ulp, the subnormal spacing, "
                         "0 in fp32; in fp32 |D| times 1 + sqrt(H) / 16 * sqrt(x^2 (W_c^2)^T))",
               "repeat": "two flxent_fwd and two flxent_bwd calls give the same bits",
-              "route": "each case states the route flx_bwd_route_of must take for its tensors and prints "
-                       "flx_route_of's (kernel 17)"}
+              "route": "each case states the route kernel 17 and the backward (flx_route_of) must take for its "
+                       "tensors"}
 FLXENT_TF32_SOURCE = "paddle_tpu_torch/kernels/csrc/flxent_tf32.cu"  # the fp32 backward's 3xTF32 instance
 FLX_GATE = 1.25  # kernels 18 and 19 each at most this times the library's whole backward at the train shape
 FLX_FP32_GATE = 1.0  # 18 and 19 fp32 (3xTF32) each at most this times the library's fp32 backward, x [2048, 4096]
 FLX_FWD_GATE = 1.0  # kernel 17 at most this times the library's forward (x @ W + F.cross_entropy) at the train shape
+FLX_FP32_FWD_GATE = 1.0  # 17 fp32 (3xTF32) at most this times the library's fp32 forward at x [2048 / 8192, 4096]
 FLX_INT8_GATE = 1.25  # kernel 17's int8 site at most this times its library at the train shape
+FLX_INT8_FP32_GATE = 1.0  # its fp32 instance (2xTF32) at most this times its fp32 library at x [2048, 4096]
+FLX_WIDEN_GATE = 1.0  # its widen pass at most this times PyTorch's one call for the same plane, in both layouts
 
 
 def flxent_inputs(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, w_offset: int = 0):
@@ -2600,6 +2621,53 @@ def fp32_logit_scale(x, wc):
     return 1 + (x.shape[1] ** 0.5 / 16) * (x2 @ wc.float().square().t()).sqrt()
 
 
+def fp32_fwd_scales(x, w, lab, lse, vocab_major: bool, scale=None):
+    """fp32 only: per row, in units of 2^-16, how far two fp32 sums of the
+    logits' H products in other orders may move ``lse`` and ``tl``: for each
+    logit ``sqrt(H) / 16 * q`` (:func:`fp32_logit_scale` less D's own
+    rounding; ``q = sqrt(x^2 (W_c^2)^T)``, times ``|scale|`` of its column for
+    an int8 W), weighted by its probability ``exp(logit - lse)`` and summed
+    for ``lse`` (``d lse = sum_v p_v d logit_v``), at the label's column for
+    ``tl`` (0 where the label matches no column). Returns ``(s_lse, s_tl)``,
+    fp32 ``[N]``, from the fp32 logits (TF32 off) in chunks of ``CHUNK``."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    n, h = x.shape
+    v = w.shape[0] if vocab_major else w.shape[1]
+    xf = x.float()
+    x2 = xf.square()
+    lab = lab.long()
+    s_lse = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    s_tl = torch.zeros_like(s_lse)
+    for c0 in range(0, v, kl.CHUNK):
+        c1 = min(c0 + kl.CHUNK, v)
+        wc = (w[c0:c1] if vocab_major else w[:, c0:c1].t()).float()  # [c1 - c0, H]
+        q = (x2 @ wc.square().t()).sqrt()
+        logits = xf @ wc.t()
+        if scale is not None:
+            q = q * scale[c0:c1].abs()[None, :]
+            logits = logits * scale[c0:c1][None, :]
+        s_lse += (torch.exp(logits - lse[:, None]) * q).sum(dim=1)
+        hit = (lab >= c0) & (lab < c1)
+        s_tl += torch.where(hit, q.gather(1, (lab - c0).clamp(0, c1 - c0 - 1)[:, None])[:, 0], 0.0)
+        del q, logits, wc
+    f = h ** 0.5 / 16
+    return f * s_lse, f * s_tl
+
+
+def fp32_fwd_gate(lse, tl, lse_ref, tl_ref, scales) -> dict:
+    """The fp32 forward's gate (:data:`FLX_FWD_FP32_TOL`) on the logits' own
+    scale: per row ``|lse - lse_ref| <= 2^-16 (max(|lse|, |lse_ref|) +
+    s_lse)`` and likewise for ``tl`` with ``s_tl`` (``scales`` from
+    :func:`fp32_fwd_scales`). Returns each one's :func:`gate_reading`."""
+    import torch
+
+    ulp = FLXENT_ULP["float32"]
+    return {name: gate_reading(got, ref, ulp * (torch.maximum(got.abs(), ref.abs()) + s))
+            for name, got, ref, s in (("lse", lse, lse_ref, scales[0]), ("tl", tl, tl_ref, scales[1]))}
+
+
 def gate_reading(got, ref, limit) -> dict:
     """An element-wise gate's reading: whether every element is within its
     limit, the worst error over its limit, and the medians of |ref| and of
@@ -2619,13 +2687,14 @@ def gate_reading(got, ref, limit) -> dict:
 def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, route_want: str,
                 timed: bool = False, w_offset: int = 0) -> dict:
     """Kernels 17-19 and the D recompute (first and last vocab chunk)
-    against their plain versions on the same inputs, on the backward's
-    route (``flx_bwd_route_of``: the D recompute, 18 and 19), which must be
-    ``route_want``, and the forward's (``flx_route_of``: kernel 17), both
-    printed; two ``flxent_fwd`` and two ``flxent_bwd`` calls must
+    against their plain versions on the same inputs, on the route
+    ``flx_route_of`` names for kernel 17 and the backward alike, which must
+    be ``route_want`` (printed); two ``flxent_fwd`` and two ``flxent_bwd`` calls must
     give the same bits. ``w_offset`` places W that
     many elements into its storage. In fp32 (run with TF32 off by the
-    caller) the plain D with TF32 on must fail D's gate. With ``timed``
+    caller) kernel 17's lse and tl are held to :func:`fp32_fwd_gate` and
+    the plain D with TF32 on must fail D's gate, the plain forward with
+    TF32 on the forward's. With ``timed``
     their times, the plain versions', the unfused composition's (cuBLAS
     ``x @ W`` + ``F.cross_entropy``: two calls, forward and backward) and
     the loss head's peak memory fused and unfused."""
@@ -2635,9 +2704,9 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     ulp = FLXENT_ULP[str(dtype).split(".")[-1]]
     sub = 0.0 if dtype == torch.float32 else torch.finfo(dtype).tiny * ulp  # the spacing of the type's subnormals
     x, w, lab, gcoef = flxent_inputs(dev, gen, n, h, v, dtype, vocab_major, w_offset)
-    route, fwd_route = kl.flx_bwd_route_of(x, w, vocab_major), kl.flx_route_of(x, w, vocab_major)
+    route = kl.flx_route_of(x, w, vocab_major)
     if route != route_want:
-        fail(f"kernels 17-19 ({label}): the backward takes the route {route}, not {route_want}")
+        fail(f"kernels 17-19 ({label}): the route is {route}, not {route_want}")
     lse, tl = kl.flxent_fwd(x, w, lab, vocab_major)
     lse2, tl2 = kl.flxent_fwd(x, w, lab, vocab_major)
     dx, dw = kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major)
@@ -2653,6 +2722,10 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
         d = (got - want).abs()
         err[name] = float(d.max())
         checks[name] = bool((d <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    if dtype == torch.float32:  # the fp32 forward's gate on the logits' own scale, and its TF32 control
+        readings.update(fp32_fwd_readings(x, w, lab, lse, tl, lse_p, tl_p, vocab_major))
+        checks.update({k: readings[k].pop("ok") for k in ("lse", "tl")})
+        checks["the lse / tl gate rejects the TF32 forward"] = not readings["tf32 control"].pop("ok")
     last = (v - 1) // kl.CHUNK * kl.CHUNK
     err["d"] = 0.0
     for c0 in sorted({0, last}):
@@ -2700,7 +2773,7 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     checks["two calls are the same bits"] = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
     checks["two forward calls are the same bits"] = bool(torch.equal(lse, lse2)) and bool(torch.equal(tl, tl2))
     line = {"phase": "kernel_check", "kernel": "flxent_fwd/flxent_dchunk/flxent_dx/flxent_dw", "case": label,
-            "route": route, "routes": {"forward": fwd_route, "backward": route},
+            "route": route,
             "shape": {"x": [n, h], "w": list(w.shape), "vocab_major": vocab_major},
             "dtype": str(dtype).split(".")[-1], "max_err": err, "checks": checks, "gate_readings": readings,
             "tolerance": FLXENT_TOL}
@@ -2708,7 +2781,7 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     if not all(checks.values()):
         emit({**line, "card": card})
         fail(f"kernels 17-19 disagree with their plain versions ({label}): {checks} {err} {readings}")
-    res = {"route": route, "fwd_route": fwd_route,
+    res = {"route": route,
            "max_abs_err": {"flxent_fwd": max(err["lse"], err["tl"]), "flxent_dchunk": err["d"],
                            "flxent_dx": err["dx"], "flxent_dw": err["dw"], "flxent_split": err.get("split")}}
     if timed:
@@ -2718,6 +2791,30 @@ def flxent_case(dev, gen, n, h, v, dtype, vocab_major, label: str, card: dict, r
     emit({**line, "card": card})
     torch.cuda.empty_cache()
     return res
+
+
+def fp32_fwd_readings(x, w, lab, lse, tl, lse_p, tl_p, vocab_major: bool, scale=None) -> dict:
+    """Kernel 17's fp32 ``(lse, tl)`` against the plain version's (run with
+    TF32 off by the caller) under :func:`fp32_fwd_gate`, and the control:
+    the plain forward with TF32 on (one TF32 pass) under the same gate,
+    ``"tf32 control"`` ``ok`` when either of lse and tl passes it (the
+    caller requires it to fail)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    scales = fp32_fwd_scales(x, w, lab, lse_p, vocab_major, scale)
+    readings = fp32_fwd_gate(lse, tl, lse_p, tl_p, scales)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = (kl.flxent_fwd_plain(x, w, lab, vocab_major) if scale is None
+               else kl.flxent_fwd_int8_plain(x, w, scale, lab, vocab_major))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ctl_r = fp32_fwd_gate(ctl[0], ctl[1], lse_p, tl_p, scales)
+    readings["tf32 control"] = {"ok": ctl_r["lse"]["ok"] and ctl_r["tl"]["ok"],
+                                "worst_err_over_limit": {k: r["worst_err_over_limit"] for k, r in ctl_r.items()}}
+    return readings
 
 
 def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
@@ -2771,9 +2868,9 @@ def flxent_times(x, w, lab, lse, gcoef, vocab_major: bool) -> dict:
     times["bwd_shared_d"] = dict(ms=device_ms(lambda: kl.flxent_bwd(x, w, lab, lse, gcoef, vocab_major), iters=10),
                                  library_ms=times["flxent_dx"]["library_ms"],
                                  **bound(xw + rows + (n + v) * h * esz, 3 * flop, rate))
-    if kl.flx_bwd_route_of(x, w, vocab_major) == "tf32x3":
+    if kl.flx_route_of(x, w, vocab_major) == "tf32x3":
         # three TF32 passes a product at the TF32 tensor peak (the bound above: one pass at 67 TFLOP/s)
-        work = {"flxent_dchunk": ((n * h + vc * h + n * vc) * esz + rows, vc / v),
+        work = {"flxent_fwd": (xw + rows, 1), "flxent_dchunk": ((n * h + vc * h + n * vc) * esz + rows, vc / v),
                 "flxent_dx": (xw + rows + n * h * esz, 2), "flxent_dw": (xw + rows + v * h * esz, 2),
                 "bwd_shared_d": (xw + rows + (n + v) * h * esz, 3)}
         for name, (nbytes, products) in work.items():
@@ -2827,15 +2924,15 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     the wgmma route, at H 520 (a partial k box on the wgmma route), with W
     2 bytes off 16-byte alignment (the mma.sync route), at GPT-3 13B's
     tied head (x ``[8192, 5120]``, W ``[50304, 5120]`` vocab-major, a
-    1152-column tail chunk; timed), and in fp32 (kernel 17 on the CUDA
-    cores; the backward on the 3xTF32 instance, ``csrc/flxent_tf32.cu``, in
-    a ragged vocab-major case, vocab-major cases at x ``[2048, 4096]`` and
-    ``[8192, 4096]``, and x ``[2048, 4096]`` and ``[8192, 4096]`` against W
-    ``[4096, 32000]`` timed beside the fp32 library head with TF32 off, 18
-    and 19 gated at
-    :data:`FLX_FP32_GATE` times its backward at 2048 rows and the fused
-    head's peak memory below the unfused head's; on the CUDA cores where W
-    ``[H, V]`` has V % 4 != 0); then the public
+    1152-column tail chunk; timed), and in fp32 (kernel 17 and the
+    backward on the 3xTF32 instance, ``csrc/flxent_tf32.cu``, in a ragged
+    vocab-major case, vocab-major cases at x ``[2048, 4096]`` and ``[8192,
+    4096]``, and x ``[2048, 4096]`` and ``[8192, 4096]`` against W ``[4096,
+    32000]`` timed beside the fp32 library head with TF32 off, 17 gated at
+    :data:`FLX_FP32_FWD_GATE` times its forward at both row counts, 18 and
+    19 at :data:`FLX_FP32_GATE` times its backward at 2048 rows, and the
+    fused head's peak memory below the unfused head's; on the CUDA cores
+    where W ``[H, V]`` has V % 4 != 0); then the public
     ``F.fused_linear_cross_entropy`` on fp32 tensors. First the host's copy
     of the wgmma instance's tile plan is held against the kernels' own."""
     import torch
@@ -2876,6 +2973,12 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
         t = train["times"][name]
         records[name] = dict(source=src, max_abs_err=train["max_abs_err"][name], **t)
     records["flxent_dx"]["bwd_shared_d"] = train["times"]["bwd_shared_d"]
+    records["flxent_fwd"]["sources"] = {"wgmma (bf16 / fp16)": FLXENT_SOURCES["flxent_fwd"],
+                                        "tf32x3 (fp32)": FLXENT_TF32_SOURCE,
+                                        "mma_sync (bf16 / fp16 W TMA cannot address)":
+                                            "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+                                        "cuda_cores (fp32 W the split pass cannot read)":
+                                            "paddle_tpu_torch/kernels/csrc/flxent_fp32.cu"}
     # the split pass runs on the fp32 route only: its record at the fp32 train step's x [8192, 4096]
     records["flxent_split"] = dict(source=FLXENT_TF32_SOURCE, max_abs_err=fp32_step["max_abs_err"]["flxent_split"],
                                    **fp32_step["times"]["flxent_split"])
@@ -2889,7 +2992,7 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
           "records": {n: records[n] for n in FLXENT_SOURCES}, "bwd_shared_d": train["times"]["bwd_shared_d"],
           "gpt_head": gpt["times"], "gpt_peak_memory": gpt["peak_memory"],
           "fp32_2048_rows": fp32["times"], "fp32_8192_rows": fp32_step["times"],
-          "fp32_routes": {"forward": fp32["fwd_route"], "backward": fp32["route"]},
+          "fp32_route": fp32["route"],
           "fp32_peak_memory": {"2048_rows": fp32["peak_memory"], "8192_rows": fp32_step["peak_memory"]},
           "fp32_library": "the same two calls in fp32, TF32 off",
           "loss_head_peak_memory": train["peak_memory"], "card": card})
@@ -2907,9 +3010,14 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     if fwd_ratio > FLX_FWD_GATE:
         fail(f"kernel 17 is slower than {FLX_FWD_GATE}x the library's forward at the train shape: {fwd_ratio}")
     fp32_ratios = {name: fp32["times"][name]["vs_library"] for name in ("flxent_dx", "flxent_dw")}
+    fwd_fp32 = {rows: case["times"]["flxent_fwd"] for rows, case in (("2048_rows", fp32), ("8192_rows", fp32_step))}
     shared = fp32["times"]["bwd_shared_d"]
     emit({"phase": "flxent_fp32_gate", "x": [2048, 4096], "w": [4096, 32000],
           "ms_over_library_bwd": fp32_ratios, "limit": FLX_FP32_GATE,
+          "fwd": {rows: {k: t[k] for k in ("ms", "library_ms", "vs_library", "bound_ms", "share_of_bound",
+                                             "bound_ms_67_tflops", "plain_ms", "call_ms")}
+                  for rows, t in fwd_fp32.items()},
+          "route": fp32["route"], "fwd_limit": FLX_FP32_FWD_GATE,
           "bwd_shared_d": {"ms": shared["ms"], "vs_library": shared["vs_library"],
                            "share_of_3_pass_bound": shared["share_of_bound"], "bound_ms": shared["bound_ms"]},
           "at_8192_rows": {name: fp32_step["times"][name].get("vs_library") for name in fp32_step["times"]},
@@ -2918,6 +3026,9 @@ def check_fused_loss(dev, gen, card: dict, records: dict) -> None:
     slow = {name: r for name, r in fp32_ratios.items() if r > FLX_FP32_GATE}
     if slow:
         fail(f"kernels 18/19 in fp32 are slower than {FLX_FP32_GATE}x the library's fp32 backward: {slow}")
+    slow = {rows: t["vs_library"] for rows, t in fwd_fp32.items() if t["vs_library"] > FLX_FP32_FWD_GATE}
+    if slow:
+        fail(f"kernel 17 in fp32 is slower than {FLX_FP32_FWD_GATE}x the library's fp32 forward: {slow}")
     for label, case in (("bf16 train shape", train), ("fp32, 2048 rows", fp32), ("fp32, 8192 rows", fp32_step)):
         if not case["peak_memory"]["fused_gib"] < case["peak_memory"]["unfused_gib"]:
             fail(f"the fused loss head's peak memory is not below the unfused head's ({label}): "
@@ -2958,12 +3069,33 @@ def check_flx_plan(card: dict) -> None:
         fail(f"flx_plan / flx_items disagree with the kernels' tile plan: {wrong}")
 
 
+def loss_head_launches(n: int, h: int, v: int, dtype, vocab_major: bool) -> dict:
+    """The launches of one forward and backward of the fused loss head for
+    ``x [n, h]`` against a vocab of ``v`` on the routes its shapes take (W
+    16-byte aligned): kernel 17's partials and merge, per vocab chunk of
+    ``CHUNK`` columns one D, one dX, one dW; on ``"tf32x3"`` kernel 17's
+    partials one per sub-chunk of ``flx_fwd_sub`` columns and the backward's
+    products one per sub-chunk of ``flx_tf32_sub`` columns, with a split
+    launch for x and for each sub-chunk of W, forward and backward."""
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    if kl.flx_route(dtype, h, v, vocab_major) != "tf32x3":
+        chunks = -(-v // kl.CHUNK)
+        return {"flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    fwd_subs = -(-v // kl.flx_fwd_sub(n, h, v))
+    subs = -(-v // kl.flx_tf32_sub(n, h, v))
+    return {"flxent_fwd": fwd_subs + 1, "flxent_split": (1 + fwd_subs) + (1 + subs), "flxent_dchunk": subs,
+            "flxent_dx": subs, "flxent_dw": subs}
+
+
 def check_fused_loss_fp32_entry(dev, gen, card: dict) -> None:
     """``F.fused_linear_cross_entropy`` forward and backward on fp32 tensors
     on the card (H 1024, a multiple of 128: the kernels' gate, the flag at its
-    default): 17 twice on the CUDA cores, and on the 3xTF32 instance one
-    split launch for x and, per sub-chunk of ``flx_tf32_sub`` columns, one
-    split of W's columns, D, 18 and 19, against the same entry on the plain
+    default) on the 3xTF32 instance with the launches
+    :func:`loss_head_launches` counts (17: a split of x, per sub-chunk of
+    ``flx_fwd_sub`` columns a split of W's and a partials launch, the merge;
+    the backward: a split of x, per sub-chunk of ``flx_tf32_sub`` columns a
+    split of W's, D, 18 and 19), against the same entry on the plain
     versions; loss within 1e-5 relative, each gradient within a relative L2
     of 1e-5 (the same fp32 products summed in other orders)."""
     import torch
@@ -2986,14 +3118,12 @@ def check_fused_loss_fp32_entry(dev, gen, card: dict) -> None:
     xp, wp = x0.clone().requires_grad_(), w0.clone().requires_grad_()
     loss_p = kl.linear_cross_entropy(xp, wp, lab, use_kernels=False)
     loss_p.backward()
-    subs = -(-v // kl.flx_tf32_sub(b * s, h, v))
-    want = {"flxent_fwd": 2, "flxent_split": 1 + subs, "flxent_dchunk": subs, "flxent_dx": subs, "flxent_dw": subs}
+    want = loss_head_launches(b * s, h, v, torch.float32, False)
     err = {"loss": abs(float(loss.detach()) - float(loss_p.detach())) / abs(float(loss_p.detach())),
            "dx_rel_l2": rel_l2(x.grad, xp.grad), "dw_rel_l2": rel_l2(w.grad, wp.grad)}
     ok = counts == want and all(e <= 1e-5 for e in err.values()) and loss.dtype == torch.float32
     emit({"phase": "fused_loss_fp32_entry", "shape": {"x": [b, s, h], "w": [h, v]},
-          "routes": {"forward": kl.flx_route(torch.float32, h, v, False),
-                     "backward": kl.flx_bwd_route(torch.float32, h, v, False)}, "launches": counts, "errors": err,
+          "route": kl.flx_route(torch.float32, h, v, False), "launches": counts, "errors": err,
           "tolerance": "loss 1e-5 relative; dx, dw rel L2 <= 1e-5", "card": card})
     if not ok:
         fail(f"F.fused_linear_cross_entropy in fp32 on the card: launches {counts} (want {want}), errors {err}")
@@ -3887,16 +4017,56 @@ def check_int8_paged(dev, gen, card: dict, records: dict) -> None:
         del kd, vd, kd1, vd1
 
 
+def widen_times(w8, vocab_major: bool, vc: int) -> dict:
+    """The widen pass (``int8_plane``) on the int8 W's first ``vc`` columns:
+    its time, its plain version's (``.float()`` of the block, then
+    ``.contiguous()``), PyTorch's one call for the same K-major fp32 plane
+    (``W[:, :vc].t().to(float32, memory_format=contiguous_format)``, or
+    ``W[:vc].to(float32)`` when vocab-major: the library reading, which must
+    give the same bits) and the bound (the int8 values read once, written
+    once as fp32)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_loss as kl
+
+    h = w8.shape[1] if vocab_major else w8.shape[0]
+    if vocab_major:
+        lib = lambda: w8[:vc].to(torch.float32)  # noqa: E731
+    else:
+        lib = lambda: w8[:, :vc].t().to(torch.float32, memory_format=torch.contiguous_format)  # noqa: E731
+    run = lambda: kl.int8_plane(w8, vocab_major, 0, vc)  # noqa: E731
+    got, want = run(), lib()
+    if not (want.is_contiguous() and torch.equal(got, want)):
+        fail(f"the widen pass and its library call disagree (vocab_major={vocab_major})")
+    del got, want
+    res = dict(ms=device_ms(run, iters=10), call_ms=call_ms(run, iters=10),
+               plain_ms=device_ms(lambda: kl.int8_plane_plain(w8, vocab_major, 0, vc), iters=3),
+               library_ms=device_ms(lib, iters=10), vocab_major=vocab_major,
+               what=f"one sub-chunk: W's first {vc} columns into their fp32 plane [{vc}, {h}]",
+               library=("W[:vc].to(float32)" if vocab_major
+                        else "W[:, :vc].t().to(float32, memory_format=contiguous_format)"),
+               **bound(vc * h * 5, 0.0))
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["vs_library"] = res["ms"] / res["library_ms"]
+    return res
+
+
 def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool, label: str, card: dict,
                      route_want: str, timed: bool = False) -> dict:
     """Kernel 17's int8 site against its plain version on the route
     ``flx_int8_route_of`` names (printed; it must be ``route_want``): lse
-    and tl within 1e-4 of max(1, |v|) (fp32 sums in another order, as for
-    kernel 17), and two calls the same bits. W is quantized from N(0, 0.02)
-    per vocab column. With ``timed`` its time, the plain version's and the
-    head's two library calls (cuBLAS ``x @ W`` with the dequantized weight
-    in x's dtype, then ``F.cross_entropy``; in fp32 with TF32 off, as the
-    caller sets it), beside its bound at the rate of x's type."""
+    and tl within 1e-4 of max(1, |v|) in bf16 / fp16 (fp32 sums in another
+    order, as for kernel 17), in fp32 under :func:`fp32_fwd_gate` (the
+    plain version run with TF32 off by the caller; with TF32 on it must fail
+    the gate), and two calls the same bits; on ``"tf32x2"`` the widen pass
+    bitwise against its plain version (W's first and last sub-chunks). W is quantized
+    from N(0, 0.02) per vocab column. With ``timed`` its time, the plain
+    version's and the head's two library calls (cuBLAS ``x @ W`` with the
+    dequantized weight in x's dtype, then ``F.cross_entropy``; in fp32 with
+    TF32 off, as the caller sets it), beside its bound at the rate of x's
+    type (``"tf32x2"``: two TF32 passes at the TF32 peak), and on
+    ``"tf32x2"`` the widen pass's time (W's first sub-chunk, in this case's
+    layout and in the other) beside its bound and PyTorch's one call for the
+    same plane (:func:`widen_times`)."""
     import torch
     from paddle_tpu_torch.kernels import fused_loss as kl
     from paddle_tpu_torch.kernels.quant import quantize_weight_int8
@@ -3914,20 +4084,41 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
     lse2, tl2 = kl.flxent_fwd_int8(x, w8, scale, lab, vocab_major)
     lse_p, tl_p = kl.flxent_fwd_int8_plain(x, w8, scale, lab, vocab_major)
     torch.cuda.synchronize()
-    err, ok = {}, True
+    err, ok, readings = {}, True, {}
     for name, got, want in (("lse", lse, lse_p), ("tl", tl, tl_p)):
         d = (got - want).abs()
         err[name] = float(d.max())
         ok = ok and bool((d <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    if dtype == torch.float32:  # the fp32 forward's gate, and its TF32 control
+        readings = fp32_fwd_readings(x, w8, lab, lse, tl, lse_p, tl_p, vocab_major, scale)
+        ok = readings["lse"].pop("ok") and readings["tl"].pop("ok") and not readings["tf32 control"].pop("ok")
+    widen = None
+    if route == "tf32x2":  # the widen pass against its plain version, bitwise: W's first and last sub-chunks
+        vc = min(kl.flx_fwd_sub(n, h, v, 2), v)
+        widen = {"same_bits": True, "max_abs_err": 0.0}
+        for c0, c1 in ((0, vc), ((v - 1) // vc * vc, v)):
+            got, want = kl.int8_plane(w8, vocab_major, c0, c1), kl.int8_plane_plain(w8, vocab_major, c0, c1)
+            widen["same_bits"] = widen["same_bits"] and bool(torch.equal(got, want))
+            widen["max_abs_err"] = max(widen["max_abs_err"], float((got - want).abs().max()))
+            del got, want
+        ok = ok and widen["same_bits"]
     same = bool(torch.equal(lse, lse2)) and bool(torch.equal(tl, tl2))
     line = {"phase": "kernel_check", "kernel": "flxent_fwd_int8", "case": label, "route": route,
             "shape": {"x": [n, h], "w8": list(w8.shape), "vocab_major": vocab_major},
             "dtype": str(dtype).split(".")[-1], "max_err": err, "two_calls_same_bits": same,
-            "tolerance": "1e-4 * max(1, |v|); two calls the same bits"}
+            "tolerance": ("1e-4 * max(1, |v|) in bf16 / fp16; fp32: " + FLX_FWD_FP32_TOL
+                          + "; two calls the same bits; the widen pass bitwise")}
+    if readings:
+        line["gate_readings"] = readings
+    if widen:
+        line["widen_pass"] = widen
     if not (ok and same):
         emit({**line, "card": card})
-        fail(f"flxent_fwd_int8 disagrees with its plain version or itself ({label}): {err}, same bits {same}")
+        fail(f"flxent_fwd_int8 disagrees with its plain version or itself ({label}): {err}, same bits {same}, "
+             f"gate {readings}, widen pass {widen}")
     res = {"max_abs_err": max(err.values()), "route": route}
+    if widen:
+        res["widen_max_abs_err"] = widen["max_abs_err"]
     if timed:
         wd = ((w8.t() if vocab_major else w8).float() * scale[None, :]).to(dtype)  # [H, V], dequantized
         lab64 = lab.long().where(lab < v, torch.full_like(lab.long(), -100))
@@ -3938,10 +4129,17 @@ def flxent_int8_case(dev, gen, n: int, h: int, v: int, dtype, vocab_major: bool,
                                       warmup=1),
                    library_ms=device_ms(lambda: cross_entropy(x @ wd, lab64, ignore_index=-100), iters=5),
                    **bound(n * h * x.element_size() + v * h + 4 * v + 3 * n * 4, 2.0 * n * h * v, rate))
+        if route == "tf32x2":  # two TF32 passes at the TF32 tensor peak (the bound above: one pass at 67 TFLOP/s)
+            res["bound_ms_67_tflops"] = res["bound_ms"]
+            res.update(bound(n * h * x.element_size() + v * h + 4 * v + 3 * n * 4, 2 * 2.0 * n * h * v,
+                             TF32_FLOP_PER_S))
+            res["widen"] = widen_times(w8, vocab_major, vc)
+            res["widen"]["other_layout"] = widen_times(w8.t().contiguous(), not vocab_major, vc)
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
         res["vs_library"] = res["ms"] / res["library_ms"]
         line.update({kk: res[kk] for kk in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                            "share_of_bound", "vs_library")})
+                                            "share_of_bound", "vs_library", "bound_ms_67_tflops", "widen")
+                     if kk in res})
         line["library"] = "two calls: cuBLAS x @ W (the dequantized head in x's dtype) + F.cross_entropy"
         del wd
     emit({**line, "card": card})
@@ -3957,9 +4155,13 @@ def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
     :data:`FLX_INT8_GATE` times its library), on the wgmma route at ragged
     rows (1000: 256- and 128-row tiles; 40: the 64-row tiles; 5: the 8-row
     tiles) in bf16 and fp16, on the mma.sync route at V 32003, vocab-major
-    and fp16 V 3001, and on the CUDA cores in fp32 (vocab-major ragged, and
-    x ``[2048, 4096]`` timed beside the fp32 library head, TF32 off); the
-    int8 appends under the sync check."""
+    and fp16 V 3001, and in fp32 on the 2xTF32 instance (vocab-major ragged,
+    ``[H, V]`` ragged in rows, H and V, and x ``[2048, 4096]`` timed beside
+    the fp32 library head, TF32 off, gated at :data:`FLX_INT8_FP32_GATE`
+    times it; its widen pass gated at :data:`FLX_WIDEN_GATE` times
+    PyTorch's one call for the same plane, in both layouts) and on the CUDA
+    cores where the widen pass cannot take W (V 3001); the int8 appends
+    under the sync check."""
     import torch
 
     bf, f16 = torch.bfloat16, torch.float16
@@ -3983,18 +4185,35 @@ def check_int8_kernels(dev, gen, card: dict, records: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         flxent_int8_case(dev, gen, 300, 256, 1000, torch.float32, True, "fp32, ragged, vocab-major", card,
+                         "tf32x2")
+        flxent_int8_case(dev, gen, 200, 328, 1008, torch.float32, False, "fp32, ragged [H, V] (H 328, V 1008)",
+                         card, "tf32x2")
+        flxent_int8_case(dev, gen, 520, 512, 3001, torch.float32, False, "fp32, ragged (V % 16 != 0)", card,
                          "cuda_cores")
         fp32 = flxent_int8_case(dev, gen, 2048, 4096, 32000, torch.float32, False, "fp32, 2048 rows", card,
-                                "cuda_cores", timed=True)
+                                "tf32x2", timed=True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     records["flxent_fwd_int8"] = dict(source=INT8_SOURCES["flxent_fwd_int8"], **head)
-    records["flxent_fwd_int8"]["fp32_2048_rows"] = fp32
+    records["flxent_fwd_int8"]["fp32_2048_rows"] = {k: t for k, t in fp32.items() if k != "widen"}
+    records["flxent_fwd_int8"]["sources"] = {"wgmma (bf16 / fp16, W [H, V])": INT8_SOURCES["flxent_fwd_int8"],
+                                             "tf32x2 (fp32)": FLXENT_TF32_SOURCE,
+                                             "mma_sync (bf16 / fp16)": "paddle_tpu_torch/kernels/csrc/flxent_fwd.cu",
+                                             "cuda_cores (fp32, W the widen pass cannot take)":
+                                                 "paddle_tpu_torch/kernels/csrc/flxent_fp32.cu"}
+    records["flxent_widen"] = dict(source=FLXENT_TF32_SOURCE, max_abs_err=fp32["widen_max_abs_err"], **fp32["widen"])
+    widen = {"[H, V]": fp32["widen"]["vs_library"], "[V, H]": fp32["widen"]["other_layout"]["vs_library"]}
     emit({"phase": "flxent_int8_gate", "ms_over_library": head["vs_library"], "limit": FLX_INT8_GATE,
-          "share_of_bound": head["share_of_bound"], "fp32_2048_rows": fp32, "card": card})
+          "share_of_bound": head["share_of_bound"], "fp32_2048_rows": fp32, "fp32_limit": FLX_INT8_FP32_GATE,
+          "widen_over_library": widen, "widen_limit": FLX_WIDEN_GATE, "card": card})
     if head["vs_library"] > FLX_INT8_GATE:
         fail(f"kernel 17's int8 site is slower than {FLX_INT8_GATE}x its library at the train shape: "
              f"{head['vs_library']}")
+    if fp32["vs_library"] > FLX_INT8_FP32_GATE:
+        fail(f"kernel 17's int8 site in fp32 is slower than {FLX_INT8_FP32_GATE}x its fp32 library at x [2048, "
+             f"4096]: {fp32['vs_library']}")
+    if max(widen.values()) > FLX_WIDEN_GATE:
+        fail(f"the widen pass is slower than {FLX_WIDEN_GATE}x PyTorch's one call for its plane: {widen}")
     check_append_sync(dev, gen, card, int8=True)
 
 
@@ -4009,7 +4228,9 @@ def eval_loss(model, dev, card: dict, label: str) -> tuple:
     On a weight-only int8 model (``eval_loss_int8``, and the fp16 / fp32
     weight-only models) the loss head is kernel 17's int8 site, launched
     twice (partials, merge) on the route ``flx_int8_route_of`` names
-    (printed), and the MLP kernel 20, 3 a layer; the loss must match the
+    (printed; on ``"tf32x2"`` one split of x, per sub-chunk of
+    ``flx_fwd_sub`` columns a widen and a partials launch, then the merge),
+    and the MLP kernel 20, 3 a layer; the loss must match the
     plain int8 head's on the same final hidden states within 1e-4 of
     max(1, |loss|)."""
     import numpy as np
@@ -4035,11 +4256,15 @@ def eval_loss(model, dev, card: dict, label: str) -> tuple:
     line = {"phase": label, "batch": [b, s], "loss": loss_v, "ms": ms, "logits_returned": logits is not None,
             "launches": {n: c for n, c in counts.items() if c}, "card": card}
     if quant:
-        line["loss_head_route"] = kl.flx_int8_route_of(torch.empty((1, cfg.hidden_size), dtype=model.dtype, device=dev),
-                                                       model.lm_head.weight, False)
+        route = kl.flx_int8_route_of(torch.empty((1, cfg.hidden_size), dtype=model.dtype, device=dev),
+                                     model.lm_head.weight, False)
+        line["loss_head_route"] = route
         layers = cfg.num_hidden_layers
         want = {"flxent_fwd_int8": 2, "wo_matmul": 3 * layers, "flash_fwd": layers, "rope_fwd": 2 * layers,
                 "rms_norm_fwd": 2 * layers + 1}
+        if route == "tf32x2":  # a split of x; per sub-chunk a widen and a partials launch; the merge
+            subs = -(-cfg.vocab_size // kl.flx_fwd_sub(b * s, cfg.hidden_size, cfg.vocab_size, 2))
+            want.update(flxent_fwd_int8=subs + 1, flxent_widen=subs, flxent_split=1)
         with torch.no_grad():
             h = model.llama(ids)
             plain = float(kl.linear_cross_entropy(h, model.lm_head.weight, labels.to(torch.int32), use_kernels=False,
@@ -4145,7 +4370,8 @@ TRAIN_CATEGORIES = (  # device kernel name substring -> category
     ("flxent_wgmma", "fused loss D / dX / dW (kernels 18/19, wgmma)"),
     ("flxent_gemm", "fused loss dX / dW (kernels 18/19, mma.sync)"),
     ("flxent_tf32", "fused loss fp32 D / dX / dW (kernels 18/19, 3xTF32 wgmma)"),
-    ("flxent_split", "fused loss fp32 operand split (3xTF32 planes)"), ("flxent_f32", "fused loss fp32 (17-19)"),
+    ("flxent_split", "fused loss fp32 operand split (3xTF32 planes)"),
+    ("flxent_widen", "fused loss int8 W widened (2xTF32 plane)"), ("flxent_f32", "fused loss fp32 (17-19)"),
     ("gemm", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("nvjet", "matmul"), ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
     ("Memcpy", "memcpy"), ("Memset", "memcpy"),
@@ -4227,9 +4453,10 @@ def check_train_accuracy(dev, card: dict, cfg=None, seq: int = 1024) -> None:
 
 FLASH_EVENTS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}  # launch counter -> device kernel name substring
-# the fp32 loss head's backward on the 3xTF32 instance: launch counters -> device kernel name substring
-TF32_LOSS_EVENTS = {("flxent_dchunk", "flxent_dx", "flxent_dw"): "flxent_tf32_kernel",
-                    ("flxent_split",): "flxent_split_kernel"}
+# the fp32 loss head on the 3xTF32 instance: launch counters -> device kernel name substrings
+TF32_LOSS_EVENTS = {("flxent_fwd",): ("flxent_fwd_tf32_kernel", "flxent_merge_kernel"),
+                    ("flxent_dchunk", "flxent_dx", "flxent_dw"): ("flxent_tf32_kernel",),
+                    ("flxent_split",): ("flxent_split_kernel",)}
 
 
 def profile_train_step(step, card: dict, label: str = "train_profile", flash_cold=None) -> dict:
@@ -4273,10 +4500,10 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     in_step = {n: {"in_step_ms_per_launch": flash_us[n] / 1e3 / max(1, flash_launches[n]),
                    "cold_ms_per_call": (flash_cold or {}).get(n)} for n in FLASH_EVENTS}
     loss_tf32 = {}  # the 3xTF32 loss head's events and launches, where the step ran it (its split pass launched)
-    for counters, key in TF32_LOSS_EVENTS.items():
+    for counters, keys in TF32_LOSS_EVENTS.items():
         n_launch = sum(launches[c] for c in counters)
         if launches["flxent_split"]:
-            evs = [e.time_range.elapsed_us() for e in cuda_events(prof) if key in e.name]
+            evs = [e.time_range.elapsed_us() for e in cuda_events(prof) if any(k in e.name for k in keys)]
             loss_tf32["/".join(counters)] = {"events": len(evs), "launches": n_launch,
                                              "in_step_ms_per_launch": sum(evs) / 1e3 / n_launch}
     emit({"phase": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -4391,7 +4618,6 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     the plain path in one TF32 pass must miss the gradient gate."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.kernels.fused_loss import CHUNK, flx_bwd_route, flx_tf32_sub
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -4428,18 +4654,13 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         return float(loss.detach())
 
     layers = cfg.num_hidden_layers
-    chunks = -(-cfg.vocab_size // CHUNK)
     want = {fwd_counter(cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): 2 * layers,
             **{bwd_counter(k, cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): layers
                for k in ("flash_bwd_dq", "flash_bwd_dkv")},
             "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            # the loss head: 2 forward launches (partials, merge); per vocab chunk one D, one dX, one dW
-            "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
-    if flx_bwd_route(getattr(torch, cfg.dtype), cfg.hidden_size, cfg.vocab_size, False) == "tf32x3":
-        # the fp32 head's backward on the 3xTF32 instance: per sub-chunk one split of W's columns, one D,
-        # one dX, one dW, and one split of x before them
-        subs = -(-cfg.vocab_size // flx_tf32_sub(TRAIN_BATCH * seq, cfg.hidden_size, cfg.vocab_size))
-        want.update(flxent_split=1 + subs, flxent_dchunk=subs, flxent_dx=subs, flxent_dw=subs)
+            # the loss head: its forward's and backward's launches on the route its shapes take
+            **loss_head_launches(TRAIN_BATCH * seq, cfg.hidden_size, cfg.vocab_size, getattr(torch, cfg.dtype),
+                                 False)}
     if (cfg.hidden_size // cfg.num_attention_heads) % 128 == 0:  # kernels 9, 10: the JAX package's D % 128 gate
         want.update(rope_fwd=4 * layers, rope_bwd=2 * layers)
     losses, step_ms, counts, total, first_ms = [], [], None, {}, None
@@ -4616,8 +4837,8 @@ def train_fp32(dev, card: dict, flash_cold=None) -> dict:
     ``AdamW(multi_precision=True)``: every parameter a finite non-zero
     gradient, each step's launches, flash 4 / 2 / 2 on the fp32 kernels
     (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``) beside the
-    RMSNorm, rope and fp32 loss-head kernels (17 on the CUDA cores, D / 18 /
-    19 and their split pass on ``csrc/flxent_tf32.cu``), and nothing else, a
+    RMSNorm, rope and fp32 loss-head kernels (17, D / 18 / 19 and their
+    split pass on ``csrc/flxent_tf32.cu``), and nothing else, a
     falling loss), its first step's loss and gradients held to the plain
     versions' fp32 path on the same weights (:func:`plain_fp32_reference`),
     and a profile of one more step (each flash kernel's in-step ms per
@@ -4649,10 +4870,12 @@ def serve_weight_only(dev, card: dict, dtype: str) -> dict:
     instance, fp32 on the mma.sync one) and nothing else, the pool drains;
     then one mixed step's logits through :func:`check_logits` (the int8
     plain path in ``dtype`` and a higher-precision run of it); then
-    :func:`eval_loss` on the quantized model: kernel 17's int8 site twice
-    (fp16 on kernel 20's wgmma mainloop, fp32 on the CUDA cores), its loss
+    :func:`eval_loss` on the quantized model: kernel 17's int8 site (fp16
+    twice on kernel 20's wgmma mainloop; fp32 on its 2xTF32 instance, a
+    widen and a partials launch per sub-chunk, then the merge), its loss
     within 1e-4 of max(1, |loss|) of the plain int8 head's. Returns the
-    launch counts."""
+    launch counts of the engine run (``"serve"``) and of the evaluation
+    loss (``"eval"``)."""
     import torch
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.kernels.quant import wo_route
@@ -4676,11 +4899,11 @@ def serve_weight_only(dev, card: dict, dtype: str) -> dict:
                             "wo_matmul": 3 * layers + 1}, label)
     del eng
     check_logits(model, dev, card, label=f"logits_weight_only_{dtype}")
-    eval_loss(model, dev, card, f"eval_loss_weight_only_{dtype}")
+    _, eval_counts = eval_loss(model, dev, card, f"eval_loss_weight_only_{dtype}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return run["counts"]
+    return {"serve": run["counts"], "eval": eval_counts}
 
 
 # -- GPT-3 13B widths: pretraining through kernels 12, 13, 14-16, 17-19 ----------
@@ -4992,7 +5215,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     from paddle_tpu_torch.kernels import build
-    from paddle_tpu_torch.kernels.select import KERNELS
+    from paddle_tpu_torch.kernels.select import KERNELS, LAYOUT_PASSES
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -5037,8 +5260,9 @@ def main() -> int:
     fp16_phase(dev, card)
     counts["flxent_split"] = train_fp32(dev, card, flash_cold["llama fp32, document mask [2, 4096, 32, 128]"])[
         "flxent_split"]
-    for dtype in ("float16", "float32"):  # kernel 20 on the serving path in every dtype it takes
-        serve_weight_only(dev, card, dtype)
+    serve_weight_only(dev, card, "float16")  # kernel 20 on the serving path in every dtype it takes
+    # the fp32 model's evaluation loss widens its int8 head's sub-chunks
+    counts["flxent_widen"] = serve_weight_only(dev, card, "float32")["eval"]["flxent_widen"]
     counts.update({k: v for k, v in train_gpt(dev, card, flash_cold=flash_cold["gpt, causal [4, 2048, 40, 128]"]).items()
                    if k in ("ln_residual", "ln_residual_bwd")})
     counts["rms_residual_bwd"] = check_residual_repair(dev, torch.Generator(device=dev).manual_seed(6),
@@ -5058,7 +5282,8 @@ def main() -> int:
          "launches": counts[k], "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],
          "plain_ms": records[k]["plain_ms"], "bound_ms": records[k]["bound_ms"],
          "bound_by": records[k]["bound_by"], "library_ms": records[k]["library_ms"],
-         "sources": records[k].get("sources", {"all": records[k]["source"]})}
+         "sources": records[k].get("sources", {"all": records[k]["source"]}),
+         **({"layout_pass": LAYOUT_PASSES[k]} if k in LAYOUT_PASSES else {})}
         for k in KERNELS
     ]})
     print(smi, flush=True)

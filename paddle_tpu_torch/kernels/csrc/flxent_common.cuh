@@ -409,8 +409,8 @@ cudaError_t allow_smem(Kernel* kernel) {
 // mainloop (flxent_wgmma.cu: bf16 / fp16 whose rows TMA can address; the
 // int8 head's on kernel 20's mainloop, flxent_int8.cu), this file's mma.sync
 // mainloop (bf16 / fp16, any V), and fp32 on the CUDA cores
-// (flxent_fp32.cu). The fp32 backward's 3xTF32 instance (`flx_bwd_route`
-// "tf32x3", flxent_tf32.cu) has entry points of its own.
+// (flxent_fp32.cu). The fp32 TF32 instances (`flx_route` "tf32x3",
+// `flx_int8_route` "tf32x2", flxent_tf32.cu) have entry points of their own.
 enum Route : int { kWgmma = 0, kMmaSync = 1, kCudaCores = 2 };
 
 // flxent_wgmma.cu: the forward's partials [3, ceil(V / 128), N] (as

@@ -2,10 +2,12 @@
 // partials, the D recompute that kernels 18 and 19 share, dX (18) and dW
 // (19) for fp32 x and W, and kernel 17's int8 site for fp32 x against an
 // int8 W with per-column scales. The partials' merge is ptt_flxent_merge
-// (flxent_fwd.cu), as for bf16. The backward's products run here only for
-// a W that flxent_tf32.cu's split pass cannot read in 16-byte vectors (not
-// 16-byte aligned, or [H, V] with V % 4 != 0: kernels/fused_loss.py
-// `flx_bwd_route` "cuda_cores"); the others take its 3xTF32 instance.
+// (flxent_fwd.cu), as for bf16. These instances run only for a W that
+// flxent_tf32.cu's split and widen passes cannot take: an fp32 W not
+// 16-byte aligned or [H, V] with V % 4 != 0 (kernels/fused_loss.py
+// `flx_route` "cuda_cores"), an int8 W not 16-byte aligned, with rows not a
+// multiple of 16 bytes or with H % 4 != 0 (`flx_int8_route` "cuda_cores");
+// the others take its TF32 instances.
 //
 // Replaces: the fp32 instances of paddle_tpu/kernels/fused_loss.py
 // `_flxent_fwd_kernel` (:261), `_flxent_block_d` (:302), `_flxent_dx_kernel`

@@ -9,7 +9,8 @@
 // instances serve the bf16 / fp16 shapes whose W rows TMA cannot address
 // (kernels/fused_loss.py `flx_route` "mma_sync": W [H, V] with V % 8 != 0,
 // or W not 16-byte aligned); every other bf16 / fp16 W takes the wgmma
-// mainloop (flxent_wgmma.cu), fp32 the CUDA cores (flxent_fp32.cu).
+// mainloop (flxent_wgmma.cu), fp32 the TF32 tensor cores (flxent_tf32.cu,
+// its own entry point) or the CUDA cores (flxent_fp32.cu).
 //
 // Forward: for x [N, H] and W ([H, V], or [V, H] vocab-major), per row the
 // logsumexp of the logits x W and the target logit, both fp32, without the
@@ -47,7 +48,7 @@
 // forward-only loss): W is int8 with one fp32 scale per vocab column. This
 // file's instance serves a vocab-major or ragged int8 W (`flx_int8_route`
 // "mma_sync"; W [H, V] with V % 16 == 0 takes kernel 20's mainloop,
-// flxent_int8.cu, fp32 x the CUDA cores). Its slabs are staged as int8 and
+// flxent_int8.cu, fp32 x flxent_tf32.cu or the CUDA cores). Its slabs are staged as int8 and
 // upcast to x's type in shared memory before ldmatrix (gemm_tile_i8, for
 // the H-major and the vocab-major layout: exact, so the logits tile is x
 // times the int8 values in fp32), and each logit is multiplied by its
@@ -273,7 +274,8 @@ int dchunk(int vocab_major, const void* x, const void* w, const void* labels, co
 
 // The forward's partials on the instance `route` names (ptt::flx::Route:
 // kWgmma for bf16 / fp16 that TMA can map, kMmaSync for bf16 / fp16,
-// kCudaCores for fp32); x and w alike. x: [N, H], H % 8 == 0, 16-byte
+// kCudaCores for fp32 that flxent_tf32.cu's ptt_flxent_tf32_fwd does not
+// take); x and w alike. x: [N, H], H % 8 == 0, 16-byte
 // aligned; w: [H, V] or, with vocab_major, [V, H]; labels: [N] int32;
 // part: fp32 [3, ceil(V / 128), N].
 extern "C" int ptt_flxent_fwd(int io, int route, int vocab_major, const void* x, const void* w,
@@ -297,7 +299,7 @@ extern "C" int ptt_flxent_fwd(int io, int route, int vocab_major, const void* x,
 // vocab_major, [V, H]) and wscale fp32 [V]; io is x's type; `route` as
 // kernels/fused_loss.py `flx_int8_route` names it (kWgmma: bf16 / fp16,
 // W [H, V], V % 16 == 0, on kernel 20's mainloop; kMmaSync: bf16 / fp16;
-// kCudaCores: fp32).
+// kCudaCores: fp32 that ptt_flxent_tf32_fwd does not take).
 extern "C" int ptt_flxent_fwd_int8(int io, int route, int vocab_major, const void* x, const void* w8,
                                    const void* wscale, const void* labels, void* part, int N, int H, int V,
                                    void* stream) {

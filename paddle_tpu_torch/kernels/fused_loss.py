@@ -36,24 +36,27 @@ backward; a label equal to ``ignore_index`` or outside ``[0, V)`` matches
 no column (its ``tl`` is 0). The plain versions walk the vocab in the JAX
 scan reference's chunks (``_REF_BLOCK``), in fp32 from the inputs' values.
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
-launches a kernel or raises. Kernel 17 and the backward's products take
-the instance :func:`flx_route` (kernel 17) and :func:`flx_bwd_route` (the
-D recompute, 18 and 19) name from the dtype, W's shape and W's alignment
-before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma mainloop fed by
-TMA, tiles planned by :func:`flx_plan` and walked as :func:`flx_items`
-says; the forward's per-row partials reduced in registers, :data:`TILE`
-columns a partial), the mma.sync mainloop (``csrc/flxent_fwd.cu``,
-``flxent_dx.cu``, ``flxent_dw.cu``) where TMA cannot address W, the fp32
-backward's 3xTF32 wgmma mainloop (``csrc/flxent_tf32.cu``: every operand
-split once into hi and lo TF32 planes laid out K-major, launches counted as
-``flxent_split``, then three TF32 passes a product) where the split pass
-can read W in 16-byte vectors, or the CUDA cores in fp32
-(``csrc/flxent_fp32.cu``: kernel 17, and the fp32 backward of other W).
-Kernel 17's int8 site takes the instance :func:`flx_int8_route` names:
-kernel 20's wgmma mainloop (``csrc/wo_mainloop.cuh``, epilogue in
-``csrc/flxent_int8.cu``) for the int8 Llama head's ``[H, V]`` layout, the
-mma.sync mainloop for a vocab-major or ragged int8 W, the CUDA cores for
-fp32 activations.
+launches a kernel or raises. Kernel 17 and the backward's products (the
+D recompute, 18 and 19) take the instance :func:`flx_route` names from the
+dtype, W's shape and W's alignment before the launch: ``csrc/flxent_wgmma.cu`` (the wgmma
+mainloop fed by TMA, tiles planned by :func:`flx_plan` and walked as
+:func:`flx_items` says; the forward's per-row partials reduced in
+registers, :data:`TILE` columns a partial), the mma.sync mainloop
+(``csrc/flxent_fwd.cu``, ``flxent_dx.cu``, ``flxent_dw.cu``) where TMA
+cannot address W, in fp32 the 3xTF32 wgmma mainloop (``csrc/flxent_tf32.cu``:
+every operand split once into hi and lo TF32 planes laid out K-major,
+launches counted as ``flxent_split``, then three TF32 passes a product,
+the vocab walked in sub-chunks so that the planes stay below the unfused
+head's logits) where the split pass can read W in 16-byte vectors, or the
+CUDA cores (``csrc/flxent_fp32.cu``) for other fp32 W. Kernel 17's int8
+site takes the instance :func:`flx_int8_route` names: kernel 20's wgmma
+mainloop (``csrc/wo_mainloop.cuh``, epilogue in ``csrc/flxent_int8.cu``)
+for the int8 Llama head's ``[H, V]`` layout, the mma.sync mainloop for a
+vocab-major or ragged int8 W, and for fp32 activations the same TF32
+mainloop in two passes (each sub-chunk of the int8 W widened exactly into
+one K-major plane, launches counted as ``flxent_widen``: an int8 value is
+a TF32 value) where the widen pass takes W (16-byte aligned, rows a
+multiple of 16 bytes, H a multiple of 4), else the CUDA cores.
 """
 
 from __future__ import annotations
@@ -71,8 +74,8 @@ __all__ = [
     "CHUNK",
     "FusedLinearCrossEntropyFunction",
     "Int8HeadLossFunction",
-    "flx_bwd_route",
-    "flx_bwd_route_of",
+    "flx_fwd_bytes",
+    "flx_fwd_sub",
     "flx_int8_route",
     "flx_int8_route_of",
     "flx_items",
@@ -88,6 +91,8 @@ __all__ = [
     "flxent_fwd_int8",
     "flxent_fwd_int8_plain",
     "flxent_fwd_plain",
+    "int8_plane",
+    "int8_plane_plain",
     "linear_cross_entropy",
     "tf32_planes",
     "tf32_planes_bytes",
@@ -105,18 +110,22 @@ _ROUTES = {"wgmma": 0, "mma_sync": 1, "cuda_cores": 2}  # ptt::flx::Route
 
 
 def flx_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
-    """Which instance of kernel 17 (and, in bf16 and fp16, of the backward's
-    products: :func:`flx_bwd_route`) takes ``x [N, h]`` against ``W``
-    (``[h, v]``, or ``[v, h]`` with ``vocab_major``) of ``dtype``:
-    ``"wgmma"`` (the wgmma mainloop fed by TMA) for bf16 and fp16 when TMA
-    can address every operand's rows (``2 h`` and, for ``[h, v]``, ``2 v``
-    bytes, multiples of 16: ``h % 8 == 0`` and ``v % 8 == 0``; ``h > 0``)
-    and W's first element (``w_aligned``: its address a multiple of 16);
-    ``"mma_sync"`` (the mma.sync mainloop, which stages any row) for the
-    other bf16 and fp16 shapes; ``"cuda_cores"`` for fp32. Any other dtype
-    raises."""
+    """Which instance of kernel 17 and of the backward's products (the D
+    recompute, kernels 18 and 19) takes ``x [N, h]`` against ``W`` (``[h, v]``, or
+    ``[v, h]`` with ``vocab_major``) of ``dtype``: for bf16 and fp16
+    ``"wgmma"`` (the wgmma mainloop fed by TMA) when TMA can address every
+    operand's rows (``2 h`` and, for ``[h, v]``, ``2 v`` bytes, multiples of
+    16: ``h % 8 == 0`` and ``v % 8 == 0``; ``h > 0``) and W's first element
+    (``w_aligned``: its address a multiple of 16), else ``"mma_sync"`` (the
+    mma.sync mainloop, which stages any row); for fp32 ``"tf32x3"``
+    (``csrc/flxent_tf32.cu``: three TF32 passes on a wgmma mainloop, its
+    operands split first by a pass that reads W in 16-byte vectors) when W
+    is 16-byte aligned and its rows are a multiple of 4 floats (``h % 4 ==
+    0``, ``h > 0`` and, for ``[h, v]``, ``v % 4 == 0``), else
+    ``"cuda_cores"``. Any other dtype raises."""
     if dtype == torch.float32:
-        return "cuda_cores"
+        tf32 = w_aligned and h > 0 and h % 4 == 0 and (vocab_major or v % 4 == 0)
+        return "tf32x3" if tf32 else "cuda_cores"
     if dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"the loss head's CUDA kernels take bf16, fp16 or fp32, not {dtype}")
     return "wgmma" if w_aligned and h > 0 and h % 8 == 0 and (vocab_major or v % 8 == 0) else "mma_sync"
@@ -128,27 +137,6 @@ def flx_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
     return flx_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
 
 
-def flx_bwd_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
-    """Which instance of the backward's products (the D recompute, kernels
-    18 and 19) takes ``x [N, h]`` against ``W`` of ``dtype``: in fp32
-    ``"tf32x3"`` (``csrc/flxent_tf32.cu``: three TF32 passes on a wgmma
-    mainloop, its operands split first by a pass that reads W in 16-byte
-    vectors) when W's first element is 16-byte aligned (``w_aligned``) and
-    its rows are a multiple of 4 floats (``h % 4 == 0``, ``h > 0`` and, for
-    ``[h, v]``, ``v % 4 == 0``), else ``"cuda_cores"``; in bf16 and fp16
-    :func:`flx_route`'s instance. Any other dtype raises."""
-    if dtype != torch.float32:
-        return flx_route(dtype, h, v, vocab_major, w_aligned)
-    tf32 = w_aligned and h > 0 and h % 4 == 0 and (vocab_major or v % 4 == 0)
-    return "tf32x3" if tf32 else "cuda_cores"
-
-
-def flx_bwd_route_of(x: torch.Tensor, w: torch.Tensor, vocab_major: bool) -> str:
-    """:func:`flx_bwd_route` of the contiguous ``x [N, H]`` and ``W`` that the
-    D recompute and kernels 18 and 19 launch on."""
-    return flx_bwd_route(x.dtype, x.shape[1], _vocab(w, vocab_major), vocab_major, w.data_ptr() % 16 == 0)
-
-
 def flx_int8_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_aligned: bool = True) -> str:
     """Which instance of kernel 17's int8 site takes activations of
     ``dtype`` ``[N, h]`` against the int8 ``W`` (``[h, v]``, or ``[v, h]``
@@ -158,10 +146,17 @@ def flx_int8_route(dtype: torch.dtype, h: int, v: int, vocab_major: bool, w_alig
     ``h > 0``, ``v % 16 == 0`` and W 16-byte aligned: kernel 20's
     :func:`~paddle_tpu_torch.kernels.quant.wo_route` conditions);
     ``"mma_sync"`` (the int8 slabs widened in shared memory) for the other
-    bf16 and fp16 shapes, the vocab-major layout included; ``"cuda_cores"``
-    for fp32. Any other dtype raises."""
+    bf16 and fp16 shapes, the vocab-major layout included; for fp32
+    ``"tf32x2"`` (``csrc/flxent_tf32.cu``: two TF32 passes on the 3xTF32
+    mainloop, each sub-chunk of W first widened into one K-major fp32
+    plane) when W is 16-byte aligned and its rows
+    are a multiple of 16 bytes (``v % 16 == 0`` for ``[h, v]``, ``h % 16 ==
+    0`` when vocab-major) and the widened plane's rows of ``h`` floats are a
+    multiple of 16 bytes too (``h % 4 == 0``, ``h > 0``), else
+    ``"cuda_cores"``. Any other dtype raises."""
     if dtype == torch.float32:
-        return "cuda_cores"
+        tf32 = w_aligned and h > 0 and (h % 16 == 0 if vocab_major else h % 4 == 0 and v % 16 == 0)
+        return "tf32x2" if tf32 else "cuda_cores"
     if dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"the int8 head's CUDA kernels take bf16, fp16 or fp32 activations, not {dtype}")
     wgmma = not vocab_major and w_aligned and h > 0 and h % 8 == 0 and v % 16 == 0
@@ -347,9 +342,11 @@ def _stream() -> int:
 def flxent_fwd(
     x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_major: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` against ``W``. Kernel 17
-    is two launches on the instance :func:`flx_route` names, each counted:
-    the logits tiles' partials, then their fixed-order merge."""
+    """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` against ``W``. Kernel 17 on
+    the instance :func:`flx_route` names, each launch counted: the logits
+    tiles' partials, then their fixed-order merge, as ``flxent_fwd``; on
+    ``"tf32x3"`` the partials are one launch per sub-chunk, after the split
+    launches of :func:`_fwd_tf32`."""
     if x.device.type == "cpu":
         return flxent_fwd_plain(x, w, labels, vocab_major)
     io, x, w, lab, n, h, v = _operands("flxent_fwd", x, w, labels, vocab_major)
@@ -359,15 +356,24 @@ def flxent_fwd(
         route = flx_route_of(x, w, vocab_major)
         tiles = -(-v // TILE)
         part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
-        fn = build.kernel_fn("ptt_flxent_fwd", [_I, _I, _I] + [_P] * 4 + [_I] * 3 + [_P])
-        merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
         with torch.cuda.device(x.device):
-            build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(),
-                           part.data_ptr(), n, h, v, _stream()), f"flxent_fwd ({route})")
-            count_launch("flxent_fwd")
-            build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), "flxent_fwd merge")
-            count_launch("flxent_fwd")
+            if route == "tf32x3":
+                _fwd_tf32(x, w, None, lab, vocab_major, part, n, h, v, "flxent_fwd")
+            else:
+                fn = build.kernel_fn("ptt_flxent_fwd", [_I, _I, _I] + [_P] * 4 + [_I] * 3 + [_P])
+                build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w.data_ptr(), lab.data_ptr(),
+                               part.data_ptr(), n, h, v, _stream()), f"flxent_fwd ({route})")
+                count_launch("flxent_fwd")
+            _merge(part, lse, tl, "flxent_fwd")
     return lse, tl
+
+
+def _merge(part: torch.Tensor, lse: torch.Tensor, tl: torch.Tensor, what: str) -> None:
+    """One counted launch: the partials ``[3, tiles, N]`` merged in tile order into ``lse`` and ``tl``."""
+    merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
+    build.check(merge(part.data_ptr(), part.shape[1], part.shape[2], lse.data_ptr(), tl.data_ptr(), _stream()),
+                f"{what} merge")
+    count_launch(what)
 
 
 def flxent_fwd_int8(
@@ -375,9 +381,11 @@ def flxent_fwd_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(lse, tl)`` fp32 ``[N]`` of ``x [N, H]`` (bf16, fp16 or fp32)
     against the int8 ``W`` with per-column fp32 ``scale [V]``: kernel 17's
-    int8 site on the instance :func:`flx_int8_route` names, two launches,
-    each counted as ``flxent_fwd_int8`` (the logits tiles' partials, then
-    the bf16 forward's merge)."""
+    int8 site on the instance :func:`flx_int8_route` names, each launch
+    counted as ``flxent_fwd_int8`` (the logits tiles' partials, then the
+    bf16 forward's merge); on ``"tf32x2"`` the partials are one launch per
+    sub-chunk, after the split launch of x and each sub-chunk's widen launch
+    (:func:`_fwd_tf32`)."""
     if x.device.type == "cpu":
         return flxent_fwd_int8_plain(x, w8, scale, labels, vocab_major)
     what = "flxent_fwd_int8"
@@ -392,25 +400,26 @@ def flxent_fwd_int8(
         tiles = -(-v // TILE)
         part = torch.empty((3, tiles, n), dtype=torch.float32, device=x.device)
         route = flx_int8_route_of(x, w8, vocab_major)
-        fn = build.kernel_fn("ptt_flxent_fwd_int8", [_I, _I, _I] + [_P] * 5 + [_I] * 3 + [_P])
-        merge = build.kernel_fn("ptt_flxent_merge", [_P, _I, _I, _P, _P, _P])
         with torch.cuda.device(x.device):
-            build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-                           lab.data_ptr(), part.data_ptr(), n, h, v, _stream()), f"{what} ({route})")
-            count_launch(what)
-            build.check(merge(part.data_ptr(), tiles, n, lse.data_ptr(), tl.data_ptr(), _stream()), f"{what} merge")
-            count_launch(what)
+            if route == "tf32x2":
+                _fwd_tf32(x, w8, scale, lab, vocab_major, part, n, h, v, what)
+            else:
+                fn = build.kernel_fn("ptt_flxent_fwd_int8", [_I, _I, _I] + [_P] * 5 + [_I] * 3 + [_P])
+                build.check(fn(io, _ROUTES[route], int(vocab_major), x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+                               lab.data_ptr(), part.data_ptr(), n, h, v, _stream()), f"{what} ({route})")
+                count_launch(what)
+            _merge(part, lse, tl, what)
     return lse, tl
 
 
 def _backward_operands(what, x, w, labels, lse, gcoef, vocab_major):
     """:func:`_operands` with the fp32 ``lse`` and ``gcoef``, and the route
-    of the backward's products (:func:`flx_bwd_route`)."""
+    of the backward's products (:func:`flx_route`)."""
     io, x, w, lab, n, h, v = _operands(what, x, w, labels, vocab_major)
     for name, t in (("lse", lse), ("gcoef", gcoef)):
         if t.shape != (n,) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"{what}: {name} must be fp32 [{n}] on {x.device}")
-    return io, flx_bwd_route_of(x, w, vocab_major), x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
+    return io, flx_route_of(x, w, vocab_major), x, w, lab, lse.contiguous(), gcoef.contiguous(), n, h, v
 
 
 def _up4(n: int) -> int:
@@ -455,7 +464,7 @@ def tf32_planes_plain(x: torch.Tensor, same: bool = True, trans: bool = False):
 
 
 def tf32_planes(x: torch.Tensor, same: bool = True, trans: bool = False):
-    """The 3xTF32 backward's split pass over fp32 ``x [R, C]`` (``C % 4 ==
+    """The 3xTF32 instance's split pass over fp32 ``x [R, C]`` (``C % 4 ==
     0``): ``(same, trans)``, the hi and lo planes of ``x`` (``[2, R, C]``)
     and of ``x^T`` (``[2, C, R]``, rows padded with zeros to a multiple of
     4), each None when not asked for. One counted launch for a CUDA tensor
@@ -486,8 +495,8 @@ def _launch_split(src: int, ld: int, rows: int, cols: int, same: Optional[torch.
 
 def _split_w(w: torch.Tensor, vocab_major: bool, h: int, v: int, c0: int, vc: int, wd: Optional[torch.Tensor],
              wx: Optional[torch.Tensor]) -> None:
-    """The chunk's W planes: ``wd [2, vc, H]`` (D's operand, W_c^T) and / or
-    ``wx [2, H, .]`` (dX's, W_c), in one split launch."""
+    """The sub-chunk's W planes: ``wd [2, vc, H]`` (W_c^T: kernel 17's and
+    D's operand) and / or ``wx [2, H, .]`` (dX's, W_c), in one split launch."""
     base = w.data_ptr() + w.element_size() * (c0 * h if vocab_major else c0)
     if vocab_major:  # W[c0:c0 + vc] is [vc, H]
         _launch_split(base, h, vc, h, wd, wx)
@@ -539,6 +548,93 @@ def flx_tf32_sub(n: int, h: int, v: int) -> int:
     while sub > 512 and tf32_planes_bytes(n, h, v, sub) >= 4 * n * v:
         sub //= 2
     return sub
+
+
+def flx_fwd_bytes(n: int, h: int, v: int, sub: int, passes: int = 3) -> int:
+    """Device bytes of the TF32 forward's scratch at sub-chunks of ``sub``
+    columns: x's hi and lo planes (``[n, h]``), W_c^T's planes (``[min(sub,
+    v), h]``: two in three passes, the int8 W's one widened plane in two)
+    and the ``[3, ceil(v / TILE), n]`` partials."""
+    return 4 * (2 * n * h + (passes - 1) * min(sub, v) * h + 3 * -(-v // TILE) * n)
+
+
+def flx_fwd_sub(n: int, h: int, v: int, passes: int = 3) -> int:
+    """The columns of one sub-chunk of kernel 17's TF32 walk (``passes`` 3:
+    fp32 W, ``"tf32x3"``; 2: the int8 W, ``"tf32x2"``) for ``x [n, h]``
+    against a vocab of ``v``: the largest multiple of :data:`TILE`, at most
+    :data:`CHUNK`, whose scratch (:func:`flx_fwd_bytes`) takes fewer bytes
+    than the ``[n, v]`` fp32 logits the unfused head holds; :data:`TILE`
+    where none does. A rule of its own beside the backward's
+    :func:`flx_tf32_sub`: the forward holds x's planes and one orientation
+    of W_c only, so its sub-chunks may be larger (4096 columns at x
+    ``[2048, 4096]`` against V 32000, where the backward takes 1024). Each
+    sub-chunk starts at a multiple of :data:`TILE`, so its partials are
+    whole tiles of the ``[3, ceil(v / TILE), n]`` scratch."""
+    sub = CHUNK
+    while sub > TILE and flx_fwd_bytes(n, h, v, sub, passes) >= 4 * n * v:
+        sub -= TILE
+    return sub
+
+
+def int8_plane_plain(w8: torch.Tensor, vocab_major: bool, c0: int, c1: int) -> torch.Tensor:
+    """The widen pass's plain version: the int8 W's vocab columns ``c0:c1``
+    as fp32 ``[c1 - c0, H]`` (W_c^T, K-major), exact."""
+    return _w_block(w8, vocab_major, c0, c1).contiguous()
+
+
+def _launch_widen(w8: torch.Tensor, vocab_major: bool, h: int, v: int, c0: int, vc: int, out: torch.Tensor) -> None:
+    """One counted launch of the widen pass: the int8 W's columns ``[c0, c0 +
+    vc)`` into ``out`` (fp32, ``vc`` rows of ``H``)."""
+    fn = build.kernel_fn("ptt_flxent_widen", [_P, _L, _I, _I, _I, _P, _L, _P])
+    if vocab_major:  # W[c0:c0 + vc] is [vc, H] as it lies
+        args = (w8.data_ptr() + c0 * h, h, vc, h, 0)
+    else:  # W[:, c0:c0 + vc] is [H, vc], rows V bytes apart: transposed
+        args = (w8.data_ptr() + c0, v, h, vc, 1)
+    build.check(fn(*args, out.data_ptr(), h, _stream()), "flxent_widen")
+    count_launch("flxent_widen")
+
+
+def int8_plane(w8: torch.Tensor, vocab_major: bool, c0: int, c1: int) -> torch.Tensor:
+    """The int8 W's vocab columns ``c0:c1`` widened to fp32 ``[c1 - c0, H]``
+    (W_c^T, K-major), the ``"tf32x2"`` forward's B operand: one counted
+    launch (``flxent_widen``) for a CUDA tensor on that route; the plain
+    version for a CPU one."""
+    if w8.device.type == "cpu":
+        return int8_plane_plain(w8, vocab_major, c0, c1)
+    if w8.dtype != torch.int8 or w8.dim() != 2 or not w8.is_contiguous():
+        raise ValueError(f"int8_plane: the widen pass takes a contiguous int8 W, got {w8.dtype} {tuple(w8.shape)}")
+    h, v = (w8.shape[1], w8.shape[0]) if vocab_major else w8.shape
+    if flx_int8_route(torch.float32, h, v, vocab_major, w8.data_ptr() % 16 == 0) != "tf32x2" or not 0 <= c0 < c1 <= v:
+        raise ValueError(f"int8_plane: the widen pass cannot take W {tuple(w8.shape)} (vocab_major={vocab_major}): "
+                         f"it needs W 16-byte aligned, rows a multiple of 16 bytes and H % 4 == 0; or {c0}:{c1} is "
+                         f"not a range of its {v} columns")
+    out = torch.empty((c1 - c0, h), dtype=torch.float32, device=w8.device)
+    with torch.cuda.device(w8.device):
+        _launch_widen(w8, vocab_major, h, v, c0, c1 - c0, out)
+    return out
+
+
+def _fwd_tf32(x, w, scale, lab, vocab_major, part, n, h, v, what) -> None:
+    """Kernel 17's partials on the TF32 instance (``csrc/flxent_tf32.cu``)
+    into ``part``: one split launch for x's planes, then per sub-chunk of
+    :func:`flx_fwd_sub` columns in order one launch laying W_c^T out K-major
+    (an fp32 W: its hi and lo planes by the split pass, three passes; the
+    int8 W with its ``scale``: its values widened by the widen pass, two
+    passes) and one partials launch (counted as ``what``)."""
+    passes = 3 if scale is None else 2
+    sub = flx_fwd_sub(n, h, v, passes)
+    xp = tf32_planes(x)[0]
+    wp = torch.empty((passes - 1, min(sub, v), h), dtype=torch.float32, device=x.device)
+    fn = build.kernel_fn("ptt_flxent_tf32_fwd", [_I] + [_P, _L, _L] * 2 + [_P] * 3 + [_I] * 5 + [_P])
+    for c0 in range(0, v, sub):
+        vc = min(sub, v - c0)
+        if scale is None:
+            _split_w(w, vocab_major, h, v, c0, vc, wp, None)
+        else:
+            _launch_widen(w, vocab_major, h, v, c0, vc, wp[0])
+        build.check(fn(passes, *_pl(xp), *_pl(wp), 0 if scale is None else scale.data_ptr(), lab.data_ptr(),
+                       part.data_ptr(), part.shape[1], n, h, c0, vc, _stream()), f"{what} (tf32x{passes})")
+        count_launch(what)
 
 
 def _bwd_tf32(x, w, lab, lse, gcoef, vocab_major, dx, dw, n, h, v):
@@ -595,7 +691,7 @@ def flxent_dchunk(
 ) -> torch.Tensor:
     """``D [N, c1 - c0]`` in ``x``'s dtype of the vocab columns ``c0:c1``
     (``0 <= c0 < c1 <= V``; one launch of the recompute that kernels 18
-    and 19 share, on :func:`flx_bwd_route`'s instance: on ``"tf32x3"`` after
+    and 19 share, on :func:`flx_route`'s instance: on ``"tf32x3"`` after
     two split launches, x's planes and the chunk's W_c^T's)."""
     if x.device.type == "cpu":
         return flxent_dchunk_plain(x, w, labels, lse, gcoef, c0, c1, vocab_major)
@@ -623,7 +719,7 @@ def flxent_bwd(
     """``(dx, dw)`` of the loss given the forward's ``lse`` and the per-row
     ``gcoef`` (fp32 ``[N]``); a gradient not asked for is None. Per vocab
     chunk of :data:`CHUNK` columns, three launches on the instance
-    :func:`flx_bwd_route` names, each counted: the chunk's ``D`` (``[N,
+    :func:`flx_route` names, each counted: the chunk's ``D`` (``[N,
     CHUNK]`` in x's dtype), then kernel 18 adds ``D W_c^T`` into an fp32
     ``[N, H]`` partial (the last chunk writes ``dx``; in fp32 the partial is
     ``dx`` itself) and kernel 19 writes ``dW_c = x^T D``; on ``"tf32x3"``

@@ -15,7 +15,7 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-__all__ = ["KERNELS", "count_launch", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "LAYOUT_PASSES", "count_launch", "launch_counts", "reset_launch_counts"]
 
 # kernel name -> the TPU kernel it replaces (file:line of the Pallas body)
 KERNELS: Dict[str, str] = {
@@ -48,9 +48,10 @@ KERNELS: Dict[str, str] = {
     "flxent_dchunk": "paddle_tpu/kernels/fused_loss.py:302",
     "flxent_dx": "paddle_tpu/kernels/fused_loss.py:322",
     "flxent_dw": "paddle_tpu/kernels/fused_loss.py:343",
-    # the fp32 backward's 3xTF32 instance (csrc/flxent_tf32.cu) splits its
-    # operands first into K-major hi / lo planes: x once a backward, W's
-    # chunk once a chunk; the D recompute is the first product to read them
+    # the fp32 loss head's 3xTF32 instance (csrc/flxent_tf32.cu) splits its
+    # operands first into K-major hi / lo planes: x once a forward and once a
+    # backward, W's sub-chunks once each; kernel 17's partials and the D
+    # recompute are the first products to read them
     "flxent_split": "paddle_tpu/kernels/fused_loss.py:302",
     # the int8 serving path. Kernel 20, the weight-only int8 matmul:
     "wo_matmul": "paddle_tpu/kernels/quant.py:107",
@@ -63,6 +64,18 @@ KERNELS: Dict[str, str] = {
     # kernel 17's int8 site (`_make_pallas_quant_fwd`, the weight-only int8
     # lm head's forward-only loss): two launches per call, as flxent_fwd
     "flxent_fwd_int8": "paddle_tpu/kernels/fused_loss.py:464",
+    # its fp32 instance on the TF32 tensor cores (csrc/flxent_tf32.cu,
+    # two passes) widens each sub-chunk of the int8 W first into one K-major
+    # fp32 plane
+    "flxent_widen": "paddle_tpu/kernels/fused_loss.py:464",
+}
+
+# the passes above that only lay out another kernel's operands: no Pallas
+# body is theirs, and each is listed under the body whose operands it lays
+# out (not a second port of it)
+LAYOUT_PASSES: Dict[str, str] = {
+    "flxent_split": "layout pass, no TPU body: the fp32 TF32 instances' hi / lo operand planes",
+    "flxent_widen": "layout pass, no TPU body: the int8 W widened into the 2xTF32 instance's fp32 plane",
 }
 
 _lock = threading.Lock()

@@ -6,12 +6,12 @@ CPU cannot run.
 What the instance adds to the functions is a route, a walk and an
 arithmetic:
 
-- the route (``flx_route`` for kernel 17, ``flx_bwd_route`` for the
-  backward): in fp32 the forward stays on the CUDA cores and the backward
-  takes ``"tf32x3"`` where its split pass can read W in 16-byte vectors
-  (W 16-byte aligned, rows a multiple of 4 floats), ``"cuda_cores"``
+- the route (``flx_route``, one for kernel 17 and the backward): in fp32
+  ``"tf32x3"`` where the split pass can read W in 16-byte vectors (W
+  16-byte aligned, rows a multiple of 4 floats), ``"cuda_cores"``
   elsewhere, chosen from the shapes before the launch; every dtype x
-  alignment x layout case;
+  alignment x layout case (kernel 17's TF32 forward:
+  ``tests/test_torch_flxent_fwd_tf32.py``);
 - the walk: each chunk of ``CHUNK`` columns in sub-chunks of
   ``flx_tf32_sub`` columns, in order, so that the operand planes stay below
   the ``[N, V]`` fp32 logits the unfused head holds; the sub-chunks cover
@@ -69,45 +69,48 @@ def _one_torch_thread():
 
 # -- the routes ----------------------------------------------------------------------
 
-# (dtype, h, v, vocab_major, W's offset in elements) -> (forward route, backward route)
+# (dtype, h, v, vocab_major, W's offset in elements) -> the route of kernel 17 and the backward
 ROUTES = [
-    (torch.float32, 4096, 32000, False, 0, "cuda_cores", "tf32x3"),  # the fp32 train step's head
-    (torch.float32, 4096, 32000, True, 0, "cuda_cores", "tf32x3"),
-    (torch.float32, 1024, 32003, False, 0, "cuda_cores", "cuda_cores"),  # [H, V] rows of 128,012 bytes
-    (torch.float32, 1024, 32003, True, 0, "cuda_cores", "tf32x3"),  # vocab-major rows are H long
-    (torch.float32, 1024, 5000, False, 1, "cuda_cores", "cuda_cores"),  # W 4 bytes off 16-byte alignment
-    (torch.float32, 1024, 5000, True, 2, "cuda_cores", "cuda_cores"),  # 8 bytes off
-    (torch.float32, 1024, 5000, False, 4, "cuda_cores", "tf32x3"),  # 16 bytes off: aligned
-    (torch.bfloat16, 4096, 32000, False, 0, "wgmma", "wgmma"),
-    (torch.bfloat16, 1024, 32003, False, 0, "mma_sync", "mma_sync"),
-    (torch.bfloat16, 1024, 5000, True, 1, "mma_sync", "mma_sync"),
-    (torch.float16, 512, 3000, True, 0, "wgmma", "wgmma"),
-    (torch.float16, 512, 3001, False, 0, "mma_sync", "mma_sync"),
+    (torch.float32, 4096, 32000, False, 0, "tf32x3"),  # the fp32 train step's head
+    (torch.float32, 4096, 32000, True, 0, "tf32x3"),
+    (torch.float32, 1024, 32003, False, 0, "cuda_cores"),  # [H, V] rows of 128,012 bytes
+    (torch.float32, 1024, 32003, True, 0, "tf32x3"),  # vocab-major rows are H long
+    (torch.float32, 512, 3001, False, 0, "cuda_cores"),  # chip_smoke's CUDA-core case
+    (torch.float32, 1024, 5000, False, 1, "cuda_cores"),  # W 4 bytes off 16-byte alignment
+    (torch.float32, 1024, 5000, True, 2, "cuda_cores"),  # 8 bytes off
+    (torch.float32, 1024, 5000, True, 3, "cuda_cores"),  # 12 bytes off
+    (torch.float32, 1024, 5000, False, 4, "tf32x3"),  # 16 bytes off: aligned
+    (torch.float32, 1024, 5000, True, 8, "tf32x3"),  # 32 bytes off
+    (torch.bfloat16, 4096, 32000, False, 0, "wgmma"),
+    (torch.bfloat16, 1024, 32003, False, 0, "mma_sync"),
+    (torch.bfloat16, 1024, 5000, True, 1, "mma_sync"),
+    (torch.float16, 512, 3000, True, 0, "wgmma"),
+    (torch.float16, 512, 3000, True, 1, "mma_sync"),
+    (torch.float16, 512, 3001, False, 0, "mma_sync"),
 ]
 
 
-@pytest.mark.parametrize("dtype,h,v,vocab_major,offset,fwd,bwd", ROUTES,
+@pytest.mark.parametrize("dtype,h,v,vocab_major,offset,route", ROUTES,
                          ids=[f"{str(c[0])[6:]}-{c[1]}x{c[2]}-{'vm' if c[3] else 'hv'}-off{c[4]}" for c in ROUTES])
-def test_forward_and_backward_routes(dtype, h, v, vocab_major, offset, fwd, bwd):
-    """The route each instance takes, from the tensors (``flx_route_of``,
-    ``flx_bwd_route_of``) and from the shapes (``flx_route``,
-    ``flx_bwd_route``): the backward takes its own route only in fp32."""
+def test_forward_and_backward_routes(dtype, h, v, vocab_major, offset, route):
+    """The route kernel 17 and the backward's products take, from the
+    tensors (``flx_route_of``) and from the shapes (``flx_route``): fp32
+    takes ``"tf32x3"`` exactly where the split pass can read W."""
     buf = torch.zeros(offset + h * v, dtype=dtype)
     assert buf.data_ptr() % 16 == 0
     w = buf[offset:].view((v, h) if vocab_major else (h, v))
     x = torch.zeros((4, h), dtype=dtype)
     aligned = offset * buf.element_size() % 16 == 0
-    assert (kloss.flx_route_of(x, w, vocab_major), kloss.flx_bwd_route_of(x, w, vocab_major)) == (fwd, bwd)
-    assert kloss.flx_route(dtype, h, v, vocab_major, aligned) == fwd
-    assert kloss.flx_bwd_route(dtype, h, v, vocab_major, aligned) == bwd
-    if dtype != torch.float32:
-        assert bwd == fwd
+    assert kloss.flx_route_of(x, w, vocab_major) == route
+    assert kloss.flx_route(dtype, h, v, vocab_major, aligned) == route
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
 def test_backward_route_refuses_other_dtypes(dtype):
+    """The backward's route is :func:`flx_route`'s, which refuses any other
+    dtype before a launch."""
     with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
-        kloss.flx_bwd_route(dtype, 4096, 32000, False)
+        kloss.flx_route(dtype, 4096, 32000, False)
 
 
 # -- the walk --------------------------------------------------------------------------
@@ -297,7 +300,7 @@ def test_emulation_meets_the_fp32_gates_against_plain_and_pallas(vocab_major):
     JAX's Pallas backward."""
     n, h, v = 160, 256, 1000
     x, w, lab, gcoef, lse = _head(n, h, v, vocab_major, seed=3)
-    assert kloss.flx_bwd_route(torch.float32, h, v, vocab_major) == "tf32x3"
+    assert kloss.flx_route(torch.float32, h, v, vocab_major) == "tf32x3"
     assert kloss.flx_tf32_sub(n, h, v) == 512
     dx, dw, ds = emulate_tf32_bwd(x, w, lab, lse, gcoef, vocab_major)
     assert sorted(ds) == [0, 512] and dx.shape == x.shape and dw.shape == w.shape

@@ -28,11 +28,11 @@ forward, dX, dW) and the train step that runs them, against the JAX package.
   whole forward and backward reorder fp32 sums), with and without the
   document mask, each loss head running once per step.
 
-- The backward's wgmma instance, which the CPU cannot run: ``flx_route``
-  and ``flx_bwd_route`` (every main-path shape, Llama's ``[H, V]`` and
+- The backward's wgmma instance, which the CPU cannot run: ``flx_route``,
+  one route for kernel 17 and the backward (every main-path shape, Llama's ``[H, V]`` and
   GPT's ``[V, H]``, takes ``"wgmma"`` in bf16 and fp16; in fp32 kernel 17
-  takes ``"cuda_cores"`` and the backward ``"tf32x3"``, the CUDA cores
-  where its split pass cannot read W in 16-byte vectors; a ``[H, V]`` W
+  and the backward take ``"tf32x3"``, the CUDA cores where the split pass
+  cannot read W in 16-byte vectors; a ``[H, V]`` W
   whose rows TMA cannot address, or a W that is not 16-byte aligned, takes
   ``"mma_sync"``; ``tests/test_torch_flxent_tf32.py`` holds the 3xTF32
   instance's arithmetic), ``flx_plan`` and ``flx_items`` (every output tile
@@ -304,12 +304,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          ids=["llama [H,V]", "gpt [V,H]", "vocab-major 5000", "small [H,V]"])
 def test_flx_route_takes_wgmma_on_the_main_paths(h, v, vocab_major):
     """bf16 and fp16 take the wgmma mainloop forward and backward; fp32 runs
-    kernel 17 on the CUDA cores and the backward on the 3xTF32 instance."""
+    kernel 17 and the backward on the 3xTF32 instance."""
     for dtype in (torch.bfloat16, torch.float16):
         assert kloss.flx_route(dtype, h, v, vocab_major) == "wgmma"
-        assert kloss.flx_bwd_route(dtype, h, v, vocab_major) == "wgmma"
-    assert kloss.flx_route(torch.float32, h, v, vocab_major) == "cuda_cores"
-    assert kloss.flx_bwd_route(torch.float32, h, v, vocab_major) == "tf32x3"
+    assert kloss.flx_route(torch.float32, h, v, vocab_major) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype,h,v,vocab_major,route,bwd_route", [
@@ -320,13 +318,12 @@ def test_flx_route_takes_wgmma_on_the_main_paths(h, v, vocab_major):
     (torch.bfloat16, 1004, 5000, True, "mma_sync", "mma_sync"),  # H % 8 != 0
     # fp32 rows of 128,012 bytes: the split pass reads W in 16-byte vectors
     (torch.float32, 1024, 32003, False, "cuda_cores", "cuda_cores"),
-    (torch.float32, 1024, 32003, True, "cuda_cores", "tf32x3"),
+    (torch.float32, 1024, 32003, True, "tf32x3", "tf32x3"),
     (torch.bfloat16, 0, 5000, False, "mma_sync", "mma_sync"),  # an empty contraction: the wgmma accumulators start at k step 0
     (torch.float32, 0, 5000, False, "cuda_cores", "cuda_cores"),
 ])
 def test_flx_route_by_dtype_alignment_and_layout(dtype, h, v, vocab_major, route, bwd_route):
-    assert kloss.flx_route(dtype, h, v, vocab_major) == route
-    assert kloss.flx_bwd_route(dtype, h, v, vocab_major) == bwd_route
+    assert kloss.flx_route(dtype, h, v, vocab_major) == route == bwd_route
 
 
 @pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma_sync"), (4, "mma_sync"), (8, "wgmma")])
@@ -335,14 +332,12 @@ def test_flx_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route, vocab
     """W at ``offset`` bf16 elements into its storage: TMA maps need a
     16-byte aligned base, so W 2 or 8 bytes off takes the mma.sync route
     (chosen before the launch; the forward's mma.sync kernel takes the same
-    W) and W 16 bytes off the wgmma route; fp32 takes the CUDA cores at any
-    offset for kernel 17, and for the backward the 3xTF32 instance where
-    W's address is a multiple of 16 bytes (0, 16 or 32 bytes off), the CUDA
-    cores 4 bytes off."""
+    W) and W 16 bytes off the wgmma route; fp32 takes, for kernel 17 and the
+    backward alike, the 3xTF32 instance where W's address is a multiple of
+    16 bytes (0, 16 or 32 bytes off), the CUDA cores 4 bytes off."""
     h, v = 64, 256
-    fp32_bwd = "tf32x3" if offset != 1 else "cuda_cores"
-    for dtype, want, want_bwd in ((torch.bfloat16, route, route), (torch.float16, route, route),
-                                  (torch.float32, "cuda_cores", fp32_bwd)):
+    fp32 = "tf32x3" if offset != 1 else "cuda_cores"
+    for dtype, want in ((torch.bfloat16, route), (torch.float16, route), (torch.float32, fp32)):
         buf = torch.zeros(offset + h * v, dtype=dtype)
         assert buf.data_ptr() % 16 == 0
         w = buf[offset:].view((v, h) if vocab_major else (h, v))
@@ -351,8 +346,6 @@ def test_flx_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route, vocab
         aligned = offset * buf.element_size() % 16 == 0
         assert kloss.flx_route_of(x, w, vocab_major) == want
         assert kloss.flx_route(dtype, h, v, vocab_major, w_aligned=aligned) == want
-        assert kloss.flx_bwd_route_of(x, w, vocab_major) == want_bwd
-        assert kloss.flx_bwd_route(dtype, h, v, vocab_major, w_aligned=aligned) == want_bwd
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float64])

@@ -27,7 +27,9 @@
   H-major and vocab-major, every reduction, against ``_reference_quant_path``
   and the interpret ``_pallas_quant_path`` at 1e-5; its routes
   (``flx_int8_route``: kernel 20's wgmma mainloop for bf16 / fp16 ``W [H,
-  V]`` with V % 16 == 0, mma.sync otherwise, the CUDA cores for fp32);
+  V]`` with V % 16 == 0, mma.sync otherwise; for fp32 the TF32 instance
+  where its widen pass takes W (16-byte aligned, rows a multiple of 16
+  bytes, H a multiple of 4), else the CUDA cores);
   ``emulate_flx_int8_fwd`` (the wgmma route's tiles and transposed
   epilogue: scale before the mask, the reduction over vocab rows) and the
   CUDA-core instance's emulation in fp32 against the plain version and
@@ -804,14 +806,19 @@ def emulate_flx_int8_fwd_f32(x, w8, scale, labels, vocab_major):
 def test_int8_site_in_fp32_takes_the_cuda_cores_and_matches_jax(vocab_major):
     """fp32 activations at the int8 site (JAX's ``_pallas_quant_path`` takes
     any dtype and upcasts x in its body): ``flx_int8_route`` sends them to
-    the CUDA-core instance; its emulation (:func:`emulate_flx_int8_fwd_f32`)
+    the CUDA-core instance where the int8 W is not 16-byte aligned (the
+    TF32 instance elsewhere: ``tests/test_torch_flxent_fwd_tf32.py``); its
+    emulation (:func:`emulate_flx_int8_fwd_f32`)
     and the plain version against JAX's public ``fused_linear_cross_entropy``
     with ``weight_scale`` in interpret mode, per row, at 1e-5 (the same fp32
     sums in other orders); labels in the Pallas padding of V aside."""
     n, h, v = 70, 128, 300
     rng = np.random.default_rng(19)
     x, w8, scale, lab = _int8_head(rng, n, h, v, vocab_major)
-    tx, tw8, ts, tl = (torch.from_numpy(a.copy()) for a in (x, w8, scale, lab))
+    tx, ts, tl = (torch.from_numpy(a.copy()) for a in (x, scale, lab))
+    # W 8 bytes off 16-byte alignment: the widen pass of "tf32x2" cannot take it
+    tw8 = torch.zeros(8 + w8.size, dtype=torch.int8)[8:].view(w8.shape)
+    tw8.copy_(torch.from_numpy(w8))
     assert kloss.flx_int8_route_of(tx, tw8, vocab_major) == "cuda_cores"
     want = np.asarray(jax_loss.fused_linear_cross_entropy(
         jnp.asarray(x), jnp.asarray(w8), jnp.asarray(lab), ignore_index=-100, reduction="none",
@@ -828,9 +835,9 @@ def test_int8_site_in_fp32_takes_the_cuda_cores_and_matches_jax(vocab_major):
 def test_int8_site_main_path_takes_wgmma(dtype):
     """The int8 Llama head (``W [4096, 32000]``, lm_head's ``[in, out]``
     layout) takes kernel 20's wgmma mainloop in bf16 and fp16; fp32 takes the
-    CUDA cores."""
+    TF32 instance in two passes."""
     assert kloss.flx_int8_route(dtype, 4096, 32000, False) == "wgmma"
-    assert kloss.flx_int8_route(torch.float32, 4096, 32000, False) == "cuda_cores"
+    assert kloss.flx_int8_route(torch.float32, 4096, 32000, False) == "tf32x2"
 
 
 @pytest.mark.parametrize("dtype,h,v,vocab_major,route", [
@@ -839,9 +846,18 @@ def test_int8_site_main_path_takes_wgmma(dtype):
     (torch.bfloat16, 1024, 5008, False, "wgmma"),
     (torch.bfloat16, 1020, 5008, False, "mma_sync"),    # H % 8 != 0
     (torch.bfloat16, 1024, 5008, True, "mma_sync"),     # vocab-major: not kernel 20's layout
-    (torch.float32, 1024, 5008, True, "cuda_cores"),
+    (torch.float32, 1024, 5008, True, "tf32x2"),        # the widen pass reads rows of 1024 bytes
     (torch.bfloat16, 0, 5008, False, "mma_sync"),       # an empty contraction
-], ids=["v-32003", "v-5000", "v-5008", "h-ragged", "vocab-major", "fp32", "h-0"])
+    (torch.float32, 1032, 5008, True, "cuda_cores"),    # vocab-major rows of 1032 bytes
+    (torch.float32, 1024, 5000, False, "cuda_cores"),   # [H, V] rows of 5000 bytes
+    (torch.float32, 0, 5008, False, "cuda_cores"),
+    (torch.float32, 4096, 32000, True, "tf32x2"),       # the Llama head vocab-major
+    (torch.float32, 1024, 5008, False, "tf32x2"),
+    (torch.float32, 1024, 32003, False, "cuda_cores"),  # [H, V] rows of 32003 bytes
+    (torch.float32, 1024, 5001, True, "tf32x2"),        # vocab-major: V does not matter
+    (torch.float32, 1022, 5008, False, "cuda_cores"),   # the widened plane's rows of 1022 floats: H % 4 != 0
+], ids=["v-32003", "v-5000", "v-5008", "h-ragged", "vocab-major", "fp32", "h-0", "fp32-vm-h1032", "fp32-v5000",
+        "fp32-h-0", "fp32-vm-llama", "fp32-v5008", "fp32-v32003", "fp32-vm-v5001", "fp32-h1022"])
 def test_flx_int8_route_by_dtype_layout_and_alignment(dtype, h, v, vocab_major, route):
     assert kloss.flx_int8_route(dtype, h, v, vocab_major) == route
 
@@ -849,13 +865,19 @@ def test_flx_int8_route_by_dtype_layout_and_alignment(dtype, h, v, vocab_major, 
 @pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma_sync"), (8, "mma_sync"), (16, "wgmma")])
 def test_flx_int8_route_of_sends_a_misaligned_weight_to_mma_sync(offset, route):
     """The int8 W ``offset`` bytes into its storage: TMA needs a 16-byte
-    aligned base."""
+    aligned base, and so does the fp32 instance's widen pass: fp32
+    activations take "tf32x2" where bf16 takes "wgmma", in either layout
+    (a vocab-major W takes "mma_sync" in bf16 at any offset)."""
     h, v = 64, 256
     buf = torch.zeros(offset + h * v, dtype=torch.int8)
     assert buf.data_ptr() % 16 == 0
     w8 = buf[offset:].view(h, v)
     assert kloss.flx_int8_route_of(torch.zeros((4, h), dtype=torch.bfloat16), w8, False) == route
-    assert kloss.flx_int8_route_of(torch.zeros((4, h)), w8, False) == "cuda_cores"
+    fp32 = "tf32x2" if route == "wgmma" else "cuda_cores"
+    assert kloss.flx_int8_route_of(torch.zeros((4, h)), w8, False) == fp32
+    wv = buf[offset:].view(v, h)  # vocab-major
+    assert kloss.flx_int8_route_of(torch.zeros((4, h), dtype=torch.bfloat16), wv, True) == "mma_sync"
+    assert kloss.flx_int8_route_of(torch.zeros((4, h)), wv, True) == fp32
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float64])

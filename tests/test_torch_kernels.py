@@ -218,6 +218,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     w8 = torch.ones((16, 8), dtype=torch.int8)
     kquant.int8_weight_matmul(x, w8, torch.ones(8))
     kloss.flxent_fwd_int8(x, w8, torch.ones(8), lab)
+    kloss.int8_plane(w8, False, 0, 8)  # the fp32 int8 site's widen pass
     assert launch_counts() == {"paged_chunk_fused": 0, "paged_chunk": 0, "paged_decode": 0,
                                "paged_decode_fused": 0, "embed_rms": 0, "rms_residual": 0,
                                "flash_fwd": 0, "flash_fwd_wide": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -226,7 +227,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
                                "rms_residual_bwd": 0, "ln_residual": 0, "ln_residual_bwd": 0,
                                "flxent_fwd": 0, "flxent_dchunk": 0, "flxent_dx": 0, "flxent_dw": 0,
                                "flxent_split": 0, "wo_matmul": 0, "paged_chunk_fused_int8": 0, "paged_chunk_int8": 0,
-                               "paged_decode_int8": 0, "paged_decode_fused_int8": 0, "flxent_fwd_int8": 0}
+                               "paged_decode_int8": 0, "paged_decode_fused_int8": 0, "flxent_fwd_int8": 0,
+                               "flxent_widen": 0}
 
 
 # -- nn functionals ----------------------------------------------------------
