@@ -21,8 +21,9 @@ _FLAGS: Dict[str, tuple] = {
     # loop (kernels A, B, C); False runs the layer modules (kernel 4, RMSNorm
     # kernel 7), as in JAX
     "use_fused_decode_layer": ((True, False), "it is a bool"),
-    # the JAX default is True
-    "enable_prefix_cache": ((False,), "the prefix cache is not ported yet"),
+    # the JAX default: the engine maps cached prefix blocks and forks the
+    # first divergent block copy-on-write; False computes every prompt
+    "enable_prefix_cache": ((True, False), "it is a bool"),
     # 'bf16' means the unquantized pool in the model's dtype (the JAX
     # meaning); 'int8' the pool of int8 K/V rows with fp32 per-token scales
     "kv_cache_dtype": (("bf16", "int8"), "it is 'bf16' or 'int8'"),

@@ -39,6 +39,7 @@ from paddle_tpu_torch.kernels.paged_attention import (  # noqa: F401  (re-export
 
 __all__ = [
     "BlockKVCache",
+    "copy_blocks",
     "block_cache_append",
     "block_cache_append_chunk",
     "block_cache_cow_copy",
@@ -296,6 +297,15 @@ def block_cache_prefill(
                                     seq_lens, key_scale=key_scale, value_scale=value_scale)
 
 
+def copy_blocks(planes: Caches, src: torch.Tensor, dst: torch.Tensor) -> Caches:
+    """Copy whole blocks ``src[i]`` into ``dst[i]`` (``[F]`` int64 on the
+    pools' device) in each of ``planes``, in place: every source is read
+    before any destination is written, and nothing waits for the device."""
+    for plane in planes:
+        plane.index_copy_(0, dst, plane.index_select(0, src))
+    return planes
+
+
 def block_cache_cow_copy(
     key_cache: torch.Tensor,  # [NB, H, BS, D], updated in place
     value_cache: torch.Tensor,
@@ -315,12 +325,7 @@ def block_cache_cow_copy(
     nb = key_cache.shape[0]
     dst = dst.long()
     fork = dst < nb
-    src = src.long().clamp(0, nb - 1)[fork]
-    dst = dst[fork]
-    if dst.numel():
-        for plane in planes:
-            plane[dst] = plane[src]
-    return planes
+    return copy_blocks(planes, src.long().clamp(0, nb - 1)[fork], dst[fork])
 
 
 def _attend_q(q_lens: torch.Tensor, slot_mask: Optional[torch.Tensor]) -> torch.Tensor:

@@ -10,6 +10,7 @@ from paddle_tpu_torch.inference.engine import (
     RequestTooLongError,
     RequestUnservableError,
 )
+from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 
 __all__ = [
     "AdmissionPolicy",
@@ -19,6 +20,7 @@ __all__ = [
     "InferenceRequest",
     "IntakeError",
     "InvalidTokenBudgetError",
+    "PrefixCache",
     "PromptTooLongError",
     "RequestTooLongError",
     "RequestUnservableError",

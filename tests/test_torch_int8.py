@@ -78,8 +78,9 @@ from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, from_paddle_t
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Linear
 
-ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8)
-JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, tp=1)
+ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8,
+                 enable_prefix_cache=False)
+JAX_ONLY_KW = dict(spec_decode=False, tp=1)
 INT8_KW = dict(kv_cache_dtype="int8", weight_only_int8=True)
 GEOMETRIES = [(64, 4, 4), (64, 8, 2), (128, 4, 4), (128, 8, 2)]  # (D, HQ, HKV)
 GEOMETRY_IDS = ["d64-mha", "d64-gqa", "d128-mha", "d128-gqa"]

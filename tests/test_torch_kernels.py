@@ -269,10 +269,17 @@ def test_block_pool_refcounts():
 def test_flags_refuse_what_the_port_lacks():
     assert paddle_tpu_torch.get_flags(["FLAGS_kv_cache_dtype"]) == {"FLAGS_kv_cache_dtype": "bf16"}
     paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
-    for name, value in [("FLAGS_kv_cache_dtype", "fp8"), ("FLAGS_enable_prefix_cache", True),
+    for name, value in [("FLAGS_kv_cache_dtype", "fp8"), ("FLAGS_enable_prefix_cache", "True"),
                         ("FLAGS_use_fused_decode_layer", "False"), ("FLAGS_weight_only_int8", "True")]:
         with pytest.raises(ValueError):
             paddle_tpu_torch.set_flags({name: value})
+    # the prefix cache is ported: accepted, and on by default as in JAX
+    assert paddle_tpu_torch.get_flags(["FLAGS_enable_prefix_cache"]) == {"FLAGS_enable_prefix_cache": True}
+    paddle_tpu_torch.set_flags({"FLAGS_enable_prefix_cache": False})
+    try:
+        assert paddle_tpu_torch.get_flags(["FLAGS_enable_prefix_cache"]) == {"FLAGS_enable_prefix_cache": False}
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_enable_prefix_cache": True})
     # the int8 pool and the weight-only int8 projections are ported: accepted, off by default
     assert paddle_tpu_torch.get_flags(["FLAGS_weight_only_int8"]) == {"FLAGS_weight_only_int8": False}
     paddle_tpu_torch.set_flags({"FLAGS_kv_cache_dtype": "int8", "FLAGS_weight_only_int8": True})

@@ -49,8 +49,9 @@ from paddle_tpu_torch.kernels import paged_attention as kpaged
 from paddle_tpu_torch.models import LlamaConfig, from_paddle_tpu_state
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8)
-JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, kv_cache_dtype="bf16", tp=1)
+ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8,
+                 enable_prefix_cache=False)
+JAX_ONLY_KW = dict(spec_decode=False, kv_cache_dtype="bf16", tp=1)
 GEOMETRIES = [(64, 4, 4), (64, 8, 2), (128, 4, 4), (128, 8, 2)]  # (D, HQ, HKV)
 GEOMETRY_IDS = ["d64-mha", "d64-gqa", "d128-mha", "d128-gqa"]
 

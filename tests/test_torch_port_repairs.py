@@ -51,8 +51,9 @@ from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.kernels import fused as kfused
 from paddle_tpu_torch.models import LlamaConfig, from_paddle_tpu_state
 
-ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8)
-JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, kv_cache_dtype="bf16", tp=1)
+ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8,
+                 enable_prefix_cache=False)
+JAX_ONLY_KW = dict(spec_decode=False, kv_cache_dtype="bf16", tp=1)
 EPS = 1e-5
 
 

@@ -29,8 +29,9 @@ from paddle_tpu.observability.recompile import GLOBAL_WATCHDOG
 from paddle_tpu_torch.inference import ContinuousBatchingEngine, IntakeError
 from paddle_tpu_torch.models import LlamaConfig, from_paddle_tpu_state
 
-ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8)
-JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, kv_cache_dtype="bf16", tp=1)
+ENGINE_KW = dict(max_slots=3, block_size=4, prompt_bucket=24, max_model_len=64, prefill_chunk=8,
+                 enable_prefix_cache=False)
+JAX_ONLY_KW = dict(spec_decode=False, kv_cache_dtype="bf16", tp=1)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,21 +151,38 @@ def test_step_logits_and_pools_match_jax_model(models):
 
 
 def _assert_pool_exact(eng):
+    """The pool invariant: exact allocated + free accounting; every block's
+    refcount equals its live mappings (slot tables), the pins of pending
+    copy-on-write forks and the prefix cache's chain ownership; no live
+    table entry on a freed block; a slot's chain nodes a prefix of its
+    table; every token in the pool has a block."""
     s = eng.pool_stats()
     assert s["allocated"] + s["free"] == s["total"], s
-    live = {}
+    expect = {}
     for slot, req in enumerate(eng._slot_req):
         if req is not None:
             for blk in eng._blocks[slot]:
-                live[blk] = live.get(blk, 0) + 1
-            # every token in the pool has a block
+                expect[blk] = expect.get(blk, 0) + 1
             assert len(eng._blocks[slot]) * eng.block_size >= eng._ntok[slot]
-    assert eng._mgr.refcounts() == live
+    for pending in eng._pending_cow:
+        if pending is not None:
+            expect[pending[0].block] = expect.get(pending[0].block, 0) + 1
+    if eng._cache is not None:
+        for node in eng._cache._nodes.values():
+            expect[node.block] = expect.get(node.block, 0) + 1
+    assert eng._mgr.refcounts() == expect
+    free = set(eng._mgr._free)
+    for slot, req in enumerate(eng._slot_req):
+        if req is not None:
+            assert not set(eng._blocks[slot]) & free, f"slot {slot} references freed blocks"
+            for i, node in enumerate(eng._nodes[slot]):
+                assert eng._blocks[slot][i] == node.block
 
 
-def test_pool_accounting_exact_every_step_and_drains(models):
+@pytest.mark.parametrize("cache", [False, True], ids=["cache_off", "cache_on"])
+def test_pool_accounting_exact_every_step_and_drains(models, cache):
     _, model, jcfg = models
-    eng = ContinuousBatchingEngine(model, **{**ENGINE_KW, "num_blocks": 14})
+    eng = ContinuousBatchingEngine(model, **{**ENGINE_KW, "num_blocks": 14, "enable_prefix_cache": cache})
     rng = np.random.default_rng(9)
     for n, budget in [(20, 9), (13, 12), (6, 3), (24, 8), (2, 2), (17, 5)]:
         eng.add_request(rng.integers(0, jcfg.vocab_size, n), max_new_tokens=budget)
@@ -175,6 +193,10 @@ def test_pool_accounting_exact_every_step_and_drains(models):
         _assert_pool_exact(eng)
     assert sorted(done) == list(range(6))
     assert all(r.finish_reason == "length" for r in done.values())
+    s = eng.pool_stats()
+    assert s["free"] + s["cached_blocks"] == eng.num_blocks and (s["cached_blocks"] > 0) == cache
+    if cache:
+        eng._cache.evict_blocks(eng.num_blocks)
     assert eng.pool_stats()["free"] == eng.num_blocks
 
 
@@ -195,8 +217,11 @@ def test_intake_errors_match_jax_engine(models, prompt, budget):
 
 def test_engine_refuses_what_the_port_lacks(models):
     _, model, _ = models
+    # the prefix cache is ported: accepted, and on by default as in JAX
+    assert ContinuousBatchingEngine(model, enable_prefix_cache=True).prefix_cache_stats()["enabled"]
+    assert ContinuousBatchingEngine(model).prefix_cache_stats()["enabled"]
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(model, enable_prefix_cache=True)
+        ContinuousBatchingEngine(model, kv_host_tier_bytes=1 << 20)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         ContinuousBatchingEngine(model, kv_cache_dtype="fp8")
     # the int8 pool is ported: 4 planes per layer, int8 payload, fp32 scales at ones

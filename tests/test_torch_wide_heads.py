@@ -363,8 +363,9 @@ def test_chunk_wrappers_launch_with_chunk_plan(monkeypatch, fused, d, int8):
 
 JCFG = dict(vocab_size=256, hidden_size=640, intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
             num_key_value_heads=1, max_position_embeddings=64)
-ENGINE_KW = dict(max_slots=2, block_size=4, prompt_bucket=16, max_model_len=48, prefill_chunk=8)
-JAX_ONLY_KW = dict(enable_prefix_cache=False, spec_decode=False, kv_cache_dtype="bf16", tp=1)
+ENGINE_KW = dict(max_slots=2, block_size=4, prompt_bucket=16, max_model_len=48, prefill_chunk=8,
+                 enable_prefix_cache=False)
+JAX_ONLY_KW = dict(spec_decode=False, kv_cache_dtype="bf16", tp=1)
 
 
 def _port_config(jcfg):
