@@ -631,41 +631,63 @@ def check_paged_prefix(dev, gen, card: dict) -> None:
     same_row_readings(dev, gen, card)
 
 
+# same_row_readings: (pool, head dim, HQ, HKV) of each case: the 7B geometry in both pools, then the
+# wide (paged_chunk_wide.cu, D 320) and the deep (paged_chunk_deep.cu, D 576) instances over a bf16 pool
+SAME_ROW_CASES = (("bf16", 128, 32, 32), ("int8", 128, 32, 32), ("bf16", 320, 8, 8), ("bf16", 576, 8, 8))
+
+
 def same_row_readings(dev, gen, card: dict) -> dict:
     """The same query rows (positions 440-447 of one history: the same K/V
-    blocks, q and rope rows) through kernel A and its plain version in
-    three chunks: 16 rows at lens 440 (a warm request's tail after its
-    fork), 64 rows at lens 384 (the cache-off prefill of the same prompt)
-    and 64 rows at lens 392. A's ranks split a tile's history at
-    ``ceil(ceil(n_pos / BS) / ranks)`` blocks, ``n_pos`` the tile's causal
-    limit: 456 at lens 440 and 392, 448 at 384. So the rows at 384 sum
-    their fp32 partials in another order (a few elements an ulp off:
-    reported), and those at 392 in the same one as at 440: gated to the
-    same bits."""
+    blocks, q and rope rows) through kernels A and 4 and their plain
+    versions in three chunks: 16 rows at lens 440 (a warm request's tail
+    after its fork), 64 rows at lens 384 (the cache-off prefill of the same
+    prompt) and 64 rows at lens 392. The tiles' causal limits are 456, 448
+    and 456. The kernels interleave 16-position tiles over their ranks by
+    position alone (``chunk_rank_tiles``), so each chunk start must give
+    the rows of lens 440 bit for bit, in every case of
+    :data:`SAME_ROW_CASES` (A and 4; the int8 pool at D 128; D 320 and 576
+    over bf16). The plain versions' readings are reported."""
     import torch
     from paddle_tpu_torch.kernels import paged_attention as kp
-
-    args, _ = paged_batch(dev, gen, 32, 32, q_lens=(16, 64, 64), lens=(440, 384, 392))
-    tables, q = args["block_tables"], args["q"]
-    tables[1, :28] = tables[0, :28]
-    tables[2, :29] = tables[0, :29]
-    q[1, 56:64] = q[0, :8]
-    q[2, 48:56] = q[0, :8]
-    got, want = kp.paged_flash_chunk_fused(**args), kp.paged_flash_chunk_fused_plain(**args)
-    torch.cuda.synchronize()
 
     def diff(out, rows):
         a, b = out[0, :8].float(), rows.float()
         return {"elements_differing": int((a != b).sum()), "of": a.numel(), "max_abs_diff": float((a - b).abs().max())}
 
-    out = {"phase": "kernel_check", "kernel": "paged_chunk_fused: positions 440-447 at three chunk starts",
-           "reference": "16 rows at lens 440 (causal limit 456)",
-           "kernel_at_384_limit_448": diff(got, got[1, 56:64]), "kernel_at_392_limit_456": diff(got, got[2, 48:56]),
-           "plain_at_384": diff(want, want[1, 56:64]), "plain_at_392": diff(want, want[2, 48:56]), "card": card}
-    emit(out)
-    if out["kernel_at_392_limit_456"]["elements_differing"]:
-        fail(f"paged_chunk_fused gives other bits for the same rows under the same causal limit: {out}")
-    return out
+    lines, bad = [], []
+    for pool, d, hq, hkv in SAME_ROW_CASES:
+        args, _ = paged_batch(dev, gen, hq, hkv, d=d, q_lens=(16, 64, 64), lens=(440, 384, 392))
+        tables, q = args["block_tables"], args["q"]
+        tables[1, :28] = tables[0, :28]
+        tables[2, :29] = tables[0, :29]
+        q[1, 56:64] = q[0, :8]
+        q[2, 48:56] = q[0, :8]
+        if pool == "int8":
+            args = int8_pool(args)
+        cargs = {k: v for k, v in args.items() if k not in ("cos", "sin")}
+        suffix = "_int8" if pool == "int8" else ""
+        line = {"phase": "kernel_check", "kernel": "paged A/4: positions 440-447 at three chunk starts",
+                "pool": pool, "d": d, "hq": hq, "hkv": hkv,
+                "cluster_size": kp.chunk_cluster_size(args["q"], args["key_cache"], args["block_tables"]),
+                "reference": "16 rows at lens 440 (causal limit 456)", "gate": "0 elements differing at 384 and 392"}
+        for name, run, run_plain in (
+                (f"paged_chunk_fused{suffix}", lambda: kp.paged_flash_chunk_fused(**args),
+                 lambda: kp.paged_flash_chunk_fused_plain(**args)),
+                (f"paged_chunk{suffix}", lambda: kp.paged_flash_chunk(**cargs),
+                 lambda: kp.paged_flash_chunk_plain(**cargs))):
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            line[name] = {"kernel_at_384_limit_448": diff(got, got[1, 56:64]),
+                          "kernel_at_392_limit_456": diff(got, got[2, 48:56]),
+                          "plain_at_384": diff(want, want[1, 56:64]), "plain_at_392": diff(want, want[2, 48:56])}
+            if any(line[name][k]["elements_differing"] for k in ("kernel_at_384_limit_448", "kernel_at_392_limit_456")):
+                bad.append(f"{name} d{d}")
+        emit({**line, "card": card})
+        lines.append(line)
+        del args, cargs
+    if bad:
+        fail(f"kernels A / 4 give other bits for the same rows at another chunk start: {bad}")
+    return {"cases": lines}
 
 
 def check_paged_wide(dev, gen, card: dict, records: dict) -> None:
@@ -3279,7 +3301,7 @@ def plain_logits(model, ids, caches, tables, lens, active, q_lens, dtype):
         m = proj(swiglu(proj(h, mlp.gate_proj), proj(h, mlp.up_proj)), mlp.down_proj)
         nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) else llama.norm
         h, residual = fused_rms_norm_residual_plain(m, w(nxt), residual, nxt.epsilon)
-    return proj(h, model.lm_head)
+    return h @ w(llama.embed_tokens).t() if model.lm_head is None else proj(h, model.lm_head)
 
 
 def check_logits(model, dev, card: dict, label: str = "logits", kv_int8: bool = False) -> None:
@@ -4007,7 +4029,8 @@ def serve_prefix(model, dev, card: dict, label: str = "serve_prefix", n_warm: in
     only their tails; one fork each; the second turn maps the blocks its
     first turn registered (``gen_blocks_registered > 0``) and reuses what
     :func:`match_rule` gives; every stream equals the same prompt's through
-    an engine with the cache off on the same model; each step launches
+    an engine with the cache off on the same model (the reused requests'
+    first-token logits are also held by :func:`prefix_logits_gate`); each step launches
     ``want`` and nothing else (the fork copy no counted kernel); every step
     that carries a fork runs its copy under :func:`run_sync_free`, and the
     copy leaves each forked block bit-equal to its source; the pool
@@ -4138,10 +4161,12 @@ def serve_prefix(model, dev, card: dict, label: str = "serve_prefix", n_warm: in
         fail(f"{label}: {sum(forked)} forks copied in {len(forked)} steps, {cache['cow_forks']} made")
     if differ:
         fail(f"{label}: the fork copies of steps {differ} (of {len(forked)}) left blocks unequal to their sources")
-    if not same[0]:
-        fail(f"{label}: the cold request's stream differs from the cache-off engine's")
-    # the reused requests' streams may part from the cache-off ones where A sums a row's history in another
-    # order (same_row_readings): their first tokens' logits are held to the bf16 path's own drift instead
+    if not all(same):
+        fail(f"{label}: {len(same) - sum(same)} of {len(same)} streams differ from the cache-off engine's "
+             f"(request index: first token that differs {first_diff})")
+    # A and 4 sum a row's history in an order set by its positions alone (same_row_readings), so every
+    # stream equals the cache-off one; the reused requests' first-token logits are also held to the bf16
+    # path's own drift, an extra line
     reused = list(range(1, len(reqs)))
     prefix_logits_gate(model, [prompts[k] for k in reused],
                        torch.stack([first_on[reqs[k].req_id] for k in reused]),
@@ -4939,6 +4964,7 @@ def profile_train_step(step, card: dict, label: str = "train_profile", flash_col
     uneven = {k: r for k, r in loss_tf32.items() if r["events"] != r["launches"]}
     if uneven:
         fail(f"{label}: the profile's 3xTF32 loss-head events are not its launches: {uneven}")
+    PHASE_READINGS[label] = by_cat_ms
     return by_cat_ms
 
 
@@ -5015,9 +5041,30 @@ def plain_fp32_reference(model, ids, labels, bounds) -> dict:
                               "grad_rel_l2_worst": [worst, tf32[worst]]}}
 
 
+def train_launches(cfg, tokens: int) -> dict:
+    """The kernel launches one Llama train step of ``tokens`` tokens makes
+    under ``cfg``: the flash forward and the forward norms and rope twice
+    per layer with recompute (forward and rerun), once without; dq, dk/dv,
+    the norms' and rope's backward once; kernels 9 / 10 only at head dims
+    that are a multiple of 128 (the JAX package's gate); the loss head's
+    launches on the route its shapes take (vocab-major for a tied head)."""
+    import torch
+
+    layers, d = cfg.num_hidden_layers, cfg.hidden_size // cfg.num_attention_heads
+    runs = 2 if cfg.recompute else 1
+    want = {fwd_counter(d, str(cfg.dtype)): runs * layers,
+            **{bwd_counter(k, d, str(cfg.dtype)): layers for k in ("flash_bwd_dq", "flash_bwd_dkv")},
+            "rms_norm_fwd": 2 * runs * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            **loss_head_launches(tokens, cfg.hidden_size, cfg.vocab_size, getattr(torch, cfg.dtype),
+                                 cfg.tie_word_embeddings)}
+    if d % 128 == 0:
+        want.update(rope_fwd=2 * runs * layers, rope_bwd=2 * layers)
+    return want
+
+
 def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, accuracy_seq: int = 1024,
           steps: int = 5, full: bool = True, label: str = "train", flash_cold=None, plain_first: bool = False,
-          profile: bool = False) -> dict:
+          profile: bool = False, about: str = None) -> dict:
     """Phase 6: Llama-2-7B widths at 8 layers, bf16 parameters, recompute on,
     ``AdamW(lr=1e-4, multi_precision=True)``, on one seeded document-packed
     batch of 2 x 4096 tokens (1 warm-up step, 4 timed). Gates: every
@@ -5035,7 +5082,10 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     fp32 model) the first step's loss and every gradient are held to
     :func:`plain_fp32_reference` on the same weights, within
     ``FP32_TRAIN_LOSS_GATE`` relative and ``FP32_TRAIN_GRAD_GATE`` rel L2;
-    the plain path in one TF32 pass must miss the gradient gate."""
+    the plain path in one TF32 pass must miss the gradient gate. The launch
+    counts follow ``cfg`` (:func:`train_launches`: without recompute each
+    forward kernel launches once; a tied head takes the loss head
+    vocab-major); ``about`` names the model in the phase line."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
@@ -5050,8 +5100,9 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
     ids, labels, bounds, docs = train_batch(dev, cfg.vocab_size, TRAIN_BATCH, seq, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    # MFU counts the matmul parameters only: the embedding table is a gather (PaLM's convention)
-    n_mfu = n_params - model.llama.embed_tokens.weight.numel()
+    # MFU counts the matmul parameters only: the embedding table is a gather (PaLM's convention), unless it
+    # is also the tied head's product
+    n_mfu = n_params - (0 if cfg.tie_word_embeddings else model.llama.embed_tokens.weight.numel())
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     first_ref = plain_fp32_reference(model, ids, labels, bounds) if plain_first else None
@@ -5074,15 +5125,7 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         return float(loss.detach())
 
     layers = cfg.num_hidden_layers
-    want = {fwd_counter(cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): 2 * layers,
-            **{bwd_counter(k, cfg.hidden_size // cfg.num_attention_heads, str(cfg.dtype)): layers
-               for k in ("flash_bwd_dq", "flash_bwd_dkv")},
-            "rms_norm_fwd": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            # the loss head: its forward's and backward's launches on the route its shapes take
-            **loss_head_launches(TRAIN_BATCH * seq, cfg.hidden_size, cfg.vocab_size, getattr(torch, cfg.dtype),
-                                 False)}
-    if (cfg.hidden_size // cfg.num_attention_heads) % 128 == 0:  # kernels 9, 10: the JAX package's D % 128 gate
-        want.update(rope_fwd=4 * layers, rope_bwd=2 * layers)
+    want = train_launches(cfg, TRAIN_BATCH * seq)
     losses, step_ms, counts, total, first_ms = [], [], None, {}, None
     for i in range(steps):
         reset_launch_counts()
@@ -5111,10 +5154,11 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
                     "grad_rel_l2": grad_err, "one_tf32_pass": first_ref["one_tf32_pass"],
                     "limits": {"loss_rel_err": FP32_TRAIN_LOSS_GATE, "grad_rel_l2": FP32_TRAIN_GRAD_GATE}}
     emit({
-        "phase": label, "model": f"llama2_7b widths, {layers} of 32 layers, {cfg.num_attention_heads} heads of "
-                                 f"{cfg.hidden_size // cfg.num_attention_heads} (seeded random {cfg.dtype} weights)",
+        "phase": label, "model": about or f"llama2_7b widths, {layers} of 32 layers, {cfg.num_attention_heads} heads "
+                                          f"of {cfg.hidden_size // cfg.num_attention_heads} (seeded random {cfg.dtype} "
+                                          f"weights)",
         "params": n_params, "batch": [TRAIN_BATCH, seq], "documents": docs,
-        "recompute": True, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
+        "recompute": cfg.recompute, "optimizer": "AdamW(lr=1e-4, multi_precision=True)", "setup_s": setup_s,
         "losses": losses, "first_step_ms": first_ms, "step_ms": step_ms or [dt],
         "step_ms_p50": float(np.median(step_ms or [dt])),
         "tokens_per_s": tokens / step_s,
@@ -5125,6 +5169,8 @@ def train(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, accuracy_cfg=None, ac
         "launches_per_step": counts, "launches_5_steps": total, "card": card,
         **({} if first_ref is None else {"first_step_vs_plain_fp32": vs_plain}),
     })
+    PHASE_READINGS[label] = {"step_ms_p50": float(np.median(step_ms or [dt])), "layers": layers,
+                             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     if not all(np.isfinite(losses)) or (steps > 1 and not losses[-1] < losses[0]):
         fail(f"the loss did not decrease over the steps: {losses}")
     if first_ref is not None:
@@ -5498,6 +5544,8 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches_per_step": counts, "launches_5_steps": total, "card": card,
     })
+    PHASE_READINGS["train_gpt"] = {"step_ms_p50": p50, "layers": layers,
+                                   "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"the GPT loss did not decrease over the steps: {losses}")
     profile_train_step(step, card, "train_gpt_profile", flash_cold)
@@ -5506,6 +5554,376 @@ def train_gpt(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_
     torch.cuda.empty_cache()
     check_gpt_accuracy(dev, card, accuracy_cfg, accuracy_seq)
     return total
+
+
+# -- the training surface: Llama 2's recipe, a tied head, dropout ------------------------------
+
+PHASE_READINGS: dict = {}  # phase label -> readings later phases stand beside (step ms, memory, profile ms)
+RECIPE_STEPS, RECIPE_SAVE_AFTER = 6, 3  # Llama 2's schedule cut to 6 steps; checkpoint after step 3
+RECIPE_RESUME_REL = 1e-3  # the resumed steps 5-6's losses within this of the first run's, relative
+
+
+class RecordedClip:
+    """An optimizer's ``grad_clip`` that also keeps, per call, the global
+    norm of the grads it is given and of the grads it returns (0-d tensors
+    on the card, read after the step)."""
+
+    def __init__(self, inner) -> None:
+        self.inner, self.norms = inner, []
+
+    def __call__(self, params_grads):
+        out = self.inner(params_grads)
+        self.norms.append((self.inner.global_norm([g for _, g in params_grads]),
+                           self.inner.global_norm([g for _, g in out])))
+        return out
+
+
+def range_device_ms(prof, name: str) -> dict:
+    """The device time of a trace's ``record_function(name)`` ranges: the
+    kernel events inside each range's span on the device (the span itself
+    beside it, idle gaps included)."""
+    import torch
+
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name == name and e.device_type == torch.autograd.DeviceType.CUDA]
+    inside = [e for e in cuda_events(prof) if any(a <= e.time_range.start and e.time_range.end <= b for a, b in spans)]
+    return {"kernels_ms": sum(e.time_range.elapsed_us() for e in inside) / 1e3, "kernels": len(inside),
+            "device_span_ms": sum(b - a for a, b in spans) / 1e3, "ranges": len(spans)}
+
+
+def recipe_optimizer(model):
+    """Llama 2's pretraining recipe (Touvron et al. 2023, section 2.2) on the
+    port's API: AdamW with beta2 0.95, eps 1e-5, weight decay 0.1 on every
+    parameter but the norm weights, the global-norm clip at 1.0, fp32
+    masters, and linear warmup into cosine decay to a tenth of the peak
+    3e-4, the warmup and the cosine horizon cut to 2 and 6 steps."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=RECIPE_STEPS, eta_min=3e-5), warmup_steps=2,
+                            start_lr=0.0, end_lr=3e-4)
+    clip = RecordedClip(ClipGradByGlobalNorm(1.0))
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-5, parameters=model.parameters(),
+                weight_decay=0.1, apply_decay_param_fun=lambda name: not name.endswith("norm.weight"),
+                grad_clip=clip, multi_precision=True)
+    return opt, sched, clip
+
+
+def train_recipe(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ) -> dict:
+    """``train_recipe``: the ``train`` phase's model (Llama-2-7B widths, 8
+    layers, recompute, bf16, 2 x 4096 tokens under the document mask) under
+    :func:`recipe_optimizer`, for :data:`RECIPE_STEPS` steps on the phase's
+    batch. After step :data:`RECIPE_SAVE_AFTER` the model's and the
+    optimizer's state dicts are ``torch.save``d into a temporary directory
+    (into host memory where the disk lacks the room: the line says which);
+    after the last step both are restored into the same model and a fresh
+    optimizer, and the steps after the checkpoint run again.
+
+    Gates: each step's learning rate is the scheduler's float (a replica
+    stepped beside it); each step's pre-clip global norm is reported and,
+    where it exceeds 1.0, the post-clip norm is 1.0 within 1e-3 relative;
+    the undecayed parameters are exactly the norm weights; the loss falls;
+    the resumed first step's loss equals the first run's bit for bit and
+    the later ones are within :data:`RECIPE_RESUME_REL` relative (each
+    parameter's rel L2 after the last step is reported); each step
+    launches what ``train``'s does (:func:`train_launches`). Then one more
+    step is profiled: the clip's and the optimizer update's device ms
+    (``record_function`` ranges) beside ``train``'s optimizer category."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import lr
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = cfg or LlamaConfig(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model.train()
+    opt, sched, clip = recipe_optimizer(model)
+    replica = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=RECIPE_STEPS, eta_min=3e-5), 2, 0.0, 3e-4)
+    undecayed = sorted(n for n, p in model.named_parameters() if opt._param_weight_decay(p, 0.1) == 0.0)
+    norms = sorted(n for n, _ in model.named_parameters() if n.endswith("norm.weight"))
+    if undecayed != norms:
+        fail(f"train_recipe: the undecayed parameters are {undecayed[:4]}..., not the norm weights")
+    ids, labels, bounds, docs = train_batch(dev, cfg.vocab_size, TRAIN_BATCH, seq, seed=0)
+    want = train_launches(cfg, TRAIN_BATCH * seq)
+
+    def step(opt, sched, check: bool = True) -> dict:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rate = opt.get_lr()
+        loss, _ = model(ids, labels=labels, startend_row_indices=bounds)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if check and counts != want:
+            fail(f"train_recipe: a step launched {counts}, expected {want} and nothing else")
+        sched.step()
+        return {"loss": loss, "lr": rate, "ms": ms}
+
+    first, lr_bad = [], []
+    for i in range(RECIPE_STEPS):
+        if i == RECIPE_SAVE_AFTER:
+            tmp = tempfile.mkdtemp(prefix="train_recipe_")
+            need = sum(t.numel() * t.element_size() for t in model.state_dict().values()) + sum(
+                t.numel() * t.element_size() for t in opt.state_dict().values() if isinstance(t, torch.Tensor))
+            on_disk = shutil.disk_usage(tmp).free > 1.25 * need
+            target = os.path.join(tmp, "ckpt.pt") if on_disk else io.BytesIO()
+            t = time.perf_counter()
+            torch.save({"model": model.state_dict(), "opt": opt.state_dict()}, target)
+            save_s = time.perf_counter() - t
+        r = step(opt, sched)
+        want_lr = replica()
+        replica.step()
+        if r["lr"] != want_lr:
+            lr_bad.append((i + 1, r["lr"], want_lr))
+        pre, post = (float(n) for n in clip.norms[-1])
+        r.update(pre_clip_norm=pre, post_clip_norm=post)
+        first.append(r)
+    clipped_bad = [(i + 1, r["pre_clip_norm"], r["post_clip_norm"]) for i, r in enumerate(first)
+                   if r["pre_clip_norm"] > 1.0 and abs(r["post_clip_norm"] - 1.0) > 1e-3]
+    final = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    if on_disk:
+        saved = torch.load(target, map_location="cpu")
+        shutil.rmtree(tmp, ignore_errors=True)
+    else:
+        target.seek(0)
+        saved = torch.load(target, map_location="cpu")
+    model.load_state_dict(saved["model"])
+    opt, sched, clip = recipe_optimizer(model)
+    opt.set_state_dict(saved["opt"])
+    del saved, target
+    gc.collect()
+    load_s = time.perf_counter() - t
+    resumed = [step(opt, sched) for _ in range(RECIPE_SAVE_AFTER, RECIPE_STEPS)]
+    rel = {n: rel_l2(p.detach(), final[n]) for n, p in model.named_parameters()}
+    del final
+    worst = max(rel, key=rel.get)
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(resumed, first[RECIPE_SAVE_AFTER:])]
+
+    # one profiled step: the clip's and the update's device ms
+    def ranged(name, fn):
+        def run(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return run
+
+    clip_fn, update_fn = opt._grad_clip, opt.step
+    opt._grad_clip = ranged("grad_clip", clip.inner)
+    opt.step = ranged("optimizer_step", update_fn)
+    prof, wall_us = traced(lambda: step(opt, sched, check=False))
+    opt._grad_clip, opt.step = clip_fn, update_fn
+    clip_ms, opt_ms = range_device_ms(prof, "grad_clip"), range_device_ms(prof, "optimizer_step")
+    opt_ms["update_kernels_ms"] = opt_ms["kernels_ms"] - clip_ms["kernels_ms"]  # the step's range holds the clip's
+    train_opt = PHASE_READINGS.get("train_profile", {}).get("optimizer")
+    ms = [r["ms"] for r in first[1:]]
+    out = {"phase": "train_recipe",
+           "model": f"llama2_7b widths, {cfg.num_hidden_layers} of 32 layers (seeded random bf16 weights), recompute",
+           "batch": [TRAIN_BATCH, seq], "documents": docs,
+           "optimizer": "AdamW(beta1=0.9, beta2=0.95, epsilon=1e-5, weight_decay=0.1, apply_decay_param_fun=not "
+                        "norm weights, grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)",
+           "schedule": "LinearWarmup(CosineAnnealingDecay(3e-4, T_max=6, eta_min=3e-5), warmup_steps=2, "
+                       "start_lr=0, end_lr=3e-4)",
+           "cut": "Llama 2's warmup (2000 steps) and cosine horizon cut to 2 and 6 steps; 8 of 32 layers",
+           "undecayed": len(undecayed), "steps": first, "resumed_steps": resumed,
+           "checkpoint": {"on_disk": on_disk, "bytes": need, "save_s": save_s, "load_s": load_s},
+           "resumed_loss_rel_err": loss_rel, "resumed_step_bitwise": resumed[0]["loss"] == first[RECIPE_SAVE_AFTER]["loss"],
+           "param_rel_l2_after_last_step": {"worst": [worst, rel[worst]], "median": float(np.median(list(rel.values())))},
+           "step_ms_p50": float(np.median(ms)), "train_step_ms_p50": PHASE_READINGS.get("train", {}).get("step_ms_p50"),
+           "profiled_step": {"wall_ms": wall_us / 1e3, "grad_clip": clip_ms, "optimizer_step": opt_ms,
+                             "train_profile_optimizer_ms": train_opt},
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "launches_per_step": want,
+           "card": card}
+    emit(out)
+    losses = [r["loss"] for r in first]
+    if lr_bad:
+        fail(f"train_recipe: the learning rate a step used differs from the scheduler's: {lr_bad}")
+    if clipped_bad:
+        fail(f"train_recipe: the post-clip norm is not 1.0 where the grads' norm exceeded it: {clipped_bad}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train_recipe: the loss did not fall: {losses}")
+    if not out["resumed_step_bitwise"] or max(loss_rel[1:], default=0.0) > RECIPE_RESUME_REL:
+        fail(f"train_recipe: the resumed steps' losses {[r['loss'] for r in resumed]} are not the first run's "
+             f"{losses[RECIPE_SAVE_AFTER:]} (the first bit for bit, then within {RECIPE_RESUME_REL})")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+# Llama-3.2-1B's published widths (meta-llama/Llama-3.2-1B config.json): its llama3 rope scaling is not a
+# field of the JAX LlamaConfig, so the rope is the plain theta-500000 one
+TIED_CONFIG = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+                   num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=131072,
+                   rms_norm_eps=1e-5, rope_theta=500000.0, tie_word_embeddings=True)
+TIED_STEPS = 3
+
+
+def train_tied(dev, card: dict, cfg=None, seq: int = TRAIN_SEQ, n_requests: int = 4) -> dict:
+    """``train_tied``: Llama-3.2-1B at full depth (1.24 B parameters, the
+    head tied to the embedding) through ``train``'s step at every JAX
+    default (no recompute) for :data:`TIED_STEPS` steps of 2 x 4096 tokens
+    under the document mask, with ``train``'s gates (finite non-zero
+    gradients, the launches of :func:`train_launches`: the loss head
+    vocab-major, no rope kernel at head dim 64; a falling loss; profile
+    events = launches). Then a fresh model of the same config serves
+    ``n_requests`` requests of 32 new tokens through the engine (A 16x, B
+    1x, C 32x a step) and one mixed step's logits go through
+    :func:`check_logits`."""
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = cfg or LlamaConfig(**TIED_CONFIG)
+    about = (f"Llama-3.2-1B widths, {cfg.num_hidden_layers} layers, tied head (seeded random bf16 weights; "
+             f"no llama3 rope scaling)")
+    counts = train(dev, card, cfg=cfg, seq=seq, steps=TIED_STEPS, full=False, label="train_tied", profile=True,
+                   about=about)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(cfg, device=dev, seed=1).eval()
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
+    run = drive_engine(eng, serve_prompts(cfg.vocab_size)[:n_requests])
+    emit({"phase": "serve_tied", "model": about, **run["stats"], "launches": run["counts"], "card": card})
+    layers = cfg.num_hidden_layers
+    check_served(run, eng, {"paged_chunk_fused": layers, "embed_rms": 1, "rms_residual": 2 * layers}, "serve_tied")
+    del eng
+    check_logits(model, dev, card, label="serve_tied_logits")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**counts, **{k: v for k, v in run["counts"].items() if v}}
+
+
+GPT_DROPOUT_LAYERS, GPT_DROPOUT_STEPS, GPT_DROPOUT = 2, 2, 0.1  # GPT-3's published dropout
+
+
+def recomputed_blocks(model) -> None:
+    """Each GPT block of ``model`` run under ``recompute`` (the user's call
+    of ``fleet.recompute`` around a layer; the JAX GPT has no recompute
+    switch of its own)."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet import recompute
+
+    class Block(torch.nn.Module):
+        def __init__(self, block):
+            super().__init__()
+            self.block = block
+
+        def forward(self, x):
+            return recompute(self.block, x)
+
+    model.gpt.layers = torch.nn.ModuleList([Block(b) for b in model.gpt.layers])
+
+
+def train_gpt_dropout(dev, card: dict, cfg=None, batch: int = GPT_BATCH, seq: int = GPT_SEQ) -> dict:
+    """``train_gpt_dropout``: GPT-3 13B widths cut to 2 layers with dropout
+    0.1 (embeddings and attention: GPT-3's published rate), each block under
+    ``recompute``, ``AdamW(lr=1e-4, multi_precision=True)``, 4 x 2048 tokens,
+    :data:`GPT_DROPOUT_STEPS` steps. Gates: finite non-zero gradients, a
+    finite loss; the flash kernels launch 0 times (attention dropout takes
+    the fp32 composition, as the JAX package's ``_xla_attention``) while
+    12 runs twice per layer (forward and rerun) and 13 once, and the loss
+    head as in ``train_gpt``; the recomputed block gives the forward's
+    output and gradients (block 0 on the embedding output, run once under
+    recompute and once without from the same generator state: its input's
+    gradient equal within 1e-6 rel L2, the forward bit for bit; from
+    another state the output must differ). Reports step ms and peak memory
+    per layer beside ``train_gpt``'s."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed.fleet import recompute
+    from paddle_tpu_torch.kernels.fused_loss import CHUNK
+    from paddle_tpu_torch.kernels.select import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = cfg or GPTConfig(num_layers=GPT_DROPOUT_LAYERS, dropout=GPT_DROPOUT)
+    model = GPTForPretraining(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    ids, labels = gpt_batch(dev, cfg.vocab_size, batch, seq, seed=0)
+
+    # the mask replay: block 0 from the same generator state with and without recompute
+    block = model.gpt.layers[0]
+    with torch.no_grad():
+        x0 = model.gpt.embeddings(ids)
+    cot = torch.randn(x0.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev).to(x0.dtype)
+    state = rng.get_rng_state(dev)
+    outs, grads = {}, {}
+    for use in (True, False):
+        rng.set_rng_state(state, dev)
+        x = x0.clone().requires_grad_(True)
+        out = recompute(block, x) if use else block(x)
+        (out.float() * cot.float()).sum().backward()
+        outs[use], grads[use] = out.detach(), x.grad
+    block.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        other = block(x0)  # the state has moved on: other masks
+    replay = {"forward_bitwise": bool(torch.equal(outs[True], outs[False])),
+              "input_grad_rel_l2": rel_l2(grads[True], grads[False]),
+              "input_grad_bitwise": bool(torch.equal(grads[True], grads[False])),
+              "other_state_output_differs": not bool(torch.equal(other, outs[False]))}
+    del outs, grads, other, x0, cot, x, out
+
+    recomputed_blocks(model)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(), multi_precision=True)
+    layers = cfg.num_layers
+    chunks = -(-cfg.vocab_size // CHUNK)
+    want = {"ln_residual": 2 * layers, "ln_residual_bwd": layers,
+            "flxent_fwd": 2, "flxent_dchunk": chunks, "flxent_dx": chunks, "flxent_dw": chunks}
+    losses, step_ms = [], []
+    for i in range(GPT_DROPOUT_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        if i == 0:
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+            if bad:
+                fail(f"train_gpt_dropout: parameters without a finite non-zero gradient: {bad}")
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != want:
+            fail(f"train_gpt_dropout: step {i + 1} launched {counts}, expected {want} and nothing else "
+                 f"(no flash kernel: attention dropout takes the composition)")
+    ref = PHASE_READINGS.get("train_gpt", {})
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    emit({"phase": "train_gpt_dropout",
+          "model": f"GPT-3 13B widths, {layers} of 40 layers, dropout {cfg.dropout} (seeded random bf16 weights)",
+          "batch": [batch, seq], "recompute": "each block", "losses": losses, "step_ms": step_ms,
+          "step_ms_per_layer": float(np.median(step_ms)) / layers, "peak_memory_gib": peak,
+          "train_gpt_step_ms_per_layer": (ref["step_ms_p50"] / ref["layers"]) if ref else None,
+          "train_gpt_peak_memory_gib": ref.get("peak_memory_gib"), "mask_replay": replay,
+          "launches_per_step": want, "card": card})
+    if not all(np.isfinite(losses)):
+        fail(f"train_gpt_dropout: the loss is not finite: {losses}")
+    if not (replay["forward_bitwise"] and replay["input_grad_rel_l2"] <= 1e-6 and replay["other_state_output_differs"]):
+        fail(f"train_gpt_dropout: the recomputed block does not replay the forward's dropout masks: {replay}")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
 
 
 # -- head dims above 256 end to end (ROADMAP Queue 3 fault 2, closed) ----------------------
@@ -5702,6 +6120,9 @@ def main() -> int:
                                                        card)["rms_residual_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
+    train_recipe(dev, card)  # the training surface: Llama 2's recipe and its resume, a tied head, dropout
+    train_tied(dev, card)
+    train_gpt_dropout(dev, card)
     wide = wide_heads(dev, card)
     for k in ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide"):
         counts[k] = sum(wide[f"wide_heads_{label}_train"].get(k, 0) for label, *_, engine_only in WIDE_HEADS

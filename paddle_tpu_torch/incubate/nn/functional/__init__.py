@@ -200,21 +200,27 @@ def fused_rotary_position_embedding(
     position_ids=None,
     use_neox_rotary_style: bool = True,
     time_major: bool = False,
+    rotary_emb_base: float = 10000.0,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """RoPE over ``[B, S, H, D]`` q/k/v with ``sin``/``cos`` tables ``[S, D]``
-    (or broadcastable to ``[B, S, 1, D]``); the caller builds the tables
-    (``LlamaRotaryEmbedding``). Returns the roped tensors in the order given, padded with
-    ``None`` to three (the JAX entry's packing).
+    (or broadcastable to ``[B, S, 1, D]``). Without them the tables of
+    positions ``0 .. S - 1`` are built from ``rotary_emb_base`` as the JAX
+    entry builds them (``1 / base^(2i / D)``, fp32, on q's device).
+    ``position_ids`` and ``time_major`` are accepted and ignored, exactly as
+    in the JAX package. Returns the roped tensors in the order given,
+    padded with ``None`` to three (the JAX entry's packing).
 
     Each tensor, q then k then v, takes one call: where the shape is
     kernel-eligible (:func:`_rope_kernel_tables`) the rope kernel (9) with
     its adjoint kernel (10) as the ``x`` gradient; elsewhere
     ``_rope_apply_xla``, whose gradient is autograd's adjoint of
     ``x * cos + rotate(x) * sin`` (the JAX package's ``_rope_adjoint_xla``)."""
-    if position_ids is not None or time_major:
-        raise NotImplementedError("fused_rotary_position_embedding: position_ids and time_major are not ported")
     if sin is None or cos is None:
-        raise ValueError("fused_rotary_position_embedding: pass the sin and cos tables")
+        _, s, _, d = q.shape
+        inv = 1.0 / (rotary_emb_base ** (torch.arange(0, d, 2, dtype=torch.float32, device=q.device) / d))
+        freqs = torch.outer(torch.arange(s, dtype=torch.float32, device=q.device), inv)
+        emb = torch.cat([freqs, freqs], dim=-1)
+        sin, cos = torch.sin(emb), torch.cos(emb)
     outs = []
     for t in (q, k, v):
         if t is None:

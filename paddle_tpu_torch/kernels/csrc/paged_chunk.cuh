@@ -82,7 +82,7 @@ __device__ __forceinline__ void store_vals(T* p, const float (&v)[N]) {
 // columns), a ring of kStages (K, V) tiles — K of all D columns, V of the
 // CTA's kDO — each with, for the int8 pool, its scales; for the int8 pool
 // also one (K, V) pair upcast to T. The merge reuses the bytes for the fp32
-// partials (kRows rows of kDO columns). The rank's table entries follow at
+// partials (kRows rows of kDO columns). The slot's table entries follow at
 // kSmem.
 template <typename T, typename KV, int D>
 struct Geo {
@@ -369,7 +369,7 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
   __shared__ float den_s[kRows];
   T* q_s = reinterpret_cast<T*>(smem);
   float* pacc = reinterpret_cast<float*>(smem);  // the merge's partials, after the walk
-  int* blk_s = reinterpret_cast<int*>(smem + G_::kSmem);  // the rank's physical block ids
+  int* blk_s = reinterpret_cast<int*>(smem + G_::kSmem);  // the slot's physical block ids
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -397,19 +397,21 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
     return;
   }
   const int j_last = min((row0 + rows_here - 1) / G, ql - 1);
-  const int n_pos = len + j_last + 1;  // the tile's causal limit: positions past it are masked
-  const int n_blk = (n_pos + BS - 1) / BS;
-  const int per = (n_blk + ranks - 1) / ranks;
-  const int beg = rank * per * BS;
-  const int end = min(beg + per * BS, n_pos);
+  const int n_pos = len + j_last + 1;  // the tile's causal limit: positions at or past it are masked
+  // position-interleaved ranks: the 16-position tile t is rank t % ranks's,
+  // which walks its tiles in increasing order (mirror: paged_attention.py
+  // `chunk_rank_tiles`); a row's summation order depends on its positions alone
+  const int n_tiles = (n_pos + kTileN - 1) / kTileN;
+  const int n_steps = rank < n_tiles ? (n_tiles - 1 - rank) / ranks + 1 : 0;
+  const int beg = rank * kTileN, stride = ranks * kTileN;  // the rank's first position, between its tiles
 
-  if (beg >= end) {  // an empty range: no partial
+  if (n_steps == 0) {  // no tile: no partial
     for (int r = tid; r < kRows; r += kThreads) part_m[r] = kNegInf;
   } else {
-    // the table entries of blocks [beg / BS, ceil(end / BS)): below ceil((lens + q_lens) / BS)
-    const int blk0 = beg / BS, n_mine_blk = (end - 1) / BS + 1 - blk0;
-    const int* table = tables + static_cast<size_t>(b) * MBS + blk0;
-    for (int i = tid; i < n_mine_blk; i += kThreads) blk_s[i] = table[i];
+    // the table entries of blocks [0, ceil(n_pos / BS)): below ceil((lens + q_lens) / BS)
+    const int n_blk = (n_pos + BS - 1) / BS;
+    const int* table = tables + static_cast<size_t>(b) * MBS;
+    for (int i = tid; i < n_blk; i += kThreads) blk_s[i] = table[i];
     __syncthreads();
     // the ring: (K, V) tiles as stored and their scales; after it the pair in T (int8)
     auto kv_at = [&](int slot, int which) {
@@ -420,13 +422,13 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
                                       which * G_::kScales);
     };
     // stage positions [p0, p0 + 16) of K and V (and their scales) into ring
-    // slot st; rows past the rank's range are zero and read nothing. One
+    // slot st; rows at or past n_pos are zero and read nothing. One
     // division a call: a thread's rows lie in the block of p0 or later ones.
     auto load = [&](int st, int p0) {
       KV* kdst = kv_at(st, 0);
       KV* vdst = kv_at(st, 1);
-      const int rel0 = p0 - beg, b0 = rel0 / BS, o0 = rel0 - b0 * BS;  // beg is a multiple of BS
-      // the pool row of tile row t (p0 + t < end)
+      const int b0 = p0 / BS, o0 = p0 - b0 * BS;
+      // the pool row of tile row t (p0 + t < n_pos)
       auto pool_row = [&](int t) -> size_t {
         int blk = b0, off = o0 + t;
         while (off >= BS) {
@@ -446,7 +448,7 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
         const KV* ksrc = kc;
         const KV* vsrc = vc;
         int bytes = 0;
-        if (p0 + t < end) {
+        if (p0 + t < n_pos) {
           const size_t row = pool_row(t) * D;
           ksrc = kc + row + c;
           vsrc = vc + row + col0 + c;
@@ -461,7 +463,7 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
           const float* base = which ? vs : ks;
           const float* src = base;
           int bytes = 0;
-          if (p0 + t < end) {
+          if (p0 + t < n_pos) {
             src = base + pool_row(t);
             bytes = 4;
           }
@@ -469,12 +471,11 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
         }
       }
     };
-    const int n_steps = (end - beg + kTileN - 1) / kTileN;
     T* const up_k = reinterpret_cast<T*>(smem + G_::kUp);
     T* const up_v = up_k + kTileN * kLdQ;
 #pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < n_steps) load(st, beg + st * kTileN);
+    for (int st = 0; st < kStages - 1; ++st) {  // the ring runs kStages - 1 of the rank's tiles ahead
+      if (st < n_steps) load(st, beg + st * stride);
       cp_async_commit();
     }
 
@@ -511,7 +512,7 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = q0 + gid + 8 * hf, j = (row0 + r) / G;
-      lim[hf] = (r < rows_here && j < ql) ? min(len + j + 1, end) : 0;
+      lim[hf] = (r < rows_here && j < ql) ? len + j + 1 : 0;
     }
     int warp_lim = max(lim[0], lim[1]);
 #pragma unroll
@@ -528,9 +529,9 @@ paged_chunk_kernel(const T* __restrict__ q,          // [B, C, HQ, D], pre-rope 
       cp_async_wait<kStages - 2>();
       __syncthreads();  // step's tile has landed; every warp is done with the previous one (and q_s is written)
       const int nxt = step + kStages - 1;
-      if (nxt < n_steps) load(nxt % kStages, beg + nxt * kTileN);
+      if (nxt < n_steps) load(nxt % kStages, beg + nxt * stride);
       cp_async_commit();
-      const int st = step % kStages, p0 = beg + step * kTileN;
+      const int st = step % kStages, p0 = beg + step * stride;
       const T* kt = reinterpret_cast<const T*>(kv_at(st, 0));
       const T* vt = reinterpret_cast<const T*>(kv_at(st, 1));
       int ldk = kLdK, ldv = kLdV;
@@ -589,7 +590,7 @@ int launch_d(const void* q, const void* cos_t, const void* sin_t, const void* kc
              float scale, cudaStream_t st) {
   using G_ = Geo<T, KV, D>;
   auto kernel = paged_chunk_kernel<T, KV, D, ROPE>;
-  const size_t smem = G_::kSmem + sizeof(int) * MBS;  // the layout and the rank's table entries
+  const size_t smem = G_::kSmem + sizeof(int) * MBS;  // the layout and the slot's table entries
   const int err = ptt::allow_smem(kernel, smem);
   if (err) return err;
   if (q == nullptr) {

@@ -20,7 +20,7 @@
 //   them on mma.sync (two accumulator chains, even and odd k16 steps), then
 //   one slot of the CTA's columns of V. Loads run `slots` - 1 slots ahead
 //   (3 of a ring of 4; 2 of 3 where 4 do not fit): one __syncthreads a
-//   slot. A load divides by BS once; rows past the rank's range are
+//   slot. A load divides by BS once; rows at or past the tile's limit are
 //   zero-filled and read nothing; the V slot carries both scale rows of the
 //   int8 pool.
 // - bf16 / fp16: both products on the tensor cores, p split into hi + lo
@@ -307,7 +307,7 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
   unsigned char* ring = smem + S::q_bytes(D, rows);
   T* up = reinterpret_cast<T*>(ring + slots * S::kSlot);  // the upcast pair (int8 pool)
   float* pacc = reinterpret_cast<float*>(smem);             // the merge's partials, after the walk
-  int* blk_s = reinterpret_cast<int*>(smem + S::smem(D, rows, slots));  // the rank's physical block ids
+  int* blk_s = reinterpret_cast<int*>(smem + S::smem(D, rows, slots));  // the slot's physical block ids
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -337,33 +337,32 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
   }
   const int j_last = min((row0 + rows_here - 1) / G, ql - 1);
   const int n_pos = len + j_last + 1;  // the tile's causal limit
-  const int n_blk = (n_pos + BS - 1) / BS;
-  const int per = (n_blk + ranks - 1) / ranks;
-  const int beg = rank * per * BS;
-  const int end = min(beg + per * BS, n_pos);
+  // position-interleaved ranks, as paged_chunk.cuh's: tile t of 16 positions is rank t % ranks's
+  const int n_tiles = (n_pos + kTileN - 1) / kTileN;
+  const int n_steps = rank < n_tiles ? (n_tiles - 1 - rank) / ranks + 1 : 0;
+  const int beg = rank * kTileN, stride = ranks * kTileN;
 
-  if (beg >= end) {  // an empty range: no partial
+  if (n_steps == 0) {  // no tile: no partial
     for (int r = tid; r < rows; r += kThreads) part_m[r] = kNegInf;
   } else {
-    const int blk0 = beg / BS, n_mine_blk = (end - 1) / BS + 1 - blk0;
-    const int* table = tables + static_cast<size_t>(b) * MBS + blk0;
-    for (int i = tid; i < n_mine_blk; i += kThreads) blk_s[i] = table[i];
+    const int n_blk = (n_pos + BS - 1) / BS;
+    const int* table = tables + static_cast<size_t>(b) * MBS;
+    for (int i = tid; i < n_blk; i += kThreads) blk_s[i] = table[i];
     __syncthreads();
 
     const int nk = (D + kSlotCols - 1) / kSlotCols;  // K slots a step; then one V slot
-    const int n_steps = (end - beg + kTileN - 1) / kTileN;
     const int n_slots = n_steps * (nk + 1);
     auto slot_at = [&](int st) { return ring + st * S::kSlot; };
     auto scales_at = [&](int st) { return reinterpret_cast<float*>(slot_at(st) + S::kSlotData); };
     // slot c of a step: K's columns [256 c, 256 c + w) for c < nk, else the CTA's columns of V
     auto width_of = [&](int c) { return c == nk ? cols_here : min(kSlotCols, D - c * kSlotCols); };
-    // stage slot c of step `step` into ring slot st; rows past the rank's
-    // range are zero and read nothing; one division a call
+    // stage slot c of step `step` into ring slot st; rows at or past n_pos
+    // are zero and read nothing; one division a call
     auto load = [&](int st, int step, int c) {
       KV* dst = reinterpret_cast<KV*>(slot_at(st));
-      const int p0 = beg + step * kTileN;
-      const int rel0 = p0 - beg, b0 = rel0 / BS, o0 = rel0 - b0 * BS;  // beg is a multiple of BS
-      auto pool_row = [&](int t) -> size_t {  // the pool row of slot row t (p0 + t < end)
+      const int p0 = beg + step * stride;
+      const int b0 = p0 / BS, o0 = p0 - b0 * BS;
+      auto pool_row = [&](int t) -> size_t {  // the pool row of slot row t (p0 + t < n_pos)
         int blk = b0, off = o0 + t;
         while (off >= BS) {
           off -= BS;
@@ -383,7 +382,7 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
           const int t = (tid + k * kThreads) / kChRow;
           const KV* src = pool;
           int bytes = 0;
-          if (p0 + t < end) {
+          if (p0 + t < n_pos) {
             src = pool + pool_row(t) * D + base + cc;
             bytes = 16;
           }
@@ -395,7 +394,7 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
           const int which = tid / kTileN, t = tid % kTileN;
           const float* src = which ? vs : ks;
           int bytes = 0;
-          if (p0 + t < end) {
+          if (p0 + t < n_pos) {
             src += pool_row(t);
             bytes = 4;
           }
@@ -457,7 +456,7 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = q0 + gid + 8 * hf, j = (row0 + r) / G;
-      lim[hf] = (q0 < rows && r < rows_here && j < ql) ? min(len + j + 1, end) : 0;
+      lim[hf] = (q0 < rows && r < rows_here && j < ql) ? len + j + 1 : 0;
     }
     int warp_lim = max(lim[0], lim[1]);
 #pragma unroll
@@ -474,7 +473,7 @@ paged_chunk_deep_kernel(const T* __restrict__ q, const float* __restrict__ cos_t
       cp_async_wait_n(kQuant ? slots - 3 : slots - 2);
       __syncthreads();  // slot i has landed (int8: slot i + 1); every warp is done with slot i - 1
       enqueue();
-      const int p0 = beg + step * kTileN;
+      const int p0 = beg + step * stride;
       const T* tile = reinterpret_cast<const T*>(slot_at(st));
       int ld = S::kLdS;
       if constexpr (kQuant) {
@@ -586,21 +585,17 @@ paged_chunk_chunked_kernel(const T* __restrict__ q, const float* __restrict__ co
   }
   const int j_last = min((row0 + rows_here - 1) / G, ql - 1);
   const int n_pos = len + j_last + 1;
-  const int n_blk = (n_pos + BS - 1) / BS;
-  const int per = (n_blk + ranks - 1) / ranks;
-  const int beg = rank * per * BS;
-  const int end = min(beg + per * BS, n_pos);
+  const int beg = rank * kTileN, stride = ranks * kTileN;  // position-interleaved ranks
 
-  if (beg >= end) {
+  if (beg >= n_pos) {  // no tile: no partial
     for (int r = tid; r < kRows; r += kThreads) part_m[r] = kNegInf;
   } else {
-    const int blk0 = beg / BS, n_mine_blk = (end - 1) / BS + 1 - blk0;
-    const int* table = tables + static_cast<size_t>(b) * MBS + blk0;
-    for (int i = tid; i < n_mine_blk; i += kThreads) blk_s[i] = table[i];
+    const int n_blk = (n_pos + BS - 1) / BS;
+    const int* table = tables + static_cast<size_t>(b) * MBS;
+    for (int i = tid; i < n_blk; i += kThreads) blk_s[i] = table[i];
     __syncthreads();
-    auto pool_row = [&](int p) -> size_t {  // the pool row of position p (beg <= p < end)
-      const int rel = p - beg;
-      return (static_cast<size_t>(blk_s[rel / BS]) * HKV + h) * BS + rel % BS;
+    auto pool_row = [&](int p) -> size_t {  // the pool row of position p (p < n_pos)
+      return (static_cast<size_t>(blk_s[p / BS]) * HKV + h) * BS + p % BS;
     };
 
     const int q0 = 16 * warp;
@@ -608,7 +603,7 @@ paged_chunk_chunked_kernel(const T* __restrict__ q, const float* __restrict__ co
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = q0 + gid + 8 * hf, j = (row0 + r) / G;
-      lim[hf] = (r < rows_here && j < ql) ? min(len + j + 1, end) : 0;
+      lim[hf] = (r < rows_here && j < ql) ? len + j + 1 : 0;
     }
     int warp_lim = max(lim[0], lim[1]);
 #pragma unroll
@@ -619,7 +614,7 @@ paged_chunk_chunked_kernel(const T* __restrict__ q, const float* __restrict__ co
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 
-    for (int p0 = beg; p0 < end; p0 += kTileN) {
+    for (int p0 = beg; p0 < n_pos; p0 += stride) {
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       for (int c0 = 0; c0 < D; c0 += kDC) {
         const bool last = c0 + kDC >= D;
@@ -640,20 +635,20 @@ paged_chunk_chunked_kernel(const T* __restrict__ q, const float* __restrict__ co
           }
           q_s[r * kLdC + i % kDC] = v;
         }
-        // K's chunk of the step's positions (0 past the rank's range)
+        // K's chunk of the step's positions (0 at or past n_pos)
         for (int i = tid; i < kTileN * kDC; i += kThreads) {
           const int t = i / kDC, d = c0 + i % kDC;
-          k_s[t * kLdC + i % kDC] = p0 + t < end ? ptt::to_f(kc[pool_row(p0 + t) * D + d]) : 0.f;
+          k_s[t * kLdC + i % kDC] = p0 + t < n_pos ? ptt::to_f(kc[pool_row(p0 + t) * D + d]) : 0.f;
         }
         if (last) {  // the CTA's columns of V, and the scales
           for (int i = tid; i < kTileN * kDOMax; i += kThreads) {
             const int t = i / kDOMax, c = i % kDOMax;
-            v_s[t * kLdVD + c] = p0 + t < end && c < cols_here ? ptt::to_f(vc[pool_row(p0 + t) * D + col0 + c]) : 0.f;
+            v_s[t * kLdVD + c] = p0 + t < n_pos && c < cols_here ? ptt::to_f(vc[pool_row(p0 + t) * D + col0 + c]) : 0.f;
           }
           if constexpr (kQuant) {
             if (tid < 2 * kTileN) {
               const int which = tid / kTileN, t = tid % kTileN;
-              sc_s[tid] = p0 + t < end ? (which ? vs : ks)[pool_row(p0 + t)] : 0.f;
+              sc_s[tid] = p0 + t < n_pos ? (which ? vs : ks)[pool_row(p0 + t)] : 0.f;
             }
           }
         }
@@ -738,7 +733,7 @@ int launch_deep(const void* q, const void* cos_t, const void* sin_t, const void*
   const bool asked = q == nullptr ? rows != 0 : rows != own.rows;
   const DeepGeo g = asked ? deep_geo<T, KV>(D, rows) : own;
   if (g.rows == 0) return static_cast<int>(cudaErrorInvalidValue);  // tile rows whose layout does not fit
-  const size_t smem = static_cast<size_t>(g.smem) + sizeof(int) * MBS;  // the layout and the rank's table entries
+  const size_t smem = static_cast<size_t>(g.smem) + sizeof(int) * MBS;  // the layout and the slot's table entries
   void* cap = q == nullptr ? out : nullptr;
   const int err = g.resident ? prepare(paged_chunk_deep_kernel<T, KV, ROPE>, smem, cap)
                              : prepare(paged_chunk_chunked_kernel<T, KV, ROPE>, smem, cap);

@@ -39,10 +39,18 @@
 //   paged_attention.py `chunk_plan`, on the cap the card reports): at
 //   the 7B serve step (8 slots x 32 heads) that is 2. Every CTA reads its
 //   slot's lens / q_lens itself; the tile's causal limit n_pos = lens +
-//   j_last + 1 covers ceil(n_pos / BS) blocks, and rank r walks blocks
-//   [r * per, (r + 1) * per), per = ceil(blocks / R), 16 positions a step,
-//   keeping its own online softmax (m, l, acc). A rank with an empty range
-//   stores m = -1e30 and walks nothing. After cluster.sync() the partials
+//   j_last + 1 covers ceil(n_pos / 16) tiles of 16 positions, and rank r
+//   walks tiles r, r + R, r + 2R, ... below it in increasing order, one a
+//   step, keeping its own online softmax (m, l, acc). The split depends on
+//   the positions alone, never on the chunk start, lens, q_lens or the
+//   tile's limit: a position past a row's limit adds exact zeros and a rank
+//   with no valid position for a row keeps m = -1e30 (merge weight 0), so a
+//   query row gets the same bits at any chunk start (the prefix cache's warm
+//   tail equals the cold prefill; paged_attention.py `chunk_rank_tiles` is
+//   the mirror). A rank with no tile stores m = -1e30 and walks nothing.
+//   (A contiguous range of ceil(blocks / R) blocks a rank, split at the
+//   tile's limit, summed a row in another order whenever its chunk started
+//   elsewhere.) After cluster.sync() the partials
 //   are merged through distributed shared memory in rank order: rank r
 //   merges rows r, r + R, r + 2R, ... (every rank takes a share of the
 //   rows, so the merge is parallel), and writes them. One launch, no global
@@ -60,8 +68,9 @@
 //   the four warps walk alternate steps of it, each with its own slot and
 //   softmax, cost registers and occupancy and ran slower.)
 // - Staged rows are padded by 16 bytes (ldmatrix then hits 32 distinct
-//   banks); a row past the rank's range is zero-filled and never read from
-//   the pool. The rank's table entries are staged once in shared memory.
+//   banks); a row at or past the tile's limit is zero-filled and never read
+//   from the pool. The slot's used table entries are staged once in shared
+//   memory.
 // - bf16 / fp16: QK^T and PV on the tensor cores (mma.sync m16n8k16, fp32
 //   accumulate, fragments by ldmatrix). q stays unscaled in its own type
 //   (exact after the rope); the fp32 scores are multiplied by `scale` after

@@ -56,6 +56,7 @@ from paddle_tpu_torch.kernels.select import count_launch
 __all__ = [
     "chunk_cluster_size",
     "chunk_plan",
+    "chunk_rank_tiles",
     "decode_plan",
     "paged_flash_chunk",
     "paged_flash_chunk_fused",
@@ -403,6 +404,22 @@ def chunk_cluster_size(q: torch.Tensor, key_cache: torch.Tensor, block_tables: t
     ``ranks``, from the shapes and the kernel's occupancy only; nothing
     runs."""
     return _chunk_launch_plan(q, key_cache, block_tables)["ranks"]
+
+
+def chunk_rank_tiles(lens: int, q_lens: int, row: int, ranks: int, g: int = 1) -> list:
+    """The history split of kernels A and 4 (``csrc/paged_chunk.cuh``,
+    ``csrc/paged_chunk_deep.cu``): for the row tile of a slot with ``lens``
+    cached positions and ``q_lens`` new rows whose last packed query row is
+    ``row`` (query token ``row // g``, ``g`` query heads a KV head), the
+    16-position tiles each of the cluster's ``ranks`` walks, in walk order.
+    Tile ``t`` holds positions ``[16 t, 16 t + 16)`` and is rank ``t %
+    ranks``'s, whatever the chunk start: the tiles run up to the tile's
+    causal limit ``lens + min(row // g, q_lens - 1) + 1``, and the positions
+    past a row's own limit add exact zeros, so a query row is summed in the
+    same order at any chunk start."""
+    n_pos = lens + min(row // g, q_lens - 1) + 1
+    n_tiles = -(-n_pos // CHUNK_STEP)
+    return [list(range(r, n_tiles, ranks)) for r in range(ranks)]
 
 
 def decode_plan(b: int, hq: int, hkv: int, d: int, bs: int, mbs: int, kv_bytes: int, cap) -> dict:

@@ -1,15 +1,20 @@
-"""Carry the JAX package's Llama and GPT parameters into the port.
+"""Carry the JAX package's Llama and GPT parameters, and its optimizer
+state, into the port.
 
 The port's module trees and parameter names follow the JAX package's and
 its linear weights keep Paddle's ``[in, out]`` layout, so the conversion is
 a by-name copy with no transpose. The rope tables are not parameters: the
 port recomputes them from the config (the JAX Llama ``state_dict`` carries
 them as ``...rotary_emb.{cos,sin}_cached`` buffers, which are skipped).
+An optimizer's ``state_dict`` is keyed by each parameter's name, an
+automatic ``param_<n>`` in the JAX package and the structured name in the
+port: :func:`optimizer_state_from_paddle_tpu` renames it through the two
+models' ``named_parameters`` order.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +25,7 @@ from paddle_tpu_torch.kernels.quant import quantize_module_weights
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_paddle_tpu_state"]
+__all__ = ["from_paddle_tpu_state", "optimizer_state_from_paddle_tpu"]
 
 _ROPE_BUFFERS = ("rotary_emb.cos_cached", "rotary_emb.sin_cached")
 
@@ -87,3 +92,33 @@ def _load(model: nn.Module, params: Mapping[str, np.ndarray],
                 raise ValueError(f"{name}: scale shape {tuple(s.shape)} != {tuple(mod.weight_scale.shape)}")
             mod.weight_scale.copy_(s)
     return model
+
+
+def optimizer_state_from_paddle_tpu(state: Mapping[str, Any], param_names: Sequence[Tuple[str, str]],
+                                    model: nn.Module) -> Dict[str, Any]:
+    """A JAX optimizer's ``state_dict()`` (arrays as numpy) in the port's
+    layout, for ``set_state_dict`` of a port optimizer over ``model``.
+
+    ``param_names`` lists the JAX model's ``(structured name, parameter
+    name)`` pairs in its ``named_parameters()`` order (``[(n, p.name) for
+    n, p in jax_model.named_parameters()]``); the i-th is matched with the
+    port model's i-th parameter, whose structured names must be the same.
+    Each ``"{jax name}__{slot}"`` entry becomes ``"{port name}__{slot}"``
+    (moments, ``moment2_max``, the fp32 master), ``_step_count`` and
+    ``LR_Scheduler`` are carried as they are; an entry of no listed
+    parameter raises."""
+    own = [name for name, _ in model.named_parameters()]
+    theirs = [name for name, _ in param_names]
+    if own != theirs:
+        raise KeyError(f"the models' parameters differ: port {own[:3]}..., JAX {theirs[:3]}...")
+    rename = {jname: name for name, jname in param_names}
+    out: Dict[str, Any] = {}
+    for key, value in state.items():
+        if key in ("_step_count", "LR_Scheduler"):
+            out[key] = int(value) if key == "_step_count" else value
+            continue
+        jname, sep, slot = key.rpartition("__")
+        if not sep or jname not in rename:
+            raise KeyError(f"optimizer state entry {key!r} names no parameter of the model")
+        out[f"{rename[jname]}__{slot}"] = _to_tensor(np.asarray(value))
+    return out

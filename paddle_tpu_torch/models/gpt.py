@@ -35,6 +35,7 @@ from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.incubate.nn.functional import fused_layer_norm_residual
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Dropout, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.optimizer.optimizer import name_parameters
 
 __all__ = [
     "GPTAttention",
@@ -169,6 +170,7 @@ class GPTForPretraining(nn.Module):
         self.config = config
         self.gpt = GPTModel(config, dev, dtype or torch.float32)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     @property
     def device(self) -> torch.device:

@@ -58,6 +58,7 @@ from paddle_tpu_torch.incubate.nn.functional import (
 )
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.common import linear_forward
+from paddle_tpu_torch.optimizer.optimizer import name_parameters
 
 __all__ = [
     "LlamaAttention",
@@ -83,7 +84,7 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
-    tie_word_embeddings: bool = False  # True is not ported yet
+    tie_word_embeddings: bool = False  # True: no lm_head, the logits are h @ embed_tokens.weight^T
     # kept for the reference's configs, which declare it and read it nowhere: attention is the flash
     # kernels whatever its value, as FLAGS_use_pallas_attention alone chooses it there
     use_flash_attention: bool = True
@@ -389,8 +390,12 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
     ``device`` defaults to ``cuda`` (and raises without one); ``dtype``
     defaults to ``config.dtype``. The weights are drawn from
     ``torch.Generator(device).manual_seed(seed)``: N(0, 0.02) matrices, unit
-    norm weights. The model starts in train mode, as a Paddle layer does
-    (train mode only turns on ``config.recompute``)."""
+    norm weights. With ``config.tie_word_embeddings`` there is no
+    ``lm_head``: the logits are ``h @ embed_tokens.weight^T`` and the fused
+    loss takes the embedding vocab-major, as in the JAX package. Each
+    parameter carries its structured name as ``paddle_name`` (the
+    optimizers' state keys). The model starts in train mode, as a Paddle
+    layer does (train mode only turns on ``config.recompute``)."""
 
     def __init__(
         self,
@@ -400,14 +405,13 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         seed: int = 0,
     ) -> None:
         super().__init__()
-        if config.tie_word_embeddings:
-            raise NotImplementedError("tie_word_embeddings is not ported yet")
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, config.dtype)
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, dev, dtype)
+        self.lm_head = None if config.tie_word_embeddings else Linear(config.hidden_size, config.vocab_size, dev, dtype)
         self.reset_parameters(seed)
+        name_parameters(self)
 
     @property
     def device(self) -> torch.device:
@@ -461,11 +465,17 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         if use_cache:
             out, caches = out
         if labels is not None and flag("use_fused_loss"):
-            # a weight-only int8 head takes kernel 17's int8 site (forward only)
-            loss = F.fused_linear_cross_entropy(out, self.lm_head.weight, labels, ignore_index=-100,
-                                                reduction="mean", weight_scale=self.lm_head.weight_scale)
+            if self.lm_head is None:  # tied: the embedding, vocab-major, as the head
+                loss = F.fused_linear_cross_entropy(out, self.llama.embed_tokens.weight, labels, ignore_index=-100,
+                                                    reduction="mean", weight_vocab_major=True)
+            else:  # a weight-only int8 head takes kernel 17's int8 site (forward only)
+                loss = F.fused_linear_cross_entropy(out, self.lm_head.weight, labels, ignore_index=-100,
+                                                    reduction="mean", weight_scale=self.lm_head.weight_scale)
             return loss, None
-        logits = self.lm_head(out)
+        if self.lm_head is None:
+            logits = torch.matmul(out, self.llama.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(out)
         if labels is not None:
             # cross_entropy upcasts bf16 logits to fp32 itself
             return F.cross_entropy(logits, labels, ignore_index=-100, reduction="mean"), logits

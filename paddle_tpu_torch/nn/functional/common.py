@@ -1,6 +1,6 @@
 """Plain functionals of the Llama and GPT serving and training paths (port
 of the pieces of ``paddle_tpu/nn/functional/{common,activation}.py`` they
-use).
+use), dropout among them.
 
 Weights keep Paddle's ``[in, out]`` layout: ``linear`` is ``x @ W``, so the
 JAX package's arrays load into the port without a transpose.
@@ -13,11 +13,44 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.flags import flag
 from paddle_tpu_torch.kernels.fused import fused_rms_norm
 from paddle_tpu_torch.kernels.quant import int8_weight_matmul
 
-__all__ = ["gelu", "layer_norm", "linear", "rms_norm", "swiglu", "weight_only_linear"]
+__all__ = ["dropout", "gelu", "layer_norm", "linear", "rms_norm", "swiglu", "weight_only_linear"]
+
+DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def dropout(
+    x: torch.Tensor, p: float = 0.5, axis: Optional[Union[int, Sequence[int]]] = None, training: bool = True,
+    mode: str = "upscale_in_train", name: Optional[str] = None, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Paddle's ``dropout``, as the JAX package computes it: in training with
+    ``p > 0`` each element is kept with probability ``1 - p`` (a Bernoulli
+    mask drawn from ``generator``, by default the port's generator of
+    ``x``'s device, ``core/rng.py``), the kept ones divided by ``1 - p``
+    (``upscale_in_train``; ``1 - p`` rounded to ``x``'s dtype first, as
+    JAX's weakly typed scalar is) or left as they are
+    (``downscale_in_infer``), the rest exact 0. ``axis`` (an int or a
+    list) names the dims the mask varies over; it is broadcast over the
+    others. In eval mode or at ``p == 0`` the result is ``x`` itself, in
+    both modes (the JAX package scales nothing at inference either)."""
+    if mode not in DROPOUT_MODES:
+        raise ValueError(f"dropout: mode must be one of {DROPOUT_MODES}, not {mode!r}")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout: p must be in [0, 1], not {p}")
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - float(p)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = {a % x.dim() for a in ([axis] if isinstance(axis, int) else axis)}
+        shape = [n if d in axes else 1 for d, n in enumerate(shape)]
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=rng.generator_for(x, generator)).bool()
+    kept = x / float(torch.tensor(keep, dtype=x.dtype)) if mode == "upscale_in_train" else x
+    return torch.where(mask, kept, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -11,6 +11,12 @@ and fp32 at head dims 64, 128, 192 and 256 (kernels 14 and 15 on Hopper's
 wgmma for bf16 and fp16, with FlashMask tiles that are masked whole
 skipped; fp32 on the CUDA cores); a head dim above 256, which the gate lets
 through, raises, naming what the kernels do not take.
+
+Attention dropout (``dropout > 0`` in training) takes the composition, as
+the JAX package sends it to ``_xla_attention``: fp32 softmax, then
+``where(keep, probs / (1 - p), 0)`` with a Bernoulli ``keep`` mask drawn
+from the port's generator of q's device (``core/rng.py``). It is the
+reference's own route: the flash kernels are not launched on it.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.kernels.flash_attention import flash_masked
 from paddle_tpu_torch.kernels.flash_attention import flash_attention as _flash
 from paddle_tpu_torch.kernels.flashmask import flashmask_attention as _flashmask
@@ -26,11 +33,6 @@ from paddle_tpu_torch.kernels.flashmask import flashmask_attention as _flashmask
 __all__ = ["flash_attention", "flashmask_attention", "make_flashmask_bias"]
 
 NEG_INF = -1e30  # the JAX package's masked logit
-
-
-def _no_dropout(dropout: float, training: bool) -> None:
-    if dropout and training:
-        raise NotImplementedError("attention dropout is not ported yet")
 
 
 def flash_attention(
@@ -46,8 +48,13 @@ def flash_attention(
     name: Optional[str] = None,
 ) -> Tuple[torch.Tensor, None]:
     """Paddle's ``flash_attention`` over ``[B, S, H, D]``; returns
-    ``(out, None)`` (the softmax is never materialised)."""
-    _no_dropout(dropout, training)
+    ``(out, None)`` (the softmax is never materialised). With ``dropout >
+    0`` in training the composition runs with attention dropout;
+    ``return_softmax``, ``fixed_seed_offset`` and ``rng_name`` are accepted
+    and ignored, as in the JAX package."""
+    if dropout > 0.0 and training:
+        return _xla_attention(query, key, value, causal=causal, dropout=dropout,
+                              generator=rng.default_generator(query.device)), None
     if query.shape[-1] % 64:
         return _xla_attention(query, key, value, causal=causal), None
     return _flash(query, key, value, None, causal=causal), None
@@ -71,12 +78,14 @@ def flashmask_attention(
     """FlashMask attention: ``startend_row_indices`` int32 ``[B, Hm, Sk, C]``
     (``Hm`` in ``{1, H}``, ``C`` in ``{1, 2, 4}``) gives, per key column, the
     query rows that are masked (see :mod:`paddle_tpu_torch.kernels.flashmask`).
-    Without it this is causal :func:`flash_attention`."""
-    if window_size is not None or return_softmax_lse or return_seed_offset:
-        raise NotImplementedError("flashmask_attention: window_size and the extra returns are not ported")
-    _no_dropout(dropout, training)
+    Without it this is :func:`flash_attention` with ``dropout`` (called, as
+    the JAX package calls it, without ``training``, so in training mode).
+    Exactly as in the JAX package, ``window_size``,
+    ``return_softmax_lse``, ``return_seed_offset``, ``fixed_seed_offset``,
+    ``rng_name`` and ``training`` are accepted and ignored (the output is
+    the only return), and so is ``dropout`` with ``startend_row_indices``."""
     if startend_row_indices is None:
-        return flash_attention(query, key, value, dropout=dropout, causal=causal, training=training)[0]
+        return flash_attention(query, key, value, dropout=dropout, causal=causal)[0]
     if query.shape[-1] % 64:
         if startend_row_indices.dtype != torch.int32:
             raise TypeError(f"startend_row_indices must be int32, got {startend_row_indices.dtype}")
@@ -93,10 +102,13 @@ def make_flashmask_bias(startend_row_indices: torch.Tensor, sq: int, sk: int, ca
     return torch.where(masked, NEG_INF, 0.0)
 
 
-def _xla_attention(q, k, v, bias=None, causal=False, scale=None):
+def _xla_attention(q, k, v, bias=None, causal=False, scale=None, dropout=0.0, generator=None):
     """The JAX package's XLA composition, in fp32 over ``[B, S, H, D]``:
     masked logits are ``-1e30`` (so a fully masked row averages V uniformly).
-    The entries run it for head dims that are not a multiple of 64."""
+    The entries run it for head dims that are not a multiple of 64, and for
+    attention dropout: with ``dropout > 0`` the fp32 probabilities become
+    ``where(keep, probs / (1 - dropout), 0)``, ``keep`` a Bernoulli mask
+    of ``1 - dropout`` drawn from ``generator``."""
     d = q.shape[-1]
     scale = 1.0 / d**0.5 if scale is None else scale
     qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
@@ -110,5 +122,9 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None):
         logits = torch.where(torch.arange(sk, device=q.device)[None, :] <= row, logits, NEG_INF)
     if bias is not None:
         logits = logits + bias.float()
-    out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(logits, dim=-1), vh)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout > 0.0:
+        keep = torch.empty_like(probs).bernoulli_(1.0 - dropout, generator=generator).bool()
+        probs = torch.where(keep, probs / (1.0 - dropout), 0.0)
+    out = torch.einsum("bhst,bhtd->bhsd", probs, vh)
     return out.transpose(1, 2).to(q.dtype)

@@ -1,8 +1,11 @@
-"""Softmax cross entropy, the hard-label path, and the fused linear cross
-entropy of the loss head (port of ``paddle_tpu/nn/functional/loss.py``
-``cross_entropy`` and ``fused_linear_cross_entropy``)."""
+"""Softmax cross entropy (hard and soft labels, class weights, label
+smoothing) and the fused linear cross entropy of the loss head (port of
+``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` and
+``fused_linear_cross_entropy``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -12,10 +15,18 @@ from paddle_tpu_torch.kernels.fused_loss import linear_cross_entropy
 __all__ = ["cross_entropy", "fused_linear_cross_entropy"]
 
 
+def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
 def cross_entropy(
     input: torch.Tensor,  # noqa: A002 - Paddle's argument name
     label: torch.Tensor,
-    weight=None,
+    weight: Optional[torch.Tensor] = None,
     ignore_index: int = -100,
     reduction: str = "mean",
     soft_label: bool = False,
@@ -23,30 +34,58 @@ def cross_entropy(
     use_softmax: bool = True,
     label_smoothing: float = 0.0,
 ) -> torch.Tensor:
-    """Softmax cross entropy with integer labels: half-precision logits are
-    upcast to fp32 before ``log_softmax``; labels equal to ``ignore_index``
-    contribute 0; ``"mean"`` divides by the number of valid labels (at least
-    1), ``"sum"`` sums, ``"none"`` returns the per-position loss.
+    """Softmax cross entropy as the JAX package computes it. Half-precision
+    inputs are upcast to fp32 first; ``use_softmax=False`` takes the input
+    as probabilities (``log(clip(x, 1e-15, 1))``); ``axis`` is the class
+    axis.
 
-    Class weights, soft labels, ``use_softmax=False`` and label smoothing are
-    not ported yet and raise."""
-    if weight is not None or soft_label or not use_softmax or label_smoothing:
-        raise NotImplementedError("cross_entropy: only the hard-label softmax path is ported")
+    - Hard labels (integers, the class axis squeezed or absent): labels
+      equal to ``ignore_index`` contribute 0; ``label_smoothing`` mixes the
+      target's negative log-likelihood with the mean over the classes,
+      ``(1 - eps) nll + eps * mean(-logp)``; class ``weight`` multiplies
+      each row's loss by its label's weight, and ``"mean"`` then divides by
+      the summed weights of the valid labels (else by the number of valid
+      labels, at least 1).
+    - Soft labels (``soft_label``, a distribution over the class axis):
+      ``-sum(target * logp)`` with the target smoothed to ``(1 - eps)
+      target + eps / K``, times ``sum(target * weight)`` with a ``weight``;
+      ``"mean"`` averages every row.
+
+    ``"sum"`` sums, ``"none"`` returns the per-row loss. The JAX package
+    indexes a hard label along the last axis whatever ``axis`` is; the port
+    takes it along ``axis``."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
     logits = input.float() if input.dtype in (torch.float16, torch.bfloat16) else input
-    logp = torch.log_softmax(logits, dim=axis)
-    lbl = label.squeeze(axis) if label.dim() == logp.dim() else label
+    logits = logits.movedim(axis, -1)
+    logp = torch.log_softmax(logits, dim=-1) if use_softmax else torch.log(torch.clamp(logits, 1e-15, 1.0))
+    k = logp.shape[-1]
+    if soft_label:
+        target = label.movedim(axis, -1)
+        if label_smoothing > 0.0:
+            target = (1 - label_smoothing) * target + label_smoothing / k
+        loss = -(target * logp).sum(-1)
+        if weight is not None:
+            loss = loss * (target * weight).sum(-1)
+        return _reduce(loss, reduction)
+    lbl = label.squeeze(axis) if label.dim() == input.dim() else label
     lbl = lbl.long()
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl))
-    loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    loss = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    if label_smoothing > 0.0:
+        loss = (1 - label_smoothing) * loss + label_smoothing * -logp.mean(-1)
+    if weight is not None:
+        w = weight[safe]
+        loss = loss * w
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
-        return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
-    if reduction == "sum":
-        return loss.sum()
-    return loss
+        if weight is not None:
+            denom = torch.where(valid, w, torch.zeros_like(w)).sum()
+        else:
+            denom = valid.sum().clamp(min=1).to(loss.dtype)
+        return loss.sum() / denom
+    return _reduce(loss, reduction)
 
 
 def fused_linear_cross_entropy(

@@ -94,15 +94,19 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout. Only what the ported models run: the identity in eval mode
-    or at ``p == 0``; ``p > 0`` in train mode raises (ROADMAP Queue 1 item
-    3: the port has no dropout yet)."""
+    """Dropout (``F.dropout``): in train mode each element is kept with
+    probability ``1 - p``, upscaled by ``1 / (1 - p)`` in
+    ``upscale_in_train`` mode; the identity in eval mode or at ``p == 0``.
+    ``axis`` names the dims the mask varies over."""
 
-    def __init__(self, p: float = 0.5) -> None:
+    def __init__(self, p: float = 0.5, axis=None, mode: str = "upscale_in_train", name=None) -> None:
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.p > 0:
-            raise NotImplementedError(f"Dropout(p={self.p}) in train mode is not ported yet (ROADMAP Queue 1 item 3)")
-        return x
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training, mode=self.mode)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

@@ -1,4 +1,5 @@
+from paddle_tpu_torch.optimizer import lr
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 from paddle_tpu_torch.optimizer.optimizers import Adam, AdamW
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Optimizer", "lr"]

@@ -2,8 +2,9 @@
 
 The update is the JAX package's ``_adam_update``, operation for operation:
 ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g^2``, bias-corrected
-``m_hat / (sqrt(v_hat) + eps)``, AdamW's ``wd * param`` added to that
-update (decoupled), then ``param - lr * update``. The scalars are rounded to
+``m_hat / (sqrt(v_hat) + eps)`` (with ``amsgrad``, ``v_hat`` from the
+running maximum of ``v``, kept as ``moment2_max``), AdamW's ``wd * param``
+added to that update (decoupled), then ``param - lr * update``. The scalars are rounded to
 the state's dtype first, as ``jnp.asarray(beta, param.dtype)`` does. This is
 not ``torch.optim.AdamW``: that decays as ``p * (1 - lr * wd)`` before the
 Adam step, which rounds differently.
@@ -40,13 +41,15 @@ class Adam(Optimizer):
         amsgrad: bool = False,
         name=None,
     ) -> None:
-        if amsgrad:
-            raise NotImplementedError("amsgrad is not ported yet")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip, multi_precision, name)
         self._beta1, self._beta2, self._epsilon = float(beta1), float(beta2), float(epsilon)
+        self._amsgrad = bool(amsgrad)
 
     def init_state(self, param: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {"moment1": torch.zeros_like(param), "moment2": torch.zeros_like(param)}
+        st = {"moment1": torch.zeros_like(param), "moment2": torch.zeros_like(param)}
+        if self._amsgrad:
+            st["moment2_max"] = torch.zeros_like(param)
+        return st
 
     def _adam_update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                      states: List[Dict[str, torch.Tensor]], lr: float, step: int,
@@ -68,6 +71,9 @@ class Adam(Optimizer):
         torch._foreach_mul_(sq, omb2)
         torch._foreach_add_(v, sq)
         del sq
+        if self._amsgrad:  # v_hat from the running maximum of v
+            v = [st["moment2_max"] for st in states]
+            torch._foreach_maximum_(v, [st["moment2"] for st in states])
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self._epsilon)
@@ -85,6 +91,11 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
+    """Adam with decoupled weight decay. ``apply_decay_param_fun(name)``
+    (given a parameter's name, see ``Optimizer``) returning False gives
+    that parameter no decay. ``lr_ratio`` is accepted and ignored, exactly
+    as the JAX package's ``AdamW`` drops it."""
+
     def __init__(
         self,
         learning_rate: float = 0.001,
@@ -101,10 +112,14 @@ class AdamW(Adam):
         amsgrad: bool = False,
         name=None,
     ) -> None:
-        if lr_ratio is not None or apply_decay_param_fun is not None:
-            raise NotImplementedError("lr_ratio and apply_decay_param_fun are not ported yet")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters, weight_decay=weight_decay,
                          grad_clip=grad_clip, multi_precision=multi_precision, amsgrad=amsgrad, name=name)
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _param_weight_decay(self, p, wd):
+        if self._apply_decay_param_fun is not None and not self._apply_decay_param_fun(self._name_of(p)):
+            return 0.0
+        return wd
 
     def update(self, params, grads, states, *, lr, step, weight_decay):
         # decoupled weight decay (AdamW)

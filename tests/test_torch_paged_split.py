@@ -3,9 +3,10 @@ on the card, emulated in PyTorch on the CPU and held against the JAX package.
 
 The CUDA kernel cannot run here, so this file repeats its arithmetic step
 for step in :func:`emulate_chunk`: packed GQA rows in tiles of 64, each
-tile's used blocks split over the cluster's ranks (``ceil(blocks /
-ranks)`` blocks a rank; 8 and 2 ranks here), each rank's online softmax
-over steps of 16 positions, p split into two halves rounded to q's dtype before
+tile's history in 16-position tiles interleaved over the cluster's ranks
+(tile t is rank t % ranks's, ``kpaged.chunk_rank_tiles``; 8 and 2 ranks
+here), each rank's online softmax over its tiles in increasing order, p
+split into two halves rounded to q's dtype before
 the PV product (one rounding fails the card's gates, see below), the int8
 pool's scales folded into the scores and into p, and the ranks' partials
 merged in rank order. The emulation is held against the port's plain
@@ -14,7 +15,7 @@ versions and the Pallas kernels in interpret mode
 inputs at the gates ``chip_smoke.py`` holds the card to (``PAGED_TOL``);
 against the interpret kernel A in bf16 / fp16 at one ulp of the largest
 output, since XLA on the CPU ropes q there without rounding its products. The batch has a rank
-with an empty range, rows fully masked within a rank, lengths on exact
+without a tile, rows fully masked within a rank, lengths on exact
 multiples of the block size, a length of 1, an idle slot, garbage table
 entries past the used blocks (the emulation indexes the pool with them, so
 reading one raises), GQA 4 and head dims 64, 128 and 256, in bf16 and fp16
@@ -50,9 +51,9 @@ PAGED_TOL = {"bfloat16": (1e-4, 2.0 ** -7), "float16": (1e-4, 2.0 ** -10), "floa
 C, BS, MBS = 8, 4, 16
 LENS = np.array([0, 31, 0, 9, 45], np.int32)
 Q_LENS = np.array([8, 1, 1, 0, 3], np.int32)
-# At 8 ranks: slot 0 has 8 positions, 2 blocks, per 1: ranks 2-7 empty, rows 0-3 fully
-# masked in rank 1; slot 1 32 positions, 8 whole blocks, one a rank; slot 2 length 1;
-# slot 3 is idle; slot 4 48 positions, 12 blocks, per 2: ranks 6-7 empty
+# At 8 ranks: slot 0 has 8 positions, one 16-position tile: ranks 1-7 walk nothing; slot 1
+# 32 positions, 2 tiles (ranks 0-1); slot 2 length 1; slot 3 is idle; slot 4 48 positions,
+# 3 tiles (ranks 0-2), its first rows fully masked in ranks 1 and 2
 GEOMETRIES = [(64, 4, 4), (128, 8, 2), (256, 4, 4)]  # (D, HQ, HKV)
 GEOMETRY_IDS = ["d64-mha", "d128-gqa4", "d256-mha"]
 
@@ -101,15 +102,13 @@ def emulate_chunk(q, key_cache, value_cache, block_tables, seq_lens, q_lens, sca
             nr = min(rows, c * g - row0)
             j = (row0 + torch.arange(nr)) // g
             n_pos = ln + min((row0 + nr - 1) // g, ql - 1) + 1
-            per = -(-(-(-n_pos // bs)) // ranks)
             qt = packed[bi, :, row0:row0 + nr]  # [HKV, rows, D]
             parts = []  # in rank order
-            for r in range(ranks):
-                beg, end = r * per * bs, min((r + 1) * per * bs, n_pos)
+            for tiles in kpaged.chunk_rank_tiles(ln, ql, row0 + nr - 1, ranks, g):
                 m, l, acc = torch.full((hkv, nr), NEG_INF), torch.zeros(hkv, nr), torch.zeros(hkv, nr, dv)
-                for p0 in range(beg, end, STEP):
-                    pos = torch.arange(p0, min(p0 + STEP, end))  # positions past the range are zero-filled
-                    blk = block_tables[bi, pos // bs].long()  # no entry at or past ceil(end / BS)
+                for t in tiles:
+                    pos = torch.arange(t * STEP, min(t * STEP + STEP, n_pos))  # positions past n_pos are zero-filled
+                    blk = block_tables[bi, pos // bs].long()  # no entry at or past ceil(n_pos / BS)
                     k = key_cache[blk, :, pos % bs].float().transpose(0, 1)  # [HKV, n, D]
                     v = value_cache[blk, :, pos % bs].float().transpose(0, 1)
                     s = qt @ k.transpose(1, 2)  # q unscaled, fp32 accumulate

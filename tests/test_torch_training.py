@@ -30,6 +30,7 @@ from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 import paddle_tpu_torch
 from paddle_tpu_torch.incubate.nn.functional import fused_rotary_position_embedding
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, from_paddle_tpu_state
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
 
@@ -243,8 +244,12 @@ def test_adamw_multi_precision_matches_jax_on_bf16_params(jax_model):
 
 
 def test_train_entry_points_refuse_what_the_port_lacks(jax_model):
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(), tie_word_embeddings=True), device="cpu")
+    """Static-cache decode is refused; the tied head, attention dropout and
+    gradient clipping, once refused here too, now run (their parity with
+    JAX: ``tests/test_torch_training_surface.py``)."""
+    tied = LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(), tie_word_embeddings=True), device="cpu")
+    assert tied.lm_head is None and "lm_head.weight" not in dict(tied.named_parameters())
+    assert tied(torch.zeros((1, 4), dtype=torch.long)).shape == (1, 4, LlamaConfig.tiny().vocab_size)
     model = from_paddle_tpu_state(_state(jax_model), _port_config(jax_model.config), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     # the dense prefill (use_cache without a past) is ported; static-cache decode is not
@@ -252,11 +257,14 @@ def test_train_entry_points_refuse_what_the_port_lacks(jax_model):
     assert logits.shape == (1, 4, jax_model.config.vocab_size) and len(caches) == jax_model.config.num_hidden_layers
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         model(ids, cache_position=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        F.flashmask_attention(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
-                              dropout=0.1)
-    with pytest.raises(NotImplementedError):
-        AdamW(parameters=model.parameters(), grad_clip=object())
+    x = torch.ones(1, 4, 2, 8)
+    out = F.flashmask_attention(x, x, x, dropout=0.1)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    opt = AdamW(parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    loss, _ = model(ids, labels=torch.zeros((1, 4), dtype=torch.long))
+    loss.backward()
+    opt.step()
+    assert opt._step_count == 1
 
 
 def test_flashmask_and_rope_entries_refuse_malformed_inputs():
@@ -264,5 +272,10 @@ def test_flashmask_and_rope_entries_refuse_malformed_inputs():
     for dtype in (torch.int64, torch.int16, torch.float32):
         with pytest.raises(TypeError, match="int32"):
             F.flashmask_attention(x, x, x, startend_row_indices=torch.full((1, 1, 4, 1), 4, dtype=dtype))
-    with pytest.raises(ValueError, match="sin and cos"):
-        fused_rotary_position_embedding(x, x, None)
+    # without sin and cos the tables come from rotary_emb_base (no longer refused): the JAX entry's
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 4, 2, 8)).astype(np.float32)
+    got = fused_rotary_position_embedding(torch.from_numpy(q), torch.from_numpy(q), None, rotary_emb_base=500.0)
+    want = jax_rope(Tensor(q), Tensor(q), None, rotary_emb_base=500.0)
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b._data), rtol=1e-6, atol=1e-6)
